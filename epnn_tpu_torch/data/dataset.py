@@ -1,0 +1,116 @@
+"""Padded batch representation (counterpart of
+``epnn_tpu/data/dataset.py``).  Batches stay NumPy on the host; the
+serving front end moves them to the device per call."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+from epnn_tpu_torch.data.xyz import Molecule
+from epnn_tpu_torch.elements import ElementTable
+
+
+def round_up(n: int, multiple: int) -> int:
+    return ((n + multiple - 1) // multiple) * multiple
+
+
+@dataclasses.dataclass(eq=False)  # identity semantics (hashable/weakref-able)
+class MolBatch:
+    """A padded batch of molecules (B = batch, N = padded atoms,
+    F = element-feature width):
+
+      x:         (B, N, F) float32 — [Z, onehot] per atom, zero rows for padding
+      xyz:       (B, N, 3) float32 — coordinates, zero for padding
+      q0:        (B, N)    float32 — initial charges Q/natom on real atoms
+      total_q:   (B,)      float32 — net molecular charge Q
+      y:         (B, N)    float32 — per-atom labels (zero when absent)
+      node_mask: (B, N)    float32 — 1 on real atoms
+      natoms:    (B,)      int32
+    """
+
+    x: np.ndarray
+    xyz: np.ndarray
+    q0: np.ndarray
+    total_q: np.ndarray
+    y: np.ndarray
+    node_mask: np.ndarray
+    natoms: np.ndarray
+    names: List[str]
+    has_labels: np.ndarray  # (B,) bool
+
+    @property
+    def batch_size(self) -> int:
+        return self.x.shape[0]
+
+    @property
+    def padded_atoms(self) -> int:
+        return self.x.shape[1]
+
+
+def pad_molecules(
+    mols: Sequence[Molecule],
+    table: ElementTable,
+    pad_to: Optional[int] = None,
+    bucket_multiple: int = 8,
+) -> MolBatch:
+    """Pad a list of molecules into one dense batch."""
+    if not mols:
+        raise ValueError("empty molecule list")
+    max_n = max(m.natoms for m in mols)
+    if pad_to is None:
+        pad_to = round_up(max_n, bucket_multiple)
+    if pad_to < max_n:
+        raise ValueError(f"pad_to={pad_to} < largest molecule {max_n}")
+
+    b = len(mols)
+    x = np.zeros((b, pad_to, table.n_features), dtype=np.float32)
+    xyz = np.zeros((b, pad_to, 3), dtype=np.float32)
+    q0 = np.zeros((b, pad_to), dtype=np.float32)
+    total_q = np.zeros((b,), dtype=np.float32)
+    y = np.zeros((b, pad_to), dtype=np.float32)
+    node_mask = np.zeros((b, pad_to), dtype=np.float32)
+    natoms = np.zeros((b,), dtype=np.int32)
+    has_labels = np.zeros((b,), dtype=bool)
+
+    for i, m in enumerate(mols):
+        n = m.natoms
+        x[i, :n] = table.featurize_symbols(m.symbols)
+        xyz[i, :n] = m.xyz
+        q0[i, :n] = np.float32(m.total_charge) / np.float32(n)
+        total_q[i] = m.total_charge
+        if m.labels is not None:
+            y[i, :n] = m.labels
+            has_labels[i] = True
+        node_mask[i, :n] = 1.0
+        natoms[i] = n
+
+    return MolBatch(x=x, xyz=xyz, q0=q0, total_q=total_q, y=y,
+                    node_mask=node_mask, natoms=natoms,
+                    names=[m.name for m in mols], has_labels=has_labels)
+
+
+def uniform_q0_contract(x: np.ndarray, q0: np.ndarray,
+                        node_mask: np.ndarray) -> bool:
+    """Host-side check of the round-1 far-field collapse contract (see
+    :func:`epnn_tpu_torch.ops.fused.forward_blocked` ``uniform_q0``): per
+    graph, valid atoms first, one q0 value on all valid atoms, zeros on
+    padding; x rows exactly ``[Z, onehot]`` with one Z per element slot
+    across the batch.  Arrays are the batched ``MolBatch`` fields."""
+    x = np.asarray(x)
+    q0 = np.asarray(q0)
+    mask = np.asarray(node_mask)
+    if not (np.all(np.diff(mask, axis=1) <= 0)           # valid-first
+            and np.all((q0 == q0[:, :1]) | (mask == 0))  # uniform valid
+            and np.all(q0 * (1 - mask) == 0)):           # zero padding
+        return False
+    oh = x[..., 1:]
+    if not (np.all((oh == 0) | (oh == 1))
+            and np.array_equal(oh.sum(axis=-1), mask)):
+        return False
+    z = x[..., 0]
+    zmax = np.max(z[..., None] * oh, axis=(0, 1))
+    zmin = np.min(np.where(oh > 0, z[..., None], np.inf), axis=(0, 1))
+    return bool(np.all((zmin == np.inf) | (zmax == zmin)))

@@ -1,0 +1,418 @@
+"""Neighbor-split blocked forward — the big-graph serving path
+(counterpart of ``epnn_tpu/ops/fused.py``, exact path only).
+
+The pair input of every MLP is a concat ``[a_i, a_j, e_ij]``, so its first
+layer splits: ``concat @ W1 = a_i @ W1_i + a_j @ W1_j + e_ij @ W1_e``.
+Beyond the cutoff the RBF features are exactly zero, so each message
+round's sum over all pairs splits into
+
+  Σ_j hid(full)_ij = Σ_j hid(nofeat)_ij                 (far field, O(N²))
+                   + Σ_{near j} [hid(full) − hid(nofeat)]_ij   (O(N·k))
+
+and the electron-passing rounds, gated to near pairs, run on the gathered
+O(N·k) set only.  The three hot loops are the CUDA kernels of
+:mod:`epnn_tpu_torch.ops.kernels`; the gathers, projections and update
+MLP stay plain PyTorch.  Precision is float32 throughout.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from epnn_tpu_torch.featurize import rbf_centers
+from epnn_tpu_torch.models.config import EPNNConfig
+from epnn_tpu_torch.ops.kernels import (
+    dense_message_rowsum,
+    near_message_corr,
+    near_pass_rowsum,
+)
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class PairMLPWeights:
+    """One pair MLP with its first layer split into [a_i | a_j | e] slices."""
+
+    w1_i: Tensor  # (F', H1)
+    w1_j: Tensor  # (F', H1)
+    w1_e: Tensor  # (E, H1)
+    b1: Tensor
+    mids: Tuple[Tuple[Tensor, Tensor], ...]  # ((W, b), ...) hidden layers
+    w_out: Tensor
+    b_out: Tensor
+
+    def to(self, device) -> "PairMLPWeights":
+        mv = lambda a: a.to(device).contiguous()  # noqa: E731
+        return PairMLPWeights(
+            mv(self.w1_i), mv(self.w1_j), mv(self.w1_e), mv(self.b1),
+            tuple((mv(w), mv(b)) for w, b in self.mids),
+            mv(self.w_out), mv(self.b_out))
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedParams:
+    """All model weights in split-first-layer layout: one
+    :class:`PairMLPWeights` per round (the JAX package stacks them on a
+    leading T axis for ``lax.scan``; here the rounds are a Python loop)."""
+
+    messages: Tuple[PairMLPWeights, ...]
+    passes: Tuple[PairMLPWeights, ...]
+    update: Tuple[Tuple[Tensor, Tensor], ...]
+
+    def to(self, device) -> "FusedParams":
+        return FusedParams(
+            tuple(w.to(device) for w in self.messages),
+            tuple(w.to(device) for w in self.passes),
+            tuple((w.to(device).contiguous(), b.to(device).contiguous())
+                  for w, b in self.update))
+
+
+def _mlp_layers(tree: dict) -> List[Tuple[Tensor, Tensor]]:
+    return [(tree[f"dense_{k}"]["kernel"], tree[f"dense_{k}"]["bias"])
+            for k in range(len(tree))]
+
+
+def split_pair_mlp(tree: dict, cfg: EPNNConfig) -> PairMLPWeights:
+    layers = _mlp_layers(tree)
+    (w1, b1), mids, (wo, bo) = layers[0], layers[1:-1], layers[-1]
+    f = cfg.atom_feat_dim
+    return PairMLPWeights(w1_i=w1[:f], w1_j=w1[f:2 * f], w1_e=w1[2 * f:],
+                          b1=b1, mids=tuple(mids), w_out=wo, b_out=bo)
+
+
+def fuse_params(params: dict, cfg: EPNNConfig, device=None) -> FusedParams:
+    """Convert a parameter tree (see :mod:`epnn_tpu_torch.models.epnn`) to
+    fused layout, contiguous on ``device``."""
+    p = params["params"] if "params" in params else params
+    fused = FusedParams(
+        messages=tuple(split_pair_mlp(p[f"message_{t}"], cfg)
+                       for t in range(cfg.T)),
+        passes=tuple(split_pair_mlp(p[f"pass_{t}"], cfg)
+                     for t in range(cfg.T)),
+        update=tuple(_mlp_layers(p["update"])),
+    )
+    return fused.to(device)
+
+
+def _apply_mlp(layers, x):
+    for w, b in layers[:-1]:
+        x = torch.relu(x @ w + b)
+    w, b = layers[-1]
+    return x @ w + b
+
+
+def _mids(hid, w: PairMLPWeights):
+    for wm, bm in w.mids:
+        hid = torch.relu(hid @ wm + bm)
+    return hid
+
+
+def rbf_and_gate(d2: Tensor, cmask: Tensor, cfg: EPNNConfig):
+    """Shared pair featurization: RBF edge features + electron-pass gate,
+    from squared distances ``d2`` (any shape).  ``cmask`` multiplies the
+    envelope (pair validity).  Returns ``(rbf, gate)`` with shapes
+    ``d2.shape + (e_dim,)`` and ``d2.shape``."""
+    d2 = d2.to(torch.float32)
+    cmask = cmask.to(torch.float32)
+    pos = d2 > 0.0
+    d = torch.where(pos, torch.sqrt(torch.where(pos, d2, 1.0)), 0.0)
+    c = (torch.cos(math.pi * d / cfg.cutoff) + 1.0) * 0.5
+    c = torch.where(d >= cfg.cutoff, 0.0, c)
+    c = torch.where(d <= 0.0, 1.0, c)
+    c = c * cmask
+    mu = rbf_centers(cfg.e_dim, cfg.cutoff, d2.device)
+    rbf = c[..., None] * torch.exp(-cfg.eta * (d[..., None] - mu) ** 2)
+    if cfg.pass_weighting == "soft_envelope":
+        gate = c
+    else:
+        gate = (torch.amax(torch.clamp(rbf, cfg.is_near_tol, 1e5), dim=-1)
+                != cfg.is_near_tol).to(torch.float32)
+    return rbf, gate
+
+
+# ---------------------------------------------------------------------------
+# neighbor selection
+# ---------------------------------------------------------------------------
+
+#: above this atom count, neighbor selection runs in row blocks (the
+#: one-shot (N, N) distance matrix would cost O(N²) memory)
+_NEIGHBOR_BLOCK_THRESHOLD = 4096
+_NEIGHBOR_BLOCK = 1024
+
+
+def _pair_d2(xyz_rows: Tensor, xyz_full: Tensor) -> Tensor:
+    """(R, N) squared distances, one (R, N) plane per axis.  The same ops
+    on (j, i) give the same bits as on (i, j): the pair's d² — and so its
+    RBF features — are symmetric, which the pass rounds rely on."""
+    d2 = None
+    for ax in range(3):
+        diff = xyz_rows[:, ax, None] - xyz_full[None, :, ax]
+        d2 = diff * diff if d2 is None else d2 + diff * diff
+    return d2
+
+
+def block_neighbor_select(xyz_full, mask_full, start, xyz_rows, mask_rows,
+                          cutoff: float, k: int, with_d2: bool = False):
+    """Rows [start, start+R) of the pair grid against all columns: the
+    within-cutoff candidates (not self, both atoms valid), the k nearest by
+    ``torch.topk`` on −d² with −inf for non-candidates.  Returns
+    ``(idx, mask[, d2])``, each (R, k); invalid slots carry mask 0, d² 0."""
+    n = xyz_full.shape[0]
+    d2 = _pair_d2(xyz_rows, xyz_full)
+    rows = start + torch.arange(xyz_rows.shape[0], device=xyz_full.device)
+    cols = torch.arange(n, device=xyz_full.device)
+    cand = (d2 < cutoff * cutoff) & (rows[:, None] != cols[None, :])
+    cand &= (mask_rows[:, None] > 0) & (mask_full[None, :] > 0)
+    score = torch.where(cand, -d2, -math.inf)
+    vals, idx = torch.topk(score, k, dim=1)
+    valid = vals > -math.inf
+    mask_out = valid.to(xyz_full.dtype)
+    if with_d2:
+        return idx, mask_out, torch.where(valid, -vals, 0.0)
+    return idx, mask_out
+
+
+def build_neighbors(xyz: Tensor, node_mask: Tensor, cutoff: float, k: int,
+                    with_d2: bool = False):
+    """(idx, nbr_mask)[, d2], each (N, k): the pairs within the cutoff.
+
+    Requires k >= the true max neighbor count (see
+    :func:`max_neighbor_count`): top-k drops pairs otherwise, breaking
+    antisymmetry.  Row-blocked above ``_NEIGHBOR_BLOCK_THRESHOLD`` atoms."""
+    n = xyz.shape[0]
+    if n <= _NEIGHBOR_BLOCK_THRESHOLD:
+        return block_neighbor_select(xyz, node_mask, 0, xyz, node_mask,
+                                     cutoff, k, with_d2)
+    outs = [block_neighbor_select(xyz, node_mask, s, xyz[s:s + _NEIGHBOR_BLOCK],
+                                  node_mask[s:s + _NEIGHBOR_BLOCK], cutoff, k,
+                                  with_d2)
+            for s in range(0, n, _NEIGHBOR_BLOCK)]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def build_neighbors_batch(xyz: Tensor, node_mask: Tensor, cutoff: float,
+                          k: int):
+    """Batched :func:`build_neighbors`: (B, N, k) idx + mask + d², graph by
+    graph."""
+    outs = [build_neighbors(xyz[b], node_mask[b], cutoff, k, with_d2=True)
+            for b in range(xyz.shape[0])]
+    return tuple(torch.stack(parts) for parts in zip(*outs))
+
+
+def max_neighbor_count(xyz, node_mask, cutoff: float) -> int:
+    """Host-side exact max neighbor count (for choosing a safe static k),
+    NumPy float64.  Above ``_NEIGHBOR_BLOCK_THRESHOLD`` atoms by cell
+    binning, else by a pairwise scan; both apply ``d² < cutoff²``."""
+    xyz = np.asarray(xyz, np.float64)
+    mask = np.asarray(node_mask) > 0
+    if len(xyz) > _NEIGHBOR_BLOCK_THRESHOLD:
+        return _max_neighbor_count_cells(xyz, mask, cutoff)
+    return _max_neighbor_count_scan(xyz, mask, cutoff)
+
+
+def _max_neighbor_count_scan(xyz, mask, cutoff: float) -> int:
+    """The O(N²) blockwise pairwise scan (oracle for the cell twin)."""
+    best = 0
+    for s in range(0, len(xyz), 512):
+        rows = slice(s, min(s + 512, len(xyz)))
+        d2 = ((xyz[rows, None, :] - xyz[None, :, :]) ** 2).sum(-1)
+        near = (d2 < cutoff * cutoff) & mask[None, :] & mask[rows, None]
+        for r in range(near.shape[0]):
+            near[r, s + r] = False  # exclude self
+        best = max(best, int(near.sum(1).max()) if near.size else 0)
+    return best
+
+
+def _max_neighbor_count_cells(xyz, mask, cutoff: float) -> int:
+    """Exact cell-binned twin of the O(N²) count: bin valid atoms into
+    cutoff-sided cells, table them as (ncells, cap) padded rows, gather
+    each atom's 27 neighboring cells' members, and count ``d² < cutoff²``
+    in float64."""
+    pts = xyz[mask]
+    n = len(pts)
+    if n == 0:
+        return 0
+    lo = pts.min(0)
+    cell = np.floor((pts - lo) / cutoff).astype(np.int64)
+    dims = cell.max(0) + 1
+    if int(np.prod(dims)) > 64 * n:
+        # sprawling geometry: the dense cell table would dwarf the scan
+        return _max_neighbor_count_scan(xyz, mask, cutoff)
+    strides = np.array([dims[1] * dims[2], dims[2], 1], np.int64)
+    cid = cell @ strides
+    order = np.argsort(cid, kind="stable")
+    cid_sorted = cid[order]
+    _, start, counts = np.unique(cid_sorted, return_index=True,
+                                 return_counts=True)
+    cap = int(counts.max())
+    rank = np.arange(n) - np.repeat(start, counts)
+    table = np.zeros((int(np.prod(dims)), cap), np.int64)
+    table[cid_sorted, rank] = order + 1          # 1-based; 0 = empty
+    offs = np.array([[dx, dy, dz] for dx in (-1, 0, 1)
+                     for dy in (-1, 0, 1) for dz in (-1, 0, 1)], np.int64)
+    nbr_cells = cell[:, None, :] + offs[None, :, :]          # (n, 27, 3)
+    valid_c = np.all((nbr_cells >= 0) & (nbr_cells < dims), axis=-1)
+    nbr_ids = np.clip(nbr_cells, 0, dims - 1) @ strides       # (n, 27)
+    cand = table[nbr_ids].reshape(n, 27 * cap)
+    cand_ok = (cand > 0) & np.repeat(valid_c, cap, axis=1)
+    ci = np.maximum(cand - 1, 0)
+    d2 = ((pts[:, None, :] - pts[ci]) ** 2).sum(-1)
+    near = cand_ok & (d2 < cutoff * cutoff) & (ci != np.arange(n)[:, None])
+    return int(near.sum(1).max())
+
+
+# ---------------------------------------------------------------------------
+# the forward
+# ---------------------------------------------------------------------------
+
+def _check_supported(cfg: EPNNConfig, fused: FusedParams) -> None:
+    if cfg.compute_dtype != "float32":
+        raise NotImplementedError(
+            "compute_dtype='bfloat16' is not ported yet (ROADMAP queue 1: "
+            "precision tiers)")
+    if cfg.dense_matmul_precision in ("int8", "bf16x3"):
+        raise NotImplementedError(
+            f"dense_matmul_precision={cfg.dense_matmul_precision!r} is not "
+            "ported yet (ROADMAP queue 1: precision tiers)")
+    for w in fused.messages + fused.passes:
+        if len(w.mids) != 1 or w.mids[0][0].shape[0] != w.mids[0][0].shape[1]:
+            raise NotImplementedError(
+                "the blocked forward's kernels take exactly one square mid "
+                "layer (mlp_hidden=(H, H))")
+
+
+def _forward_single_nbr(
+    fused: FusedParams,
+    x: Tensor,          # (N, n_elems)
+    q0: Tensor,         # (N,)
+    xyz: Tensor,        # (N, 3)
+    node_mask: Tensor,  # (N,)
+    cfg: EPNNConfig,
+    k: int,
+    uniform_q0: bool = False,
+    neighbors: Optional[Tuple[Tensor, ...]] = None,
+) -> Tensor:
+    """One graph through the neighbor-split forward (exact far field).
+
+    ``uniform_q0`` asserts the caller's contract that every valid atom
+    carries the same initial charge (valid atoms first, zeros on padding)
+    and that x rows are ``[Z, onehot]``: message round 1 then has h = 0
+    and q = q0, so the j-side projection takes one value per element plus
+    the all-zero padding row, and the round's O(N²) far-field reduction
+    collapses exactly to a count-weighted (N, E+1) grid.  Rounds 2+ run
+    the far-field kernel.
+
+    ``neighbors`` — precomputed ``(idx, nbr_mask, d2)``, each (N, k), from
+    :func:`build_neighbors`; skips the selection."""
+    n = x.shape[0]
+    if neighbors is None:
+        neighbors = build_neighbors(xyz, node_mask, cfg.cutoff, k,
+                                    with_d2=True)
+    idx, nbr_mask, d2_nbr = neighbors
+    nbr_mask = nbr_mask.to(x.dtype)
+    k_eff = idx.shape[1]
+    rbf_nbr, gate_nbr = rbf_and_gate(d2_nbr, nbr_mask, cfg)
+    idx_flat = idx.reshape(-1)
+    rbf_flat = rbf_nbr.reshape(n * k_eff, -1).contiguous()
+    gh_pass = (0.5 * (gate_nbr * nbr_mask)).contiguous()
+    nbr_mask = nbr_mask.contiguous()
+
+    # Σ_j pair_mask_ij = mask_i · Σ_j mask_j, without the (N, N) plane
+    if cfg.mask_messages:
+        msg_count = node_mask * torch.sum(node_mask)
+        jvec = node_mask.contiguous()
+    else:
+        msg_count = torch.full((n,), float(n), dtype=x.dtype, device=x.device)
+        jvec = torch.ones(n, dtype=x.dtype, device=x.device)
+
+    h = x.new_zeros((n, cfg.h_dim))
+    q = q0
+    nm = node_mask[:, None]
+
+    def atom_inputs(h, q):
+        return torch.cat([x, h, q[:, None].to(x.dtype)], dim=-1)
+
+    for t, w in enumerate(fused.messages):
+        (w2, b2), = w.mids
+        a = atom_inputs(h, q)
+        pi = (a @ w.w1_i + w.b1).contiguous()   # b1 folded once per atom
+        pj = (a @ w.w1_j).contiguous()
+        if t == 0 and uniform_q0:
+            # round-1 collapse: a valid atom's input row is [Z_e, onehot_e |
+            # 0_h | q0], fixed by its element; padding rows are all zero
+            oh = x[:, 1:]
+            e_cnt = oh.shape[1]
+            zvec = torch.amax(x[:, :1] * oh, dim=0)
+            grid_in = torch.cat([
+                zvec[:, None],
+                torch.eye(e_cnt, dtype=x.dtype, device=x.device),
+                x.new_zeros((e_cnt, cfg.h_dim)),
+                q[:1, None].to(x.dtype).expand(e_cnt, 1),
+            ], dim=1)
+            grid_in = torch.cat([grid_in, x.new_zeros((1, grid_in.shape[1]))])
+            pj_grid = grid_in @ w.w1_j
+            counts = jvec @ oh
+            counts = torch.cat([counts, (jvec.sum() - counts.sum())[None]])
+            hid_g = _mids(torch.relu(pi[:, None, :] + pj_grid[None, :, :]), w)
+            dense_sum = torch.einsum("e,neh->nh", counts, hid_g)
+        else:
+            dense_sum = dense_message_rowsum(pi, pj, jvec, w2, b2)
+        near_corr = near_message_corr(
+            pi, torch.index_select(pj, 0, idx_flat), rbf_flat, nbr_mask,
+            w.w1_e, w2, b2)
+        hsum = dense_sum + near_corr
+        messages = hsum @ w.w_out + msg_count[:, None] * w.b_out
+        upd_in = torch.cat([h, messages], dim=-1) * nm
+        h = _apply_mlp(fused.update, upd_in) * nm
+
+    # electron passing: gathered pairs only (the gate is zero off the near set)
+    for w in fused.passes:
+        (w2, b2), = w.mids
+        a = atom_inputs(h, q)
+        pi = a @ w.w1_i + w.b1
+        pj = a @ w.w1_j
+        rs = torch.cat([pi, pj], dim=-1)
+        dsum = near_pass_rowsum(rs, torch.index_select(rs, 0, idx_flat),
+                                rbf_flat, gh_pass, w.w1_e, w2, b2)
+        q = q + (dsum @ w.w_out)[:, 0]
+    return q * node_mask
+
+
+def forward_blocked(
+    fused: FusedParams,
+    x: Tensor,          # (B, N, n_elems)
+    q0: Tensor,         # (B, N)
+    xyz: Tensor,        # (B, N, 3)
+    node_mask: Tensor,  # (B, N)
+    cfg: EPNNConfig,
+    neighbor_k: int,
+    neighbors: Optional[Tuple[Tensor, ...]] = None,
+    uniform_q0: bool = False,
+) -> Tensor:
+    """Batched neighbor-split forward from raw coordinates: (B, N) charges.
+
+    ``neighbor_k`` must be ≥ the true max neighbor count within the cutoff
+    (:func:`max_neighbor_count`).  ``neighbors`` — optional precomputed
+    ``(idx, nbr_mask, d2)`` batch arrays (B, N, neighbor_k) from
+    :func:`build_neighbors_batch`.  ``uniform_q0`` — see
+    :func:`_forward_single_nbr`.  Graphs run one after another (a Python
+    loop, not a batched kernel).
+
+    Equivalent to ``EPNN(cfg)(x, q0, rbf_edges(xyz, mask), mask)`` up to
+    float32 association noise.  Only the JAX package's neighbor-split tier
+    is ported: the dense blocked forwards, the cell-list builder, the
+    clustered far field and the huge-N memory mode are ROADMAP items."""
+    _check_supported(cfg, fused)
+    outs = []
+    for b in range(x.shape[0]):
+        nb = None if neighbors is None else tuple(a[b] for a in neighbors)
+        outs.append(_forward_single_nbr(
+            fused, x[b], q0[b], xyz[b], node_mask[b], cfg, k=neighbor_k,
+            uniform_q0=uniform_q0, neighbors=nb))
+    return torch.stack(outs)

@@ -1,0 +1,345 @@
+"""The hand-written CUDA kernels of the blocked forward, each with its
+plain PyTorch version (counterpart of ``epnn_tpu/ops/pallas_kernels.py``).
+
+* ``dense_message_rowsum`` — ``csrc/dense_message_rowsum.cu``, replaces
+  ``epnn_tpu/ops/pallas_kernels.py:98``;
+* ``near_message_corr`` — ``csrc/near_message_corr.cu``, replaces
+  ``pallas_kernels.py:1286``;
+* ``near_pass_rowsum`` — ``csrc/near_pass_rowsum.cu``, replaces
+  ``pallas_kernels.py:1410``.
+
+Each wrapper takes tensors on one device.  On the CPU it runs the plain
+version (``*_plain``); on a CUDA tensor it launches the kernel on the
+current stream or raises — there is no fallback.  Every launch adds one
+to :data:`LAUNCHES`, so a run can show which kernels it went through.
+
+The kernels are float32 CUDA C++ for ``sm_90a`` with a plain C interface,
+built by ``nvcc`` into shared libraries under ``build/epnn_tpu_torch/``
+of the checkout on first use and loaded with ``ctypes``;
+:func:`build` compiles all of them in parallel.  Nothing is built when
+this module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC.parent.parent / "build" / "epnn_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+#: kernel name -> its CUDA source (and its C entry point ``epnn_<name>``)
+SOURCES = {
+    "dense_message_rowsum": "dense_message_rowsum.cu",
+    "near_message_corr": "near_message_corr.cu",
+    "near_pass_rowsum": "near_pass_rowsum.cu",
+}
+
+#: kernel launches since the last :func:`reset_launch_counts`
+LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+
+#: widths the compiled kernels are instantiated for (mid width H, RBF E)
+KERNEL_H = 32
+KERNEL_E = 48
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = {
+    "dense_message_rowsum": [_P] * 7 + [_I] * 5 + [_P],
+    "near_message_corr": [_P] * 8 + [_I] * 4 + [_P],
+    "near_pass_rowsum": [_P] * 8 + [_I] * 4 + [_P],
+}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels are built from csrc/ on first use")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in (SOURCES[name], "common.cuh"):
+        h.update((CSRC / src).read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> float:
+    """Compile the named kernels (default: all), one ``nvcc`` per source,
+    all started together; libraries already built from the same sources
+    are kept.  Returns the wall seconds taken.  Compiler output (with
+    ``-Xptxas -v`` register and spill counts) goes to ``<lib>.log``."""
+    t0 = time.perf_counter()
+    names = list(SOURCES if names is None else names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for name in names:
+        lib = _lib_path(name)
+        if lib.exists():
+            continue
+        tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
+        log = open(lib.with_suffix(".log"), "w")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        jobs.append((name, lib, tmp, log,
+                     subprocess.Popen(cmd, stdout=log,
+                                      stderr=subprocess.STDOUT)))
+    failed = []
+    for name, lib, tmp, log, proc in jobs:
+        rc = proc.wait()
+        log.close()
+        if rc == 0:
+            os.replace(tmp, lib)
+        else:
+            tail = Path(log.name).read_text()[-4000:]
+            failed.append(f"{name} (nvcc rc={rc}):\n{tail}")
+    if failed:
+        raise RuntimeError("kernel build failed: " + ", ".join(failed))
+    return time.perf_counter() - t0
+
+
+def build_log(name: str) -> str:
+    path = _lib_path(name).with_suffix(".log")
+    return path.read_text() if path.exists() else ""
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = _lib_path(name)
+        if not path.exists():
+            build([name])
+        lib = ctypes.CDLL(str(path))
+        fn = getattr(lib, f"epnn_{name}")
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib
+
+
+def _check(name: str, tensors: dict, shapes: dict) -> torch.device:
+    """One device, float32, contiguous, the given shapes (None = free)."""
+    device = None
+    for key, t in tensors.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name}: {key} must be a tensor")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {key} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+        if device is None:
+            device = t.device
+        elif t.device != device:
+            raise ValueError(f"{name}: {key} is on {t.device}, not {device}")
+        want = shapes[key]
+        if t.dim() != len(want) or any(
+                w is not None and w != s for w, s in zip(want, t.shape)):
+            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
+                             f"expected {want}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {device}")
+    return device
+
+
+def _launch(name: str, device: torch.device, tensors, ints,
+            vector_read) -> None:
+    """``vector_read``: the tensors the kernel reads as float4, which must
+    start on a 16-byte boundary; the others are read one float at a time
+    and may be any view (a row of a batch, for one)."""
+    for key, t in vector_read.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} is read as float4 and must "
+                             "start on a 16-byte boundary")
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(_lib(name), f"epnn_{name}")(
+            *[t.data_ptr() for t in tensors], *ints, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    LAUNCHES[name] += 1
+
+
+def _require_widths(name: str, h: int, e: Optional[int] = None) -> None:
+    if h != KERNEL_H or (e is not None and e != KERNEL_E):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel is built for H={KERNEL_H}"
+            + (f", E={KERNEL_E}" if e is not None else "")
+            + f"; got H={h}" + (f", E={e}" if e is not None else ""))
+
+
+# ---------------------------------------------------------------------------
+# 1. dense_message_rowsum — the far-field reduction
+# ---------------------------------------------------------------------------
+
+#: CUDA block geometry of dense_message_rowsum (csrc: kRowsPerBlock, kCols)
+_DMR_ROWS = 16
+_DMR_TILE = 16
+#: blocks to aim for: 132 SMs, a few resident blocks each
+_DMR_TARGET_BLOCKS = 4 * 132
+
+
+def dense_message_rowsum_plain(pi, pj, col_vec, w2, b2):
+    """Σ_j col_vec_j · relu(relu(pi_i + pj_j) @ W2 + b2) as (R, H),
+    row-blocked so no (R, N, H) tensor exists (at most 2^24 floats)."""
+    r, h = pi.shape
+    n = pj.shape[0]
+    rb = max(1, min(r, (1 << 24) // max(1, n * h)))
+    out = pi.new_empty((r, h))
+    for s in range(0, r, rb):
+        hid = torch.relu(pi[s:s + rb, None, :] + pj[None, :, :])
+        hid = torch.relu(hid @ w2 + b2)
+        out[s:s + rb] = torch.einsum("n,bnh->bh", col_vec, hid)
+    return out
+
+
+def _dense_message_splits(r: int, n: int) -> tuple:
+    """(splits, cols_per_split): the fixed column split of the kernel's
+    first pass — enough blocks for the card, whole 16-column chunks."""
+    row_blocks = -(-r // _DMR_ROWS)
+    want = max(1, -(-_DMR_TARGET_BLOCKS // row_blocks))
+    cols = -(-n // want)
+    cols = -(-cols // _DMR_TILE) * _DMR_TILE
+    return -(-n // cols), cols
+
+
+def dense_message_rowsum(pi, pj, col_vec, w2, b2):
+    """Far-field message row sums (see ``csrc/dense_message_rowsum.cu``):
+
+        out_i = Σ_j col_vec_j · relu(relu(pi_i + pj_j) @ W2 + b2)
+
+    pi (R, H) carries the first-layer bias; pj (N, H); col_vec (N,) is the
+    node mask (clean mode) or ones (reference-compat mode); W2 (H, H);
+    b2 (H,).  Rectangular: R need not equal N."""
+    name = "dense_message_rowsum"
+    r, h = pi.shape
+    n = pj.shape[0]
+    device = _check(name, dict(pi=pi, pj=pj, col_vec=col_vec, w2=w2, b2=b2),
+                    dict(pi=(r, h), pj=(n, h), col_vec=(n,), w2=(h, h),
+                         b2=(h,)))
+    if device.type == "cpu":
+        return dense_message_rowsum_plain(pi, pj, col_vec, w2, b2)
+    _require_widths(name, h)
+    out = pi.new_empty((r, h))
+    if r == 0:
+        return out
+    if n == 0:
+        return out.zero_()
+    splits, cols = _dense_message_splits(r, n)
+    part = pi.new_empty((splits, r, h))
+    _launch(name, device, (pi, pj, col_vec, w2, b2, part, out),
+            (r, n, h, splits, cols), dict(w2=w2))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 2. near_message_corr — the gathered near-field message correction
+# ---------------------------------------------------------------------------
+
+def _mid(z, w2, b2):
+    return torch.relu(torch.relu(z) @ w2 + b2)
+
+
+def near_message_corr_plain(pi, pjn, rbf, mask, w1e, w2, b2):
+    """Σ_s mask_is · [mlp(pi_i + pjn_is + rbf_is @ W1e) − mlp(pi_i + pjn_is)]
+    with mlp(z) = relu(relu(z) @ W2 + b2), as (N, H)."""
+    n, h = pi.shape
+    k = mask.shape[1]
+    epart = rbf @ w1e
+    base = (pi[:, None, :] + pjn.reshape(n, k, h)).reshape(n * k, h)
+    diff = _mid(base + epart, w2, b2) - _mid(base, w2, b2)
+    return torch.sum(diff.reshape(n, k, h) * mask[:, :, None], dim=1)
+
+
+def near_message_corr(pi, pjn, rbf, mask, w1e, w2, b2):
+    """Near-field message correction (see ``csrc/near_message_corr.cu``).
+
+    pi (N, H) row projections with b1 folded in; pjn (N·K, H) gathered
+    column projections ``pj[idx.ravel()]``; rbf (N·K, E) gathered-pair RBF
+    features; mask (N, K) slot validity; W1e (E, H); W2 (H, H); b2 (H,)."""
+    name = "near_message_corr"
+    n, h = pi.shape
+    k = mask.shape[1] if mask.dim() == 2 else 0
+    e = w1e.shape[0]
+    device = _check(name, dict(pi=pi, pjn=pjn, rbf=rbf, mask=mask, w1e=w1e,
+                               w2=w2, b2=b2),
+                    dict(pi=(n, h), pjn=(n * k, h), rbf=(n * k, e),
+                         mask=(n, k), w1e=(e, h), w2=(h, h), b2=(h,)))
+    if device.type == "cpu":
+        return near_message_corr_plain(pi, pjn, rbf, mask, w1e, w2, b2)
+    _require_widths(name, h, e)
+    out = pi.new_empty((n, h))
+    if n == 0:
+        return out
+    if k == 0:
+        return out.zero_()
+    _launch(name, device, (pi, pjn, rbf, mask, w1e, w2, b2, out),
+            (n, k, h, e), dict(pjn=pjn, rbf=rbf, w1e=w1e, w2=w2))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 3. near_pass_rowsum — the antisymmetric electron-passing row sums
+# ---------------------------------------------------------------------------
+
+def near_pass_rowsum_plain(rs, ppn, rbf, gh, w1e, w2, b2):
+    """Σ_s gh_is · (mlp(pi_i + pj_j + e_s) − mlp(pi_j + pj_i + e_s)), j =
+    idx_is, e_s = rbf_s @ W1e, from rs = [pi | pj] and ppn = rs[idx]."""
+    n, h2 = rs.shape
+    h = h2 // 2
+    k = gh.shape[1]
+    pi_r, pj_r = rs[:, :h], rs[:, h:]
+    pin = ppn[:, :h].reshape(n, k, h)
+    pjn = ppn[:, h:].reshape(n, k, h)
+    epart = (rbf @ w1e).reshape(n, k, h)
+    zn = (pi_r[:, None, :] + pjn) + epart
+    zt = (pin + pj_r[:, None, :]) + epart
+    return torch.sum(gh[:, :, None] * (_mid(zn, w2, b2) - _mid(zt, w2, b2)),
+                     dim=1)
+
+
+def near_pass_rowsum(rs, ppn, rbf, gh, w1e, w2, b2):
+    """Electron-passing near-pair row sums (see
+    ``csrc/near_pass_rowsum.cu``).
+
+    rs (N, 2H) = [pi | pj] with b1 in pi; ppn (N·K, 2H) = rs[idx.ravel()];
+    rbf (N·K, E); gh (N, K) = 0.5 · gate with the slot mask folded in;
+    W1e (E, H); W2 (H, H); b2 (H,).  Each pair's two terms are exact
+    negations, so Σ_i out_i @ W_out conserves charge to f32 summation."""
+    name = "near_pass_rowsum"
+    n, h2 = rs.shape
+    h = h2 // 2
+    k = gh.shape[1] if gh.dim() == 2 else 0
+    e = w1e.shape[0]
+    device = _check(name, dict(rs=rs, ppn=ppn, rbf=rbf, gh=gh, w1e=w1e,
+                               w2=w2, b2=b2),
+                    dict(rs=(n, 2 * h), ppn=(n * k, 2 * h), rbf=(n * k, e),
+                         gh=(n, k), w1e=(e, h), w2=(h, h), b2=(h,)))
+    if device.type == "cpu":
+        return near_pass_rowsum_plain(rs, ppn, rbf, gh, w1e, w2, b2)
+    _require_widths(name, h, e)
+    out = rs.new_empty((n, h))
+    if n == 0:
+        return out
+    if k == 0:
+        return out.zero_()
+    _launch(name, device, (rs, ppn, rbf, gh, w1e, w2, b2, out), (n, k, h, e),
+            dict(ppn=ppn, rbf=rbf, w1e=w1e, w2=w2))
+    return out
