@@ -1,11 +1,12 @@
-"""Padded batch representation (counterpart of
-``epnn_tpu/data/dataset.py``).  Batches stay NumPy on the host; the
-serving front end moves them to the device per call."""
+"""Padded batch representation, size buckets and minibatches (counterpart
+of ``epnn_tpu/data/dataset.py``).  Batches stay NumPy on the host; the
+serving front end and the trainer move them to the device per call."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -49,6 +50,15 @@ class MolBatch:
     def padded_atoms(self) -> int:
         return self.x.shape[1]
 
+    def select(self, idx: Sequence[int]) -> "MolBatch":
+        idx = np.asarray(idx)
+        return MolBatch(
+            x=self.x[idx], xyz=self.xyz[idx], q0=self.q0[idx],
+            total_q=self.total_q[idx], y=self.y[idx],
+            node_mask=self.node_mask[idx], natoms=self.natoms[idx],
+            names=[self.names[i] for i in idx],
+            has_labels=self.has_labels[idx])
+
 
 def pad_molecules(
     mols: Sequence[Molecule],
@@ -90,6 +100,60 @@ def pad_molecules(
     return MolBatch(x=x, xyz=xyz, q0=q0, total_q=total_q, y=y,
                     node_mask=node_mask, natoms=natoms,
                     names=[m.name for m in mols], has_labels=has_labels)
+
+
+def bucket_molecules(mols: Sequence[Molecule], table: ElementTable,
+                     bucket_multiple: int = 8) -> Dict[int, MolBatch]:
+    """Group molecules into size buckets: padded width → one batch of every
+    molecule of that width, in input order, widths ascending."""
+    by_bucket: Dict[int, List[Molecule]] = {}
+    for m in mols:
+        key = round_up(max(m.natoms, 1), bucket_multiple)
+        by_bucket.setdefault(key, []).append(m)
+    return {k: pad_molecules(v, table, pad_to=k)
+            for k, v in sorted(by_bucket.items())}
+
+
+def minibatches(batch: MolBatch, batch_size: int,
+                rng: Optional[np.random.Generator] = None,
+                drop_remainder: bool = False, with_indices: bool = False):
+    """Yield ``(minibatch, n_real[, rows])``: fixed-size minibatches in the
+    order ``rng.shuffle`` gives (bucket order without ``rng``).  A short
+    tail is filled by ``np.resize`` of the order (so a bucket smaller than
+    ``batch_size`` still fills one batch); ``n_real`` counts the rows that
+    are not fill.  ``rows`` are the bucket rows backing the minibatch, for
+    slicing per-bucket side tables such as neighbor lists."""
+    n = batch.batch_size
+    order = np.arange(n)
+    if rng is not None:
+        rng.shuffle(order)
+    for start in range(0, n, batch_size):
+        idx = order[start:start + batch_size]
+        pad_count = 0
+        if len(idx) < batch_size:
+            if drop_remainder:
+                return
+            pad_count = batch_size - len(idx)
+            idx = np.concatenate([idx, np.resize(order, pad_count)])
+        if with_indices:
+            yield batch.select(idx), batch_size - pad_count, idx
+        else:
+            yield batch.select(idx), batch_size - pad_count
+
+
+def train_val_split(n: int, test_size: float = 0.2,
+                    seed: int = 42) -> Tuple[np.ndarray, np.ndarray]:
+    """``(train, val)`` index arrays equal to scikit-learn's
+    ``train_test_split(np.arange(n), test_size=test_size,
+    random_state=seed)`` (the reference trainer's split), from NumPy alone:
+    a ``RandomState(seed)`` permutation whose first ``ceil(test_size·n)``
+    entries are the validation set."""
+    n_test = math.ceil(test_size * n)
+    if not 0 < n_test < n:
+        raise ValueError(f"test_size={test_size} of {n} samples leaves an "
+                         "empty train or validation set")
+    perm = np.random.RandomState(seed).permutation(n)
+    return perm[n_test:], perm[:n_test]
 
 
 def uniform_q0_contract(x: np.ndarray, q0: np.ndarray,

@@ -30,6 +30,7 @@ from epnn_tpu_torch.data.dataset import (
     uniform_q0_contract,
 )
 from epnn_tpu_torch.data.xyz import Molecule
+from epnn_tpu_torch.device import resolve_device
 from epnn_tpu_torch.elements import table_for_n_elems
 from epnn_tpu_torch.featurize import rbf_edges
 from epnn_tpu_torch.io import checkpoint as ckpt_io
@@ -79,16 +80,7 @@ class Predictor:
     neighbor_method: str = "auto"
 
     def __post_init__(self):
-        if self.device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "Predictor runs on a CUDA card by default and none is "
-                    "available; pass device='cpu' to run on the CPU")
-            self.device = "cuda"
-        self.device = torch.device(self.device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device {self.device} requested but CUDA is "
-                               "not available")
+        self.device = resolve_device(self.device, "Predictor")
         if self.force_mode not in (None, "dense", "blocked"):
             raise ValueError("force_mode must be None, 'dense' or 'blocked'")
         if self.collapse_round1 not in ("auto", "off"):

@@ -1,4 +1,4 @@
-"""Checkpoint reading (counterpart of ``epnn_tpu/io/checkpoint.py``).
+"""Checkpoints (counterpart of ``epnn_tpu/io/checkpoint.py``).
 
 A checkpoint directory holds ``config.json`` (the :class:`EPNNConfig`
 fields) and ``params.msgpack``, a flax-serialized parameter tree: a
@@ -6,26 +6,126 @@ msgpack map whose array leaves are msgpack ext type 1 holding the packed
 tuple ``(shape, dtype name, C-order bytes)``.  It decodes with plain
 ``msgpack``; :func:`from_jax_params` then turns the tree into this
 package's parameters — the one place weights cross from the JAX layout.
+:func:`save_params` writes the same format, so the JAX package's
+``load_params`` reads what this package trains.
+
+A training run adds ``train_state.msgpack`` (this package's own layout:
+params, the Adam moments as trees of the same shape, the step) and
+``meta.json`` (epoch counters and best-val metrics).  Every file is
+written atomically.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
-from typing import Any
+from typing import Any, Optional, Tuple
 
 import msgpack
 import numpy as np
 import torch
 
 from epnn_tpu_torch.models.config import EPNNConfig
-from epnn_tpu_torch.models.epnn import param_shapes
+from epnn_tpu_torch.models.epnn import map_tree, param_shapes
 
 CONFIG_FILE = "config.json"
 PARAMS_FILE = "params.msgpack"
 STATE_FILE = "train_state.msgpack"
+META_FILE = "meta.json"
 
 _EXT_NDARRAY = 1
+
+
+def _write_atomic(path: str, data, mode: str = "wb") -> None:
+    """Write via a same-directory temp file and ``os.replace`` (atomic on
+    POSIX): a crash mid-save leaves the previous file intact, never a torn
+    one.  fsync before the rename, so the rename cannot overtake the
+    data."""
+    tmp = f"{path}.tmp.{os.getpid()}"
+    try:
+        with open(tmp, mode) as f:
+            f.write(data)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def _ext_default(obj: Any) -> msgpack.ExtType:
+    if isinstance(obj, torch.Tensor):
+        obj = obj.detach().cpu().numpy()
+    if not isinstance(obj, np.ndarray):
+        raise TypeError(f"cannot serialize {type(obj).__name__}")
+    arr = np.ascontiguousarray(obj)
+    return msgpack.ExtType(_EXT_NDARRAY, msgpack.packb(
+        (arr.shape, arr.dtype.name, arr.tobytes("C")), use_bin_type=True))
+
+
+def encode_msgpack(tree: Any) -> bytes:
+    """A tree of dicts with tensor or array leaves as flax-serialized
+    msgpack bytes (the inverse of :func:`decode_msgpack`)."""
+    return msgpack.packb(tree, default=_ext_default, strict_types=True)
+
+
+def _numpy_tree(tree: dict) -> dict:
+    return map_tree(lambda v: v.detach().cpu().numpy().astype(np.float32),
+                    tree)
+
+
+def save_config(directory: str, cfg: EPNNConfig) -> None:
+    os.makedirs(directory, exist_ok=True)
+    _write_atomic(os.path.join(directory, CONFIG_FILE),
+                  json.dumps(dataclasses.asdict(cfg), indent=2), "w")
+
+
+def save_params(directory: str, params: dict,
+                cfg: Optional[EPNNConfig] = None) -> None:
+    """``params.msgpack`` in the flax layout (the tree under an outer
+    ``"params"`` key, float32 leaves), plus ``config.json`` with ``cfg``."""
+    os.makedirs(directory, exist_ok=True)
+    tree = params if "params" in params else {"params": params}
+    _write_atomic(os.path.join(directory, PARAMS_FILE),
+                  encode_msgpack(_numpy_tree(tree)))
+    if cfg is not None:
+        save_config(directory, cfg)
+
+
+def save_train_state(directory: str, params: dict, exp_avg: dict,
+                     exp_avg_sq: dict, step: int,
+                     meta: Optional[dict] = None) -> None:
+    """The full train state — params, Adam's first and second moments in
+    the params' tree layout, the step — and ``meta.json``."""
+    os.makedirs(directory, exist_ok=True)
+    state = {"params": params, "exp_avg": exp_avg, "exp_avg_sq": exp_avg_sq}
+    state = _numpy_tree(state)
+    state["step"] = int(step)
+    _write_atomic(os.path.join(directory, STATE_FILE), encode_msgpack(state))
+    if meta is not None:
+        meta = {k: (v.item() if isinstance(v, np.generic) else v)
+                for k, v in meta.items()}
+        _write_atomic(os.path.join(directory, META_FILE),
+                      json.dumps(meta, indent=2), "w")
+
+
+def load_train_state(directory: str) -> Tuple[dict, dict, dict, int]:
+    """``(params, exp_avg, exp_avg_sq, step)`` from
+    :func:`save_train_state`, as CPU tensors."""
+    with open(os.path.join(directory, STATE_FILE), "rb") as f:
+        state = decode_msgpack(f.read())
+    return (from_jax_params(state["params"]),
+            from_jax_params(state["exp_avg"]),
+            from_jax_params(state["exp_avg_sq"]), int(state["step"]))
+
+
+def load_meta(directory: str) -> dict:
+    path = os.path.join(directory, META_FILE)
+    if not os.path.exists(path):
+        return {}
+    with open(path) as f:
+        return json.load(f)
 
 
 def load_config(directory: str) -> EPNNConfig:

@@ -1,6 +1,15 @@
 from epnn_tpu_torch.models.config import PRESETS, EPNNConfig
-from epnn_tpu_torch.models.epnn import EPNN, init_params, pair_gate, param_shapes
+from epnn_tpu_torch.models.epnn import (
+    EPNN,
+    dense_apply,
+    init_params,
+    map_tree,
+    pair_gate,
+    param_shapes,
+    tree_leaves,
+)
 from epnn_tpu_torch.models.mlp import MLP
 
-__all__ = ["EPNN", "EPNNConfig", "MLP", "PRESETS", "init_params",
-           "pair_gate", "param_shapes"]
+__all__ = ["EPNN", "EPNNConfig", "MLP", "PRESETS", "dense_apply",
+           "init_params", "map_tree", "pair_gate", "param_shapes",
+           "tree_leaves"]

@@ -15,10 +15,14 @@ through :func:`epnn_tpu_torch.ops.fused.forward_blocked`.
 Parameters live in a nested dict with the JAX tree's names and shapes
 (``{"message_t"|"update"|"pass_t": {"dense_k": {"kernel": (in, out),
 "bias": (out,)}}}``); :meth:`EPNN.from_params` builds a module from one.
+Training differentiates the tree's own leaves through :func:`dense_apply`
+(the module's forward with the tree substituted for its weights), so the
+dense and the blocked path update the same tensors.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -124,6 +128,51 @@ class EPNN(nn.Module):
         b, n, f = a.shape
         return (a[:, :, None, :].expand(b, n, n, f),
                 a[:, None, :, :].expand(b, n, n, f))
+
+
+def map_tree(fn, tree: dict) -> dict:
+    """The nested dict with ``fn`` applied to every leaf."""
+    return {k: map_tree(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def tree_leaves(tree: dict) -> list:
+    """Every leaf, in sorted key order (the same order for any two trees
+    of one layout)."""
+    return [leaf for k in sorted(tree) for leaf in (
+        tree_leaves(tree[k]) if isinstance(tree[k], dict) else [tree[k]])]
+
+
+@functools.lru_cache(maxsize=8)
+def _skeleton(cfg: EPNNConfig) -> EPNN:
+    """An EPNN whose own weights are never read: :func:`dense_apply`
+    substitutes the tree for all of them."""
+    return EPNN(cfg)
+
+
+def _module_weights(params: dict, cfg: EPNNConfig) -> dict:
+    """The tree as the module's parameter names: ``weight = kernel.T``
+    (a view, so gradients reach the tree's leaves)."""
+    p = params["params"] if "params" in params else params
+    names = {f"message_{t}": f"message_mlps.{t}" for t in range(cfg.T)}
+    names.update({f"pass_{t}": f"pass_mlps.{t}" for t in range(cfg.T)})
+    names["update"] = "update_mlp"
+    out = {}
+    for tree_name, mod_name in names.items():
+        for dname, leaf in p[tree_name].items():
+            out[f"{mod_name}.{dname}.weight"] = leaf["kernel"].T
+            out[f"{mod_name}.{dname}.bias"] = leaf["bias"]
+    return out
+
+
+def dense_apply(params: dict, cfg: EPNNConfig, x, q0, e, node_mask,
+                soft_env=None, h0=None) -> torch.Tensor:
+    """The dense EPNN forward as a function of the parameter tree
+    (counterpart of ``EPNN(cfg).apply(params, ...)``): differentiable in
+    the tree's leaves, on whatever device they and the inputs share."""
+    return torch.func.functional_call(
+        _skeleton(cfg), _module_weights(params, cfg),
+        (x, q0, e, node_mask), dict(soft_env=soft_env, h0=h0))
 
 
 def _mlp_shapes(in_dim, hidden, out_dim):

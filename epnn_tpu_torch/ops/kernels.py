@@ -6,7 +6,15 @@ plain PyTorch version (counterpart of ``epnn_tpu/ops/pallas_kernels.py``).
 * ``near_message_corr`` — ``csrc/near_message_corr.cu``, replaces
   ``pallas_kernels.py:1286``;
 * ``near_pass_rowsum`` — ``csrc/near_pass_rowsum.cu``, replaces
-  ``pallas_kernels.py:1410``.
+  ``pallas_kernels.py:1410``;
+* ``dense_message_rowsum_bwd`` — ``csrc/dense_message_rowsum_bwd.cu``, the
+  backward of the far field, replaces ``_dmr_bwd`` (``pallas_kernels.py:1079``).
+
+The three forwards are differentiable: each public function goes through a
+``torch.autograd.Function`` on the CPU and on CUDA alike.  The far field's
+backward is the ``dense_message_rowsum_bwd`` kernel; the two near kernels'
+backwards recompute through their plain versions, as the JAX package's
+custom VJPs recompute through their XLA twins.
 
 Each wrapper takes tensors on one device.  On the CPU it runs the plain
 version (``*_plain``); on a CUDA tensor it launches the kernel on the
@@ -43,6 +51,7 @@ SOURCES = {
     "dense_message_rowsum": "dense_message_rowsum.cu",
     "near_message_corr": "near_message_corr.cu",
     "near_pass_rowsum": "near_pass_rowsum.cu",
+    "dense_message_rowsum_bwd": "dense_message_rowsum_bwd.cu",
 }
 
 #: kernel launches since the last :func:`reset_launch_counts`
@@ -59,6 +68,7 @@ _ARGTYPES = {
     "dense_message_rowsum": [_P] * 7 + [_I] * 5 + [_P],
     "near_message_corr": [_P] * 8 + [_I] * 4 + [_P],
     "near_pass_rowsum": [_P] * 8 + [_I] * 4 + [_P],
+    "dense_message_rowsum_bwd": [_P] * 11 + [_I] * 7 + [_P],
 }
 
 
@@ -220,14 +230,7 @@ def _dense_message_splits(r: int, n: int) -> tuple:
     return -(-n // cols), cols
 
 
-def dense_message_rowsum(pi, pj, col_vec, w2, b2):
-    """Far-field message row sums (see ``csrc/dense_message_rowsum.cu``):
-
-        out_i = Σ_j col_vec_j · relu(relu(pi_i + pj_j) @ W2 + b2)
-
-    pi (R, H) carries the first-layer bias; pj (N, H); col_vec (N,) is the
-    node mask (clean mode) or ones (reference-compat mode); W2 (H, H);
-    b2 (H,).  Rectangular: R need not equal N."""
+def _dense_message_rowsum_fwd(pi, pj, col_vec, w2, b2):
     name = "dense_message_rowsum"
     r, h = pi.shape
     n = pj.shape[0]
@@ -249,6 +252,122 @@ def dense_message_rowsum(pi, pj, col_vec, w2, b2):
     return out
 
 
+def dense_message_rowsum_bwd_plain(pi, pj, col_vec, w2, b2, g):
+    """The four gradients of :func:`dense_message_rowsum_plain` for the
+    cotangent ``g`` (R, H), written out (no autograd) and row-blocked like
+    the forward:
+
+        e2 = col_vec_j · g_i ⊙ 1[z2 > 0]     z̄1 = (e2 @ W2ᵀ) ⊙ 1[z1 > 0]
+        dpi = Σ_j z̄1   dpj = Σ_i z̄1   dW2 = Σ relu(z1)ᵀ e2   db2 = Σ e2
+
+    Returns ``(dpi, dpj, dw2, db2)``; col_vec gets no gradient."""
+    r, h = pi.shape
+    n = pj.shape[0]
+    rb = max(1, min(r, (1 << 24) // max(1, n * h)))
+    dpi = pi.new_empty((r, h))
+    dpj = pj.new_zeros((n, h))
+    dw2 = w2.new_zeros((h, h))
+    db2 = b2.new_zeros((h,))
+    for s in range(0, r, rb):
+        z1 = pi[s:s + rb, None, :] + pj[None, :, :]
+        a1 = torch.relu(z1)
+        z2 = a1 @ w2 + b2
+        e2 = torch.where(z2 > 0, g[s:s + rb, None, :] * col_vec[None, :, None],
+                         0.0)
+        z1bar = torch.where(z1 > 0, e2 @ w2.T, 0.0)
+        dpi[s:s + rb] = z1bar.sum(1)
+        dpj += z1bar.sum(0)
+        dw2 += a1.reshape(-1, h).T @ e2.reshape(-1, h)
+        db2 += e2.sum((0, 1))
+    return dpi, dpj, dw2, db2
+
+
+def dense_message_rowsum_bwd(pi, pj, col_vec, w2, b2, g):
+    """Backward of the far-field reduction (see
+    ``csrc/dense_message_rowsum_bwd.cu``): ``(dpi, dpj, dw2, db2)`` for the
+    cotangent ``g`` (R, H) of ``out``, with z1 and z2 recomputed in the
+    tile.  Deterministic: partial sums are added in a fixed order."""
+    name = "dense_message_rowsum_bwd"
+    r, h = pi.shape
+    n = pj.shape[0]
+    device = _check(name, dict(pi=pi, pj=pj, col_vec=col_vec, w2=w2, b2=b2,
+                               g=g),
+                    dict(pi=(r, h), pj=(n, h), col_vec=(n,), w2=(h, h),
+                         b2=(h,), g=(r, h)))
+    if device.type == "cpu":
+        return dense_message_rowsum_bwd_plain(pi, pj, col_vec, w2, b2, g)
+    _require_widths(name, h)
+    dpi, dpj = pi.new_empty((r, h)), pj.new_empty((n, h))
+    dw2, db2 = w2.new_empty((h, h)), b2.new_empty((h,))
+    if r == 0 or n == 0:
+        return dpi.zero_(), dpj.zero_(), dw2.zero_(), db2.zero_()
+    splits_r, cols = _dense_message_splits(r, n)
+    splits_c, rows = _dense_message_splits(n, r)
+    blocks_r = -(-r // _DMR_ROWS) * splits_r
+    work = pi.new_empty(splits_r * r * h + splits_c * n * h
+                        + blocks_r * (h * h + h))
+    _launch(name, device, (pi, pj, col_vec, w2, b2, g, work, dpi, dpj, dw2,
+                           db2),
+            (r, n, h, splits_r, cols, splits_c, rows), dict(w2=w2))
+    return dpi, dpj, dw2, db2
+
+
+class _DenseMessageRowsum(torch.autograd.Function):
+    """Forward: the far-field kernel; backward: its backward kernel.  Saves
+    only the inputs (as ``_dmr_fwd``, ``pallas_kernels.py:1071``)."""
+
+    @staticmethod
+    def forward(ctx, pi, pj, col_vec, w2, b2):
+        ctx.save_for_backward(pi, pj, col_vec, w2, b2)
+        return _dense_message_rowsum_fwd(pi, pj, col_vec, w2, b2)
+
+    @staticmethod
+    def backward(ctx, g):
+        pi, pj, col_vec, w2, b2 = ctx.saved_tensors
+        dpi, dpj, dw2, db2 = dense_message_rowsum_bwd(
+            pi, pj, col_vec, w2, b2, g.contiguous())
+        return dpi, dpj, None, dw2, db2
+
+
+def dense_message_rowsum(pi, pj, col_vec, w2, b2):
+    """Far-field message row sums (see ``csrc/dense_message_rowsum.cu``):
+
+        out_i = Σ_j col_vec_j · relu(relu(pi_i + pj_j) @ W2 + b2)
+
+    pi (R, H) carries the first-layer bias; pj (N, H); col_vec (N,) is the
+    node mask (clean mode) or ones (reference-compat mode); W2 (H, H);
+    b2 (H,).  Rectangular: R need not equal N.  Differentiable in pi, pj,
+    W2 and b2 through :func:`dense_message_rowsum_bwd`."""
+    return _DenseMessageRowsum.apply(pi, pj, col_vec, w2, b2)
+
+
+class _PlainRecompute(torch.autograd.Function):
+    """A near kernel's forward with a backward that recomputes through its
+    plain version under autograd — the counterpart of ``_near_msg_bwd`` /
+    ``_near_pass_bwd`` (``pallas_kernels.py:1271``, ``:1395``), which are
+    ``jax.vjp`` of XLA code, not Pallas kernels.  This is the backward
+    itself, not a fallback: the forward on a CUDA tensor is always the
+    kernel."""
+
+    @staticmethod
+    def forward(ctx, fwd, plain, *args):
+        ctx.plain = plain
+        ctx.save_for_backward(*args)
+        return fwd(*args)
+
+    @staticmethod
+    def backward(ctx, g):
+        args = ctx.saved_tensors
+        want = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            leaves = [a.detach().requires_grad_(w) for a, w in zip(args, want)]
+            out = ctx.plain(*leaves)
+            wrt = [a for a, w in zip(leaves, want) if w]
+            grads = iter(torch.autograd.grad(out, wrt, g.contiguous(),
+                                             allow_unused=True))
+        return (None, None, *[next(grads) if w else None for w in want])
+
+
 # ---------------------------------------------------------------------------
 # 2. near_message_corr — the gathered near-field message correction
 # ---------------------------------------------------------------------------
@@ -268,12 +387,7 @@ def near_message_corr_plain(pi, pjn, rbf, mask, w1e, w2, b2):
     return torch.sum(diff.reshape(n, k, h) * mask[:, :, None], dim=1)
 
 
-def near_message_corr(pi, pjn, rbf, mask, w1e, w2, b2):
-    """Near-field message correction (see ``csrc/near_message_corr.cu``).
-
-    pi (N, H) row projections with b1 folded in; pjn (N·K, H) gathered
-    column projections ``pj[idx.ravel()]``; rbf (N·K, E) gathered-pair RBF
-    features; mask (N, K) slot validity; W1e (E, H); W2 (H, H); b2 (H,)."""
+def _near_message_corr_fwd(pi, pjn, rbf, mask, w1e, w2, b2):
     name = "near_message_corr"
     n, h = pi.shape
     k = mask.shape[1] if mask.dim() == 2 else 0
@@ -293,6 +407,20 @@ def near_message_corr(pi, pjn, rbf, mask, w1e, w2, b2):
     _launch(name, device, (pi, pjn, rbf, mask, w1e, w2, b2, out),
             (n, k, h, e), dict(pjn=pjn, rbf=rbf, w1e=w1e, w2=w2))
     return out
+
+
+def near_message_corr(pi, pjn, rbf, mask, w1e, w2, b2):
+    """Near-field message correction (see ``csrc/near_message_corr.cu``).
+
+    pi (N, H) row projections with b1 folded in; pjn (N·K, H) gathered
+    column projections ``pj[idx.ravel()]``; rbf (N·K, E) gathered-pair RBF
+    features; mask (N, K) slot validity; W1e (E, H); W2 (H, H); b2 (H,).
+    Differentiable: the backward recomputes through
+    :func:`near_message_corr_plain` (as the JAX custom VJP does through its
+    XLA twin)."""
+    return _PlainRecompute.apply(_near_message_corr_fwd,
+                                 near_message_corr_plain, pi, pjn, rbf, mask,
+                                 w1e, w2, b2)
 
 
 # ---------------------------------------------------------------------------
@@ -315,14 +443,7 @@ def near_pass_rowsum_plain(rs, ppn, rbf, gh, w1e, w2, b2):
                      dim=1)
 
 
-def near_pass_rowsum(rs, ppn, rbf, gh, w1e, w2, b2):
-    """Electron-passing near-pair row sums (see
-    ``csrc/near_pass_rowsum.cu``).
-
-    rs (N, 2H) = [pi | pj] with b1 in pi; ppn (N·K, 2H) = rs[idx.ravel()];
-    rbf (N·K, E); gh (N, K) = 0.5 · gate with the slot mask folded in;
-    W1e (E, H); W2 (H, H); b2 (H,).  Each pair's two terms are exact
-    negations, so Σ_i out_i @ W_out conserves charge to f32 summation."""
+def _near_pass_rowsum_fwd(rs, ppn, rbf, gh, w1e, w2, b2):
     name = "near_pass_rowsum"
     n, h2 = rs.shape
     h = h2 // 2
@@ -343,3 +464,18 @@ def near_pass_rowsum(rs, ppn, rbf, gh, w1e, w2, b2):
     _launch(name, device, (rs, ppn, rbf, gh, w1e, w2, b2, out), (n, k, h, e),
             dict(ppn=ppn, rbf=rbf, w1e=w1e, w2=w2))
     return out
+
+
+def near_pass_rowsum(rs, ppn, rbf, gh, w1e, w2, b2):
+    """Electron-passing near-pair row sums (see
+    ``csrc/near_pass_rowsum.cu``).
+
+    rs (N, 2H) = [pi | pj] with b1 in pi; ppn (N·K, 2H) = rs[idx.ravel()];
+    rbf (N·K, E); gh (N, K) = 0.5 · gate with the slot mask folded in;
+    W1e (E, H); W2 (H, H); b2 (H,).  Each pair's two terms are exact
+    negations, so Σ_i out_i @ W_out conserves charge to f32 summation.
+    Differentiable: the backward recomputes through
+    :func:`near_pass_rowsum_plain` (as the JAX custom VJP does through its
+    XLA twin)."""
+    return _PlainRecompute.apply(_near_pass_rowsum_fwd, near_pass_rowsum_plain,
+                                 rs, ppn, rbf, gh, w1e, w2, b2)

@@ -1,0 +1,558 @@
+"""Training loop (counterpart of ``epnn_tpu/train/loop.py``, single device):
+bucketed batching, Adam updates, masked metrics, best-val checkpoints and
+exact resume.
+
+The parameters are one tree in the JAX layout (``{"message_t" | "update" |
+"pass_t": {"dense_k": {"kernel", "bias"}}}``) whose leaves are the tensors
+Adam updates.  Buckets padded to at most ``dense_max_atoms`` atoms train
+through the dense model (:func:`epnn_tpu_torch.models.dense_apply`); wider
+buckets through the neighbor-split blocked forward
+(:func:`epnn_tpu_torch.ops.forward_blocked`), whose far field runs the
+``dense_message_rowsum`` kernel forward and its backward kernel in the
+backward.  Both paths differentiate the same leaves, and checkpoints stay
+in the JAX layout.
+
+``train`` runs on the first CUDA card unless it is given ``device="cpu"``;
+without a card it raises.  Options of the JAX trainer that are not ported
+yet raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+import warnings
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from epnn_tpu_torch.data.dataset import (
+    MolBatch,
+    bucket_molecules,
+    minibatches,
+    round_up,
+    train_val_split,
+    uniform_q0_contract,
+)
+from epnn_tpu_torch.data.xyz import Molecule
+from epnn_tpu_torch.device import resolve_device
+from epnn_tpu_torch.elements import table_for_n_elems
+from epnn_tpu_torch.featurize import rbf_edges
+from epnn_tpu_torch.io import checkpoint as ckpt_io
+from epnn_tpu_torch.models import (
+    EPNNConfig,
+    dense_apply,
+    init_params,
+    map_tree,
+    tree_leaves,
+)
+from epnn_tpu_torch.ops.fused import (
+    build_neighbors_batch,
+    forward_blocked,
+    fuse_params,
+    max_neighbor_count,
+)
+from epnn_tpu_torch.train import metrics as M
+
+Tensor = torch.Tensor
+
+#: padded width from which the JAX trainer's auto policy chunks the near
+#: field (``TrainConfig.near_row_chunk=-1``); the chunked mode is not ported
+HUGE_GRAPH_MIN_ATOMS = 200_000
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The JAX trainer's hyperparameters, with the same names and defaults
+    (Adam lr 1e-3, betas 0.9/0.999, eps 1e-7 — the reference's keras
+    defaults — 500 epochs, 80/20 split with seed 42).  See
+    ``epnn_tpu/train/loop.py`` for what each field means there.  Here:
+
+    * ``fused_block`` has no effect: the port's kernels choose their own
+      tiles;
+    * ``precompute_neighbors`` builds each fused bucket's neighbor tables
+      once (top-k over −d², the candidate set of the JAX cell builder);
+    * ``lr_schedule='cosine'``, ``lr_plateau_factor``, ``ema_decay``,
+      ``grad_clip_norm``, ``grad_accum > 1``, ``remat``, ``far_cluster``,
+      ``near_row_chunk > 0`` (and the auto chunking of buckets of 200,000
+      atoms and more), ``near_window``, ``tensorboard_dir`` and
+      ``debug_nans`` raise ``NotImplementedError`` (ROADMAP queue 1,
+      "Training, deferred options")."""
+
+    learning_rate: float = 1e-3
+    lr_schedule: str = "constant"
+    lr_final_fraction: float = 0.05
+    warmup_steps: int = 0
+    total_steps: Optional[int] = None
+    lr_plateau_factor: Optional[float] = None
+    lr_plateau_patience: int = 2
+    ema_decay: Optional[float] = None
+    beta1: float = 0.9
+    beta2: float = 0.999
+    eps: float = 1e-7
+    grad_clip_norm: Optional[float] = None
+    grad_accum: int = 1
+    epochs: int = 500
+    batch_size: int = 32
+    loss: str = "masked_mse"
+    seed: int = 0
+    val_fraction: float = 0.2
+    split_seed: int = 42
+    bucket_multiple: int = 8
+    checkpoint_dir: Optional[str] = None
+    log_path: Optional[str] = None
+    resume: bool = False
+    init_from: Optional[str] = None
+    tensorboard_dir: Optional[str] = None
+    debug_nans: bool = False
+    eval_every: int = 1
+    early_stop_patience: Optional[int] = None
+    dump_predictions: bool = False
+    dense_max_atoms: int = 256
+    fused_block: int = 256
+    collapse_round1: bool = True
+    far_cluster: int = 0
+    precompute_neighbors: bool = True
+    remat: bool = False
+    far_cluster_grad: bool = True
+    near_row_chunk: int = -1
+    near_window: int = 0
+
+
+_DEFERRED = "is not ported yet (ROADMAP queue 1: training, deferred options)"
+
+
+def check_supported(tc: TrainConfig) -> None:
+    """Raise ``NotImplementedError`` for an option this port does not run."""
+    unported = {
+        "lr_schedule='cosine'": tc.lr_schedule != "constant",
+        "lr_plateau_factor": tc.lr_plateau_factor is not None,
+        "ema_decay": tc.ema_decay is not None,
+        "grad_clip_norm": tc.grad_clip_norm is not None,
+        "grad_accum > 1": tc.grad_accum > 1,
+        "remat=True": tc.remat,
+        "far_cluster > 0": tc.far_cluster > 0,
+        "near_row_chunk > 0": tc.near_row_chunk > 0,
+        "near_window": tc.near_window != 0,
+        "tensorboard_dir": tc.tensorboard_dir is not None,
+        "debug_nans": tc.debug_nans,
+    }
+    for name, asked in unported.items():
+        if asked:
+            raise NotImplementedError(f"TrainConfig {name} {_DEFERRED}")
+    if tc.loss not in M.LOSSES:
+        raise ValueError(f"unknown loss {tc.loss!r}; one of "
+                         f"{sorted(M.LOSSES)}")
+
+
+@dataclasses.dataclass
+class TrainState:
+    """``params``: the JAX-layout tree of leaf tensors (``requires_grad``);
+    ``opt``: the Adam over those leaves; ``step``: updates applied."""
+
+    params: dict
+    opt: torch.optim.Adam
+    step: int = 0
+
+
+def make_optimizer(tc: TrainConfig, params: dict) -> torch.optim.Adam:
+    """Adam over the tree's leaves.  PyTorch's update, lr·m̂/(√v̂ + eps),
+    is optax's ``adam`` form (eps outside the root)."""
+    check_supported(tc)
+    return torch.optim.Adam(tree_leaves(params), lr=tc.learning_rate,
+                            betas=(tc.beta1, tc.beta2), eps=tc.eps)
+
+
+def create_state(cfg: EPNNConfig, tc: TrainConfig, seed: int = 0,
+                 device=None, params: Optional[dict] = None) -> TrainState:
+    """A fresh state: ``params`` (default: :func:`init_params` from
+    ``seed``) copied to ``device`` as leaves that require grad."""
+    device = resolve_device(device, "training")
+    if params is None:
+        params = init_params(cfg, torch.Generator().manual_seed(seed))
+    if "params" in params:
+        params = params["params"]
+    params = map_tree(lambda a: a.detach().to(device, torch.float32)
+                      .clone().requires_grad_(True), params)
+    return TrainState(params=params, opt=make_optimizer(tc, params))
+
+
+def _loss_dense(params, cfg, loss_name, x, q0, xyz, node_mask, y, weight):
+    e = rbf_edges(xyz, node_mask, e_dim=cfg.e_dim, cutoff=cfg.cutoff,
+                  eta=cfg.eta)
+    pred = dense_apply(params, cfg, x, q0, e, node_mask)
+    return M.LOSSES[loss_name](pred, y, node_mask, weight), pred
+
+
+def _loss_fused(params, cfg, loss_name, neighbor_k, x, q0, xyz, node_mask,
+                y, weight, uniform_q0=False, neighbors=None):
+    """Loss through the blocked forward.  ``fuse_params`` only slices and
+    copies, so gradients reach the same tree the dense path trains."""
+    device = node_mask.device
+    pred = forward_blocked(fuse_params(params, cfg, device), x, q0, xyz,
+                           node_mask, cfg, neighbor_k=neighbor_k,
+                           neighbors=neighbors, uniform_q0=uniform_q0)
+    return M.LOSSES[loss_name](pred, y, node_mask, weight), pred
+
+
+def _apply(state: TrainState, loss: Tensor) -> None:
+    """One Adam update.  A leaf the loss does not reach (the pass MLPs'
+    output bias cancels in f_ij − f_ji) gets a zero gradient, as under JAX,
+    so its moments decay and every leaf's step count stays the global
+    one."""
+    state.opt.zero_grad(set_to_none=True)
+    loss.backward()
+    for p in tree_leaves(state.params):
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    state.opt.step()
+    state.step += 1
+
+
+def train_step(state: TrainState, cfg: EPNNConfig, loss_name: str,
+               x, q0, xyz, node_mask, y, weight):
+    """One dense update in place.  Returns ``(state, loss, pred, mets)``."""
+    loss, pred = _loss_dense(state.params, cfg, loss_name, x, q0, xyz,
+                             node_mask, y, weight)
+    _apply(state, loss)
+    pred = pred.detach()
+    return state, loss.detach(), pred, M.mae_sums(pred, y, node_mask, weight)
+
+
+@torch.no_grad()
+def eval_step(params: dict, cfg: EPNNConfig, loss_name: str,
+              x, q0, xyz, node_mask, y, weight):
+    loss, pred = _loss_dense(params, cfg, loss_name, x, q0, xyz, node_mask,
+                             y, weight)
+    return loss, pred, M.mae_sums(pred, y, node_mask, weight)
+
+
+def train_step_fused(state: TrainState, cfg: EPNNConfig, loss_name: str,
+                     neighbor_k: int, x, q0, xyz, node_mask, y, weight,
+                     uniform_q0: bool = False, neighbors=None):
+    """One update through the blocked forward in place (``neighbors``: the
+    minibatch's ``(idx, mask, d2)`` rows of the bucket tables).  Returns
+    ``(state, loss, pred, mets)``."""
+    loss, pred = _loss_fused(state.params, cfg, loss_name, neighbor_k, x,
+                             q0, xyz, node_mask, y, weight, uniform_q0,
+                             neighbors)
+    _apply(state, loss)
+    pred = pred.detach()
+    return state, loss.detach(), pred, M.mae_sums(pred, y, node_mask, weight)
+
+
+@torch.no_grad()
+def eval_step_fused(params: dict, cfg: EPNNConfig, loss_name: str,
+                    neighbor_k: int, x, q0, xyz, node_mask, y, weight,
+                    uniform_q0: bool = False, neighbors=None):
+    loss, pred = _loss_fused(params, cfg, loss_name, neighbor_k, x, q0, xyz,
+                             node_mask, y, weight, uniform_q0, neighbors)
+    return loss, pred, M.mae_sums(pred, y, node_mask, weight)
+
+
+class MetricAccumulator:
+    """Keeps losses and metric sums on the device and reads them to the
+    host once, when a property is first asked for."""
+
+    def __init__(self):
+        self._losses: List[Tensor] = []
+        self._mets: List[Tensor] = []
+        self._cache = None
+
+    def update(self, loss: Tensor, mets: Tensor) -> None:
+        self._losses.append(loss)
+        self._mets.append(mets)
+        self._cache = None
+
+    def _reduced(self):
+        if self._cache is None:
+            if self._losses:
+                ls = torch.stack(self._losses).double().cpu().numpy()
+                ms = torch.stack(self._mets).double().cpu().numpy()
+                self._cache = (float(np.mean(ls)), ms.sum(axis=0))
+            else:
+                self._cache = (0.0, np.zeros(4))
+        return self._cache
+
+    @property
+    def masked_mae(self) -> float:
+        _, (ms, mn, _, _) = self._reduced()
+        return float(ms / max(mn, 1.0))
+
+    @property
+    def padded_mae(self) -> float:
+        _, (_, _, ps, pn) = self._reduced()
+        return float(ps / max(pn, 1.0))
+
+    @property
+    def loss(self) -> float:
+        return self._reduced()[0]
+
+
+@dataclasses.dataclass
+class TrainResult:
+    state: TrainState
+    best_val_masked_mae: float
+    best_val_padded_mae: float
+    history: List[Dict[str, float]]
+
+
+def _dump_prediction_artifacts(out_dir, params, cfg, device, train_mols,
+                               val_mols):
+    """The best checkpoint's prediction dumps (padded (nmol, natom) arrays
+    and name lists, the reference's ``model_systems/`` artifact set)."""
+    from epnn_tpu_torch.infer import Predictor
+
+    pred = Predictor(params=map_tree(lambda a: a.detach().clone(), params),
+                     cfg=cfg, device=device)
+    art = os.path.join(out_dir, "artifacts")
+    os.makedirs(art, exist_ok=True)
+    for split, mols in (("train", train_mols), ("val", val_mols)):
+        if not mols:
+            continue
+        width = max(m.natoms for m in mols)
+        charges = pred.predict_molecules(mols)
+        preds = np.zeros((len(mols), width), np.float32)
+        labs = np.zeros((len(mols), width), np.float32)
+        for i, (m, q) in enumerate(zip(mols, charges)):
+            preds[i, :m.natoms] = q
+            if m.labels is not None:
+                labs[i, :m.natoms] = m.labels
+        np.save(os.path.join(art, f"{split}_pred_charges.npy"), preds)
+        np.save(os.path.join(art, f"{split}_lab_charges.npy"), labs)
+        np.save(os.path.join(art, f"{split}_names.npy"),
+                np.array([m.name for m in mols]), allow_pickle=True)
+
+
+def _adam_moments(state: TrainState):
+    """(exp_avg, exp_avg_sq) trees; zeros before the first update."""
+    return tuple(
+        map_tree(lambda leaf, key=key: state.opt.state.get(leaf, {}).get(
+            key, torch.zeros_like(leaf)).detach(), state.params)
+        for key in ("exp_avg", "exp_avg_sq"))
+
+
+def _restore(state: TrainState, params, exp_avg, exp_avg_sq,
+             step: int) -> None:
+    """Load a saved train state into ``state`` in place (same leaves)."""
+    for leaf, p, m, v in zip(*(tree_leaves(t) for t in (
+            state.params, params, exp_avg, exp_avg_sq)), strict=True):
+        with torch.no_grad():
+            leaf.copy_(p)
+        if step > 0:
+            state.opt.state[leaf] = {
+                "step": torch.tensor(float(step), dtype=torch.float32),
+                "exp_avg": m.to(leaf.device).clone(),
+                "exp_avg_sq": v.to(leaf.device).clone(),
+            }
+    state.step = step
+
+
+def train(
+    mols: Sequence[Molecule],
+    cfg: EPNNConfig,
+    tc: TrainConfig,
+    val_mols: Optional[Sequence[Molecule]] = None,
+    mesh=None,
+    progress: bool = True,
+    device=None,
+) -> TrainResult:
+    """Train an EPNN on a molecule list.  Without ``val_mols``, an 80/20
+    split with ``tc.split_seed`` is used (the reference's behavior).
+    ``device``: ``None`` → the first CUDA card (raises without one)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "train(mesh=...) is not ported yet (ROADMAP queue 1: "
+            "multi-device)")
+    check_supported(tc)
+    device = resolve_device(device, "training")
+
+    if val_mols is None:
+        if tc.val_fraction <= 0.0:
+            train_mols, val_mols = list(mols), []
+        else:
+            tr_idx, va_idx = train_val_split(len(mols), tc.val_fraction,
+                                             tc.split_seed)
+            train_mols = [mols[i] for i in tr_idx]
+            val_mols = [mols[i] for i in va_idx]
+    else:
+        train_mols = list(mols)
+    has_val = len(val_mols) > 0
+    if not has_val:
+        warnings.warn(
+            "empty validation set: val metrics will be null, no best "
+            "checkpoint is selected, and early stopping never fires — "
+            "pass val_mols or val_fraction > 0", stacklevel=2)
+
+    table = table_for_n_elems(cfg.n_elems)
+    train_buckets = bucket_molecules(train_mols, table, tc.bucket_multiple)
+    val_buckets = bucket_molecules(val_mols, table, tc.bucket_multiple)
+    if tc.near_row_chunk < 0 and any(
+            pad >= HUGE_GRAPH_MIN_ATOMS for pad in train_buckets):
+        raise NotImplementedError(
+            f"buckets of {HUGE_GRAPH_MIN_ATOMS} padded atoms and more train "
+            "in the chunked huge-N mode, which " + _DEFERRED)
+
+    init = ckpt_io.load_params(tc.init_from, cfg) if tc.init_from else None
+    state = create_state(cfg, tc, tc.seed, device, params=init)
+    start_epoch = 0
+    best = best_padded = float("inf")
+    stale_evals = 0
+    if (tc.resume and tc.checkpoint_dir
+            and ckpt_io.has_checkpoint(tc.checkpoint_dir)):
+        meta = ckpt_io.load_meta(tc.checkpoint_dir)
+        _restore(state, *ckpt_io.load_train_state(tc.checkpoint_dir))
+        start_epoch = int(meta.get("epoch", -1)) + 1
+        best = float(meta.get("best_val_masked_mae", best))
+        best_padded = float(meta.get("best_val_padded_mae", best_padded))
+        stale_evals = int(meta.get("stale_evals", 0))
+
+    def tensor(a):
+        return torch.as_tensor(np.asarray(a, np.float32)).to(device)
+
+    def put(mb: MolBatch, n_real: int):
+        weight = np.zeros(mb.batch_size, np.float32)
+        weight[:n_real] = 1.0
+        return tuple(tensor(a) for a in (mb.x, mb.q0, mb.xyz, mb.node_mask,
+                                         mb.y, weight))
+
+    # per-bucket plan, keyed by bucket object: train and val buckets can
+    # share a padded width but hold different geometries
+    fused_k: Dict[int, int] = {}
+    uq0: Dict[int, bool] = {}
+    nbr_tables: Dict[int, tuple] = {}
+
+    def bucket_plan(pad: int, bucket: MolBatch):
+        """(batch_size, neighbor_k or None) for one bucket."""
+        bs = min(tc.batch_size, bucket.batch_size)
+        if pad <= tc.dense_max_atoms:
+            return bs, None
+        key = id(bucket)
+        if key not in fused_k:
+            k = max(max_neighbor_count(bucket.xyz[b], bucket.node_mask[b],
+                                       cfg.cutoff)
+                    for b in range(bucket.batch_size))
+            fused_k[key] = max(min(round_up(k + 4, 8), pad - 1), 1)
+        return bs, fused_k[key]
+
+    def bucket_uq0(bucket: MolBatch) -> bool:
+        """The round-1 collapse contract, checked once per bucket."""
+        if not tc.collapse_round1:
+            return False
+        key = id(bucket)
+        if key not in uq0:
+            uq0[key] = uniform_q0_contract(bucket.x, bucket.q0,
+                                           bucket.node_mask)
+        return uq0[key]
+
+    def bucket_neighbors(bucket: MolBatch, k: int, rows):
+        """The minibatch's rows of the bucket's (B, N, k) idx/mask/d²
+        tables, built once on the device (geometries never move)."""
+        if not tc.precompute_neighbors:
+            return None
+        key = id(bucket)
+        if key not in nbr_tables:
+            nbr_tables[key] = build_neighbors_batch(
+                tensor(bucket.xyz), tensor(bucket.node_mask),
+                float(cfg.cutoff), int(k))
+        rows = torch.as_tensor(np.asarray(rows), device=device)
+        return tuple(t[rows] for t in nbr_tables[key])
+
+    def epoch_rng(epoch: int) -> np.random.Generator:
+        # re-derived per epoch: a run resumed at epoch E draws the order an
+        # uninterrupted run would have
+        return np.random.default_rng([tc.seed, epoch])
+
+    history: List[Dict[str, float]] = []
+    log_f = open(tc.log_path, "a") if tc.log_path else None
+    try:
+        for epoch in range(start_epoch, tc.epochs):
+            t0 = time.time()
+            acc = MetricAccumulator()
+            rng = epoch_rng(epoch)
+            for pad, bucket in train_buckets.items():
+                bs, k = bucket_plan(pad, bucket)
+                for mb, n_real, rows in minibatches(bucket, bs, rng=rng,
+                                                    with_indices=True):
+                    if k is None:
+                        _, loss, _, mets = train_step(
+                            state, cfg, tc.loss, *put(mb, n_real))
+                    else:
+                        _, loss, _, mets = train_step_fused(
+                            state, cfg, tc.loss, k, *put(mb, n_real),
+                            uniform_q0=bucket_uq0(bucket),
+                            neighbors=bucket_neighbors(bucket, k, rows))
+                    acc.update(loss, mets)
+            run_eval = has_val and (tc.eval_every <= 1
+                                    or (epoch + 1) % tc.eval_every == 0
+                                    or epoch == tc.epochs - 1)
+            vacc = MetricAccumulator()
+            for pad, bucket in (val_buckets.items() if run_eval else ()):
+                bs, k = bucket_plan(pad, bucket)
+                for mb, n_real, rows in minibatches(bucket, bs,
+                                                    with_indices=True):
+                    if k is None:
+                        loss, _, mets = eval_step(
+                            state.params, cfg, tc.loss, *put(mb, n_real))
+                    else:
+                        loss, _, mets = eval_step_fused(
+                            state.params, cfg, tc.loss, k, *put(mb, n_real),
+                            uniform_q0=bucket_uq0(bucket),
+                            neighbors=bucket_neighbors(bucket, k, rows))
+                    vacc.update(loss, mets)
+
+            row = {
+                "epoch": epoch,
+                "train_loss": acc.loss,
+                "train_masked_mae": acc.masked_mae,
+                "train_padded_mae": acc.padded_mae,
+                "val_loss": vacc.loss if run_eval else None,
+                "val_masked_mae": vacc.masked_mae if run_eval else None,
+                "val_padded_mae": vacc.padded_mae if run_eval else None,
+                "seconds": time.time() - t0,
+            }
+            history.append(row)
+            if log_f:
+                log_f.write(json.dumps(row) + "\n")
+                log_f.flush()
+            if progress:
+                vtxt = f"{vacc.masked_mae:.5f}" if run_eval else "—"
+                print(f"epoch {epoch}: loss {acc.loss:.3e} train MAE "
+                      f"{acc.masked_mae:.5f} val MAE {vtxt} "
+                      f"({row['seconds']:.1f}s)", flush=True)
+
+            improved = run_eval and vacc.masked_mae < best
+            if improved:
+                best, best_padded = vacc.masked_mae, vacc.padded_mae
+            if run_eval:
+                stale_evals = 0 if improved else stale_evals + 1
+            if tc.checkpoint_dir:
+                ckpt_io.save_train_state(
+                    tc.checkpoint_dir, state.params, *_adam_moments(state),
+                    state.step,
+                    meta={"epoch": epoch, "best_val_masked_mae": best,
+                          "best_val_padded_mae": best_padded,
+                          "stale_evals": stale_evals, "step": state.step,
+                          "grad_accum": tc.grad_accum})
+                if improved:
+                    ckpt_io.save_params(
+                        os.path.join(tc.checkpoint_dir, "best"),
+                        state.params, cfg)
+                    if tc.dump_predictions:
+                        _dump_prediction_artifacts(
+                            tc.checkpoint_dir, state.params, cfg, device,
+                            train_mols, val_mols)
+            if (run_eval and tc.early_stop_patience is not None
+                    and stale_evals >= tc.early_stop_patience):
+                if progress:
+                    print(f"early stop at epoch {epoch}: no val improvement "
+                          f"in {stale_evals} evaluated epochs", flush=True)
+                break
+    finally:
+        if log_f:
+            log_f.close()
+    return TrainResult(state=state, best_val_masked_mae=best,
+                       best_val_padded_mae=best_padded, history=history)
