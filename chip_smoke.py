@@ -4,7 +4,7 @@ card: ``python3 chip_smoke.py`` from the repository root.
 
 1. Device: the card's name and power limit; TF32 is switched off (the
    port's precision is float32 throughout).
-2. Build: the four CUDA kernels from ``epnn_tpu_torch/csrc``, one
+2. Build: the seven CUDA kernels from ``epnn_tpu_torch/csrc``, one
    ``nvcc`` per source, in parallel.
 3. Kernels: each kernel against its plain PyTorch version on the card, at
    the shapes of the 2,220-atom water box (the checkpoint's round weights,
@@ -16,12 +16,27 @@ card: ``python3 chip_smoke.py`` from the repository root.
    cotangent): each of its four outputs against the plain version, the
    same bits on a second launch and with its scalar-read inputs off the
    boundary, and its times.
+   The fused dense kernels (``fused_message_rowsum`` in both ``masked``
+   modes, ``fused_epn_rowsum`` with the hard and the soft gate) at the
+   same shapes: each against its plain version, the same bits on a second
+   launch and off the boundary, its times against a bound from FLOP,
+   special-function ops (at the SM clock ``nvidia-smi`` reports) and
+   bytes; the dense pass kernel's dimer probe (disjoint atom pairs, each
+   pair's two rows exact negations).  ``neighbor_compact`` at 2,220 and
+   17,760 atoms: the same set as top-k on every row, the same table as its
+   plain version, and its time beside top-k's.
 4. Slice: ``Predictor.from_checkpoint("trained/mixed_b16")`` serving
    (a) small molecules on the dense path (no kernel may launch),
    (b) the two 2,220-atom boxes (Q = 0, +1) against the committed JAX
    golden charges, and padded to a width that is no multiple of 4,
    (c) the 17,760-atom box; launch counts per graph
-   forward, conservation, and the median ``predict_batch`` latency.
+   forward, conservation, and the median ``predict_batch`` latency;
+   (d) ``forward_blocked(use_pallas=True)`` without ``neighbor_k`` (the
+   fully fused dense forward) on the two 2,220-atom boxes: 5 + 5 fused
+   launches per graph, charges against the golden and (b), its median
+   latency, and the plain dense forward ``_forward_single`` on the card
+   as its reference; (e) ``neighbor_compact``'s tables through
+   ``forward_blocked(neighbor_k=k, neighbors=(idx, mask))``.
 5. Training: (a) the gradients of one fused train step on two 900-atom
    boxes, card against the port on the CPU, leaf by leaf; (b) ``train()``
    fine-tuning the checkpoint for a few epochs on the 2,220-atom boxes and
@@ -62,6 +77,12 @@ KERNEL_ROWS = {
     "dense_message_rowsum_bwd": (
         "epnn_tpu/ops/pallas_kernels.py:1079",
         "epnn_tpu_torch/csrc/dense_message_rowsum_bwd.cu"),
+    "fused_message_rowsum": ("epnn_tpu/ops/pallas_kernels.py:490",
+                             "epnn_tpu_torch/csrc/fused_message_rowsum.cu"),
+    "fused_epn_rowsum": ("epnn_tpu/ops/pallas_kernels.py:368",
+                         "epnn_tpu_torch/csrc/fused_epn_rowsum.cu"),
+    "neighbor_compact": ("epnn_tpu/ops/pallas_kernels.py:685",
+                         "epnn_tpu_torch/csrc/neighbor_compact.cu"),
 }
 #: launches of each kernel per graph forward with the round-1 collapse (T=5)
 PER_GRAPH = {"dense_message_rowsum": 4, "near_message_corr": 5,
@@ -70,6 +91,18 @@ PER_GRAPH = {"dense_message_rowsum": 4, "near_message_corr": 5,
 #: backward per far-field forward (the near backwards recompute through
 #: their plain versions and launch nothing)
 PER_GRAPH_TRAIN = {**PER_GRAPH, "dense_message_rowsum_bwd": 4}
+#: per graph through the fully fused dense forward (T = 5)
+PER_GRAPH_DENSE = {"fused_message_rowsum": 5, "fused_epn_rowsum": 5}
+#: per graph with kernel-built neighbor tables: the table, then the forward
+PER_GRAPH_COMPACT = {**PER_GRAPH, "neighbor_compact": 1}
+#: the slice each kernel's ``launches`` is read from
+MAIN_PATH = {"dense_message_rowsum_bwd": "train",
+             "fused_message_rowsum": "dense_fused",
+             "fused_epn_rowsum": "dense_fused",
+             "neighbor_compact": "compact_nbrs"}
+#: special-function results (exp, cos, sqrt) per clock per SM, and SMs
+SFU_PER_CLOCK_SM = 16
+SMS = 132
 #: the [train] phase: gradient-check box size (waters), train() epochs,
 #: and the label noise (e) around the checkpoint's own charges
 TRAIN_BOX_MOLECULES = 300
@@ -89,6 +122,28 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
     return out.splitlines()[0]
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+    return float(out.splitlines()[0]) * 1e6
+
+
+def off_boundary(t):
+    """t's values in a view 4 bytes past a 16-byte boundary."""
+    return t.new_empty(t.numel() + 1)[1:].view(t.shape).copy_(t)
+
+
+def bound(flop, sfu, nbytes, sfu_rate):
+    """(bound ms, what bounds it): the largest of the FLOP time at the fp32
+    peak, the special-function time and the byte time."""
+    times = {"operations": max(flop / PEAK_FP32_FLOPS, sfu / sfu_rate),
+             "bytes": nbytes / PEAK_BYTES}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by
 
 
 def device_ms(torch, fn, iters):
@@ -129,7 +184,7 @@ def train_phase(torch, pred, card, small, small_q, batch2, golden):
 
     cfg = pred.cfg
     g = np.random.default_rng(5)
-    per_step = {kn: 2 * c for kn, c in PER_GRAPH_TRAIN.items()}
+    per_step = {kn: 2 * PER_GRAPH_TRAIN.get(kn, 0) for kn in kernels.SOURCES}
 
     # (a) gradients of one fused step (B = 2), the card against the CPU
     boxes = [water_box(TRAIN_BOX_MOLECULES, seed=30, charge=0.0),
@@ -239,6 +294,178 @@ def train_phase(torch, pred, card, small, small_q, batch2, golden):
     return train_launches, step_ms
 
 
+def fused_kernel_phase(torch, card, cfg, a, xyz, mask, wm, wp, counts,
+                       sfu_rate):
+    """[kernel] the two fused dense kernels at the 2,220-atom shapes, with a
+    message round's and a pass round's own weights; then the dense pass
+    kernel's dimer probe.  Returns their rows of the kernels' JSON line;
+    each row's numbers are those of the mode the checkpoint runs (masked
+    messages, hard gate), the other mode's under ``other_mode``."""
+    from epnn_tpu_torch.ops import kernels
+    from epnn_tpu_torch.testing import dimer_probe
+
+    n = a.shape[0]
+    hh, ee, f = cfg.mlp_hidden[0], cfg.e_dim, 4
+    n_valid = counts["valid"]
+    pair = dict(cutoff=cfg.cutoff, eta=cfg.eta, tol=cfg.is_near_tol)
+    pm = ((a @ wm.w1_i + wm.b1).contiguous(), (a @ wm.w1_j).contiguous())
+    pp = ((a @ wp.w1_i + wp.b1).contiguous(), (a @ wp.w1_j).contiguous())
+    w = (wm.w1_e, *wm.mids[0]), (wp.w1_e, *wp.mids[0])
+    col_vec = torch.ones(n, device=a.device)
+    w_bytes = f * (ee * hh + hh * hh + hh)
+    # FLOP a pair: every live message pair needs its first-layer add, the
+    # mid layer and the weighted sum (far); only pairs within the cutoff
+    # need the RBF part (beyond it the features are exactly 0): d², the
+    # envelope, E channels, the W1e product and its add (feat).  A pass
+    # pair needs feat and both orderings' layers where its gate is not 0;
+    # deciding the gate takes every valid pair a d² and a compare.
+    far = 2 * hh * hh + 5 * hh
+    feat = 2 * ee * hh + hh + 6 * ee + 15
+    epn = feat + 2 * (2 * hh * hh + 3 * hh) + 3 * hh
+    sfu = ee + 2                           # E exps, a cos and a sqrt
+    cases = {
+        "fused_message_rowsum": [
+            ("masked", dict(masked=True),
+             (*pm, xyz, mask, col_vec, *w[0]), (0, 1, 2, 3, 4, 7),
+             n_valid * n_valid * far + counts["near"] * feat,
+             n_valid * n_valid * (far + feat)),
+            ("col_vec", dict(masked=False),
+             (*pm, xyz, mask, col_vec, *w[0]), (0, 1, 2, 3, 4, 7),
+             n * n * far + counts["near"] * feat, n * n * (far + feat))],
+        "fused_epn_rowsum": [
+            ("hard_gate", dict(soft_gate=False), (*pp, xyz, mask, *w[1]),
+             (0, 1, 2, 3, 6),
+             n_valid * n_valid * 10 + counts["gated"] * epn,
+             n_valid * n_valid * epn),
+            ("soft_gate", dict(soft_gate=True), (*pp, xyz, mask, *w[1]),
+             (0, 1, 2, 3, 6),
+             n_valid * n_valid * 10 + counts["near"] * epn,
+             n_valid * n_valid * epn)],
+    }
+    sfu_pairs = {"masked": counts["near"], "col_vec": counts["near"],
+                 "hard_gate": counts["gated"], "soft_gate": counts["near"]}
+    rows = {}
+    for name, modes in cases.items():
+        wrapper = getattr(kernels, name)
+        plain = getattr(kernels, name + "_plain")
+        measured = []
+        for mode, kw, args, scalar_read, flop, flop_all in modes:
+            out = wrapper(*args, **pair, **kw)
+            ref = plain(*args, **pair, **kw)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            tol = 1e-5 * (float(ref.abs().max()) + 1.0)
+            require(np.isfinite(err) and err <= tol, (name, mode, err, tol))
+            require(torch.equal(wrapper(*args, **pair, **kw), out),
+                    (name, mode, "not the same bits on a second launch"))
+            off = [off_boundary(t) if i in scalar_read else t
+                   for i, t in enumerate(args)]
+            require(torch.equal(wrapper(*off, **pair, **kw), out),
+                    (name, mode, "inputs off the 16-byte boundary"))
+            ms = device_ms(torch, lambda: wrapper(*args, **pair, **kw), 20)
+            plain_ms = device_ms(torch, lambda: plain(*args, **pair, **kw), 3)
+            # pi, pj, xyz, the mask (and col_vec) in, the row sums out
+            per_atom = 3 * hh + 4 + (name == "fused_message_rowsum")
+            nbytes = f * per_atom * n + w_bytes
+            sfu_ops = sfu_pairs[mode] * sfu
+            b_ms, b_by = bound(flop, sfu_ops, nbytes, sfu_rate)
+            b_all, _ = bound(flop_all, n_valid * n_valid * sfu, nbytes,
+                             sfu_rate)
+            measured.append(dict(
+                mode=mode, max_abs_err=err, tol=tol, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, flop=flop,
+                sfu_ops=sfu_ops, bytes=nbytes, bound_all_pairs_ms=b_all))
+            print(f"[kernel] {name} ({mode}): max|d|={err:.3e} (tol "
+                  f"{tol:.3e}), same bits on a second launch and with the "
+                  f"scalar-read inputs off the 16-byte boundary; kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} "
+                  f"ms ({b_by}: {flop:,} FLOP, {sfu_ops:,} special-function "
+                  f"ops, {nbytes:,} B; every valid pair at full cost: "
+                  f"{b_all:.5f} ms) at N={n} on {card}")
+        main, other = measured
+        rows[name] = dict(
+            name=name, route="cuda", source=KERNEL_ROWS[name][1],
+            replaces=KERNEL_ROWS[name][0], launches=0, library_ms=None,
+            **{k: v for k, v in main.items() if k != "mode"},
+            mode=main["mode"], other_mode=other)
+
+    # dimer probe: disjoint pairs 1.0-2.5 Å apart, each >= 4 Å from every
+    # other atom, the two atoms of most pairs in different tiles
+    xyz_d, pairs = dimer_probe(n // 2, seed=0)
+    xyz_p = torch.zeros_like(xyz)
+    xyz_p[:len(xyz_d)] = torch.from_numpy(xyz_d).to(xyz.device)
+    mask_p = torch.zeros_like(mask)
+    mask_p[:len(xyz_d)] = 1.0
+    out = kernels.fused_epn_rowsum(*pp, xyz_p, mask_p, *w[1], **pair)
+    torch.cuda.synchronize()
+    pt = torch.from_numpy(pairs).to(xyz.device)
+    require(torch.equal(out[pt[:, 0]], -out[pt[:, 1]]), "dimer antisymmetry")
+    live = int(torch.count_nonzero(out[pt[:, 0]].abs().sum(1)))
+    require(live > 0, "dimer probe all zero")
+    straddle = float(np.mean(pairs[:, 0] // 16 != pairs[:, 1] // 16))
+    print(f"[kernel] fused_epn_rowsum dimer probe: {len(pairs)} disjoint "
+          f"pairs ({straddle:.1%} across two 16-row tiles), {live} with a "
+          "live transfer; every pair's rows exact negations")
+    return rows
+
+
+def compact_phase(torch, card, cfg, boxes):
+    """[kernel] neighbor_compact on each (label, xyz, mask, k): the same set
+    as top-k (build_neighbors) on every row and the same table as its plain
+    version; its time beside top-k's.  Returns the kernel's row."""
+    from epnn_tpu_torch.ops import kernels
+    from epnn_tpu_torch.ops.fused import build_neighbors
+
+    row, f = None, 4
+    for label, xyz, mask, k in boxes:
+        n = xyz.shape[0]
+        idx, m = kernels.neighbor_compact(xyz, mask, cfg.cutoff, k)
+        ip, mp = kernels.neighbor_compact_plain(xyz, mask, cfg.cutoff, k)
+        it, mt = build_neighbors(xyz, mask, cfg.cutoff, k)
+        torch.cuda.synchronize()
+        err = max(float((idx - ip).abs().max()), float((m - mp).abs().max()))
+        require(torch.equal(idx, ip) and torch.equal(m, mp),
+                ("neighbor_compact vs plain", label))
+        # the same set on every row: sort each row with empty slots last
+        fill = torch.full_like(idx, n)
+        got = torch.sort(torch.where(m > 0, idx, fill), dim=1).values
+        want = torch.sort(torch.where(mt > 0, it, fill), dim=1).values
+        require(torch.equal(got, want), ("neighbor_compact vs top-k", label))
+        require(int(m.sum(1).max()) < k, ("k too small", label))
+        ms = device_ms(torch, lambda: kernels.neighbor_compact(
+            xyz, mask, cfg.cutoff, k), 20)
+        plain_ms = device_ms(torch, lambda: kernels.neighbor_compact_plain(
+            xyz, mask, cfg.cutoff, k), 3)
+        topk_ms = device_ms(torch, lambda: build_neighbors(
+            xyz, mask, cfg.cutoff, k), 5)
+        n_valid = int((mask > 0).sum())
+        flop = n_valid * n_valid * 9        # d² and the compare, a pair
+        nbytes = f * 4 * n + 12 * n * k     # xyz, mask; idx int64, mask
+        b_ms, b_by = bound(flop, 0, nbytes, 1.0)
+        print(f"[kernel] neighbor_compact at N={n} k={k}: the same set as "
+              f"top-k on all {n} rows, the same table as its plain version "
+              f"({int(m.sum()):,} pairs); kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, build_neighbors (top-k) {topk_ms:.4f} ms,"
+              f" bound {b_ms:.5f} ms ({b_by}: {flop:,} FLOP, {nbytes:,} B) "
+              f"on {card}")
+        entry = dict(ms=ms, plain_ms=plain_ms, topk_ms=topk_ms, bound_ms=b_ms,
+                     bound_by=b_by, flop=flop, bytes=nbytes, k=k,
+                     max_abs_err=err)
+        if row is None:
+            row = dict(name="neighbor_compact", route="cuda",
+                       source=KERNEL_ROWS["neighbor_compact"][1],
+                       replaces=KERNEL_ROWS["neighbor_compact"][0],
+                       launches=0, library_ms=None,
+                       **entry, notes="no single PyTorch call builds the "
+                       "list: topk_ms is the port's top-k selection "
+                       "(build_neighbors) on the same atoms; max_abs_err is "
+                       "the largest |Δ| of idx and of mask against the plain "
+                       "table over all sizes", sizes={})
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["sizes"][label] = entry
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -249,7 +476,11 @@ def main() -> int:
     from epnn_tpu_torch.elements import table_for_n_elems
     from epnn_tpu_torch.infer import Predictor
     from epnn_tpu_torch.ops import kernels
-    from epnn_tpu_torch.ops.fused import build_neighbors, rbf_and_gate
+    from epnn_tpu_torch.ops.fused import (
+        build_neighbors,
+        forward_blocked,
+        rbf_and_gate,
+    )
     from epnn_tpu_torch.testing import (
         SCALING_SIZE_MOLECULES,
         disjoint_pair_gh,
@@ -337,10 +568,6 @@ def main() -> int:
                   *wp.mids[0]),
             flop=p_flop, bytes=p_bytes, scalar_read=(0, 3, 6)),
     }
-
-    def off_boundary(t):
-        """t's values in a view 4 bytes past a 16-byte boundary."""
-        return t.new_empty(t.numel() + 1)[1:].view(t.shape).copy_(t)
 
     rows = {}
     for name, case in cases.items():
@@ -452,6 +679,21 @@ def main() -> int:
     print(f"[kernel] near_pass_rowsum antisymmetry probe: {len(pairs)} "
           "disjoint pairs, every pair's rows exact negations")
 
+    # the fused dense kernels, then the kernel-built neighbor list
+    clock = max_sm_clock_hz()
+    sfu_rate = SFU_PER_CLOCK_SM * SMS * clock
+    print(f"[kernel] SM clock (nvidia-smi clocks.max.sm) {clock / 1e6:.0f} "
+          f"MHz: {sfu_rate:.4e} special-function ops/s")
+    counts = dict(valid=n_valid, near=int(torch.count_nonzero(nbr_mask)),
+                  gated=int(torch.count_nonzero(gate * nbr_mask)))
+    rows.update(fused_kernel_phase(torch, card, cfg, a, xyz, mask, wm, wp,
+                                   counts, sfu_rate))
+    big = pad_molecules([water_box(SCALING_SIZE_MOLECULES, seed=2)], table)
+    rows["neighbor_compact"] = compact_phase(torch, card, cfg, [
+        ("2220", xyz, mask, k),
+        ("17760", torch.from_numpy(big.xyz[0]).to(dev),
+         torch.from_numpy(big.node_mask[0]).to(dev), pred._neighbor_k(big))])
+
     # ---- 4. the slice through Predictor ----------------------------------
     def timed(fn, reps):
         ts = []
@@ -509,7 +751,6 @@ def main() -> int:
           f"predict_batch median {ms2:.3f} ms on {card}")
 
     # (c) the 17,760-atom box, B = 1
-    big = pad_molecules([water_box(SCALING_SIZE_MOLECULES, seed=2)], table)
     kernels.reset_launch_counts()
     q3 = pred.predict_batch(big)
     big_launches = dict(kernels.LAUNCHES)
@@ -548,6 +789,76 @@ def main() -> int:
           f"{tol:.3e}) kernel {ms_big:.3f} ms, plain {plain_big:.3f} ms, bound "
           f"{bound_big * 1e3:.3f} ms (operations) on {card}")
 
+    # (d) the fully fused dense forward (no neighbor_k), B = 2, and the
+    # plain dense forward on the card as its reference
+    tb = [torch.from_numpy(arr).to(dev) for arr in (
+        batch2.x, batch2.q0, batch2.xyz, batch2.node_mask)]
+
+    def dense(use_pallas):
+        with torch.no_grad():
+            return forward_blocked(pred._fused, *tb, cfg,
+                                   use_pallas=use_pallas).cpu().numpy()
+
+    kernels.reset_launch_counts()
+    qd = dense(True)
+    dense_launches = dict(kernels.LAUNCHES)
+    want = {kn: 2 * PER_GRAPH_DENSE.get(kn, 0) for kn in kernels.SOURCES}
+    require(dense_launches == want, (dense_launches, want))
+    dq_d = float(np.abs(qd[:, :golden.shape[1]] - golden).max())
+    dq_db = float(np.abs(qd - q2).max())
+    cons_d = np.abs(qd.astype(np.float64).sum(1) - total_q)
+    require(np.all(np.isfinite(qd)) and dq_d < tol_q and dq_db < tol_q,
+            (dq_d, dq_db, tol_q))
+    require(np.all(cons_d <= 1e-4), cons_d)
+    ms_d = timed(lambda: dense(True), 5)
+    kernels.reset_launch_counts()
+    qp = dense(False)
+    plain_launches = dict(kernels.LAUNCHES)
+    require(sum(plain_launches.values()) == 0, plain_launches)
+    dq_p = float(np.abs(qp[:, :golden.shape[1]] - golden).max())
+    dq_pd = float(np.abs(qp - qd).max())
+    cons_p = np.abs(qp.astype(np.float64).sum(1) - total_q)
+    require(dq_p < tol_q and dq_pd < tol_q, (dq_p, dq_pd, tol_q))
+    require(np.all(cons_p <= 1e-4), cons_p)
+    ms_p = timed(lambda: dense(False), 2)
+    print(f"[slice d] forward_blocked(use_pallas=True), no neighbor_k, 2 x "
+          f"2,220 atoms: launches {dense_launches} (per graph "
+          f"{PER_GRAPH_DENSE}); max|dq| vs JAX golden {dq_d:.3e}, vs "
+          f"[slice b] {dq_db:.3e} (tol {tol_q:.3e}); |sum q - Q| = "
+          f"{cons_d.tolist()}; median {ms_d:.3f} ms. Plain dense forward "
+          f"(_forward_single) on the card: no launches, max|dq| vs golden "
+          f"{dq_p:.3e}, vs the fused path {dq_pd:.3e}, |sum q - Q| = "
+          f"{cons_p.tolist()}, median {ms_p:.3f} ms on {card}")
+
+    # (e) kernel-built neighbor tables through the neighbor-split forward
+    uq0 = pred._uniform_q0(batch2)
+
+    def compact_forward():
+        tables = [kernels.neighbor_compact(tb[2][b], tb[3][b], cfg.cutoff, k)
+                  for b in range(batch2.batch_size)]
+        nbrs = tuple(torch.stack(parts) for parts in zip(*tables))
+        with torch.no_grad():
+            return forward_blocked(pred._fused, *tb, cfg, neighbor_k=k,
+                                   neighbors=nbrs,
+                                   uniform_q0=uq0).cpu().numpy()
+
+    kernels.reset_launch_counts()
+    qe = compact_forward()
+    compact_launches = dict(kernels.LAUNCHES)
+    want = {kn: 2 * PER_GRAPH_COMPACT.get(kn, 0) for kn in kernels.SOURCES}
+    require(compact_launches == want, (compact_launches, want))
+    dq_e = float(np.abs(qe - q2).max())
+    cons_e = np.abs(qe.astype(np.float64).sum(1) - total_q)
+    require(np.all(np.isfinite(qe)) and dq_e < tol_q, (dq_e, tol_q))
+    require(np.all(cons_e <= 1e-4), cons_e)
+    ms_e = timed(compact_forward, 5)
+    print(f"[slice e] neighbor_compact tables -> forward_blocked(neighbor_k="
+          f"{k}, neighbors=(idx, mask)), 2 x 2,220 atoms: launches "
+          f"{compact_launches} (per graph {PER_GRAPH_COMPACT}); max|dq| vs "
+          f"[slice b] {dq_e:.3e} (tol {tol_q:.3e}); |sum q - Q| = "
+          f"{cons_e.tolist()}; tables + forward median {ms_e:.3f} ms on "
+          f"{card}")
+
     # ---- 5. training ------------------------------------------------------
     small_labels = [q.copy() for q in qs]
     train_launches, step_ms = train_phase(torch, pred, card, small,
@@ -557,15 +868,20 @@ def main() -> int:
     # launches: each kernel's count in the main path of its slice
     # (serving: the 2 x 2,220 predict_batch; training: the train() run)
     for name in rows:
-        path_launches = {"serve": main_launches.get(name, 0),
-                         "train": train_launches[name]}
+        path_launches = {"serve": main_launches[name],
+                         "train": train_launches[name],
+                         "dense_fused": dense_launches[name],
+                         "compact_nbrs": compact_launches[name]}
         rows[name]["launches_by_path"] = path_launches
-        rows[name]["launches"] = (path_launches["train"]
-                                  if name == "dense_message_rowsum_bwd"
-                                  else path_launches["serve"])
+        rows[name]["launches"] = path_launches[MAIN_PATH.get(name, "serve")]
+        require(rows[name]["launches"] > 0, (name, path_launches))
+    require(sorted(rows) == sorted(kernels.SOURCES), sorted(rows))
     print(json.dumps({"kernels": list(rows.values()),
                       "predict_batch_ms": {"2x2220": ms2, "1x17760": ms3},
                       "fused_train_step_ms": {"2x2220": step_ms},
+                      "dense_fused_ms": {"2x2220": ms_d},
+                      "dense_plain_ms": {"2x2220": ms_p},
+                      "compact_nbrs_ms": {"2x2220": ms_e},
                       "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -76,4 +76,83 @@ __device__ __forceinline__ void stage(float4* __restrict__ dst,
   for (int t = threadIdx.x; t < n / 4; t += blockDim.x) dst[t] = s4[t];
 }
 
+// ---- pair featurization of the fused dense kernels ------------------------
+//
+// The same ops, in the same order, as the plain versions
+// (kernels.pair_d2, kernels.envelope_rbf): d^2 axis by axis as (a_i - a_j)^2 — the same
+// bits for (j, i) as for (i, j) — then d, the cosine envelope with the
+// coincident-atom rules, and the Gaussian channels.  Round-to-nearest
+// intrinsics keep the compiler from contracting any step into an FMA, so a
+// pair's features are one function of its d^2 wherever it lands in a grid.
+
+__device__ __forceinline__ float pair_d2(float xi, float yi, float zi,
+                                         float xj, float yj, float zj) {
+  const float dx = __fsub_rn(xi, xj), dy = __fsub_rn(yi, yj),
+              dz = __fsub_rn(zi, zj);
+  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                   __fmul_rn(dz, dz));
+}
+
+// d = sqrt(d^2) where d^2 > 0, else 0; returns the (unmasked) envelope
+// (cos(pi d / cutoff) + 1) / 2, 0 from the cutoff on, 1 at d = 0.
+__device__ __forceinline__ float envelope(float d2, float cutoff, float& d) {
+  d = d2 > 0.0f ? __fsqrt_rn(d2) : 0.0f;
+  float c = __fmul_rn(
+      __fadd_rn(cosf(__fdiv_rn(__fmul_rn(3.14159265358979f, d), cutoff)),
+                1.0f),
+      0.5f);
+  if (d >= cutoff) c = 0.0f;
+  if (d <= 0.0f) c = 1.0f;
+  return c;
+}
+
+// channel e: c * exp(-eta * (d - mu_e)^2)
+__device__ __forceinline__ float rbf_channel(float c, float d, float mu,
+                                             float neg_eta) {
+  const float t = __fsub_rn(d, mu);
+  return __fmul_rn(c, expf(__fmul_rn(neg_eta, __fmul_rn(t, t))));
+}
+
+// ---- the 16 x 16 pair tile of the fused dense kernels ---------------------
+//
+// A tile row k holds one feature of 256 pairs; pair p = g * 8 + q * 4 + r
+// (g < 32, q < 2, r < 4) sits at float4 q * 32 + g, lane r, so the 8 pairs
+// of pair group g are the float4s g and 32 + g of every row.
+constexpr int kTilePairs = 256;
+
+__device__ __forceinline__ int tile_slot(int p) {
+  return ((((p >> 2) & 1) * 32 + (p >> 3)) << 2) | (p & 3);
+}
+
+// y[p][u] += sum_k tile[k][pair pg * 8 + p] * w[k][og * 4 + u] for k = 0 ..
+// K - 1 in that order: one fmaf chain per output, the same for every pair.
+template <int K, int H>
+__device__ __forceinline__ void tile_mac(const float4* __restrict__ tile,
+                                         const float4* __restrict__ w, int pg,
+                                         int og, float (&y)[8][4]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const float4 za = tile[k * (kTilePairs / 4) + pg];
+    const float4 zb = tile[k * (kTilePairs / 4) + 32 + pg];
+    const float4 wv = w[k * (H / 4) + og];
+    const float zv[8] = {za.x, za.y, za.z, za.w, zb.x, zb.y, zb.z, zb.w};
+    const float ww[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+    for (int p = 0; p < 8; ++p)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) y[p][u] = fmaf(zv[p], ww[u], y[p][u]);
+  }
+}
+
+// out[t] = sum_p part[p * count + t] for p = 0 .. parts - 1 in that order:
+// the second pass of the kernels that split a reduction into fixed parts.
+__global__ void sum_parts(const float* __restrict__ part,
+                          float* __restrict__ out, int count, int parts) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= count) return;
+  float s = part[t];
+  for (int p = 1; p < parts; ++p) s += part[(size_t)p * count + t];
+  out[t] = s;
+}
+
 }  // namespace epnn

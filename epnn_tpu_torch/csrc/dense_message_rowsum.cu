@@ -139,15 +139,6 @@ dmr_partial(const float* __restrict__ pi, const float* __restrict__ pj,
   }
 }
 
-__global__ void dmr_reduce(const float* __restrict__ part,
-                           float* __restrict__ out, int RH, int splits) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= RH) return;
-  float s = part[t];
-  for (int p = 1; p < splits; ++p) s += part[(size_t)p * RH + t];
-  out[t] = s;
-}
-
 }  // namespace
 
 // part: (splits, R, H) scratch; out: (R, H); cols_per_split a multiple of
@@ -166,6 +157,7 @@ extern "C" int epnn_dense_message_rowsum(const float* pi, const float* pj,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int rh = R * H;
-  dmr_reduce<<<(rh + 255) / 256, 256, 0, stream>>>(part, out, rh, splits);
+  epnn::sum_parts<<<(rh + 255) / 256, 256, 0, stream>>>(part, out, rh,
+                                                        splits);
   return cudaGetLastError();
 }

@@ -263,19 +263,10 @@ dmr_bwd_partial(const float* __restrict__ pi, const float* __restrict__ pj,
   }
 }
 
-// out[t] = sum_p part[p * count + t], p in order
-__global__ void sum_parts(const float* __restrict__ part,
-                          float* __restrict__ out, int count, int parts) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= count) return;
-  float s = part[t];
-  for (int p = 1; p < parts; ++p) s += part[(size_t)p * count + t];
-  out[t] = s;
-}
-
 cudaError_t launch_sum(const float* part, float* out, int count, int parts,
                        cudaStream_t stream) {
-  sum_parts<<<(count + 255) / 256, 256, 0, stream>>>(part, out, count, parts);
+  epnn::sum_parts<<<(count + 255) / 256, 256, 0, stream>>>(part, out, count,
+                                                           parts);
   return cudaGetLastError();
 }
 

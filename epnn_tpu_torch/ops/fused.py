@@ -1,5 +1,6 @@
-"""Neighbor-split blocked forward — the big-graph serving path
-(counterpart of ``epnn_tpu/ops/fused.py``, exact path only).
+"""The blocked forwards from raw coordinates (counterpart of
+``epnn_tpu/ops/fused.py``): the neighbor-split forward, the big-graph
+serving path, and the two dense blocked forwards.
 
 The pair input of every MLP is a concat ``[a_i, a_j, e_ij]``, so its first
 layer splits: ``concat @ W1 = a_i @ W1_i + a_j @ W1_j + e_ij @ W1_e``.
@@ -10,9 +11,13 @@ round's sum over all pairs splits into
                    + Σ_{near j} [hid(full) − hid(nofeat)]_ij   (O(N·k))
 
 and the electron-passing rounds, gated to near pairs, run on the gathered
-O(N·k) set only.  The three hot loops are the CUDA kernels of
-:mod:`epnn_tpu_torch.ops.kernels`; the gathers, projections and update
-MLP stay plain PyTorch.  Precision is float32 throughout.
+O(N·k) set only (:func:`_forward_single_nbr`, three CUDA kernels).  The
+dense forwards featurize every pair instead: :func:`_forward_single` in
+row blocks of plain PyTorch (differentiable, any MLP depth), and
+:func:`_forward_single_pallas` with each round one fused CUDA kernel over
+the whole pair grid (inference-only).  The kernels are those of
+:mod:`epnn_tpu_torch.ops.kernels`; the gathers, projections and update MLP
+stay plain PyTorch.  Precision is float32 throughout.
 """
 
 from __future__ import annotations
@@ -24,10 +29,17 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from epnn_tpu_torch.featurize import rbf_centers
+from epnn_tpu_torch.featurize import (
+    envelope_rbf,
+    hard_gate,
+    pair_d2,
+    rbf_centers,
+)
 from epnn_tpu_torch.models.config import EPNNConfig
 from epnn_tpu_torch.ops.kernels import (
     dense_message_rowsum,
+    fused_epn_rowsum,
+    fused_message_rowsum,
     near_message_corr,
     near_pass_rowsum,
 )
@@ -118,22 +130,11 @@ def rbf_and_gate(d2: Tensor, cmask: Tensor, cfg: EPNNConfig):
     from squared distances ``d2`` (any shape).  ``cmask`` multiplies the
     envelope (pair validity).  Returns ``(rbf, gate)`` with shapes
     ``d2.shape + (e_dim,)`` and ``d2.shape``."""
-    d2 = d2.to(torch.float32)
-    cmask = cmask.to(torch.float32)
-    pos = d2 > 0.0
-    d = torch.where(pos, torch.sqrt(torch.where(pos, d2, 1.0)), 0.0)
-    c = (torch.cos(math.pi * d / cfg.cutoff) + 1.0) * 0.5
-    c = torch.where(d >= cfg.cutoff, 0.0, c)
-    c = torch.where(d <= 0.0, 1.0, c)
-    c = c * cmask
-    mu = rbf_centers(cfg.e_dim, cfg.cutoff, d2.device)
-    rbf = c[..., None] * torch.exp(-cfg.eta * (d[..., None] - mu) ** 2)
+    rbf, c = envelope_rbf(d2, cmask, cfg.cutoff, cfg.eta,
+                          rbf_centers(cfg.e_dim, cfg.cutoff, d2.device))
     if cfg.pass_weighting == "soft_envelope":
-        gate = c
-    else:
-        gate = (torch.amax(torch.clamp(rbf, cfg.is_near_tol, 1e5), dim=-1)
-                != cfg.is_near_tol).to(torch.float32)
-    return rbf, gate
+        return rbf, c
+    return rbf, hard_gate(rbf, cfg.is_near_tol)
 
 
 # ---------------------------------------------------------------------------
@@ -146,17 +147,6 @@ _NEIGHBOR_BLOCK_THRESHOLD = 4096
 _NEIGHBOR_BLOCK = 1024
 
 
-def _pair_d2(xyz_rows: Tensor, xyz_full: Tensor) -> Tensor:
-    """(R, N) squared distances, one (R, N) plane per axis.  The same ops
-    on (j, i) give the same bits as on (i, j): the pair's d² — and so its
-    RBF features — are symmetric, which the pass rounds rely on."""
-    d2 = None
-    for ax in range(3):
-        diff = xyz_rows[:, ax, None] - xyz_full[None, :, ax]
-        d2 = diff * diff if d2 is None else d2 + diff * diff
-    return d2
-
-
 def block_neighbor_select(xyz_full, mask_full, start, xyz_rows, mask_rows,
                           cutoff: float, k: int, with_d2: bool = False):
     """Rows [start, start+R) of the pair grid against all columns: the
@@ -164,7 +154,7 @@ def block_neighbor_select(xyz_full, mask_full, start, xyz_rows, mask_rows,
     ``torch.topk`` on −d² with −inf for non-candidates.  Returns
     ``(idx, mask[, d2])``, each (R, k); invalid slots carry mask 0, d² 0."""
     n = xyz_full.shape[0]
-    d2 = _pair_d2(xyz_rows, xyz_full)
+    d2 = pair_d2(xyz_rows[:, None], xyz_full[None])
     rows = start + torch.arange(xyz_rows.shape[0], device=xyz_full.device)
     cols = torch.arange(n, device=xyz_full.device)
     cand = (d2 < cutoff * cutoff) & (rows[:, None] != cols[None, :])
@@ -271,7 +261,7 @@ def _max_neighbor_count_cells(xyz, mask, cutoff: float) -> int:
 # the forward
 # ---------------------------------------------------------------------------
 
-def _check_supported(cfg: EPNNConfig, fused: FusedParams) -> None:
+def _check_precision(cfg: EPNNConfig) -> None:
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(
             "compute_dtype='bfloat16' is not ported yet (ROADMAP queue 1: "
@@ -280,11 +270,21 @@ def _check_supported(cfg: EPNNConfig, fused: FusedParams) -> None:
         raise NotImplementedError(
             f"dense_matmul_precision={cfg.dense_matmul_precision!r} is not "
             "ported yet (ROADMAP queue 1: precision tiers)")
-    for w in fused.messages + fused.passes:
-        if len(w.mids) != 1 or w.mids[0][0].shape[0] != w.mids[0][0].shape[1]:
-            raise NotImplementedError(
-                "the blocked forward's kernels take exactly one square mid "
-                "layer (mlp_hidden=(H, H))")
+
+
+def _one_square_mid(w: PairMLPWeights) -> bool:
+    return len(w.mids) == 1 and w.mids[0][0].shape[0] == w.mids[0][0].shape[1]
+
+
+def _check_kernel_mids(fused: FusedParams) -> None:
+    if not all(_one_square_mid(w) for w in fused.messages + fused.passes):
+        raise NotImplementedError(
+            "the blocked forward's kernels take exactly one square mid "
+            "layer (mlp_hidden=(H, H))")
+
+
+def _atom_inputs(x: Tensor, h: Tensor, q: Tensor) -> Tensor:
+    return torch.cat([x, h, q[:, None].to(x.dtype)], dim=-1)
 
 
 def _forward_single_nbr(
@@ -309,12 +309,22 @@ def _forward_single_nbr(
     the far-field kernel.
 
     ``neighbors`` — precomputed ``(idx, nbr_mask, d2)``, each (N, k), from
-    :func:`build_neighbors`; skips the selection."""
+    :func:`build_neighbors`, or ``(idx, nbr_mask)`` (as
+    :func:`epnn_tpu_torch.ops.kernels.neighbor_compact` builds it), whose
+    d² is then recomputed from the gathered coordinates; skips the
+    selection."""
     n = x.shape[0]
     if neighbors is None:
         neighbors = build_neighbors(xyz, node_mask, cfg.cutoff, k,
                                     with_d2=True)
-    idx, nbr_mask, d2_nbr = neighbors
+    if len(neighbors) == 3:
+        idx, nbr_mask, d2_nbr = neighbors
+    else:
+        # d² from the gathered coordinates: symmetric bit for bit, as
+        # near_pass_rowsum's antisymmetry needs
+        idx, nbr_mask = neighbors
+        idx = idx.to(torch.int64)
+        d2_nbr = pair_d2(xyz[:, None], xyz[idx])
     nbr_mask = nbr_mask.to(x.dtype)
     k_eff = idx.shape[1]
     rbf_nbr, gate_nbr = rbf_and_gate(d2_nbr, nbr_mask, cfg)
@@ -335,12 +345,9 @@ def _forward_single_nbr(
     q = q0
     nm = node_mask[:, None]
 
-    def atom_inputs(h, q):
-        return torch.cat([x, h, q[:, None].to(x.dtype)], dim=-1)
-
     for t, w in enumerate(fused.messages):
         (w2, b2), = w.mids
-        a = atom_inputs(h, q)
+        a = _atom_inputs(x, h, q)
         pi = (a @ w.w1_i + w.b1).contiguous()   # b1 folded once per atom
         pj = (a @ w.w1_j).contiguous()
         if t == 0 and uniform_q0:
@@ -374,13 +381,138 @@ def _forward_single_nbr(
     # electron passing: gathered pairs only (the gate is zero off the near set)
     for w in fused.passes:
         (w2, b2), = w.mids
-        a = atom_inputs(h, q)
+        a = _atom_inputs(x, h, q)
         pi = a @ w.w1_i + w.b1
         pj = a @ w.w1_j
         rs = torch.cat([pi, pj], dim=-1)
         dsum = near_pass_rowsum(rs, torch.index_select(rs, 0, idx_flat),
                                 rbf_flat, gh_pass, w.w1_e, w2, b2)
         q = q + (dsum @ w.w_out)[:, 0]
+    return q * node_mask
+
+
+def _forward_single(
+    fused: FusedParams,
+    x: Tensor,          # (N, n_elems)
+    q0: Tensor,         # (N,)
+    xyz: Tensor,        # (N, 3)
+    node_mask: Tensor,  # (N,)
+    cfg: EPNNConfig,
+    block: int = 128,
+) -> Tensor:
+    """One graph through the dense blocked forward in plain PyTorch (the
+    JAX package runs this path in XLA): rows in blocks of ``block`` against
+    all atoms, so peak memory is O(block·N·E).  Any MLP depth;
+    differentiable through autograd.  Messages weight pairs by the pair
+    mask with its diagonal kept (``mask_messages``) or count all N
+    columns; the RBF clears self pairs.  On the card it is the plain
+    reference of the fused dense path."""
+    n = x.shape[0]
+    cols = torch.arange(n, device=x.device)
+    if cfg.mask_messages:
+        msg_count = node_mask * torch.sum(node_mask)
+    else:
+        msg_count = torch.full((n,), float(n), dtype=x.dtype, device=x.device)
+
+    def row_blocks():
+        """(rows, pair mask, RBF validity, rbf, gate) of each row block;
+        rebuilt every round, as the JAX scan does, to keep memory at
+        O(block·N·E)."""
+        for s in range(0, n, block):
+            sl = slice(s, s + block)
+            rows = s + torch.arange(xyz[sl].shape[0], device=x.device)
+            pairm = node_mask[sl, None] * node_mask[None, :]
+            valid = pairm * (rows[:, None] != cols[None, :])
+            rbf, gate = rbf_and_gate(pair_d2(xyz[sl, None], xyz[None]),
+                                     valid, cfg)
+            yield sl, pairm, valid, rbf, gate
+
+    h = x.new_zeros((n, cfg.h_dim))
+    q = q0
+    nm = node_mask[:, None]
+    for w in fused.messages:
+        a = _atom_inputs(x, h, q)
+        pi, pj = a @ w.w1_i, a @ w.w1_j
+        sums = []
+        for sl, pairm, _, rbf, _ in row_blocks():
+            hid = torch.relu((pi[sl, None, :] + pj[None, :, :])
+                             + rbf @ w.w1_e + w.b1)
+            hid = _mids(hid, w)
+            if cfg.mask_messages:
+                hid = hid * pairm[:, :, None]
+            sums.append(torch.sum(hid, dim=1))
+        messages = torch.cat(sums) @ w.w_out + msg_count[:, None] * w.b_out
+        upd_in = torch.cat([h, messages], dim=-1) * nm
+        h = _apply_mlp(fused.update, upd_in) * nm
+
+    # b_out cancels in f_ij − f_ji: the transfer is a W_out contraction
+    for w in fused.passes:
+        a = _atom_inputs(x, h, q)
+        pi, pj = a @ w.w1_i, a @ w.w1_j
+        sums = []
+        for sl, _, valid, rbf, gate in row_blocks():
+            epart = rbf @ w.w1_e
+            hid_n = torch.relu((pi[sl, None, :] + pj[None, :, :]) + epart
+                               + w.b1)
+            hid_t = torch.relu((pi[None, :, :] + pj[sl, None, :]) + epart
+                               + w.b1)
+            hid_n, hid_t = _mids(hid_n, w), _mids(hid_t, w)
+            weight = (valid * gate)[:, :, None]
+            sums.append(torch.sum(0.5 * weight * (hid_n - hid_t), dim=1))
+        q = q + (torch.cat(sums) @ w.w_out)[:, 0]
+    return q * node_mask
+
+
+def _forward_single_pallas(
+    fused: FusedParams,
+    x: Tensor,          # (N, n_elems)
+    q0: Tensor,         # (N,)
+    xyz: Tensor,        # (N, 3)
+    node_mask: Tensor,  # (N,)
+    cfg: EPNNConfig,
+) -> Tensor:
+    """One graph through the fully fused dense forward: each round is one
+    kernel over the whole pair grid — :func:`fused_message_rowsum` for the
+    message rounds, :func:`fused_epn_rowsum` for the pass rounds — with the
+    RBF, gate, pair MLP and (for passing) both orderings built in the tile;
+    only (N, ·) tensors leave it.  Inference-only, as in the JAX package.
+    No padding: the kernels mask their own edges, and ``col_vec`` is ones
+    on the caller's width, so ``mask_messages=False`` counts exactly its
+    columns."""
+    n = x.shape[0]
+    xyz = xyz.contiguous()
+    node_mask = node_mask.contiguous()
+    col_vec = torch.ones(n, dtype=x.dtype, device=x.device)
+    if cfg.mask_messages:
+        msg_count = node_mask * torch.sum(node_mask)
+    else:
+        msg_count = torch.full((n,), float(n), dtype=x.dtype, device=x.device)
+    pair_kw = dict(cutoff=cfg.cutoff, eta=cfg.eta, tol=cfg.is_near_tol)
+
+    h = x.new_zeros((n, cfg.h_dim))
+    q = q0
+    nm = node_mask[:, None]
+    for w in fused.messages:
+        (w2, b2), = w.mids
+        a = _atom_inputs(x, h, q)
+        pi = (a @ w.w1_i + w.b1).contiguous()   # b1 folded once per atom
+        pj = (a @ w.w1_j).contiguous()
+        hsum = fused_message_rowsum(pi, pj, xyz, node_mask, col_vec, w.w1_e,
+                                    w2, b2, masked=cfg.mask_messages,
+                                    **pair_kw)
+        messages = hsum @ w.w_out + msg_count[:, None] * w.b_out
+        upd_in = torch.cat([h, messages], dim=-1) * nm
+        h = _apply_mlp(fused.update, upd_in) * nm
+
+    soft = cfg.pass_weighting == "soft_envelope"
+    for w in fused.passes:
+        (w2, b2), = w.mids
+        a = _atom_inputs(x, h, q)
+        pi = (a @ w.w1_i + w.b1).contiguous()
+        pj = (a @ w.w1_j).contiguous()
+        dsum = fused_epn_rowsum(pi, pj, xyz, node_mask, w.w1_e, w2, b2,
+                                soft_gate=soft, **pair_kw)
+        q = q + (dsum @ w.w_out)[:, 0]           # b_out cancels
     return q * node_mask
 
 
@@ -391,28 +523,56 @@ def forward_blocked(
     xyz: Tensor,        # (B, N, 3)
     node_mask: Tensor,  # (B, N)
     cfg: EPNNConfig,
-    neighbor_k: int,
+    block: int = 128,
+    neighbor_k: Optional[int] = None,
+    use_pallas: bool = False,
+    remat: bool = False,
     neighbors: Optional[Tuple[Tensor, ...]] = None,
     uniform_q0: bool = False,
 ) -> Tensor:
-    """Batched neighbor-split forward from raw coordinates: (B, N) charges.
+    """Batched blocked forward from raw coordinates: (B, N) charges.
+    Graphs run one after another (a Python loop, not a batched kernel).
 
-    ``neighbor_k`` must be ≥ the true max neighbor count within the cutoff
-    (:func:`max_neighbor_count`).  ``neighbors`` — optional precomputed
+    With ``neighbor_k`` (≥ the true max neighbor count within the cutoff,
+    :func:`max_neighbor_count`): the neighbor-split forward
+    (:func:`_forward_single_nbr`).  ``neighbors`` — optional precomputed
     ``(idx, nbr_mask, d2)`` batch arrays (B, N, neighbor_k) from
-    :func:`build_neighbors_batch`.  ``uniform_q0`` — see
-    :func:`_forward_single_nbr`.  Graphs run one after another (a Python
-    loop, not a batched kernel).
+    :func:`build_neighbors_batch`, or ``(idx, nbr_mask)`` (e.g. from
+    :func:`epnn_tpu_torch.ops.kernels.neighbor_compact`), whose d² is
+    recomputed from the coordinates.  ``uniform_q0`` — see
+    :func:`_forward_single_nbr`.  ``use_pallas`` changes nothing there: the
+    port's kernels always run on CUDA tensors.
 
-    Equivalent to ``EPNN(cfg)(x, q0, rbf_edges(xyz, mask), mask)`` up to
-    float32 association noise.  Only the JAX package's neighbor-split tier
-    is ported: the dense blocked forwards, the cell-list builder, the
-    clustered far field and the huge-N memory mode are ROADMAP items."""
-    _check_supported(cfg, fused)
+    Without ``neighbor_k``: the dense blocked forwards.  ``use_pallas``
+    with exactly one square mid layer selects the fully fused kernels
+    (:func:`_forward_single_pallas`, inference-only); otherwise
+    :func:`_forward_single` runs in plain PyTorch in row blocks of
+    ``block`` (any depth, differentiable).  Both ignore ``uniform_q0``.
+
+    ``remat`` is not ported.  Equivalent to ``EPNN(cfg)(x, q0,
+    rbf_edges(xyz, mask), mask)`` up to float32 association noise.  The
+    cell-list builder, the clustered far field and the huge-N memory mode
+    are ROADMAP items."""
+    _check_precision(cfg)
+    if remat:
+        raise NotImplementedError(
+            "remat=True is not ported yet (ROADMAP 'Training, deferred "
+            "options' item 3)")
+    if neighbors is not None and neighbor_k is None:
+        raise ValueError("neighbors requires neighbor_k")
+    if neighbor_k is not None:
+        _check_kernel_mids(fused)
     outs = []
     for b in range(x.shape[0]):
-        nb = None if neighbors is None else tuple(a[b] for a in neighbors)
-        outs.append(_forward_single_nbr(
-            fused, x[b], q0[b], xyz[b], node_mask[b], cfg, k=neighbor_k,
-            uniform_q0=uniform_q0, neighbors=nb))
+        args = (fused, x[b], q0[b], xyz[b], node_mask[b], cfg)
+        if neighbor_k is not None:
+            nb = None if neighbors is None else tuple(a[b] for a in neighbors)
+            outs.append(_forward_single_nbr(*args, k=neighbor_k,
+                                            uniform_q0=uniform_q0,
+                                            neighbors=nb))
+        elif use_pallas and all(_one_square_mid(w) for w in
+                                fused.messages + fused.passes):
+            outs.append(_forward_single_pallas(*args))
+        else:
+            outs.append(_forward_single(*args, block=block))
     return torch.stack(outs)

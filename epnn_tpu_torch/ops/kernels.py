@@ -1,5 +1,6 @@
-"""The hand-written CUDA kernels of the blocked forward, each with its
-plain PyTorch version (counterpart of ``epnn_tpu/ops/pallas_kernels.py``).
+"""The hand-written CUDA kernels of the blocked forwards and of neighbor
+selection, each with its plain PyTorch version (counterpart of
+``epnn_tpu/ops/pallas_kernels.py``).
 
 * ``dense_message_rowsum`` — ``csrc/dense_message_rowsum.cu``, replaces
   ``epnn_tpu/ops/pallas_kernels.py:98``;
@@ -8,24 +9,33 @@ plain PyTorch version (counterpart of ``epnn_tpu/ops/pallas_kernels.py``).
 * ``near_pass_rowsum`` — ``csrc/near_pass_rowsum.cu``, replaces
   ``pallas_kernels.py:1410``;
 * ``dense_message_rowsum_bwd`` — ``csrc/dense_message_rowsum_bwd.cu``, the
-  backward of the far field, replaces ``_dmr_bwd`` (``pallas_kernels.py:1079``).
+  backward of the far field, replaces ``_dmr_bwd`` (``pallas_kernels.py:1079``);
+* ``fused_message_rowsum`` — ``csrc/fused_message_rowsum.cu``, a dense
+  message round with the featurization in the tile, replaces
+  ``pallas_kernels.py:490``;
+* ``fused_epn_rowsum`` — ``csrc/fused_epn_rowsum.cu``, a dense
+  electron-passing round, replaces ``pallas_kernels.py:368``;
+* ``neighbor_compact`` — ``csrc/neighbor_compact.cu``, the within-cutoff
+  neighbor list in one pass, replaces ``pallas_kernels.py:685``.
 
-The three forwards are differentiable: each public function goes through a
-``torch.autograd.Function`` on the CPU and on CUDA alike.  The far field's
-backward is the ``dense_message_rowsum_bwd`` kernel; the two near kernels'
-backwards recompute through their plain versions, as the JAX package's
-custom VJPs recompute through their XLA twins.
+The three neighbor-split forwards are differentiable: each public function
+goes through a ``torch.autograd.Function`` on the CPU and on CUDA alike.
+The far field's backward is the ``dense_message_rowsum_bwd`` kernel; the
+two near kernels' backwards recompute through their plain versions, as the
+JAX package's custom VJPs recompute through their XLA twins.  The two fused
+dense kernels are inference-only, as in the JAX package: their Function's
+backward raises.
 
 Each wrapper takes tensors on one device.  On the CPU it runs the plain
 version (``*_plain``); on a CUDA tensor it launches the kernel on the
 current stream or raises — there is no fallback.  Every launch adds one
 to :data:`LAUNCHES`, so a run can show which kernels it went through.
 
-The kernels are float32 CUDA C++ for ``sm_90a`` with a plain C interface,
-built by ``nvcc`` into shared libraries under ``build/epnn_tpu_torch/``
-of the checkout on first use and loaded with ``ctypes``;
-:func:`build` compiles all of them in parallel.  Nothing is built when
-this module is imported.
+The kernels are CUDA C++ for ``sm_90a`` with a plain C interface, float32
+on the CUDA cores, built by ``nvcc`` into shared libraries under
+``build/epnn_tpu_torch/`` of the checkout on first use and loaded with
+``ctypes``; :func:`build` compiles all of them in parallel.  Nothing is
+built when this module is imported.
 """
 
 from __future__ import annotations
@@ -41,6 +51,9 @@ from typing import Dict, Iterable, Optional
 
 import torch
 
+from epnn_tpu_torch.featurize import (envelope_rbf, hard_gate, kernel_mu,
+                                      pair_d2)
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "epnn_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -52,6 +65,9 @@ SOURCES = {
     "near_message_corr": "near_message_corr.cu",
     "near_pass_rowsum": "near_pass_rowsum.cu",
     "dense_message_rowsum_bwd": "dense_message_rowsum_bwd.cu",
+    "fused_message_rowsum": "fused_message_rowsum.cu",
+    "fused_epn_rowsum": "fused_epn_rowsum.cu",
+    "neighbor_compact": "neighbor_compact.cu",
 }
 
 #: kernel launches since the last :func:`reset_launch_counts`
@@ -64,11 +80,15 @@ KERNEL_E = 48
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _ARGTYPES = {
     "dense_message_rowsum": [_P] * 7 + [_I] * 5 + [_P],
     "near_message_corr": [_P] * 8 + [_I] * 4 + [_P],
     "near_pass_rowsum": [_P] * 8 + [_I] * 4 + [_P],
     "dense_message_rowsum_bwd": [_P] * 11 + [_I] * 7 + [_P],
+    "fused_message_rowsum": [_P] * 11 + [_I] * 6 + [_F] * 2 + [_P],
+    "fused_epn_rowsum": [_P] * 10 + [_I] * 6 + [_F] * 3 + [_P],
+    "neighbor_compact": [_P] * 4 + [_I] * 2 + [_F] + [_P],
 }
 
 
@@ -169,9 +189,10 @@ def _check(name: str, tensors: dict, shapes: dict) -> torch.device:
     return device
 
 
-def _launch(name: str, device: torch.device, tensors, ints,
+def _launch(name: str, device: torch.device, tensors, scalars,
             vector_read) -> None:
-    """``vector_read``: the tensors the kernel reads as float4, which must
+    """``scalars``: the C entry's int and float arguments, in order.
+    ``vector_read``: the tensors the kernel reads as float4, which must
     start on a 16-byte boundary; the others are read one float at a time
     and may be any view (a row of a batch, for one)."""
     for key, t in vector_read.items():
@@ -181,7 +202,7 @@ def _launch(name: str, device: torch.device, tensors, ints,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(_lib(name), f"epnn_{name}")(
-            *[t.data_ptr() for t in tensors], *ints, stream)
+            *[t.data_ptr() for t in tensors], *scalars, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     LAUNCHES[name] += 1
@@ -193,6 +214,12 @@ def _require_widths(name: str, h: int, e: Optional[int] = None) -> None:
             f"{name}: the CUDA kernel is built for H={KERNEL_H}"
             + (f", E={KERNEL_E}" if e is not None else "")
             + f"; got H={h}" + (f", E={e}" if e is not None else ""))
+
+
+def _plain_rows(r: int, n: int, width: int) -> int:
+    """Rows a plain version takes at once, so that no (rows, N, width)
+    tensor exceeds 2^24 floats."""
+    return max(1, min(r, (1 << 24) // max(1, n * width)))
 
 
 # ---------------------------------------------------------------------------
@@ -211,7 +238,7 @@ def dense_message_rowsum_plain(pi, pj, col_vec, w2, b2):
     row-blocked so no (R, N, H) tensor exists (at most 2^24 floats)."""
     r, h = pi.shape
     n = pj.shape[0]
-    rb = max(1, min(r, (1 << 24) // max(1, n * h)))
+    rb = _plain_rows(r, n, h)
     out = pi.new_empty((r, h))
     for s in range(0, r, rb):
         hid = torch.relu(pi[s:s + rb, None, :] + pj[None, :, :])
@@ -220,11 +247,13 @@ def dense_message_rowsum_plain(pi, pj, col_vec, w2, b2):
     return out
 
 
-def _dense_message_splits(r: int, n: int) -> tuple:
-    """(splits, cols_per_split): the fixed column split of the kernel's
-    first pass — enough blocks for the card, whole 16-column chunks."""
+def _dense_message_splits(r: int, n: int,
+                          target: int = _DMR_TARGET_BLOCKS) -> tuple:
+    """(splits, cols_per_split): the fixed column split of a pair-grid
+    kernel's first pass — about ``target`` blocks of 16 rows, whole
+    16-column chunks."""
     row_blocks = -(-r // _DMR_ROWS)
-    want = max(1, -(-_DMR_TARGET_BLOCKS // row_blocks))
+    want = max(1, -(-target // row_blocks))
     cols = -(-n // want)
     cols = -(-cols // _DMR_TILE) * _DMR_TILE
     return -(-n // cols), cols
@@ -263,7 +292,7 @@ def dense_message_rowsum_bwd_plain(pi, pj, col_vec, w2, b2, g):
     Returns ``(dpi, dpj, dw2, db2)``; col_vec gets no gradient."""
     r, h = pi.shape
     n = pj.shape[0]
-    rb = max(1, min(r, (1 << 24) // max(1, n * h)))
+    rb = _plain_rows(r, n, h)
     dpi = pi.new_empty((r, h))
     dpj = pj.new_zeros((n, h))
     dw2 = w2.new_zeros((h, h))
@@ -479,3 +508,234 @@ def near_pass_rowsum(rs, ppn, rbf, gh, w1e, w2, b2):
     XLA twin)."""
     return _PlainRecompute.apply(_near_pass_rowsum_fwd, near_pass_rowsum_plain,
                                  rs, ppn, rbf, gh, w1e, w2, b2)
+
+
+# ---------------------------------------------------------------------------
+# the fused dense kernels' shared pieces
+# ---------------------------------------------------------------------------
+
+def _tile_features(xyz_rows, xyz, mask_rows, mask, start: int, cutoff: float,
+                   eta: float, mu):
+    """Rows [start, start + R) against all atoms: ``(rbf, c, pairm)`` with
+    the envelope cleared on self pairs and masked atoms; ``pairm`` is the
+    pair mask with its diagonal kept."""
+    rows = start + torch.arange(xyz_rows.shape[0], device=xyz.device)
+    cols = torch.arange(xyz.shape[0], device=xyz.device)
+    pairm = mask_rows[:, None] * mask[None, :]
+    cmask = pairm * (rows[:, None] != cols[None, :])
+    rbf, c = envelope_rbf(pair_d2(xyz_rows[:, None], xyz[None]), cmask,
+                          cutoff, eta, mu)
+    return rbf, c, pairm
+
+
+class _InferenceOnly(torch.autograd.Function):
+    """A fused dense kernel's forward, whose backward raises: the JAX
+    package's grid-accumulator kernels have no VJP either
+    (``forward_blocked``'s docstring, ``ops/fused.py:1730``), and a
+    gradient must never come back silently as zero."""
+
+    @staticmethod
+    def forward(ctx, fwd, name, *args):
+        ctx.name = name
+        return fwd(*args)
+
+    @staticmethod
+    def backward(ctx, g):
+        raise NotImplementedError(
+            f"{ctx.name} is inference-only (as in the JAX package): "
+            "differentiate forward_blocked without use_pallas, or with "
+            "neighbor_k")
+
+
+#: blocks the fused dense kernels aim for: 132 SMs, two resident blocks
+#: each (84 KB and 66 KB of shared memory a block), a few waves
+_FUSED_TARGET_BLOCKS = 8 * 132
+
+
+# ---------------------------------------------------------------------------
+# 4. fused_message_rowsum — a dense message round, featurization in the tile
+# ---------------------------------------------------------------------------
+
+def fused_message_rowsum_plain(pi, pj, xyz, node_mask, col_vec, w1e, w2, b2,
+                               cutoff: float = 3.0, eta: float = 2.0,
+                               tol: float = 1e-5, masked: bool = True):
+    """Σ_j w_ij · relu(relu(pi_i + pj_j + rbf_ij @ W1e) @ W2 + b2) as
+    (N, H), with w_ij the pair mask (diagonal kept) when ``masked``, else
+    ``col_vec_j``; row-blocked so no (N, N, E) tensor exists.  ``tol`` is
+    unused (the message round has no gate), as in the JAX kernel."""
+    n, h = pi.shape
+    mu = kernel_mu(w1e.shape[0], cutoff, pi.device)
+    rb = _plain_rows(n, n, max(w1e.shape[0], h))
+    out = pi.new_empty((n, h))
+    for s in range(0, n, rb):
+        sl = slice(s, s + rb)
+        rbf, _, pairm = _tile_features(xyz[sl], xyz, node_mask[sl], node_mask,
+                                       s, cutoff, eta, mu)
+        hid = torch.relu((pi[sl, None, :] + pj[None, :, :]) + rbf @ w1e)
+        hid = torch.relu(hid @ w2 + b2)
+        w = pairm if masked else col_vec[None, :].expand_as(pairm)
+        out[sl] = torch.einsum("bn,bnh->bh", w, hid)
+    return out
+
+
+def _fused_message_rowsum_fwd(pi, pj, xyz, node_mask, col_vec, w1e, w2, b2,
+                              cutoff, eta, tol, masked):
+    name = "fused_message_rowsum"
+    n, h = pi.shape
+    e = w1e.shape[0]
+    device = _check(name, dict(pi=pi, pj=pj, xyz=xyz, node_mask=node_mask,
+                               col_vec=col_vec, w1e=w1e, w2=w2, b2=b2),
+                    dict(pi=(n, h), pj=(n, h), xyz=(n, 3), node_mask=(n,),
+                         col_vec=(n,), w1e=(e, h), w2=(h, h), b2=(h,)))
+    if device.type == "cpu":
+        return fused_message_rowsum_plain(pi, pj, xyz, node_mask, col_vec,
+                                          w1e, w2, b2, cutoff, eta, tol,
+                                          masked)
+    _require_widths(name, h, e)
+    out = pi.new_empty((n, h))
+    if n == 0:
+        return out
+    splits, cols = _dense_message_splits(n, n, _FUSED_TARGET_BLOCKS)
+    part = pi.new_empty((splits, n, h))
+    _launch(name, device, (pi, pj, xyz, node_mask, col_vec, w1e, w2, b2,
+                           kernel_mu(e, cutoff, device), part, out),
+            (n, h, e, splits, cols, int(bool(masked)), float(cutoff),
+             float(eta)), dict(w1e=w1e, w2=w2))
+    return out
+
+
+def fused_message_rowsum(pi, pj, xyz, node_mask, col_vec, w1e, w2, b2,
+                         cutoff: float = 3.0, eta: float = 2.0,
+                         tol: float = 1e-5, masked: bool = True):
+    """One dense message round's row sums with the featurization in the
+    tile (see ``csrc/fused_message_rowsum.cu``):
+
+        out_i = Σ_j w_ij · relu(relu(pi_i + pj_j + rbf_ij @ W1e) @ W2 + b2)
+
+    pi, pj (N, H), pi carrying b1; xyz (N, 3); node_mask, col_vec (N,);
+    W1e (E, H); W2 (H, H); b2 (H,).  ``masked`` weights by the pair mask
+    (diagonal kept), else by ``col_vec``.  The caller applies W_out and the
+    Σ_j b_out term.  Inference-only: a backward raises."""
+    return _InferenceOnly.apply(_fused_message_rowsum_fwd,
+                                "fused_message_rowsum", pi, pj, xyz,
+                                node_mask, col_vec, w1e, w2, b2, cutoff, eta,
+                                tol, masked)
+
+
+# ---------------------------------------------------------------------------
+# 5. fused_epn_rowsum — a dense electron-passing round
+# ---------------------------------------------------------------------------
+
+def fused_epn_rowsum_plain(pi, pj, xyz, node_mask, w1e, w2, b2,
+                           cutoff: float = 3.0, eta: float = 2.0,
+                           tol: float = 1e-5, soft_gate: bool = False):
+    """Σ_j 0.5 · gate_ij · (hid(i, j) − hid(j, i)) as (N, H), both
+    orderings from one epart, gate the hard is-near gate or (``soft_gate``)
+    the masked envelope; row-blocked so no (N, N, E) tensor exists."""
+    n, h = pi.shape
+    mu = kernel_mu(w1e.shape[0], cutoff, pi.device)
+    rb = _plain_rows(n, n, max(w1e.shape[0], h))
+    out = pi.new_empty((n, h))
+    for s in range(0, n, rb):
+        sl = slice(s, s + rb)
+        rbf, c, _ = _tile_features(xyz[sl], xyz, node_mask[sl], node_mask,
+                                   s, cutoff, eta, mu)
+        epart = rbf @ w1e
+        hid_n = torch.relu((pi[sl, None, :] + pj[None, :, :]) + epart)
+        hid_t = torch.relu((pj[sl, None, :] + pi[None, :, :]) + epart)
+        hid_n = torch.relu(hid_n @ w2 + b2)
+        hid_t = torch.relu(hid_t @ w2 + b2)
+        gate = c if soft_gate else hard_gate(rbf, tol)
+        out[sl] = torch.sum((0.5 * gate)[:, :, None] * (hid_n - hid_t), dim=1)
+    return out
+
+
+def _fused_epn_rowsum_fwd(pi, pj, xyz, node_mask, w1e, w2, b2, cutoff, eta,
+                          tol, soft_gate):
+    name = "fused_epn_rowsum"
+    n, h = pi.shape
+    e = w1e.shape[0]
+    device = _check(name, dict(pi=pi, pj=pj, xyz=xyz, node_mask=node_mask,
+                               w1e=w1e, w2=w2, b2=b2),
+                    dict(pi=(n, h), pj=(n, h), xyz=(n, 3), node_mask=(n,),
+                         w1e=(e, h), w2=(h, h), b2=(h,)))
+    if device.type == "cpu":
+        return fused_epn_rowsum_plain(pi, pj, xyz, node_mask, w1e, w2, b2,
+                                      cutoff, eta, tol, soft_gate)
+    _require_widths(name, h, e)
+    out = pi.new_empty((n, h))
+    if n == 0:
+        return out
+    splits, cols = _dense_message_splits(n, n, _FUSED_TARGET_BLOCKS)
+    part = pi.new_empty((splits, n, h))
+    _launch(name, device, (pi, pj, xyz, node_mask, w1e, w2, b2,
+                           kernel_mu(e, cutoff, device), part, out),
+            (n, h, e, splits, cols, int(bool(soft_gate)), float(cutoff),
+             float(eta), float(tol)), dict(w1e=w1e, w2=w2))
+    return out
+
+
+def fused_epn_rowsum(pi, pj, xyz, node_mask, w1e, w2, b2,
+                     cutoff: float = 3.0, eta: float = 2.0, tol: float = 1e-5,
+                     soft_gate: bool = False):
+    """One dense electron-passing round's antisymmetric row sums (see
+    ``csrc/fused_epn_rowsum.cu``):
+
+        out_i = Σ_j 0.5 · gate_ij · (hid(i, j) − hid(j, i))
+
+    with the RBF, the gate and both orderings built in the tile; arguments
+    as :func:`fused_message_rowsum` without ``col_vec``.  A pair's two
+    transfers are exact negations, so Σ_i out_i @ W_out conserves charge to
+    f32 summation.  The caller applies W_out (b_out cancels).
+    Inference-only: a backward raises."""
+    return _InferenceOnly.apply(_fused_epn_rowsum_fwd, "fused_epn_rowsum", pi,
+                                pj, xyz, node_mask, w1e, w2, b2, cutoff, eta,
+                                tol, soft_gate)
+
+
+# ---------------------------------------------------------------------------
+# 6. neighbor_compact — the within-cutoff neighbor list in one pass
+# ---------------------------------------------------------------------------
+
+def neighbor_compact_plain(xyz, node_mask, cutoff: float, k: int):
+    """(idx int64, mask float32), each (N, k): for each atom the columns
+    with d² < cutoff² (not self, both atoms valid) in ascending order, the
+    first k of them; unused slots hold idx 0 and mask 0."""
+    n = xyz.shape[0]
+    idx = torch.zeros((n, k), dtype=torch.int64, device=xyz.device)
+    mask = xyz.new_zeros((n, k))
+    cols = torch.arange(n, device=xyz.device)
+    rb = _plain_rows(n, n, 1)
+    for s in range(0, n, rb):
+        d2 = pair_d2(xyz[s:s + rb, None], xyz[None])
+        rows = s + torch.arange(d2.shape[0], device=xyz.device)
+        hit = ((d2 < cutoff * cutoff) & (rows[:, None] != cols[None, :])
+               & (node_mask[s:s + rb, None] > 0) & (node_mask[None, :] > 0))
+        slot = torch.cumsum(hit, dim=1) - 1
+        r, c = (hit & (slot < k)).nonzero(as_tuple=True)
+        idx[s + r, slot[r, c]] = c
+        mask[s + r, slot[r, c]] = 1.0
+    return idx, mask
+
+
+def neighbor_compact(xyz, node_mask, cutoff: float, k: int):
+    """Kernel-built neighbor list (see ``csrc/neighbor_compact.cu``):
+    ``(idx, nbr_mask)``, each (N, k), the pairs within the cutoff in
+    ascending column order.  The same contract as
+    :func:`epnn_tpu_torch.ops.fused.build_neighbors`: k must be at least
+    the true max neighbor count, or pairs are dropped; the set is the one
+    top-k selects, only the order differs.  idx is int64 (its values equal
+    the JAX kernel's int32)."""
+    name = "neighbor_compact"
+    n = xyz.shape[0]
+    device = _check(name, dict(xyz=xyz, node_mask=node_mask),
+                    dict(xyz=(n, 3), node_mask=(n,)))
+    if device.type == "cpu":
+        return neighbor_compact_plain(xyz, node_mask, cutoff, k)
+    idx = torch.empty((n, k), dtype=torch.int64, device=device)
+    mask = xyz.new_empty((n, k))
+    if n == 0 or k == 0:
+        return idx, mask
+    _launch(name, device, (xyz, node_mask, idx, mask),
+            (n, k, float(cutoff * cutoff)), {})
+    return idx, mask

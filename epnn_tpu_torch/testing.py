@@ -84,6 +84,37 @@ def disjoint_pair_gh(idx: np.ndarray, mask: np.ndarray, value: float = 0.5):
     return gh, np.array(pairs, np.int64).reshape(-1, 2)
 
 
+#: dimer probe geometry (Å): pair separations, and the lattice of pair
+#: centers, wide enough that atoms of two pairs are ≥ 4 Å apart
+DIMER_SEPARATION = (1.0, 2.5)
+DIMER_LATTICE = 7.0
+
+
+def dimer_probe(n_pairs: int, seed: int = 0):
+    """Coordinates for the dense pass kernel's antisymmetry probe:
+    ``n_pairs`` disjoint atom pairs, each 1.0–2.5 Å apart (randomly
+    oriented, centered on a cubic lattice of :data:`DIMER_LATTICE` Å), so
+    every atom is ≥ 4 Å from all atoms but its partner and each row of the
+    pair grid holds one near pair.  A seeded permutation of the atoms
+    spreads most pairs over different tiles of the grid.  Returns ``(xyz
+    (2·n_pairs, 3) float32, pairs (n_pairs, 2) int64)``."""
+    g = np.random.default_rng(seed)
+    side = 1
+    while side ** 3 < n_pairs:
+        side += 1
+    centers = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"),
+                       axis=-1).reshape(-1, 3)[:n_pairs] * DIMER_LATTICE
+    u = g.normal(size=(n_pairs, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    half = 0.5 * g.uniform(*DIMER_SEPARATION, size=(n_pairs, 1)) * u
+    xyz = np.concatenate([centers - half, centers + half])
+    perm = g.permutation(2 * n_pairs)          # new position of each atom
+    out = np.empty_like(xyz)
+    out[perm] = xyz
+    pairs = np.stack([perm[:n_pairs], perm[n_pairs:]], axis=1)
+    return out.astype(np.float32), pairs.astype(np.int64)
+
+
 def golden_boxes():
     """The B = 2 batch of ``testdata/water2220_mixed_b16.npz``: two
     2,220-atom boxes, seed 0 with Q = 0 and seed 1 with Q = +1."""
