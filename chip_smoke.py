@@ -2,20 +2,24 @@
 """Smoke run of the PyTorch/CUDA port (``epnn_tpu_torch``) on one NVIDIA
 card: ``python3 chip_smoke.py`` from the repository root.
 
-1. Device: the card's name and power limit; TF32 is switched off (the
-   port's precision is float32 throughout).
+1. Device: the card's name and power limit; TF32 is switched off for
+   PyTorch (the port's precision is float32-grade throughout: the far
+   field's kernels use the tensor cores in 3xTF32).
 2. Build: the seven CUDA kernels from ``epnn_tpu_torch/csrc``, one
-   ``nvcc`` per source, in parallel.
+   ``nvcc`` per source, in parallel; each entry's registers and spills.
 3. Kernels: each kernel against its plain PyTorch version on the card, at
    the shapes of the 2,220-atom water box (the checkpoint's round weights,
-   the box's own neighbor table), and again with the inputs it reads one
-   float at a time moved off the 16-byte boundary; kernel, plain and bound
-   times, the bound counting only what this data needs (live slots); the
-   ``near_pass_rowsum`` antisymmetry probe on that table.
-   The far field's backward kernel at the same shapes (a seeded
-   cotangent): each of its four outputs against the plain version, the
-   same bits on a second launch and with its scalar-read inputs off the
-   boundary, and its times.
+   the box's own neighbor table), the same bits on a second launch, and
+   again with the inputs it reads one float at a time moved off the
+   16-byte boundary; kernel, plain and bound times, the bound counting
+   only what this data needs (live slots); the ``near_pass_rowsum``
+   antisymmetry probe on that table.
+   The far field and its backward (a seeded cotangent) also against their
+   3xTF32 emulations, on a ragged rectangular slice of the same inputs
+   (:data:`RAGGED`, zeros in cv), and at 17,760 atoms (in 4c); the
+   backward's four outputs against the float64 plain version; bounds from
+   the TF32 tensor-core rate (and the fp32 bound beside them); the SM clock
+   before and after their timings.
    The fused dense kernels (``fused_message_rowsum`` in both ``masked``
    modes, ``fused_epn_rowsum`` with the hard and the soft gate) at the
    same shapes: each against its plain version, the same bits on a second
@@ -43,7 +47,10 @@ card: ``python3 chip_smoke.py`` from the repository root.
    the small molecules (noisy labels around the model's own charges): the
    fused bucket's loss falls, launches per fused step, none in dense
    steps, the median fused step, and ``best/`` served with conservation.
-6. The kernels' JSON line, the card line, and last the result line.
+6. Profile: ``torch.profiler`` over ``predict_batch`` (2 x 2,220 and
+   1 x 17,760 atoms) and one fused train step (2 x 2,220): device-busy
+   time against wall time, and the largest kernels.
+7. The kernels' JSON line, the card line, and last the result line.
 
 Any failure raises and exits non-zero; without a CUDA card it exits 2
 before printing any result.  Imports nothing of JAX.
@@ -51,6 +58,7 @@ before printing any result.  Imports nothing of JAX.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -62,6 +70,8 @@ import numpy as np
 #: cores, and HBM3 bandwidth — the bound of a kernel is the larger of its
 #: FLOP and byte times at these rates
 PEAK_FP32_FLOPS = 67e12
+#: dense TF32 on the tensor cores: the far-field kernels' 3xTF32 products
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 
 GOLDEN = "epnn_tpu_torch/testdata/water2220_mixed_b16.npz"
@@ -108,6 +118,9 @@ SMS = 132
 TRAIN_BOX_MOLECULES = 300
 TRAIN_EPOCHS = 5
 LABEL_NOISE = 0.05
+#: the far field's ragged rectangular case (R rows, N columns), a slice of
+#: the 2,220-atom inputs with seeded zeros in cv
+RAGGED = (37, 1001)
 
 
 def require(ok, detail) -> None:
@@ -116,20 +129,24 @@ def require(ok, detail) -> None:
         raise RuntimeError(f"chip_smoke check failed: {detail}")
 
 
+def smi(fields: str, fmt: str = "csv,noheader") -> str:
+    """The first card's ``fields`` as ``nvidia-smi --query-gpu`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={fields}", f"--format={fmt}"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()[0]
+
+
 def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip()
-    return out.splitlines()[0]
+    return smi("name,power.limit")
 
 
 def max_sm_clock_hz() -> float:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip()
-    return float(out.splitlines()[0]) * 1e6
+    return float(smi("clocks.max.sm", "csv,noheader,nounits")) * 1e6
+
+
+def sm_clocks() -> str:
+    return smi("clocks.sm,clocks.max.sm")
 
 
 def off_boundary(t):
@@ -144,6 +161,189 @@ def bound(flop, sfu, nbytes, sfu_rate):
              "bytes": nbytes / PEAK_BYTES}
     by = max(times, key=times.get)
     return times[by] * 1e3, by
+
+
+def far_bound(pairs, hh, products, elem, nbytes):
+    """(bound ms, what bounds it, fp32 bound ms) of a far-field kernel on
+    ``pairs`` live pairs.  Each of its ``products`` H x H contractions is
+    three tensor-core products in 3xTF32 (3 · 2H² FLOP at the TF32 peak);
+    its ``elem`` elementwise FLOP a pair run on the CUDA cores; its bytes
+    at the HBM rate: the bound is the largest of the three times.  The
+    fp32 bound puts every FLOP on the CUDA cores, as a kernel without the
+    tensor cores would."""
+    tc = pairs * products * 3 * 2 * hh * hh / PEAK_TF32_FLOPS
+    ops = max(tc, pairs * elem / PEAK_FP32_FLOPS)
+    by = nbytes / PEAK_BYTES
+    fp32 = pairs * (products * 2 * hh * hh + elem) / PEAK_FP32_FLOPS
+    return (max(ops, by) * 1e3, "operations" if ops >= by else "bytes",
+            max(fp32, by) * 1e3)
+
+
+def ptxas_usage(kernels, name):
+    """Registers and spill bytes of each entry of a kernel's library, from
+    its build log (``-Xptxas -v``)."""
+    out, entry, spill = [], "?", (0, 0)
+    for ln in kernels.build_log(name).splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            e = re.search(r"\d(dmr_\w*?partial|sum_parts)(ILb([01])E)?",
+                          m.group(1))
+            entry = m.group(1) if e is None else e.group(1) + (
+                {"1": "<pass R>", "0": "<pass C>"}[e.group(3)]
+                if e.group(3) else "")
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.append(dict(entry=entry, registers=int(m.group(1)),
+                            spill_stores=spill[0], spill_loads=spill[1]))
+    return out
+
+
+def far_forward(torch, kernels, args):
+    """``dense_message_rowsum`` on ``args`` against its fp32 plain version
+    and its 3xTF32 emulation, each within 1e-5·(max|ref| + 1) (the forward
+    is continuous in z2, so the two may differ only by summation order);
+    the same bits on a second launch and with every input off the 16-byte
+    boundary.  Returns (max|Δ| vs plain, vs emulation, tol)."""
+    out = kernels.dense_message_rowsum(*args)
+    ref = kernels.dense_message_rowsum_plain(*args)
+    emu = kernels.dense_message_rowsum_3xtf32_plain(*args)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    err_emu = float((out - emu).abs().max())
+    tol = 1e-5 * (float(ref.abs().max()) + 1.0)
+    require(np.isfinite(err) and err <= tol and err_emu <= tol,
+            ("dense_message_rowsum", tuple(args[0].shape),
+             tuple(args[1].shape), err, err_emu, tol))
+    require(torch.equal(kernels.dense_message_rowsum(*args), out),
+            ("dense_message_rowsum", "not the same bits on a second launch"))
+    off = [off_boundary(t) for t in args]
+    require(torch.equal(kernels.dense_message_rowsum(*off), out),
+            ("dense_message_rowsum", "inputs off the 16-byte boundary"))
+    return err, err_emu, tol
+
+
+def far_backward(torch, kernels, args):
+    """``dense_message_rowsum_bwd`` on ``args``: each of its four outputs
+    against the float64 plain version (the bar below), and its distance to
+    the fp32 plain version and to the 3xTF32 emulation; the same bits on a
+    second launch and with every input off the 16-byte boundary.  Returns
+    {part: (vs fp32, vs f64, fp32 plain vs f64, vs emulation, tol)}."""
+    outs = kernels.dense_message_rowsum_bwd(*args)
+    refs = kernels.dense_message_rowsum_bwd_plain(*args)
+    emus = kernels.dense_message_rowsum_bwd_3xtf32_plain(*args)
+    exact = kernels.dense_message_rowsum_bwd_plain(*(t.double() for t in args))
+    torch.cuda.synchronize()
+    # The gradient steps where z1 or z2 crosses 0 (relu's indicator): a pair
+    # whose z lies within rounding of 0 flips between any two evaluations,
+    # moving one entry by ~|g_i|·|W2 row|.  So the bar is the float64 plain
+    # version: the kernel may be at most twice as far from it as the
+    # float32 plain version is, plus 1e-5·(max|ref| + 1).  The emulation
+    # rounds z2 differently again, so its distance is reported, not barred.
+    errs = {}
+    for part, o, r, em, r64 in zip(("dpi", "dpj", "dw2", "db2"), outs, refs,
+                                   emus, exact):
+        err64 = float((o.double() - r64).abs().max())
+        plain64 = float((r.double() - r64).abs().max())
+        tol = 2.0 * plain64 + 1e-5 * (float(r64.abs().max()) + 1.0)
+        require(np.isfinite(err64) and err64 <= tol,
+                ("dense_message_rowsum_bwd", tuple(args[0].shape),
+                 tuple(args[1].shape), part, err64, tol))
+        errs[part] = (float((o - r).abs().max()), err64, plain64,
+                      float((o - em).abs().max()), tol)
+    again = kernels.dense_message_rowsum_bwd(*args)
+    require(all(torch.equal(a, b) for a, b in zip(again, outs)),
+            ("dense_message_rowsum_bwd", "not the same bits on a second "
+             "launch"))
+    off = [off_boundary(t) for t in args]
+    require(all(torch.equal(a, b) for a, b in
+                zip(kernels.dense_message_rowsum_bwd(*off), outs)),
+            ("dense_message_rowsum_bwd", "inputs off the 16-byte boundary"))
+    return errs
+
+
+def far_phase(torch, card, args, gbar, label, clocks, iters):
+    """[kernel] both far-field kernels on ``args`` (pi, pj, cv, W2, b2) and
+    the cotangent ``gbar``: ``far_forward`` and ``far_backward``, kernel
+    and plain times (``iters``: forward kernel, forward plain, backward
+    kernel, backward plain), the SM clock before and after the timings
+    (appended to ``clocks``), and the bounds on this data: every row
+    against the live columns (cv ≠ 0).  Returns {kernel: measurements}."""
+    from epnn_tpu_torch.ops import kernels
+
+    f = 4
+    r, hh = args[0].shape
+    nc = args[1].shape[0]
+    live = int(torch.count_nonzero(args[2]))
+    pairs = r * live
+    fwd_err, fwd_emu, fwd_tol = far_forward(torch, kernels, args)
+    errs = far_backward(torch, kernels, (*args, gbar))
+    clocks.append((f"before the far-field timings at {label}", sm_clocks()))
+    ms = device_ms(torch, lambda: kernels.dense_message_rowsum(*args),
+                   iters[0])
+    plain_ms = device_ms(
+        torch, lambda: kernels.dense_message_rowsum_plain(*args), iters[1])
+    bwd_ms = device_ms(
+        torch, lambda: kernels.dense_message_rowsum_bwd(*args, gbar),
+        iters[2])
+    bwd_plain_ms = device_ms(
+        torch, lambda: kernels.dense_message_rowsum_bwd_plain(*args, gbar),
+        iters[3])
+    clocks.append((f"after the far-field timings at {label}", sm_clocks()))
+    out = {}
+    # forward: the mid-layer product + ~4H elementwise a live pair; pi,
+    # cv and out whole, pj where cv is live, W2, b2 once
+    nbytes = f * (2 * r * hh + nc + live * hh + hh * hh + hh)
+    b_ms, b_by, b32 = far_bound(pairs, hh, 1, 4 * hh, nbytes)
+    out["dense_message_rowsum"] = dict(
+        R=r, N=nc, live_cols=live, max_abs_err=fwd_err,
+        max_abs_diff=fwd_err, max_abs_diff_3xtf32=fwd_emu, tol=fwd_tol,
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        bound_fp32_ms=b32, flop=pairs * (2 * hh * hh + 4 * hh),
+        flop_3xtf32=pairs * 3 * 2 * hh * hh, bytes=nbytes)
+    print(f"[kernel] dense_message_rowsum at R={r} N={nc} ({live} live "
+          f"columns): max|d| vs plain f32 {fwd_err:.3e}, vs 3xTF32 "
+          f"emulation {fwd_emu:.3e} (tol {fwd_tol:.3e}), same bits on a "
+          f"second launch and off the 16-byte boundary; kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}: "
+          f"{pairs * 6 * hh * hh:,} tensor-core FLOP in 3xTF32, "
+          f"{nbytes:,} B), fp32 bound {b32:.5f} ms on {card}")
+    # backward: z2, e2 @ W2ᵀ and the dW2 outer product (3 H×H
+    # contractions) + ~9H elementwise a live pair; pi, g, dpi, cv, pj and
+    # dpj whole, pj where cv is live, W2, b2, dW2, db2 once
+    nbytes = f * (3 * r * hh + nc * hh + nc + live * hh
+                  + 2 * (hh * hh + hh))
+    b_ms, b_by, b32 = far_bound(pairs, hh, 3, 9 * hh, nbytes)
+    out["dense_message_rowsum_bwd"] = dict(
+        R=r, N=nc, live_cols=live,
+        max_abs_err=max(e[0] for e in errs.values()),
+        max_abs_diff={p: e[0] for p, e in errs.items()},
+        max_abs_diff_f64={p: e[1] for p, e in errs.items()},
+        plain_f32_diff_f64={p: e[2] for p, e in errs.items()},
+        max_abs_diff_3xtf32={p: e[3] for p, e in errs.items()},
+        tol_f64={p: e[4] for p, e in errs.items()}, ms=bwd_ms,
+        plain_ms=bwd_plain_ms, bound_ms=b_ms, bound_by=b_by,
+        bound_fp32_ms=b32, flop=pairs * (6 * hh * hh + 9 * hh),
+        flop_3xtf32=pairs * 3 * 3 * 2 * hh * hh, bytes=nbytes)
+    print(f"[kernel] dense_message_rowsum_bwd at R={r} N={nc}: "
+          f"{bwd_errs_text(errs)}; same bits on a second launch and off the "
+          f"16-byte boundary; kernel {bwd_ms:.4f} ms, plain "
+          f"{bwd_plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}: "
+          f"{pairs * 18 * hh * hh:,} tensor-core FLOP in 3xTF32, "
+          f"{nbytes:,} B), fp32 bound {b32:.5f} ms on {card}")
+    for when, clk in clocks[-2:]:
+        print(f"[clock] SM clock (clocks.sm, clocks.max.sm) {when}: {clk}")
+    return out
+
+
+def bwd_errs_text(errs):
+    return ("max|d| vs plain f32 / vs plain f64 (f32 plain vs f64; tol) / "
+            "vs 3xTF32 emulation: " + ", ".join(
+                f"{p} {e:.3e} / {e64:.3e} ({p64:.3e}; {t:.3e}) / {em:.3e}"
+                for p, (e, e64, p64, em, t) in errs.items()))
 
 
 def device_ms(torch, fn, iters):
@@ -278,7 +478,8 @@ def train_phase(torch, pred, card, small, small_q, batch2, golden):
         f_loss = [s[0] for s in fused]
         require(np.all(np.isfinite(f_loss)) and f_loss[-1] < f_loss[0],
                 f_loss)
-        step_ms = float(np.median([s[2] for s in fused]))
+        step_list = [s[2] for s in fused]
+        step_ms = float(np.median(step_list))
         require(len(res.history) == TRAIN_EPOCHS
                 and np.isfinite(res.best_val_masked_mae), res.history)
         served = Predictor.from_checkpoint(os.path.join(run, "best"))
@@ -289,9 +490,115 @@ def train_phase(torch, pred, card, small, small_q, batch2, golden):
           f"2,220 atoms + {len(small)} small molecules: fused-bucket loss "
           f"{' -> '.join(f'{v:.6e}' for v in f_loss)}; launches per fused "
           f"step {fused[0][1]}, none in {len(steps['train_step'])} dense "
-          f"steps; fused train step median {step_ms:.3f} ms; best/ served: "
+          f"steps; fused train step median {step_ms:.3f} ms (steps "
+          f"{', '.join(f'{v:.3f}' for v in step_list)} ms); best/ served: "
           f"|sum q - Q| = {cons.tolist()} on {card}")
-    return train_launches, step_ms
+    return train_launches, step_ms, step_list
+
+
+def device_split(torch, fn, reps=3):
+    """(wall ms, device-busy ms, {kernel: ms}) a call of ``fn``, from
+    ``torch.profiler`` over ``reps`` calls after one warm-up.  Device-busy
+    is the sum of the self time of the card's kernels and copies (one
+    stream, so they do not overlap); the wall time includes the
+    profiler's own cost."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    kern = {}
+    for ev in prof.key_averages():
+        if (ev.device_type != DeviceType.CUDA
+                or getattr(ev, "is_user_annotation", False)):
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us > 0:
+            kern[ev.key] = kern.get(ev.key, 0.0) + us / 1e3 / reps
+    return wall, sum(kern.values()), kern
+
+
+#: the layers a profiled call's device time is split into, by kernel name
+PROFILE_GROUPS = (
+    ("far field", ("dmr_partial", "dmr_bwd_partial", "sum_parts")),
+    ("near kernels", ("nmc_kernel", "npr_kernel")),
+    ("neighbor top-k", ("topk", "Topk", "sort", "Sort", "radix")),
+    ("matmul", ("gemm", "xmma", "cutlass")),
+    ("copies", ("Memcpy", "Memset")),
+)
+
+
+def profile_groups(kern):
+    """{layer: ms} of a ``device_split`` kernel table; the rest is "other
+    PyTorch kernels" (elementwise, gathers, reductions, Adam)."""
+    out = {name: 0.0 for name, _ in PROFILE_GROUPS}
+    out["other PyTorch kernels"] = 0.0
+    for key, ms in kern.items():
+        group = next((name for name, keys in PROFILE_GROUPS
+                      if any(k in key for k in keys)),
+                     "other PyTorch kernels")
+        out[group] += ms
+    return out
+
+
+def profile_phase(torch, card, pred, batch2, big):
+    """[profile] where a call's time goes: ``predict_batch`` at 2 x 2,220
+    and 1 x 17,760 atoms, and one fused train step at 2 x 2,220 atoms (the
+    bucket tables built once, as ``train()`` does), each as device-busy
+    against wall time and its largest kernels.  Returns the numbers; an
+    empty dict if the profiler recorded no device time."""
+    from epnn_tpu_torch.data import uniform_q0_contract
+    from epnn_tpu_torch.ops.fused import build_neighbors_batch
+    from epnn_tpu_torch.train import TrainConfig, loop
+
+    cfg = pred.cfg
+    g = np.random.default_rng(7)
+    y = (batch2.node_mask * g.normal(0.0, 0.3, size=batch2.node_mask.shape)
+         ).astype(np.float32)
+    args = [torch.from_numpy(a).cuda() for a in (
+        batch2.x, batch2.q0, batch2.xyz, batch2.node_mask, y,
+        np.ones(2, np.float32))]
+    k = pred._neighbor_k(batch2)
+    nbrs = build_neighbors_batch(args[2], args[3], cfg.cutoff, k)
+    uq0 = uniform_q0_contract(batch2.x, batch2.q0, batch2.node_mask)
+    state = loop.create_state(cfg, TrainConfig(), device="cuda",
+                              params=pred.params)
+    cases = {
+        "predict_batch 2x2220": lambda: pred.predict_batch(batch2),
+        "predict_batch 1x17760": lambda: pred.predict_batch(big),
+        "train_step_fused 2x2220": lambda: loop.train_step_fused(
+            state, cfg, "masked_mse", k, *args, uniform_q0=uq0,
+            neighbors=nbrs),
+    }
+    out = {}
+    for label, fn in cases.items():
+        wall, busy, kern = device_split(torch, fn)
+        if busy <= 0.0:
+            print(f"[profile] {label}: torch.profiler recorded no device "
+                  "time; no split")
+            return {}
+        top = sorted(kern.items(), key=lambda kv: -kv[1])[:6]
+        groups = profile_groups(kern)
+        out[label] = dict(wall_ms=wall, device_busy_ms=busy,
+                          idle_share=1.0 - busy / wall, groups=groups,
+                          top={name: ms for name, ms in top})
+        print(f"[profile] {label}: wall {wall:.3f} ms a call (profiled), "
+              f"device busy {busy:.3f} ms, idle share "
+              f"{1.0 - busy / wall:.1%}; by layer: " + ", ".join(
+                  f"{name} {ms:.3f}" for name, ms in groups.items())
+              + " ms; largest: " + "; ".join(
+                  f"{name[:60]} {ms:.3f} ms" for name, ms in top)
+              + f" on {card}")
+    return out
 
 
 def fused_kernel_phase(torch, card, cfg, a, xyz, mask, wm, wp, counts,
@@ -550,15 +857,40 @@ def main() -> int:
                                 2 * ee * hh + 4 * hh * hh + 8 * hh)
     p_flop, p_bytes = near_need(gh != 0, 2 * hh, 2 * hh,
                                 2 * ee * hh + 4 * hh * hh + 10 * hh)
-    # each case: args, FLOP and bytes the function needs, and the positions
-    # of the inputs the kernel reads one float at a time (any view will do)
+    # the far field: round-2 inputs at the box's shapes, then its backward
+    # (a seeded cotangent), then both on a ragged rectangular slice of the
+    # same inputs with zeros in cv; the SM clock around the timings
+    clocks = []
+    far_args = (pi, pj, mask.contiguous(), *wm.mids[0])
+    gbar = torch.from_numpy(g.normal(size=(n, hh)).astype(np.float32)).to(dev)
+    rows = {name: dict(name=name, route="cuda", source=KERNEL_ROWS[name][1],
+                       replaces=KERNEL_ROWS[name][0], launches=0,
+                       library_ms=None, ptxas=ptxas_usage(kernels, name),
+                       **entry, sizes={})
+            for name, entry in far_phase(torch, card, far_args, gbar, "2220",
+                                         clocks, (50, 5, 20, 3)).items()}
+    cv_r = mask[:RAGGED[1]].clone()
+    cv_r[torch.from_numpy(g.uniform(size=RAGGED[1]) < 0.3).to(dev)] = 0.0
+    rag_args = (pi[:RAGGED[0]].contiguous(), pj[:RAGGED[1]].contiguous(),
+                cv_r, *wm.mids[0])
+    err, err_emu, tol = far_forward(torch, kernels, rag_args)
+    rag_errs = far_backward(torch, kernels,
+                            (*rag_args, gbar[:RAGGED[0]].contiguous()))
+    rows["dense_message_rowsum"]["ragged"] = dict(
+        R=RAGGED[0], N=RAGGED[1], live_cols=int(cv_r.sum()),
+        max_abs_diff=err, max_abs_diff_3xtf32=err_emu, tol=tol)
+    rows["dense_message_rowsum_bwd"]["ragged"] = dict(
+        R=RAGGED[0], N=RAGGED[1], errs=rag_errs)
+    print(f"[kernel] far field, ragged R={RAGGED[0]} N={RAGGED[1]} "
+          f"({int(cv_r.sum())} live columns): forward max|d| vs plain f32 "
+          f"{err:.3e}, vs 3xTF32 emulation {err_emu:.3e} (tol {tol:.3e}); "
+          f"backward {bwd_errs_text(rag_errs)}; same bits on a second launch "
+          "and off the 16-byte boundary")
+
+    # each near case: args, FLOP and bytes the function needs, and the
+    # positions of the inputs the kernel reads one float at a time (any
+    # view will do)
     cases = {
-        "dense_message_rowsum": dict(
-            args=(pi, pj, mask.contiguous(), *wm.mids[0]),
-            flop=n * n_valid * (2 * hh * hh + 4 * hh),
-            # all of pi, col_vec and out; pj only where col_vec is live
-            bytes=f * (2 * n * hh + n + n_valid * hh + hh * hh + hh),
-            scalar_read=(0, 1, 2, 4)),
         "near_message_corr": dict(
             args=(pi, pj[idx_flat].contiguous(), rbf_flat,
                   nbr_mask.contiguous(), wm.w1_e, *wm.mids[0]),
@@ -569,7 +901,6 @@ def main() -> int:
             flop=p_flop, bytes=p_bytes, scalar_read=(0, 3, 6)),
     }
 
-    rows = {}
     for name, case in cases.items():
         wrapper = getattr(kernels, name)
         plain = getattr(kernels, name + "_plain")
@@ -580,6 +911,8 @@ def main() -> int:
         err = float((out - ref).abs().max())
         tol = 1e-5 * (float(ref.abs().max()) + 1.0)
         require(np.isfinite(err) and err <= tol, (name, err, tol))
+        require(torch.equal(wrapper(*args), out),
+                (name, "not the same bits on a second launch"))
         off_args = [off_boundary(t) if i in case["scalar_read"] else t
                     for i, t in enumerate(args)]
         require(torch.equal(wrapper(*off_args), out),
@@ -597,73 +930,11 @@ def main() -> int:
             bound_by="operations" if t_flop >= t_byte else "bytes",
             library_ms=None, flop=case["flop"], bytes=nbytes)
         print(f"[kernel] {name}: max|d|={err:.3e} (tol {tol:.3e}), same "
-              f"bits with the scalar-read inputs off the 16-byte boundary; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{rows[name]['bound_ms']:.5f} ms ({rows[name]['bound_by']}: "
-              f"{case['flop']:,} FLOP, {nbytes:,} B) at N={n} K={k} on "
-              f"{card}")
-
-    # the far field's backward: round-2 inputs, a seeded cotangent
-    name = "dense_message_rowsum_bwd"
-    gbar = torch.from_numpy(g.normal(size=(n, hh)).astype(np.float32)).to(dev)
-    bwd_args = (*cases["dense_message_rowsum"]["args"], gbar)
-    outs = kernels.dense_message_rowsum_bwd(*bwd_args)
-    refs = kernels.dense_message_rowsum_bwd_plain(*bwd_args)
-    exact = kernels.dense_message_rowsum_bwd_plain(
-        *(t.double() for t in bwd_args))
-    torch.cuda.synchronize()
-    # The gradient steps where z1 or z2 crosses 0 (relu's indicator): a pair
-    # whose z lies within float32 rounding of 0 flips between any two
-    # float32 evaluations, moving one entry by ~|g_i|·|W2 row|.  So the bar
-    # is the float64 plain version: the kernel may be at most twice as far
-    # from it as the float32 plain version is, plus 1e-5·(max|ref| + 1).
-    errs = {}
-    for part, o, r, r64 in zip(("dpi", "dpj", "dw2", "db2"), outs, refs,
-                               exact):
-        err = float((o - r).abs().max())
-        err64 = float((o.double() - r64).abs().max())
-        plain64 = float((r.double() - r64).abs().max())
-        tol = 2.0 * plain64 + 1e-5 * (float(r64.abs().max()) + 1.0)
-        require(np.isfinite(err64) and err64 <= tol,
-                (name, part, err64, tol))
-        errs[part] = (err, err64, plain64, tol)
-    again = kernels.dense_message_rowsum_bwd(*bwd_args)
-    require(all(torch.equal(a, b) for a, b in zip(again, outs)),
-            (name, "not the same bits on a second launch"))
-    off_args = [off_boundary(t) if i in (0, 1, 2, 4, 5) else t
-                for i, t in enumerate(bwd_args)]
-    require(all(torch.equal(a, b) for a, b in
-                zip(kernels.dense_message_rowsum_bwd(*off_args), outs)),
-            (name, "inputs off the 16-byte boundary"))
-    ms = device_ms(torch, lambda: kernels.dense_message_rowsum_bwd(*bwd_args),
-                   20)
-    plain_ms = device_ms(
-        torch, lambda: kernels.dense_message_rowsum_bwd_plain(*bwd_args), 3)
-    # per live pair: z2, e2 @ W2ᵀ and the dW2 outer product (3 H×H
-    # contractions) + ~9H elementwise; pi, g, col_vec, dpi and dpj whole,
-    # pj where col_vec is live, W2, b2, dW2, db2 once
-    flop = n * n_valid * (6 * hh * hh + 9 * hh)
-    nbytes = f * (4 * n * hh + n + n_valid * hh + 2 * (hh * hh + hh))
-    t_flop, t_byte = flop / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    rows[name] = dict(
-        name=name, route="cuda", source=KERNEL_ROWS[name][1],
-        replaces=KERNEL_ROWS[name][0], launches=0,
-        max_abs_err=max(e[0] for e in errs.values()),
-        max_abs_diff={p: e[0] for p, e in errs.items()},
-        max_abs_diff_f64={p: e[1] for p, e in errs.items()},
-        plain_f32_diff_f64={p: e[2] for p, e in errs.items()},
-        tol_f64={p: e[3] for p, e in errs.items()}, ms=ms, plain_ms=plain_ms,
-        bound_ms=max(t_flop, t_byte),
-        bound_by="operations" if t_flop >= t_byte else "bytes",
-        library_ms=None, flop=flop, bytes=nbytes)
-    print(f"[kernel] {name}: max|d| vs plain f32 / vs plain f64 (f32 plain "
-          "vs f64; tol) " + ", ".join(
-              f"{p} {e:.3e} / {e64:.3e} ({p64:.3e}; {t:.3e})"
-              for p, (e, e64, p64, t) in errs.items())
-        + f"; same bits on a second launch and off the 16-byte boundary; "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{rows[name]['bound_ms']:.5f} ms ({rows[name]['bound_by']}: "
-        f"{flop:,} FLOP, {nbytes:,} B) at N={n} on {card}")
+              f"bits on a second launch and with the scalar-read inputs off "
+              f"the 16-byte boundary; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {rows[name]['bound_ms']:.5f} ms "
+              f"({rows[name]['bound_by']}: {case['flop']:,} FLOP, "
+              f"{nbytes:,} B) at N={n} K={k} on {card}")
 
     # antisymmetry probe: disjoint near pairs of the box, one slot each
     gh_probe, pairs = disjoint_pair_gh(idx.cpu().numpy(),
@@ -774,20 +1045,19 @@ def main() -> int:
                     torch.from_numpy(big.q0[0]).to(dev)[:, None]], dim=-1)
     big_args = ((ab @ wm.w1_i + wm.b1).contiguous(),
                 (ab @ wm.w1_j).contiguous(), mb.contiguous(), *wm.mids[0])
-    out = kernels.dense_message_rowsum(*big_args)
-    ref = kernels.dense_message_rowsum_plain(*big_args)
-    torch.cuda.synchronize()
-    err = float((out - ref).abs().max())
-    tol = 1e-5 * (float(ref.abs().max()) + 1.0)
-    require(np.isfinite(err) and err <= tol, (err, tol))
-    ms_big = device_ms(torch, lambda: kernels.dense_message_rowsum(*big_args),
-                       5)
-    plain_big = device_ms(
-        torch, lambda: kernels.dense_message_rowsum_plain(*big_args), 2)
-    bound_big = nb * int(mb.sum()) * (2 * hh * hh + 4 * hh) / PEAK_FP32_FLOPS
-    print(f"[slice c] dense_message_rowsum at N={nb}: max|d|={err:.3e} (tol "
-          f"{tol:.3e}) kernel {ms_big:.3f} ms, plain {plain_big:.3f} ms, bound "
-          f"{bound_big * 1e3:.3f} ms (operations) on {card}")
+    gbig = torch.from_numpy(g.normal(size=(nb, hh)).astype(np.float32)).to(
+        dev)
+    for name, entry in far_phase(torch, card, big_args, gbig, "17760",
+                                 clocks, (5, 2, 5, 2)).items():
+        rows[name]["sizes"]["17760"] = entry
+    print(f"[slice c] far field at N={nb}: dense_message_rowsum "
+          f"{rows['dense_message_rowsum']['sizes']['17760']['ms']:.3f} ms "
+          f"(bound {rows['dense_message_rowsum']['sizes']['17760']['bound_ms']:.3f}"
+          f" ms in 3xTF32, "
+          f"{rows['dense_message_rowsum']['sizes']['17760']['bound_fp32_ms']:.3f}"
+          f" ms in fp32), dense_message_rowsum_bwd "
+          f"{rows['dense_message_rowsum_bwd']['sizes']['17760']['ms']:.3f} ms "
+          f"on {card}")
 
     # (d) the fully fused dense forward (no neighbor_k), B = 2, and the
     # plain dense forward on the card as its reference
@@ -861,8 +1131,9 @@ def main() -> int:
 
     # ---- 5. training ------------------------------------------------------
     small_labels = [q.copy() for q in qs]
-    train_launches, step_ms = train_phase(torch, pred, card, small,
-                                          small_labels, batch2, golden)
+    train_launches, step_ms, step_list = train_phase(
+        torch, pred, card, small, small_labels, batch2, golden)
+    profile = profile_phase(torch, card, pred, batch2, big)
 
     # ---- 6. result lines --------------------------------------------------
     # launches: each kernel's count in the main path of its slice
@@ -878,10 +1149,12 @@ def main() -> int:
     require(sorted(rows) == sorted(kernels.SOURCES), sorted(rows))
     print(json.dumps({"kernels": list(rows.values()),
                       "predict_batch_ms": {"2x2220": ms2, "1x17760": ms3},
-                      "fused_train_step_ms": {"2x2220": step_ms},
+                      "fused_train_step_ms": {"2x2220": step_ms,
+                                              "2x2220_steps": step_list},
                       "dense_fused_ms": {"2x2220": ms_d},
                       "dense_plain_ms": {"2x2220": ms_p},
                       "compact_nbrs_ms": {"2x2220": ms_e},
+                      "profile": profile, "sm_clocks": clocks,
                       "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {

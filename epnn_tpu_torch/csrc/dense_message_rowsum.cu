@@ -11,149 +11,196 @@
 // pallas_call (:1040) runs _msg_kernel (:42).  The v5e lane packing
 // (kron(I_P, W2), pltpu.repeat) is not carried over.
 //
-// Bound on the H100: operations.  Each pair costs about 2H^2 + 4H FLOP
-// (2.2 kFLOP at H = 32) against O((R + N) H) bytes, and fp32 runs on the
-// CUDA cores (67 TFLOP/s) because TF32 is off: 10.7 GFLOP, >= 0.16 ms, at
-// 2,220 atoms; 690 GFLOP, >= 10.3 ms, at 17,760.
+// Bound on the H100: operations.  Each live pair needs the H x H product
+// relu(z1) @ W2 (2H^2 = 2,048 FLOP at H = 32) against O((R + N) H) bytes.
+// On the tensor cores in 3xTF32 that is three products, 6H^2 FLOP at
+// 495 TFLOP/s (1.24e-11 s a pair), plus ~4H elementwise FLOP at 67 TFLOP/s
+// on the CUDA cores: >= 0.06 ms at 2,220 atoms, >= 3.9 ms at 17,760.  In
+// fp32 on the CUDA cores alone the same work is bound at 0.16 / 10.2 ms.
 //
-// Design: a block owns 16 rows and streams the columns in chunks of 16.
-// Per chunk it builds the first-layer activations Z = relu(pi_i + pj_j) of
-// its 256 pairs once, into shared memory, then runs Z @ W2 as a
-// register-tiled product: each thread holds 8 pairs (one row, 8 columns)
-// x 8 outputs, so every k step is 4 shared-memory vector loads for 64
-// fmaf.  The epilogue folds relu(. + b2) * cv_j into 8 per-row sums; the
-// two column halves of a row are added in a fixed order at the end.  Rows
-// give too few blocks for 132 SMs at 2,220 atoms, so the column range is
-// also split into a fixed number of chunks (gridDim.y): each writes its
-// partial sums and a second kernel adds them in order — deterministic, no
-// atomics.  Columns past N enter as pj = 0, cv = 0 and add exactly zero.
+// Design: wgmma m64n32k8 TF32, split 3x (common.cuh) for fp32 grade.  A
+// block is one warpgroup: 4 warps, 64 rows i, 16 a warp; it walks the
+// columns j.  For each j, A = relu(pi_i + pj_j) (64 x 32) is built in
+// registers (far_a: the m16n8k8 fragment each warp already uses for
+// mma.sync) from the 16 pi values a thread keeps for the whole kernel and
+// 8 pj values broadcast from shared memory, split into hi and lo, and
+// multiplied by the constant W2, whose split B tiles sit in shared memory
+// (4 k-steps x hi/lo, 8 KB, written once a block).  The product starts
+// from b2, and each thread folds cv_j * relu(z2) into the 16 sums it owns
+// in the C layout, so the sum over j is a register accumulation: no
+// shuffle, no shared-memory reduction.  Per column that is 12 wgmma (4
+// k-steps x 3 products): the products the backward's far_z2 makes with
+// mma.sync, in the same order, and on the H100 the same bits.  wgmma and
+// not mma.sync because the tensor-core products set this kernel's pace and
+// mma.sync issues TF32 at a fraction of the tensor cores' rate
+// (tools/far_field_pace.py times what sets the pace).  Two columns are in
+// flight at a time: the second column's A is built while the first one's
+// products run, and the first one's sums are folded while the second
+// one's run.  The pj and cv chunks (32 columns) are staged with cp.async
+// into a double-buffered ring, so the next chunk loads while this one
+// computes.  Rows give too few blocks for
+// 132 SMs at 2,220 atoms, so the column range also splits into a fixed
+// number of parts (gridDim.y); epnn::sum_parts adds them in order —
+// deterministic, no atomics.  Columns past N enter as pj = 0, cv = 0 and
+// add exactly zero.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kRowsPerBlock = 16;
-constexpr int kCols = 16;                       // columns per chunk
-constexpr int kPairs = kRowsPerBlock * kCols;   // 256 pairs per chunk
-constexpr int kTileP = 8;                       // pairs per thread
-constexpr int kTileO = 8;                       // outputs per thread
+constexpr int kH = epnn::kFarH;
+constexpr int kThreads = 128;               // one warpgroup
+constexpr int kRowsPerBlock = 64;           // 16 a warp
+constexpr int kChunk = 32;                  // columns per staged chunk
+constexpr int kTile = 8 * kH;               // floats of a k-step's B tile
+// B tile of a k-step: element (n, k) at (n / 8) * 64 + (k / 4) * 32 +
+// (n % 8) * 4 + k % 4 — core matrices of 8 n x 4 k, the k halves 128 bytes
+// apart, the 8-row groups 256 bytes apart
+constexpr int kLbo = 128, kSbo = 256;
+static_assert(kChunk % 2 == 0, "columns go two at a time");
 
-template <int H>
-__global__ void __launch_bounds__(kThreads, 4)
+__global__ void __launch_bounds__(kThreads, 3)
 dmr_partial(const float* __restrict__ pi, const float* __restrict__ pj,
             const float* __restrict__ cv, const float* __restrict__ w2,
             const float* __restrict__ b2, float* __restrict__ part, int R,
             int N, int cols_per_split) {
-  constexpr int kOutGroups = H / kTileO;            // 4
-  constexpr int kHalves = kCols / kTileP;           // 2 column halves per row
-  static_assert(kOutGroups * (kPairs / kTileP) == kThreads, "thread tiling");
+  __shared__ __align__(128) float s_b[2][4][kTile];  // W2 hi, lo; k-step
+  __shared__ __align__(16) float s_pj[2][kChunk][kH];
+  __shared__ float s_cv[2][kChunk];
 
-  __shared__ float4 s_w2[H * H / 4];                // W2 [k][o]
-  __shared__ float s_b2[H];
-  __shared__ float s_pi[kRowsPerBlock][H + 1];      // [i][k], padded
-  __shared__ float s_pjT[H][kCols + 1];             // [k][j], padded
-  __shared__ float s_cv[kCols];
-  // Z [k][slot]: slot (q * 32 + g) * 4 + r holds pair g * 8 + q * 4 + r, so
-  // the first (q = 0) and second (q = 1) float4 of the 8 pair groups a warp
-  // reads are each one contiguous 128-byte row: no bank conflicts
-  __shared__ float4 s_z[H][kPairs / 4];
-  __shared__ float s_half[kRowsPerBlock][H];
-
-  const int tid = threadIdx.x;
-  const int og = tid % kOutGroups;   // outputs og*8 .. og*8+7
-  const int pg = tid / kOutGroups;   // pairs pg*8 .. pg*8+7
-  const int il = pg / kHalves;       // their row within the block
-  const int jh = pg % kHalves;       // their column half within the chunk
-  const int i0 = blockIdx.x * kRowsPerBlock;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5) * 16;
   const int j0 = blockIdx.y * cols_per_split;
   const int j1 = min(N, j0 + cols_per_split);
+  const int chunks = (j1 - j0 + kChunk - 1) / kChunk;
 
-  epnn::stage(s_w2, w2, H * H);
-  for (int t = tid; t < H; t += kThreads) s_b2[t] = b2[t];
-  for (int t = tid; t < kRowsPerBlock * H; t += kThreads) {
-    const int r = t / H, k = t % H;
-    s_pi[r][k] = i0 + r < R ? pi[(size_t)(i0 + r) * H + k] : 0.0f;
+  // chunk c's columns into ring slot c % 2; past j1: zeros
+  auto stage = [&](int c) {
+    const int jt = j0 + c * kChunk;
+    float* dst = &s_pj[c & 1][0][0];
+    for (int e = threadIdx.x; e < kChunk * kH; e += kThreads) {
+      const bool in = jt + e / kH < j1;
+      epnn::cp_async4(dst + e, pj + (in ? (size_t)jt * kH + e : 0), in);
+    }
+    for (int e = threadIdx.x; e < kChunk; e += kThreads) {
+      const bool in = jt + e < j1;
+      epnn::cp_async4(&s_cv[c & 1][e], cv + (in ? jt + e : 0), in);
+    }
+    epnn::cp_async_commit();
+  };
+  stage(0);
+
+  // W2's B tiles, split; column k of k-step ks is feature 8 (k % 4) + 2ks +
+  // k / 4, far_a's order
+  for (int e = threadIdx.x; e < 4 * kTile; e += kThreads) {
+    const int ks = e / kTile, o = e % kTile;
+    const int n = (o / 64) * 8 + (o / 4) % 8;
+    const int f = 8 * (o % 4) + 2 * ks + (o / 32) % 2;
+    uint32_t hi, lo;
+    epnn::tf32_split(w2[f * kH + n], hi, lo);
+    s_b[0][ks][o] = __uint_as_float(hi);
+    s_b[1][ks][o] = __uint_as_float(lo);
+  }
+  epnn::wg::fence_proxy_async();
+  uint64_t b_hi[4], b_lo[4];
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    b_hi[ks] = epnn::wg::desc(&s_b[0][ks][0], kLbo, kSbo);
+    b_lo[ks] = epnn::wg::desc(&s_b[1][ks][0], kLbo, kSbo);
+  }
+  float bias[4][2];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    bias[nt][0] = b2[8 * nt + 2 * t];
+    bias[nt][1] = b2[8 * nt + 2 * t + 1];
+  }
+  float xa[8], xb[8];
+  epnn::load_row8(pi + (size_t)(r0 + g) * kH, t, r0 + g < R, xa);
+  epnn::load_row8(pi + (size_t)(r0 + g + 8) * kH, t, r0 + g + 8 < R, xb);
+
+  float acc[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = 0.0f;
+
+  for (int c = 0; c < chunks; ++c) {
+    if (c + 1 < chunks) {
+      stage(c + 1);
+      epnn::cp_async_wait<1>();
+    } else {
+      epnn::cp_async_wait<0>();
+    }
+    __syncthreads();  // chunk c (and, the first time, the B tiles) landed
+    const float* sp = &s_pj[c & 1][0][0];
+    const float* scv = &s_cv[c & 1][0];
+    // column j's A and accumulator (b2), then its 12 products as a group
+    auto issue = [&](int j, uint32_t (&ah)[4][4], uint32_t (&al)[4][4],
+                     float (&d)[16]) {
+      const float4 p0 = *reinterpret_cast<const float4*>(sp + j * kH + 8 * t);
+      const float4 p1 =
+          *reinterpret_cast<const float4*>(sp + j * kH + 8 * t + 4);
+      const float xs[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) epnn::far_a(xa, xb, xs, ks, ah[ks], al[ks]);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        d[4 * nt] = d[4 * nt + 2] = bias[nt][0];
+        d[4 * nt + 1] = d[4 * nt + 3] = bias[nt][1];
+      }
+      epnn::wg::fence_regs(d);
+      epnn::wg::fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        epnn::wg::mma_3xtf32(d, ah[ks], al[ks], b_hi[ks], b_lo[ks]);
+      epnn::wg::commit();
+    };
+    auto fold = [&](int j, float (&d)[16]) {
+      epnn::wg::fence_regs(d);
+      const float cj = scv[j];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) acc[i] = fmaf(cj, epnn::relu(d[i]), acc[i]);
+    };
+    uint32_t ah0[4][4], al0[4][4], ah1[4][4], al1[4][4];
+    for (int j = 0; j < kChunk; j += 2) {
+      float d0[16], d1[16];
+      issue(j, ah0, al0, d0);
+      issue(j + 1, ah1, al1, d1);
+      epnn::wg::wait<1>();
+      fold(j, d0);
+      epnn::wg::wait<0>();
+      fold(j + 1, d1);
+    }
+    __syncthreads();  // slot c % 2 is free for chunk c + 2
   }
 
-  float acc[kTileO];
+  float* dst = part + (size_t)blockIdx.y * R * kH;
 #pragma unroll
-  for (int o = 0; o < kTileO; ++o) acc[o] = 0.0f;
-
-  for (int jt = j0; jt < j1; jt += kCols) {
-    const int nj = min(kCols, j1 - jt);
-    __syncthreads();  // the previous chunk's Z and pj are consumed
-    for (int t = tid; t < kCols * H; t += kThreads) {
-      const int j = t / H, k = t % H;
-      s_pjT[k][j] = j < nj ? pj[(size_t)(jt + j) * H + k] : 0.0f;
+  for (int half = 0; half < 2; ++half) {
+    const int row = r0 + g + 8 * half;
+    if (row < R) {
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        *reinterpret_cast<float2*>(dst + (size_t)row * kH + 8 * nt + 2 * t) =
+            make_float2(acc[4 * nt + 2 * half], acc[4 * nt + 2 * half + 1]);
     }
-    for (int t = tid; t < kCols; t += kThreads)
-      s_cv[t] = t < nj ? cv[jt + t] : 0.0f;
-    __syncthreads();
-    for (int e = tid; e < H * kPairs; e += kThreads) {
-      const int k = e / kPairs, s = e % kPairs;
-      const int q = s / (kPairs / 2), g = (s % (kPairs / 2)) / 4, r = s % 4;
-      const int p = g * kTileP + q * 4 + r;
-      reinterpret_cast<float*>(s_z[k])[s] =
-          epnn::relu(s_pi[p / kCols][k] + s_pjT[k][p % kCols]);
-    }
-    __syncthreads();
-
-    float y[kTileP][kTileO];
-#pragma unroll
-    for (int p = 0; p < kTileP; ++p)
-#pragma unroll
-      for (int o = 0; o < kTileO; ++o) y[p][o] = s_b2[og * kTileO + o];
-#pragma unroll
-    for (int k = 0; k < H; ++k) {
-      const float4 za = s_z[k][pg];
-      const float4 zb = s_z[k][kPairs / 8 + pg];
-      const float4 wa = s_w2[k * (H / 4) + og * 2];
-      const float4 wb = s_w2[k * (H / 4) + og * 2 + 1];
-      const float zv[kTileP] = {za.x, za.y, za.z, za.w, zb.x, zb.y, zb.z, zb.w};
-      const float wv[kTileO] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-      for (int p = 0; p < kTileP; ++p)
-#pragma unroll
-        for (int o = 0; o < kTileO; ++o) y[p][o] = fmaf(zv[p], wv[o], y[p][o]);
-    }
-#pragma unroll
-    for (int p = 0; p < kTileP; ++p) {
-      const float c = s_cv[jh * kTileP + p];
-#pragma unroll
-      for (int o = 0; o < kTileO; ++o)
-        acc[o] = fmaf(c, epnn::relu(y[p][o]), acc[o]);
-    }
-  }
-
-  // add the second column half of each row to the first, in that order
-  if (jh == 1) {
-#pragma unroll
-    for (int o = 0; o < kTileO; ++o) s_half[il][og * kTileO + o] = acc[o];
-  }
-  __syncthreads();
-  if (jh == 0 && i0 + il < R) {
-    float* dst = part + ((size_t)blockIdx.y * R + i0 + il) * H + og * kTileO;
-#pragma unroll
-    for (int o = 0; o < kTileO; ++o)
-      dst[o] = acc[o] + s_half[il][og * kTileO + o];
   }
 }
 
 }  // namespace
 
-// part: (splits, R, H) scratch; out: (R, H); cols_per_split a multiple of
-// 16.  Returns cudaGetLastError().
+// part: (splits, R, H) scratch; out: (R, H); the column range splits into
+// parts of cols_per_split.  Returns cudaGetLastError().
 extern "C" int epnn_dense_message_rowsum(const float* pi, const float* pj,
                                          const float* cv, const float* w2,
                                          const float* b2, float* part,
                                          float* out, int R, int N, int H,
                                          int splits, int cols_per_split,
                                          cudaStream_t stream) {
-  if (H != 32 || R <= 0 || N <= 0 || splits <= 0 || cols_per_split % kCols)
+  if (H != kH || R <= 0 || N <= 0 || splits <= 0 || cols_per_split <= 0 ||
+      (long long)(splits - 1) * cols_per_split >= N)
     return cudaErrorInvalidValue;
   const dim3 grid((R + kRowsPerBlock - 1) / kRowsPerBlock, splits);
-  dmr_partial<32><<<grid, kThreads, 0, stream>>>(pi, pj, cv, w2, b2, part, R,
-                                                 N, cols_per_split);
+  dmr_partial<<<grid, kThreads, 0, stream>>>(pi, pj, cv, w2, b2, part, R, N,
+                                             cols_per_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int rh = R * H;

@@ -13,26 +13,41 @@
 // whose pallas_call (:1119) runs _msg_bwd_kernel (:921).  The v5e lane
 // packing (kron(I_P, W2), pltpu.repeat) is not carried over.
 //
-// Bound on the H100: operations.  Each pair needs three H x H contractions
-// (z2, e2 @ W2^T, the dW2 outer product) plus ~9H elementwise: 6H^2 + 9H
-// = 6.4 kFLOP at H = 32, fp32 on the CUDA cores (67 TFLOP/s, TF32 off):
-// 31.8 GFLOP, >= 0.47 ms, at 2,220 atoms.
+// Bound on the H100: operations.  Each live pair needs three H x H
+// contractions (z2, e2 @ W2^T, the dW2 outer product), 3 x 2H^2 FLOP,
+// each three tensor-core products in 3xTF32 (18H^2 FLOP at 495 TFLOP/s),
+// plus ~20H elementwise FLOP on the CUDA cores (67 TFLOP/s): >= 0.19 ms at
+// 2,220 atoms.  In fp32 on the CUDA cores alone: >= 0.47 ms.
 //
-// Design: two passes over the pair grid, each in the forward's
-// register-tiled layout (16 x 16 pairs per chunk, 128 threads, each thread
-// 8 pairs x 8 outputs, relu(z1) built once per chunk into shared memory).
-//   * Pass R owns 16 rows and streams column chunks.  It computes z2, e2
-//     (kept in shared memory), z1bar = e2 @ W2^T, and sums z1bar over its
-//     8 pairs of one row (dpi), e2 over its pairs (db2) and the chunk's
-//     relu(z1)^T e2 (dW2; thread = one output column o, 8 k).
-//   * Pass C owns 16 columns and streams row chunks; the same arithmetic
-//     summed over a thread's 8 pairs of one column gives dpj.
-// Both passes give their pairs identical z2 and e2 (the same fmaf chains
-// over the same values).  Too few blocks fill the card from rows or
-// columns alone, so each pass also splits its streamed range into a fixed
-// number of parts.  Partial sums land in scratch — per split for dpi and
-// dpj, per pass-R block for dW2 and db2 — and a second kernel adds them in
-// a fixed order: no atomics, the same bits on every launch.  Scratch is
+// Design: the forward's per-warp layout on mma.sync m16n8k8 TF32, split 3x
+// for fp32 grade (common.cuh), in two passes over the pair grid.
+//   * Pass R: a warp owns 16 rows i and walks the columns j.  For each j it
+//     builds z2 with far_z2 — the forward's A (far_a) and its products in
+//     its order, which on the H100 give wgmma's bits, so a pair gets the
+//     same z2 in both kernels — and e2 = cv_j * g_i * 1[z2 > 0] in the C
+//     layout.
+//     That C fragment is the A fragment of z1bar = e2 @ W2^T once the
+//     contraction index is relabelled (A column t <-> o = 2t, t + 4 <->
+//     2t + 1 within each 8-block: (a0, a1, a2, a3) = (c0, c2, c1, c3)), and
+//     the output columns are permuted so that the thread gets z1bar at the
+//     features 8t .. 8t + 7 it already holds: the mask 1[z1 > 0] is one add
+//     away, and dpi is a register sum over j.  dW2 = relu(z1)^T e2
+//     contracts over the pairs, so its B operand needs e2 transposed: the
+//     warp stages e2 (hi and lo) in shared memory under __syncwarp and
+//     builds relu(z1)^T as A from pi and pj on the fly, two columns (32
+//     pairs, 12 products) a tensor-core chain, then adds that into fp32
+//     sums on the CUDA cores: the tensor cores' accumulation truncates, so
+//     a long chain's error grows with its length.  db2 sums e2 a chunk at
+//     a time in registers, then into fp32 sums per warp.
+//   * Pass C owns 16 columns j a warp and walks the rows i: the same
+//     arithmetic, summed over i, gives dpj.
+// The constant B fragments (W2 and W2^T, split) sit in shared memory; the
+// streamed projections (and g, in pass C) are staged in chunks of 32 with
+// cp.async into a double-buffered ring.  Each pass splits its streamed
+// range into a fixed number of parts; partial sums land in scratch — per
+// split for dpi and dpj, per pass-R block for dW2 and db2 (the block's four
+// warps added in order first) — and epnn::sum_parts adds them in a fixed
+// order: no atomics, the same bits on every launch.  Scratch is
 // splits_r * R * H + splits_c * N * H + blocks_r * (H^2 + H) floats.
 // Rows past R enter as pi = 0, g = 0 and columns past N as pj = 0, cv = 0;
 // both give e2 = 0 and add exactly zero.
@@ -40,37 +55,42 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kOwn = 16;                    // owned rows (pass R) / cols (C)
-constexpr int kStream = 16;                 // streamed entries per chunk
-constexpr int kPairs = kOwn * kStream;      // 256 pairs per chunk
-constexpr int kTileP = 8;                   // pairs per thread
-constexpr int kTileO = 8;                   // outputs per thread
-constexpr int kH = 32;
-constexpr int kSlots4 = kPairs / 4;         // float4 slots per tile row
-constexpr int kEPad = 1;                    // float4 pad per e2 row
+constexpr int kH = epnn::kFarH;
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kOwnPerBlock = 16 * kWarps;  // a warp owns 16 rows / columns
+constexpr int kChunk = 32;                 // streamed entries per chunk
+constexpr int kEStride = 40;  // e2 tile row stride: conflict-free reads
 
-// shared-memory layout (floats), dynamic: above the 48 KB static limit
+// shared-memory layout, dynamic: above the 48 KB static limit
 struct Smem {
-  float4 w2[kH * kH / 4];          // W2 [k][o]
-  float4 w2t[kH * kH / 4];         // W2^T [o][k]
-  float4 z[kH][kSlots4];           // relu(z1) [k][slot]
-  float4 e[kH][kSlots4 + kEPad];   // e2 [o][slot], padded rows
-  float b2[kH];
-  float own[kOwn][kH + 1];         // owned projections (pi or pj)
-  float strT[kH][kStream + 1];     // streamed projections, transposed
-  float g[kOwn][kH + 1];           // g of the tile's 16 rows
-  float cv[kStream];               // cv of the tile's 16 columns
-  float half[kOwn][kH];            // second-half sums
-  float db2[kThreads / (kH / kTileO)][kH];
+  uint4 bw[16][32];  // far_z2's W2 fragments (ks * 4 + nt, lane)
+  uint4 bt[16][32];  // z1bar's W2^T fragments (kk * 4 + nf, lane)
+  float str[2][kChunk][kH];  // streamed pj (pass R) or pi (pass C)
+  float gs[2][kChunk][kH];   // pass C: g of the streamed rows
+  float cv[2][kChunk];       // pass R: cv of the streamed columns
+  // pass R: each warp's e2 tile, hi and lo [pair][o]; at the end, the
+  // block's dW2 (4 warps x H x H) and db2 (4 warps x 8 x H) partials
+  float e[kWarps][2][16][kEStride];
+  // pass R: each warp's dW2 and db2 sums in fp32 [entry][lane]
+  float accw[kWarps][32][32];
+  float accb[kWarps][8][32];
 };
+static_assert(kChunk % 2 == 0, "dW2 chains close on every second column");
+static_assert(sizeof(float) * kWarps * 2 * 16 * kEStride >=
+                  sizeof(float) * (kWarps * kH * kH + kWarps * 8 * kH),
+              "the reduction buffer fits in the e2 tiles");
 
-// Slot s of a tile row holds pair p = g * 8 + q * 4 + r (q = s / 128,
-// g = (s % 128) / 4, r = s % 4), so pair group pg's 8 pairs are the float4
-// slots pg and 32 + pg: a warp's reads are contiguous 128-byte rows.
-__device__ __forceinline__ int slot_pair(int s) {
-  const int q = s / (kPairs / 2), g = (s % (kPairs / 2)) / 4, r = s % 4;
-  return g * kTileP + q * 4 + r;
+// z1bar's B = W2^T (k = o, n = f), split, in the relabelled order: k-step
+// kk, B row t <-> o = 8kk + 2t, row t + 4 <-> o = 8kk + 2t + 1; n-tile nf,
+// column n <-> f = 8 (n / 2) + 2nf + n % 2, so that the output's C column
+// 2t + h is feature 8t + 2nf + h.
+__device__ __forceinline__ uint4 w2t_frag(const float* __restrict__ w2,
+                                          int kk, int nf, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const int f = 8 * (g >> 1) + 2 * nf + (g & 1);
+  return epnn::split_b(w2[f * kH + 8 * kk + 2 * t],
+                       w2[f * kH + 8 * kk + 2 * t + 1]);
 }
 
 // kRows: pass R (owns rows; dpi, dW2, db2), else pass C (owns cols; dpj).
@@ -81,11 +101,7 @@ dmr_bwd_partial(const float* __restrict__ pi, const float* __restrict__ pj,
                 const float* __restrict__ b2, const float* __restrict__ g,
                 float* __restrict__ part_d, float* __restrict__ part_w,
                 float* __restrict__ part_b, int R, int N, int per_split) {
-  constexpr int H = kH;
-  constexpr int kOutGroups = H / kTileO;          // 4
-  constexpr int kHalves = kStream / kTileP;       // 2
-  static_assert(kOutGroups * (kPairs / kTileP) == kThreads, "tiling");
-  extern __shared__ float4 smem_raw[];
+  extern __shared__ uint4 smem_raw[];
   Smem& s = *reinterpret_cast<Smem*>(smem_raw);
 
   const int n_own = kRows ? R : N;
@@ -93,172 +109,281 @@ dmr_bwd_partial(const float* __restrict__ pi, const float* __restrict__ pj,
   const float* own_src = kRows ? pi : pj;
   const float* str_src = kRows ? pj : pi;
 
-  const int tid = threadIdx.x;
-  const int og = tid % kOutGroups;
-  const int pg = tid / kOutGroups;
-  const int ol = pg / kHalves;     // the thread's owned entry
-  const int sh = pg % kHalves;     // its half of the streamed chunk
-  const int o0 = blockIdx.x * kOwn;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, t = lane & 3;
+  const int o0 = blockIdx.x * kOwnPerBlock + warp * 16;  // the warp's own
   const int s0 = blockIdx.y * per_split;
   const int s1 = min(n_str, s0 + per_split);
+  const int chunks = (s1 - s0 + kChunk - 1) / kChunk;
 
-  epnn::stage(s.w2, w2, H * H);
-  for (int t = tid; t < H; t += kThreads) s.b2[t] = b2[t];
-  for (int t = tid; t < kOwn * H; t += kThreads) {
-    const int r = t / H, k = t % H;
-    const bool in = o0 + r < n_own;
-    s.own[r][k] = in ? own_src[(size_t)(o0 + r) * H + k] : 0.0f;
-    if (kRows) s.g[r][k] = in ? g[(size_t)(o0 + r) * H + k] : 0.0f;
-  }
-  if (!kRows)
-    for (int t = tid; t < kOwn; t += kThreads)
-      s.cv[t] = o0 + t < N ? cv[o0 + t] : 0.0f;
-  __syncthreads();
-  {
-    const float* w = reinterpret_cast<const float*>(s.w2);
-    float* wt = reinterpret_cast<float*>(s.w2t);
-    for (int t = tid; t < H * H; t += kThreads)
-      wt[(t % H) * H + t / H] = w[t];
-  }
-
-  float acc_d[kTileO], acc_b[kTileO], acc_w[kTileO];
-#pragma unroll
-  for (int o = 0; o < kTileO; ++o) acc_d[o] = acc_b[o] = acc_w[o] = 0.0f;
-  // dW2 mapping (pass R): warp kg owns k = kg*8 .. kg*8+7, lane = column o
-  const int wk0 = (tid / 32) * kTileO;
-  const int wo = tid % 32;
-
-  for (int st = s0; st < s1; st += kStream) {
-    const int ns = min(kStream, s1 - st);
-    __syncthreads();  // the previous chunk's tiles are consumed
-    for (int t = tid; t < kStream * H; t += kThreads) {
-      const int j = t / H, k = t % H;
-      const bool in = j < ns;
-      s.strT[k][j] = in ? str_src[(size_t)(st + j) * H + k] : 0.0f;
-      if (!kRows) s.g[j][k] = in ? g[(size_t)(st + j) * H + k] : 0.0f;
+  // chunk c's streamed entries into ring slot c % 2; past s1: zeros
+  auto stage = [&](int c) {
+    const int st = s0 + c * kChunk;
+    for (int e = threadIdx.x; e < kChunk * kH; e += kThreads) {
+      const bool in = st + e / kH < s1;
+      const size_t at = in ? (size_t)st * kH + e : 0;
+      epnn::cp_async4(&s.str[c & 1][0][0] + e, str_src + at, in);
+      if (!kRows) epnn::cp_async4(&s.gs[c & 1][0][0] + e, g + at, in);
     }
     if (kRows)
-      for (int t = tid; t < kStream; t += kThreads)
-        s.cv[t] = t < ns ? cv[st + t] : 0.0f;
-    __syncthreads();
-    for (int e = tid; e < H * kPairs; e += kThreads) {
-      const int k = e / kPairs, sl = e % kPairs;
-      const int p = slot_pair(sl);
-      reinterpret_cast<float*>(s.z[k])[sl] =
-          epnn::relu(s.own[p / kStream][k] + s.strT[k][p % kStream]);
-    }
-    __syncthreads();
-
-    // z2 = relu(z1) @ W2 + b2, then e2 = cv_j * g_i * 1[z2 > 0] in place
-    float y[kTileP][kTileO];
-#pragma unroll
-    for (int p = 0; p < kTileP; ++p)
-#pragma unroll
-      for (int o = 0; o < kTileO; ++o) y[p][o] = s.b2[og * kTileO + o];
-#pragma unroll
-    for (int k = 0; k < H; ++k) {
-      const float4 za = s.z[k][pg];
-      const float4 zb = s.z[k][kPairs / 8 + pg];
-      const float4 wa = s.w2[k * (H / 4) + og * 2];
-      const float4 wb = s.w2[k * (H / 4) + og * 2 + 1];
-      const float zv[kTileP] = {za.x, za.y, za.z, za.w, zb.x, zb.y, zb.z, zb.w};
-      const float wv[kTileO] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-      for (int p = 0; p < kTileP; ++p)
-#pragma unroll
-        for (int o = 0; o < kTileO; ++o) y[p][o] = fmaf(zv[p], wv[o], y[p][o]);
-    }
-#pragma unroll
-    for (int p = 0; p < kTileP; ++p) {
-      const int si = sh * kTileP + p;        // streamed index of pair p
-      const int row = kRows ? ol : si;
-      const float c = s.cv[kRows ? si : ol];
-#pragma unroll
-      for (int o = 0; o < kTileO; ++o) {
-        const float e2 = y[p][o] > 0.0f ? s.g[row][og * kTileO + o] * c : 0.0f;
-        y[p][o] = e2;
-        if (kRows) acc_b[o] += e2;
+      for (int e = threadIdx.x; e < kChunk; e += kThreads) {
+        const bool in = st + e < s1;
+        epnn::cp_async4(&s.cv[c & 1][e], cv + (in ? st + e : 0), in);
       }
-    }
-#pragma unroll
-    for (int o = 0; o < kTileO; ++o) {
-      s.e[og * kTileO + o][pg] = make_float4(y[0][o], y[1][o], y[2][o], y[3][o]);
-      s.e[og * kTileO + o][kPairs / 8 + pg] =
-          make_float4(y[4][o], y[5][o], y[6][o], y[7][o]);
-    }
-    __syncthreads();
+    epnn::cp_async_commit();
+  };
+  stage(0);
 
-    // z1bar = (e2 @ W2^T) * 1[z1 > 0], summed over the thread's 8 pairs
+  for (int e = threadIdx.x; e < 16 * 32; e += kThreads) {
+    s.bw[e >> 5][e & 31] = epnn::w2_frag(w2, e >> 7, (e >> 5) & 3, e & 31);
+    s.bt[e >> 5][e & 31] = w2t_frag(w2, e >> 7, (e >> 5) & 3, e & 31);
+  }
+  float bias[4][2];
 #pragma unroll
-    for (int p = 0; p < kTileP; ++p)
+  for (int nt = 0; nt < 4; ++nt) {
+    bias[nt][0] = b2[8 * nt + 2 * t];
+    bias[nt][1] = b2[8 * nt + 2 * t + 1];
+  }
+  const bool in_a = o0 + gq < n_own, in_b = o0 + gq + 8 < n_own;
+  float xa[8], xb[8];  // own rows gq, gq + 8: features 8t .. 8t + 7
+  epnn::load_row8(own_src + (size_t)(o0 + gq) * kH, t, in_a, xa);
+  epnn::load_row8(own_src + (size_t)(o0 + gq + 8) * kH, t, in_b, xb);
+  // pass R: g of the own rows in the C layout; relu(z1)^T's pi: own rows
+  // t + 4pp, features 4gq .. 4gq + 3.  Pass C: cv of the own columns.
+  float gown[4][4], piT[4][4], cvown[2];
 #pragma unroll
-      for (int o = 0; o < kTileO; ++o) y[p][o] = 0.0f;
+  for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-    for (int o = 0; o < H; ++o) {
-      const float4 ea = s.e[o][pg];
-      const float4 eb = s.e[o][kPairs / 8 + pg];
-      const float4 wa = s.w2t[o * (H / 4) + og * 2];
-      const float4 wb = s.w2t[o * (H / 4) + og * 2 + 1];
-      const float ev[kTileP] = {ea.x, ea.y, ea.z, ea.w, eb.x, eb.y, eb.z, eb.w};
-      const float wv[kTileO] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-      for (int p = 0; p < kTileP; ++p)
-#pragma unroll
-        for (int k = 0; k < kTileO; ++k) y[p][k] = fmaf(ev[p], wv[k], y[p][k]);
+    for (int r = 0; r < 4; ++r) {
+      const int row = o0 + gq + 8 * (r >> 1);
+      gown[nt][r] = kRows && row < R
+                        ? g[(size_t)row * kH + 8 * nt + 2 * t + (r & 1)]
+                        : 0.0f;
+      const int prow = o0 + t + 4 * nt;
+      piT[nt][r] = kRows && prow < R ? pi[(size_t)prow * kH + 4 * gq + r]
+                                     : 0.0f;
     }
-#pragma unroll
-    for (int k = 0; k < kTileO; ++k) {
-      const float4 za = s.z[og * kTileO + k][pg];
-      const float4 zb = s.z[og * kTileO + k][kPairs / 8 + pg];
-      const float zv[kTileP] = {za.x, za.y, za.z, za.w, zb.x, zb.y, zb.z, zb.w};
-#pragma unroll
-      for (int p = 0; p < kTileP; ++p)
-        acc_d[k] += zv[p] > 0.0f ? y[p][k] : 0.0f;
-    }
+  cvown[0] = !kRows && in_a ? cv[o0 + gq] : 0.0f;
+  cvown[1] = !kRows && in_b ? cv[o0 + gq + 8] : 0.0f;
 
-    if (kRows) {
-      // dW2[k][o] += sum over the chunk's pairs of relu(z1)[k] * e2[o]
-#pragma unroll 4
-      for (int s4 = 0; s4 < kSlots4; ++s4) {
-        const float4 ev = s.e[wo][s4];
+  // acc_w: dW2 of the last two columns, a tensor-core chain of 12
+  // products; it is added into the warp's fp32 sums (s.accw) and cleared
+  // every second column, because the tensor cores' fp32 accumulation
+  // truncates, and over a whole column range its error would grow with
+  // the range (at 17,760 atoms, past the float64 bar of chip_smoke.py)
+  float acc_d[4][4], acc_b[4][2], acc_w[2][4][4];
 #pragma unroll
-        for (int k = 0; k < kTileO; ++k) {
-          const float4 zv = s.z[wk0 + k][s4];
-          float a = fmaf(zv.x, ev.x, acc_w[k]);
-          a = fmaf(zv.y, ev.y, a);
-          a = fmaf(zv.z, ev.z, a);
-          acc_w[k] = fmaf(zv.w, ev.w, a);
+  for (int a = 0; a < 4; ++a) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc_d[a][r] = acc_w[0][a][r] = acc_w[1][a][r] = 0.0f;
+    acc_b[a][0] = acc_b[a][1] = 0.0f;
+  }
+  float(*const ehl)[16][kEStride] = s.e[warp];
+  // acc_b: db2 of the current chunk, added into s.accb at its end
+  float* const accw = &s.accw[warp][0][lane];
+  float* const accb = &s.accb[warp][0][lane];
+  if (kRows) {
+#pragma unroll
+    for (int q = 0; q < 32; ++q) accw[32 * q] = 0.0f;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) accb[32 * q] = 0.0f;
+  }
+
+  for (int c = 0; c < chunks; ++c) {
+    if (c + 1 < chunks) {
+      stage(c + 1);
+      epnn::cp_async_wait<1>();
+    } else {
+      epnn::cp_async_wait<0>();
+    }
+    __syncthreads();  // chunk c (and the B fragments) landed
+    if (o0 < n_own) {
+      const float* sp = &s.str[c & 1][0][0];
+      for (int j = 0; j < kChunk; ++j) {
+        const float* row = sp + j * kH;
+        const float4 p0 = *reinterpret_cast<const float4*>(row + 8 * t);
+        const float4 p1 = *reinterpret_cast<const float4*>(row + 8 * t + 4);
+        const float xs[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+
+        // z2 (the forward's products), then e2 = cv_j * g_i * 1[z2 > 0]
+        float e2[4][4];
+        epnn::far_z2(xa, xb, xs, bias,
+                     [&](int ks, int nt) { return s.bw[ks * 4 + nt][lane]; },
+                     e2);
+        if (kRows) {
+          const float cj = s.cv[c & 1][j];
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+              e2[nt][r] = e2[nt][r] > 0.0f ? gown[nt][r] * cj : 0.0f;
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            acc_b[nt][0] += e2[nt][0];
+            acc_b[nt][1] += e2[nt][1];
+            acc_b[nt][0] += e2[nt][2];
+            acc_b[nt][1] += e2[nt][3];
+          }
+        } else {
+          const float* gi = &s.gs[c & 1][j][0];
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const float2 gv =
+                *reinterpret_cast<const float2*>(gi + 8 * nt + 2 * t);
+            e2[nt][0] = e2[nt][0] > 0.0f ? gv.x * cvown[0] : 0.0f;
+            e2[nt][1] = e2[nt][1] > 0.0f ? gv.y * cvown[0] : 0.0f;
+            e2[nt][2] = e2[nt][2] > 0.0f ? gv.x * cvown[1] : 0.0f;
+            e2[nt][3] = e2[nt][3] > 0.0f ? gv.y * cvown[1] : 0.0f;
+          }
+        }
+
+        // z1bar = e2 @ W2^T: the C fragment relabelled as A
+        uint32_t eh[4][4], el[4][4];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) epnn::tf32_split(e2[nt][r], eh[nt][r], el[nt][r]);
+        float zb[4][4];
+#pragma unroll
+        for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) zb[nf][r] = 0.0f;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint32_t ah[4] = {eh[kk][0], eh[kk][2], eh[kk][1], eh[kk][3]};
+          const uint32_t al[4] = {el[kk][0], el[kk][2], el[kk][1], el[kk][3]};
+#pragma unroll
+          for (int nf = 0; nf < 4; ++nf)
+            epnn::mma_3xtf32(zb[nf], ah, al, s.bt[kk * 4 + nf][lane]);
+        }
+        // mask 1[z1 > 0] at features 8t + 2nf + h, sum over the streamed
+#pragma unroll
+        for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int m = 2 * nf + h;
+            acc_d[nf][h] += xa[m] + xs[m] > 0.0f ? zb[nf][h] : 0.0f;
+            acc_d[nf][2 + h] += xb[m] + xs[m] > 0.0f ? zb[nf][2 + h] : 0.0f;
+          }
+
+        if (kRows) {
+          // dW2 += relu(z1)^T e2 over the warp's 16 pairs: e2 (hi, lo)
+          // through shared memory as B [pair][o], relu(z1)^T built as A
+          // [f][pair] with f = 4gq + 2mf (+1 for A rows gq + 8)
+          __syncwarp();  // the previous column's e2 tile is consumed
+          auto put = [&](int hl, int r, uint32_t v0, uint32_t v1, int nt) {
+            *reinterpret_cast<float2*>(&ehl[hl][gq + 8 * r][8 * nt + 2 * t]) =
+                make_float2(__uint_as_float(v0), __uint_as_float(v1));
+          };
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            put(0, 0, eh[nt][0], eh[nt][1], nt);
+            put(0, 1, eh[nt][2], eh[nt][3], nt);
+            put(1, 0, el[nt][0], el[nt][1], nt);
+            put(1, 1, el[nt][2], el[nt][3], nt);
+          }
+          __syncwarp();
+          const float4 pq = *reinterpret_cast<const float4*>(row + 4 * gq);
+          const float pjq[4] = {pq.x, pq.y, pq.z, pq.w};
+#pragma unroll
+          for (int kp = 0; kp < 2; ++kp) {
+            uint4 bfr[4];
+#pragma unroll
+            for (int no = 0; no < 4; ++no) {
+              const int p = 8 * kp + t, o = 8 * no + gq;
+              bfr[no] = make_uint4(__float_as_uint(ehl[0][p][o]),
+                                   __float_as_uint(ehl[0][p + 4][o]),
+                                   __float_as_uint(ehl[1][p][o]),
+                                   __float_as_uint(ehl[1][p + 4][o]));
+            }
+#pragma unroll
+            for (int mf = 0; mf < 2; ++mf) {
+              uint32_t ah[4], al[4];
+              epnn::tf32_split(epnn::relu(piT[2 * kp][2 * mf] + pjq[2 * mf]),
+                               ah[0], al[0]);
+              epnn::tf32_split(
+                  epnn::relu(piT[2 * kp][2 * mf + 1] + pjq[2 * mf + 1]),
+                  ah[1], al[1]);
+              epnn::tf32_split(
+                  epnn::relu(piT[2 * kp + 1][2 * mf] + pjq[2 * mf]), ah[2],
+                  al[2]);
+              epnn::tf32_split(
+                  epnn::relu(piT[2 * kp + 1][2 * mf + 1] + pjq[2 * mf + 1]),
+                  ah[3], al[3]);
+#pragma unroll
+              for (int no = 0; no < 4; ++no)
+                epnn::mma_3xtf32(acc_w[mf][no], ah, al, bfr[no]);
+            }
+          }
+          if (j & 1) {
+#pragma unroll
+            for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+              for (int no = 0; no < 4; ++no)
+#pragma unroll
+                for (int r = 0; r < 4; ++r) {
+                  accw[32 * ((mf * 4 + no) * 4 + r)] += acc_w[mf][no][r];
+                  acc_w[mf][no][r] = 0.0f;
+                }
+          }
         }
       }
+      if (kRows)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            accb[32 * (2 * nt + h)] += acc_b[nt][h];
+            acc_b[nt][h] = 0.0f;
+          }
     }
+    __syncthreads();  // slot c % 2 is free for chunk c + 2
   }
 
-  // dpi / dpj: add the second streamed half to the first, in that order
-  if (sh == 1) {
-#pragma unroll
-    for (int k = 0; k < kTileO; ++k) s.half[ol][og * kTileO + k] = acc_d[k];
+  // dpi / dpj: the thread's features 8t .. 8t + 7 of rows gq, gq + 8
+  float* dst = part_d + (size_t)blockIdx.y * n_own * kH;
+  if (in_a) {
+    float4* d4 = reinterpret_cast<float4*>(dst + (size_t)(o0 + gq) * kH + 8 * t);
+    d4[0] = make_float4(acc_d[0][0], acc_d[0][1], acc_d[1][0], acc_d[1][1]);
+    d4[1] = make_float4(acc_d[2][0], acc_d[2][1], acc_d[3][0], acc_d[3][1]);
+  }
+  if (in_b) {
+    float4* d4 =
+        reinterpret_cast<float4*>(dst + (size_t)(o0 + gq + 8) * kH + 8 * t);
+    d4[0] = make_float4(acc_d[0][2], acc_d[0][3], acc_d[1][2], acc_d[1][3]);
+    d4[1] = make_float4(acc_d[2][2], acc_d[2][3], acc_d[3][2], acc_d[3][3]);
   }
   if (kRows) {
+    // the block's four warps, then (db2) the eight row groups, in order
+    float* red_w = &s.e[0][0][0][0];      // [warp][f][o]
+    float* red_b = red_w + kWarps * kH * kH;  // [warp][gq][o]
+    __syncthreads();  // every warp is done with its e2 tile
 #pragma unroll
-    for (int o = 0; o < kTileO; ++o) s.db2[pg][og * kTileO + o] = acc_b[o];
-  }
-  __syncthreads();
-  if (sh == 0 && o0 + ol < n_own) {
-    float* dst = part_d + ((size_t)blockIdx.y * n_own + o0 + ol) * H +
-                 og * kTileO;
+    for (int mf = 0; mf < 2; ++mf)
 #pragma unroll
-    for (int k = 0; k < kTileO; ++k)
-      dst[k] = acc_d[k] + s.half[ol][og * kTileO + k];
-  }
-  if (kRows) {
+      for (int no = 0; no < 4; ++no)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int f = 4 * gq + 2 * mf + (r >> 1);
+          const int o = 8 * no + 2 * t + (r & 1);
+          red_w[(warp * kH + f) * kH + o] = accw[32 * ((mf * 4 + no) * 4 + r)];
+        }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        red_b[(warp * 8 + gq) * kH + 8 * nt + 2 * t + h] = accb[32 * (2 * nt + h)];
+    __syncthreads();
     const size_t blk = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
-#pragma unroll
-    for (int k = 0; k < kTileO; ++k)
-      part_w[blk * H * H + (wk0 + k) * H + wo] = acc_w[k];
-    if (tid < H) {
+    for (int e = threadIdx.x; e < kH * kH; e += kThreads) {
+      float w = red_w[e];
+      for (int q = 1; q < kWarps; ++q) w += red_w[q * kH * kH + e];
+      part_w[blk * kH * kH + e] = w;
+    }
+    if (threadIdx.x < kH) {
       float b = 0.0f;
-      for (int q = 0; q < kThreads / kOutGroups; ++q) b += s.db2[q][tid];
-      part_b[blk * H + tid] = b;
+      for (int q = 0; q < kWarps * 8; ++q) b += red_b[q * kH + threadIdx.x];
+      part_b[blk * kH + threadIdx.x] = b;
     }
   }
 }
@@ -273,9 +398,10 @@ cudaError_t launch_sum(const float* part, float* out, int count, int parts,
 }  // namespace
 
 // work: scratch of splits_r*R*H + splits_c*N*H + blocks_r*(H*H + H) floats,
-// blocks_r = ceil(R/16) * splits_r; rows_per_split / cols_per_split are
-// multiples of 16.  Writes dpi (R, H), dpj (N, H), dw2 (H, H), db2 (H,).
-// Returns the first CUDA error (0 on success).
+// blocks_r = ceil(R/64) * splits_r; the streamed ranges split into parts of
+// cols_per_split (pass R) and rows_per_split (pass C).  Writes dpi (R, H),
+// dpj (N, H), dw2 (H, H), db2 (H,).  Returns the first CUDA error (0 on
+// success).
 extern "C" int epnn_dense_message_rowsum_bwd(
     const float* pi, const float* pj, const float* cv, const float* w2,
     const float* b2, const float* g, float* work, float* dpi, float* dpj,
@@ -283,7 +409,9 @@ extern "C" int epnn_dense_message_rowsum_bwd(
     int cols_per_split, int splits_c, int rows_per_split,
     cudaStream_t stream) {
   if (H != kH || R <= 0 || N <= 0 || splits_r <= 0 || splits_c <= 0 ||
-      cols_per_split % kStream || rows_per_split % kStream)
+      cols_per_split <= 0 || rows_per_split <= 0 ||
+      (long long)(splits_r - 1) * cols_per_split >= N ||
+      (long long)(splits_c - 1) * rows_per_split >= R)
     return cudaErrorInvalidValue;
   const int smem = (int)sizeof(Smem);
   cudaError_t err = cudaFuncSetAttribute(
@@ -295,8 +423,8 @@ extern "C" int epnn_dense_message_rowsum_bwd(
                              smem);
   if (err != cudaSuccess) return err;
 
-  const int row_blocks = (R + kOwn - 1) / kOwn;
-  const int col_blocks = (N + kOwn - 1) / kOwn;
+  const int row_blocks = (R + kOwnPerBlock - 1) / kOwnPerBlock;
+  const int col_blocks = (N + kOwnPerBlock - 1) / kOwnPerBlock;
   const int blocks_r = row_blocks * splits_r;
   float* part_dpi = work;
   float* part_dpj = part_dpi + (size_t)splits_r * R * H;

@@ -31,11 +31,15 @@ version (``*_plain``); on a CUDA tensor it launches the kernel on the
 current stream or raises — there is no fallback.  Every launch adds one
 to :data:`LAUNCHES`, so a run can show which kernels it went through.
 
-The kernels are CUDA C++ for ``sm_90a`` with a plain C interface, float32
-on the CUDA cores, built by ``nvcc`` into shared libraries under
-``build/epnn_tpu_torch/`` of the checkout on first use and loaded with
-``ctypes``; :func:`build` compiles all of them in parallel.  Nothing is
-built when this module is imported.
+The kernels are CUDA C++ for ``sm_90a`` with a plain C interface, built by
+``nvcc`` into shared libraries under ``build/epnn_tpu_torch/`` of the
+checkout on first use and loaded with ``ctypes``; :func:`build` compiles
+all of them in parallel.  Nothing is built when this module is imported.
+All are float32-grade: the far field and its backward run their H × H
+products on the tensor cores in 3xTF32 (each operand split into two TF32
+parts, three products, fp32 accumulation — :func:`tf32_round`,
+``*_3xtf32_plain`` repeat that arithmetic on any device), the others in
+fp32 on the CUDA cores.  None is the TF32 tier: one TF32 pass keeps ~2^-11.
 """
 
 from __future__ import annotations
@@ -226,15 +230,50 @@ def _plain_rows(r: int, n: int, width: int) -> int:
 # 1. dense_message_rowsum — the far-field reduction
 # ---------------------------------------------------------------------------
 
-#: CUDA block geometry of dense_message_rowsum (csrc: kRowsPerBlock, kCols)
-_DMR_ROWS = 16
-_DMR_TILE = 16
-#: blocks to aim for: 132 SMs, a few resident blocks each
-_DMR_TARGET_BLOCKS = 4 * 132
+#: CUDA block geometry of the far-field kernels (csrc: kRowsPerBlock or
+#: kOwnPerBlock, and kChunk): a block owns 64 rows (columns), 16 a warp,
+#: and streams the other side in chunks of 32
+_DMR_ROWS = 64
+_DMR_TILE = 32
+#: blocks to aim for: 132 SMs, a few resident blocks each, several waves —
+#: the forward (three 4-warp blocks an SM) in many short waves, so the last,
+#: partly filled one idles little; the backward's passes (two blocks an SM)
+#: in fewer, longer blocks, as each block also writes a dW2 partial
+_DMR_TARGET_BLOCKS = 16 * 132
+_DMR_BWD_TARGET_BLOCKS = 4 * 132
 
 
-def dense_message_rowsum_plain(pi, pj, col_vec, w2, b2):
-    """Σ_j col_vec_j · relu(relu(pi_i + pj_j) @ W2 + b2) as (R, H),
+def _mm_fp32(a, b, c=None):
+    """``c + a @ b`` in float32 (TF32 off)."""
+    return a @ b if c is None else a @ b + c
+
+
+def tf32_round(x):
+    """``x`` (float32) rounded to TF32: nearest, ties away from zero, on the
+    low 13 bits of the significand — ``cvt.rna.tf32.f32``, and the same
+    integer expression as ``tf32_round`` in ``csrc/common.cuh``.  Values
+    already in TF32 come back unchanged; inf and NaN pass through."""
+    bits = x.view(torch.int32)
+    r = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isfinite(x), r, x)
+
+
+def _mm_3xtf32(a, b, c=None):
+    """``c + a @ b`` in the far-field kernels' 3xTF32 arithmetic: each
+    operand split into hi = tf32(x) and lo = tf32(x − hi), then
+    lo·hi + hi·lo + hi·hi, small terms first.  Products of TF32 values are
+    exact in float32, so only the summation order differs from the
+    tensor cores'."""
+    ah = tf32_round(a)
+    al = tf32_round(a - ah)
+    bh = tf32_round(b)
+    bl = tf32_round(b - bh)
+    out = al @ bh if c is None else c + al @ bh
+    return (out + ah @ bl) + ah @ bh
+
+
+def _far_rows(pi, pj, col_vec, w2, b2, mm):
+    """Σ_j col_vec_j · relu(mm(relu(pi_i + pj_j), W2, b2)) as (R, H),
     row-blocked so no (R, N, H) tensor exists (at most 2^24 floats)."""
     r, h = pi.shape
     n = pj.shape[0]
@@ -242,20 +281,35 @@ def dense_message_rowsum_plain(pi, pj, col_vec, w2, b2):
     out = pi.new_empty((r, h))
     for s in range(0, r, rb):
         hid = torch.relu(pi[s:s + rb, None, :] + pj[None, :, :])
-        hid = torch.relu(hid @ w2 + b2)
+        hid = torch.relu(mm(hid, w2, b2))
         out[s:s + rb] = torch.einsum("n,bnh->bh", col_vec, hid)
     return out
 
 
-def _dense_message_splits(r: int, n: int,
-                          target: int = _DMR_TARGET_BLOCKS) -> tuple:
+def dense_message_rowsum_plain(pi, pj, col_vec, w2, b2):
+    """Σ_j col_vec_j · relu(relu(pi_i + pj_j) @ W2 + b2) as (R, H) in
+    float32, row-blocked (the CPU path and the reference)."""
+    return _far_rows(pi, pj, col_vec, w2, b2, _mm_fp32)
+
+
+def dense_message_rowsum_3xtf32_plain(pi, pj, col_vec, w2, b2):
+    """:func:`dense_message_rowsum_plain` with the kernel's arithmetic:
+    the mid-layer product in 3xTF32 (``_mm_3xtf32``).  Not on any path:
+    the tests and ``chip_smoke.py`` hold the kernel to it (the two may
+    differ only by summation order)."""
+    return _far_rows(pi, pj, col_vec, w2, b2, _mm_3xtf32)
+
+
+def _dense_message_splits(r: int, n: int, target: int = _DMR_TARGET_BLOCKS,
+                          rows: int = _DMR_ROWS,
+                          tile: int = _DMR_TILE) -> tuple:
     """(splits, cols_per_split): the fixed column split of a pair-grid
-    kernel's first pass — about ``target`` blocks of 16 rows, whole
-    16-column chunks."""
-    row_blocks = -(-r // _DMR_ROWS)
+    kernel's first pass — about ``target`` blocks of ``rows`` rows, whole
+    ``tile``-column chunks."""
+    row_blocks = -(-r // rows)
     want = max(1, -(-target // row_blocks))
     cols = -(-n // want)
-    cols = -(-cols // _DMR_TILE) * _DMR_TILE
+    cols = -(-cols // tile) * tile
     return -(-n // cols), cols
 
 
@@ -277,14 +331,13 @@ def _dense_message_rowsum_fwd(pi, pj, col_vec, w2, b2):
     splits, cols = _dense_message_splits(r, n)
     part = pi.new_empty((splits, r, h))
     _launch(name, device, (pi, pj, col_vec, w2, b2, part, out),
-            (r, n, h, splits, cols), dict(w2=w2))
+            (r, n, h, splits, cols), {})
     return out
 
 
-def dense_message_rowsum_bwd_plain(pi, pj, col_vec, w2, b2, g):
-    """The four gradients of :func:`dense_message_rowsum_plain` for the
-    cotangent ``g`` (R, H), written out (no autograd) and row-blocked like
-    the forward:
+def _far_bwd_rows(pi, pj, col_vec, w2, b2, g, mm):
+    """The four gradients of :func:`_far_rows` with the product ``mm`` for
+    the cotangent ``g`` (R, H), written out (no autograd) and row-blocked:
 
         e2 = col_vec_j · g_i ⊙ 1[z2 > 0]     z̄1 = (e2 @ W2ᵀ) ⊙ 1[z1 > 0]
         dpi = Σ_j z̄1   dpj = Σ_i z̄1   dW2 = Σ relu(z1)ᵀ e2   db2 = Σ e2
@@ -300,15 +353,29 @@ def dense_message_rowsum_bwd_plain(pi, pj, col_vec, w2, b2, g):
     for s in range(0, r, rb):
         z1 = pi[s:s + rb, None, :] + pj[None, :, :]
         a1 = torch.relu(z1)
-        z2 = a1 @ w2 + b2
+        z2 = mm(a1, w2, b2)
         e2 = torch.where(z2 > 0, g[s:s + rb, None, :] * col_vec[None, :, None],
                          0.0)
-        z1bar = torch.where(z1 > 0, e2 @ w2.T, 0.0)
+        z1bar = torch.where(z1 > 0, mm(e2, w2.T), 0.0)
         dpi[s:s + rb] = z1bar.sum(1)
         dpj += z1bar.sum(0)
-        dw2 += a1.reshape(-1, h).T @ e2.reshape(-1, h)
+        dw2 += mm(a1.reshape(-1, h).T, e2.reshape(-1, h))
         db2 += e2.sum((0, 1))
     return dpi, dpj, dw2, db2
+
+
+def dense_message_rowsum_bwd_plain(pi, pj, col_vec, w2, b2, g):
+    """``(dpi, dpj, dw2, db2)`` of :func:`dense_message_rowsum_plain` for
+    the cotangent ``g`` (R, H), in float32 (see ``_far_bwd_rows``)."""
+    return _far_bwd_rows(pi, pj, col_vec, w2, b2, g, _mm_fp32)
+
+
+def dense_message_rowsum_bwd_3xtf32_plain(pi, pj, col_vec, w2, b2, g):
+    """:func:`dense_message_rowsum_bwd_plain` with the backward kernel's
+    arithmetic: its three contractions (z2, e2 @ W2ᵀ and the dW2 outer
+    product) in 3xTF32 (``_mm_3xtf32``).  Not on any path: the tests and
+    ``chip_smoke.py`` hold the kernel to it."""
+    return _far_bwd_rows(pi, pj, col_vec, w2, b2, g, _mm_3xtf32)
 
 
 def dense_message_rowsum_bwd(pi, pj, col_vec, w2, b2, g):
@@ -330,14 +397,14 @@ def dense_message_rowsum_bwd(pi, pj, col_vec, w2, b2, g):
     dw2, db2 = w2.new_empty((h, h)), b2.new_empty((h,))
     if r == 0 or n == 0:
         return dpi.zero_(), dpj.zero_(), dw2.zero_(), db2.zero_()
-    splits_r, cols = _dense_message_splits(r, n)
-    splits_c, rows = _dense_message_splits(n, r)
+    splits_r, cols = _dense_message_splits(r, n, _DMR_BWD_TARGET_BLOCKS)
+    splits_c, rows = _dense_message_splits(n, r, _DMR_BWD_TARGET_BLOCKS)
     blocks_r = -(-r // _DMR_ROWS) * splits_r
     work = pi.new_empty(splits_r * r * h + splits_c * n * h
                         + blocks_r * (h * h + h))
     _launch(name, device, (pi, pj, col_vec, w2, b2, g, work, dpi, dpj, dw2,
                            db2),
-            (r, n, h, splits_r, cols, splits_c, rows), dict(w2=w2))
+            (r, n, h, splits_r, cols, splits_c, rows), {})
     return dpi, dpj, dw2, db2
 
 
@@ -550,6 +617,9 @@ class _InferenceOnly(torch.autograd.Function):
 #: blocks the fused dense kernels aim for: 132 SMs, two resident blocks
 #: each (84 KB and 66 KB of shared memory a block), a few waves
 _FUSED_TARGET_BLOCKS = 8 * 132
+#: their block geometry (csrc: kRowsPerBlock, kCols): 16 rows, 16-column
+#: chunks
+_FUSED_SPLIT = dict(target=_FUSED_TARGET_BLOCKS, rows=16, tile=16)
 
 
 # ---------------------------------------------------------------------------
@@ -595,7 +665,7 @@ def _fused_message_rowsum_fwd(pi, pj, xyz, node_mask, col_vec, w1e, w2, b2,
     out = pi.new_empty((n, h))
     if n == 0:
         return out
-    splits, cols = _dense_message_splits(n, n, _FUSED_TARGET_BLOCKS)
+    splits, cols = _dense_message_splits(n, n, **_FUSED_SPLIT)
     part = pi.new_empty((splits, n, h))
     _launch(name, device, (pi, pj, xyz, node_mask, col_vec, w1e, w2, b2,
                            kernel_mu(e, cutoff, device), part, out),
@@ -666,7 +736,7 @@ def _fused_epn_rowsum_fwd(pi, pj, xyz, node_mask, w1e, w2, b2, cutoff, eta,
     out = pi.new_empty((n, h))
     if n == 0:
         return out
-    splits, cols = _dense_message_splits(n, n, _FUSED_TARGET_BLOCKS)
+    splits, cols = _dense_message_splits(n, n, **_FUSED_SPLIT)
     part = pi.new_empty((splits, n, h))
     _launch(name, device, (pi, pj, xyz, node_mask, w1e, w2, b2,
                            kernel_mu(e, cutoff, device), part, out),
