@@ -4,7 +4,7 @@ card: ``python3 chip_smoke.py`` from the repository root.
 
 1. Device: the card's name and power limit; TF32 is switched off for
    PyTorch (the port's precision is float32-grade throughout: the far
-   field's kernels use the tensor cores in 3xTF32).
+   field's and the near kernels use the tensor cores in 3xTF32).
 2. Build: the seven CUDA kernels from ``epnn_tpu_torch/csrc``, one
    ``nvcc`` per source, in parallel; each entry's registers and spills.
 3. Kernels: each kernel against its plain PyTorch version on the card, at
@@ -12,14 +12,18 @@ card: ``python3 chip_smoke.py`` from the repository root.
    the box's own neighbor table), the same bits on a second launch, and
    again with the inputs it reads one float at a time moved off the
    16-byte boundary; kernel, plain and bound times, the bound counting
-   only what this data needs (live slots); the ``near_pass_rowsum``
-   antisymmetry probe on that table.
+   only what this data needs (live pairs and slots).
    The far field and its backward (a seeded cotangent) also against their
    3xTF32 emulations, on a ragged rectangular slice of the same inputs
    (:data:`RAGGED`, zeros in cv), and at 17,760 atoms (in 4c); the
    backward's four outputs against the float64 plain version; bounds from
    the TF32 tensor-core rate (and the fp32 bound beside them); the SM clock
    before and after their timings.
+   The two near kernels (:func:`near_phase`) at 2,220 and at 17,760 atoms,
+   each box with its own neighbor table: also against their 3xTF32
+   emulations, bounds at the TF32 rate and in fp32, and the
+   ``near_pass_rowsum`` antisymmetry probe on each table with the M rows
+   of the 16-row tensor-core tiles its pairs took.
    The fused dense kernels (``fused_message_rowsum`` in both ``masked``
    modes, ``fused_epn_rowsum`` with the hard and the soft gate) at the
    same shapes: each against its plain version, the same bits on a second
@@ -70,7 +74,8 @@ import numpy as np
 #: cores, and HBM3 bandwidth — the bound of a kernel is the larger of its
 #: FLOP and byte times at these rates
 PEAK_FP32_FLOPS = 67e12
-#: dense TF32 on the tensor cores: the far-field kernels' 3xTF32 products
+#: dense TF32 on the tensor cores: the far-field and near kernels' 3xTF32
+#: products
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 
@@ -163,20 +168,37 @@ def bound(flop, sfu, nbytes, sfu_rate):
     return times[by] * 1e3, by
 
 
-def far_bound(pairs, hh, products, elem, nbytes):
-    """(bound ms, what bounds it, fp32 bound ms) of a far-field kernel on
-    ``pairs`` live pairs.  Each of its ``products`` H x H contractions is
-    three tensor-core products in 3xTF32 (3 · 2H² FLOP at the TF32 peak);
-    its ``elem`` elementwise FLOP a pair run on the CUDA cores; its bytes
+def tc_bound(items, tc_flop, elem, nbytes):
+    """(bound ms, what bounds it, fp32 bound ms) of a kernel whose
+    ``items`` (live pairs or slots) each need ``tc_flop`` FLOP of products,
+    run on the tensor cores in 3xTF32 (three TF32 products each, at the
+    TF32 peak), and ``elem`` elementwise FLOP on the CUDA cores; its bytes
     at the HBM rate: the bound is the largest of the three times.  The
     fp32 bound puts every FLOP on the CUDA cores, as a kernel without the
     tensor cores would."""
-    tc = pairs * products * 3 * 2 * hh * hh / PEAK_TF32_FLOPS
-    ops = max(tc, pairs * elem / PEAK_FP32_FLOPS)
+    tc = items * 3 * tc_flop / PEAK_TF32_FLOPS
+    ops = max(tc, items * elem / PEAK_FP32_FLOPS)
     by = nbytes / PEAK_BYTES
-    fp32 = pairs * (products * 2 * hh * hh + elem) / PEAK_FP32_FLOPS
+    fp32 = items * (tc_flop + elem) / PEAK_FP32_FLOPS
     return (max(ops, by) * 1e3, "operations" if ops >= by else "bytes",
             max(fp32, by) * 1e3)
+
+
+def entry_name(mangled):
+    """A kernel entry's own name from its mangled one: the last of the
+    length-prefixed names after ``_Z`` / ``_ZN``; a pass of the far field's
+    backward gets ``<pass R>`` or ``<pass C>``."""
+    pos, name = 3 if mangled.startswith("_ZN") else 2, mangled
+    while True:
+        m = re.match(r"\d+", mangled[pos:])
+        if m is None:
+            break
+        pos += m.end()
+        name = mangled[pos:pos + int(m.group())]
+        pos += int(m.group())
+    tail = re.match(r"ILb([01])E", mangled[pos:])
+    return name + ({"1": "<pass R>", "0": "<pass C>"}[tail.group(1)]
+                   if tail else "")
 
 
 def ptxas_usage(kernels, name):
@@ -186,11 +208,7 @@ def ptxas_usage(kernels, name):
     for ln in kernels.build_log(name).splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            e = re.search(r"\d(dmr_\w*?partial|sum_parts)(ILb([01])E)?",
-                          m.group(1))
-            entry = m.group(1) if e is None else e.group(1) + (
-                {"1": "<pass R>", "0": "<pass C>"}[e.group(3)]
-                if e.group(3) else "")
+            entry = entry_name(m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       ln)
         if m:
@@ -297,7 +315,7 @@ def far_phase(torch, card, args, gbar, label, clocks, iters):
     # forward: the mid-layer product + ~4H elementwise a live pair; pi,
     # cv and out whole, pj where cv is live, W2, b2 once
     nbytes = f * (2 * r * hh + nc + live * hh + hh * hh + hh)
-    b_ms, b_by, b32 = far_bound(pairs, hh, 1, 4 * hh, nbytes)
+    b_ms, b_by, b32 = tc_bound(pairs, 2 * hh * hh, 4 * hh, nbytes)
     out["dense_message_rowsum"] = dict(
         R=r, N=nc, live_cols=live, max_abs_err=fwd_err,
         max_abs_diff=fwd_err, max_abs_diff_3xtf32=fwd_emu, tol=fwd_tol,
@@ -316,7 +334,7 @@ def far_phase(torch, card, args, gbar, label, clocks, iters):
     # dpj whole, pj where cv is live, W2, b2, dW2, db2 once
     nbytes = f * (3 * r * hh + nc * hh + nc + live * hh
                   + 2 * (hh * hh + hh))
-    b_ms, b_by, b32 = far_bound(pairs, hh, 3, 9 * hh, nbytes)
+    b_ms, b_by, b32 = tc_bound(pairs, 3 * 2 * hh * hh, 9 * hh, nbytes)
     out["dense_message_rowsum_bwd"] = dict(
         R=r, N=nc, live_cols=live,
         max_abs_err=max(e[0] for e in errs.values()),
@@ -601,6 +619,109 @@ def profile_phase(torch, card, pred, batch2, big):
     return out
 
 
+#: near kernels' inputs the kernel reads one float at a time (any view will
+#: do): the row inputs, the weights (mask or gh), W1e, W2 and b2
+NEAR_SCALAR_READ = (0, 3, 4, 5, 6)
+
+
+def near_phase(torch, card, label, cases, table, iters, min_pairs):
+    """[kernel] both near kernels on one size's ``cases`` (``near_inputs``):
+    each against its fp32 plain version and its 3xTF32 emulation within
+    1e-5·(max|ref| + 1), the same bits on a second launch and with the
+    scalar-read inputs off the 16-byte boundary; kernel and plain times
+    (``iters``) and bounds on this data (live slots only: TF32 tensor-core
+    rate, fp32 beside it).  Then the ``near_pass_rowsum`` probe on the
+    size's neighbor ``table``: disjoint near pairs, one slot each, each
+    pair's two rows exact negations, with the M rows (of 16) their two
+    slots took (more than ``min_pairs`` pairs).  Returns {kernel:
+    measurements}."""
+    from epnn_tpu_torch.ops import kernels
+    from epnn_tpu_torch.testing import disjoint_pair_gh
+
+    f, out = 4, {}
+    for name, args in cases.items():
+        wrapper = getattr(kernels, name)
+        plain = getattr(kernels, name + "_plain")
+        emu = getattr(kernels, name + "_3xtf32_plain")
+        n, hh = args[0].shape[0], args[4].shape[1]
+        k, ee = args[3].shape[1], args[4].shape[0]
+        got = wrapper(*args)
+        ref = plain(*args)
+        ref_emu = emu(*args)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        err_emu = float((got - ref_emu).abs().max())
+        tol = 1e-5 * (float(ref.abs().max()) + 1.0)
+        require(np.isfinite(err) and err <= tol and err_emu <= tol,
+                (name, label, err, err_emu, tol))
+        require(torch.equal(wrapper(*args), got),
+                (name, label, "not the same bits on a second launch"))
+        off = [off_boundary(t) if i in NEAR_SCALAR_READ else t
+               for i, t in enumerate(args)]
+        require(torch.equal(wrapper(*off), got),
+                (name, label, "inputs off the 16-byte boundary"))
+        ms = device_ms(torch, lambda: wrapper(*args), iters[0])
+        plain_ms = device_ms(torch, lambda: plain(*args), iters[1])
+        # a live slot: its gathered row and RBF row in, rbf @ W1e and two
+        # H x H products, ~8H (pass: 10H) elementwise; the row inputs of
+        # rows with a live slot, the whole (N, K) weights, the weights
+        # once and the output
+        live = args[3] != 0
+        n_live, rows = int(live.sum()), int(live.any(1).sum())
+        row_w, slot_w = args[0].shape[1], args[1].shape[1]
+        elem = (8 if name == "near_message_corr" else 10) * hh
+        tc_flop = 2 * ee * hh + 4 * hh * hh
+        nbytes = (f * (n_live * (slot_w + ee) + rows * row_w + n * k + n * hh)
+                  + f * (ee * hh + hh * hh + hh))
+        b_ms, b_by, b32 = tc_bound(n_live, tc_flop, elem, nbytes)
+        out[name] = dict(
+            N=n, K=k, live_slots=n_live, max_abs_err=err, max_abs_diff=err,
+            max_abs_diff_3xtf32=err_emu, tol=tol, ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, bound_fp32_ms=b32,
+            flop=n_live * (tc_flop + elem), flop_3xtf32=n_live * 3 * tc_flop,
+            bytes=nbytes)
+        print(f"[kernel] {name} at N={n} K={k} ({n_live:,} live slots): "
+              f"max|d| vs plain f32 {err:.3e}, vs 3xTF32 emulation "
+              f"{err_emu:.3e} (tol {tol:.3e}), same bits on a second launch "
+              f"and with the scalar-read inputs off the 16-byte boundary; "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{b_ms:.5f} ms ({b_by}: {n_live * 3 * tc_flop:,} tensor-core "
+              f"FLOP in 3xTF32, {nbytes:,} B), fp32 bound {b32:.5f} ms on "
+              f"{card}")
+
+    # antisymmetry probe: disjoint near pairs of the box, one slot each
+    idx, nbr_mask = table
+    args = list(cases["near_pass_rowsum"])
+    n = args[0].shape[0]
+    gh_probe, pairs = disjoint_pair_gh(idx.cpu().numpy(),
+                                       nbr_mask.cpu().numpy())
+    args[3] = torch.from_numpy(gh_probe).to(args[0].device)
+    got = kernels.near_pass_rowsum(*args)
+    torch.cuda.synchronize()
+    pt = torch.from_numpy(pairs).to(got.device)
+    require(len(pairs) > min_pairs, (label, len(pairs)))
+    require(torch.equal(got[pt[:, 0]], -got[pt[:, 1]]),
+            ("antisymmetry", label))
+    require(int(torch.count_nonzero(got[pt[:, 0]])) > 0,
+            ("probe all zero", label))
+    pos = kernels.near_tile_positions(
+        args[3], kernels.near_warps("near_pass_rowsum", n)).cpu().numpy()
+    pos = pos.max(axis=1)  # each probe row has one live slot
+    m_i, m_j = pos[pairs[:, 0]], pos[pairs[:, 1]]
+    require(np.all(m_i >= 0) and np.all(m_j >= 0), ("probe slots", label))
+    apart = int(np.sum(m_i != m_j))
+    out["near_pass_rowsum"]["probe"] = dict(
+        pairs=len(pairs), at_other_m_rows=apart,
+        m_row_gap_histogram=np.bincount(np.abs(m_i - m_j),
+                                        minlength=16).tolist())
+    print(f"[kernel] near_pass_rowsum antisymmetry probe at N={n}: "
+          f"{len(pairs)} disjoint pairs, every pair's rows exact negations; "
+          f"{apart} pairs with their two slots at different M rows of their "
+          f"16-row tiles (|M_i - M_j| histogram "
+          f"{out['near_pass_rowsum']['probe']['m_row_gap_histogram']})")
+    return out
+
+
 def fused_kernel_phase(torch, card, cfg, a, xyz, mask, wm, wp, counts,
                        sfu_rate):
     """[kernel] the two fused dense kernels at the 2,220-atom shapes, with a
@@ -790,10 +911,10 @@ def main() -> int:
     )
     from epnn_tpu_torch.testing import (
         SCALING_SIZE_MOLECULES,
-        disjoint_pair_gh,
         golden_boxes,
         water_box,
     )
+    from epnn_tpu_torch.tools.near_field_pace import near_inputs
 
     # ---- 1. device --------------------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -829,34 +950,15 @@ def main() -> int:
     q0 = torch.from_numpy(batch2.q0[0]).to(dev)
     h = torch.from_numpy(g.normal(size=(n, cfg.h_dim)).astype(np.float32)
                          ).to(dev) * mask[:, None]
-    idx, nbr_mask, d2 = build_neighbors(xyz, mask, cfg.cutoff, k, with_d2=True)
-    rbf, gate = rbf_and_gate(d2, nbr_mask, cfg)
-    rbf_flat = rbf.reshape(n * k, -1).contiguous()
-    idx_flat = idx.reshape(-1)
+    _, nbr_mask, d2 = build_neighbors(xyz, mask, cfg.cutoff, k, with_d2=True)
+    _, gate = rbf_and_gate(d2, nbr_mask, cfg)
     a = torch.cat([x, h, q0[:, None]], dim=-1)
     wm, wp = pred._fused.messages[1], pred._fused.passes[0]
     pi = (a @ wm.w1_i + wm.b1).contiguous()
     pj = (a @ wm.w1_j).contiguous()
-    rs = torch.cat([a @ wp.w1_i + wp.b1, a @ wp.w1_j], dim=-1).contiguous()
-    gh = (0.5 * gate * nbr_mask).contiguous()
-    f = 4  # bytes per float32
-    hh, ee = cfg.mlp_hidden[0], cfg.e_dim
+    hh = cfg.mlp_hidden[0]
     n_valid = int(mask.sum())
-    w_bytes = f * (ee * hh + hh * hh + hh)  # W1e, W2, b2
 
-    def near_need(live, row_w, slot_w, flop_per_slot):
-        """(FLOP, bytes) a near kernel needs on this data: the live slots'
-        gathered rows and RBF rows, the row inputs of rows with a live
-        slot, the whole (N, K) mask, the weights once, the output."""
-        n_live, rows = int(live.sum()), int(live.any(1).sum())
-        return (n_live * flop_per_slot,
-                f * (n_live * (slot_w + ee) + rows * row_w + n * k + n * hh)
-                + w_bytes)
-
-    m_flop, m_bytes = near_need(nbr_mask != 0, hh, hh,
-                                2 * ee * hh + 4 * hh * hh + 8 * hh)
-    p_flop, p_bytes = near_need(gh != 0, 2 * hh, 2 * hh,
-                                2 * ee * hh + 4 * hh * hh + 10 * hh)
     # the far field: round-2 inputs at the box's shapes, then its backward
     # (a seeded cotangent), then both on a ragged rectangular slice of the
     # same inputs with zeros in cv; the SM clock around the timings
@@ -887,68 +989,22 @@ def main() -> int:
           f"backward {bwd_errs_text(rag_errs)}; same bits on a second launch "
           "and off the 16-byte boundary")
 
-    # each near case: args, FLOP and bytes the function needs, and the
-    # positions of the inputs the kernel reads one float at a time (any
-    # view will do)
-    cases = {
-        "near_message_corr": dict(
-            args=(pi, pj[idx_flat].contiguous(), rbf_flat,
-                  nbr_mask.contiguous(), wm.w1_e, *wm.mids[0]),
-            flop=m_flop, bytes=m_bytes, scalar_read=(0, 3, 6)),
-        "near_pass_rowsum": dict(
-            args=(rs, rs[idx_flat].contiguous(), rbf_flat, gh, wp.w1_e,
-                  *wp.mids[0]),
-            flop=p_flop, bytes=p_bytes, scalar_read=(0, 3, 6)),
-    }
-
-    for name, case in cases.items():
-        wrapper = getattr(kernels, name)
-        plain = getattr(kernels, name + "_plain")
-        args = case["args"]
-        out = wrapper(*args)
-        ref = plain(*args)
-        torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        tol = 1e-5 * (float(ref.abs().max()) + 1.0)
-        require(np.isfinite(err) and err <= tol, (name, err, tol))
-        require(torch.equal(wrapper(*args), out),
-                (name, "not the same bits on a second launch"))
-        off_args = [off_boundary(t) if i in case["scalar_read"] else t
-                    for i, t in enumerate(args)]
-        require(torch.equal(wrapper(*off_args), out),
-                (name, "inputs off the 16-byte boundary"))
-        ms = device_ms(torch, lambda: wrapper(*args), 50)
-        plain_ms = device_ms(torch, lambda: plain(*args), 5)
-        nbytes = case["bytes"]
-        t_flop = case["flop"] / PEAK_FP32_FLOPS * 1e3
-        t_byte = nbytes / PEAK_BYTES * 1e3
-        rows[name] = dict(
-            name=name, route="cuda", source=KERNEL_ROWS[name][1],
-            replaces=KERNEL_ROWS[name][0], launches=0,
-            max_abs_err=err, max_abs_diff=err, tol=tol, ms=ms,
-            plain_ms=plain_ms, bound_ms=max(t_flop, t_byte),
-            bound_by="operations" if t_flop >= t_byte else "bytes",
-            library_ms=None, flop=case["flop"], bytes=nbytes)
-        print(f"[kernel] {name}: max|d|={err:.3e} (tol {tol:.3e}), same "
-              f"bits on a second launch and with the scalar-read inputs off "
-              f"the 16-byte boundary; kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {rows[name]['bound_ms']:.5f} ms "
-              f"({rows[name]['bound_by']}: {case['flop']:,} FLOP, "
-              f"{nbytes:,} B) at N={n} K={k} on {card}")
-
-    # antisymmetry probe: disjoint near pairs of the box, one slot each
-    gh_probe, pairs = disjoint_pair_gh(idx.cpu().numpy(),
-                                       nbr_mask.cpu().numpy())
-    probe_args = list(cases["near_pass_rowsum"]["args"])
-    probe_args[3] = torch.from_numpy(gh_probe).to(dev)
-    out = kernels.near_pass_rowsum(*probe_args)
-    torch.cuda.synchronize()
-    pi_t = torch.from_numpy(pairs).to(dev)
-    require(len(pairs) > n_valid // 4, len(pairs))
-    require(torch.equal(out[pi_t[:, 0]], -out[pi_t[:, 1]]), "antisymmetry")
-    require(int(torch.count_nonzero(out[pi_t[:, 0]])) > 0, "probe all zero")
-    print(f"[kernel] near_pass_rowsum antisymmetry probe: {len(pairs)} "
-          "disjoint pairs, every pair's rows exact negations")
+    # the near kernels at both sizes, on each box's own neighbor table
+    big = pad_molecules([water_box(SCALING_SIZE_MOLECULES, seed=2)], table)
+    for label, batch, reps in (("2220", batch2, (50, 5)),
+                               ("17760", big, (50, 3))):
+        cases, nbr_table = near_inputs(pred, batch, np.random.default_rng(0))
+        for name, entry in near_phase(
+                torch, card, label, cases, nbr_table, reps,
+                min_pairs=int(batch.node_mask[0].sum()) // 4).items():
+            if label == "2220":
+                rows[name] = dict(
+                    name=name, route="cuda", source=KERNEL_ROWS[name][1],
+                    replaces=KERNEL_ROWS[name][0], launches=0,
+                    library_ms=None, ptxas=ptxas_usage(kernels, name),
+                    **entry, sizes={})
+            else:
+                rows[name]["sizes"][label] = entry
 
     # the fused dense kernels, then the kernel-built neighbor list
     clock = max_sm_clock_hz()
@@ -959,7 +1015,6 @@ def main() -> int:
                   gated=int(torch.count_nonzero(gate * nbr_mask)))
     rows.update(fused_kernel_phase(torch, card, cfg, a, xyz, mask, wm, wp,
                                    counts, sfu_rate))
-    big = pad_molecules([water_box(SCALING_SIZE_MOLECULES, seed=2)], table)
     rows["neighbor_compact"] = compact_phase(torch, card, cfg, [
         ("2220", xyz, mask, k),
         ("17760", torch.from_numpy(big.xyz[0]).to(dev),

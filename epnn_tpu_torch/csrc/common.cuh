@@ -3,10 +3,10 @@
 // Every kernel here is float32-grade and compiled without --use_fast_math.
 // On the CUDA cores, products are written as explicit fmaf() chains in a
 // fixed k order, so the same inputs give the same bits in every thread —
-// the property the electron-passing kernel's exact antisymmetry rests on.
-// The far-field kernels (dense_message_rowsum and its backward) run their
-// H x H products on the tensor cores in 3xTF32 (below), which keeps fp32
-// grade; TF32 alone would not.
+// the property the dense electron-passing kernel's exact antisymmetry rests
+// on.  The far-field kernels (dense_message_rowsum and its backward) and
+// the two near kernels run their products on the tensor cores in 3xTF32
+// (below), which keeps fp32 grade; TF32 alone would not.
 #pragma once
 
 #include <cstdint>
@@ -16,63 +16,6 @@
 namespace epnn {
 
 __device__ __forceinline__ float relu(float x) { return fmaxf(x, 0.0f); }
-
-// y[o] = b[o] + sum_k z[k] * W[k][o], W row-major (K, H) staged in shared
-// memory as float4 rows; every lane of a warp reads the same W entry, so
-// the reads are broadcasts.
-template <int K, int H>
-__device__ __forceinline__ void matvec_bias(const float (&z)[K],
-                                            const float4* __restrict__ w,
-                                            const float* __restrict__ b,
-                                            float (&y)[H]) {
-#pragma unroll
-  for (int o = 0; o < H; ++o) y[o] = b[o];
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const float zk = z[k];
-#pragma unroll
-    for (int o4 = 0; o4 < H / 4; ++o4) {
-      const float4 wv = w[k * (H / 4) + o4];
-      y[4 * o4 + 0] = fmaf(zk, wv.x, y[4 * o4 + 0]);
-      y[4 * o4 + 1] = fmaf(zk, wv.y, y[4 * o4 + 1]);
-      y[4 * o4 + 2] = fmaf(zk, wv.z, y[4 * o4 + 2]);
-      y[4 * o4 + 3] = fmaf(zk, wv.w, y[4 * o4 + 3]);
-    }
-  }
-}
-
-// The same product for two inputs sharing each W read.  Each output is its
-// own fmaf chain in the same k order as matvec_bias, so
-// matvec2_bias(a, b) gives bitwise matvec_bias(a) and matvec_bias(b).
-template <int K, int H>
-__device__ __forceinline__ void matvec2_bias(const float (&za)[K],
-                                             const float (&zb)[K],
-                                             const float4* __restrict__ w,
-                                             const float* __restrict__ b,
-                                             float (&ya)[H], float (&yb)[H]) {
-#pragma unroll
-  for (int o = 0; o < H; ++o) {
-    ya[o] = b[o];
-    yb[o] = b[o];
-  }
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const float a = za[k];
-    const float c = zb[k];
-#pragma unroll
-    for (int o4 = 0; o4 < H / 4; ++o4) {
-      const float4 wv = w[k * (H / 4) + o4];
-      ya[4 * o4 + 0] = fmaf(a, wv.x, ya[4 * o4 + 0]);
-      ya[4 * o4 + 1] = fmaf(a, wv.y, ya[4 * o4 + 1]);
-      ya[4 * o4 + 2] = fmaf(a, wv.z, ya[4 * o4 + 2]);
-      ya[4 * o4 + 3] = fmaf(a, wv.w, ya[4 * o4 + 3]);
-      yb[4 * o4 + 0] = fmaf(c, wv.x, yb[4 * o4 + 0]);
-      yb[4 * o4 + 1] = fmaf(c, wv.y, yb[4 * o4 + 1]);
-      yb[4 * o4 + 2] = fmaf(c, wv.z, yb[4 * o4 + 2]);
-      yb[4 * o4 + 3] = fmaf(c, wv.w, yb[4 * o4 + 3]);
-    }
-  }
-}
 
 // Stage n floats (n % 4 == 0, 16-byte aligned) from global into shared.
 __device__ __forceinline__ void stage(float4* __restrict__ dst,
@@ -361,6 +304,252 @@ __device__ __forceinline__ void load_row8(const float* __restrict__ row,
                                           int t, bool valid, float (&x)[8]) {
 #pragma unroll
   for (int m = 0; m < 8; ++m) x[m] = valid ? row[8 * t + m] : 0.0f;
+}
+
+// n floats from a 16-byte-aligned address as float4s; zeros if !valid
+template <int n>
+__device__ __forceinline__ void load_vec(const float* __restrict__ p,
+                                         bool valid, float (&x)[n]) {
+  static_assert(n % 4 == 0, "whole float4s");
+  const float4* p4 = reinterpret_cast<const float4*>(p);
+#pragma unroll
+  for (int q = 0; q < n / 4; ++q) {
+    const float4 v = valid ? p4[q] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    x[4 * q] = v.x;
+    x[4 * q + 1] = v.y;
+    x[4 * q + 2] = v.z;
+    x[4 * q + 3] = v.w;
+  }
+}
+
+// ---- the near kernels: live slots in tiles of 16 (mma.sync, 3xTF32) -------
+//
+// near_message_corr and near_pass_rowsum run the same chain per neighbor
+// slot: epart = rbf @ W1e (E = 48 -> H = 32), then one or two H x H mid
+// layers.  A warp owns a contiguous range of rows; it walks their (N, K)
+// weights 32 slots at a time, appends the live ones (weight != 0) to a ring
+// in shared memory with a ballot prefix count — in ascending flat order,
+// so row by row, slot by slot — and runs every 16 of them as the M rows of
+// m16n8k8 products.  Only the last tile of a range has idle rows.  Lane o
+// then adds column o of the tile's terms into its current row's sum in
+// that order, and writes each row (0 for a row with no live slot) once it
+// is complete: one fixed order, no atomics, a row never split across warps.
+// A slot's terms depend only on its own inputs (the products of a row of A
+// do not depend on its position among the 16), so the output does not
+// depend on the grid.
+
+constexpr int kNearH = 32;   // the near kernels' width H
+constexpr int kNearE = 48;   // and RBF width E
+constexpr int kNearWarps = 4;
+constexpr int kNearThreads = 32 * kNearWarps;
+constexpr int kNearRing = 64;      // >= 15 pending + 32 appended
+constexpr int kNearMinRows = 2;    // rows a warp owns at the least
+constexpr int kNearDStride = 40;   // term-tile row stride: conflict-free
+
+struct NearSmem {
+  uint4 b1[24][32];  // W1e, split: [ks * 4 + nt][lane] (near_w1e_frag)
+  uint4 b2[16][32];  // W2, split: [ks * 4 + nt][lane] (w2_frag)
+  int ring[kNearWarps][kNearRing];  // flat slot indices of live slots
+  int rows[kNearWarps][kNearRing];  // and their rows
+  float d[kNearWarps][16][kNearDStride];  // a tile's weighted terms
+};
+
+// epart's B = W1e (k = E feature, n = output feature), split.  k-step ks:
+// B row t <-> feature 12t + 2ks, row t + 4 <-> 12t + 2ks + 1 (thread t
+// holds features 12t .. 12t + 11 of its A rows); n-tile nt, column n <->
+// output feature 8 (n / 2) + 2nt + n % 2, so that the C column 2t + h is
+// output feature 8t + 2nt + h: the thread gets epart at the features
+// 8t .. 8t + 7 that the mid layer's A (far_a's order) wants.
+__device__ __forceinline__ uint4 near_w1e_frag(const float* __restrict__ w1e,
+                                               int ks, int nt, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const int o = 8 * (g >> 1) + 2 * nt + (g & 1);
+  return split_b(w1e[(12 * t + 2 * ks) * kNearH + o],
+                 w1e[(12 * t + 2 * ks + 1) * kNearH + o]);
+}
+
+// W1e's and W2's split B fragments into shared memory, once per block of
+// kNearThreads (every load in flight at once); b2 of the thread's C
+// columns into bias
+__device__ __forceinline__ void near_stage(NearSmem& s,
+                                           const float* __restrict__ w1e,
+                                           const float* __restrict__ w2,
+                                           const float* __restrict__ b2,
+                                           float (&bias)[4][2]) {
+#pragma unroll
+  for (int i = 0; i < 24 * 32 / kNearThreads; ++i) {
+    const int e = threadIdx.x + i * kNearThreads;
+    s.b1[e >> 5][e & 31] = near_w1e_frag(w1e, e >> 7, (e >> 5) & 3, e & 31);
+  }
+#pragma unroll
+  for (int i = 0; i < 16 * 32 / kNearThreads; ++i) {
+    const int e = threadIdx.x + i * kNearThreads;
+    s.b2[e >> 5][e & 31] = w2_frag(w2, e >> 7, (e >> 5) & 3, e & 31);
+  }
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    bias[nt][0] = b2[8 * nt + 2 * t];
+    bias[nt][1] = b2[8 * nt + 2 * t + 1];
+  }
+}
+
+// epart = rbf @ W1e for a tile, in 3xTF32: A from the thread's features
+// 12t .. 12t + 11 of entries g (ra) and g + 8 (rb).  Six k-steps are 18
+// products an n-tile, so two chains of 9, added in fp32.  ep in the C
+// layout with near_w1e_frag's columns: entry g's feature 8t + m is
+// ep[m / 2][m % 2], entry g + 8's ep[m / 2][2 + m % 2].
+__device__ __forceinline__ void near_epart(const float (&ra)[12],
+                                           const float (&rb)[12],
+                                           const uint4 (*b1)[32], int lane,
+                                           float (&ep)[4][4]) {
+  float c[2][4][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) c[h][nt][r] = 0.0f;
+#pragma unroll
+  for (int ks = 0; ks < 6; ++ks) {
+    uint32_t ah[4], al[4];
+    tf32_split(ra[2 * ks], ah[0], al[0]);
+    tf32_split(rb[2 * ks], ah[1], al[1]);
+    tf32_split(ra[2 * ks + 1], ah[2], al[2]);
+    tf32_split(rb[2 * ks + 1], ah[3], al[3]);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+      mma_3xtf32(c[ks / 3][nt], ah, al, b1[ks * 4 + nt][lane]);
+  }
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) ep[nt][r] = c[0][nt][r] + c[1][nt][r];
+}
+
+// entry g's (a) and g + 8's (b) epart at the thread's features 8t .. 8t + 7
+__device__ __forceinline__ void near_ep_rows(const float (&ep)[4][4],
+                                             float (&ea)[8], float (&eb)[8]) {
+#pragma unroll
+  for (int m = 0; m < 8; ++m) {
+    ea[m] = ep[m >> 1][m & 1];
+    eb[m] = ep[m >> 1][2 + (m & 1)];
+  }
+}
+
+// y = b2 + z @ W2 for a tile, in 3xTF32: A = z (already through relu) at
+// the thread's features 8t .. 8t + 7 of entries g (za) and g + 8 (zb), in
+// far_a's order; y in the C layout (y[nt]: outputs 8nt + 2t + {0, 1} of
+// entry g, then of g + 8).  One chain of 12 products an n-tile.
+__device__ __forceinline__ void near_mid(const float (&za)[8],
+                                         const float (&zb)[8],
+                                         const float (&bias)[4][2],
+                                         const uint4 (*b2)[32], int lane,
+                                         float (&y)[4][4]) {
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    y[nt][0] = y[nt][2] = bias[nt][0];
+    y[nt][1] = y[nt][3] = bias[nt][1];
+  }
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    uint32_t ah[4], al[4];
+    tf32_split(za[2 * ks], ah[0], al[0]);
+    tf32_split(zb[2 * ks], ah[1], al[1]);
+    tf32_split(za[2 * ks + 1], ah[2], al[2]);
+    tf32_split(zb[2 * ks + 1], ah[3], al[3]);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+      mma_3xtf32(y[nt], ah, al, b2[ks * 4 + nt][lane]);
+  }
+}
+
+// The rows [r0, r1) of global warp gw of n_warps (N rows split evenly).
+__device__ __forceinline__ void near_range(int N, int gw, int n_warps,
+                                           int& r0, int& r1) {
+  r0 = (int)((long long)N * gw / n_warps);
+  r1 = (int)((long long)N * (gw + 1) / n_warps);
+}
+
+// The warp's walk over rows [r0, r1): live slots (flat index and row)
+// into the ring, tile(h0, n) for every 16 (n < 16 only for the last), each
+// tile's terms (d, written by tile) into lane o's row sums and out
+// (N, kNearH).  The next 32 weights are loaded while a tile runs.
+template <class Tile>
+__device__ __forceinline__ void near_walk(NearSmem& s, int warp, int lane,
+                                          const float* __restrict__ wgt,
+                                          int K, int r0, int r1,
+                                          float* __restrict__ out,
+                                          Tile&& tile) {
+  int* ring = s.ring[warp];
+  int* rows = s.rows[warp];
+  const float(*d)[kNearDStride] = s.d[warp];
+  int head = 0, tail = 0, cur = r0;
+  float acc = 0.0f;
+  auto run = [&](int n) {
+    tile(head, n);  // ends with the terms in d, after a __syncwarp
+    for (int e = 0; e < n; ++e) {
+      const int row = rows[(head + e) & (kNearRing - 1)];
+      while (cur < row) {
+        out[(size_t)cur * kNearH + lane] = acc;
+        acc = 0.0f;
+        ++cur;
+      }
+      acc += d[e][lane];
+    }
+    head += n;
+    __syncwarp();  // d and the ring entries are consumed
+  };
+  const int f1 = r1 * K;
+  float w_next = r0 * K + lane < f1 ? wgt[r0 * K + lane] : 0.0f;
+  for (int base = r0 * K; base < f1; base += 32) {
+    const int f = base + lane;
+    const bool in = f < f1;
+    const float w = w_next;
+    if (f + 32 < f1) w_next = wgt[f + 32];
+    const bool live = in && w != 0.0f;
+    const unsigned bal = __ballot_sync(0xffffffffu, live);
+    if (live) {
+      const int at =
+          (tail + __popc(bal & ((1u << lane) - 1))) & (kNearRing - 1);
+      ring[at] = f;
+      rows[at] = f / K;
+    }
+    tail += __popc(bal);
+    __syncwarp();
+    while (tail - head >= 16) run(16);
+  }
+  if (tail > head) run(tail - head);
+  for (; cur < r1; ++cur) {
+    out[(size_t)cur * kNearH + lane] = acc;
+    acc = 0.0f;
+  }
+}
+
+// The warps a near kernel's launch runs: a few resident blocks an SM (its
+// occupancy), at most one warp a kNearMinRows rows.  resident caches the
+// warps a card holds at once, per device (0: not yet asked).
+constexpr int kNearMaxDevices = 64;
+
+template <class Kernel>
+cudaError_t near_warps(Kernel kernel, int (&resident)[kNearMaxDevices], int N,
+                       int& n_warps) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kNearMaxDevices) return cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          kNearThreads, 0);
+    if (err != cudaSuccess) return err;
+    resident[dev] = (per_sm > 0 ? per_sm : 1) * sms * kNearWarps;
+  }
+  const int by_rows = (N + kNearMinRows - 1) / kNearMinRows;
+  n_warps = by_rows < resident[dev] ? by_rows : resident[dev];
+  return cudaSuccess;
 }
 
 }  // namespace epnn

@@ -12,124 +12,116 @@
 // near_message_corr (:1286) -> _near_msg_impl (:1228), whose pallas_call
 // (:1245) runs _near_msg_kernel (:1189).
 //
-// Bound on the H100: bytes and operations about equally.  Only live slots
-// (mask != 0) are read: each reads (H + E) floats and costs about
-// 2EH + 4H^2 FLOP (7.2 kFLOP at H = 32, E = 48).  The 2,220-atom water box
-// at K = 24 has about 17k live slots of N*K = 53k: about 6.3 MB (1.9 us at
-// 3.35 TB/s) against 0.13 GFLOP (1.9 us at 67 TFLOP/s), below the cost of
-// a launch.
+// Bound on the H100: bytes.  Only live slots (mask != 0) are read: each
+// reads (H + E) floats (320 B) and needs rbf @ W1e and two H x H products,
+// 2EH + 4H^2 = 7.2 kFLOP, three tensor-core products each in 3xTF32
+// (21.5 kFLOP at 495 TFLOP/s), plus ~8H elementwise FLOP.  The 17,760-atom
+// water box at K = 24 has about 136k live slots of N*K = 426k: ~45 MB
+// (13 us at 3.35 TB/s) against 2.9 GFLOP of TF32 products (5.9 us).
 //
-// Design: one warp per row, one lane per slot (slots beyond 32 take more
-// passes).  A lane computes epart = rbf_s @ W1e once and runs both MLP
-// chains with one read of each W2 entry (shared-memory broadcasts).  The
-// lanes' H-vectors go through shared memory and lane o adds column o over
-// the slots in order, so the row sum is a fixed sequential order over s:
-// deterministic, no atomics.  Masked slots skip the arithmetic.
+// Design (common.cuh, "the near kernels"): a persistent grid — a few
+// blocks an SM, each warp a contiguous range of rows — with W1e's and W2's
+// split B fragments staged in shared memory once per block.  The warp
+// compacts its live slots with a ballot prefix count and runs them 16 at a
+// time as the M rows of mma.sync m16n8k8 in 3xTF32: epart = rbf @ W1e (A
+// from the gathered rbf rows, two chains of 9 products), then the two mid
+// layers relu(base + epart) @ W2 and relu(base) @ W2, whose A fragments are
+// epart's C fragment plus the gathered base (one chain of 12 each).  The
+// tile's terms go through shared memory and lane o adds column o over the
+// slots in ascending order: deterministic, no atomics.  No lane or MMA row
+// works on a dead slot, but for the tail of a warp's last tile.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
+constexpr int kH = epnn::kNearH;
+constexpr int kE = epnn::kNearE;
+// resident blocks an SM the registers are budgeted for: four (128
+// registers a thread) beat three (tools/near_field_pace.py)
+constexpr int kMinBlocks = 4;
 
-template <int H, int E>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(epnn::kNearThreads, kMinBlocks)
 nmc_kernel(const float* __restrict__ pi, const float* __restrict__ pjn,
-           const float* __restrict__ rbf, const float* __restrict__ mask,
+           const float* __restrict__ rbf, const float* __restrict__ wgt,
            const float* __restrict__ w1e, const float* __restrict__ w2,
            const float* __restrict__ b2, float* __restrict__ out, int N,
-           int K) {
-  __shared__ float4 s_w1e[E * H / 4];
-  __shared__ float4 s_w2[H * H / 4];
-  __shared__ float s_b2[H];
-  __shared__ float s_pi[kWarps][H];
-  __shared__ float s_slot[kWarps][32][H + 1];
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int i = blockIdx.x * kWarps + warp;
-
-  epnn::stage(s_w1e, w1e, E * H);
-  epnn::stage(s_w2, w2, H * H);
-  for (int t = threadIdx.x; t < H; t += blockDim.x) s_b2[t] = b2[t];
-  if (i < N)
-    for (int k = lane; k < H; k += 32) s_pi[warp][k] = pi[(size_t)i * H + k];
+           int K, int n_warps) {
+  __shared__ epnn::NearSmem s;
+  float bias[4][2];
+  epnn::near_stage(s, w1e, w2, b2, bias);
   __syncthreads();
-  if (i >= N) return;  // no block-wide barrier follows
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gw = blockIdx.x * epnn::kNearWarps + warp;
+  if (gw >= n_warps) return;  // no block-wide barrier follows
+  const int g = lane >> 2, t = lane & 3;
+  int r0, r1;
+  epnn::near_range(N, gw, n_warps, r0, r1);
 
-  constexpr int kOut = (H + 31) / 32;
-  float row[kOut];
+  // one tile: entries g (a) and g + 8 (b) of the ring from h0, n of them
+  auto tile = [&](int h0, int n) {
+    const int* ring = s.ring[warp];
+    const int* rows = s.rows[warp];
+    const int ia = (h0 + g) & (epnn::kNearRing - 1);
+    const int ib = (h0 + g + 8) & (epnn::kNearRing - 1);
+    const bool va = g < n, vb = g + 8 < n;
+    const int fa = va ? ring[ia] : 0, fb = vb ? ring[ib] : 0;
+    const int rwa = va ? rows[ia] : 0, rwb = vb ? rows[ib] : 0;
+    float ra[12], rb[12], xa[8], xb[8], pa[8], pb[8];
+    epnn::load_vec(rbf + (size_t)fa * kE + 12 * t, va, ra);
+    epnn::load_vec(rbf + (size_t)fb * kE + 12 * t, vb, rb);
+    epnn::load_vec(pjn + (size_t)fa * kH + 8 * t, va, xa);
+    epnn::load_vec(pjn + (size_t)fb * kH + 8 * t, vb, xb);
+    epnn::load_row8(pi + (size_t)rwa * kH, t, va, pa);
+    epnn::load_row8(pi + (size_t)rwb * kH, t, vb, pb);
+    const float wa = va ? wgt[fa] : 0.0f, wb = vb ? wgt[fb] : 0.0f;
+    float ba[8], bb[8];  // base = pi_i + pjn_is
 #pragma unroll
-  for (int r = 0; r < kOut; ++r) row[r] = 0.0f;
-
-  for (int s0 = 0; s0 < K; s0 += 32) {
-    const int s = s0 + lane;
-    const size_t slot = (size_t)i * K + s;
-    const float m = s < K ? mask[slot] : 0.0f;
-    float d[H];
-    if (m != 0.0f) {
-      float ep[H];
-#pragma unroll
-      for (int o = 0; o < H; ++o) ep[o] = 0.0f;
-      const float4* rb = reinterpret_cast<const float4*>(rbf + slot * E);
-#pragma unroll
-      for (int e4 = 0; e4 < E / 4; ++e4) {
-        const float4 r4 = rb[e4];
-        const float rv[4] = {r4.x, r4.y, r4.z, r4.w};
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-#pragma unroll
-          for (int o4 = 0; o4 < H / 4; ++o4) {
-            const float4 wv = s_w1e[(4 * e4 + u) * (H / 4) + o4];
-            ep[4 * o4 + 0] = fmaf(rv[u], wv.x, ep[4 * o4 + 0]);
-            ep[4 * o4 + 1] = fmaf(rv[u], wv.y, ep[4 * o4 + 1]);
-            ep[4 * o4 + 2] = fmaf(rv[u], wv.z, ep[4 * o4 + 2]);
-            ep[4 * o4 + 3] = fmaf(rv[u], wv.w, ep[4 * o4 + 3]);
-          }
-        }
-      }
-      float zf[H], zn[H];
-      const float4* pn = reinterpret_cast<const float4*>(pjn + slot * H);
-#pragma unroll
-      for (int k4 = 0; k4 < H / 4; ++k4) {
-        const float4 p = pn[k4];
-        const float pv[4] = {p.x, p.y, p.z, p.w};
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int k = 4 * k4 + u;
-          const float base = s_pi[warp][k] + pv[u];
-          zf[k] = epnn::relu(base + ep[k]);
-          zn[k] = epnn::relu(base);
-        }
-      }
-      float yf[H], yn[H];
-      epnn::matvec2_bias<H, H>(zf, zn, s_w2, s_b2, yf, yn);
-#pragma unroll
-      for (int o = 0; o < H; ++o)
-        d[o] = (epnn::relu(yf[o]) - epnn::relu(yn[o])) * m;
-    } else {
-#pragma unroll
-      for (int o = 0; o < H; ++o) d[o] = 0.0f;
+    for (int m = 0; m < 8; ++m) {
+      ba[m] = pa[m] + xa[m];
+      bb[m] = pb[m] + xb[m];
     }
+
+    float ep[4][4], ea[8], eb[8];
+    epnn::near_epart(ra, rb, s.b1, lane, ep);
+    epnn::near_ep_rows(ep, ea, eb);
+    float zfa[8], zfb[8], zna[8], znb[8];
 #pragma unroll
-    for (int o = 0; o < H; ++o) s_slot[warp][lane][o] = d[o];
-    __syncwarp();
-    const int ns = min(32, K - s0);
+    for (int m = 0; m < 8; ++m) {
+      zfa[m] = epnn::relu(ba[m] + ea[m]);
+      zfb[m] = epnn::relu(bb[m] + eb[m]);
+      zna[m] = epnn::relu(ba[m]);
+      znb[m] = epnn::relu(bb[m]);
+    }
+    float yf[4][4], yn[4][4];
+    epnn::near_mid(zfa, zfb, bias, s.b2, lane, yf);
+    epnn::near_mid(zna, znb, bias, s.b2, lane, yn);
+    float(*d)[epnn::kNearDStride] = s.d[warp];
 #pragma unroll
-    for (int r = 0; r < kOut; ++r) {
-      const int o = lane + 32 * r;
-      if (o < H)
-        for (int l = 0; l < ns; ++l) row[r] += s_slot[warp][l][o];
+    for (int nt = 0; nt < 4; ++nt) {
+      const int o = 8 * nt + 2 * t;
+      *reinterpret_cast<float2*>(&d[g][o]) = make_float2(
+          (epnn::relu(yf[nt][0]) - epnn::relu(yn[nt][0])) * wa,
+          (epnn::relu(yf[nt][1]) - epnn::relu(yn[nt][1])) * wa);
+      *reinterpret_cast<float2*>(&d[g + 8][o]) = make_float2(
+          (epnn::relu(yf[nt][2]) - epnn::relu(yn[nt][2])) * wb,
+          (epnn::relu(yf[nt][3]) - epnn::relu(yn[nt][3])) * wb);
     }
     __syncwarp();
-  }
-#pragma unroll
-  for (int r = 0; r < kOut; ++r) {
-    const int o = lane + 32 * r;
-    if (o < H) out[(size_t)i * H + o] = row[r];
-  }
+  };
+  epnn::near_walk(s, warp, lane, wgt, K, r0, r1, out, tile);
 }
 
+int g_resident[epnn::kNearMaxDevices] = {};  // epnn::near_warps's cache
+
 }  // namespace
+
+// The warps a launch runs for N rows (near_tile_positions mirrors the
+// walk with it); negative on a CUDA error.
+extern "C" int epnn_near_message_corr_warps(int N) {
+  int n_warps = 0;
+  const cudaError_t err = epnn::near_warps(nmc_kernel, g_resident, N, n_warps);
+  return err == cudaSuccess ? n_warps : -1;
+}
 
 extern "C" int epnn_near_message_corr(const float* pi, const float* pjn,
                                       const float* rbf, const float* mask,
@@ -137,9 +129,14 @@ extern "C" int epnn_near_message_corr(const float* pi, const float* pjn,
                                       const float* b2, float* out, int N,
                                       int K, int H, int E,
                                       cudaStream_t stream) {
-  if (H != 32 || E != 48 || N <= 0 || K <= 0) return cudaErrorInvalidValue;
-  const int blocks = (N + kWarps - 1) / kWarps;
-  nmc_kernel<32, 48><<<blocks, kWarps * 32, 0, stream>>>(
-      pi, pjn, rbf, mask, w1e, w2, b2, out, N, K);
+  if (H != kH || E != kE || N <= 0 || K <= 0 ||
+      (long long)N * K + 32 > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  int n_warps = 0;
+  cudaError_t err = epnn::near_warps(nmc_kernel, g_resident, N, n_warps);
+  if (err != cudaSuccess) return err;
+  const int blocks = (n_warps + epnn::kNearWarps - 1) / epnn::kNearWarps;
+  nmc_kernel<<<blocks, epnn::kNearThreads, 0, stream>>>(
+      pi, pjn, rbf, mask, w1e, w2, b2, out, N, K, n_warps);
   return cudaGetLastError();
 }

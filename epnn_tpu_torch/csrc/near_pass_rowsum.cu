@@ -11,138 +11,153 @@
 // Replaces the TPU kernel epnn_tpu/ops/pallas_kernels.py: near_pass_rowsum
 // (:1410) -> _near_pass_impl (:1347), whose pallas_call (:1368) runs
 // _near_pass_kernel (:1312).  The v5e lane roll of [pi | pj] is not carried
-// over: the two orderings are two register chains here.
+// over: the two orderings are two chains of products here.
 //
 // Bound on the H100: bytes.  Only live slots (gh != 0) are read: each
-// reads (2H + E) floats and costs about 2EH + 4H^2 FLOP.  The 2,220-atom
-// water box at K = 24 has about 17k live slots of N*K = 53k: about 8.8 MB
-// (2.6 us at 3.35 TB/s) against 0.13 GFLOP (1.9 us at 67 TFLOP/s).
+// reads (2H + E) floats (448 B) and needs rbf @ W1e and two H x H
+// products, 2EH + 4H^2 = 7.2 kFLOP, three tensor-core products each in
+// 3xTF32, plus ~10H elementwise FLOP.  The 17,760-atom water box at K = 24
+// has about 136k live slots: ~62 MB (19 us at 3.35 TB/s) against 2.9 GFLOP
+// of TF32 products (5.9 us at 495 TFLOP/s).
+//
+// Design: that of near_message_corr (common.cuh, "the near kernels"): a
+// persistent grid, the weights' split B fragments staged once per block,
+// each warp compacting its rows' live slots and running 16 at a time as
+// the M rows of mma.sync m16n8k8 in 3xTF32 — epart from the gathered rbf
+// rows, then zn = relu((pi_i + pj_j) + epart) and zt = relu((pi_j + pj_i)
+// + epart), relabelled from epart's C fragment into two A fragments, through
+// W2 — and the row sums over the slots in ascending order from shared
+// memory.
 //
 // Hazard: charge conservation needs the pair (i, j)'s term in row i to be
-// the exact negation of its term in row j.  Per slot the lane computes one
-// epart, then zn = (pi_i + pj_j) + epart and zt = (pi_j + pj_i) + epart in
-// that add order, and runs both through the same fmaf chain
-// (matvec2_bias).  Row j's slot for i sees the same d^2, hence the same
-// rbf, epart and gate, and swapped zn/zt; so its (hn - ht) is the exact
-// negation of row i's.  The row sum itself is a fixed sequential order
-// over the slots (one warp per row, lanes per slot, the sum by column
-// through shared memory): deterministic, no atomics.
+// the exact negation of its term in row j.  Row j's slot for i sees the
+// same d^2, hence the same rbf row and gate, so its epart has the same
+// bits: the same values in an A row, the same products in the same order,
+// and the product of a row of A does not depend on which of the 16 M rows
+// it sits in or on the other rows.  Its zn and zt are row i's zt and zn
+// bit for bit (the same two fp32 adds, (pi + pj) first, then + epart), so
+// its (hn - ht) is the exact negation of row i's, and gh is the same.
+// chip_smoke.py's disjoint-pair probe checks this on the card and reports
+// how many pairs sat at different M positions.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
+constexpr int kH = epnn::kNearH;
+constexpr int kE = epnn::kNearE;
+// resident blocks an SM the registers are budgeted for: three (up to 168
+// registers a thread) beat four (128, with spills; tools/near_field_pace.py)
+constexpr int kMinBlocks = 3;
 
-template <int H, int E>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(epnn::kNearThreads, kMinBlocks)
 npr_kernel(const float* __restrict__ rs, const float* __restrict__ ppn,
-           const float* __restrict__ rbf, const float* __restrict__ gh,
+           const float* __restrict__ rbf, const float* __restrict__ wgt,
            const float* __restrict__ w1e, const float* __restrict__ w2,
            const float* __restrict__ b2, float* __restrict__ out, int N,
-           int K) {
-  __shared__ float4 s_w1e[E * H / 4];
-  __shared__ float4 s_w2[H * H / 4];
-  __shared__ float s_b2[H];
-  __shared__ float s_row[kWarps][2 * H];  // [pi_i | pj_i]
-  __shared__ float s_slot[kWarps][32][H + 1];
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int i = blockIdx.x * kWarps + warp;
-
-  epnn::stage(s_w1e, w1e, E * H);
-  epnn::stage(s_w2, w2, H * H);
-  for (int t = threadIdx.x; t < H; t += blockDim.x) s_b2[t] = b2[t];
-  if (i < N)
-    for (int k = lane; k < 2 * H; k += 32)
-      s_row[warp][k] = rs[(size_t)i * 2 * H + k];
+           int K, int n_warps) {
+  __shared__ epnn::NearSmem s;
+  float bias[4][2];
+  epnn::near_stage(s, w1e, w2, b2, bias);
   __syncthreads();
-  if (i >= N) return;  // no block-wide barrier follows
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gw = blockIdx.x * epnn::kNearWarps + warp;
+  if (gw >= n_warps) return;  // no block-wide barrier follows
+  const int g = lane >> 2, t = lane & 3;
+  int r0, r1;
+  epnn::near_range(N, gw, n_warps, r0, r1);
 
-  constexpr int kOut = (H + 31) / 32;
-  float row[kOut];
+  // one tile: entries g (a) and g + 8 (b) of the ring from h0, n of them
+  auto tile = [&](int h0, int n) {
+    const int* ring = s.ring[warp];
+    const int* rows = s.rows[warp];
+    const int ia = (h0 + g) & (epnn::kNearRing - 1);
+    const int ib = (h0 + g + 8) & (epnn::kNearRing - 1);
+    const bool va = g < n, vb = g + 8 < n;
+    const int fa = va ? ring[ia] : 0, fb = vb ? ring[ib] : 0;
+    const int rwa = va ? rows[ia] : 0, rwb = vb ? rows[ib] : 0;
+    // the slot's gathered row j: pi_j, pj_j; its own row i: pi_i, pj_i
+    float ra[12], rb[12], ija[8], ijb[8], jja[8], jjb[8];
+    float iia[8], iib[8], jia[8], jib[8];
+    epnn::load_vec(rbf + (size_t)fa * kE + 12 * t, va, ra);
+    epnn::load_vec(rbf + (size_t)fb * kE + 12 * t, vb, rb);
+    epnn::load_vec(ppn + (size_t)fa * 2 * kH + 8 * t, va, ija);
+    epnn::load_vec(ppn + (size_t)fb * 2 * kH + 8 * t, vb, ijb);
+    epnn::load_vec(ppn + (size_t)fa * 2 * kH + kH + 8 * t, va, jja);
+    epnn::load_vec(ppn + (size_t)fb * 2 * kH + kH + 8 * t, vb, jjb);
+    const float* rsa = rs + (size_t)rwa * 2 * kH;
+    const float* rsb = rs + (size_t)rwb * 2 * kH;
+    epnn::load_row8(rsa, t, va, iia);
+    epnn::load_row8(rsb, t, vb, iib);
+    epnn::load_row8(rsa + kH, t, va, jia);
+    epnn::load_row8(rsb + kH, t, vb, jib);
+    const float wa = va ? wgt[fa] : 0.0f, wb = vb ? wgt[fb] : 0.0f;
+    float na[8], nb[8], ta[8], tb[8];  // pi_i + pj_j and pi_j + pj_i
 #pragma unroll
-  for (int r = 0; r < kOut; ++r) row[r] = 0.0f;
+    for (int m = 0; m < 8; ++m) {
+      na[m] = __fadd_rn(iia[m], jja[m]);
+      nb[m] = __fadd_rn(iib[m], jjb[m]);
+      ta[m] = __fadd_rn(ija[m], jia[m]);
+      tb[m] = __fadd_rn(ijb[m], jib[m]);
+    }
 
-  for (int s0 = 0; s0 < K; s0 += 32) {
-    const int s = s0 + lane;
-    const size_t slot = (size_t)i * K + s;
-    const float g = s < K ? gh[slot] : 0.0f;
-    float d[H];
-    if (g != 0.0f) {
-      float ep[H];
+    float ep[4][4], ea[8], eb[8];
+    epnn::near_epart(ra, rb, s.b1, lane, ep);
+    epnn::near_ep_rows(ep, ea, eb);
+    float zna[8], znb[8], zta[8], ztb[8];
 #pragma unroll
-      for (int o = 0; o < H; ++o) ep[o] = 0.0f;
-      const float4* rb = reinterpret_cast<const float4*>(rbf + slot * E);
-#pragma unroll
-      for (int e4 = 0; e4 < E / 4; ++e4) {
-        const float4 r4 = rb[e4];
-        const float rv[4] = {r4.x, r4.y, r4.z, r4.w};
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-#pragma unroll
-          for (int o4 = 0; o4 < H / 4; ++o4) {
-            const float4 wv = s_w1e[(4 * e4 + u) * (H / 4) + o4];
-            ep[4 * o4 + 0] = fmaf(rv[u], wv.x, ep[4 * o4 + 0]);
-            ep[4 * o4 + 1] = fmaf(rv[u], wv.y, ep[4 * o4 + 1]);
-            ep[4 * o4 + 2] = fmaf(rv[u], wv.z, ep[4 * o4 + 2]);
-            ep[4 * o4 + 3] = fmaf(rv[u], wv.w, ep[4 * o4 + 3]);
-          }
-        }
-      }
-      float zn[H], zt[H];
-      const float4* pn = reinterpret_cast<const float4*>(ppn + slot * 2 * H);
-#pragma unroll
-      for (int k4 = 0; k4 < H / 4; ++k4) {
-        const float4 pin = pn[k4];           // pi_j
-        const float4 pjn = pn[H / 4 + k4];   // pj_j
-        const float vi[4] = {pin.x, pin.y, pin.z, pin.w};
-        const float vj[4] = {pjn.x, pjn.y, pjn.z, pjn.w};
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int k = 4 * k4 + u;
-          zn[k] = epnn::relu(__fadd_rn(__fadd_rn(s_row[warp][k], vj[u]), ep[k]));
-          zt[k] = epnn::relu(__fadd_rn(__fadd_rn(vi[u], s_row[warp][H + k]), ep[k]));
-        }
-      }
-      float yn[H], yt[H];
-      epnn::matvec2_bias<H, H>(zn, zt, s_w2, s_b2, yn, yt);
-#pragma unroll
-      for (int o = 0; o < H; ++o)
-        d[o] = __fmul_rn(g, __fsub_rn(epnn::relu(yn[o]), epnn::relu(yt[o])));
-    } else {
-#pragma unroll
-      for (int o = 0; o < H; ++o) d[o] = 0.0f;
+    for (int m = 0; m < 8; ++m) {
+      zna[m] = epnn::relu(__fadd_rn(na[m], ea[m]));
+      znb[m] = epnn::relu(__fadd_rn(nb[m], eb[m]));
+      zta[m] = epnn::relu(__fadd_rn(ta[m], ea[m]));
+      ztb[m] = epnn::relu(__fadd_rn(tb[m], eb[m]));
     }
+    float yn[4][4], yt[4][4];
+    epnn::near_mid(zna, znb, bias, s.b2, lane, yn);
+    epnn::near_mid(zta, ztb, bias, s.b2, lane, yt);
+    float(*d)[epnn::kNearDStride] = s.d[warp];
+    auto term = [](float w, float a, float b) {
+      return __fmul_rn(w, __fsub_rn(epnn::relu(a), epnn::relu(b)));
+    };
 #pragma unroll
-    for (int o = 0; o < H; ++o) s_slot[warp][lane][o] = d[o];
-    __syncwarp();
-    const int ns = min(32, K - s0);
-#pragma unroll
-    for (int r = 0; r < kOut; ++r) {
-      const int o = lane + 32 * r;
-      if (o < H)
-        for (int l = 0; l < ns; ++l) row[r] += s_slot[warp][l][o];
+    for (int nt = 0; nt < 4; ++nt) {
+      const int o = 8 * nt + 2 * t;
+      *reinterpret_cast<float2*>(&d[g][o]) =
+          make_float2(term(wa, yn[nt][0], yt[nt][0]),
+                      term(wa, yn[nt][1], yt[nt][1]));
+      *reinterpret_cast<float2*>(&d[g + 8][o]) =
+          make_float2(term(wb, yn[nt][2], yt[nt][2]),
+                      term(wb, yn[nt][3], yt[nt][3]));
     }
     __syncwarp();
-  }
-#pragma unroll
-  for (int r = 0; r < kOut; ++r) {
-    const int o = lane + 32 * r;
-    if (o < H) out[(size_t)i * H + o] = row[r];
-  }
+  };
+  epnn::near_walk(s, warp, lane, wgt, K, r0, r1, out, tile);
 }
 
+int g_resident[epnn::kNearMaxDevices] = {};  // epnn::near_warps's cache
+
 }  // namespace
+
+// The warps a launch runs for N rows (near_tile_positions mirrors the
+// walk with it); negative on a CUDA error.
+extern "C" int epnn_near_pass_rowsum_warps(int N) {
+  int n_warps = 0;
+  const cudaError_t err = epnn::near_warps(npr_kernel, g_resident, N, n_warps);
+  return err == cudaSuccess ? n_warps : -1;
+}
 
 extern "C" int epnn_near_pass_rowsum(const float* rs, const float* ppn,
                                      const float* rbf, const float* gh,
                                      const float* w1e, const float* w2,
                                      const float* b2, float* out, int N, int K,
                                      int H, int E, cudaStream_t stream) {
-  if (H != 32 || E != 48 || N <= 0 || K <= 0) return cudaErrorInvalidValue;
-  const int blocks = (N + kWarps - 1) / kWarps;
-  npr_kernel<32, 48><<<blocks, kWarps * 32, 0, stream>>>(
-      rs, ppn, rbf, gh, w1e, w2, b2, out, N, K);
+  if (H != kH || E != kE || N <= 0 || K <= 0 ||
+      (long long)N * K + 32 > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  int n_warps = 0;
+  cudaError_t err = epnn::near_warps(npr_kernel, g_resident, N, n_warps);
+  if (err != cudaSuccess) return err;
+  const int blocks = (n_warps + epnn::kNearWarps - 1) / epnn::kNearWarps;
+  npr_kernel<<<blocks, epnn::kNearThreads, 0, stream>>>(
+      rs, ppn, rbf, gh, w1e, w2, b2, out, N, K, n_warps);
   return cudaGetLastError();
 }

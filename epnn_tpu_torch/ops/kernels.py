@@ -35,11 +35,12 @@ The kernels are CUDA C++ for ``sm_90a`` with a plain C interface, built by
 ``nvcc`` into shared libraries under ``build/epnn_tpu_torch/`` of the
 checkout on first use and loaded with ``ctypes``; :func:`build` compiles
 all of them in parallel.  Nothing is built when this module is imported.
-All are float32-grade: the far field and its backward run their H × H
-products on the tensor cores in 3xTF32 (each operand split into two TF32
-parts, three products, fp32 accumulation — :func:`tf32_round`,
-``*_3xtf32_plain`` repeat that arithmetic on any device), the others in
-fp32 on the CUDA cores.  None is the TF32 tier: one TF32 pass keeps ~2^-11.
+All are float32-grade: the far field, its backward and the two near
+kernels run their products on the tensor cores in 3xTF32 (each operand
+split into two TF32 parts, three products, fp32 accumulation —
+:func:`tf32_round`, ``*_3xtf32_plain`` repeat that arithmetic on any
+device), the others in fp32 on the CUDA cores.  None is the TF32 tier:
+one TF32 pass keeps ~2^-11.
 """
 
 from __future__ import annotations
@@ -468,19 +469,31 @@ class _PlainRecompute(torch.autograd.Function):
 # 2. near_message_corr — the gathered near-field message correction
 # ---------------------------------------------------------------------------
 
-def _mid(z, w2, b2):
-    return torch.relu(torch.relu(z) @ w2 + b2)
+def _mid(z, w2, b2, mm):
+    return torch.relu(mm(torch.relu(z), w2, b2))
+
+
+def _near_msg_rows(pi, pjn, rbf, mask, w1e, w2, b2, mm):
+    n, h = pi.shape
+    k = mask.shape[1]
+    epart = mm(rbf, w1e)
+    base = (pi[:, None, :] + pjn.reshape(n, k, h)).reshape(n * k, h)
+    diff = _mid(base + epart, w2, b2, mm) - _mid(base, w2, b2, mm)
+    return torch.sum(diff.reshape(n, k, h) * mask[:, :, None], dim=1)
 
 
 def near_message_corr_plain(pi, pjn, rbf, mask, w1e, w2, b2):
     """Σ_s mask_is · [mlp(pi_i + pjn_is + rbf_is @ W1e) − mlp(pi_i + pjn_is)]
     with mlp(z) = relu(relu(z) @ W2 + b2), as (N, H)."""
-    n, h = pi.shape
-    k = mask.shape[1]
-    epart = rbf @ w1e
-    base = (pi[:, None, :] + pjn.reshape(n, k, h)).reshape(n * k, h)
-    diff = _mid(base + epart, w2, b2) - _mid(base, w2, b2)
-    return torch.sum(diff.reshape(n, k, h) * mask[:, :, None], dim=1)
+    return _near_msg_rows(pi, pjn, rbf, mask, w1e, w2, b2, _mm_fp32)
+
+
+def near_message_corr_3xtf32_plain(pi, pjn, rbf, mask, w1e, w2, b2):
+    """:func:`near_message_corr_plain` with the kernel's arithmetic: rbf @
+    W1e and both mid-layer products in 3xTF32 (``_mm_3xtf32``).  Not on any
+    path: the tests and ``chip_smoke.py`` hold the kernel to it (the two
+    may differ only by summation order)."""
+    return _near_msg_rows(pi, pjn, rbf, mask, w1e, w2, b2, _mm_3xtf32)
 
 
 def _near_message_corr_fwd(pi, pjn, rbf, mask, w1e, w2, b2):
@@ -501,7 +514,7 @@ def _near_message_corr_fwd(pi, pjn, rbf, mask, w1e, w2, b2):
     if k == 0:
         return out.zero_()
     _launch(name, device, (pi, pjn, rbf, mask, w1e, w2, b2, out),
-            (n, k, h, e), dict(pjn=pjn, rbf=rbf, w1e=w1e, w2=w2))
+            (n, k, h, e), dict(pjn=pjn, rbf=rbf))
     return out
 
 
@@ -523,20 +536,32 @@ def near_message_corr(pi, pjn, rbf, mask, w1e, w2, b2):
 # 3. near_pass_rowsum — the antisymmetric electron-passing row sums
 # ---------------------------------------------------------------------------
 
-def near_pass_rowsum_plain(rs, ppn, rbf, gh, w1e, w2, b2):
-    """Σ_s gh_is · (mlp(pi_i + pj_j + e_s) − mlp(pi_j + pj_i + e_s)), j =
-    idx_is, e_s = rbf_s @ W1e, from rs = [pi | pj] and ppn = rs[idx]."""
+def _near_pass_rows(rs, ppn, rbf, gh, w1e, w2, b2, mm):
     n, h2 = rs.shape
     h = h2 // 2
     k = gh.shape[1]
     pi_r, pj_r = rs[:, :h], rs[:, h:]
     pin = ppn[:, :h].reshape(n, k, h)
     pjn = ppn[:, h:].reshape(n, k, h)
-    epart = (rbf @ w1e).reshape(n, k, h)
+    epart = mm(rbf, w1e).reshape(n, k, h)
     zn = (pi_r[:, None, :] + pjn) + epart
     zt = (pin + pj_r[:, None, :]) + epart
-    return torch.sum(gh[:, :, None] * (_mid(zn, w2, b2) - _mid(zt, w2, b2)),
-                     dim=1)
+    return torch.sum(gh[:, :, None] * (_mid(zn, w2, b2, mm)
+                                       - _mid(zt, w2, b2, mm)), dim=1)
+
+
+def near_pass_rowsum_plain(rs, ppn, rbf, gh, w1e, w2, b2):
+    """Σ_s gh_is · (mlp(pi_i + pj_j + e_s) − mlp(pi_j + pj_i + e_s)), j =
+    idx_is, e_s = rbf_s @ W1e, from rs = [pi | pj] and ppn = rs[idx]."""
+    return _near_pass_rows(rs, ppn, rbf, gh, w1e, w2, b2, _mm_fp32)
+
+
+def near_pass_rowsum_3xtf32_plain(rs, ppn, rbf, gh, w1e, w2, b2):
+    """:func:`near_pass_rowsum_plain` with the kernel's arithmetic: rbf @
+    W1e and both mid-layer products in 3xTF32 (``_mm_3xtf32``).  Not on any
+    path: the tests and ``chip_smoke.py`` hold the kernel to it.  Its pairs
+    stay exact negations: both orderings see the same products."""
+    return _near_pass_rows(rs, ppn, rbf, gh, w1e, w2, b2, _mm_3xtf32)
 
 
 def _near_pass_rowsum_fwd(rs, ppn, rbf, gh, w1e, w2, b2):
@@ -558,7 +583,7 @@ def _near_pass_rowsum_fwd(rs, ppn, rbf, gh, w1e, w2, b2):
     if k == 0:
         return out.zero_()
     _launch(name, device, (rs, ppn, rbf, gh, w1e, w2, b2, out), (n, k, h, e),
-            dict(ppn=ppn, rbf=rbf, w1e=w1e, w2=w2))
+            dict(ppn=ppn, rbf=rbf))
     return out
 
 
@@ -575,6 +600,38 @@ def near_pass_rowsum(rs, ppn, rbf, gh, w1e, w2, b2):
     XLA twin)."""
     return _PlainRecompute.apply(_near_pass_rowsum_fwd, near_pass_rowsum_plain,
                                  rs, ppn, rbf, gh, w1e, w2, b2)
+
+
+#: the near kernels' tile: live slots a tensor-core product (its M rows)
+NEAR_TILE = 16
+
+
+def near_warps(name: str, n: int) -> int:
+    """The warps a launch of the near kernel ``name`` runs for ``n`` rows on
+    the current card (its occupancy; csrc ``epnn::near_warps``)."""
+    fn = getattr(_lib(name), f"epnn_{name}_warps")
+    fn.argtypes = [_I]
+    fn.restype = ctypes.c_int
+    w = fn(n)
+    if w <= 0:
+        raise RuntimeError(f"{name}: could not size the grid for N={n}")
+    return w
+
+
+def near_tile_positions(wgt, n_warps: int):
+    """Where a near kernel's walk puts each slot: (N, K) int64, the M row
+    (0 … ``NEAR_TILE`` − 1) of its tensor-core tile for a live slot
+    (``wgt != 0``), −1 for a dead one.  Warp w owns rows
+    [N·w // n_warps, N·(w + 1) // n_warps) and takes its live slots in
+    ascending flat order, 16 a tile."""
+    n, k = wgt.shape
+    live = (wgt != 0).reshape(-1)
+    starts = (n * torch.arange(n_warps + 1, device=wgt.device)) // n_warps
+    rows = torch.arange(n * k, device=wgt.device) // k
+    warp = torch.searchsorted(starts, rows, right=True) - 1
+    seen = torch.cumsum(live, 0) - live.to(torch.int64)  # live slots before
+    pos = (seen - seen[starts[warp] * k]) % NEAR_TILE
+    return torch.where(live, pos, -1).reshape(n, k)
 
 
 # ---------------------------------------------------------------------------
