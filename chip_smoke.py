@@ -5,7 +5,7 @@ card: ``python3 chip_smoke.py`` from the repository root.
 1. Device: the card's name and power limit; TF32 is switched off for
    PyTorch (the port's precision is float32-grade throughout: the far
    field's and the near kernels use the tensor cores in 3xTF32).
-2. Build: the seven CUDA kernels from ``epnn_tpu_torch/csrc``, one
+2. Build: the eight CUDA kernels from ``epnn_tpu_torch/csrc``, one
    ``nvcc`` per source, in parallel; each entry's registers and spills.
 3. Kernels: each kernel against its plain PyTorch version on the card, at
    the shapes of the 2,220-atom water box (the checkpoint's round weights,
@@ -18,7 +18,11 @@ card: ``python3 chip_smoke.py`` from the repository root.
    (:data:`RAGGED`, zeros in cv), and at 17,760 atoms (in 4c); the
    backward's four outputs against the float64 plain version; bounds from
    the TF32 tensor-core rate (and the fp32 bound beside them); the SM clock
-   before and after their timings.
+   before and after their timings.  The far field's int8 tier
+   (:func:`int8_phase`) on the same inputs at both sizes and on the ragged
+   case: against its plain version, the same bits twice and off the
+   boundary, its gap to the 3xTF32 kernel, its time beside that kernel's,
+   and a bound from its int8 products and CUDA-core instructions.
    The two near kernels (:func:`near_phase`) at 2,220 and at 17,760 atoms,
    each box with its own neighbor table: also against their 3xTF32
    emulations, bounds at the TF32 rate and in fp32, and the
@@ -44,7 +48,11 @@ card: ``python3 chip_smoke.py`` from the repository root.
    launches per graph, charges against the golden and (b), its median
    latency, and the plain dense forward ``_forward_single`` on the card
    as its reference; (e) ``neighbor_compact``'s tables through
-   ``forward_blocked(neighbor_k=k, neighbors=(idx, mask))``.
+   ``forward_blocked(neighbor_k=k, neighbors=(idx, mask))``; (f) the int8
+   serving tier (``dense_matmul_precision="int8"``) on the boxes of (b)
+   and (c): 4 int8 far-field launches a graph and none of the fp32 one,
+   the far sums of the run against the fp32 kernel's, the charges' gap
+   to (b) and (c), conservation, and both tiers' medians in turns.
 5. Training: (a) the gradients of one fused train step on two 900-atom
    boxes, card against the port on the CPU, leaf by leaf; (b) ``train()``
    fine-tuning the checkpoint for a few epochs on the 2,220-atom boxes and
@@ -52,8 +60,8 @@ card: ``python3 chip_smoke.py`` from the repository root.
    fused bucket's loss falls, launches per fused step, none in dense
    steps, the median fused step, and ``best/`` served with conservation.
 6. Profile: ``torch.profiler`` over ``predict_batch`` (2 x 2,220 and
-   1 x 17,760 atoms) and one fused train step (2 x 2,220): device-busy
-   time against wall time, and the largest kernels.
+   1 x 17,760 atoms, both tiers) and one fused train step (2 x 2,220):
+   device-busy time against wall time, and the largest kernels.
 7. The kernels' JSON line, the card line, and last the result line.
 
 Any failure raises and exits non-zero; without a CUDA card it exits 2
@@ -77,6 +85,17 @@ PEAK_FP32_FLOPS = 67e12
 #: dense TF32 on the tensor cores: the far-field and near kernels' 3xTF32
 #: products
 PEAK_TF32_FLOPS = 495e12
+#: dense int8 on the tensor cores: the int8 far field's products
+PEAK_INT8_OPS = 1979e12
+#: CUDA-core instructions a second: one a lane a clock, half the fp32 FLOP
+#: peak (which counts an FMA as two)
+PEAK_INSTR = PEAK_FP32_FLOPS / 2
+#: the int8 far field's CUDA-core instructions per pair element: an
+#: activation takes add, relu, scale, clip, + 0.5 and the round down by
+#: 2^23, and 3 byte permutes pack 4; an output takes the unbias, the
+#: dequantizing multiply, + b2, relu and the cv-weighted add
+INT8_INSTR_IN = 6.75
+INT8_INSTR_OUT = 5
 PEAK_BYTES = 3.35e12
 
 GOLDEN = "epnn_tpu_torch/testdata/water2220_mixed_b16.npz"
@@ -85,6 +104,9 @@ KERNEL_ROWS = {
     # name -> (TPU kernel it replaces, CUDA source)
     "dense_message_rowsum": ("epnn_tpu/ops/pallas_kernels.py:98",
                              "epnn_tpu_torch/csrc/dense_message_rowsum.cu"),
+    "dense_message_rowsum_int8": (
+        "epnn_tpu/ops/pallas_kernels.py:59",
+        "epnn_tpu_torch/csrc/dense_message_rowsum_int8.cu"),
     "near_message_corr": ("epnn_tpu/ops/pallas_kernels.py:1286",
                           "epnn_tpu_torch/csrc/near_message_corr.cu"),
     "near_pass_rowsum": ("epnn_tpu/ops/pallas_kernels.py:1410",
@@ -110,8 +132,12 @@ PER_GRAPH_TRAIN = {**PER_GRAPH, "dense_message_rowsum_bwd": 4}
 PER_GRAPH_DENSE = {"fused_message_rowsum": 5, "fused_epn_rowsum": 5}
 #: per graph with kernel-built neighbor tables: the table, then the forward
 PER_GRAPH_COMPACT = {**PER_GRAPH, "neighbor_compact": 1}
+#: per graph in the int8 serving tier: its far field in place of the fp32 one
+PER_GRAPH_INT8 = {"dense_message_rowsum_int8": 4, "near_message_corr": 5,
+                  "near_pass_rowsum": 5}
 #: the slice each kernel's ``launches`` is read from
 MAIN_PATH = {"dense_message_rowsum_bwd": "train",
+             "dense_message_rowsum_int8": "int8",
              "fused_message_rowsum": "dense_fused",
              "fused_epn_rowsum": "dense_fused",
              "neighbor_compact": "compact_nbrs"}
@@ -357,6 +383,92 @@ def far_phase(torch, card, args, gbar, label, clocks, iters):
     return out
 
 
+def int8_bound(pairs, hh, nbytes):
+    """(bound ms, what bounds it, tensor-core ms, CUDA-core ms) of the int8
+    far field on ``pairs`` live pairs: 2H² integer operations a pair at the
+    int8 tensor-core rate, H activations and H outputs a pair at
+    ``INT8_INSTR_IN`` / ``INT8_INSTR_OUT`` CUDA-core instructions each, and
+    its bytes at the HBM rate: the bound is the largest of the three."""
+    tc = pairs * 2 * hh * hh / PEAK_INT8_OPS
+    cuda = pairs * hh * (INT8_INSTR_IN + INT8_INSTR_OUT) / PEAK_INSTR
+    ops, by = max(tc, cuda), nbytes / PEAK_BYTES
+    return (max(ops, by) * 1e3, "operations" if ops >= by else "bytes",
+            tc * 1e3, cuda * 1e3)
+
+
+def int8_phase(torch, card, args, label, iters=None):
+    """[kernel] ``dense_message_rowsum_int8`` on ``args`` (pi, pj, cv, W2,
+    b2) with s_in from their maxima, against its plain version on the same
+    card tensors within 1e-5·(max|ref| + 1) (within the tier everything is
+    exact integers, so only the order of the sum over j differs); the same
+    bits on a second launch and with every input off the 16-byte boundary;
+    its gap to the 3xTF32 kernel on the same inputs (> 0: the tier changes
+    the numbers).  With ``iters`` (int8 kernel, its plain version, the
+    3xTF32 kernel): their times, the 3xTF32 kernel's beside the int8 one's
+    in turns, and the bound on this data (live columns only).  Returns the
+    measurements."""
+    from epnn_tpu_torch.ops import kernels
+
+    f = 4
+    pi, pj, cv, w2, b2 = args
+    r, hh = pi.shape
+    nc = pj.shape[0]
+    full = (*args, kernels.int8_activation_scale(pi.max(), pj.max()))
+    out = kernels.dense_message_rowsum_int8(*full)
+    ref = kernels.dense_message_rowsum_int8_plain(*full)
+    f32 = kernels.dense_message_rowsum(*args)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    tol = 1e-5 * (float(ref.abs().max()) + 1.0)
+    require(np.isfinite(err) and err <= tol,
+            ("dense_message_rowsum_int8", label, err, tol))
+    require(torch.equal(kernels.dense_message_rowsum_int8(*full), out),
+            ("dense_message_rowsum_int8", "not the same bits on a second "
+             "launch"))
+    off = [off_boundary(t) for t in full]
+    require(torch.equal(kernels.dense_message_rowsum_int8(*off), out),
+            ("dense_message_rowsum_int8", "inputs off the 16-byte boundary"))
+    tier = float((out - f32).abs().max())
+    scale = float(f32.abs().max()) + 1.0
+    require(0.0 < tier, ("dense_message_rowsum_int8", label, "no tier gap"))
+    live = int(torch.count_nonzero(cv))
+    entry = dict(R=r, N=nc, live_cols=live, max_abs_err=err, tol=tol,
+                 tier_gap=tier, tier_gap_rel=tier / scale)
+    text = (f"[kernel] dense_message_rowsum_int8 at R={r} N={nc} ({live} "
+            f"live columns): max|d| vs plain {err:.3e} (tol {tol:.3e}), same "
+            f"bits on a second launch and off the 16-byte boundary; gap to "
+            f"the 3xTF32 kernel {tier:.4e} = {tier / scale:.3e} of "
+            f"max|out| + 1")
+    if iters is not None:
+        ms = device_ms(torch, lambda: kernels.dense_message_rowsum_int8(
+            *full), iters[0])
+        plain_ms = device_ms(torch, lambda: kernels.dense_message_rowsum_int8_plain(
+            *full), iters[1])
+        f32_ms = device_ms(torch, lambda: kernels.dense_message_rowsum(
+            *args), iters[2])
+        ms_again = device_ms(torch, lambda: kernels.dense_message_rowsum_int8(
+            *full), iters[0])
+        pairs = r * live
+        nbytes = f * (2 * r * hh + nc + live * hh + hh * hh + hh)
+        b_ms, b_by, tc_ms, cuda_ms = int8_bound(pairs, hh, nbytes)
+        entry.update(ms=ms, ms_second=ms_again, plain_ms=plain_ms,
+                     fp32_kernel_ms=f32_ms, bound_ms=b_ms, bound_by=b_by,
+                     bound_tensor_core_ms=tc_ms, bound_cuda_core_ms=cuda_ms,
+                     int_ops=pairs * 2 * hh * hh,
+                     instructions=pairs * hh * (INT8_INSTR_IN
+                                                + INT8_INSTR_OUT),
+                     bytes=nbytes)
+        text += (f"; kernel {ms:.4f} ms (again after the 3xTF32 kernel's "
+                 f"{f32_ms:.4f} ms: {ms_again:.4f}), plain {plain_ms:.4f} ms,"
+                 f" bound {b_ms:.5f} ms ({b_by}: int8 tensor cores "
+                 f"{tc_ms:.5f} ms for {pairs * 2 * hh * hh:,} operations, "
+                 f"CUDA cores {cuda_ms:.5f} ms for "
+                 f"{entry['instructions']:,.0f} instructions, {nbytes:,} B) "
+                 f"on {card}")
+    print(text)
+    return entry
+
+
 def bwd_errs_text(errs):
     return ("max|d| vs plain f32 / vs plain f64 (f32 plain vs f64; tol) / "
             "vs 3xTF32 emulation: " + ", ".join(
@@ -547,7 +659,8 @@ def device_split(torch, fn, reps=3):
 
 #: the layers a profiled call's device time is split into, by kernel name
 PROFILE_GROUPS = (
-    ("far field", ("dmr_partial", "dmr_bwd_partial", "sum_parts")),
+    ("far field", ("dmr_partial", "dmr_bwd_partial", "dmr_int8_partial",
+                   "sum_parts")),
     ("near kernels", ("nmc_kernel", "npr_kernel")),
     ("neighbor top-k", ("topk", "Topk", "sort", "Sort", "radix")),
     ("matmul", ("gemm", "xmma", "cutlass")),
@@ -568,7 +681,7 @@ def profile_groups(kern):
     return out
 
 
-def profile_phase(torch, card, pred, batch2, big):
+def profile_phase(torch, card, pred, batch2, big, pred8):
     """[profile] where a call's time goes: ``predict_batch`` at 2 x 2,220
     and 1 x 17,760 atoms, and one fused train step at 2 x 2,220 atoms (the
     bucket tables built once, as ``train()`` does), each as device-busy
@@ -593,6 +706,8 @@ def profile_phase(torch, card, pred, batch2, big):
     cases = {
         "predict_batch 2x2220": lambda: pred.predict_batch(batch2),
         "predict_batch 1x17760": lambda: pred.predict_batch(big),
+        "predict_batch int8 2x2220": lambda: pred8.predict_batch(batch2),
+        "predict_batch int8 1x17760": lambda: pred8.predict_batch(big),
         "train_step_fused 2x2220": lambda: loop.train_step_fused(
             state, cfg, "masked_mse", k, *args, uniform_q0=uq0,
             neighbors=nbrs),
@@ -903,7 +1018,7 @@ def main() -> int:
     from epnn_tpu_torch.data import pad_molecules
     from epnn_tpu_torch.elements import table_for_n_elems
     from epnn_tpu_torch.infer import Predictor
-    from epnn_tpu_torch.ops import kernels
+    from epnn_tpu_torch.ops import fused, kernels
     from epnn_tpu_torch.ops.fused import (
         build_neighbors,
         forward_blocked,
@@ -988,6 +1103,14 @@ def main() -> int:
           f"{err:.3e}, vs 3xTF32 emulation {err_emu:.3e} (tol {tol:.3e}); "
           f"backward {bwd_errs_text(rag_errs)}; same bits on a second launch "
           "and off the 16-byte boundary")
+    # the far field's int8 tier on the same inputs, then the ragged slice
+    name = "dense_message_rowsum_int8"
+    rows[name] = dict(name=name, route="cuda", source=KERNEL_ROWS[name][1],
+                      replaces=KERNEL_ROWS[name][0], launches=0,
+                      library_ms=None, ptxas=ptxas_usage(kernels, name),
+                      **int8_phase(torch, card, far_args, "2220",
+                                   (50, 5, 50)), sizes={})
+    rows[name]["ragged"] = int8_phase(torch, card, rag_args, "ragged")
 
     # the near kernels at both sizes, on each box's own neighbor table
     big = pad_molecules([water_box(SCALING_SIZE_MOLECULES, seed=2)], table)
@@ -1105,6 +1228,8 @@ def main() -> int:
     for name, entry in far_phase(torch, card, big_args, gbig, "17760",
                                  clocks, (5, 2, 5, 2)).items():
         rows[name]["sizes"]["17760"] = entry
+    rows["dense_message_rowsum_int8"]["sizes"]["17760"] = int8_phase(
+        torch, card, big_args, "17760", (5, 2, 5))
     print(f"[slice c] far field at N={nb}: dense_message_rowsum "
           f"{rows['dense_message_rowsum']['sizes']['17760']['ms']:.3f} ms "
           f"(bound {rows['dense_message_rowsum']['sizes']['17760']['bound_ms']:.3f}"
@@ -1184,11 +1309,77 @@ def main() -> int:
           f"{cons_e.tolist()}; tables + forward median {ms_e:.3f} ms on "
           f"{card}")
 
+    # (f) the int8 serving tier through Predictor: (b)'s boxes and (c)'s
+    pred8 = Predictor(pred.params, cfg.replace(dense_matmul_precision="int8"))
+    require(pred8._use_pallas(), "Predictor on the card takes the int8 tier")
+    seen = []
+    tier_fn = fused.dense_message_rowsum_int8
+
+    def spy(*a):
+        seen.append(tuple(t.clone() for t in a))
+        return tier_fn(*a)
+
+    fused.dense_message_rowsum_int8 = spy
+    try:
+        kernels.reset_launch_counts()
+        q8 = pred8.predict_batch(batch2)
+        int8_launches = dict(kernels.LAUNCHES)
+    finally:
+        fused.dense_message_rowsum_int8 = tier_fn
+    want = {kn: 2 * PER_GRAPH_INT8.get(kn, 0) for kn in kernels.SOURCES}
+    require(int8_launches == want, (int8_launches, want))
+    # the far sums of the run (every launch's own inputs and scale) against
+    # the 3xTF32 kernel's: the tier changes them
+    far_gaps = []
+    for a in seen:
+        got, f32 = kernels.dense_message_rowsum_int8(*a), \
+            kernels.dense_message_rowsum(*a[:5])
+        far_gaps.append(float((got - f32).abs().max())
+                        / (float(f32.abs().max()) + 1.0))
+    require(len(far_gaps) == 8 and min(far_gaps) > 0.0, far_gaps)
+    gap8 = float(np.abs(q8 - q2).max())
+    dq8 = float(np.abs(q8[:, :golden.shape[1]] - golden).max())
+    tier_bar = 0.05 * (float(np.abs(q2).max()) + 1.0)
+    cons8 = np.abs(q8.astype(np.float64).sum(1) - total_q)
+    require(np.all(np.isfinite(q8)) and gap8 < tier_bar, (gap8, tier_bar))
+    require(np.all(cons8 <= 1e-4), cons8)
+    kernels.reset_launch_counts()
+    q8b = pred8.predict_batch(big)
+    big8_launches = dict(kernels.LAUNCHES)
+    require(big8_launches == {kn: PER_GRAPH_INT8.get(kn, 0)
+                              for kn in kernels.SOURCES}, big8_launches)
+    gap8b = float(np.abs(q8b - q3).max())
+    cons8b = abs(float(q8b.astype(np.float64).sum()))
+    require(np.all(np.isfinite(q8b)) and cons8b <= 1e-4, cons8b)
+    require(gap8b < 0.05 * (float(np.abs(q3).max()) + 1.0), gap8b)
+    # both tiers' medians, in turns (fp32, int8, int8, fp32)
+    tiers = {"fp32": pred, "int8": pred8}
+    medians = {}
+    for label, batch, reps in (("2x2220", batch2, 7), ("1x17760", big, 3)):
+        runs = {"fp32": [], "int8": []}
+        for tier in ("fp32", "int8", "int8", "fp32"):
+            runs[tier].append(timed(lambda: tiers[tier].predict_batch(batch),
+                                    reps))
+        medians[label] = runs
+    print(f"[slice f] int8 tier (dense_matmul_precision='int8'), Predictor "
+          f"on the card: 2 x 2,220 atoms launches {int8_launches} (per graph "
+          f"{PER_GRAPH_INT8}); far sums of the run vs the 3xTF32 kernel: "
+          f"max|d|/(max|out|+1) {min(far_gaps):.3e} .. {max(far_gaps):.3e}; "
+          f"charges vs [slice b] max|dq| {gap8:.3e} (tier bar "
+          f"{tier_bar:.3e}), vs JAX golden {dq8:.3e}; |sum q - Q| = "
+          f"{cons8.tolist()}. 1 x {big.natoms[0]:,} atoms: launches "
+          f"{big8_launches}; vs [slice c] max|dq| {gap8b:.3e}; |sum q - Q| "
+          f"= {cons8b:.3e}. predict_batch medians (fp32, int8, int8, fp32 "
+          f"turns): " + "; ".join(
+              f"{lb} fp32 {r['fp32'][0]:.3f}/{r['fp32'][1]:.3f} ms, int8 "
+              f"{r['int8'][0]:.3f}/{r['int8'][1]:.3f} ms"
+              for lb, r in medians.items()) + f" on {card}")
+
     # ---- 5. training ------------------------------------------------------
     small_labels = [q.copy() for q in qs]
     train_launches, step_ms, step_list = train_phase(
         torch, pred, card, small, small_labels, batch2, golden)
-    profile = profile_phase(torch, card, pred, batch2, big)
+    profile = profile_phase(torch, card, pred, batch2, big, pred8)
 
     # ---- 6. result lines --------------------------------------------------
     # launches: each kernel's count in the main path of its slice
@@ -1197,7 +1388,8 @@ def main() -> int:
         path_launches = {"serve": main_launches[name],
                          "train": train_launches[name],
                          "dense_fused": dense_launches[name],
-                         "compact_nbrs": compact_launches[name]}
+                         "compact_nbrs": compact_launches[name],
+                         "int8": int8_launches[name]}
         rows[name]["launches_by_path"] = path_launches
         rows[name]["launches"] = path_launches[MAIN_PATH.get(name, "serve")]
         require(rows[name]["launches"] > 0, (name, path_launches))
@@ -1209,6 +1401,13 @@ def main() -> int:
                       "dense_fused_ms": {"2x2220": ms_d},
                       "dense_plain_ms": {"2x2220": ms_p},
                       "compact_nbrs_ms": {"2x2220": ms_e},
+                      "int8_tier": {
+                          "predict_batch_ms_turns": medians,
+                          "far_sum_gap_rel": far_gaps,
+                          "charges_gap": {"2x2220": gap8, "1x17760": gap8b},
+                          "golden_dq": dq8,
+                          "conservation": {"2x2220": cons8.tolist(),
+                                           "1x17760": cons8b}},
                       "profile": profile, "sm_clocks": clocks,
                       "card": card}))
     print(card)

@@ -103,9 +103,14 @@ def pad_molecules(
 
 
 def bucket_molecules(mols: Sequence[Molecule], table: ElementTable,
-                     bucket_multiple: int = 8) -> Dict[int, MolBatch]:
+                     bucket_multiple: int = 8,
+                     max_batch_atoms2: int = 2**22) -> Dict[int, MolBatch]:
     """Group molecules into size buckets: padded width → one batch of every
-    molecule of that width, in input order, widths ascending."""
+    molecule of that width, in input order, widths ascending.
+
+    ``max_batch_atoms2`` (a cap on B·N² per bucket) is accepted for the
+    JAX package's signature and, as there (``epnn_tpu/data/dataset.py:
+    124-129``), not used: callers minibatch within a bucket."""
     by_bucket: Dict[int, List[Molecule]] = {}
     for m in mols:
         key = round_up(max(m.natoms, 1), bucket_multiple)

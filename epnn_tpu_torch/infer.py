@@ -8,8 +8,10 @@ Dispatch: padded widths up to :data:`DENSE_MAX_ATOMS` run the dense
 neighbor-split blocked forward (:func:`~epnn_tpu_torch.ops.forward_blocked`)
 whose hot loops are the CUDA kernels of :mod:`epnn_tpu_torch.ops.kernels`.
 
-Everything runs in float32.  Matmuls stay full fp32 as long as TF32 stays
-off (``torch.backends.cuda.matmul.allow_tf32``, PyTorch's default).
+Everything runs in float32, but for the far field's int8 serving tier
+(``dense_matmul_precision="int8"`` on the card, :meth:`Predictor._use_pallas`).
+Matmuls stay full fp32 as long as TF32 stays off
+(``torch.backends.cuda.matmul.allow_tf32``, PyTorch's default).
 """
 
 from __future__ import annotations
@@ -48,14 +50,19 @@ DENSE_MAX_ATOMS = 256
 
 @dataclasses.dataclass
 class Predictor:
-    """Inference front end on one device.
+    """Inference front end on one device.  The fields follow the JAX
+    package's ``Predictor`` (``params, cfg, block, force_mode``
+    positionally); the rest are keyword-only.
+
+    ``block`` — the row block of the dense blocked forward
+    (``forward_blocked(block=min(block, padded width))``).
+
+    ``force_mode`` — ``None`` (dispatch on size), ``'dense'`` or
+    ``'blocked'``.
 
     ``device`` — where the forward runs.  ``None`` means the first CUDA
     card and raises when there is none: the CPU is used only when asked
     for (``device="cpu"``), never as a silent fallback.
-
-    ``force_mode`` — ``None`` (dispatch on size), ``'dense'`` or
-    ``'blocked'``.
 
     ``collapse_round1`` — ``'auto'`` checks the round-1 collapse contract
     per batch on the host (uniform q0 on valid atoms, ``[Z, onehot]``
@@ -73,11 +80,13 @@ class Predictor:
 
     params: dict
     cfg: EPNNConfig
-    device: Optional[str] = None
+    block: int = 256
     force_mode: Optional[str] = None
-    collapse_round1: str = "auto"
+    _: dataclasses.KW_ONLY
     renormalize: bool = False
     neighbor_method: str = "auto"
+    collapse_round1: str = "auto"
+    device: Optional[str] = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device, "Predictor")
@@ -131,6 +140,20 @@ class Predictor:
         self._k_cache[batch] = (fp, k)
         return k
 
+    def _use_pallas(self) -> bool:
+        """The twin of JAX's ``Predictor._use_pallas``
+        (``epnn_tpu/infer.py:1155-1167``) with the card in the TPU's place:
+        on CUDA, when the far field's precision is ``'default'`` or
+        ``'int8'``.  It selects the int8 tier under
+        ``dense_matmul_precision='int8'`` and changes nothing else (the
+        float32 kernels run on the card either way); so a CPU Predictor
+        serves int8 unquantized, as JAX's CPU Predictor does."""
+        cfg = self.cfg
+        dense_prec = cfg.dense_matmul_precision or cfg.matmul_precision or (
+            "highest" if cfg.highest_precision else "default")
+        return self.device.type == "cuda" and dense_prec in ("default",
+                                                             "int8")
+
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float32)).to(self.device)
 
@@ -178,7 +201,9 @@ class Predictor:
         else:
             q = forward_blocked(
                 self._fused, x, q0, xyz, mask, self.cfg,
+                block=min(self.block, batch.padded_atoms),
                 neighbor_k=self._neighbor_k(batch),
+                use_pallas=self._use_pallas(),
                 uniform_q0=self._uniform_q0(batch))
         return q.cpu().numpy().astype(np.float32, copy=False)
 

@@ -29,8 +29,11 @@ class EPNNConfig:
       compute_dtype / highest_precision / matmul_precision /
         dense_matmul_precision: precision policy of the JAX package.  This
         port runs float32 throughout (TF32 off): 'default' and 'highest'
-        both run fp32 here.  'bfloat16' compute and the 'int8' / 'bf16x3'
-        far-field tiers are not ported yet and raise in the forward.
+        both run fp32 here.  dense_matmul_precision='int8' is the far
+        field's int8 serving tier, taken by the neighbor split with
+        ``use_pallas`` (on the card, ``Predictor``'s default), as in the
+        JAX package.  'bfloat16' compute and the 'bf16x3' tier are not
+        ported yet and raise in the forward.
     """
 
     n_elems: int = 10

@@ -17,7 +17,9 @@ row blocks of plain PyTorch (differentiable, any MLP depth), and
 :func:`_forward_single_pallas` with each round one fused CUDA kernel over
 the whole pair grid (inference-only).  The kernels are those of
 :mod:`epnn_tpu_torch.ops.kernels`; the gathers, projections and update MLP
-stay plain PyTorch.  Precision is float32 throughout.
+stay plain PyTorch.  Precision is float32 throughout, but for the far
+field's int8 serving tier (``dense_matmul_precision="int8"`` with
+``use_pallas``).
 """
 
 from __future__ import annotations
@@ -37,9 +39,14 @@ from epnn_tpu_torch.featurize import (
 )
 from epnn_tpu_torch.models.config import EPNNConfig
 from epnn_tpu_torch.ops.kernels import (
+    KERNEL_E,
+    KERNEL_H,
+    _plain_rows,
     dense_message_rowsum,
+    dense_message_rowsum_int8,
     fused_epn_rowsum,
     fused_message_rowsum,
+    int8_activation_scale,
     near_message_corr,
     near_pass_rowsum,
 )
@@ -266,21 +273,85 @@ def _check_precision(cfg: EPNNConfig) -> None:
         raise NotImplementedError(
             "compute_dtype='bfloat16' is not ported yet (ROADMAP queue 1: "
             "precision tiers)")
-    if cfg.dense_matmul_precision in ("int8", "bf16x3"):
+    if cfg.dense_matmul_precision == "bf16x3":
         raise NotImplementedError(
-            f"dense_matmul_precision={cfg.dense_matmul_precision!r} is not "
-            "ported yet (ROADMAP queue 1: precision tiers)")
+            "dense_matmul_precision='bf16x3' is not ported yet (ROADMAP "
+            "queue 1: precision tiers)")
 
 
-def _one_square_mid(w: PairMLPWeights) -> bool:
-    return len(w.mids) == 1 and w.mids[0][0].shape[0] == w.mids[0][0].shape[1]
+def kernels_apply(w: PairMLPWeights) -> bool:
+    """Whether a round's weights take the CUDA kernels: JAX's rule, exactly
+    one mid layer (``epnn_tpu/ops/fused.py:1245``, ``:1301``, ``:1356``),
+    at the widths the kernels are built for — a (KERNEL_H, KERNEL_H) mid
+    layer behind an E = KERNEL_E RBF.  Otherwise the same math runs in
+    plain PyTorch at any depth and width, on the CPU and the card alike:
+    a rule of the configuration, as JAX's, not a fallback on failure."""
+    if len(w.mids) != 1:
+        return False
+    return (tuple(w.mids[0][0].shape) == (KERNEL_H, KERNEL_H)
+            and tuple(w.w1_e.shape) == (KERNEL_E, KERNEL_H))
 
 
-def _check_kernel_mids(fused: FusedParams) -> None:
-    if not all(_one_square_mid(w) for w in fused.messages + fused.passes):
-        raise NotImplementedError(
-            "the blocked forward's kernels take exactly one square mid "
-            "layer (mlp_hidden=(H, H))")
+def _dense_message_pad(block_i: int, block_jp: int, h: int) -> int:
+    """The atom-count multiple the JAX far-field kernel requires
+    (``epnn_tpu/ops/pallas_kernels.py:138``)."""
+    pack = max(1, 128 // h) if 128 % h == 0 else 1
+    return math.lcm(block_i, pack * block_jp)
+
+
+def _int8_scale(pi: Tensor, pj: Tensor, b1: Tensor) -> Tensor:
+    """The int8 tier's activation scale over the rows JAX's kernel sees.
+    JAX takes max(pi) and max(pj) over its padded arrays: from 128 atoms
+    ``forward_blocked`` pads the graph to a multiple of
+    ``dense_message_pad(128, 64, H)`` with empty atoms, whose pi is b1 and
+    pj 0 (``epnn_tpu/ops/fused.py:902-915``); below 128 the kernel's
+    operands are padded with zero rows to a multiple of
+    ``dense_message_pad(8, 8, H)`` (``:1091-1095``, ``:1250-1253``).  The
+    port pads nothing, so it adds those rows' values to the maxima."""
+    n, h = pi.shape
+    pi_max, pj_max = pi.max(), pj.max()
+    if n >= 128:
+        pad_pi = b1.max() if n % _dense_message_pad(128, 64, h) else None
+    else:
+        pad_pi = pi.new_zeros(()) if n % _dense_message_pad(8, 8, h) else None
+    if pad_pi is not None:
+        pi_max = torch.maximum(pi_max, pad_pi)
+        pj_max = torch.clamp(pj_max, min=0.0)
+    return int8_activation_scale(pi_max, pj_max)
+
+
+def _far_plain(pi: Tensor, pj: Tensor, jvec: Tensor,
+               w: PairMLPWeights) -> Tensor:
+    """Σ_j jvec_j · mids(relu(pi_i + pj_j)) at any depth, row-blocked (the
+    JAX package's XLA ``dense_scan``, ``epnn_tpu/ops/fused.py:1256-1272``)."""
+    r, n = pi.shape[0], pj.shape[0]
+    width = max([pi.shape[1]] + [wm.shape[1] for wm, _ in w.mids])
+    rb = _plain_rows(r, n, width)
+    return torch.cat([
+        torch.einsum("n,bnh->bh", jvec,
+                     _mids(torch.relu(pi[s:s + rb, None, :] + pj[None]), w))
+        for s in range(0, r, rb)])
+
+
+def _near_corr_plain(pi: Tensor, pj_nbr: Tensor, rbf: Tensor, mask: Tensor,
+                     w: PairMLPWeights) -> Tensor:
+    """The near correction at any depth (``epnn_tpu/ops/fused.py:1306-
+    1315``): pj_nbr (N, K, H1), rbf (N, K, E), mask (N, K)."""
+    base = pi[:, None, :] + pj_nbr
+    diff = (_mids(torch.relu(base + rbf @ w.w1_e), w)
+            - _mids(torch.relu(base), w))
+    return torch.sum(diff * mask[:, :, None], dim=1)
+
+
+def _pass_plain(pi: Tensor, pj: Tensor, idx: Tensor, rbf: Tensor,
+                gh: Tensor, w: PairMLPWeights) -> Tensor:
+    """A pass round's row sums at any depth (``epnn_tpu/ops/fused.py:1402-
+    1414``): Σ_s gh_is · (mids(relu(pi_i + pj_j + e)) − mids(relu(pi_j +
+    pj_i + e))), j = idx_is; the two orderings see the same sums."""
+    epart = rbf @ w.w1_e
+    hid_n = _mids(torch.relu((pi[:, None, :] + pj[idx]) + epart), w)
+    hid_t = _mids(torch.relu((pi[idx] + pj[:, None, :]) + epart), w)
+    return torch.sum(gh[:, :, None] * (hid_n - hid_t), dim=1)
 
 
 def _atom_inputs(x: Tensor, h: Tensor, q: Tensor) -> Tensor:
@@ -297,6 +368,7 @@ def _forward_single_nbr(
     k: int,
     uniform_q0: bool = False,
     neighbors: Optional[Tuple[Tensor, ...]] = None,
+    int8: bool = False,
 ) -> Tensor:
     """One graph through the neighbor-split forward (exact far field).
 
@@ -306,7 +378,13 @@ def _forward_single_nbr(
     and q = q0, so the j-side projection takes one value per element plus
     the all-zero padding row, and the round's O(N²) far-field reduction
     collapses exactly to a count-weighted (N, E+1) grid.  Rounds 2+ run
-    the far-field kernel.
+    the far-field kernel, or with ``int8`` its int8 tier
+    (:func:`dense_message_rowsum_int8`; the collapse, the near correction
+    and the pass rounds keep float32, so conservation is untouched).
+
+    Each round takes the three kernels where :func:`kernels_apply` says
+    so, and otherwise runs the same split in plain PyTorch at any depth
+    and width (``int8`` then has no effect, as JAX's XLA branch).
 
     ``neighbors`` — precomputed ``(idx, nbr_mask, d2)``, each (N, k), from
     :func:`build_neighbors`, or ``(idx, nbr_mask)`` (as
@@ -346,7 +424,7 @@ def _forward_single_nbr(
     nm = node_mask[:, None]
 
     for t, w in enumerate(fused.messages):
-        (w2, b2), = w.mids
+        kern = kernels_apply(w)
         a = _atom_inputs(x, h, q)
         pi = (a @ w.w1_i + w.b1).contiguous()   # b1 folded once per atom
         pj = (a @ w.w1_j).contiguous()
@@ -368,11 +446,20 @@ def _forward_single_nbr(
             counts = torch.cat([counts, (jvec.sum() - counts.sum())[None]])
             hid_g = _mids(torch.relu(pi[:, None, :] + pj_grid[None, :, :]), w)
             dense_sum = torch.einsum("e,neh->nh", counts, hid_g)
+        elif not kern:
+            dense_sum = _far_plain(pi, pj, jvec, w)
+        elif int8:
+            dense_sum = dense_message_rowsum_int8(
+                pi, pj, jvec, *w.mids[0], _int8_scale(pi, pj, w.b1))
         else:
-            dense_sum = dense_message_rowsum(pi, pj, jvec, w2, b2)
-        near_corr = near_message_corr(
-            pi, torch.index_select(pj, 0, idx_flat), rbf_flat, nbr_mask,
-            w.w1_e, w2, b2)
+            dense_sum = dense_message_rowsum(pi, pj, jvec, *w.mids[0])
+        pj_nbr = torch.index_select(pj, 0, idx_flat)
+        if kern:
+            near_corr = near_message_corr(pi, pj_nbr, rbf_flat, nbr_mask,
+                                          w.w1_e, *w.mids[0])
+        else:
+            near_corr = _near_corr_plain(pi, pj_nbr.reshape(n, k_eff, -1),
+                                         rbf_nbr, nbr_mask, w)
         hsum = dense_sum + near_corr
         messages = hsum @ w.w_out + msg_count[:, None] * w.b_out
         upd_in = torch.cat([h, messages], dim=-1) * nm
@@ -380,13 +467,15 @@ def _forward_single_nbr(
 
     # electron passing: gathered pairs only (the gate is zero off the near set)
     for w in fused.passes:
-        (w2, b2), = w.mids
         a = _atom_inputs(x, h, q)
         pi = a @ w.w1_i + w.b1
         pj = a @ w.w1_j
-        rs = torch.cat([pi, pj], dim=-1)
-        dsum = near_pass_rowsum(rs, torch.index_select(rs, 0, idx_flat),
-                                rbf_flat, gh_pass, w.w1_e, w2, b2)
+        if kernels_apply(w):
+            rs = torch.cat([pi, pj], dim=-1)
+            dsum = near_pass_rowsum(rs, torch.index_select(rs, 0, idx_flat),
+                                    rbf_flat, gh_pass, w.w1_e, *w.mids[0])
+        else:
+            dsum = _pass_plain(pi, pj, idx, rbf_nbr, gh_pass, w)
         q = q + (dsum @ w.w_out)[:, 0]
     return q * node_mask
 
@@ -540,14 +629,19 @@ def forward_blocked(
     :func:`build_neighbors_batch`, or ``(idx, nbr_mask)`` (e.g. from
     :func:`epnn_tpu_torch.ops.kernels.neighbor_compact`), whose d² is
     recomputed from the coordinates.  ``uniform_q0`` — see
-    :func:`_forward_single_nbr`.  ``use_pallas`` changes nothing there: the
-    port's kernels always run on CUDA tensors.
+    :func:`_forward_single_nbr`.  The float32 kernels run on every CUDA
+    tensor whose round :func:`kernels_apply` admits, whatever
+    ``use_pallas`` says; ``use_pallas`` selects the far field's int8 tier
+    when ``cfg.dense_matmul_precision == "int8"`` (as JAX's ``pallas_ok``,
+    ``epnn_tpu/ops/fused.py:1091-1101``).  Without it, int8 runs the
+    unquantized far field, as JAX's XLA path does.
 
     Without ``neighbor_k``: the dense blocked forwards.  ``use_pallas``
-    with exactly one square mid layer selects the fully fused kernels
-    (:func:`_forward_single_pallas`, inference-only); otherwise
-    :func:`_forward_single` runs in plain PyTorch in row blocks of
-    ``block`` (any depth, differentiable).  Both ignore ``uniform_q0``.
+    with every round admitted by :func:`kernels_apply` selects the fully
+    fused kernels (:func:`_forward_single_pallas`, inference-only);
+    otherwise :func:`_forward_single` runs in plain PyTorch in row blocks
+    of ``block`` (any depth, differentiable).  Both ignore ``uniform_q0``
+    and the int8 tier, as JAX's dense paths do.
 
     ``remat`` is not ported.  Equivalent to ``EPNN(cfg)(x, q0,
     rbf_edges(xyz, mask), mask)`` up to float32 association noise.  The
@@ -560,8 +654,7 @@ def forward_blocked(
             "options' item 3)")
     if neighbors is not None and neighbor_k is None:
         raise ValueError("neighbors requires neighbor_k")
-    if neighbor_k is not None:
-        _check_kernel_mids(fused)
+    int8 = use_pallas and cfg.dense_matmul_precision == "int8"
     outs = []
     for b in range(x.shape[0]):
         args = (fused, x[b], q0[b], xyz[b], node_mask[b], cfg)
@@ -569,8 +662,8 @@ def forward_blocked(
             nb = None if neighbors is None else tuple(a[b] for a in neighbors)
             outs.append(_forward_single_nbr(*args, k=neighbor_k,
                                             uniform_q0=uniform_q0,
-                                            neighbors=nb))
-        elif use_pallas and all(_one_square_mid(w) for w in
+                                            neighbors=nb, int8=int8))
+        elif use_pallas and all(kernels_apply(w) for w in
                                 fused.messages + fused.passes):
             outs.append(_forward_single_pallas(*args))
         else:

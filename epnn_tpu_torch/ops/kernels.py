@@ -4,6 +4,9 @@ selection, each with its plain PyTorch version (counterpart of
 
 * ``dense_message_rowsum`` — ``csrc/dense_message_rowsum.cu``, replaces
   ``epnn_tpu/ops/pallas_kernels.py:98``;
+* ``dense_message_rowsum_int8`` — ``csrc/dense_message_rowsum_int8.cu``,
+  the same far field in the int8 serving tier, replaces the int8 body of
+  ``_msg_kernel`` (``pallas_kernels.py:59-75``);
 * ``near_message_corr`` — ``csrc/near_message_corr.cu``, replaces
   ``pallas_kernels.py:1286``;
 * ``near_pass_rowsum`` — ``csrc/near_pass_rowsum.cu``, replaces
@@ -18,11 +21,12 @@ selection, each with its plain PyTorch version (counterpart of
 * ``neighbor_compact`` — ``csrc/neighbor_compact.cu``, the within-cutoff
   neighbor list in one pass, replaces ``pallas_kernels.py:685``.
 
-The three neighbor-split forwards are differentiable: each public function
+The four neighbor-split forwards are differentiable: each public function
 goes through a ``torch.autograd.Function`` on the CPU and on CUDA alike.
-The far field's backward is the ``dense_message_rowsum_bwd`` kernel; the
-two near kernels' backwards recompute through their plain versions, as the
-JAX package's custom VJPs recompute through their XLA twins.  The two fused
+The far field's backward, in both tiers (int8 straight through), is the
+``dense_message_rowsum_bwd`` kernel; the two near kernels' backwards
+recompute through their plain versions, as the JAX package's custom VJPs
+recompute through their XLA twins.  The two fused
 dense kernels are inference-only, as in the JAX package: their Function's
 backward raises.
 
@@ -35,12 +39,14 @@ The kernels are CUDA C++ for ``sm_90a`` with a plain C interface, built by
 ``nvcc`` into shared libraries under ``build/epnn_tpu_torch/`` of the
 checkout on first use and loaded with ``ctypes``; :func:`build` compiles
 all of them in parallel.  Nothing is built when this module is imported.
-All are float32-grade: the far field, its backward and the two near
-kernels run their products on the tensor cores in 3xTF32 (each operand
-split into two TF32 parts, three products, fp32 accumulation —
+All but one are float32-grade: the far field, its backward and the two
+near kernels run their products on the tensor cores in 3xTF32 (each
+operand split into two TF32 parts, three products, fp32 accumulation —
 :func:`tf32_round`, ``*_3xtf32_plain`` repeat that arithmetic on any
 device), the others in fp32 on the CUDA cores.  None is the TF32 tier:
-one TF32 pass keeps ~2^-11.
+one TF32 pass keeps ~2^-11.  The exception is the int8 far field, the
+JAX package's fast serving tier: its plain version repeats its
+quantization exactly (the integer products are exact in float32).
 """
 
 from __future__ import annotations
@@ -67,6 +73,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: kernel name -> its CUDA source (and its C entry point ``epnn_<name>``)
 SOURCES = {
     "dense_message_rowsum": "dense_message_rowsum.cu",
+    "dense_message_rowsum_int8": "dense_message_rowsum_int8.cu",
     "near_message_corr": "near_message_corr.cu",
     "near_pass_rowsum": "near_pass_rowsum.cu",
     "dense_message_rowsum_bwd": "dense_message_rowsum_bwd.cu",
@@ -88,6 +95,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _ARGTYPES = {
     "dense_message_rowsum": [_P] * 7 + [_I] * 5 + [_P],
+    "dense_message_rowsum_int8": [_P] * 9 + [_I] * 5 + [_P],
     "near_message_corr": [_P] * 8 + [_I] * 4 + [_P],
     "near_pass_rowsum": [_P] * 8 + [_I] * 4 + [_P],
     "dense_message_rowsum_bwd": [_P] * 11 + [_I] * 7 + [_P],
@@ -436,6 +444,109 @@ def dense_message_rowsum(pi, pj, col_vec, w2, b2):
     b2 (H,).  Rectangular: R need not equal N.  Differentiable in pi, pj,
     W2 and b2 through :func:`dense_message_rowsum_bwd`."""
     return _DenseMessageRowsum.apply(pi, pj, col_vec, w2, b2)
+
+
+# ---------------------------------------------------------------------------
+# 1b. dense_message_rowsum_int8 — the far field's int8 serving tier
+# ---------------------------------------------------------------------------
+
+def int8_activation_scale(pi_max, pj_max):
+    """The int8 tier's per-tensor activation scale, from the maxima of the
+    row and column projections: s_in = max(relu(pi_max + pj_max), 1e-30)
+    / 127 (``_dense_message_rowsum_impl``, ``pallas_kernels.py:1029-1030``).
+    relu(pi_i + pj_j) ≤ 127·s_in for every pair."""
+    return torch.clamp(torch.relu(pi_max + pj_max), min=1e-30) / 127.0
+
+
+def int8_quantization(w2, s_in):
+    """``(w2q, dq, inv)`` of the int8 tier, on W2's device, as the JAX
+    package computes them outside its kernel (``pallas_kernels.py:1023-
+    1033``): per output column sw = max(max|W2[:, c]|, 1e-30) / 127,
+    w2q = clip(round(W2 / sw), ±127) (round half to even, integer-valued
+    float32), the dequantization scale dq = s_in·sw (H,) and the
+    quantization scale inv = 1 / s_in (a 0-dim tensor)."""
+    sw = torch.clamp(w2.abs().amax(0), min=1e-30) / 127.0
+    w2q = torch.clamp(torch.round(w2 / sw), -127.0, 127.0)
+    return w2q, s_in * sw, torch.ones_like(s_in) / s_in
+
+
+def dense_message_rowsum_int8_plain(pi, pj, col_vec, w2, b2, s_in):
+    """The far field in the int8 tier, as (R, H) float32, row-blocked:
+
+        q_ij = trunc(clip(relu(pi_i + pj_j) · inv, 0, 127) + 0.5)
+        out_i = Σ_j col_vec_j · relu((q_ij @ w2q) · dq + b2)
+
+    (``_msg_kernel``'s int8 body, ``pallas_kernels.py:59-75``: rounding
+    half up by a float32 add and a truncation).  The integer product runs
+    as a float32 matmul of integer-valued tensors, which is exact: every
+    |q|, |w2q| ≤ 127 and a row of H = 32 products sums to at most 516,128
+    < 2^24 in magnitude.  So only the order of the sum over j differs from
+    the kernel's or the JAX package's."""
+    w2q, dq, inv = int8_quantization(w2, s_in)
+    r, h = pi.shape
+    n = pj.shape[0]
+    rb = _plain_rows(r, n, h)
+    out = pi.new_empty((r, h))
+    for s in range(0, r, rb):
+        hid = torch.relu(pi[s:s + rb, None, :] + pj[None, :, :])
+        q = torch.trunc(torch.clamp(hid * inv, 0.0, 127.0) + 0.5)
+        z2 = torch.relu((q @ w2q) * dq + b2)
+        out[s:s + rb] = torch.einsum("n,bnh->bh", col_vec, z2)
+    return out
+
+
+def _dense_message_rowsum_int8_fwd(pi, pj, col_vec, w2, b2, s_in):
+    name = "dense_message_rowsum_int8"
+    r, h = pi.shape
+    n = pj.shape[0]
+    device = _check(name, dict(pi=pi, pj=pj, col_vec=col_vec, w2=w2, b2=b2,
+                               s_in=s_in),
+                    dict(pi=(r, h), pj=(n, h), col_vec=(n,), w2=(h, h),
+                         b2=(h,), s_in=()))
+    if device.type == "cpu":
+        return dense_message_rowsum_int8_plain(pi, pj, col_vec, w2, b2, s_in)
+    _require_widths(name, h)
+    out = pi.new_empty((r, h))
+    if r == 0:
+        return out
+    if n == 0:
+        return out.zero_()
+    w2q, dq, inv = int8_quantization(w2, s_in)
+    splits, cols = _dense_message_splits(r, n)
+    part = pi.new_empty((splits, r, h))
+    _launch(name, device, (pi, pj, col_vec, w2q.to(torch.int8), dq, b2, inv,
+                           part, out), (r, n, h, splits, cols), {})
+    return out
+
+
+class _DenseMessageRowsumInt8(torch.autograd.Function):
+    """Forward: the int8 far-field kernel; backward: straight through, the
+    float32 far-field backward (as the JAX custom VJP, whose ``_dmr_bwd``
+    ``pallas_kernels.py:1079`` ignores ``mid_dtype``).  s_in gets no
+    gradient: in the JAX package it is internal to the kernel."""
+
+    @staticmethod
+    def forward(ctx, pi, pj, col_vec, w2, b2, s_in):
+        ctx.save_for_backward(pi, pj, col_vec, w2, b2)
+        return _dense_message_rowsum_int8_fwd(pi, pj, col_vec, w2, b2, s_in)
+
+    @staticmethod
+    def backward(ctx, g):
+        pi, pj, col_vec, w2, b2 = ctx.saved_tensors
+        dpi, dpj, dw2, db2 = dense_message_rowsum_bwd(
+            pi, pj, col_vec, w2, b2, g.contiguous())
+        return dpi, dpj, None, dw2, db2, None
+
+
+def dense_message_rowsum_int8(pi, pj, col_vec, w2, b2, s_in):
+    """The far field in the JAX package's int8 serving tier (see
+    ``csrc/dense_message_rowsum_int8.cu`` and
+    :func:`dense_message_rowsum_int8_plain`): relu(pi_i + pj_j) quantized
+    per tensor with the scale ``s_in`` (0-dim, from
+    :func:`int8_activation_scale`), W2 per output column, int32 products,
+    dequantized, + b2.  Arguments otherwise as
+    :func:`dense_message_rowsum`.  Differentiable straight through."""
+    return _DenseMessageRowsumInt8.apply(pi, pj, col_vec, w2, b2, s_in)
 
 
 class _PlainRecompute(torch.autograd.Function):

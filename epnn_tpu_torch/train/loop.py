@@ -190,7 +190,11 @@ def _loss_dense(params, cfg, loss_name, x, q0, xyz, node_mask, y, weight):
 def _loss_fused(params, cfg, loss_name, neighbor_k, x, q0, xyz, node_mask,
                 y, weight, uniform_q0=False, neighbors=None):
     """Loss through the blocked forward.  ``fuse_params`` only slices and
-    copies, so gradients reach the same tree the dense path trains."""
+    copies, so gradients reach the same tree the dense path trains.
+    Without ``use_pallas`` the far field stays unquantized under
+    ``dense_matmul_precision="int8"``, as in the JAX trainer, which takes
+    its far-field kernel only at ``"default"``
+    (``epnn_tpu/train/loop.py:646-652``)."""
     device = node_mask.device
     pred = forward_blocked(fuse_params(params, cfg, device), x, q0, xyz,
                            node_mask, cfg, neighbor_k=neighbor_k,

@@ -174,8 +174,7 @@ def test_unported_dense_options_raise(rng):
     with pytest.raises(ValueError, match="neighbor_k"):
         fused.forward_blocked(*args, neighbors=(torch.zeros(1, 24, 4),
                                                 torch.zeros(1, 24, 4)))
-    for kw in (dict(compute_dtype="bfloat16"),
-               dict(dense_matmul_precision="int8")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fused.forward_blocked(fp, *args[1:5], port_cfg(EPNNConfig(**kw)),
-                                  use_pallas=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fused.forward_blocked(fp, *args[1:5],
+                              port_cfg(EPNNConfig(compute_dtype="bfloat16")),
+                              use_pallas=True)
