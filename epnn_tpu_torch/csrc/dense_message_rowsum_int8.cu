@@ -4,22 +4,27 @@
 //   q_ij  = trunc(clip(relu(pi_i + pj_j) * inv, 0, 127) + 0.5)   (int8)
 //   out_i = sum_j cv_j * relu(float(q_ij @ w2q) * dq + b2)        (R, H)
 //
-// pi already carries the first-layer bias; cv_j is the column weight.  The
-// scales come from the wrapper (kernels.int8_quantization, on the device):
-// inv = 1 / s_in for the activations (one scale for the whole tensor),
-// w2q = W2 quantized per output column to [-127, 127], dq = s_in * sw.
+// pi already carries the first-layer bias; cv_j is the column weight.
+// W2q (W2 quantized per output column to [-127, 127]) and its column scales
+// sw come from kernels.int8_weights, made once per set of weights.  The
+// kernel forms the rest of the quantization in its prologue, as JAX does
+// outside its kernel: s_in = max(relu(pi_max + pj_max), 1e-30) / 127 from
+// the two maxima the wrapper reduces (and, with pad_pi, from the padding
+// rows JAX's operands carry: pi = *pad_pi, pj = 0), inv = 1 / s_in for the
+// activations (one scale for the whole tensor), dq = s_in * sw.
 //
 // Replaces the int8 body of the TPU kernel epnn_tpu/ops/pallas_kernels.py:
 // _msg_kernel (:59-75), whose quantization is set up in
 // _dense_message_rowsum_impl (:1023-1033) and which the fp32 body's
 // counterpart dense_message_rowsum.cu does not cover.
 //
-// Numerics: the same steps as JAX, in the same order, in float32 —
-// relu(pi + pj), times inv, clipped, + 0.5 rounded to nearest, truncated
-// (__fmul_rn / __fadd_rn: no step is contracted into an FMA).  The integer
-// product is exact (|q|, |w2q| <= 127, a row of 32 products <= 516,128), so
-// z2 = float(acc) * dq + b2, multiply then add as in JAX, has JAX's bits;
-// only the float32 order of the sum over j differs.
+// Numerics: the same steps as JAX, in the same order, in float32 — the
+// scales by IEEE-rounded adds, divisions and multiplies (__fdiv_rn,
+// __fmul_rn); relu(pi + pj), times inv, clipped, + 0.5 rounded to nearest,
+// truncated (__fmul_rn / __fadd_rn: no step is contracted into an FMA).  The
+// integer product is exact (|q|, |w2q| <= 127, a row of 32 products <=
+// 516,128), so z2 = float(acc) * dq + b2, multiply then add as in JAX, has
+// JAX's bits; only the float32 order of the sum over j differs.
 //
 // Bound on the H100: the CUDA cores.  A pair needs 2H^2 = 2,048 integer
 // operations on the tensor cores (1,979 TOPS dense int8: 1.0e-12 s a pair),
@@ -94,8 +99,11 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
 __global__ void __launch_bounds__(kThreads, 4)
 dmr_int8_partial(const float* __restrict__ pi, const float* __restrict__ pj,
                  const float* __restrict__ cv,
-                 const int8_t* __restrict__ w2q, const float* __restrict__ dq,
-                 const float* __restrict__ b2, const float* __restrict__ inv_p,
+                 const int8_t* __restrict__ w2q, const float* __restrict__ sw,
+                 const float* __restrict__ b2,
+                 const float* __restrict__ pi_max,
+                 const float* __restrict__ pj_max,
+                 const float* __restrict__ pad_pi,
                  float* __restrict__ part, int R, int N,
                  int cols_per_split) {
   __shared__ __align__(16) float s_pj[2][kChunk][kH];
@@ -138,16 +146,25 @@ dmr_int8_partial(const float* __restrict__ pi, const float* __restrict__ pj,
              << (8 * m);
       bf[nt][h] = v;
     }
+  // the activation scale (kernels.int8_activation_scale): the maxima, with
+  // the padding rows' where there are some
+  float pim = *pi_max, pjm = *pj_max;
+  if (pad_pi != nullptr) {
+    pim = fmaxf(pim, *pad_pi);
+    pjm = fmaxf(pjm, 0.0f);
+  }
+  const float s_in =
+      __fdiv_rn(fmaxf(epnn::relu(__fadd_rn(pim, pjm)), 1e-30f), 127.0f);
+  const float inv = __fdiv_rn(1.0f, s_in);
   // dequantization scale and bias of the thread's C columns 8nt + 2t + {0,1}
   float sc[4][2], bias[4][2];
 #pragma unroll
   for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
-      sc[nt][u] = dq[8 * nt + 2 * t + u];
+      sc[nt][u] = __fmul_rn(s_in, sw[8 * nt + 2 * t + u]);
       bias[nt][u] = b2[8 * nt + 2 * t + u];
     }
-  const float inv = *inv_p;
   float xa[8], xb[8];
   epnn::load_row8(pi + (size_t)(r0 + g) * kH, t, r0 + g < R, xa);
   epnn::load_row8(pi + (size_t)(r0 + g + 8) * kH, t, r0 + g + 8 < R, xb);
@@ -214,21 +231,22 @@ dmr_int8_partial(const float* __restrict__ pi, const float* __restrict__ pj,
 
 }  // namespace
 
-// w2q: (H, H) int8; dq: (H,); inv: one float; part: (splits, R, H) scratch;
-// out: (R, H); the column range splits into parts of cols_per_split.
-// Returns cudaGetLastError().
+// w2q: (H, H) int8; sw: (H,); pi_max, pj_max: one float each (max(pi),
+// max(pj)); pad_pi: one float (the padding rows' pi) or null (no padding
+// rows); part: (splits, R, H) scratch; out: (R, H); the column range splits
+// into parts of cols_per_split.  Returns cudaGetLastError().
 extern "C" int epnn_dense_message_rowsum_int8(
     const float* pi, const float* pj, const float* cv, const int8_t* w2q,
-    const float* dq, const float* b2, const float* inv, float* part,
-    float* out, int R, int N, int H, int splits, int cols_per_split,
-    cudaStream_t stream) {
+    const float* sw, const float* b2, const float* pi_max,
+    const float* pj_max, const float* pad_pi, float* part, float* out, int R,
+    int N, int H, int splits, int cols_per_split, cudaStream_t stream) {
   if (H != kH || R <= 0 || N <= 0 || splits <= 0 || cols_per_split <= 0 ||
       (long long)(splits - 1) * cols_per_split >= N)
     return cudaErrorInvalidValue;
   const dim3 grid((R + kRowsPerBlock - 1) / kRowsPerBlock, splits);
-  dmr_int8_partial<<<grid, kThreads, 0, stream>>>(pi, pj, cv, w2q, dq, b2,
-                                                  inv, part, R, N,
-                                                  cols_per_split);
+  dmr_int8_partial<<<grid, kThreads, 0, stream>>>(
+      pi, pj, cv, w2q, sw, b2, pi_max, pj_max, pad_pi, part, R, N,
+      cols_per_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int rh = R * H;

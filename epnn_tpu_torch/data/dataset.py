@@ -108,9 +108,10 @@ def bucket_molecules(mols: Sequence[Molecule], table: ElementTable,
     """Group molecules into size buckets: padded width → one batch of every
     molecule of that width, in input order, widths ascending.
 
-    ``max_batch_atoms2`` (a cap on B·N² per bucket) is accepted for the
-    JAX package's signature and, as there (``epnn_tpu/data/dataset.py:
-    124-129``), not used: callers minibatch within a bucket."""
+    ``max_batch_atoms2`` — the JAX package's parameter, whose docstring
+    calls it a cap on B·N² per bucket but whose body never reads it
+    (``epnn_tpu/data/dataset.py:124-129``); accepted for that signature
+    and unused here too: callers minibatch within a bucket."""
     by_bucket: Dict[int, List[Molecule]] = {}
     for m in mols:
         key = round_up(max(m.natoms, 1), bucket_multiple)

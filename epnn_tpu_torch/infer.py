@@ -41,6 +41,7 @@ from epnn_tpu_torch.ops.fused import (
     forward_blocked,
     fuse_params,
     max_neighbor_count,
+    quantize_far_field,
 )
 
 #: Above this padded width the blocked path runs (the dense path's
@@ -54,8 +55,10 @@ class Predictor:
     package's ``Predictor`` (``params, cfg, block, force_mode``
     positionally); the rest are keyword-only.
 
-    ``block`` — the row block of the dense blocked forward
-    (``forward_blocked(block=min(block, padded width))``).
+    ``block`` — in the JAX package, the row block of the blocked
+    forward's scans.  Accepted for its signature and unused: the port's
+    blocked path (the neighbor split) has no row blocks, its far field
+    being one kernel a round.
 
     ``force_mode`` — ``None`` (dispatch on size), ``'dense'`` or
     ``'blocked'``.
@@ -103,6 +106,8 @@ class Predictor:
                              "'cell'")
         self._model = EPNN.from_params(self.cfg, self.params, self.device)
         self._fused = fuse_params(self.params, self.cfg, self.device)
+        if self._use_pallas() and self.cfg.dense_matmul_precision == "int8":
+            self._fused = quantize_far_field(self._fused)
         # safe neighbor_k per batch object, guarded by a geometry CRC
         self._k_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
@@ -201,7 +206,6 @@ class Predictor:
         else:
             q = forward_blocked(
                 self._fused, x, q0, xyz, mask, self.cfg,
-                block=min(self.block, batch.padded_atoms),
                 neighbor_k=self._neighbor_k(batch),
                 use_pallas=self._use_pallas(),
                 uniform_q0=self._uniform_q0(batch))

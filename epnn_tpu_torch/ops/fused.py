@@ -39,16 +39,16 @@ from epnn_tpu_torch.featurize import (
 )
 from epnn_tpu_torch.models.config import EPNNConfig
 from epnn_tpu_torch.ops.kernels import (
-    KERNEL_E,
-    KERNEL_H,
-    _plain_rows,
     dense_message_rowsum,
     dense_message_rowsum_int8,
+    dense_message_rowsum_plain,
     fused_epn_rowsum,
     fused_message_rowsum,
-    int8_activation_scale,
+    int8_weights,
     near_message_corr,
+    near_message_corr_plain,
     near_pass_rowsum,
+    near_pass_rowsum_plain,
 )
 
 Tensor = torch.Tensor
@@ -65,13 +65,17 @@ class PairMLPWeights:
     mids: Tuple[Tuple[Tensor, Tensor], ...]  # ((W, b), ...) hidden layers
     w_out: Tensor
     b_out: Tensor
+    #: the far field's int8-tier constants, (w2q, sw, max(b1)), made once
+    #: per set of weights by :func:`quantize_far_field`; None: made per call
+    int8: Optional[Tuple[Tensor, Tensor, Tensor]] = None
 
     def to(self, device) -> "PairMLPWeights":
         mv = lambda a: a.to(device).contiguous()  # noqa: E731
         return PairMLPWeights(
             mv(self.w1_i), mv(self.w1_j), mv(self.w1_e), mv(self.b1),
             tuple((mv(w), mv(b)) for w, b in self.mids),
-            mv(self.w_out), mv(self.b_out))
+            mv(self.w_out), mv(self.b_out),
+            None if self.int8 is None else tuple(map(mv, self.int8)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,6 +94,18 @@ class FusedParams:
             tuple(w.to(device) for w in self.passes),
             tuple((w.to(device).contiguous(), b.to(device).contiguous())
                   for w, b in self.update))
+
+
+def quantize_far_field(fused: FusedParams) -> FusedParams:
+    """``fused`` with the int8 tier's weight constants on every message
+    round that takes the kernels: W2 quantized per column
+    (:func:`~epnn_tpu_torch.ops.kernels.int8_weights`) and max(b1), the pi
+    of JAX's padding atoms.  They depend on the weights only; ``Predictor``
+    makes them once when it serves the tier."""
+    return dataclasses.replace(fused, messages=tuple(
+        dataclasses.replace(w, int8=(*int8_weights(w.mids[0][0]),
+                                     w.b1.amax()))
+        if kernels_apply(w) else w for w in fused.messages))
 
 
 def _mlp_layers(tree: dict) -> List[Tuple[Tensor, Tensor]]:
@@ -281,15 +297,14 @@ def _check_precision(cfg: EPNNConfig) -> None:
 
 def kernels_apply(w: PairMLPWeights) -> bool:
     """Whether a round's weights take the CUDA kernels: JAX's rule, exactly
-    one mid layer (``epnn_tpu/ops/fused.py:1245``, ``:1301``, ``:1356``),
-    at the widths the kernels are built for — a (KERNEL_H, KERNEL_H) mid
-    layer behind an E = KERNEL_E RBF.  Otherwise the same math runs in
-    plain PyTorch at any depth and width, on the CPU and the card alike:
-    a rule of the configuration, as JAX's, not a fallback on failure."""
-    if len(w.mids) != 1:
-        return False
-    return (tuple(w.mids[0][0].shape) == (KERNEL_H, KERNEL_H)
-            and tuple(w.w1_e.shape) == (KERNEL_E, KERNEL_H))
+    one mid layer (``epnn_tpu/ops/fused.py:1245``, ``:1301``, ``:1356``,
+    ``:1798``).  Rounds of another depth run the same split through the
+    plain versions at any width, on the CPU and the card alike, as JAX's
+    XLA branches do: a rule of the configuration, not a fallback on
+    failure.  A one-mid round at widths the kernels are not built for
+    (H ≠ 32, E ≠ 48) reaches the wrappers, which raise on a CUDA tensor
+    (ROADMAP queue 2)."""
+    return len(w.mids) == 1
 
 
 def _dense_message_pad(block_i: int, block_jp: int, h: int) -> int:
@@ -299,59 +314,29 @@ def _dense_message_pad(block_i: int, block_jp: int, h: int) -> int:
     return math.lcm(block_i, pack * block_jp)
 
 
-def _int8_scale(pi: Tensor, pj: Tensor, b1: Tensor) -> Tensor:
-    """The int8 tier's activation scale over the rows JAX's kernel sees.
-    JAX takes max(pi) and max(pj) over its padded arrays: from 128 atoms
+def _int8_pad_pi(w: PairMLPWeights, n: int) -> Optional[Tensor]:
+    """The pi of the padding rows JAX's int8 kernel would see in its
+    maxima, or None where it pads none.  From 128 atoms
     ``forward_blocked`` pads the graph to a multiple of
     ``dense_message_pad(128, 64, H)`` with empty atoms, whose pi is b1 and
     pj 0 (``epnn_tpu/ops/fused.py:902-915``); below 128 the kernel's
     operands are padded with zero rows to a multiple of
     ``dense_message_pad(8, 8, H)`` (``:1091-1095``, ``:1250-1253``).  The
-    port pads nothing, so it adds those rows' values to the maxima."""
-    n, h = pi.shape
-    pi_max, pj_max = pi.max(), pj.max()
+    port pads nothing; the int8 kernel adds these rows to its maxima."""
+    h = w.b1.shape[0]
     if n >= 128:
-        pad_pi = b1.max() if n % _dense_message_pad(128, 64, h) else None
-    else:
-        pad_pi = pi.new_zeros(()) if n % _dense_message_pad(8, 8, h) else None
-    if pad_pi is not None:
-        pi_max = torch.maximum(pi_max, pad_pi)
-        pj_max = torch.clamp(pj_max, min=0.0)
-    return int8_activation_scale(pi_max, pj_max)
+        if n % _dense_message_pad(128, 64, h) == 0:
+            return None
+        return w.b1.amax() if w.int8 is None else w.int8[2]
+    if n % _dense_message_pad(8, 8, h) == 0:
+        return None
+    return w.b1.new_zeros(())
 
 
-def _far_plain(pi: Tensor, pj: Tensor, jvec: Tensor,
-               w: PairMLPWeights) -> Tensor:
-    """Σ_j jvec_j · mids(relu(pi_i + pj_j)) at any depth, row-blocked (the
-    JAX package's XLA ``dense_scan``, ``epnn_tpu/ops/fused.py:1256-1272``)."""
-    r, n = pi.shape[0], pj.shape[0]
-    width = max([pi.shape[1]] + [wm.shape[1] for wm, _ in w.mids])
-    rb = _plain_rows(r, n, width)
-    return torch.cat([
-        torch.einsum("n,bnh->bh", jvec,
-                     _mids(torch.relu(pi[s:s + rb, None, :] + pj[None]), w))
-        for s in range(0, r, rb)])
-
-
-def _near_corr_plain(pi: Tensor, pj_nbr: Tensor, rbf: Tensor, mask: Tensor,
-                     w: PairMLPWeights) -> Tensor:
-    """The near correction at any depth (``epnn_tpu/ops/fused.py:1306-
-    1315``): pj_nbr (N, K, H1), rbf (N, K, E), mask (N, K)."""
-    base = pi[:, None, :] + pj_nbr
-    diff = (_mids(torch.relu(base + rbf @ w.w1_e), w)
-            - _mids(torch.relu(base), w))
-    return torch.sum(diff * mask[:, :, None], dim=1)
-
-
-def _pass_plain(pi: Tensor, pj: Tensor, idx: Tensor, rbf: Tensor,
-                gh: Tensor, w: PairMLPWeights) -> Tensor:
-    """A pass round's row sums at any depth (``epnn_tpu/ops/fused.py:1402-
-    1414``): Σ_s gh_is · (mids(relu(pi_i + pj_j + e)) − mids(relu(pi_j +
-    pj_i + e))), j = idx_is; the two orderings see the same sums."""
-    epart = rbf @ w.w1_e
-    hid_n = _mids(torch.relu((pi[:, None, :] + pj[idx]) + epart), w)
-    hid_t = _mids(torch.relu((pi[idx] + pj[:, None, :]) + epart), w)
-    return torch.sum(gh[:, :, None] * (hid_n - hid_t), dim=1)
+def _flat(mids) -> Tuple[Tensor, ...]:
+    """``((W2, b2), ...)`` → ``(W2, b2, ...)``, as the kernel wrappers and
+    the plain versions take them."""
+    return tuple(t for layer in mids for t in layer)
 
 
 def _atom_inputs(x: Tensor, h: Tensor, q: Tensor) -> Tensor:
@@ -383,8 +368,8 @@ def _forward_single_nbr(
     and the pass rounds keep float32, so conservation is untouched).
 
     Each round takes the three kernels where :func:`kernels_apply` says
-    so, and otherwise runs the same split in plain PyTorch at any depth
-    and width (``int8`` then has no effect, as JAX's XLA branch).
+    so, and otherwise runs the same split through their plain versions at
+    any depth (``int8`` then has no effect, as in JAX's XLA branch).
 
     ``neighbors`` — precomputed ``(idx, nbr_mask, d2)``, each (N, k), from
     :func:`build_neighbors`, or ``(idx, nbr_mask)`` (as
@@ -425,6 +410,7 @@ def _forward_single_nbr(
 
     for t, w in enumerate(fused.messages):
         kern = kernels_apply(w)
+        mids = _flat(w.mids)
         a = _atom_inputs(x, h, q)
         pi = (a @ w.w1_i + w.b1).contiguous()   # b1 folded once per atom
         pj = (a @ w.w1_j).contiguous()
@@ -447,19 +433,16 @@ def _forward_single_nbr(
             hid_g = _mids(torch.relu(pi[:, None, :] + pj_grid[None, :, :]), w)
             dense_sum = torch.einsum("e,neh->nh", counts, hid_g)
         elif not kern:
-            dense_sum = _far_plain(pi, pj, jvec, w)
+            dense_sum = dense_message_rowsum_plain(pi, pj, jvec, *mids)
         elif int8:
             dense_sum = dense_message_rowsum_int8(
-                pi, pj, jvec, *w.mids[0], _int8_scale(pi, pj, w.b1))
+                pi, pj, jvec, *mids, pad_pi=_int8_pad_pi(w, n),
+                w2_int8=None if w.int8 is None else w.int8[:2])
         else:
-            dense_sum = dense_message_rowsum(pi, pj, jvec, *w.mids[0])
-        pj_nbr = torch.index_select(pj, 0, idx_flat)
-        if kern:
-            near_corr = near_message_corr(pi, pj_nbr, rbf_flat, nbr_mask,
-                                          w.w1_e, *w.mids[0])
-        else:
-            near_corr = _near_corr_plain(pi, pj_nbr.reshape(n, k_eff, -1),
-                                         rbf_nbr, nbr_mask, w)
+            dense_sum = dense_message_rowsum(pi, pj, jvec, *mids)
+        near = near_message_corr if kern else near_message_corr_plain
+        near_corr = near(pi, torch.index_select(pj, 0, idx_flat), rbf_flat,
+                         nbr_mask, w.w1_e, *mids)
         hsum = dense_sum + near_corr
         messages = hsum @ w.w_out + msg_count[:, None] * w.b_out
         upd_in = torch.cat([h, messages], dim=-1) * nm
@@ -468,14 +451,10 @@ def _forward_single_nbr(
     # electron passing: gathered pairs only (the gate is zero off the near set)
     for w in fused.passes:
         a = _atom_inputs(x, h, q)
-        pi = a @ w.w1_i + w.b1
-        pj = a @ w.w1_j
-        if kernels_apply(w):
-            rs = torch.cat([pi, pj], dim=-1)
-            dsum = near_pass_rowsum(rs, torch.index_select(rs, 0, idx_flat),
-                                    rbf_flat, gh_pass, w.w1_e, *w.mids[0])
-        else:
-            dsum = _pass_plain(pi, pj, idx, rbf_nbr, gh_pass, w)
+        rs = torch.cat([a @ w.w1_i + w.b1, a @ w.w1_j], dim=-1)
+        near = near_pass_rowsum if kernels_apply(w) else near_pass_rowsum_plain
+        dsum = near(rs, torch.index_select(rs, 0, idx_flat), rbf_flat,
+                    gh_pass, w.w1_e, *_flat(w.mids))
         q = q + (dsum @ w.w_out)[:, 0]
     return q * node_mask
 

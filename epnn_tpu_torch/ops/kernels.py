@@ -32,8 +32,12 @@ backward raises.
 
 Each wrapper takes tensors on one device.  On the CPU it runs the plain
 version (``*_plain``); on a CUDA tensor it launches the kernel on the
-current stream or raises — there is no fallback.  Every launch adds one
-to :data:`LAUNCHES`, so a run can show which kernels it went through.
+current stream or raises — there is no fallback.  The kernels are built
+for one mid layer at H = 32 (E = 48); the three plain versions of the
+neighbor split also take any number of mid layers, any width, which is
+how ``ops.fused`` runs rounds of another depth (JAX's XLA branches).
+Every launch adds one to :data:`LAUNCHES`, so a run can show which
+kernels it went through.
 
 The kernels are CUDA C++ for ``sm_90a`` with a plain C interface, built by
 ``nvcc`` into shared libraries under ``build/epnn_tpu_torch/`` of the
@@ -95,7 +99,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _ARGTYPES = {
     "dense_message_rowsum": [_P] * 7 + [_I] * 5 + [_P],
-    "dense_message_rowsum_int8": [_P] * 9 + [_I] * 5 + [_P],
+    "dense_message_rowsum_int8": [_P] * 11 + [_I] * 5 + [_P],
     "near_message_corr": [_P] * 8 + [_I] * 4 + [_P],
     "near_pass_rowsum": [_P] * 8 + [_I] * 4 + [_P],
     "dense_message_rowsum_bwd": [_P] * 11 + [_I] * 7 + [_P],
@@ -204,7 +208,8 @@ def _check(name: str, tensors: dict, shapes: dict) -> torch.device:
 
 def _launch(name: str, device: torch.device, tensors, scalars,
             vector_read) -> None:
-    """``scalars``: the C entry's int and float arguments, in order.
+    """``tensors``: the C entry's pointers, in order (None: a null
+    pointer).  ``scalars``: its int and float arguments, in order.
     ``vector_read``: the tensors the kernel reads as float4, which must
     start on a 16-byte boundary; the others are read one float at a time
     and may be any view (a row of a batch, for one)."""
@@ -215,7 +220,8 @@ def _launch(name: str, device: torch.device, tensors, scalars,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(_lib(name), f"epnn_{name}")(
-            *[t.data_ptr() for t in tensors], *scalars, stream)
+            *[None if t is None else t.data_ptr() for t in tensors],
+            *scalars, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     LAUNCHES[name] += 1
@@ -233,6 +239,22 @@ def _plain_rows(r: int, n: int, width: int) -> int:
     """Rows a plain version takes at once, so that no (rows, N, width)
     tensor exceeds 2^24 floats."""
     return max(1, min(r, (1 << 24) // max(1, n * width)))
+
+
+def _layers(mids):
+    """``(W2, b2, W3, b3, ...)`` → ``((W2, b2), (W3, b3), ...)``: the mid
+    layers a plain version takes, one pair for the kernels' MLP."""
+    if len(mids) % 2:
+        raise ValueError("mid layers come as (W, b) pairs")
+    return tuple(zip(mids[0::2], mids[1::2]))
+
+
+def _mid_layers(z, layers, mm):
+    """relu(z) through the mid layers: relu(mm(·, W, b)) each."""
+    z = torch.relu(z)
+    for w, b in layers:
+        z = torch.relu(mm(z, w, b))
+    return z
 
 
 # ---------------------------------------------------------------------------
@@ -281,24 +303,27 @@ def _mm_3xtf32(a, b, c=None):
     return (out + ah @ bl) + ah @ bh
 
 
-def _far_rows(pi, pj, col_vec, w2, b2, mm):
-    """Σ_j col_vec_j · relu(mm(relu(pi_i + pj_j), W2, b2)) as (R, H),
-    row-blocked so no (R, N, H) tensor exists (at most 2^24 floats)."""
+def _far_rows(pi, pj, col_vec, layers, mm):
+    """Σ_j col_vec_j · mids(relu(pi_i + pj_j)) through the mid ``layers``
+    with the product ``mm``, row-blocked so no (rows, N, width) tensor
+    exceeds 2^24 floats."""
     r, h = pi.shape
     n = pj.shape[0]
-    rb = _plain_rows(r, n, h)
-    out = pi.new_empty((r, h))
+    rb = _plain_rows(r, n, max([h] + [w.shape[1] for w, _ in layers]))
+    out = pi.new_empty((r, layers[-1][0].shape[1] if layers else h))
     for s in range(0, r, rb):
-        hid = torch.relu(pi[s:s + rb, None, :] + pj[None, :, :])
-        hid = torch.relu(mm(hid, w2, b2))
+        hid = _mid_layers(pi[s:s + rb, None, :] + pj[None, :, :], layers, mm)
         out[s:s + rb] = torch.einsum("n,bnh->bh", col_vec, hid)
     return out
 
 
-def dense_message_rowsum_plain(pi, pj, col_vec, w2, b2):
+def dense_message_rowsum_plain(pi, pj, col_vec, *mids):
     """Σ_j col_vec_j · relu(relu(pi_i + pj_j) @ W2 + b2) as (R, H) in
-    float32, row-blocked (the CPU path and the reference)."""
-    return _far_rows(pi, pj, col_vec, w2, b2, _mm_fp32)
+    float32, row-blocked (the CPU path and the reference).  ``mids`` is
+    ``W2, b2``, or any number of mid layers as ``W, b`` pairs (the
+    neighbor split's rounds at another depth, JAX's ``dense_scan``,
+    ``epnn_tpu/ops/fused.py:1256-1272``)."""
+    return _far_rows(pi, pj, col_vec, _layers(mids), _mm_fp32)
 
 
 def dense_message_rowsum_3xtf32_plain(pi, pj, col_vec, w2, b2):
@@ -306,7 +331,7 @@ def dense_message_rowsum_3xtf32_plain(pi, pj, col_vec, w2, b2):
     the mid-layer product in 3xTF32 (``_mm_3xtf32``).  Not on any path:
     the tests and ``chip_smoke.py`` hold the kernel to it (the two may
     differ only by summation order)."""
-    return _far_rows(pi, pj, col_vec, w2, b2, _mm_3xtf32)
+    return _far_rows(pi, pj, col_vec, ((w2, b2),), _mm_3xtf32)
 
 
 def _dense_message_splits(r: int, n: int, target: int = _DMR_TARGET_BLOCKS,
@@ -450,39 +475,64 @@ def dense_message_rowsum(pi, pj, col_vec, w2, b2):
 # 1b. dense_message_rowsum_int8 — the far field's int8 serving tier
 # ---------------------------------------------------------------------------
 
-def int8_activation_scale(pi_max, pj_max):
-    """The int8 tier's per-tensor activation scale, from the maxima of the
-    row and column projections: s_in = max(relu(pi_max + pj_max), 1e-30)
-    / 127 (``_dense_message_rowsum_impl``, ``pallas_kernels.py:1029-1030``).
-    relu(pi_i + pj_j) ≤ 127·s_in for every pair."""
-    return torch.clamp(torch.relu(pi_max + pj_max), min=1e-30) / 127.0
+def _div127(x):
+    """x / 127 by true division on every device: PyTorch's CUDA division
+    by a Python scalar multiplies by its reciprocal, which can miss by an
+    ulp and move a quantization level; JAX and the int8 kernel divide."""
+    return x / torch.full((), 127.0, dtype=x.dtype, device=x.device)
 
 
-def int8_quantization(w2, s_in):
-    """``(w2q, dq, inv)`` of the int8 tier, on W2's device, as the JAX
-    package computes them outside its kernel (``pallas_kernels.py:1023-
-    1033``): per output column sw = max(max|W2[:, c]|, 1e-30) / 127,
-    w2q = clip(round(W2 / sw), ±127) (round half to even, integer-valued
-    float32), the dequantization scale dq = s_in·sw (H,) and the
-    quantization scale inv = 1 / s_in (a 0-dim tensor)."""
-    sw = torch.clamp(w2.abs().amax(0), min=1e-30) / 127.0
-    w2q = torch.clamp(torch.round(w2 / sw), -127.0, 127.0)
-    return w2q, s_in * sw, torch.ones_like(s_in) / s_in
+def int8_weights(w2):
+    """``(w2q, sw)`` of the int8 tier: W2 quantized per output column, as
+    the JAX package does outside its kernel (``pallas_kernels.py:1023-
+    1026``): sw = max(max|W2[:, c]|, 1e-30) / 127 (H,) float32, w2q =
+    clip(round(W2 / sw), ±127) (round half to even) as int8.  They depend
+    on the weights only, so ``ops.fused.quantize_far_field`` makes them
+    once per set of weights."""
+    sw = _div127(torch.clamp(w2.abs().amax(0), min=1e-30))
+    w2q = torch.clamp(torch.round(w2 / sw), -127.0, 127.0).to(torch.int8)
+    return w2q, sw
 
 
-def dense_message_rowsum_int8_plain(pi, pj, col_vec, w2, b2, s_in):
+def int8_activation_scale(pi, pj, pad_pi=None):
+    """The int8 tier's per-tensor activation scale, s_in = max(relu(max(pi)
+    + max(pj)), 1e-30) / 127 (``pallas_kernels.py:1029-1030``): relu(pi_i +
+    pj_j) ≤ 127·s_in for every pair.  With ``pad_pi`` (0-dim) the maxima
+    also take the padding rows JAX's operands carry, whose pi is ``pad_pi``
+    and pj 0.  The int8 kernel computes the same from the two maxima."""
+    pi_max, pj_max = pi.amax(), pj.amax()
+    if pad_pi is not None:
+        pi_max = torch.maximum(pi_max, pad_pi)
+        pj_max = torch.clamp(pj_max, min=0.0)
+    return _div127(torch.clamp(torch.relu(pi_max + pj_max), min=1e-30))
+
+
+def int8_scales(s_in, sw):
+    """``(dq, inv)``: the dequantization scale s_in·sw (H,) and the
+    quantization scale 1 / s_in, as JAX computes them (``pallas_kernels.py:
+    1031-1033``) and the int8 kernel does in its prologue."""
+    return s_in * sw, torch.ones_like(s_in) / s_in
+
+
+def dense_message_rowsum_int8_plain(pi, pj, col_vec, w2, b2, pad_pi=None):
     """The far field in the int8 tier, as (R, H) float32, row-blocked:
 
-        q_ij = trunc(clip(relu(pi_i + pj_j) · inv, 0, 127) + 0.5)
-        out_i = Σ_j col_vec_j · relu((q_ij @ w2q) · dq + b2)
+        s_in = int8_activation_scale(pi, pj, pad_pi);  (w2q, sw) of W2
+        q_ij = trunc(clip(relu(pi_i + pj_j) · (1 / s_in), 0, 127) + 0.5)
+        out_i = Σ_j col_vec_j · relu((q_ij @ w2q) · (s_in · sw) + b2)
 
     (``_msg_kernel``'s int8 body, ``pallas_kernels.py:59-75``: rounding
-    half up by a float32 add and a truncation).  The integer product runs
-    as a float32 matmul of integer-valued tensors, which is exact: every
-    |q|, |w2q| ≤ 127 and a row of H = 32 products sums to at most 516,128
-    < 2^24 in magnitude.  So only the order of the sum over j differs from
-    the kernel's or the JAX package's."""
-    w2q, dq, inv = int8_quantization(w2, s_in)
+    half up by a float32 add and a truncation).  JAX's kernel on operands
+    padded with rows (pi = ``pad_pi``, pj = 0, col_vec = 0) gives the same:
+    such rows change only s_in.  The integer product runs as a float32
+    matmul of integer-valued tensors, which is exact: every |q|, |w2q| ≤
+    127 and a row of H = 32 products sums to at most 516,128 < 2^24 in
+    magnitude.  So only the order of the sum over j differs from the
+    kernel's or the JAX package's."""
+    s_in = int8_activation_scale(pi, pj, pad_pi)
+    w2q, sw = int8_weights(w2)
+    w2q = w2q.to(pi.dtype)
+    dq, inv = int8_scales(s_in, sw)
     r, h = pi.shape
     n = pj.shape[0]
     rb = _plain_rows(r, n, h)
@@ -495,58 +545,74 @@ def dense_message_rowsum_int8_plain(pi, pj, col_vec, w2, b2, s_in):
     return out
 
 
-def _dense_message_rowsum_int8_fwd(pi, pj, col_vec, w2, b2, s_in):
+def _dense_message_rowsum_int8_fwd(pi, pj, col_vec, w2, b2, pad_pi,
+                                   w2_int8):
     name = "dense_message_rowsum_int8"
     r, h = pi.shape
     n = pj.shape[0]
-    device = _check(name, dict(pi=pi, pj=pj, col_vec=col_vec, w2=w2, b2=b2,
-                               s_in=s_in),
-                    dict(pi=(r, h), pj=(n, h), col_vec=(n,), w2=(h, h),
-                         b2=(h,), s_in=()))
+    tensors = dict(pi=pi, pj=pj, col_vec=col_vec, w2=w2, b2=b2)
+    shapes = dict(pi=(r, h), pj=(n, h), col_vec=(n,), w2=(h, h), b2=(h,))
+    if pad_pi is not None:
+        tensors["pad_pi"], shapes["pad_pi"] = pad_pi, ()
+    device = _check(name, tensors, shapes)
     if device.type == "cpu":
-        return dense_message_rowsum_int8_plain(pi, pj, col_vec, w2, b2, s_in)
+        return dense_message_rowsum_int8_plain(pi, pj, col_vec, w2, b2,
+                                               pad_pi)
     _require_widths(name, h)
     out = pi.new_empty((r, h))
     if r == 0:
         return out
     if n == 0:
         return out.zero_()
-    w2q, dq, inv = int8_quantization(w2, s_in)
+    w2q, sw = int8_weights(w2) if w2_int8 is None else w2_int8
+    _check(name, dict(sw=sw), dict(sw=(h,)))
+    if (w2q.dtype != torch.int8 or tuple(w2q.shape) != (h, h)
+            or not w2q.is_contiguous() or w2q.device != device
+            or sw.device != device):
+        raise ValueError(f"{name}: w2_int8 must be int8_weights(w2) on "
+                         f"{device}")
     splits, cols = _dense_message_splits(r, n)
     part = pi.new_empty((splits, r, h))
-    _launch(name, device, (pi, pj, col_vec, w2q.to(torch.int8), dq, b2, inv,
-                           part, out), (r, n, h, splits, cols), {})
+    _launch(name, device, (pi, pj, col_vec, w2q, sw, b2, pi.amax(),
+                           pj.amax(), pad_pi, part, out),
+            (r, n, h, splits, cols), {})
     return out
 
 
 class _DenseMessageRowsumInt8(torch.autograd.Function):
     """Forward: the int8 far-field kernel; backward: straight through, the
     float32 far-field backward (as the JAX custom VJP, whose ``_dmr_bwd``
-    ``pallas_kernels.py:1079`` ignores ``mid_dtype``).  s_in gets no
-    gradient: in the JAX package it is internal to the kernel."""
+    ``pallas_kernels.py:1079`` ignores ``mid_dtype``).  ``pad_pi`` gets no
+    gradient: in the JAX package the scale is internal to the kernel."""
 
     @staticmethod
-    def forward(ctx, pi, pj, col_vec, w2, b2, s_in):
+    def forward(ctx, pi, pj, col_vec, w2, b2, pad_pi, w2_int8):
         ctx.save_for_backward(pi, pj, col_vec, w2, b2)
-        return _dense_message_rowsum_int8_fwd(pi, pj, col_vec, w2, b2, s_in)
+        return _dense_message_rowsum_int8_fwd(pi, pj, col_vec, w2, b2,
+                                              pad_pi, w2_int8)
 
     @staticmethod
     def backward(ctx, g):
         pi, pj, col_vec, w2, b2 = ctx.saved_tensors
         dpi, dpj, dw2, db2 = dense_message_rowsum_bwd(
             pi, pj, col_vec, w2, b2, g.contiguous())
-        return dpi, dpj, None, dw2, db2, None
+        return dpi, dpj, None, dw2, db2, None, None
 
 
-def dense_message_rowsum_int8(pi, pj, col_vec, w2, b2, s_in):
+def dense_message_rowsum_int8(pi, pj, col_vec, w2, b2, pad_pi=None,
+                              w2_int8=None):
     """The far field in the JAX package's int8 serving tier (see
     ``csrc/dense_message_rowsum_int8.cu`` and
     :func:`dense_message_rowsum_int8_plain`): relu(pi_i + pj_j) quantized
-    per tensor with the scale ``s_in`` (0-dim, from
-    :func:`int8_activation_scale`), W2 per output column, int32 products,
-    dequantized, + b2.  Arguments otherwise as
-    :func:`dense_message_rowsum`.  Differentiable straight through."""
-    return _DenseMessageRowsumInt8.apply(pi, pj, col_vec, w2, b2, s_in)
+    per tensor with the scale of :func:`int8_activation_scale` (``pad_pi``:
+    the pi of the padding rows JAX's operands would carry, or None), W2 per
+    output column, int32 products, dequantized, + b2.  Arguments otherwise
+    as :func:`dense_message_rowsum`.  ``w2_int8`` — ``int8_weights(w2)``
+    where the caller keeps it; else it is made here.  On the card a call
+    adds two reductions (the maxima) to the kernel, which forms the scales
+    itself.  Differentiable straight through."""
+    return _DenseMessageRowsumInt8.apply(pi, pj, col_vec, w2, b2, pad_pi,
+                                         w2_int8)
 
 
 class _PlainRecompute(torch.autograd.Function):
@@ -580,23 +646,22 @@ class _PlainRecompute(torch.autograd.Function):
 # 2. near_message_corr — the gathered near-field message correction
 # ---------------------------------------------------------------------------
 
-def _mid(z, w2, b2, mm):
-    return torch.relu(mm(torch.relu(z), w2, b2))
-
-
-def _near_msg_rows(pi, pjn, rbf, mask, w1e, w2, b2, mm):
+def _near_msg_rows(pi, pjn, rbf, mask, w1e, layers, mm):
     n, h = pi.shape
     k = mask.shape[1]
     epart = mm(rbf, w1e)
     base = (pi[:, None, :] + pjn.reshape(n, k, h)).reshape(n * k, h)
-    diff = _mid(base + epart, w2, b2, mm) - _mid(base, w2, b2, mm)
-    return torch.sum(diff.reshape(n, k, h) * mask[:, :, None], dim=1)
+    diff = (_mid_layers(base + epart, layers, mm)
+            - _mid_layers(base, layers, mm))
+    return torch.sum(diff.reshape(n, k, -1) * mask[:, :, None], dim=1)
 
 
-def near_message_corr_plain(pi, pjn, rbf, mask, w1e, w2, b2):
+def near_message_corr_plain(pi, pjn, rbf, mask, w1e, *mids):
     """Σ_s mask_is · [mlp(pi_i + pjn_is + rbf_is @ W1e) − mlp(pi_i + pjn_is)]
-    with mlp(z) = relu(relu(z) @ W2 + b2), as (N, H)."""
-    return _near_msg_rows(pi, pjn, rbf, mask, w1e, w2, b2, _mm_fp32)
+    with mlp(z) = relu(relu(z) @ W2 + b2), as (N, H).  ``mids`` as in
+    :func:`dense_message_rowsum_plain` (any depth: JAX's XLA branch,
+    ``epnn_tpu/ops/fused.py:1306-1315``)."""
+    return _near_msg_rows(pi, pjn, rbf, mask, w1e, _layers(mids), _mm_fp32)
 
 
 def near_message_corr_3xtf32_plain(pi, pjn, rbf, mask, w1e, w2, b2):
@@ -604,7 +669,7 @@ def near_message_corr_3xtf32_plain(pi, pjn, rbf, mask, w1e, w2, b2):
     W1e and both mid-layer products in 3xTF32 (``_mm_3xtf32``).  Not on any
     path: the tests and ``chip_smoke.py`` hold the kernel to it (the two
     may differ only by summation order)."""
-    return _near_msg_rows(pi, pjn, rbf, mask, w1e, w2, b2, _mm_3xtf32)
+    return _near_msg_rows(pi, pjn, rbf, mask, w1e, ((w2, b2),), _mm_3xtf32)
 
 
 def _near_message_corr_fwd(pi, pjn, rbf, mask, w1e, w2, b2):
@@ -647,7 +712,7 @@ def near_message_corr(pi, pjn, rbf, mask, w1e, w2, b2):
 # 3. near_pass_rowsum — the antisymmetric electron-passing row sums
 # ---------------------------------------------------------------------------
 
-def _near_pass_rows(rs, ppn, rbf, gh, w1e, w2, b2, mm):
+def _near_pass_rows(rs, ppn, rbf, gh, w1e, layers, mm):
     n, h2 = rs.shape
     h = h2 // 2
     k = gh.shape[1]
@@ -657,14 +722,16 @@ def _near_pass_rows(rs, ppn, rbf, gh, w1e, w2, b2, mm):
     epart = mm(rbf, w1e).reshape(n, k, h)
     zn = (pi_r[:, None, :] + pjn) + epart
     zt = (pin + pj_r[:, None, :]) + epart
-    return torch.sum(gh[:, :, None] * (_mid(zn, w2, b2, mm)
-                                       - _mid(zt, w2, b2, mm)), dim=1)
+    return torch.sum(gh[:, :, None] * (_mid_layers(zn, layers, mm)
+                                       - _mid_layers(zt, layers, mm)), dim=1)
 
 
-def near_pass_rowsum_plain(rs, ppn, rbf, gh, w1e, w2, b2):
+def near_pass_rowsum_plain(rs, ppn, rbf, gh, w1e, *mids):
     """Σ_s gh_is · (mlp(pi_i + pj_j + e_s) − mlp(pi_j + pj_i + e_s)), j =
-    idx_is, e_s = rbf_s @ W1e, from rs = [pi | pj] and ppn = rs[idx]."""
-    return _near_pass_rows(rs, ppn, rbf, gh, w1e, w2, b2, _mm_fp32)
+    idx_is, e_s = rbf_s @ W1e, from rs = [pi | pj] and ppn = rs[idx].
+    ``mids`` as in :func:`dense_message_rowsum_plain` (any depth: JAX's
+    XLA branch, ``epnn_tpu/ops/fused.py:1402-1414``)."""
+    return _near_pass_rows(rs, ppn, rbf, gh, w1e, _layers(mids), _mm_fp32)
 
 
 def near_pass_rowsum_3xtf32_plain(rs, ppn, rbf, gh, w1e, w2, b2):
@@ -672,7 +739,7 @@ def near_pass_rowsum_3xtf32_plain(rs, ppn, rbf, gh, w1e, w2, b2):
     W1e and both mid-layer products in 3xTF32 (``_mm_3xtf32``).  Not on any
     path: the tests and ``chip_smoke.py`` hold the kernel to it.  Its pairs
     stay exact negations: both orderings see the same products."""
-    return _near_pass_rows(rs, ppn, rbf, gh, w1e, w2, b2, _mm_3xtf32)
+    return _near_pass_rows(rs, ppn, rbf, gh, w1e, ((w2, b2),), _mm_3xtf32)
 
 
 def _near_pass_rowsum_fwd(rs, ppn, rbf, gh, w1e, w2, b2):

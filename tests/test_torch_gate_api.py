@@ -1,11 +1,13 @@
 """The neighbor split's kernel gate and the API of the JAX package in the
-port: MLP depths and widths the CUDA kernels are not built for run the same
-split in plain PyTorch (JAX's XLA branches), held to JAX
-``forward_blocked(neighbor_k=…)`` and the JAX ``Predictor`` at
-1e-5·(max|q| + 1) (tests/test_fused.py's bar between two JAX paths);
-``Predictor``'s positional ``block``; ``bucket_molecules``'s
-``max_batch_atoms2``; and every wrapper still refusing a CUDA call at a
-width it was not built for."""
+port.  JAX's rule: a round with one mid layer takes the kernels, any other
+depth runs the same split through the plain versions (JAX's XLA
+branches).  Both are held to JAX ``forward_blocked(neighbor_k=…)`` and the
+JAX ``Predictor`` at 1e-5·(max|q| + 1) (tests/test_fused.py's bar between
+two JAX paths).  A one-mid round at widths the kernels are not built for
+(H 16, E 24) runs the wrappers' plain versions on the CPU and raises on the
+card.  Also ``Predictor``'s positional ``block`` and ``bucket_molecules``'s
+``max_batch_atoms2`` (both accepted and unused, as the JAX package does
+with the latter)."""
 
 import dataclasses
 
@@ -31,10 +33,12 @@ from test_torch_fused import _t, build, port_cfg, safe_k
 
 torch.set_num_threads(1)
 
-#: configurations the kernels are not built for: a deeper mid MLP, and
-#: H = 16 / E = 24.  T = 2: with the bias-shifted weights of ``build``
-#: deeper stacks grow the charges to ~10 e by T = 5, where two JAX paths
-#: already differ by more than the bar (tests/test_torch_fused_dense.py).
+#: configurations the kernels are not built for: a deeper mid MLP (the
+#: gate sends it to the plain versions on any device), and H = 16 / E = 24
+#: (through the wrappers: their plain versions on the CPU, a refusal on the
+#: card).  T = 2: with the bias-shifted weights of ``build`` deeper stacks
+#: grow the charges to ~10 e by T = 5, where two JAX paths already differ
+#: by more than the bar (tests/test_torch_fused_dense.py).
 GATED_OUT = {
     "mlp_32_32_32": dict(mlp_hidden=(32, 32, 32), T=2),
     "h16_e24": dict(h_dim=16, e_dim=24, msg_dim=8, mlp_hidden=(16, 16), T=2),
@@ -51,9 +55,9 @@ def _port_fused(params, cfg):
 
 
 def test_kernel_gate_is_a_configuration_rule():
-    """JAX's one-mid-layer rule plus the kernels' widths H = 32, E = 48."""
+    """JAX's one-mid-layer rule, whatever the widths."""
     rng = np.random.default_rng(0)
-    want = {"default": True, "mlp_32_32_32": False, "h16_e24": False}
+    want = {"default": True, "mlp_32_32_32": False, "h16_e24": True}
     for name, kw in {"default": {}, **GATED_OUT}.items():
         params, *_ = build(rng, EPNNConfig(**kw), 1)
         fp, _ = _port_fused(params, EPNNConfig(**kw))
@@ -65,8 +69,8 @@ def test_kernel_gate_is_a_configuration_rule():
 @pytest.mark.parametrize("case", sorted(GATED_OUT))
 def test_gated_out_config_matches_jax(rng, monkeypatch, case, uniform_q0):
     """The neighbor split at a depth or width the kernels are not built
-    for: every round's plain split, never a kernel wrapper (each is
-    patched to fail), against JAX's XLA path."""
+    for, against JAX's.  The deeper MLP never reaches a kernel wrapper
+    (each is patched to fail); H 16 runs the wrappers' plain versions."""
     cfg = EPNNConfig(**GATED_OUT[case])
     params, x, q0, xyz, mask, q_total = build(rng, cfg, 2)
     k = safe_k(xyz, mask, cfg.cutoff)
@@ -78,9 +82,10 @@ def test_gated_out_config_matches_jax(rng, monkeypatch, case, uniform_q0):
     def refuse(*a, **kw):
         raise AssertionError("a kernel wrapper ran on a gated-out round")
 
-    for name in ("dense_message_rowsum", "dense_message_rowsum_int8",
-                 "near_message_corr", "near_pass_rowsum"):
-        monkeypatch.setattr(fused, name, refuse)
+    if not fused.kernels_apply(fp.messages[0]):
+        for name in ("dense_message_rowsum", "dense_message_rowsum_int8",
+                     "near_message_corr", "near_pass_rowsum"):
+            monkeypatch.setattr(fused, name, refuse)
     for use_pallas in (False, True):
         with torch.no_grad():
             out = fused.forward_blocked(
@@ -111,6 +116,34 @@ def test_gated_out_config_through_predictor(case):
     _close(out, want)
 
 
+@pytest.mark.parametrize("case", sorted(GATED_OUT))
+def test_other_widths_raise_on_the_card(rng, monkeypatch, case):
+    """On a CUDA tensor (``kernels._check`` patched to report one, so no
+    card is needed) the forward at H 16 raises where the wrappers are
+    reached, on the neighbor split and the dense fused path alike: no
+    plain version stands in for a kernel.  The deeper MLP reaches no
+    wrapper, so the same patch leaves its charges as they were."""
+    cfg = EPNNConfig(**GATED_OUT[case])
+    params, x, q0, xyz, mask, _ = build(rng, cfg, 1)
+    k = safe_k(xyz, mask, cfg.cutoff)
+    fp, pcfg = _port_fused(params, cfg)
+    args = (fp, _t(x), _t(q0), _t(xyz), _t(mask), pcfg)
+    with torch.no_grad():
+        want = fused.forward_blocked(*args, neighbor_k=k)
+    real_check = kernels._check
+    monkeypatch.setattr(kernels, "_check", lambda *a: (
+        real_check(*a), torch.device("cuda"))[1])
+    monkeypatch.setattr(kernels, "_launch", None)  # never reached
+    with torch.no_grad():
+        if fused.kernels_apply(fp.messages[0]):
+            for kw in (dict(neighbor_k=k), dict(use_pallas=True)):
+                with pytest.raises(NotImplementedError, match="built for"):
+                    fused.forward_blocked(*args, **kw)
+        else:
+            assert torch.equal(fused.forward_blocked(*args, neighbor_k=k),
+                               want)
+
+
 def test_predictor_fields_follow_jax():
     """``params, cfg, block, force_mode`` positionally, as in JAX; the rest
     keyword-only."""
@@ -127,8 +160,9 @@ def test_predictor_fields_follow_jax():
 @pytest.mark.parametrize("how", ["positional", "keyword"])
 def test_predictor_block_gives_the_same_charges(how):
     """``Predictor(params, cfg, 256)`` and ``Predictor(params, cfg,
-    block=128, device="cpu")`` serve the default's charges on both paths
-    (``block`` is the dense blocked forward's row block)."""
+    block=128, device="cpu")`` are accepted and serve the default's
+    charges: ``block`` is JAX's row block, which the port's neighbor split
+    does not have."""
     port, _ = _random_predictors(EPNNConfig(T=2))
     pred = (Predictor(port.params, port.cfg, 256, "blocked", device="cpu")
             if how == "positional" else
@@ -163,7 +197,7 @@ def _width_cases(h=16, e=24, n=8, k=3):
     pi, pj, cv, w2, b2 = z(n, h), z(n, h), z(n), z(h, h), z(h)
     return {
         "dense_message_rowsum": (pi, pj, cv, w2, b2),
-        "dense_message_rowsum_int8": (pi, pj, cv, w2, b2, torch.ones(())),
+        "dense_message_rowsum_int8": (pi, pj, cv, w2, b2),
         "dense_message_rowsum_bwd": (pi, pj, cv, w2, b2, z(n, h)),
         "near_message_corr": (pi, z(n * k, h), z(n * k, e), z(n, k), z(e, h),
                               w2, b2),

@@ -68,11 +68,11 @@ def _kernel_inputs(rng, r, n, dead=0.3):
 
 
 def _port_int8(pi, pj, cv, w2, b2):
-    """The plain version on the arrays, with s_in from their maxima (JAX's
+    """The plain version on the arrays, and its s_in: no padding rows (JAX's
     kernel takes its maxima over exactly these arrays)."""
     t = [_t(a) for a in (pi, pj, cv, w2, b2)]
-    s_in = kernels.int8_activation_scale(t[0].max(), t[1].max())
-    return kernels.dense_message_rowsum_int8_plain(*t, s_in), t, s_in
+    return (kernels.dense_message_rowsum_int8_plain(*t), t,
+            kernels.int8_activation_scale(t[0], t[1]))
 
 
 @pytest.mark.parametrize("r,n,dead", [(96, 96, 0.2), (48, 96, 0.3),
@@ -84,13 +84,37 @@ def test_int8_plain_matches_jax_kernel(rng, r, n, dead):
     tol = 1e-5 * (np.abs(ref).max() + 1.0)
     assert np.abs(out.numpy() - ref).max() <= tol
     # the CPU wrapper is the plain version; the tier is not the fp32 field
-    assert torch.equal(kernels.dense_message_rowsum_int8(*t, s_in), out)
+    assert torch.equal(kernels.dense_message_rowsum_int8(*t), out)
     f32 = kernels.dense_message_rowsum_plain(*t).numpy()
     assert np.abs(f32 - ref).max() > 100 * tol
 
 
+@pytest.mark.parametrize("pad", [8.0, 0.0])
+def test_int8_pad_pi_is_jax_on_padded_operands(rng, pad):
+    """``pad_pi`` stands for padding rows (pi = pad_pi, pj = 0, cv = 0):
+    the plain version equals JAX's kernel on operands padded with 32 such
+    rows, though they only move the maxima.  pad = 8 lies above every
+    pi, so it sets s_in; 0.0 lifts a negative max(pj) to 0."""
+    pi, pj, cv, w2, b2 = _kernel_inputs(rng, 64, 64)
+    if pad == 0.0:
+        pj -= pj.max() + 0.25
+    assert pad > pi.max() or pj.max() < 0.0
+    padded = [np.concatenate([a, np.full((32,) + a.shape[1:], v,
+                                         np.float32)])
+              for a, v in ((pi, pad), (pj, 0.0), (cv, 0.0))]
+    ref = _jax_int8_kernel(*padded, w2, b2)[:64]
+    t = [_t(a) for a in (pi, pj, cv, w2, b2)]
+    pad_pi = torch.tensor(pad)
+    out = kernels.dense_message_rowsum_int8_plain(*t, pad_pi)
+    tol = 1e-5 * (np.abs(ref).max() + 1.0)
+    assert np.abs(out.numpy() - ref).max() <= tol
+    assert torch.equal(kernels.dense_message_rowsum_int8(*t, pad_pi), out)
+    unpadded = kernels.dense_message_rowsum_int8_plain(*t).numpy()
+    assert np.abs(unpadded - ref).max() > 100 * tol
+
+
 def test_int8_scales_match_jax(rng):
-    """sw, w2q (round half to even), dq and inv as JAX computes them
+    """sw, w2q (round half to even), s_in, dq and inv as JAX computes them
     (``pallas_kernels.py:1023-1033``), bit for bit."""
     pi, pj, _, w2, _ = _kernel_inputs(rng, 40, 40)
     # column 5: sw = 1 exactly, three exact ties
@@ -99,10 +123,13 @@ def test_int8_scales_match_jax(rng):
     s_in = jnp.maximum(jax.nn.relu(jnp.max(pi) + jnp.max(pj)), 1e-30) / 127.0
     sw = jnp.maximum(jnp.max(jnp.abs(w2), axis=0), 1e-30) / 127.0
     w2q = jnp.clip(jnp.round(w2 / sw), -127, 127)
-    got_s = kernels.int8_activation_scale(_t(pi).max(), _t(pj).max())
-    got_w2q, got_dq, got_inv = kernels.int8_quantization(_t(w2), got_s)
+    got_s = kernels.int8_activation_scale(_t(pi), _t(pj))
+    got_w2q, got_sw = kernels.int8_weights(_t(w2))
+    got_dq, got_inv = kernels.int8_scales(got_s, got_sw)
     assert got_s.item() == float(s_in)
+    assert got_w2q.dtype == torch.int8
     np.testing.assert_array_equal(got_w2q.numpy(), np.asarray(w2q))
+    np.testing.assert_array_equal(got_sw.numpy(), np.asarray(sw))
     np.testing.assert_array_equal(got_dq.numpy(), np.asarray(s_in * sw))
     assert got_inv.item() == float(1.0 / s_in)
     assert got_w2q[[3, 4, 6], 5].tolist() == [2.0, -4.0, 0.0]
@@ -127,7 +154,9 @@ def test_int8_rounds_ties_half_up(rng):
     assert np.mean(act % 1.0 == 0.5) > 0.3      # ties everywhere
     tol = 1e-5 * (np.abs(ref).max() + 1.0)
     assert np.abs(out.numpy() - ref).max() <= tol
-    w2q, dq, _ = (a.numpy() for a in kernels.int8_quantization(t[3], s_in))
+    w2q, sw = kernels.int8_weights(t[3])
+    dq = kernels.int8_scales(s_in, sw)[0].numpy()
+    w2q = w2q.to(torch.float32).numpy()
     even = np.round(np.clip(act, 0, 127))        # half to even
     z2 = np.maximum((even @ w2q) * dq + b2, 0.0)
     assert np.abs(np.einsum("n,rnh->rh", cv, z2) - ref).max() > 100 * tol
@@ -135,14 +164,14 @@ def test_int8_rounds_ties_half_up(rng):
 
 def test_int8_backward_is_straight_through(rng):
     """The tier's gradient is the float32 far field's (JAX's custom VJP
-    ignores ``mid_dtype``); s_in gets none."""
+    ignores ``mid_dtype``); ``pad_pi`` gets none."""
     pi, pj, cv, w2, b2 = _kernel_inputs(rng, 24, 40)
     g = _t(rng.normal(size=(24, 32)))
     grads = []
     for fn in ("dense_message_rowsum", "dense_message_rowsum_int8"):
         t = [_t(a).requires_grad_(i != 2) for i, a in
              enumerate((pi, pj, cv, w2, b2))]
-        extra = ([kernels.int8_activation_scale(t[0].max(), t[1].max())]
+        extra = ([torch.tensor(0.5, requires_grad=True)]
                  if fn.endswith("int8") else [])
         out = getattr(kernels, fn)(*t, *extra)
         out.backward(g)
@@ -219,7 +248,7 @@ def test_padding_rows_set_the_scale(rng, monkeypatch):
     empty atoms (pi = b1, pj = 0).  Channel 0 of every message round is
     made to hold its maximum there: b1 = 20 and −0.5 per unit of the
     element features, so every real atom sits below 20.  The port matches
-    JAX only by counting those rows (``fused._int8_scale``): without them
+    JAX only by counting those rows (``fused._int8_pad_pi``): without them
     the grid shifts and the charges miss by far more than the bar."""
     cfg = EPNNConfig(T=2, **INT8)
     params, x, q0, xyz, mask, q_total = build(rng, cfg, 1, n=136,
@@ -240,8 +269,7 @@ def test_padding_rows_set_the_scale(rng, monkeypatch):
     out = _run_port(params, cfg, x, q0, xyz, mask, k, use_pallas=True)
     assert np.abs(out - ref).max() < BAR * scale
     _conserves(out, q_total)
-    monkeypatch.setattr(fused, "_int8_scale", lambda pi, pj, b1: (
-        kernels.int8_activation_scale(pi.max(), pj.max())))
+    monkeypatch.setattr(fused, "_int8_pad_pi", lambda w, n: None)
     unpadded = _run_port(params, cfg, x, q0, xyz, mask, k, use_pallas=True)
     assert np.abs(unpadded - ref).max() > 10 * BAR * scale
 

@@ -118,7 +118,8 @@ def test_one_tf32_pass_misses_the_bar(rng, name):
         out = kernels.tf32_round(a) @ kernels.tf32_round(b)
         return out if c is None else out + c
 
-    out = rows(*(_t(a) for a in args), one_pass).numpy()
+    targs = [_t(a) for a in args]
+    out = rows(*targs[:-2], (tuple(targs[-2:]),), one_pass).numpy()
     err, tol = _err(out, jax_ref(*(jnp.asarray(a) for a in args),
                                  prec=jax.lax.Precision.HIGHEST))
     assert err > 10 * tol, (err, tol)
