@@ -5,8 +5,10 @@ card: ``python3 chip_smoke.py`` from the repository root.
 1. Device: the card's name and power limit; TF32 is switched off for
    PyTorch (the port's precision is float32-grade throughout: the far
    field's and the near kernels use the tensor cores in 3xTF32).
-2. Build: the eight CUDA kernels from ``epnn_tpu_torch/csrc``, one
-   ``nvcc`` per source, in parallel; each entry's registers and spills.
+2. Build: the eight CUDA kernels from ``epnn_tpu_torch/csrc`` at the
+   shipped widths (H 32, E 48) and at every width of :data:`WIDTH_CASES`,
+   one ``nvcc`` per library, all in parallel; each entry's registers and
+   spills, per instantiation.
 3. Kernels: each kernel against its plain PyTorch version on the card, at
    the shapes of the 2,220-atom water box (the checkpoint's round weights,
    the box's own neighbor table), the same bits on a second launch, and
@@ -30,12 +32,23 @@ card: ``python3 chip_smoke.py`` from the repository root.
    ``near_pass_rowsum`` antisymmetry probe on each table with the M rows
    of the 16-row tensor-core tiles its pairs took.
    The fused dense kernels (``fused_message_rowsum`` in both ``masked``
-   modes, ``fused_epn_rowsum`` with the hard and the soft gate) at the
-   same shapes: each against its plain version, the same bits on a second
-   launch and off the boundary, its times against a bound from FLOP,
+   modes, ``fused_epn_rowsum`` with the hard and the soft gate,
+   :func:`fused_kernel_phase`) at the same shapes: each against its plain
+   version and its 3xTF32 emulation, the same bits on a second launch and
+   off the boundary, its times against a bound from its tensor-core
+   products (TF32 rate; the fp32 bound beside), its CUDA-core work (the
+   d² scan of every valid pair, the live pairs' elementwise work),
    special-function ops (at the SM clock ``nvidia-smi`` reports) and
-   bytes; the dense pass kernel's dimer probe (disjoint atom pairs, each
-   pair's two rows exact negations).  ``neighbor_compact`` at 2,220 and
+   bytes; again at 17,760 atoms, held to a row slice of the plain version
+   and the emulation; the dense pass kernel's dimer probe (disjoint atom
+   pairs, each pair's two rows exact negations).
+   The kernels at other widths (:func:`width_phase`): on a seeded
+   random-weight model at each (H, E) of :data:`WIDTH_CASES` on a 600-atom
+   water box, every width-carrying kernel against its plain version (and
+   emulation), the same bits twice and off the boundary; the forward
+   through the neighbor split and the dense fused forward at (16, 24)
+   against the plain dense forward on the card; the near-pair and dimer
+   probes at every width.  ``neighbor_compact`` at 2,220 and
    17,760 atoms: the same set as top-k on every row, the same table as its
    plain version, and its time beside top-k's.
 4. Slice: ``Predictor.from_checkpoint("trained/mixed_b16")`` serving
@@ -154,6 +167,18 @@ LABEL_NOISE = 0.05
 #: the far field's ragged rectangular case (R rows, N columns), a slice of
 #: the 2,220-atom inputs with seeded zeros in cv
 RAGGED = (37, 1001)
+#: the shipped widths (H, E) and the other widths the kernels are built
+#: and checked at: below them, a multiple of neither 16 (H) nor 8 (E), and
+#: the widest
+SHIPPED_WIDTHS = (32, 48)
+WIDTH_CASES = ((16, 24), (40, 20), (64, 64))
+#: the width phase's water box (molecules: 600 atoms) and model rounds
+WIDTH_BOX_MOLECULES = 200
+WIDTH_T = 2
+#: CUDA-core instructions of the fused kernels' d² scan, a valid pair: 3
+#: coordinate loads and the mask's, 3 subtracts, 3 multiplies, 2 adds, the
+#: compare
+SCAN_INSTR = 13
 
 
 def require(ok, detail) -> None:
@@ -212,6 +237,22 @@ def tc_bound(items, tc_flop, elem, nbytes):
             max(fp32, by) * 1e3)
 
 
+def fused_bound(tc_flop, elem, scan, sfu, nbytes, sfu_rate):
+    """(bound ms, what bounds it, fp32 bound ms) of a fused dense kernel:
+    ``tc_flop`` FLOP of products on the tensor cores in 3xTF32 (three TF32
+    products each, at the TF32 peak), ``elem`` FLOP and ``scan``
+    instructions on the CUDA cores, ``sfu`` special-function ops, and its
+    bytes at the HBM rate; the bound is the largest.  The fp32 bound puts
+    the products on the CUDA cores too."""
+    tc = 3 * tc_flop / PEAK_TF32_FLOPS
+    cuda = elem / PEAK_FP32_FLOPS + scan / PEAK_INSTR
+    sf = sfu / sfu_rate
+    ops, by = max(tc, cuda, sf), nbytes / PEAK_BYTES
+    fp32 = max((tc_flop + elem) / PEAK_FP32_FLOPS + scan / PEAK_INSTR, sf)
+    return (max(ops, by) * 1e3, "operations" if ops >= by else "bytes",
+            max(fp32, by) * 1e3)
+
+
 def entry_name(mangled):
     """A kernel entry's own name from its mangled one: the last of the
     length-prefixed names after ``_Z`` / ``_ZN``; a pass of the far field's
@@ -229,11 +270,11 @@ def entry_name(mangled):
                    if tail else "")
 
 
-def ptxas_usage(kernels, name):
-    """Registers and spill bytes of each entry of a kernel's library, from
-    its build log (``-Xptxas -v``)."""
+def ptxas_usage(kernels, name, h=SHIPPED_WIDTHS[0], e=SHIPPED_WIDTHS[1]):
+    """Registers and spill bytes of each entry of a kernel's library at
+    widths (h, e), from its build log (``-Xptxas -v``)."""
     out, entry, spill = [], "?", (0, 0)
-    for ln in kernels.build_log(name).splitlines():
+    for ln in kernels.build_log(name, h, e).splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             entry = entry_name(m.group(1))
@@ -272,16 +313,39 @@ def far_forward(torch, kernels, args):
     return err, err_emu, tol
 
 
-def far_backward(torch, kernels, args):
+def tie_budget(torch, args):
+    """The most each of ``dense_message_rowsum_bwd``'s four outputs can move
+    when every z2 within rounding of 0 flips relu's indicator: per entry, in
+    float64, the sum of |Δe2| = |g_io · cv_j| over the (i, j, o) with
+    |z2| ≤ 2^-16 · (|b2_o| + Σ_f relu(z1_f) |W2_fo|) (far above the 3xTF32
+    and fp32 rounding of z2), carried through |W2ᵀ| and 1[z1 > 0] (dpi,
+    dpj) or relu(z1) (dW2).  For small R·N·H only."""
+    pi, pj, cv, w2, b2, g = (t.double() for t in args)
+    z1 = pi[:, None, :] + pj[None, :, :]
+    a1 = torch.relu(z1)
+    z2 = a1 @ w2 + b2
+    tie = z2.abs() <= 2.0 ** -16 * (b2.abs() + a1 @ w2.abs())
+    de2 = torch.where(tie, (g[:, None, :] * cv[None, :, None]).abs(), 0.0)
+    dz1 = (de2 @ w2.abs().T) * (z1 > 0)
+    h = pi.shape[1]
+    return (dz1.sum(1), dz1.sum(0), a1.reshape(-1, h).T @ de2.reshape(-1, h),
+            de2.sum((0, 1))), int(tie.sum())
+
+
+def far_backward(torch, kernels, args, ties=False):
     """``dense_message_rowsum_bwd`` on ``args``: each of its four outputs
     against the float64 plain version (the bar below), and its distance to
     the fp32 plain version and to the 3xTF32 emulation; the same bits on a
-    second launch and with every input off the 16-byte boundary.  Returns
-    {part: (vs fp32, vs f64, fp32 plain vs f64, vs emulation, tol)}."""
+    second launch and with every input off the 16-byte boundary.  With
+    ``ties`` the bar also takes, entry by entry, :func:`tie_budget` (the
+    width phase).  Returns {part: (vs fp32, vs f64, fp32 plain vs f64, vs
+    emulation, tol)}."""
     outs = kernels.dense_message_rowsum_bwd(*args)
     refs = kernels.dense_message_rowsum_bwd_plain(*args)
     emus = kernels.dense_message_rowsum_bwd_3xtf32_plain(*args)
     exact = kernels.dense_message_rowsum_bwd_plain(*(t.double() for t in args))
+    budgets, n_ties = (tie_budget(torch, args) if ties
+                       else ((0.0,) * 4, 0))
     torch.cuda.synchronize()
     # The gradient steps where z1 or z2 crosses 0 (relu's indicator): a pair
     # whose z lies within rounding of 0 flips between any two evaluations,
@@ -289,15 +353,19 @@ def far_backward(torch, kernels, args):
     # version: the kernel may be at most twice as far from it as the
     # float32 plain version is, plus 1e-5·(max|ref| + 1).  The emulation
     # rounds z2 differently again, so its distance is reported, not barred.
+    # Where the float32 plain version flips no tie and the kernel flips one
+    # (the random-weight model of the width phase: one flip moved dpi by
+    # 0.30 against a bar of 0.0145), the tie budget bounds what the flips
+    # may move, entry by entry.
     errs = {}
-    for part, o, r, em, r64 in zip(("dpi", "dpj", "dw2", "db2"), outs, refs,
-                                   emus, exact):
-        err64 = float((o.double() - r64).abs().max())
+    for part, o, r, em, r64, bud in zip(("dpi", "dpj", "dw2", "db2"), outs,
+                                        refs, emus, exact, budgets):
         plain64 = float((r.double() - r64).abs().max())
         tol = 2.0 * plain64 + 1e-5 * (float(r64.abs().max()) + 1.0)
+        err64 = float(((o.double() - r64).abs() - bud).max())
         require(np.isfinite(err64) and err64 <= tol,
                 ("dense_message_rowsum_bwd", tuple(args[0].shape),
-                 tuple(args[1].shape), part, err64, tol))
+                 tuple(args[1].shape), part, err64, tol, n_ties))
         errs[part] = (float((o - r).abs().max()), err64, plain64,
                       float((o - em).abs().max()), tol)
     again = kernels.dense_message_rowsum_bwd(*args)
@@ -689,6 +757,7 @@ PROFILE_GROUPS = (
     ("far field", ("dmr_partial", "dmr_bwd_partial", "dmr_int8_partial",
                    "sum_parts")),
     ("near kernels", ("nmc_kernel", "npr_kernel")),
+    ("fused dense kernels", ("fmr_kernel", "fepn_kernel")),
     ("neighbor top-k", ("topk", "Topk", "sort", "Sort", "radix")),
     ("matmul", ("gemm", "xmma", "cutlass")),
     ("copies", ("Memcpy", "Memset")),
@@ -710,12 +779,13 @@ def profile_groups(kern):
 
 def profile_phase(torch, card, pred, batch2, big, pred8):
     """[profile] where a call's time goes: ``predict_batch`` at 2 x 2,220
-    and 1 x 17,760 atoms, and one fused train step at 2 x 2,220 atoms (the
-    bucket tables built once, as ``train()`` does), each as device-busy
-    against wall time and its largest kernels.  Returns the numbers; an
-    empty dict if the profiler recorded no device time."""
+    and 1 x 17,760 atoms, the dense fused forward of ``[slice d]`` and one
+    fused train step at 2 x 2,220 atoms (the bucket tables built once, as
+    ``train()`` does), each as device-busy against wall time and its
+    largest kernels.  Returns the numbers; an empty dict if the profiler
+    recorded no device time."""
     from epnn_tpu_torch.data import uniform_q0_contract
-    from epnn_tpu_torch.ops.fused import build_neighbors_batch
+    from epnn_tpu_torch.ops.fused import build_neighbors_batch, forward_blocked
     from epnn_tpu_torch.train import TrainConfig, loop
 
     cfg = pred.cfg
@@ -730,11 +800,18 @@ def profile_phase(torch, card, pred, batch2, big, pred8):
     uq0 = uniform_q0_contract(batch2.x, batch2.q0, batch2.node_mask)
     state = loop.create_state(cfg, TrainConfig(), device="cuda",
                               params=pred.params)
+
+    def dense_fused():
+        with torch.no_grad():
+            return forward_blocked(pred._fused, *args[:4], cfg,
+                                   use_pallas=True)
+
     cases = {
         "predict_batch 2x2220": lambda: pred.predict_batch(batch2),
         "predict_batch 1x17760": lambda: pred.predict_batch(big),
         "predict_batch int8 2x2220": lambda: pred8.predict_batch(batch2),
         "predict_batch int8 1x17760": lambda: pred8.predict_batch(big),
+        "dense fused forward 2x2220": dense_fused,
         "train_step_fused 2x2220": lambda: loop.train_step_fused(
             state, cfg, "masked_mse", k, *args, uniform_q0=uq0,
             neighbors=nbrs),
@@ -846,8 +923,9 @@ def near_phase(torch, card, label, cases, table, iters, min_pairs):
             ("antisymmetry", label))
     require(int(torch.count_nonzero(got[pt[:, 0]])) > 0,
             ("probe all zero", label))
-    pos = kernels.near_tile_positions(
-        args[3], kernels.near_warps("near_pass_rowsum", n)).cpu().numpy()
+    pos = kernels.near_tile_positions(args[3], kernels.near_warps(
+        "near_pass_rowsum", n, args[4].shape[1], args[4].shape[0])
+    ).cpu().numpy()
     pos = pos.max(axis=1)  # each probe row has one live slot
     m_i, m_j = pos[pairs[:, 0]], pos[pairs[:, 1]]
     require(np.all(m_i >= 0) and np.all(m_j >= 0), ("probe slots", label))
@@ -864,119 +942,316 @@ def near_phase(torch, card, label, cases, table, iters, min_pairs):
     return out
 
 
-def fused_kernel_phase(torch, card, cfg, a, xyz, mask, wm, wp, counts,
-                       sfu_rate):
-    """[kernel] the two fused dense kernels at the 2,220-atom shapes, with a
-    message round's and a pass round's own weights; then the dense pass
-    kernel's dimer probe.  Returns their rows of the kernels' JSON line;
-    each row's numbers are those of the mode the checkpoint runs (masked
-    messages, hard gate), the other mode's under ``other_mode``."""
-    from epnn_tpu_torch.ops import kernels
-    from epnn_tpu_torch.testing import dimer_probe
+def fused_check(torch, kernels, name, args, kw, rows=None, off=True):
+    """Fused kernel ``name`` on ``args`` against its plain version and its
+    3xTF32 emulation within 1e-5·(max|ref| + 1) (the two may differ only
+    by summation order) — on every row, or on the slice ``rows`` of both
+    — the same bits on a second launch, and (``off``) with every input off
+    the 16-byte boundary (the kernels read every input one float at a
+    time).  Returns (max|Δ| vs plain, vs emulation, tol)."""
+    wrapper = getattr(kernels, name)
+    out = wrapper(*args, **kw)
+    ref = getattr(kernels, name + "_plain")(*args, **kw, rows=rows)
+    emu = getattr(kernels, name + "_3xtf32_plain")(*args, **kw, rows=rows)
+    torch.cuda.synchronize()
+    got = out if rows is None else out[rows]
+    err = float((got - ref).abs().max())
+    err_emu = float((got - emu).abs().max())
+    tol = 1e-5 * (float(ref.abs().max()) + 1.0)
+    require(np.isfinite(err) and err <= tol and err_emu <= tol,
+            (name, tuple(args[0].shape), kw, err, err_emu, tol))
+    require(torch.equal(wrapper(*args, **kw), out),
+            (name, kw, "not the same bits on a second launch"))
+    if off:
+        require(torch.equal(wrapper(*[off_boundary(t) for t in args], **kw),
+                            out), (name, kw, "inputs off the 16-byte boundary"))
+    return err, err_emu, tol
 
-    n = a.shape[0]
+
+def fused_kernel_phase(torch, card, cfg, boxes, wm, wp, sfu_rate):
+    """[kernel] the two fused dense kernels, with a message round's and a
+    pass round's own weights, on each of ``boxes`` — (label, a, xyz, mask,
+    counts), the 2,220-atom box first: :func:`fused_check` (at the larger
+    box on a 128-row slice of the plain version and the emulation, and not
+    off the boundary), kernel times (the plain version's at the first box)
+    and bounds on this data (:func:`fused_bound`); then the dense pass
+    kernel's dimer probe.  Returns their rows of the kernels' JSON line:
+    each row's numbers are those of the mode the checkpoint runs (masked
+    messages, hard gate) at the first box, the other mode's under
+    ``other_mode``, the larger box's under ``sizes``."""
+    from epnn_tpu_torch.ops import kernels
+
     hh, ee, f = cfg.mlp_hidden[0], cfg.e_dim, 4
-    n_valid = counts["valid"]
     pair = dict(cutoff=cfg.cutoff, eta=cfg.eta, tol=cfg.is_near_tol)
-    pm = ((a @ wm.w1_i + wm.b1).contiguous(), (a @ wm.w1_j).contiguous())
-    pp = ((a @ wp.w1_i + wp.b1).contiguous(), (a @ wp.w1_j).contiguous())
     w = (wm.w1_e, *wm.mids[0]), (wp.w1_e, *wp.mids[0])
-    col_vec = torch.ones(n, device=a.device)
     w_bytes = f * (ee * hh + hh * hh + hh)
-    # FLOP a pair: every live message pair needs its first-layer add, the
-    # mid layer and the weighted sum (far); only pairs within the cutoff
-    # need the RBF part (beyond it the features are exactly 0): d², the
-    # envelope, E channels, the W1e product and its add (feat).  A pass
-    # pair needs feat and both orderings' layers where its gate is not 0;
-    # deciding the gate takes every valid pair a d² and a compare.
-    far = 2 * hh * hh + 5 * hh
-    feat = 2 * ee * hh + hh + 6 * ee + 15
-    epn = feat + 2 * (2 * hh * hh + 3 * hh) + 3 * hh
-    sfu = ee + 2                           # E exps, a cos and a sqrt
-    cases = {
-        "fused_message_rowsum": [
-            ("masked", dict(masked=True),
-             (*pm, xyz, mask, col_vec, *w[0]), (0, 1, 2, 3, 4, 7),
-             n_valid * n_valid * far + counts["near"] * feat,
-             n_valid * n_valid * (far + feat)),
-            ("col_vec", dict(masked=False),
-             (*pm, xyz, mask, col_vec, *w[0]), (0, 1, 2, 3, 4, 7),
-             n * n * far + counts["near"] * feat, n * n * (far + feat))],
-        "fused_epn_rowsum": [
-            ("hard_gate", dict(soft_gate=False), (*pp, xyz, mask, *w[1]),
-             (0, 1, 2, 3, 6),
-             n_valid * n_valid * 10 + counts["gated"] * epn,
-             n_valid * n_valid * epn),
-            ("soft_gate", dict(soft_gate=True), (*pp, xyz, mask, *w[1]),
-             (0, 1, 2, 3, 6),
-             n_valid * n_valid * 10 + counts["near"] * epn,
-             n_valid * n_valid * epn)],
-    }
-    sfu_pairs = {"masked": counts["near"], "col_vec": counts["near"],
-                 "hard_gate": counts["gated"], "soft_gate": counts["near"]}
+    # work (FLOP) a pair: the far field's product and ~5H elementwise, for
+    # every weighted pair of a message round; a live pair's products (rbf
+    # @ W1e and two mid layers), its channels (~6E + 15) and ~12H (message)
+    # or ~14H (pass) elementwise; E exps, a cos and a sqrt (special
+    # functions).  The hard gate's products count only its gated pairs:
+    # the others add exactly 0.
+    far_tc, far_el = 2 * hh * hh, 5 * hh
+    live_tc, chan, sfu = 2 * ee * hh + 4 * hh * hh, 6 * ee + 15, ee + 2
     rows = {}
-    for name, modes in cases.items():
-        wrapper = getattr(kernels, name)
-        plain = getattr(kernels, name + "_plain")
-        measured = []
-        for mode, kw, args, scalar_read, flop, flop_all in modes:
-            out = wrapper(*args, **pair, **kw)
-            ref = plain(*args, **pair, **kw)
-            torch.cuda.synchronize()
-            err = float((out - ref).abs().max())
-            tol = 1e-5 * (float(ref.abs().max()) + 1.0)
-            require(np.isfinite(err) and err <= tol, (name, mode, err, tol))
-            require(torch.equal(wrapper(*args, **pair, **kw), out),
-                    (name, mode, "not the same bits on a second launch"))
-            off = [off_boundary(t) if i in scalar_read else t
-                   for i, t in enumerate(args)]
-            require(torch.equal(wrapper(*off, **pair, **kw), out),
-                    (name, mode, "inputs off the 16-byte boundary"))
-            ms = device_ms(torch, lambda: wrapper(*args, **pair, **kw), 20)
-            plain_ms = device_ms(torch, lambda: plain(*args, **pair, **kw), 3)
-            # pi, pj, xyz, the mask (and col_vec) in, the row sums out
-            per_atom = 3 * hh + 4 + (name == "fused_message_rowsum")
-            nbytes = f * per_atom * n + w_bytes
-            sfu_ops = sfu_pairs[mode] * sfu
-            b_ms, b_by = bound(flop, sfu_ops, nbytes, sfu_rate)
-            b_all, _ = bound(flop_all, n_valid * n_valid * sfu, nbytes,
-                             sfu_rate)
-            measured.append(dict(
-                mode=mode, max_abs_err=err, tol=tol, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, flop=flop,
-                sfu_ops=sfu_ops, bytes=nbytes, bound_all_pairs_ms=b_all))
-            print(f"[kernel] {name} ({mode}): max|d|={err:.3e} (tol "
-                  f"{tol:.3e}), same bits on a second launch and with the "
-                  f"scalar-read inputs off the 16-byte boundary; kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} "
-                  f"ms ({b_by}: {flop:,} FLOP, {sfu_ops:,} special-function "
-                  f"ops, {nbytes:,} B; every valid pair at full cost: "
-                  f"{b_all:.5f} ms) at N={n} on {card}")
-        main, other = measured
-        rows[name] = dict(
-            name=name, route="cuda", source=KERNEL_ROWS[name][1],
-            replaces=KERNEL_ROWS[name][0], launches=0, library_ms=None,
-            **{k: v for k, v in main.items() if k != "mode"},
-            mode=main["mode"], other_mode=other)
+    for bi, (label, a, xyz, mask, counts) in enumerate(boxes):
+        n, nv = a.shape[0], counts["valid"]
+        near, gated = counts["near"], counts["gated"]
+        pm = ((a @ wm.w1_i + wm.b1).contiguous(), (a @ wm.w1_j).contiguous())
+        pp = ((a @ wp.w1_i + wp.b1).contiguous(), (a @ wp.w1_j).contiguous())
+        col_vec = torch.ones(n, device=a.device)
+        scan = nv * nv * SCAN_INSTR
+        cases = {
+            "fused_message_rowsum": [
+                ("masked", dict(masked=True),
+                 (*pm, xyz, mask, col_vec, *w[0]),
+                 nv * nv * far_tc + near * live_tc,
+                 nv * nv * far_el + near * (chan + 12 * hh)),
+                ("col_vec", dict(masked=False),
+                 (*pm, xyz, mask, col_vec, *w[0]),
+                 n * n * far_tc + near * live_tc,
+                 n * n * far_el + near * (chan + 12 * hh))],
+            "fused_epn_rowsum": [
+                ("hard_gate", dict(soft_gate=False), (*pp, xyz, mask, *w[1]),
+                 gated * live_tc, near * chan + gated * 14 * hh),
+                ("soft_gate", dict(soft_gate=True), (*pp, xyz, mask, *w[1]),
+                 near * live_tc, near * (chan + 14 * hh))],
+        }
+        first = bi == 0
+        sl = None if first else slice(n // 2 - 64, n // 2 + 64)
+        for name, modes in cases.items():
+            wrapper = getattr(kernels, name)
+            plain = getattr(kernels, name + "_plain")
+            measured = []
+            for mode, kw, args, tc_flop, elem in modes:
+                kw = {**pair, **kw}
+                err, err_emu, tol = fused_check(torch, kernels, name, args,
+                                                kw, sl, off=first)
+                ms = device_ms(torch, lambda: wrapper(*args, **kw),
+                               20 if first else 5)
+                plain_ms = (device_ms(torch, lambda: plain(*args, **kw), 3)
+                            if first else None)
+                # pi, pj, xyz, the mask (and col_vec) in, the row sums out
+                per_atom = 3 * hh + 4 + (name == "fused_message_rowsum")
+                nbytes = f * per_atom * n + w_bytes
+                b_ms, b_by, b32 = fused_bound(tc_flop, elem, scan, near * sfu,
+                                              nbytes, sfu_rate)
+                measured.append(dict(
+                    mode=mode, N=n, valid_atoms=nv, live_pairs=near,
+                    gated_pairs=gated, max_abs_err=err,
+                    max_abs_diff_3xtf32=err_emu, tol=tol,
+                    rows_checked="all" if sl is None else [sl.start, sl.stop],
+                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    bound_fp32_ms=b32, tc_flop=tc_flop,
+                    flop_3xtf32=3 * tc_flop, elem_flop=elem,
+                    scan_instructions=scan, sfu_ops=near * sfu,
+                    bytes=nbytes))
+                print(f"[kernel] {name} ({mode}) at N={n} ({near:,} live "
+                      f"pairs, {gated:,} hard-gated): max|d| vs plain "
+                      f"{err:.3e}, vs 3xTF32 emulation {err_emu:.3e} (tol "
+                      f"{tol:.3e}; rows "
+                      f"{'all' if sl is None else (sl.start, sl.stop)}), "
+                      f"same bits on a second launch"
+                      + (" and off the 16-byte boundary" if first else "")
+                      + f"; kernel {ms:.4f} ms"
+                      + (f", plain {plain_ms:.4f} ms" if first else "")
+                      + f", bound {b_ms:.5f} ms ({b_by}: {3 * tc_flop:,} "
+                      f"tensor-core FLOP in 3xTF32, {elem:,} elementwise "
+                      f"FLOP, {scan:,} scan instructions, {near * sfu:,} "
+                      f"special-function ops, {nbytes:,} B), fp32 bound "
+                      f"{b32:.5f} ms on {card}")
+            main, other = measured
+            if first:
+                rows[name] = dict(
+                    name=name, route="cuda", source=KERNEL_ROWS[name][1],
+                    replaces=KERNEL_ROWS[name][0], launches=0,
+                    library_ms=None, ptxas=ptxas_usage(kernels, name),
+                    **{k: v for k, v in main.items() if k != "mode"},
+                    mode=main["mode"], other_mode=other, sizes={})
+            else:
+                rows[name]["sizes"][label] = dict(main, other_mode=other)
 
     # dimer probe: disjoint pairs 1.0-2.5 Å apart, each >= 4 Å from every
     # other atom, the two atoms of most pairs in different tiles
-    xyz_d, pairs = dimer_probe(n // 2, seed=0)
-    xyz_p = torch.zeros_like(xyz)
-    xyz_p[:len(xyz_d)] = torch.from_numpy(xyz_d).to(xyz.device)
-    mask_p = torch.zeros_like(mask)
-    mask_p[:len(xyz_d)] = 1.0
-    out = kernels.fused_epn_rowsum(*pp, xyz_p, mask_p, *w[1], **pair)
-    torch.cuda.synchronize()
-    pt = torch.from_numpy(pairs).to(xyz.device)
-    require(torch.equal(out[pt[:, 0]], -out[pt[:, 1]]), "dimer antisymmetry")
-    live = int(torch.count_nonzero(out[pt[:, 0]].abs().sum(1)))
-    require(live > 0, "dimer probe all zero")
-    straddle = float(np.mean(pairs[:, 0] // 16 != pairs[:, 1] // 16))
-    print(f"[kernel] fused_epn_rowsum dimer probe: {len(pairs)} disjoint "
-          f"pairs ({straddle:.1%} across two 16-row tiles), {live} with a "
-          "live transfer; every pair's rows exact negations")
+    _, a, xyz, mask, _ = boxes[0]
+    n = a.shape[0]
+    pp = ((a @ wp.w1_i + wp.b1).contiguous(), (a @ wp.w1_j).contiguous())
+    rows["fused_epn_rowsum"]["dimer_probe"] = dimer_check(
+        torch, kernels, pp, w[1], n, pair, xyz.device, "32x48")
     return rows
+
+
+def dimer_check(torch, kernels, pp, w, n, pair, dev, label):
+    """The dense pass kernel's dimer probe at ``n`` atoms (``n // 2``
+    disjoint pairs, ``testing.dimer_probe``), both gates: every pair's two
+    rows exact negations, some transfers live.  Returns the counts."""
+    from epnn_tpu_torch.testing import dimer_probe
+
+    xyz_d, pairs = dimer_probe(n // 2, seed=0)
+    xyz_p = torch.zeros((n, 3), device=dev)
+    xyz_p[:len(xyz_d)] = torch.from_numpy(xyz_d).to(dev)
+    mask_p = torch.zeros(n, device=dev)
+    mask_p[:len(xyz_d)] = 1.0
+    pt = torch.from_numpy(pairs).to(dev)
+    live = {}
+    for soft in (False, True):
+        out = kernels.fused_epn_rowsum(*pp, xyz_p, mask_p, *w, **pair,
+                                       soft_gate=soft)
+        torch.cuda.synchronize()
+        require(torch.equal(out[pt[:, 0]], -out[pt[:, 1]]),
+                ("dimer antisymmetry", label, soft))
+        live[soft] = int(torch.count_nonzero(out[pt[:, 0]].abs().sum(1)))
+        require(live[soft] > 0, ("dimer probe all zero", label, soft))
+    straddle = float(np.mean(pairs[:, 0] // 16 != pairs[:, 1] // 16))
+    print(f"[kernel] fused_epn_rowsum dimer probe at {label}: {len(pairs)} "
+          f"disjoint pairs ({straddle:.1%} across two 16-row tiles), "
+          f"{live[False]} / {live[True]} with a live transfer (hard / soft "
+          "gate); every pair's rows exact negations")
+    return dict(pairs=len(pairs), across_tiles=straddle,
+                live_hard=live[False], live_soft=live[True])
+
+
+def width_phase(torch, card):
+    """[width] the width-carrying kernels at each (H, E) of
+    :data:`WIDTH_CASES`, on a seeded random-weight model (the port's
+    ``init_params``: h 16, msg 8, mid widths (H, H), E channels,
+    :data:`WIDTH_T` rounds) that ``Predictor`` serves on the card (its
+    kernel rounds' weights padded once), with round weights on a 600-atom
+    water box: the far field and its backward (``far_forward``,
+    ``far_backward``), its int8 tier (``int8_phase``), both near kernels
+    with the near-pair probe (``near_phase``), both fused kernels in both
+    modes (:func:`fused_check`) and the dimer probe (:func:`dimer_check`).
+    At the first width also ``forward_blocked(neighbor_k=k)`` and the
+    dense fused forward against the plain dense forward on the card, with
+    their launches.  Returns {"HxE": results}."""
+    from epnn_tpu_torch.data import pad_molecules
+    from epnn_tpu_torch.elements import table_for_n_elems
+    from epnn_tpu_torch.infer import Predictor
+    from epnn_tpu_torch.models import EPNNConfig
+    from epnn_tpu_torch.models.epnn import init_params
+    from epnn_tpu_torch.ops import kernels
+    from epnn_tpu_torch.ops.fused import forward_blocked
+    from epnn_tpu_torch.testing import water_box
+    from epnn_tpu_torch.tools.near_field_pace import near_inputs
+
+    dev = torch.device("cuda")
+    results = {}
+    for seed, (hh, ee) in enumerate(WIDTH_CASES):
+        label = f"{hh}x{ee}"
+        cfg = EPNNConfig(h_dim=16, e_dim=ee, msg_dim=8, mlp_hidden=(hh, hh),
+                         T=WIDTH_T)
+        pred = Predictor(init_params(cfg, torch.Generator().manual_seed(seed)),
+                         cfg)
+        fused_w = (*pred._fused.messages, *pred._fused.passes)
+        require(all(w.padded is not None and w.padded.w2.shape[0] % 8 == 0
+                    for w in fused_w), (label, "weights padded once"))
+        batch = pad_molecules([water_box(WIDTH_BOX_MOLECULES, seed=30 + seed)],
+                              table_for_n_elems(cfg.n_elems))
+        n = batch.padded_atoms
+        g = np.random.default_rng(seed)
+        x, xyz, mask, q0 = (torch.from_numpy(np.ascontiguousarray(arr[0]))
+                            .to(dev) for arr in (batch.x, batch.xyz,
+                                                 batch.node_mask, batch.q0))
+        h = torch.from_numpy(g.normal(size=(n, cfg.h_dim)).astype(
+            np.float32)).to(dev) * mask[:, None]
+        a = torch.cat([x, h, q0[:, None]], dim=-1)
+        wm, wp = pred._fused.messages[1], pred._fused.passes[0]
+        pm = ((a @ wm.w1_i + wm.b1).contiguous(), (a @ wm.w1_j).contiguous())
+        pp = ((a @ wp.w1_i + wp.b1).contiguous(), (a @ wp.w1_j).contiguous())
+        far_args = (*pm, mask.contiguous(), *wm.mids[0])
+        gbar = torch.from_numpy(g.normal(size=(n, hh)).astype(np.float32)).to(
+            dev)
+        entry = dict(H=hh, E=ee, N=n, ptxas={
+            name: ptxas_usage(kernels, name, hh, ee)
+            for name, kinds in kernels._WIDTHS_OF.items() if kinds})
+        err, err_emu, tol = far_forward(torch, kernels, far_args)
+        entry["dense_message_rowsum"] = dict(max_abs_err=err,
+                                             max_abs_diff_3xtf32=err_emu,
+                                             tol=tol)
+        entry["dense_message_rowsum_bwd"] = far_backward(
+            torch, kernels, (*far_args, gbar), ties=True)
+        entry["dense_message_rowsum_int8"] = int8_phase(torch, card, far_args,
+                                                        label)
+        cases, table = near_inputs(pred, batch, np.random.default_rng(seed))
+        entry.update(near_phase(torch, card, label, cases, table, (3, 1),
+                                min_pairs=int(mask.sum()) // 4))
+        pair = dict(cutoff=cfg.cutoff, eta=cfg.eta, tol=cfg.is_near_tol)
+        col_vec = torch.ones(n, device=dev)
+        for name, mode, args, kw in (
+                ("fused_message_rowsum", "masked",
+                 (*pm, xyz, mask, col_vec, wm.w1_e, *wm.mids[0]),
+                 dict(masked=True)),
+                ("fused_message_rowsum", "col_vec",
+                 (*pm, xyz, mask, col_vec, wm.w1_e, *wm.mids[0]),
+                 dict(masked=False)),
+                ("fused_epn_rowsum", "hard_gate",
+                 (*pp, xyz, mask, wp.w1_e, *wp.mids[0]),
+                 dict(soft_gate=False)),
+                ("fused_epn_rowsum", "soft_gate",
+                 (*pp, xyz, mask, wp.w1_e, *wp.mids[0]),
+                 dict(soft_gate=True))):
+            err, err_emu, tol = fused_check(torch, kernels, name, args,
+                                            {**pair, **kw})
+            entry[f"{name} {mode}"] = dict(max_abs_err=err,
+                                           max_abs_diff_3xtf32=err_emu,
+                                           tol=tol)
+            print(f"[width] {label} {name} ({mode}) at N={n}: max|d| vs "
+                  f"plain {err:.3e}, vs 3xTF32 emulation {err_emu:.3e} (tol "
+                  f"{tol:.3e}), same bits on a second launch and off the "
+                  "16-byte boundary")
+        entry["dimer_probe"] = dimer_check(torch, kernels, pp,
+                                           (wp.w1_e, *wp.mids[0]), n, pair,
+                                           dev, label)
+        if seed == 0:
+            tb = [torch.from_numpy(arr).to(dev) for arr in (
+                batch.x, batch.q0, batch.xyz, batch.node_mask)]
+            k = pred._neighbor_k(batch)
+            qs, launched = {}, {}
+            for path, kw in (("neighbor split", dict(neighbor_k=k)),
+                             ("dense fused", dict(use_pallas=True)),
+                             ("plain dense", {})):
+                kernels.reset_launch_counts()
+                with torch.no_grad():
+                    qs[path] = forward_blocked(pred._fused, *tb, cfg, **kw)
+                torch.cuda.synchronize()
+                launched[path] = {kn: c for kn, c in kernels.LAUNCHES.items()
+                                  if c}
+            t = cfg.T
+            require(launched == {
+                "neighbor split": {"dense_message_rowsum": t,
+                                   "near_message_corr": t,
+                                   "near_pass_rowsum": t},
+                "dense fused": {"fused_message_rowsum": t,
+                                "fused_epn_rowsum": t},
+                "plain dense": {}}, (label, launched))
+            ref = qs["plain dense"]
+            tol_q = 1e-5 * (float(ref.abs().max()) + 1.0)
+            total_q = float(batch.total_q[0])
+            # conservation at the JAX suite's relative bar: the random
+            # weights' charges run to thousands of e, where float32 sums
+            # over 600 atoms round far above 1e-4 e
+            tol_c = 2e-6 * (float(ref.abs().sum()) + 1.0)
+            fwd = {}
+            for path in ("neighbor split", "dense fused"):
+                dq = float((qs[path] - ref).abs().max())
+                cons = abs(float(qs[path].double().sum()) - total_q)
+                require(np.isfinite(dq) and dq < tol_q and cons <= tol_c,
+                        (label, path, dq, tol_q, cons, tol_c))
+                fwd[path] = dict(max_abs_dq=dq, conservation=cons)
+            entry["forward"] = dict(launches=launched, tol=tol_q,
+                                    conservation_tol=tol_c, **fwd)
+            print(f"[width] {label} forward_blocked on the card, {n} atoms, "
+                  f"T={t}: launches {launched}; neighbor split max|dq| vs "
+                  f"the plain dense forward {fwd['neighbor split']['max_abs_dq']:.3e}"
+                  f", dense fused {fwd['dense fused']['max_abs_dq']:.3e} (tol "
+                  f"{tol_q:.3e}); |sum q - Q| "
+                  f"{fwd['neighbor split']['conservation']:.3e} / "
+                  f"{fwd['dense fused']['conservation']:.3e} (tol "
+                  f"{tol_c:.3e}, 2e-6 (sum |q| + 1))")
+        results[label] = entry
+        print(f"[width] {label}: every width-carrying kernel within the bar "
+              f"of its plain version on {card}")
+    return results
 
 
 def compact_phase(torch, card, cfg, boxes):
@@ -1069,13 +1344,16 @@ def main() -> int:
           f" cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
     # ---- 2. build ---------------------------------------------------------
-    secs = kernels.build()
-    print(f"[build] {len(kernels.SOURCES)} kernels in {secs:.1f} s "
-          f"({kernels.BUILD_DIR})")
-    for name in kernels.SOURCES:
-        for ln in kernels.build_log(name).splitlines():
-            if "registers" in ln or "spill" in ln:
-                print(f"[build] {name}: {ln.strip()}")
+    widths = (SHIPPED_WIDTHS, *WIDTH_CASES)
+    secs = kernels.build(widths=widths)
+    print(f"[build] {len(kernels.SOURCES)} kernels at widths {widths} in "
+          f"{secs:.1f} s ({kernels.BUILD_DIR})")
+    for name, kinds in kernels._WIDTHS_OF.items():
+        for hw, ew in widths if kinds else widths[:1]:
+            tag = {"he": f"{hw}x{ew}", "h": f"H={hw}"}.get(kinds, "")
+            for ln in kernels.build_log(name, hw, ew).splitlines():
+                if "registers" in ln or "spill" in ln:
+                    print(f"[build] {name} {tag}: {ln.strip()}")
 
     # ---- 3. kernels against their plain versions --------------------------
     dev = torch.device("cuda")
@@ -1163,12 +1441,29 @@ def main() -> int:
           f"MHz: {sfu_rate:.4e} special-function ops/s")
     counts = dict(valid=n_valid, near=int(torch.count_nonzero(nbr_mask)),
                   gated=int(torch.count_nonzero(gate * nbr_mask)))
-    rows.update(fused_kernel_phase(torch, card, cfg, a, xyz, mask, wm, wp,
-                                   counts, sfu_rate))
+    xyz_b = torch.from_numpy(big.xyz[0]).to(dev)
+    mask_b = torch.from_numpy(big.node_mask[0]).to(dev)
+    a_b = torch.cat([torch.from_numpy(big.x[0]).to(dev),
+                     torch.from_numpy(g.normal(size=(big.padded_atoms,
+                                                     cfg.h_dim)).astype(
+                         np.float32)).to(dev) * mask_b[:, None],
+                     torch.from_numpy(big.q0[0]).to(dev)[:, None]], dim=-1)
+    _, nbr_mask_b, d2_b = build_neighbors(xyz_b, mask_b, cfg.cutoff,
+                                          pred._neighbor_k(big), with_d2=True)
+    _, gate_b = rbf_and_gate(d2_b, nbr_mask_b, cfg)
+    counts_b = dict(valid=int(mask_b.sum()),
+                    near=int(torch.count_nonzero(nbr_mask_b)),
+                    gated=int(torch.count_nonzero(gate_b * nbr_mask_b)))
+    rows.update(fused_kernel_phase(
+        torch, card, cfg, [("2220", a, xyz, mask, counts),
+                           ("17760", a_b, xyz_b, mask_b, counts_b)],
+        wm, wp, sfu_rate))
     rows["neighbor_compact"] = compact_phase(torch, card, cfg, [
         ("2220", xyz, mask, k),
         ("17760", torch.from_numpy(big.xyz[0]).to(dev),
          torch.from_numpy(big.node_mask[0]).to(dev), pred._neighbor_k(big))])
+    # the width-carrying kernels at the other widths
+    width_results = width_phase(torch, card)
 
     # ---- 4. the slice through Predictor ----------------------------------
     def timed(fn, reps):
@@ -1446,6 +1741,7 @@ def main() -> int:
                           "golden_dq": dq8,
                           "conservation": {"2x2220": cons8.tolist(),
                                            "1x17760": cons8b}},
+                      "widths": width_results,
                       "profile": profile, "sm_clocks": clocks,
                       "card": card}))
     print(card)

@@ -51,46 +51,79 @@
 // splits_r * R * H + splits_c * N * H + blocks_r * (H^2 + H) floats.
 // Rows past R enter as pi = 0, g = 0 and columns past N as pj = 0, cv = 0;
 // both give e2 = 0 and add exactly zero.
+//
+// Widths (common.cuh): any H from 1 to 64, the products at H padded to 8
+// (W2, b2 padded; pi, pj, g read at their real width, zeros past it; only
+// the real H x H of dW2 is written).  dW2's rows f run in m-tiles of 16
+// (padded to 16 where H is not a multiple of 16).  Up to 8 m x n tiles
+// (H <= 32) its sums stay in registers over two columns as above; wider,
+// each column's chain of 6 products goes straight into the warp's fp32
+// sums in shared memory, one m-tile at a time.  Products of more than 4
+// k-steps run as two chains added in fp32.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kH = epnn::kFarH;
+using epnn::kFH;
+using epnn::kH;
+using epnn::kHp;
+using epnn::kNT;
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kOwnPerBlock = 16 * kWarps;  // a warp owns 16 rows / columns
 constexpr int kChunk = 32;                 // streamed entries per chunk
-constexpr int kEStride = 40;  // e2 tile row stride: conflict-free reads
+constexpr int kEStride = kHp + 8;  // e2 tile row stride: conflict-free reads
+// dW2's A = relu(z1)^T has rows f in kMF m-tiles of 16; row group gq holds
+// features kFW gq .. kFW gq + kFW - 1 (f = kFW gq + 2mf + {0, 1})
+constexpr int kMF = (kHp + 15) / 16;
+constexpr int kFW = 2 * kMF;
+// dW2's sums in registers over two columns where its tiles are few
+constexpr bool kWInRegs = kMF * kNT <= 8;
+constexpr int kWEntries = kMF * kNT * 4;   // dW2 sums a lane
 
 // shared-memory layout, dynamic: above the 48 KB static limit
 struct Smem {
-  uint4 bw[16][32];  // far_z2's W2 fragments (ks * 4 + nt, lane)
-  uint4 bt[16][32];  // z1bar's W2^T fragments (kk * 4 + nf, lane)
-  float str[2][kChunk][kH];  // streamed pj (pass R) or pi (pass C)
-  float gs[2][kChunk][kH];   // pass C: g of the streamed rows
-  float cv[2][kChunk];       // pass R: cv of the streamed columns
-  // pass R: each warp's e2 tile, hi and lo [pair][o]; at the end, the
-  // block's dW2 (4 warps x H x H) and db2 (4 warps x 8 x H) partials
+  uint4 bw[kNT * kNT][32];  // far_z2's W2 fragments (ks * kNT + nt, lane)
+  uint4 bt[kNT * kNT][32];  // z1bar's W2^T fragments (kk * kNT + nf, lane)
+  float str[2][kChunk][kHp];  // streamed pj (pass R) or pi (pass C)
+  float gs[2][kChunk][kHp];   // pass C: g of the streamed rows
+  float cv[2][kChunk];        // pass R: cv of the streamed columns
+  // pass R: each warp's e2 tile, hi and lo [pair][o]
   float e[kWarps][2][16][kEStride];
   // pass R: each warp's dW2 and db2 sums in fp32 [entry][lane]
-  float accw[kWarps][32][32];
-  float accb[kWarps][8][32];
+  float accw[kWarps][kWEntries][32];
+  float accb[kWarps][2 * kNT][32];
 };
 static_assert(kChunk % 2 == 0, "dW2 chains close on every second column");
-static_assert(sizeof(float) * kWarps * 2 * 16 * kEStride >=
-                  sizeof(float) * (kWarps * kH * kH + kWarps * 8 * kH),
-              "the reduction buffer fits in the e2 tiles");
 
 // z1bar's B = W2^T (k = o, n = f), split, in the relabelled order: k-step
 // kk, B row t <-> o = 8kk + 2t, row t + 4 <-> o = 8kk + 2t + 1; n-tile nf,
-// column n <-> f = 8 (n / 2) + 2nf + n % 2, so that the output's C column
-// 2t + h is feature 8t + 2nf + h.
+// column n <-> f = kFH (n / 2) + 2nf + n % 2, so that the output's C column
+// 2t + h is feature kFH t + 2nf + h.
 __device__ __forceinline__ uint4 w2t_frag(const float* __restrict__ w2,
                                           int kk, int nf, int lane) {
   const int g = lane >> 2, t = lane & 3;
-  const int f = 8 * (g >> 1) + 2 * nf + (g & 1);
-  return epnn::split_b(w2[f * kH + 8 * kk + 2 * t],
-                       w2[f * kH + 8 * kk + 2 * t + 1]);
+  const int f = kFH * (g >> 1) + 2 * nf + (g & 1);
+  return epnn::split_b(w2[f * kHp + 8 * kk + 2 * t],
+                       w2[f * kHp + 8 * kk + 2 * t + 1]);
+}
+
+// kFH features kFH t .. of a staged row (stride kHp)
+__device__ __forceinline__ void smem_row(const float* row, int t,
+                                         float (&x)[kFH]) {
+  if constexpr (kFH % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < kFH / 4; ++q) {
+      const float4 p = *reinterpret_cast<const float4*>(row + kFH * t + 4 * q);
+      x[4 * q] = p.x;
+      x[4 * q + 1] = p.y;
+      x[4 * q + 2] = p.z;
+      x[4 * q + 3] = p.w;
+    }
+  } else {
+#pragma unroll
+    for (int m = 0; m < kFH; ++m) x[m] = row[kFH * t + m];
+  }
 }
 
 // kRows: pass R (owns rows; dpi, dW2, db2), else pass C (owns cols; dpj).
@@ -116,12 +149,14 @@ dmr_bwd_partial(const float* __restrict__ pi, const float* __restrict__ pj,
   const int s1 = min(n_str, s0 + per_split);
   const int chunks = (s1 - s0 + kChunk - 1) / kChunk;
 
-  // chunk c's streamed entries into ring slot c % 2; past s1: zeros
+  // chunk c's streamed entries into ring slot c % 2; past s1 and past H:
+  // zeros
   auto stage = [&](int c) {
     const int st = s0 + c * kChunk;
-    for (int e = threadIdx.x; e < kChunk * kH; e += kThreads) {
-      const bool in = st + e / kH < s1;
-      const size_t at = in ? (size_t)st * kH + e : 0;
+    for (int e = threadIdx.x; e < kChunk * kHp; e += kThreads) {
+      const int r = e / kHp, col = e % kHp;
+      const bool in = st + r < s1 && (kH == kHp || col < kH);
+      const size_t at = in ? (size_t)(st + r) * kH + col : 0;
       epnn::cp_async4(&s.str[c & 1][0][0] + e, str_src + at, in);
       if (!kRows) epnn::cp_async4(&s.gs[c & 1][0][0] + e, g + at, in);
     }
@@ -134,34 +169,46 @@ dmr_bwd_partial(const float* __restrict__ pi, const float* __restrict__ pj,
   };
   stage(0);
 
-  for (int e = threadIdx.x; e < 16 * 32; e += kThreads) {
-    s.bw[e >> 5][e & 31] = epnn::w2_frag(w2, e >> 7, (e >> 5) & 3, e & 31);
-    s.bt[e >> 5][e & 31] = w2t_frag(w2, e >> 7, (e >> 5) & 3, e & 31);
+  for (int e = threadIdx.x; e < kNT * kNT * 32; e += kThreads) {
+    s.bw[e >> 5][e & 31] =
+        epnn::w2_frag(w2, (e >> 5) / kNT, (e >> 5) % kNT, e & 31);
+    s.bt[e >> 5][e & 31] = w2t_frag(w2, (e >> 5) / kNT, (e >> 5) % kNT,
+                                    e & 31);
   }
-  float bias[4][2];
+  float bias[kNT][2];
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
+  for (int nt = 0; nt < kNT; ++nt) {
     bias[nt][0] = b2[8 * nt + 2 * t];
     bias[nt][1] = b2[8 * nt + 2 * t + 1];
   }
   const bool in_a = o0 + gq < n_own, in_b = o0 + gq + 8 < n_own;
-  float xa[8], xb[8];  // own rows gq, gq + 8: features 8t .. 8t + 7
-  epnn::load_row8(own_src + (size_t)(o0 + gq) * kH, t, in_a, xa);
-  epnn::load_row8(own_src + (size_t)(o0 + gq + 8) * kH, t, in_b, xb);
+  float xa[kFH], xb[kFH];  // own rows gq, gq + 8: features kFH t ..
+  epnn::load_row<kFH, kH>(own_src + (size_t)(o0 + gq) * kH, t, in_a, xa);
+  epnn::load_row<kFH, kH>(own_src + (size_t)(o0 + gq + 8) * kH, t, in_b,
+                          xb);
   // pass R: g of the own rows in the C layout; relu(z1)^T's pi: own rows
-  // t + 4pp, features 4gq .. 4gq + 3.  Pass C: cv of the own columns.
-  float gown[4][4], piT[4][4], cvown[2];
+  // t + 4pp, features kFW gq .. kFW gq + kFW - 1.  Pass C: cv of the own
+  // columns.
+  float gown[kNT][4], piT[4][kFW], cvown[2];
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
+  for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int row = o0 + gq + 8 * (r >> 1);
-      gown[nt][r] = kRows && row < R
-                        ? g[(size_t)row * kH + 8 * nt + 2 * t + (r & 1)]
+      const int col = 8 * nt + 2 * t + (r & 1);
+      gown[nt][r] = kRows && row < R && (kH == kHp || col < kH)
+                        ? g[(size_t)row * kH + col]
                         : 0.0f;
-      const int prow = o0 + t + 4 * nt;
-      piT[nt][r] = kRows && prow < R ? pi[(size_t)prow * kH + 4 * gq + r]
-                                     : 0.0f;
+    }
+#pragma unroll
+  for (int pp = 0; pp < 4; ++pp)
+#pragma unroll
+    for (int r = 0; r < kFW; ++r) {
+      const int prow = o0 + t + 4 * pp;
+      const int f = kFW * gq + r;
+      piT[pp][r] = kRows && prow < R && (16 * kMF == kH || f < kH)
+                       ? pi[(size_t)prow * kH + f]
+                       : 0.0f;
     }
   cvown[0] = !kRows && in_a ? cv[o0 + gq] : 0.0f;
   cvown[1] = !kRows && in_b ? cv[o0 + gq + 8] : 0.0f;
@@ -171,11 +218,16 @@ dmr_bwd_partial(const float* __restrict__ pi, const float* __restrict__ pj,
   // every second column, because the tensor cores' fp32 accumulation
   // truncates, and over a whole column range its error would grow with
   // the range (at 17,760 atoms, past the float64 bar of chip_smoke.py)
-  float acc_d[4][4], acc_b[4][2], acc_w[2][4][4];
+  float acc_d[kNT][4], acc_b[kNT][2];
+  float acc_w[kWInRegs ? kMF : 1][kNT][4];
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
+  for (int a = 0; a < kNT; ++a) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) acc_d[a][r] = acc_w[0][a][r] = acc_w[1][a][r] = 0.0f;
+    for (int r = 0; r < 4; ++r) {
+      acc_d[a][r] = 0.0f;
+#pragma unroll
+      for (int mf = 0; mf < (kWInRegs ? kMF : 1); ++mf) acc_w[mf][a][r] = 0.0f;
+    }
     acc_b[a][0] = acc_b[a][1] = 0.0f;
   }
   float(*const ehl)[16][kEStride] = s.e[warp];
@@ -184,9 +236,9 @@ dmr_bwd_partial(const float* __restrict__ pi, const float* __restrict__ pj,
   float* const accb = &s.accb[warp][0][lane];
   if (kRows) {
 #pragma unroll
-    for (int q = 0; q < 32; ++q) accw[32 * q] = 0.0f;
+    for (int q = 0; q < kWEntries; ++q) accw[32 * q] = 0.0f;
 #pragma unroll
-    for (int q = 0; q < 8; ++q) accb[32 * q] = 0.0f;
+    for (int q = 0; q < 2 * kNT; ++q) accb[32 * q] = 0.0f;
   }
 
   for (int c = 0; c < chunks; ++c) {
@@ -200,25 +252,26 @@ dmr_bwd_partial(const float* __restrict__ pi, const float* __restrict__ pj,
     if (o0 < n_own) {
       const float* sp = &s.str[c & 1][0][0];
       for (int j = 0; j < kChunk; ++j) {
-        const float* row = sp + j * kH;
-        const float4 p0 = *reinterpret_cast<const float4*>(row + 8 * t);
-        const float4 p1 = *reinterpret_cast<const float4*>(row + 8 * t + 4);
-        const float xs[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+        const float* row = sp + j * kHp;
+        float xs[kFH];
+        smem_row(row, t, xs);
 
         // z2 (the forward's products), then e2 = cv_j * g_i * 1[z2 > 0]
-        float e2[4][4];
+        float e2[kNT][4];
         epnn::far_z2(xa, xb, xs, bias,
-                     [&](int ks, int nt) { return s.bw[ks * 4 + nt][lane]; },
+                     [&](int ks, int nt) {
+                       return s.bw[ks * kNT + nt][lane];
+                     },
                      e2);
         if (kRows) {
           const float cj = s.cv[c & 1][j];
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
+          for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
             for (int r = 0; r < 4; ++r)
               e2[nt][r] = e2[nt][r] > 0.0f ? gown[nt][r] * cj : 0.0f;
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
+          for (int nt = 0; nt < kNT; ++nt) {
             acc_b[nt][0] += e2[nt][0];
             acc_b[nt][1] += e2[nt][1];
             acc_b[nt][0] += e2[nt][2];
@@ -227,7 +280,7 @@ dmr_bwd_partial(const float* __restrict__ pi, const float* __restrict__ pj,
         } else {
           const float* gi = &s.gs[c & 1][j][0];
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
+          for (int nt = 0; nt < kNT; ++nt) {
             const float2 gv =
                 *reinterpret_cast<const float2*>(gi + 8 * nt + 2 * t);
             e2[nt][0] = e2[nt][0] > 0.0f ? gv.x * cvown[0] : 0.0f;
@@ -238,99 +291,154 @@ dmr_bwd_partial(const float* __restrict__ pi, const float* __restrict__ pj,
         }
 
         // z1bar = e2 @ W2^T: the C fragment relabelled as A
-        uint32_t eh[4][4], el[4][4];
+        uint32_t eh[kNT][4], el[kNT][4];
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
+        for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
-          for (int r = 0; r < 4; ++r) epnn::tf32_split(e2[nt][r], eh[nt][r], el[nt][r]);
-        float zb[4][4];
+          for (int r = 0; r < 4; ++r)
+            epnn::tf32_split(e2[nt][r], eh[nt][r], el[nt][r]);
+        constexpr int kC = epnn::chains(kNT);
+        float zc[kC][kNT][4];
 #pragma unroll
-        for (int nf = 0; nf < 4; ++nf)
+        for (int h = 0; h < kC; ++h)
 #pragma unroll
-          for (int r = 0; r < 4; ++r) zb[nf][r] = 0.0f;
+          for (int nf = 0; nf < kNT; ++nf)
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
+            for (int r = 0; r < 4; ++r) zc[h][nf][r] = 0.0f;
+#pragma unroll
+        for (int kk = 0; kk < kNT; ++kk) {
           const uint32_t ah[4] = {eh[kk][0], eh[kk][2], eh[kk][1], eh[kk][3]};
           const uint32_t al[4] = {el[kk][0], el[kk][2], el[kk][1], el[kk][3]};
 #pragma unroll
-          for (int nf = 0; nf < 4; ++nf)
-            epnn::mma_3xtf32(zb[nf], ah, al, s.bt[kk * 4 + nf][lane]);
+          for (int nf = 0; nf < kNT; ++nf)
+            epnn::mma_3xtf32(zc[epnn::chain_of(kk, kNT)][nf], ah, al,
+                             s.bt[kk * kNT + nf][lane]);
         }
-        // mask 1[z1 > 0] at features 8t + 2nf + h, sum over the streamed
+        // mask 1[z1 > 0] at features kFH t + 2nf + h, sum over the streamed
 #pragma unroll
-        for (int nf = 0; nf < 4; ++nf)
+        for (int nf = 0; nf < kNT; ++nf)
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int m = 2 * nf + h;
-            acc_d[nf][h] += xa[m] + xs[m] > 0.0f ? zb[nf][h] : 0.0f;
-            acc_d[nf][2 + h] += xb[m] + xs[m] > 0.0f ? zb[nf][2 + h] : 0.0f;
+            float za = zc[0][nf][h], zb = zc[0][nf][2 + h];
+#pragma unroll
+            for (int q = 1; q < kC; ++q) {
+              za += zc[q][nf][h];
+              zb += zc[q][nf][2 + h];
+            }
+            acc_d[nf][h] += xa[m] + xs[m] > 0.0f ? za : 0.0f;
+            acc_d[nf][2 + h] += xb[m] + xs[m] > 0.0f ? zb : 0.0f;
           }
 
         if (kRows) {
           // dW2 += relu(z1)^T e2 over the warp's 16 pairs: e2 (hi, lo)
           // through shared memory as B [pair][o], relu(z1)^T built as A
-          // [f][pair] with f = 4gq + 2mf (+1 for A rows gq + 8)
+          // [f][pair] with f = kFW gq + 2mf (+1 for A rows gq + 8)
           __syncwarp();  // the previous column's e2 tile is consumed
           auto put = [&](int hl, int r, uint32_t v0, uint32_t v1, int nt) {
             *reinterpret_cast<float2*>(&ehl[hl][gq + 8 * r][8 * nt + 2 * t]) =
                 make_float2(__uint_as_float(v0), __uint_as_float(v1));
           };
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
+          for (int nt = 0; nt < kNT; ++nt) {
             put(0, 0, eh[nt][0], eh[nt][1], nt);
             put(0, 1, eh[nt][2], eh[nt][3], nt);
             put(1, 0, el[nt][0], el[nt][1], nt);
             put(1, 1, el[nt][2], el[nt][3], nt);
           }
           __syncwarp();
-          const float4 pq = *reinterpret_cast<const float4*>(row + 4 * gq);
-          const float pjq[4] = {pq.x, pq.y, pq.z, pq.w};
+          float pjq[kFW];
+          if constexpr (16 * kMF == kHp && kFW % 4 == 0) {
 #pragma unroll
-          for (int kp = 0; kp < 2; ++kp) {
-            uint4 bfr[4];
-#pragma unroll
-            for (int no = 0; no < 4; ++no) {
-              const int p = 8 * kp + t, o = 8 * no + gq;
-              bfr[no] = make_uint4(__float_as_uint(ehl[0][p][o]),
-                                   __float_as_uint(ehl[0][p + 4][o]),
-                                   __float_as_uint(ehl[1][p][o]),
-                                   __float_as_uint(ehl[1][p + 4][o]));
+            for (int q = 0; q < kFW / 4; ++q) {
+              const float4 p =
+                  *reinterpret_cast<const float4*>(row + kFW * gq + 4 * q);
+              pjq[4 * q] = p.x;
+              pjq[4 * q + 1] = p.y;
+              pjq[4 * q + 2] = p.z;
+              pjq[4 * q + 3] = p.w;
             }
+          } else {
 #pragma unroll
-            for (int mf = 0; mf < 2; ++mf) {
-              uint32_t ah[4], al[4];
-              epnn::tf32_split(epnn::relu(piT[2 * kp][2 * mf] + pjq[2 * mf]),
-                               ah[0], al[0]);
-              epnn::tf32_split(
-                  epnn::relu(piT[2 * kp][2 * mf + 1] + pjq[2 * mf + 1]),
-                  ah[1], al[1]);
-              epnn::tf32_split(
-                  epnn::relu(piT[2 * kp + 1][2 * mf] + pjq[2 * mf]), ah[2],
-                  al[2]);
-              epnn::tf32_split(
-                  epnn::relu(piT[2 * kp + 1][2 * mf + 1] + pjq[2 * mf + 1]),
-                  ah[3], al[3]);
-#pragma unroll
-              for (int no = 0; no < 4; ++no)
-                epnn::mma_3xtf32(acc_w[mf][no], ah, al, bfr[no]);
-            }
+            for (int r = 0; r < kFW; ++r)
+              pjq[r] = kFW * gq + r < kHp ? row[kFW * gq + r] : 0.0f;
           }
-          if (j & 1) {
+          // the A fragment of m-tile mf, k-step kp (pairs 8kp .. 8kp + 7)
+          auto a_frag = [&](int kp, int mf, uint32_t (&ah)[4],
+                            uint32_t (&al)[4]) {
+            epnn::tf32_split(epnn::relu(piT[2 * kp][2 * mf] + pjq[2 * mf]),
+                             ah[0], al[0]);
+            epnn::tf32_split(
+                epnn::relu(piT[2 * kp][2 * mf + 1] + pjq[2 * mf + 1]), ah[1],
+                al[1]);
+            epnn::tf32_split(
+                epnn::relu(piT[2 * kp + 1][2 * mf] + pjq[2 * mf]), ah[2],
+                al[2]);
+            epnn::tf32_split(
+                epnn::relu(piT[2 * kp + 1][2 * mf + 1] + pjq[2 * mf + 1]),
+                ah[3], al[3]);
+          };
+          // e2's B fragment of k-step kp, n-tile no
+          auto b_frag = [&](int kp, int no) {
+            const int p = 8 * kp + t, o = 8 * no + gq;
+            return make_uint4(__float_as_uint(ehl[0][p][o]),
+                              __float_as_uint(ehl[0][p + 4][o]),
+                              __float_as_uint(ehl[1][p][o]),
+                              __float_as_uint(ehl[1][p + 4][o]));
+          };
+          if constexpr (kWInRegs) {
 #pragma unroll
-            for (int mf = 0; mf < 2; ++mf)
+            for (int kp = 0; kp < 2; ++kp) {
+              uint4 bfr[kNT];
 #pragma unroll
-              for (int no = 0; no < 4; ++no)
+              for (int no = 0; no < kNT; ++no) bfr[no] = b_frag(kp, no);
 #pragma unroll
-                for (int r = 0; r < 4; ++r) {
-                  accw[32 * ((mf * 4 + no) * 4 + r)] += acc_w[mf][no][r];
-                  acc_w[mf][no][r] = 0.0f;
-                }
+              for (int mf = 0; mf < kMF; ++mf) {
+                uint32_t ah[4], al[4];
+                a_frag(kp, mf, ah, al);
+#pragma unroll
+                for (int no = 0; no < kNT; ++no)
+                  epnn::mma_3xtf32(acc_w[mf][no], ah, al, bfr[no]);
+              }
+            }
+            if (j & 1) {
+#pragma unroll
+              for (int mf = 0; mf < kMF; ++mf)
+#pragma unroll
+                for (int no = 0; no < kNT; ++no)
+#pragma unroll
+                  for (int r = 0; r < 4; ++r) {
+                    accw[32 * ((mf * kNT + no) * 4 + r)] += acc_w[mf][no][r];
+                    acc_w[mf][no][r] = 0.0f;
+                  }
+            }
+          } else {
+            for (int mf = 0; mf < kMF; ++mf) {
+              float cw[kNT][4];
+#pragma unroll
+              for (int no = 0; no < kNT; ++no)
+#pragma unroll
+                for (int r = 0; r < 4; ++r) cw[no][r] = 0.0f;
+#pragma unroll
+              for (int kp = 0; kp < 2; ++kp) {
+                uint32_t ah[4], al[4];
+                a_frag(kp, mf, ah, al);
+#pragma unroll
+                for (int no = 0; no < kNT; ++no)
+                  epnn::mma_3xtf32(cw[no], ah, al, b_frag(kp, no));
+              }
+#pragma unroll
+              for (int no = 0; no < kNT; ++no)
+#pragma unroll
+                for (int r = 0; r < 4; ++r)
+                  accw[32 * ((mf * kNT + no) * 4 + r)] += cw[no][r];
+            }
           }
         }
       }
       if (kRows)
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
+        for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             accb[32 * (2 * nt + h)] += acc_b[nt][h];
@@ -340,50 +448,47 @@ dmr_bwd_partial(const float* __restrict__ pi, const float* __restrict__ pj,
     __syncthreads();  // slot c % 2 is free for chunk c + 2
   }
 
-  // dpi / dpj: the thread's features 8t .. 8t + 7 of rows gq, gq + 8
+  // dpi / dpj: the thread's features kFH t + 2nf + h of rows gq, gq + 8
   float* dst = part_d + (size_t)blockIdx.y * n_own * kH;
-  if (in_a) {
-    float4* d4 = reinterpret_cast<float4*>(dst + (size_t)(o0 + gq) * kH + 8 * t);
-    d4[0] = make_float4(acc_d[0][0], acc_d[0][1], acc_d[1][0], acc_d[1][1]);
-    d4[1] = make_float4(acc_d[2][0], acc_d[2][1], acc_d[3][0], acc_d[3][1]);
-  }
-  if (in_b) {
-    float4* d4 =
-        reinterpret_cast<float4*>(dst + (size_t)(o0 + gq + 8) * kH + 8 * t);
-    d4[0] = make_float4(acc_d[0][2], acc_d[0][3], acc_d[1][2], acc_d[1][3]);
-    d4[1] = make_float4(acc_d[2][2], acc_d[2][3], acc_d[3][2], acc_d[3][3]);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    if (!(half ? in_b : in_a)) continue;
+    float* drow = dst + (size_t)(o0 + gq + 8 * half) * kH + kFH * t;
+    if constexpr (kH == kHp && kFH % 4 == 0) {
+#pragma unroll
+      for (int q = 0; q < kFH / 4; ++q)
+        reinterpret_cast<float4*>(drow)[q] = make_float4(
+            acc_d[2 * q][2 * half], acc_d[2 * q][2 * half + 1],
+            acc_d[2 * q + 1][2 * half], acc_d[2 * q + 1][2 * half + 1]);
+    } else {
+#pragma unroll
+      for (int m = 0; m < kFH; ++m)
+        if (kFH * t + m < kH) drow[m] = acc_d[m >> 1][2 * half + (m & 1)];
+    }
   }
   if (kRows) {
-    // the block's four warps, then (db2) the eight row groups, in order
-    float* red_w = &s.e[0][0][0][0];      // [warp][f][o]
-    float* red_b = red_w + kWarps * kH * kH;  // [warp][gq][o]
-    __syncthreads();  // every warp is done with its e2 tile
-#pragma unroll
-    for (int mf = 0; mf < 2; ++mf)
-#pragma unroll
-      for (int no = 0; no < 4; ++no)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int f = 4 * gq + 2 * mf + (r >> 1);
-          const int o = 8 * no + 2 * t + (r & 1);
-          red_w[(warp * kH + f) * kH + o] = accw[32 * ((mf * 4 + no) * 4 + r)];
-        }
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        red_b[(warp * 8 + gq) * kH + 8 * nt + 2 * t + h] = accb[32 * (2 * nt + h)];
-    __syncthreads();
+    // the block's four warps, then (db2) the eight row groups, in order,
+    // from each warp's sums: dW2 entry (f, o) sits at row group gq = f /
+    // kFW, m-tile mf = (f % kFW) / 2, n-tile o / 8, thread (o % 8) / 2
+    __syncthreads();  // every warp's sums are complete
     const size_t blk = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
     for (int e = threadIdx.x; e < kH * kH; e += kThreads) {
-      float w = red_w[e];
-      for (int q = 1; q < kWarps; ++q) w += red_w[q * kH * kH + e];
+      const int f = e / kH, o = e % kH;
+      const int fg = f / kFW, fr = f % kFW;
+      const int r = 2 * (fr & 1) + (o & 1);
+      const int entry = (((fr >> 1) * kNT + (o >> 3)) * 4 + r);
+      const int ln = 4 * fg + ((o & 7) >> 1);
+      float w = s.accw[0][entry][ln];
+      for (int q = 1; q < kWarps; ++q) w += s.accw[q][entry][ln];
       part_w[blk * kH * kH + e] = w;
     }
     if (threadIdx.x < kH) {
+      const int o = threadIdx.x;
+      const int ent = 2 * (o >> 3) + (o & 1), tt = (o & 7) >> 1;
       float b = 0.0f;
-      for (int q = 0; q < kWarps * 8; ++q) b += red_b[q * kH + threadIdx.x];
-      part_b[blk * kH + threadIdx.x] = b;
+      for (int q = 0; q < kWarps; ++q)
+        for (int gg = 0; gg < 8; ++gg) b += s.accb[q][ent][4 * gg + tt];
+      part_b[blk * kH + o] = b;
     }
   }
 }
@@ -397,11 +502,11 @@ cudaError_t launch_sum(const float* part, float* out, int count, int parts,
 
 }  // namespace
 
-// work: scratch of splits_r*R*H + splits_c*N*H + blocks_r*(H*H + H) floats,
-// blocks_r = ceil(R/64) * splits_r; the streamed ranges split into parts of
-// cols_per_split (pass R) and rows_per_split (pass C).  Writes dpi (R, H),
-// dpj (N, H), dw2 (H, H), db2 (H,).  Returns the first CUDA error (0 on
-// success).
+// w2 (Hp, Hp), b2 (Hp,) zero-padded; work: scratch of splits_r*R*H +
+// splits_c*N*H + blocks_r*(H*H + H) floats, blocks_r = ceil(R/64) *
+// splits_r; the streamed ranges split into parts of cols_per_split (pass R)
+// and rows_per_split (pass C).  Writes dpi (R, H), dpj (N, H), dw2 (H, H),
+// db2 (H,).  Returns the first CUDA error (0 on success).
 extern "C" int epnn_dense_message_rowsum_bwd(
     const float* pi, const float* pj, const float* cv, const float* w2,
     const float* b2, const float* g, float* work, float* dpi, float* dpj,

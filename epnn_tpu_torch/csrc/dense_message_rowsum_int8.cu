@@ -22,9 +22,9 @@
 // scales by IEEE-rounded adds, divisions and multiplies (__fdiv_rn,
 // __fmul_rn); relu(pi + pj), times inv, clipped, + 0.5 rounded to nearest,
 // truncated (__fmul_rn / __fadd_rn: no step is contracted into an FMA).  The
-// integer product is exact (|q|, |w2q| <= 127, a row of 32 products <=
-// 516,128), so z2 = float(acc) * dq + b2, multiply then add as in JAX, has
-// JAX's bits; only the float32 order of the sum over j differs.
+// integer product is exact (|q|, |w2q| <= 127, a row of at most 64 products
+// <= 1,032,256 < 2^22), so z2 = float(acc) * dq + b2, multiply then add as
+// in JAX, has JAX's bits; only the float32 order of the sum over j differs.
 //
 // Bound on the H100: the CUDA cores.  A pair needs 2H^2 = 2,048 integer
 // operations on the tensor cores (1,979 TOPS dense int8: 1.0e-12 s a pair),
@@ -51,11 +51,24 @@
 // folded into the thread's 16 float32 row sums.  wgmma with s8 operands,
 // TMA and overlapping the quantization with the products are left for a
 // redesign.
+//
+// Widths (common.cuh): any H from 1 to 64.  The contraction runs at H
+// padded to 32 (kHq: m16n8k32's K), the outputs at H padded to 8 (kHp):
+// W2q comes as (kHq, kHp) int8 and sw, b2 as (kHp,), zero-padded, pi and pj
+// are read at their real width with zeros past it (relu(0) quantizes to 0).
+// The maxima behind s_in are the wrapper's, over the real columns only, as
+// JAX takes them: a zero padding column would raise a negative maximum to
+// 0.  A padded W2 column has sw = 1e-30 / 127 from the clamp, w2q 0 and b2
+// 0, so its z2 is 0 (and it is not written).
 #include "common.cuh"
 
 namespace {
 
-constexpr int kH = epnn::kFarH;
+using epnn::kH;
+using epnn::kHp;
+using epnn::kNT;
+constexpr int kHq = (kH + 31) / 32 * 32;  // the contraction, padded to 32
+constexpr int kKQ = kHq / 32;             // its k-steps of m16n8k32
 constexpr int kThreads = 128;      // 4 warps
 constexpr int kRowsPerBlock = 64;  // 16 a warp
 constexpr int kChunk = 32;         // columns per staged chunk
@@ -93,9 +106,10 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The contraction index is permuted so that thread t holds features 8t ..
-// 8t + 7 of every row (as far_a does): k 4t + m is feature 8t + m and k 16 +
-// 4t + m feature 8t + 4 + m (m < 4), in A and in B alike.
+// The contraction index is permuted so that thread t holds features 32kq +
+// 8t .. 32kq + 8t + 7 of every row in k-step kq (as far_a does): k 4t + m
+// is feature 32kq + 8t + m and k 16 + 4t + m feature 32kq + 8t + 4 + m (m
+// < 4), in A and in B alike.
 __global__ void __launch_bounds__(kThreads, 4)
 dmr_int8_partial(const float* __restrict__ pi, const float* __restrict__ pj,
                  const float* __restrict__ cv,
@@ -106,7 +120,7 @@ dmr_int8_partial(const float* __restrict__ pi, const float* __restrict__ pj,
                  const float* __restrict__ pad_pi,
                  float* __restrict__ part, int R, int N,
                  int cols_per_split) {
-  __shared__ __align__(16) float s_pj[2][kChunk][kH];
+  __shared__ __align__(16) float s_pj[2][kChunk][kHq];
   __shared__ float s_cv[2][kChunk];
 
   const int lane = threadIdx.x & 31;
@@ -116,13 +130,15 @@ dmr_int8_partial(const float* __restrict__ pi, const float* __restrict__ pj,
   const int j1 = min(N, j0 + cols_per_split);
   const int chunks = (j1 - j0 + kChunk - 1) / kChunk;
 
-  // chunk c's columns into ring slot c % 2; past j1: zeros
+  // chunk c's columns into ring slot c % 2; past j1 and past H: zeros
   auto stage = [&](int c) {
     const int jt = j0 + c * kChunk;
     float* dst = &s_pj[c & 1][0][0];
-    for (int e = threadIdx.x; e < kChunk * kH; e += kThreads) {
-      const bool in = jt + e / kH < j1;
-      epnn::cp_async4(dst + e, pj + (in ? (size_t)jt * kH + e : 0), in);
+    for (int e = threadIdx.x; e < kChunk * kHq; e += kThreads) {
+      const int r = e / kHq, col = e % kHq;
+      const bool in = jt + r < j1 && (kH == kHq || col < kH);
+      epnn::cp_async4(dst + e, pj + (in ? (size_t)(jt + r) * kH + col : 0),
+                      in);
     }
     for (int e = threadIdx.x; e < kChunk; e += kThreads) {
       const bool in = jt + e < j1;
@@ -132,20 +148,23 @@ dmr_int8_partial(const float* __restrict__ pi, const float* __restrict__ pj,
   };
   stage(0);
 
-  // W2q's B fragments, n-tile nt: output column 8nt + g, features 8t .. 8t
-  // + 3 (b0) and 8t + 4 .. 8t + 7 (b1)
-  uint32_t bf[4][2];
+  // W2q's B fragments, n-tile nt, k-step kq: output column 8nt + g,
+  // features 32kq + 8t .. + 3 (b0) and 32kq + 8t + 4 .. + 7 (b1)
+  uint32_t bf[kNT][kKQ][2];
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
+  for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      uint32_t v = 0;
+    for (int kq = 0; kq < kKQ; ++kq)
 #pragma unroll
-      for (int m = 0; m < 4; ++m)
-        v |= (uint32_t)(uint8_t)w2q[(8 * t + 4 * h + m) * kH + 8 * nt + g]
-             << (8 * m);
-      bf[nt][h] = v;
-    }
+      for (int h = 0; h < 2; ++h) {
+        uint32_t v = 0;
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+          v |= (uint32_t)(uint8_t)w2q[(32 * kq + 8 * t + 4 * h + m) * kHp +
+                                      8 * nt + g]
+               << (8 * m);
+        bf[nt][kq][h] = v;
+      }
   // the activation scale (kernels.int8_activation_scale): the maxima, with
   // the padding rows' where there are some
   float pim = *pi_max, pjm = *pj_max;
@@ -157,21 +176,31 @@ dmr_int8_partial(const float* __restrict__ pi, const float* __restrict__ pj,
       __fdiv_rn(fmaxf(epnn::relu(__fadd_rn(pim, pjm)), 1e-30f), 127.0f);
   const float inv = __fdiv_rn(1.0f, s_in);
   // dequantization scale and bias of the thread's C columns 8nt + 2t + {0,1}
-  float sc[4][2], bias[4][2];
+  float sc[kNT][2], bias[kNT][2];
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
+  for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       sc[nt][u] = __fmul_rn(s_in, sw[8 * nt + 2 * t + u]);
       bias[nt][u] = b2[8 * nt + 2 * t + u];
     }
-  float xa[8], xb[8];
-  epnn::load_row8(pi + (size_t)(r0 + g) * kH, t, r0 + g < R, xa);
-  epnn::load_row8(pi + (size_t)(r0 + g + 8) * kH, t, r0 + g + 8 < R, xb);
-
-  float acc[4][4];
+  // the thread's features 32kq + 8t + m of own rows g (xa), g + 8 (xb)
+  float xa[8 * kKQ], xb[8 * kKQ];
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
+  for (int kq = 0; kq < kKQ; ++kq)
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {
+      const int f = 32 * kq + 8 * t + m;
+      const bool in = kH == kHq || f < kH;
+      xa[8 * kq + m] =
+          in && r0 + g < R ? pi[(size_t)(r0 + g) * kH + f] : 0.0f;
+      xb[8 * kq + m] =
+          in && r0 + g + 8 < R ? pi[(size_t)(r0 + g + 8) * kH + f] : 0.0f;
+    }
+
+  float acc[kNT][4];
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
     for (int r = 0; r < 4; ++r) acc[nt][r] = 0.0f;
 
@@ -187,23 +216,35 @@ dmr_int8_partial(const float* __restrict__ pi, const float* __restrict__ pj,
     const float* scv = &s_cv[c & 1][0];
 #pragma unroll 2
     for (int j = 0; j < kChunk; ++j) {
-      const float4 p0 = *reinterpret_cast<const float4*>(sp + j * kH + 8 * t);
-      const float4 p1 =
-          *reinterpret_cast<const float4*>(sp + j * kH + 8 * t + 4);
-      const uint32_t a[4] = {
-          pack4(quant(xa[0] + p0.x, inv), quant(xa[1] + p0.y, inv),
-                quant(xa[2] + p0.z, inv), quant(xa[3] + p0.w, inv)),
-          pack4(quant(xb[0] + p0.x, inv), quant(xb[1] + p0.y, inv),
-                quant(xb[2] + p0.z, inv), quant(xb[3] + p0.w, inv)),
-          pack4(quant(xa[4] + p1.x, inv), quant(xa[5] + p1.y, inv),
-                quant(xa[6] + p1.z, inv), quant(xa[7] + p1.w, inv)),
-          pack4(quant(xb[4] + p1.x, inv), quant(xb[5] + p1.y, inv),
-                quant(xb[6] + p1.z, inv), quant(xb[7] + p1.w, inv))};
+      uint32_t a[kKQ][4];
+#pragma unroll
+      for (int kq = 0; kq < kKQ; ++kq) {
+        const float* x = sp + j * kHq + 32 * kq + 8 * t;
+        const float4 p0 = *reinterpret_cast<const float4*>(x);
+        const float4 p1 = *reinterpret_cast<const float4*>(x + 4);
+        const int q = 8 * kq;
+        a[kq][0] = pack4(quant(xa[q] + p0.x, inv), quant(xa[q + 1] + p0.y, inv),
+                         quant(xa[q + 2] + p0.z, inv),
+                         quant(xa[q + 3] + p0.w, inv));
+        a[kq][1] = pack4(quant(xb[q] + p0.x, inv), quant(xb[q + 1] + p0.y, inv),
+                         quant(xb[q + 2] + p0.z, inv),
+                         quant(xb[q + 3] + p0.w, inv));
+        a[kq][2] = pack4(quant(xa[q + 4] + p1.x, inv),
+                         quant(xa[q + 5] + p1.y, inv),
+                         quant(xa[q + 6] + p1.z, inv),
+                         quant(xa[q + 7] + p1.w, inv));
+        a[kq][3] = pack4(quant(xb[q + 4] + p1.x, inv),
+                         quant(xb[q + 5] + p1.y, inv),
+                         quant(xb[q + 6] + p1.z, inv),
+                         quant(xb[q + 7] + p1.w, inv));
+      }
       const float cj = scv[j];
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
+      for (int nt = 0; nt < kNT; ++nt) {
         int d[4] = {kBiasBits, kBiasBits, kBiasBits, kBiasBits};
-        mma_s8(d, a, bf[nt][0], bf[nt][1]);
+#pragma unroll
+        for (int kq = 0; kq < kKQ; ++kq)
+          mma_s8(d, a[kq], bf[nt][kq][0], bf[nt][kq][1]);
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
           const float v = __fsub_rn(__int_as_float(d[r]), kBias);  // exact
@@ -222,19 +263,29 @@ dmr_int8_partial(const float* __restrict__ pi, const float* __restrict__ pj,
     const int row = r0 + g + 8 * half;
     if (row < R) {
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-        *reinterpret_cast<float2*>(dst + (size_t)row * kH + 8 * nt + 2 * t) =
-            make_float2(acc[nt][2 * half], acc[nt][2 * half + 1]);
+      for (int nt = 0; nt < kNT; ++nt) {
+        const int o = 8 * nt + 2 * t;
+        const float v0 = acc[nt][2 * half], v1 = acc[nt][2 * half + 1];
+        if constexpr (kH % 2 == 0) {
+          if (kH == kHp || o < kH)
+            *reinterpret_cast<float2*>(dst + (size_t)row * kH + o) =
+                make_float2(v0, v1);
+        } else {
+          if (o < kH) dst[(size_t)row * kH + o] = v0;
+          if (o + 1 < kH) dst[(size_t)row * kH + o + 1] = v1;
+        }
+      }
     }
   }
 }
 
 }  // namespace
 
-// w2q: (H, H) int8; sw: (H,); pi_max, pj_max: one float each (max(pi),
-// max(pj)); pad_pi: one float (the padding rows' pi) or null (no padding
-// rows); part: (splits, R, H) scratch; out: (R, H); the column range splits
-// into parts of cols_per_split.  Returns cudaGetLastError().
+// w2q: (Hq, Hp) int8 (Hq = H padded to 32, Hp to 8); sw, b2: (Hp,); pi_max,
+// pj_max: one float each (max(pi), max(pj) over the real columns); pad_pi:
+// one float (the padding rows' pi) or null (no padding rows); part:
+// (splits, R, H) scratch; out: (R, H); the column range splits into parts
+// of cols_per_split.  Returns cudaGetLastError().
 extern "C" int epnn_dense_message_rowsum_int8(
     const float* pi, const float* pj, const float* cv, const int8_t* w2q,
     const float* sw, const float* b2, const float* pi_max,

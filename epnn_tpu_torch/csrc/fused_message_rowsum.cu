@@ -1,13 +1,13 @@
 // fused_message_rowsum — one dense message round with the pair
-// featurization in the tile:
+// featurization in the kernel:
 //
 //   out_i = sum_j w_ij * relu(relu(pi_i + pj_j + rbf_ij @ W1e) @ W2 + b2)
 //
 // rbf_ij: d^2 from the coordinates, the cosine envelope (cleared for self
 // pairs and masked atoms) and E Gaussian channels around mu.  w_ij is the
 // pair mask m_i m_j, diagonal kept (masked = 1), or cv_j (masked = 0,
-// reference-compat mode).  pi carries the first-layer bias; the caller
-// applies W_out and the sum_j b_out term.
+// reference-compat mode: masked atoms still count).  pi carries the
+// first-layer bias; the caller applies W_out and the sum_j b_out term.
 //
 // Replaces the TPU kernel epnn_tpu/ops/pallas_kernels.py:
 // fused_message_rowsum (:490), whose pallas_call (:591) runs _msg_rbf_kernel
@@ -15,195 +15,188 @@
 // variant (_msg_packed_kernel :874, pallas_call :561) is a v5e layout of the
 // same math and is not carried over.
 //
-// Bound on the H100: operations.  A pair costs 2EH (the W1e contraction)
-// + 2H^2 (the mid layer) + about 400 elementwise FLOP, 5.6 kFLOP at H = 32,
-// E = 48, against O((R + N) H) bytes; fp32 runs on the CUDA cores (TF32 is
-// off): 27 GFLOP, >= 0.41 ms at 67 TFLOP/s, for the 2,220-atom box.  The
-// E exps a pair are a few percent of that at the SFU rate.
+// The split.  Where rbf_ij = 0 — beyond the cutoff, on the diagonal, for
+// masked atoms: all but ~17 thousand of the 4.9 M pairs of the 2,224-atom
+// water box — the pair's term is the far field's, relu(relu(pi_i + pj_j)
+// @ W2 + b2).  w_ij is separable in both modes (m_i * m_j, or 1 * cv_j).
+// So out = rw_i * sum_j cv_j far(i, j) over every pair (rw = m, cv = m when
+// masked; rw = 1, cv = cv otherwise) plus sum_j w_ij (hid(i, j) - far(i,
+// j)) over the pairs within the cutoff, both atoms valid, i != j.
 //
-// Design: the far field's layout (dense_message_rowsum.cu) with the
-// featurization in front.  A block of 256 threads owns 16 rows and streams
-// its part of the columns in chunks of 16.  Per chunk: each thread
-// featurizes one of the 256 pairs into an (E, 256) tile in shared memory;
-// the W1e product is register-tiled (8 pairs x 4 outputs a thread), its
-// result Z = relu((pi_i + pj_j) + epart) overwrites the tile, and the mid
-// layer runs on Z the same way.  The epilogue folds relu(. + b2) * w_ij
-// into per-row sums, the two column halves of a row are added in a fixed
-// order, and the column parts (gridDim.y) are added in order by a second
-// kernel: deterministic, no atomics.  Columns past N enter with mask 0,
-// cv 0 and pj 0 and add exactly zero.
-#include "common.cuh"
+// Bound on the H100: operations.  Every pair needs the far field's H x H
+// product (2H^2 FLOP, three TF32 products in 3xTF32) and a d^2 scan; a
+// live pair also its E channels (E exps), rbf @ W1e and two mid layers
+// (2EH + 4H^2).  chip_smoke.py prints the bound on its data.
+//
+// Design: one launch, two kinds of blocks of one warpgroup each.
+//   * blocks [0, far_blocks): the far field on wgmma in 3xTF32,
+//     dense_message_rowsum.cu's block body (far_field.cuh), into the
+//     fixed column parts part[0 .. splits);
+//   * the rest: the live correction on the near tiles (common.cuh, "the
+//     near tiles") fed by a d^2 scan of the pair grid (pair_walk, its
+//     columns staged in shared memory by the block), as in
+//     fused_epn_rowsum.cu: for each live pair the four threads of its M
+//     row build its envelope and channels, then epart = rbf @ W1e and the
+//     two mid layers relu(base + epart) @ W2 and relu(base) @ W2 (base =
+//     pi_i + pj_j) in mma.sync m16n8k8 3xTF32, the weighted difference
+//     summed over the row's live pairs in ascending order into part[splits].
+// epnn::sum_parts then adds the splits + 1 parts in order: deterministic,
+// no atomics.  The order of summation differs from the plain version's, so
+// the check against it is the fp32 bar, not its bits.
+//
+// Widths: any H and E from 1 to 64 (common.cuh); W1e (Ep, Hp), W2 and b2
+// come zero-padded, mu (E,) is read into shared memory with zeros past E.
+#include "far_field.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 16;                       // rows per block
-constexpr int kCols = 16;                       // columns per chunk
-constexpr int kH = 32;
-constexpr int kE = 48;
+using epnn::kE;
+using epnn::kEp;
+using epnn::kFE;
+using epnn::kFH;
+using epnn::kH;
+using epnn::kNT;
 
-struct Smem {
-  float4 w1e[kE * kH / 4];                      // W1e [e][o]
-  float4 w2[kH * kH / 4];                       // W2 [k][o]
-  float4 tile[kE * epnn::kTilePairs / 4];       // rbf, then Z in rows < H
-  float b2[kH];
-  float mu[kE];
-  float pi[kRows][kH + 1];
-  float pj[kCols][kH + 1];
-  float xr[kRows][4];                           // x, y, z, mask of the rows
-  float xc[kCols][4];                           // ... of the chunk's columns
-  float wc[kCols];                              // cv of the chunk's columns
-  float half[kRows][kH];                        // second column half sums
+struct NearPart {
+  epnn::NearSmem near;
+  epnn::ScanSmem scan;
+  float mu[kEp];
 };
+// the two kinds of blocks share one dynamic allocation
+constexpr int kSmem = (int)(sizeof(NearPart) > sizeof(epnn::far::Smem)
+                                ? sizeof(NearPart)
+                                : sizeof(epnn::far::Smem));
+static_assert(epnn::far::kThreads == epnn::kNearThreads, "one block size");
 
-__global__ void __launch_bounds__(kThreads, 2)
-fmr_partial(const float* __restrict__ pi, const float* __restrict__ pj,
-            const float* __restrict__ xyz, const float* __restrict__ mask,
-            const float* __restrict__ cv, const float* __restrict__ w1e,
-            const float* __restrict__ w2, const float* __restrict__ b2,
-            const float* __restrict__ mu, float* __restrict__ part, int N,
-            int cols_per_split, int masked, float cutoff, float eta) {
-  static_assert(kRows * kCols == epnn::kTilePairs, "one pair a thread");
-  static_assert((kH / 4) * (epnn::kTilePairs / 8) == kThreads, "tiling");
-  extern __shared__ float4 smem_raw[];
-  Smem& s = *reinterpret_cast<Smem*>(smem_raw);
-
-  const int tid = threadIdx.x;
-  const int og = tid % (kH / 4);     // outputs og*4 .. og*4+3
-  const int pg = tid / (kH / 4);     // pairs pg*8 .. pg*8+7
-  const int il = pg / 2;             // their row within the block
-  const int jh = pg % 2;             // their column half within the chunk
-  const int i0 = blockIdx.x * kRows;
-  const int j0 = blockIdx.y * cols_per_split;
-  const int j1 = min(N, j0 + cols_per_split);
-  const float neg_eta = -eta;
-
-  epnn::stage(s.w1e, w1e, kE * kH);
-  epnn::stage(s.w2, w2, kH * kH);
-  for (int t = tid; t < kH; t += kThreads) s.b2[t] = b2[t];
-  for (int t = tid; t < kE; t += kThreads) s.mu[t] = mu[t];
-  for (int t = tid; t < kRows * kH; t += kThreads) {
-    const int r = t / kH, k = t % kH;
-    s.pi[r][k] = i0 + r < N ? pi[(size_t)(i0 + r) * kH + k] : 0.0f;
-  }
-  for (int t = tid; t < kRows * 4; t += kThreads) {
-    const int r = t / 4, a = t % 4;
-    const bool ok = i0 + r < N;
-    s.xr[r][a] = !ok ? 0.0f : a < 3 ? xyz[(size_t)(i0 + r) * 3 + a]
-                                    : mask[i0 + r];
+__global__ void __launch_bounds__(epnn::kNearThreads, 3)
+fmr_kernel(const float* __restrict__ pi, const float* __restrict__ pj,
+           const float* __restrict__ xyz, const float* __restrict__ mask,
+           const float* __restrict__ cv, const float* __restrict__ w1e,
+           const float* __restrict__ w2, const float* __restrict__ b2,
+           const float* __restrict__ mu, float* __restrict__ part, int N,
+           int splits, int cols_per_split, int far_blocks, int n_warps,
+           int masked, float cutoff, float eta, float cut2) {
+  extern __shared__ __align__(128) uint4 smem_raw[];
+  if ((int)blockIdx.x < far_blocks) {
+    const int row_blocks = (N + epnn::far::kRowsPerBlock - 1) /
+                           epnn::far::kRowsPerBlock;
+    auto& fs = *reinterpret_cast<epnn::far::Smem*>(smem_raw);
+    const int bx = blockIdx.x % row_blocks, by = blockIdx.x / row_blocks;
+    if (masked)
+      epnn::far::rows<true>(fs, pi, pj, mask, w2, b2, mask, part, N, N,
+                            cols_per_split, bx, by);
+    else
+      epnn::far::rows<false>(fs, pi, pj, cv, w2, b2, nullptr, part, N, N,
+                             cols_per_split, bx, by);
+    return;
   }
 
-  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  float* tile = reinterpret_cast<float*>(s.tile);
-
-  for (int jt = j0; jt < j1; jt += kCols) {
-    const int nj = min(kCols, j1 - jt);
-    __syncthreads();  // the previous chunk's tile and columns are consumed
-    for (int t = tid; t < kCols * kH; t += kThreads) {
-      const int j = t / kH, k = t % kH;
-      s.pj[j][k] = j < nj ? pj[(size_t)(jt + j) * kH + k] : 0.0f;
-    }
-    for (int t = tid; t < kCols * 4; t += kThreads) {
-      const int j = t / 4, a = t % 4;
-      s.xc[j][a] = j >= nj ? 0.0f : a < 3 ? xyz[(size_t)(jt + j) * 3 + a]
-                                          : mask[jt + j];
-    }
-    for (int t = tid; t < kCols; t += kThreads)
-      s.wc[t] = t < nj ? cv[jt + t] : 0.0f;
-    __syncthreads();
-
-    {  // featurize pair tid: row tid / 16, column tid % 16
-      const int r = tid / kCols, j = tid % kCols;
-      const float d2 = epnn::pair_d2(s.xr[r][0], s.xr[r][1], s.xr[r][2],
-                                     s.xc[j][0], s.xc[j][1], s.xc[j][2]);
-      const float cm = i0 + r != jt + j ? __fmul_rn(s.xr[r][3], s.xc[j][3])
-                                        : 0.0f;
-      float d;
-      const float c = __fmul_rn(epnn::envelope(d2, cutoff, d), cm);
-      const int slot = epnn::tile_slot(tid);
-#pragma unroll 8
-      for (int e = 0; e < kE; ++e)
-        tile[e * epnn::kTilePairs + slot] =
-            epnn::rbf_channel(c, d, s.mu[e], neg_eta);
-    }
-    __syncthreads();
-
-    float y[8][4];
-#pragma unroll
-    for (int p = 0; p < 8; ++p)
-#pragma unroll
-      for (int u = 0; u < 4; ++u) y[p][u] = 0.0f;
-    epnn::tile_mac<kE, kH>(s.tile, s.w1e, pg, og, y);
-    __syncthreads();  // every thread has read the rbf tile
-
-    // Z = relu((pi_i + pj_j) + epart) into rows og*4 .. og*4+3 of the tile
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int k = og * 4 + u;
-      float z[8];
-#pragma unroll
-      for (int p = 0; p < 8; ++p)
-        z[p] = epnn::relu(__fadd_rn(
-            __fadd_rn(s.pi[il][k], s.pj[jh * 8 + p][k]), y[p][u]));
-      s.tile[k * (epnn::kTilePairs / 4) + pg] =
-          make_float4(z[0], z[1], z[2], z[3]);
-      s.tile[k * (epnn::kTilePairs / 4) + 32 + pg] =
-          make_float4(z[4], z[5], z[6], z[7]);
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int p = 0; p < 8; ++p)
-#pragma unroll
-      for (int u = 0; u < 4; ++u) y[p][u] = s.b2[og * 4 + u];
-    epnn::tile_mac<kH, kH>(s.tile, s.w2, pg, og, y);
-#pragma unroll
-    for (int p = 0; p < 8; ++p) {
-      const int j = jh * 8 + p;
-      const float w = masked ? __fmul_rn(s.xr[il][3], s.xc[j][3]) : s.wc[j];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) acc[u] = fmaf(w, epnn::relu(y[p][u]), acc[u]);
-    }
-  }
-
-  // add the second column half of each row to the first, in that order
-  if (jh == 1) {
-#pragma unroll
-    for (int u = 0; u < 4; ++u) s.half[il][og * 4 + u] = acc[u];
-  }
+  NearPart& sm = *reinterpret_cast<NearPart*>(smem_raw);
+  epnn::NearSmem& s = sm.near;
+  float bias[kNT][2];
+  epnn::near_stage(s, w1e, w2, b2, bias);
+  for (int e = threadIdx.x; e < kEp; e += epnn::kNearThreads)
+    sm.mu[e] = e < kE ? mu[e] : 0.0f;
   __syncthreads();
-  if (jh == 0 && i0 + il < N) {
-    float* dst = part + ((size_t)blockIdx.y * N + i0 + il) * kH + og * 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gw = (blockIdx.x - far_blocks) * epnn::kNearWarps + warp;
+  const int g = lane >> 2, t = lane & 3;
+  const float neg_eta = -eta;
+  int r0 = N, r1 = N;  // a warp past the grid's owns no rows
+  if (gw < n_warps) epnn::near_range(N, gw, n_warps, r0, r1);
+
+  // a pair's channels (kFE t .. of them) and its weight w_ij
+  auto features = [&](int i, int j, float (&r)[kFE]) {
+    float pm;
+    epnn::pair_channels<kFE, kE>(xyz, mask, sm.mu, i, j, t, cutoff, neg_eta,
+                                 pm, r);
+    return i == j ? 0.0f : masked ? pm : cv[j];
+  };
+
+  // one tile: pairs g (a) and g + 8 (b) of the ring from h0, n of them
+  auto tile = [&](int h0, int n) {
+    const int ia = (h0 + g) & (epnn::kPairRing - 1);
+    const int ib = (h0 + g + 8) & (epnn::kPairRing - 1);
+    const bool va = g < n, vb = g + 8 < n;
+    const int ja = va ? sm.scan.ring[warp][ia] : 0;
+    const int jb = vb ? sm.scan.ring[warp][ib] : 0;
+    const int ra_ = va ? sm.scan.rows[warp][ia] : 0;
+    const int rb_ = vb ? sm.scan.rows[warp][ib] : 0;
+    float ra[kFE], rb[kFE];
+    const float wa = features(ra_, ja, ra);
+    const float wb = features(rb_, jb, rb);
+    float pa[kFH], pb[kFH], xa[kFH], xb[kFH];
+    epnn::load_row<kFH, kH>(pi + (size_t)ra_ * kH, t, va, pa);
+    epnn::load_row<kFH, kH>(pi + (size_t)rb_ * kH, t, vb, pb);
+    epnn::load_row<kFH, kH>(pj + (size_t)ja * kH, t, va, xa);
+    epnn::load_row<kFH, kH>(pj + (size_t)jb * kH, t, vb, xb);
+    float ba[kFH], bb[kFH];  // base = pi_i + pj_j
 #pragma unroll
-    for (int u = 0; u < 4; ++u) dst[u] = acc[u] + s.half[il][og * 4 + u];
-  }
+    for (int m = 0; m < kFH; ++m) {
+      ba[m] = __fadd_rn(pa[m], xa[m]);
+      bb[m] = __fadd_rn(pb[m], xb[m]);
+    }
+
+    float ep[kNT][4], ea[kFH], eb[kFH];
+    epnn::near_epart(ra, rb, s.b1, lane, ep);
+    epnn::near_ep_rows(ep, ea, eb);
+    float zfa[kFH], zfb[kFH], zna[kFH], znb[kFH];
+#pragma unroll
+    for (int m = 0; m < kFH; ++m) {
+      zfa[m] = epnn::relu(__fadd_rn(ba[m], ea[m]));
+      zfb[m] = epnn::relu(__fadd_rn(bb[m], eb[m]));
+      zna[m] = epnn::relu(ba[m]);
+      znb[m] = epnn::relu(bb[m]);
+    }
+    float yf[kNT][4], yn[kNT][4];
+    epnn::near_mid(zfa, zfb, bias, s.b2, lane, yf);
+    epnn::near_mid(zna, znb, bias, s.b2, lane, yn);
+    epnn::near_put(s.d[warp], [&](int nt, int r) {
+      return __fmul_rn(__fsub_rn(epnn::relu(yf[nt][r]),
+                                 epnn::relu(yn[nt][r])),
+                       r < 2 ? wa : wb);
+    });
+  };
+  epnn::pair_walk(s, sm.scan, warp, lane, xyz, mask, cut2, N, n_warps, r0,
+                  r1, part + (size_t)splits * N * kH, tile);
 }
+
+int g_resident[epnn::kNearMaxDevices] = {};  // epnn::near_warps's cache
 
 }  // namespace
 
-// xyz (N, 3), mask and cv (N,), mu (E,) the RBF centers; part: (splits, N,
-// H) scratch; out: (N, H); cols_per_split a multiple of 16.  Returns
-// cudaGetLastError().
+// xyz (N, 3), mask and cv (N,), mu (E,) the RBF centers; w1e (Ep, Hp), w2
+// (Hp, Hp), b2 (Hp,) zero-padded; part: (splits + 1, N, H) scratch; out:
+// (N, H); the far field's column range splits into parts of
+// cols_per_split; cut2 the squared cutoff rounded up.  N * N must fit an
+// int.  Returns cudaGetLastError().
 extern "C" int epnn_fused_message_rowsum(
     const float* pi, const float* pj, const float* xyz, const float* mask,
     const float* cv, const float* w1e, const float* w2, const float* b2,
     const float* mu, float* part, float* out, int N, int H, int E,
     int splits, int cols_per_split, int masked, float cutoff, float eta,
-    cudaStream_t stream) {
-  if (H != kH || E != kE || N <= 0 || splits <= 0 || cols_per_split % kCols)
+    float cut2, cudaStream_t stream) {
+  if (H != kH || E != kE || N <= 0 || splits <= 0 || cols_per_split <= 0 ||
+      (long long)(splits - 1) * cols_per_split >= N ||
+      (long long)N * N > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  const int smem = sizeof(Smem);
-  cudaError_t err = cudaFuncSetAttribute(
-      fmr_partial, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int n_warps = 0;
+  cudaError_t err =
+      epnn::near_warps(fmr_kernel, g_resident, N, kSmem, n_warps);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + kRows - 1) / kRows, splits);
-  fmr_partial<<<grid, kThreads, smem, stream>>>(
-      pi, pj, xyz, mask, cv, w1e, w2, b2, mu, part, N, cols_per_split,
-      masked, cutoff, eta);
+  const int row_blocks =
+      (N + epnn::far::kRowsPerBlock - 1) / epnn::far::kRowsPerBlock;
+  const int far_blocks = row_blocks * splits;
+  const int near_blocks =
+      (n_warps + epnn::kNearWarps - 1) / epnn::kNearWarps;
+  fmr_kernel<<<far_blocks + near_blocks, epnn::kNearThreads, kSmem,
+               stream>>>(pi, pj, xyz, mask, cv, w1e, w2, b2, mu, part, N,
+                         splits, cols_per_split, far_blocks, n_warps, masked,
+                         cutoff, eta, cut2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int count = N * kH;
   epnn::sum_parts<<<(count + 255) / 256, 256, 0, stream>>>(part, out, count,
-                                                            splits);
+                                                            splits + 1);
   return cudaGetLastError();
 }

@@ -30,12 +30,21 @@
 // tile's terms go through shared memory and lane o adds column o over the
 // slots in ascending order: deterministic, no atomics.  No lane or MMA row
 // works on a dead slot, but for the tail of a warp's last tile.
+//
+// Widths (common.cuh): any H and E from 1 to 64; W1e (Ep, Hp), W2 and b2
+// come zero-padded, the activations are read at their real width (pjn and
+// rbf as float4s where that width is a multiple of 16).  The staged
+// fragments grow with the widths (20 KB at 32/48, 83 KB at 64/64), so
+// shared memory is dynamic.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kH = epnn::kNearH;
-constexpr int kE = epnn::kNearE;
+using epnn::kE;
+using epnn::kFE;
+using epnn::kFH;
+using epnn::kH;
+using epnn::kNT;
 // resident blocks an SM the registers are budgeted for: four (128
 // registers a thread) beat three (tools/near_field_pace.py)
 constexpr int kMinBlocks = 4;
@@ -46,8 +55,9 @@ nmc_kernel(const float* __restrict__ pi, const float* __restrict__ pjn,
            const float* __restrict__ w1e, const float* __restrict__ w2,
            const float* __restrict__ b2, float* __restrict__ out, int N,
            int K, int n_warps) {
-  __shared__ epnn::NearSmem s;
-  float bias[4][2];
+  extern __shared__ uint4 smem_raw[];
+  epnn::NearSmem& s = *reinterpret_cast<epnn::NearSmem*>(smem_raw);
+  float bias[kNT][2];
   epnn::near_stage(s, w1e, w2, b2, bias);
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -66,52 +76,45 @@ nmc_kernel(const float* __restrict__ pi, const float* __restrict__ pjn,
     const bool va = g < n, vb = g + 8 < n;
     const int fa = va ? ring[ia] : 0, fb = vb ? ring[ib] : 0;
     const int rwa = va ? rows[ia] : 0, rwb = vb ? rows[ib] : 0;
-    float ra[12], rb[12], xa[8], xb[8], pa[8], pb[8];
-    epnn::load_vec(rbf + (size_t)fa * kE + 12 * t, va, ra);
-    epnn::load_vec(rbf + (size_t)fb * kE + 12 * t, vb, rb);
-    epnn::load_vec(pjn + (size_t)fa * kH + 8 * t, va, xa);
-    epnn::load_vec(pjn + (size_t)fb * kH + 8 * t, vb, xb);
-    epnn::load_row8(pi + (size_t)rwa * kH, t, va, pa);
-    epnn::load_row8(pi + (size_t)rwb * kH, t, vb, pb);
+    float ra[kFE], rb[kFE], xa[kFH], xb[kFH], pa[kFH], pb[kFH];
+    epnn::load_vec<kFE, kE>(rbf + (size_t)fa * kE, t, va, ra);
+    epnn::load_vec<kFE, kE>(rbf + (size_t)fb * kE, t, vb, rb);
+    epnn::load_vec<kFH, kH>(pjn + (size_t)fa * kH, t, va, xa);
+    epnn::load_vec<kFH, kH>(pjn + (size_t)fb * kH, t, vb, xb);
+    epnn::load_row<kFH, kH>(pi + (size_t)rwa * kH, t, va, pa);
+    epnn::load_row<kFH, kH>(pi + (size_t)rwb * kH, t, vb, pb);
     const float wa = va ? wgt[fa] : 0.0f, wb = vb ? wgt[fb] : 0.0f;
-    float ba[8], bb[8];  // base = pi_i + pjn_is
+    float ba[kFH], bb[kFH];  // base = pi_i + pjn_is
 #pragma unroll
-    for (int m = 0; m < 8; ++m) {
+    for (int m = 0; m < kFH; ++m) {
       ba[m] = pa[m] + xa[m];
       bb[m] = pb[m] + xb[m];
     }
 
-    float ep[4][4], ea[8], eb[8];
+    float ep[kNT][4], ea[kFH], eb[kFH];
     epnn::near_epart(ra, rb, s.b1, lane, ep);
     epnn::near_ep_rows(ep, ea, eb);
-    float zfa[8], zfb[8], zna[8], znb[8];
+    float zfa[kFH], zfb[kFH], zna[kFH], znb[kFH];
 #pragma unroll
-    for (int m = 0; m < 8; ++m) {
+    for (int m = 0; m < kFH; ++m) {
       zfa[m] = epnn::relu(ba[m] + ea[m]);
       zfb[m] = epnn::relu(bb[m] + eb[m]);
       zna[m] = epnn::relu(ba[m]);
       znb[m] = epnn::relu(bb[m]);
     }
-    float yf[4][4], yn[4][4];
+    float yf[kNT][4], yn[kNT][4];
     epnn::near_mid(zfa, zfb, bias, s.b2, lane, yf);
     epnn::near_mid(zna, znb, bias, s.b2, lane, yn);
-    float(*d)[epnn::kNearDStride] = s.d[warp];
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int o = 8 * nt + 2 * t;
-      *reinterpret_cast<float2*>(&d[g][o]) = make_float2(
-          (epnn::relu(yf[nt][0]) - epnn::relu(yn[nt][0])) * wa,
-          (epnn::relu(yf[nt][1]) - epnn::relu(yn[nt][1])) * wa);
-      *reinterpret_cast<float2*>(&d[g + 8][o]) = make_float2(
-          (epnn::relu(yf[nt][2]) - epnn::relu(yn[nt][2])) * wb,
-          (epnn::relu(yf[nt][3]) - epnn::relu(yn[nt][3])) * wb);
-    }
-    __syncwarp();
+    epnn::near_put(s.d[warp], [&](int nt, int r) {
+      return (epnn::relu(yf[nt][r]) - epnn::relu(yn[nt][r])) *
+             (r < 2 ? wa : wb);
+    });
   };
   epnn::near_walk(s, warp, lane, wgt, K, r0, r1, out, tile);
 }
 
 int g_resident[epnn::kNearMaxDevices] = {};  // epnn::near_warps's cache
+constexpr int kSmem = (int)sizeof(epnn::NearSmem);
 
 }  // namespace
 
@@ -119,10 +122,12 @@ int g_resident[epnn::kNearMaxDevices] = {};  // epnn::near_warps's cache
 // walk with it); negative on a CUDA error.
 extern "C" int epnn_near_message_corr_warps(int N) {
   int n_warps = 0;
-  const cudaError_t err = epnn::near_warps(nmc_kernel, g_resident, N, n_warps);
+  const cudaError_t err =
+      epnn::near_warps(nmc_kernel, g_resident, N, kSmem, n_warps);
   return err == cudaSuccess ? n_warps : -1;
 }
 
+// w1e (Ep, Hp), w2 (Hp, Hp), b2 (Hp,) zero-padded; out (N, H).
 extern "C" int epnn_near_message_corr(const float* pi, const float* pjn,
                                       const float* rbf, const float* mask,
                                       const float* w1e, const float* w2,
@@ -133,10 +138,11 @@ extern "C" int epnn_near_message_corr(const float* pi, const float* pjn,
       (long long)N * K + 32 > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   int n_warps = 0;
-  cudaError_t err = epnn::near_warps(nmc_kernel, g_resident, N, n_warps);
+  cudaError_t err =
+      epnn::near_warps(nmc_kernel, g_resident, N, kSmem, n_warps);
   if (err != cudaSuccess) return err;
   const int blocks = (n_warps + epnn::kNearWarps - 1) / epnn::kNearWarps;
-  nmc_kernel<<<blocks, epnn::kNearThreads, 0, stream>>>(
+  nmc_kernel<<<blocks, epnn::kNearThreads, kSmem, stream>>>(
       pi, pjn, rbf, mask, w1e, w2, b2, out, N, K, n_warps);
   return cudaGetLastError();
 }

@@ -38,13 +38,20 @@
 // bit for bit (the same two fp32 adds, (pi + pj) first, then + epart), so
 // its (hn - ht) is the exact negation of row i's, and gh is the same.
 // chip_smoke.py's disjoint-pair probe checks this on the card and reports
-// how many pairs sat at different M positions.
+// how many pairs sat at different M positions, at the shipped widths and at
+// one other.
+//
+// Widths: as near_message_corr.cu (any H and E from 1 to 64, padded
+// weights, dynamic shared memory).
 #include "common.cuh"
 
 namespace {
 
-constexpr int kH = epnn::kNearH;
-constexpr int kE = epnn::kNearE;
+using epnn::kE;
+using epnn::kFE;
+using epnn::kFH;
+using epnn::kH;
+using epnn::kNT;
 // resident blocks an SM the registers are budgeted for: three (up to 168
 // registers a thread) beat four (128, with spills; tools/near_field_pace.py)
 constexpr int kMinBlocks = 3;
@@ -55,8 +62,9 @@ npr_kernel(const float* __restrict__ rs, const float* __restrict__ ppn,
            const float* __restrict__ w1e, const float* __restrict__ w2,
            const float* __restrict__ b2, float* __restrict__ out, int N,
            int K, int n_warps) {
-  __shared__ epnn::NearSmem s;
-  float bias[4][2];
+  extern __shared__ uint4 smem_raw[];
+  epnn::NearSmem& s = *reinterpret_cast<epnn::NearSmem*>(smem_raw);
+  float bias[kNT][2];
   epnn::near_stage(s, w1e, w2, b2, bias);
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -76,64 +84,55 @@ npr_kernel(const float* __restrict__ rs, const float* __restrict__ ppn,
     const int fa = va ? ring[ia] : 0, fb = vb ? ring[ib] : 0;
     const int rwa = va ? rows[ia] : 0, rwb = vb ? rows[ib] : 0;
     // the slot's gathered row j: pi_j, pj_j; its own row i: pi_i, pj_i
-    float ra[12], rb[12], ija[8], ijb[8], jja[8], jjb[8];
-    float iia[8], iib[8], jia[8], jib[8];
-    epnn::load_vec(rbf + (size_t)fa * kE + 12 * t, va, ra);
-    epnn::load_vec(rbf + (size_t)fb * kE + 12 * t, vb, rb);
-    epnn::load_vec(ppn + (size_t)fa * 2 * kH + 8 * t, va, ija);
-    epnn::load_vec(ppn + (size_t)fb * 2 * kH + 8 * t, vb, ijb);
-    epnn::load_vec(ppn + (size_t)fa * 2 * kH + kH + 8 * t, va, jja);
-    epnn::load_vec(ppn + (size_t)fb * 2 * kH + kH + 8 * t, vb, jjb);
+    float ra[kFE], rb[kFE], ija[kFH], ijb[kFH], jja[kFH], jjb[kFH];
+    float iia[kFH], iib[kFH], jia[kFH], jib[kFH];
+    epnn::load_vec<kFE, kE>(rbf + (size_t)fa * kE, t, va, ra);
+    epnn::load_vec<kFE, kE>(rbf + (size_t)fb * kE, t, vb, rb);
+    epnn::load_vec<kFH, kH>(ppn + (size_t)fa * 2 * kH, t, va, ija);
+    epnn::load_vec<kFH, kH>(ppn + (size_t)fb * 2 * kH, t, vb, ijb);
+    epnn::load_vec<kFH, kH>(ppn + (size_t)fa * 2 * kH + kH, t, va, jja);
+    epnn::load_vec<kFH, kH>(ppn + (size_t)fb * 2 * kH + kH, t, vb, jjb);
     const float* rsa = rs + (size_t)rwa * 2 * kH;
     const float* rsb = rs + (size_t)rwb * 2 * kH;
-    epnn::load_row8(rsa, t, va, iia);
-    epnn::load_row8(rsb, t, vb, iib);
-    epnn::load_row8(rsa + kH, t, va, jia);
-    epnn::load_row8(rsb + kH, t, vb, jib);
+    epnn::load_row<kFH, kH>(rsa, t, va, iia);
+    epnn::load_row<kFH, kH>(rsb, t, vb, iib);
+    epnn::load_row<kFH, kH>(rsa + kH, t, va, jia);
+    epnn::load_row<kFH, kH>(rsb + kH, t, vb, jib);
     const float wa = va ? wgt[fa] : 0.0f, wb = vb ? wgt[fb] : 0.0f;
-    float na[8], nb[8], ta[8], tb[8];  // pi_i + pj_j and pi_j + pj_i
+    float na[kFH], nb[kFH], ta[kFH], tb[kFH];  // pi_i + pj_j, pi_j + pj_i
 #pragma unroll
-    for (int m = 0; m < 8; ++m) {
+    for (int m = 0; m < kFH; ++m) {
       na[m] = __fadd_rn(iia[m], jja[m]);
       nb[m] = __fadd_rn(iib[m], jjb[m]);
       ta[m] = __fadd_rn(ija[m], jia[m]);
       tb[m] = __fadd_rn(ijb[m], jib[m]);
     }
 
-    float ep[4][4], ea[8], eb[8];
+    float ep[kNT][4], ea[kFH], eb[kFH];
     epnn::near_epart(ra, rb, s.b1, lane, ep);
     epnn::near_ep_rows(ep, ea, eb);
-    float zna[8], znb[8], zta[8], ztb[8];
+    float zna[kFH], znb[kFH], zta[kFH], ztb[kFH];
 #pragma unroll
-    for (int m = 0; m < 8; ++m) {
+    for (int m = 0; m < kFH; ++m) {
       zna[m] = epnn::relu(__fadd_rn(na[m], ea[m]));
       znb[m] = epnn::relu(__fadd_rn(nb[m], eb[m]));
       zta[m] = epnn::relu(__fadd_rn(ta[m], ea[m]));
       ztb[m] = epnn::relu(__fadd_rn(tb[m], eb[m]));
     }
-    float yn[4][4], yt[4][4];
+    float yn[kNT][4], yt[kNT][4];
     epnn::near_mid(zna, znb, bias, s.b2, lane, yn);
     epnn::near_mid(zta, ztb, bias, s.b2, lane, yt);
-    float(*d)[epnn::kNearDStride] = s.d[warp];
-    auto term = [](float w, float a, float b) {
-      return __fmul_rn(w, __fsub_rn(epnn::relu(a), epnn::relu(b)));
-    };
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int o = 8 * nt + 2 * t;
-      *reinterpret_cast<float2*>(&d[g][o]) =
-          make_float2(term(wa, yn[nt][0], yt[nt][0]),
-                      term(wa, yn[nt][1], yt[nt][1]));
-      *reinterpret_cast<float2*>(&d[g + 8][o]) =
-          make_float2(term(wb, yn[nt][2], yt[nt][2]),
-                      term(wb, yn[nt][3], yt[nt][3]));
-    }
-    __syncwarp();
+    epnn::near_put(s.d[warp], [&](int nt, int r) {
+      return __fmul_rn(r < 2 ? wa : wb,
+                       __fsub_rn(epnn::relu(yn[nt][r]),
+                                 epnn::relu(yt[nt][r])));
+    });
   };
   epnn::near_walk(s, warp, lane, wgt, K, r0, r1, out, tile);
 }
 
 int g_resident[epnn::kNearMaxDevices] = {};  // epnn::near_warps's cache
+constexpr int kSmem = (int)sizeof(epnn::NearSmem);
 
 }  // namespace
 
@@ -141,10 +140,12 @@ int g_resident[epnn::kNearMaxDevices] = {};  // epnn::near_warps's cache
 // walk with it); negative on a CUDA error.
 extern "C" int epnn_near_pass_rowsum_warps(int N) {
   int n_warps = 0;
-  const cudaError_t err = epnn::near_warps(npr_kernel, g_resident, N, n_warps);
+  const cudaError_t err =
+      epnn::near_warps(npr_kernel, g_resident, N, kSmem, n_warps);
   return err == cudaSuccess ? n_warps : -1;
 }
 
+// w1e (Ep, Hp), w2 (Hp, Hp), b2 (Hp,) zero-padded; out (N, H).
 extern "C" int epnn_near_pass_rowsum(const float* rs, const float* ppn,
                                      const float* rbf, const float* gh,
                                      const float* w1e, const float* w2,
@@ -154,10 +155,11 @@ extern "C" int epnn_near_pass_rowsum(const float* rs, const float* ppn,
       (long long)N * K + 32 > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   int n_warps = 0;
-  cudaError_t err = epnn::near_warps(npr_kernel, g_resident, N, n_warps);
+  cudaError_t err =
+      epnn::near_warps(npr_kernel, g_resident, N, kSmem, n_warps);
   if (err != cudaSuccess) return err;
   const int blocks = (n_warps + epnn::kNearWarps - 1) / epnn::kNearWarps;
-  npr_kernel<<<blocks, epnn::kNearThreads, 0, stream>>>(
+  npr_kernel<<<blocks, epnn::kNearThreads, kSmem, stream>>>(
       rs, ppn, rbf, gh, w1e, w2, b2, out, N, K, n_warps);
   return cudaGetLastError();
 }

@@ -41,6 +41,7 @@ from epnn_tpu_torch.ops.fused import (
     forward_blocked,
     fuse_params,
     max_neighbor_count,
+    pad_kernel_weights,
     quantize_far_field,
 )
 
@@ -106,6 +107,9 @@ class Predictor:
                              "'cell'")
         self._model = EPNN.from_params(self.cfg, self.params, self.device)
         self._fused = fuse_params(self.params, self.cfg, self.device)
+        if self.device.type == "cuda":
+            # the kernel rounds' weights at the kernels' widths, once
+            self._fused = pad_kernel_weights(self._fused)
         if self._use_pallas() and self.cfg.dense_matmul_precision == "int8":
             self._fused = quantize_far_field(self._fused)
         # safe neighbor_k per batch object, guarded by a geometry CRC

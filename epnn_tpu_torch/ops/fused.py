@@ -42,13 +42,15 @@ from epnn_tpu_torch.ops.kernels import (
     dense_message_rowsum,
     dense_message_rowsum_int8,
     dense_message_rowsum_plain,
+    KernelWeights,
     fused_epn_rowsum,
     fused_message_rowsum,
-    int8_weights,
+    int8_kernel_weights,
     near_message_corr,
     near_message_corr_plain,
     near_pass_rowsum,
     near_pass_rowsum_plain,
+    pad_weights,
 )
 
 Tensor = torch.Tensor
@@ -65,9 +67,13 @@ class PairMLPWeights:
     mids: Tuple[Tuple[Tensor, Tensor], ...]  # ((W, b), ...) hidden layers
     w_out: Tensor
     b_out: Tensor
-    #: the far field's int8-tier constants, (w2q, sw, max(b1)), made once
-    #: per set of weights by :func:`quantize_far_field`; None: made per call
+    #: the far field's int8-tier constants, (w2q, sw, max(b1)) in the int8
+    #: kernel's padded layout, made once per set of weights by
+    #: :func:`quantize_far_field`; None: made per call
     int8: Optional[Tuple[Tensor, Tensor, Tensor]] = None
+    #: (W1e, W2, b2) zero-padded to the kernels' widths, made once per set
+    #: of weights by :func:`pad_kernel_weights`; None: made per call
+    padded: Optional[KernelWeights] = None
 
     def to(self, device) -> "PairMLPWeights":
         mv = lambda a: a.to(device).contiguous()  # noqa: E731
@@ -75,7 +81,9 @@ class PairMLPWeights:
             mv(self.w1_i), mv(self.w1_j), mv(self.w1_e), mv(self.b1),
             tuple((mv(w), mv(b)) for w, b in self.mids),
             mv(self.w_out), mv(self.b_out),
-            None if self.int8 is None else tuple(map(mv, self.int8)))
+            None if self.int8 is None else tuple(map(mv, self.int8)),
+            None if self.padded is None else KernelWeights(
+                *map(mv, self.padded)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,14 +106,35 @@ class FusedParams:
 
 def quantize_far_field(fused: FusedParams) -> FusedParams:
     """``fused`` with the int8 tier's weight constants on every message
-    round that takes the kernels: W2 quantized per column
-    (:func:`~epnn_tpu_torch.ops.kernels.int8_weights`) and max(b1), the pi
-    of JAX's padding atoms.  They depend on the weights only; ``Predictor``
-    makes them once when it serves the tier."""
+    round that takes the kernels: W2 quantized per column in the int8
+    kernel's padded layout
+    (:func:`~epnn_tpu_torch.ops.kernels.int8_kernel_weights`) and max(b1),
+    the pi of JAX's padding atoms.  They depend on the weights only;
+    ``Predictor`` makes them once when it serves the tier."""
+    def quantized(w):
+        w2p = (pad_weights(*w.mids[0]) if w.padded is None else w.padded).w2
+        return dataclasses.replace(w, int8=(*int8_kernel_weights(w2p),
+                                            w.b1.amax()))
+
     return dataclasses.replace(fused, messages=tuple(
-        dataclasses.replace(w, int8=(*int8_weights(w.mids[0][0]),
-                                     w.b1.amax()))
-        if kernels_apply(w) else w for w in fused.messages))
+        quantized(w) if kernels_apply(w) else w for w in fused.messages))
+
+
+def pad_kernel_weights(fused: FusedParams) -> FusedParams:
+    """``fused`` with every kernel round's (W1e, W2, b2) zero-padded to the
+    kernels' widths (:func:`~epnn_tpu_torch.ops.kernels.pad_weights`; the
+    same tensors, no copy, at widths that are multiples of 8).  They depend
+    on the weights only; ``Predictor`` makes them once when it serves on
+    the card, so no round pads at every call."""
+    def padded(w):
+        return dataclasses.replace(w, padded=pad_weights(*w.mids[0], w.w1_e))
+
+    return dataclasses.replace(
+        fused,
+        messages=tuple(padded(w) if kernels_apply(w) else w
+                       for w in fused.messages),
+        passes=tuple(padded(w) if kernels_apply(w) else w
+                     for w in fused.passes))
 
 
 def _mlp_layers(tree: dict) -> List[Tuple[Tensor, Tensor]]:
@@ -301,9 +330,7 @@ def kernels_apply(w: PairMLPWeights) -> bool:
     ``:1798``).  Rounds of another depth run the same split through the
     plain versions at any width, on the CPU and the card alike, as JAX's
     XLA branches do: a rule of the configuration, not a fallback on
-    failure.  A one-mid round at widths the kernels are not built for
-    (H ≠ 32, E ≠ 48) reaches the wrappers, which raise on a CUDA tensor
-    (ROADMAP queue 2)."""
+    failure."""
     return len(w.mids) == 1
 
 
@@ -331,6 +358,12 @@ def _int8_pad_pi(w: PairMLPWeights, n: int) -> Optional[Tensor]:
     if n % _dense_message_pad(8, 8, h) == 0:
         return None
     return w.b1.new_zeros(())
+
+
+def _padded(w: PairMLPWeights) -> dict:
+    """The kernel wrappers' ``padded`` keyword where the round keeps padded
+    weights (:func:`pad_kernel_weights`); else the wrappers pad per call."""
+    return {} if w.padded is None else {"padded": w.padded}
 
 
 def _flat(mids) -> Tuple[Tensor, ...]:
@@ -437,12 +470,14 @@ def _forward_single_nbr(
         elif int8:
             dense_sum = dense_message_rowsum_int8(
                 pi, pj, jvec, *mids, pad_pi=_int8_pad_pi(w, n),
-                w2_int8=None if w.int8 is None else w.int8[:2])
+                w2_int8=None if w.int8 is None else w.int8[:2], **_padded(w))
         else:
-            dense_sum = dense_message_rowsum(pi, pj, jvec, *mids)
-        near = near_message_corr if kern else near_message_corr_plain
-        near_corr = near(pi, torch.index_select(pj, 0, idx_flat), rbf_flat,
-                         nbr_mask, w.w1_e, *mids)
+            dense_sum = dense_message_rowsum(pi, pj, jvec, *mids,
+                                             **_padded(w))
+        near_args = (pi, torch.index_select(pj, 0, idx_flat), rbf_flat,
+                     nbr_mask, w.w1_e, *mids)
+        near_corr = (near_message_corr(*near_args, **_padded(w)) if kern
+                     else near_message_corr_plain(*near_args))
         hsum = dense_sum + near_corr
         messages = hsum @ w.w_out + msg_count[:, None] * w.b_out
         upd_in = torch.cat([h, messages], dim=-1) * nm
@@ -452,9 +487,10 @@ def _forward_single_nbr(
     for w in fused.passes:
         a = _atom_inputs(x, h, q)
         rs = torch.cat([a @ w.w1_i + w.b1, a @ w.w1_j], dim=-1)
-        near = near_pass_rowsum if kernels_apply(w) else near_pass_rowsum_plain
-        dsum = near(rs, torch.index_select(rs, 0, idx_flat), rbf_flat,
-                    gh_pass, w.w1_e, *_flat(w.mids))
+        pass_args = (rs, torch.index_select(rs, 0, idx_flat), rbf_flat,
+                     gh_pass, w.w1_e, *_flat(w.mids))
+        dsum = (near_pass_rowsum(*pass_args, **_padded(w))
+                if kernels_apply(w) else near_pass_rowsum_plain(*pass_args))
         q = q + (dsum @ w.w_out)[:, 0]
     return q * node_mask
 
@@ -567,7 +603,7 @@ def _forward_single_pallas(
         pj = (a @ w.w1_j).contiguous()
         hsum = fused_message_rowsum(pi, pj, xyz, node_mask, col_vec, w.w1_e,
                                     w2, b2, masked=cfg.mask_messages,
-                                    **pair_kw)
+                                    **_padded(w), **pair_kw)
         messages = hsum @ w.w_out + msg_count[:, None] * w.b_out
         upd_in = torch.cat([h, messages], dim=-1) * nm
         h = _apply_mlp(fused.update, upd_in) * nm
@@ -579,7 +615,7 @@ def _forward_single_pallas(
         pi = (a @ w.w1_i + w.b1).contiguous()
         pj = (a @ w.w1_j).contiguous()
         dsum = fused_epn_rowsum(pi, pj, xyz, node_mask, w.w1_e, w2, b2,
-                                soft_gate=soft, **pair_kw)
+                                soft_gate=soft, **_padded(w), **pair_kw)
         q = q + (dsum @ w.w_out)[:, 0]           # b_out cancels
     return q * node_mask
 

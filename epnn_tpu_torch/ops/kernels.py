@@ -32,38 +32,48 @@ backward raises.
 
 Each wrapper takes tensors on one device.  On the CPU it runs the plain
 version (``*_plain``); on a CUDA tensor it launches the kernel on the
-current stream or raises — there is no fallback.  The kernels are built
-for one mid layer at H = 32 (E = 48); the three plain versions of the
-neighbor split also take any number of mid layers, any width, which is
-how ``ops.fused`` runs rounds of another depth (JAX's XLA branches).
-Every launch adds one to :data:`LAUNCHES`, so a run can show which
-kernels it went through.
+current stream or raises — there is no fallback.  The kernels take one
+mid layer at any mid width H and RBF width E from 1 to
+:data:`MAX_WIDTH` (wider raises, ROADMAP queue 3); the three plain
+versions of the neighbor split also take any number of mid layers, any
+width, which is how ``ops.fused`` runs rounds of another depth (JAX's XLA
+branches).  Every launch adds one to :data:`LAUNCHES`, so a run can show
+which kernels it went through.
 
 The kernels are CUDA C++ for ``sm_90a`` with a plain C interface, built by
 ``nvcc`` into shared libraries under ``build/epnn_tpu_torch/`` of the
-checkout on first use and loaded with ``ctypes``; :func:`build` compiles
-all of them in parallel.  Nothing is built when this module is imported.
-All but one are float32-grade: the far field, its backward and the two
-near kernels run their products on the tensor cores in 3xTF32 (each
-operand split into two TF32 parts, three products, fp32 accumulation —
-:func:`tf32_round`, ``*_3xtf32_plain`` repeat that arithmetic on any
-device), the others in fp32 on the CUDA cores.  None is the TF32 tier:
-one TF32 pass keeps ~2^-11.  The exception is the int8 far field, the
-JAX package's fast serving tier: its plain version repeats its
-quantization exactly (the integer products are exact in float32).
+checkout on first use and loaded with ``ctypes``: one library per kernel
+and width (H, and E where the kernel takes one), compiled with the widths
+as constants (``EPNN_H``, ``EPNN_E``; ``csrc/common.cuh``), so the shipped
+H = 32, E = 48 build has no tail test.  The products run at the widths
+padded to the tensor cores' granularity (:func:`padded_width`), on weights
+zero-padded once per set of weights (:func:`pad_weights`, or per call
+where the caller keeps none); activations are read at their real width.
+:func:`build` compiles all of them in parallel.  Nothing is built when
+this module is imported.
+All but one are float32-grade: the far field, its backward, the two
+near kernels and the two fused dense kernels run their products on the
+tensor cores in 3xTF32 (each operand split into two TF32 parts, three
+products, fp32 accumulation — :func:`tf32_round`, ``*_3xtf32_plain``
+repeat that arithmetic on any device).  None is the TF32 tier: one TF32
+pass keeps ~2^-11.  The exception is the int8 far field, the JAX
+package's fast serving tier: its plain version repeats its quantization
+exactly (the integer products are exact in float32).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from epnn_tpu_torch.featurize import (envelope_rbf, hard_gate, kernel_mu,
@@ -89,11 +99,24 @@ SOURCES = {
 #: kernel launches since the last :func:`reset_launch_counts`
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 
-#: widths the compiled kernels are instantiated for (mid width H, RBF E)
+#: the shipped model's widths (mid width H, RBF width E): the libraries
+#: :func:`build` makes by default
 KERNEL_H = 32
 KERNEL_E = 48
+#: the widest H and E the kernels take: at H = E = 128 the near kernels'
+#: staged weight fragments alone would need ~256 KB of shared memory
+#: (ROADMAP queue 3)
+MAX_WIDTH = 64
+#: which widths each kernel's library is compiled for: H and E, H only,
+#: or none
+_WIDTHS_OF = {
+    "dense_message_rowsum": "h", "dense_message_rowsum_int8": "h",
+    "dense_message_rowsum_bwd": "h", "near_message_corr": "he",
+    "near_pass_rowsum": "he", "fused_message_rowsum": "he",
+    "fused_epn_rowsum": "he", "neighbor_compact": "",
+}
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS: Dict[tuple, ctypes.CDLL] = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -103,8 +126,8 @@ _ARGTYPES = {
     "near_message_corr": [_P] * 8 + [_I] * 4 + [_P],
     "near_pass_rowsum": [_P] * 8 + [_I] * 4 + [_P],
     "dense_message_rowsum_bwd": [_P] * 11 + [_I] * 7 + [_P],
-    "fused_message_rowsum": [_P] * 11 + [_I] * 6 + [_F] * 2 + [_P],
-    "fused_epn_rowsum": [_P] * 10 + [_I] * 6 + [_F] * 3 + [_P],
+    "fused_message_rowsum": [_P] * 11 + [_I] * 6 + [_F] * 3 + [_P],
+    "fused_epn_rowsum": [_P] * 9 + [_I] * 4 + [_F] * 4 + [_P],
     "neighbor_compact": [_P] * 4 + [_I] * 2 + [_F] + [_P],
 }
 
@@ -123,62 +146,85 @@ def _nvcc() -> str:
                        "the CUDA kernels are built from csrc/ on first use")
 
 
-def _lib_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (SOURCES[name], "common.cuh"):
+def lib_widths(name: str, h: Optional[int] = KERNEL_H,
+               e: Optional[int] = KERNEL_E) -> tuple:
+    """The widths ``name``'s library is compiled for, given the call's H
+    and E: ``(h, e)``, ``(h,)`` or ``()``."""
+    return tuple(w for w, k in ((h, "h"), (e, "e")) if k in _WIDTHS_OF[name])
+
+
+def _lib_path(name: str, widths: tuple) -> Path:
+    flags = _flags(name, widths)
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in (SOURCES[name], "common.cuh", "far_field.cuh"):
         h.update((CSRC / src).read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+    tag = "".join(f"-{k}{w}" for k, w in zip(_WIDTHS_OF[name], widths))
+    return BUILD_DIR / f"lib{name}{tag}-{h.hexdigest()[:12]}.so"
 
 
-def build(names: Optional[Iterable[str]] = None) -> float:
-    """Compile the named kernels (default: all), one ``nvcc`` per source,
+def _flags(name: str, widths: tuple) -> list:
+    return NVCC_FLAGS + [f"-DEPNN_{k.upper()}={w}"
+                         for k, w in zip(_WIDTHS_OF[name], widths)]
+
+
+def build(names: Optional[Iterable[str]] = None,
+          widths: Iterable[Tuple[int, int]] = ((KERNEL_H, KERNEL_E),)
+          ) -> float:
+    """Compile the named kernels (default: all) at each (H, E) of
+    ``widths`` (default: the shipped model's), one ``nvcc`` per library,
     all started together; libraries already built from the same sources
-    are kept.  Returns the wall seconds taken.  Compiler output (with
-    ``-Xptxas -v`` register and spill counts) goes to ``<lib>.log``."""
+    and widths are kept.  Returns the wall seconds taken.  Compiler output
+    (with ``-Xptxas -v`` register and spill counts) goes to ``<lib>.log``."""
     t0 = time.perf_counter()
     names = list(SOURCES if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = []
+    jobs, seen = [], set()
     for name in names:
-        lib = _lib_path(name)
-        if lib.exists():
-            continue
-        tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
-        log = open(lib.with_suffix(".log"), "w")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
-        jobs.append((name, lib, tmp, log,
-                     subprocess.Popen(cmd, stdout=log,
-                                      stderr=subprocess.STDOUT)))
+        for h, e in widths:
+            key = lib_widths(name, h, e)
+            lib = _lib_path(name, key)
+            if (name, key) in seen or lib.exists():
+                continue
+            seen.add((name, key))
+            tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
+            log = open(lib.with_suffix(".log"), "w")
+            cmd = [_nvcc(), *_flags(name, key), "-o", str(tmp),
+                   str(CSRC / SOURCES[name])]
+            jobs.append((name, key, lib, tmp, log,
+                         subprocess.Popen(cmd, stdout=log,
+                                          stderr=subprocess.STDOUT)))
     failed = []
-    for name, lib, tmp, log, proc in jobs:
+    for name, key, lib, tmp, log, proc in jobs:
         rc = proc.wait()
         log.close()
         if rc == 0:
             os.replace(tmp, lib)
         else:
             tail = Path(log.name).read_text()[-4000:]
-            failed.append(f"{name} (nvcc rc={rc}):\n{tail}")
+            failed.append(f"{name} {key} (nvcc rc={rc}):\n{tail}")
     if failed:
         raise RuntimeError("kernel build failed: " + ", ".join(failed))
     return time.perf_counter() - t0
 
 
-def build_log(name: str) -> str:
-    path = _lib_path(name).with_suffix(".log")
+def build_log(name: str, h: int = KERNEL_H, e: int = KERNEL_E) -> str:
+    path = _lib_path(name, lib_widths(name, h, e)).with_suffix(".log")
     return path.read_text() if path.exists() else ""
 
 
-def _lib(name: str) -> ctypes.CDLL:
-    lib = _LIBS.get(name)
+def _lib(name: str, h: Optional[int] = KERNEL_H,
+         e: Optional[int] = KERNEL_E) -> ctypes.CDLL:
+    widths = lib_widths(name, h, e)
+    lib = _LIBS.get((name, widths))
     if lib is None:
-        path = _lib_path(name)
+        path = _lib_path(name, widths)
         if not path.exists():
-            build([name])
+            build([name], [(h, e)])
         lib = ctypes.CDLL(str(path))
         fn = getattr(lib, f"epnn_{name}")
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
-        _LIBS[name] = lib
+        _LIBS[(name, widths)] = lib
     return lib
 
 
@@ -207,19 +253,21 @@ def _check(name: str, tensors: dict, shapes: dict) -> torch.device:
 
 
 def _launch(name: str, device: torch.device, tensors, scalars,
-            vector_read) -> None:
+            vector_read, h: Optional[int] = None,
+            e: Optional[int] = None) -> None:
     """``tensors``: the C entry's pointers, in order (None: a null
     pointer).  ``scalars``: its int and float arguments, in order.
     ``vector_read``: the tensors the kernel reads as float4, which must
     start on a 16-byte boundary; the others are read one float at a time
-    and may be any view (a row of a batch, for one)."""
+    and may be any view (a row of a batch, for one).  ``h``, ``e``: the
+    widths of the library to launch."""
     for key, t in vector_read.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {key} is read as float4 and must "
                              "start on a 16-byte boundary")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(_lib(name), f"epnn_{name}")(
+        err = getattr(_lib(name, h, e), f"epnn_{name}")(
             *[None if t is None else t.data_ptr() for t in tensors],
             *scalars, stream)
     if err != 0:
@@ -227,12 +275,80 @@ def _launch(name: str, device: torch.device, tensors, scalars,
     LAUNCHES[name] += 1
 
 
-def _require_widths(name: str, h: int, e: Optional[int] = None) -> None:
-    if h != KERNEL_H or (e is not None and e != KERNEL_E):
+def padded_width(n: int, step: int = 8) -> int:
+    """``n`` rounded up to a multiple of ``step``: the width a kernel's
+    products run at (8: the TF32 tensor cores' N and K; 32: the int8
+    product's K)."""
+    return -(-n // step) * step
+
+
+def _check_max_width(name: str, h: int, e: Optional[int] = None) -> None:
+    """The kernels take H and E from 1 to :data:`MAX_WIDTH`."""
+    if not 1 <= h <= MAX_WIDTH or (e is not None and not 1 <= e <= MAX_WIDTH):
         raise NotImplementedError(
-            f"{name}: the CUDA kernel is built for H={KERNEL_H}"
-            + (f", E={KERNEL_E}" if e is not None else "")
-            + f"; got H={h}" + (f", E={e}" if e is not None else ""))
+            f"{name}: the CUDA kernels take widths from 1 to {MAX_WIDTH}; "
+            f"got H={h}" + (f", E={e}" if e is not None else "")
+            + " (ROADMAP queue 3)")
+
+
+def _vector(width: int) -> bool:
+    """Whether a kernel reads rows of ``width`` floats as float4 (each
+    thread's share of a row is then whole float4s)."""
+    return width % 16 == 0
+
+
+class KernelWeights(NamedTuple):
+    """A round's mid-layer weights as the kernels take them, zero-padded
+    to the padded widths: ``w1e`` (Ep, Hp) (None for the far field), ``w2``
+    (Hp, Hp), ``b2`` (Hp,).  :func:`pad_weights` makes them."""
+
+    w1e: Optional[torch.Tensor]
+    w2: torch.Tensor
+    b2: torch.Tensor
+
+
+def _pad_to(t, shape):
+    if tuple(t.shape) == tuple(shape):
+        return t
+    out = t.new_zeros(shape)
+    out[tuple(slice(0, n) for n in t.shape)] = t
+    return out
+
+
+def pad_weights(w2, b2, w1e=None) -> KernelWeights:
+    """``w2`` (H, H), ``b2`` (H,), ``w1e`` (E, H) zero-padded to H and E
+    rounded up to 8 (:func:`padded_width`): the kernels' products at the
+    padded widths give the real ones' results exactly (a padded hidden
+    unit is relu(0 + 0) = 0, a padded channel adds 0).  At the shipped
+    widths (multiples of 8) the tensors come back as they are, no copy.
+    They depend on the weights only: ``ops.fused.pad_kernel_weights`` makes them
+    once per set of weights."""
+    hp = padded_width(w2.shape[0])
+    if w1e is not None:
+        w1e = _pad_to(w1e, (padded_width(w1e.shape[0]), hp)).contiguous()
+    return KernelWeights(w1e, _pad_to(w2, (hp, hp)).contiguous(),
+                         _pad_to(b2, (hp,)).contiguous())
+
+
+def _kernel_weights(name: str, padded: Optional[KernelWeights], w2, b2,
+                    w1e=None) -> KernelWeights:
+    """The caller's padded weights (checked against the real ones'
+    shapes and device), or made here."""
+    if padded is None:
+        return pad_weights(w2, b2, w1e)
+    h = w2.shape[0]
+    hp = padded_width(h)
+    want = {"w2": (hp, hp), "b2": (hp,)}
+    if w1e is not None:
+        want["w1e"] = (padded_width(w1e.shape[0]), hp)
+    for key, shape in want.items():
+        t = getattr(padded, key)
+        if (not isinstance(t, torch.Tensor) or tuple(t.shape) != shape
+                or t.dtype != torch.float32 or t.device != w2.device
+                or not t.is_contiguous()):
+            raise ValueError(f"{name}: padded.{key} must be pad_weights(...)"
+                             f".{key}, {shape} float32 on {w2.device}")
+    return padded
 
 
 def _plain_rows(r: int, n: int, width: int) -> int:
@@ -347,7 +463,7 @@ def _dense_message_splits(r: int, n: int, target: int = _DMR_TARGET_BLOCKS,
     return -(-n // cols), cols
 
 
-def _dense_message_rowsum_fwd(pi, pj, col_vec, w2, b2):
+def _dense_message_rowsum_fwd(pi, pj, col_vec, w2, b2, padded=None):
     name = "dense_message_rowsum"
     r, h = pi.shape
     n = pj.shape[0]
@@ -356,7 +472,8 @@ def _dense_message_rowsum_fwd(pi, pj, col_vec, w2, b2):
                          b2=(h,)))
     if device.type == "cpu":
         return dense_message_rowsum_plain(pi, pj, col_vec, w2, b2)
-    _require_widths(name, h)
+    _check_max_width(name, h)
+    kw = _kernel_weights(name, padded, w2, b2)
     out = pi.new_empty((r, h))
     if r == 0:
         return out
@@ -364,8 +481,8 @@ def _dense_message_rowsum_fwd(pi, pj, col_vec, w2, b2):
         return out.zero_()
     splits, cols = _dense_message_splits(r, n)
     part = pi.new_empty((splits, r, h))
-    _launch(name, device, (pi, pj, col_vec, w2, b2, part, out),
-            (r, n, h, splits, cols), {})
+    _launch(name, device, (pi, pj, col_vec, kw.w2, kw.b2, part, out),
+            (r, n, h, splits, cols), {}, h)
     return out
 
 
@@ -412,11 +529,13 @@ def dense_message_rowsum_bwd_3xtf32_plain(pi, pj, col_vec, w2, b2, g):
     return _far_bwd_rows(pi, pj, col_vec, w2, b2, g, _mm_3xtf32)
 
 
-def dense_message_rowsum_bwd(pi, pj, col_vec, w2, b2, g):
+def dense_message_rowsum_bwd(pi, pj, col_vec, w2, b2, g, padded=None):
     """Backward of the far-field reduction (see
     ``csrc/dense_message_rowsum_bwd.cu``): ``(dpi, dpj, dw2, db2)`` for the
     cotangent ``g`` (R, H) of ``out``, with z1 and z2 recomputed in the
-    tile.  Deterministic: partial sums are added in a fixed order."""
+    tile.  Deterministic: partial sums are added in a fixed order.
+    ``padded``: :func:`pad_weights` of (w2, b2) where the caller keeps it;
+    else it is made here."""
     name = "dense_message_rowsum_bwd"
     r, h = pi.shape
     n = pj.shape[0]
@@ -426,7 +545,8 @@ def dense_message_rowsum_bwd(pi, pj, col_vec, w2, b2, g):
                          b2=(h,), g=(r, h)))
     if device.type == "cpu":
         return dense_message_rowsum_bwd_plain(pi, pj, col_vec, w2, b2, g)
-    _require_widths(name, h)
+    _check_max_width(name, h)
+    kw = _kernel_weights(name, padded, w2, b2)
     dpi, dpj = pi.new_empty((r, h)), pj.new_empty((n, h))
     dw2, db2 = w2.new_empty((h, h)), b2.new_empty((h,))
     if r == 0 or n == 0:
@@ -436,9 +556,9 @@ def dense_message_rowsum_bwd(pi, pj, col_vec, w2, b2, g):
     blocks_r = -(-r // _DMR_ROWS) * splits_r
     work = pi.new_empty(splits_r * r * h + splits_c * n * h
                         + blocks_r * (h * h + h))
-    _launch(name, device, (pi, pj, col_vec, w2, b2, g, work, dpi, dpj, dw2,
-                           db2),
-            (r, n, h, splits_r, cols, splits_c, rows), {})
+    _launch(name, device, (pi, pj, col_vec, kw.w2, kw.b2, g, work, dpi, dpj,
+                           dw2, db2),
+            (r, n, h, splits_r, cols, splits_c, rows), {}, h)
     return dpi, dpj, dw2, db2
 
 
@@ -447,28 +567,32 @@ class _DenseMessageRowsum(torch.autograd.Function):
     only the inputs (as ``_dmr_fwd``, ``pallas_kernels.py:1071``)."""
 
     @staticmethod
-    def forward(ctx, pi, pj, col_vec, w2, b2):
+    def forward(ctx, pi, pj, col_vec, w2, b2, padded):
         ctx.save_for_backward(pi, pj, col_vec, w2, b2)
-        return _dense_message_rowsum_fwd(pi, pj, col_vec, w2, b2)
+        ctx.padded = padded
+        return _dense_message_rowsum_fwd(pi, pj, col_vec, w2, b2, padded)
 
     @staticmethod
     def backward(ctx, g):
         pi, pj, col_vec, w2, b2 = ctx.saved_tensors
         dpi, dpj, dw2, db2 = dense_message_rowsum_bwd(
-            pi, pj, col_vec, w2, b2, g.contiguous())
-        return dpi, dpj, None, dw2, db2
+            pi, pj, col_vec, w2, b2, g.contiguous(), ctx.padded)
+        return dpi, dpj, None, dw2, db2, None
 
 
-def dense_message_rowsum(pi, pj, col_vec, w2, b2):
+def dense_message_rowsum(pi, pj, col_vec, w2, b2, padded=None):
     """Far-field message row sums (see ``csrc/dense_message_rowsum.cu``):
 
         out_i = Σ_j col_vec_j · relu(relu(pi_i + pj_j) @ W2 + b2)
 
     pi (R, H) carries the first-layer bias; pj (N, H); col_vec (N,) is the
     node mask (clean mode) or ones (reference-compat mode); W2 (H, H);
-    b2 (H,).  Rectangular: R need not equal N.  Differentiable in pi, pj,
-    W2 and b2 through :func:`dense_message_rowsum_bwd`."""
-    return _DenseMessageRowsum.apply(pi, pj, col_vec, w2, b2)
+    b2 (H,).  Rectangular: R need not equal N.  ``padded``:
+    :func:`pad_weights` of (w2, b2) where the caller keeps it (made per
+    call otherwise; no copy at widths that are multiples of 8).
+    Differentiable in pi, pj, W2 and b2 through
+    :func:`dense_message_rowsum_bwd`."""
+    return _DenseMessageRowsum.apply(pi, pj, col_vec, w2, b2, padded)
 
 
 # ---------------------------------------------------------------------------
@@ -507,6 +631,17 @@ def int8_activation_scale(pi, pj, pad_pi=None):
     return _div127(torch.clamp(torch.relu(pi_max + pj_max), min=1e-30))
 
 
+def int8_kernel_weights(w2p):
+    """``(w2q, sw)`` in the int8 kernel's layout from W2 padded to Hp
+    (:func:`pad_weights`): :func:`int8_weights` of it, w2q's rows padded
+    with zeros to H rounded up to 32 (the int8 product's K) — (Hq, Hp)
+    int8 and (Hp,).  A padded column gets sw = 1e-30 / 127 from the clamp
+    and w2q 0 (no division by zero)."""
+    w2q, sw = int8_weights(w2p)
+    return _pad_to(w2q, (padded_width(w2p.shape[0], 32), w2p.shape[1])
+                   ).contiguous(), sw
+
+
 def int8_scales(s_in, sw):
     """``(dq, inv)``: the dequantization scale s_in·sw (H,) and the
     quantization scale 1 / s_in, as JAX computes them (``pallas_kernels.py:
@@ -527,8 +662,8 @@ def dense_message_rowsum_int8_plain(pi, pj, col_vec, w2, b2, pad_pi=None):
     such rows change only s_in.  The integer product runs as a float32
     matmul of integer-valued tensors, which is exact: every |q|, |w2q| ≤
     127 and a row of H = 32 products sums to at most 516,128 < 2^24 in
-    magnitude.  So only the order of the sum over j differs from the
-    kernel's or the JAX package's."""
+    magnitude (H ≤ 64: 1,032,256).  So only the order of the sum over j
+    differs from the kernel's or the JAX package's."""
     s_in = int8_activation_scale(pi, pj, pad_pi)
     w2q, sw = int8_weights(w2)
     w2q = w2q.to(pi.dtype)
@@ -546,7 +681,7 @@ def dense_message_rowsum_int8_plain(pi, pj, col_vec, w2, b2, pad_pi=None):
 
 
 def _dense_message_rowsum_int8_fwd(pi, pj, col_vec, w2, b2, pad_pi,
-                                   w2_int8):
+                                   w2_int8, padded=None):
     name = "dense_message_rowsum_int8"
     r, h = pi.shape
     n = pj.shape[0]
@@ -558,24 +693,34 @@ def _dense_message_rowsum_int8_fwd(pi, pj, col_vec, w2, b2, pad_pi,
     if device.type == "cpu":
         return dense_message_rowsum_int8_plain(pi, pj, col_vec, w2, b2,
                                                pad_pi)
-    _require_widths(name, h)
+    _check_max_width(name, h)
+    kw = _kernel_weights(name, padded, w2, b2)
     out = pi.new_empty((r, h))
     if r == 0:
         return out
     if n == 0:
         return out.zero_()
-    w2q, sw = int8_weights(w2) if w2_int8 is None else w2_int8
-    _check(name, dict(sw=sw), dict(sw=(h,)))
-    if (w2q.dtype != torch.int8 or tuple(w2q.shape) != (h, h)
-            or not w2q.is_contiguous() or w2q.device != device
-            or sw.device != device):
-        raise ValueError(f"{name}: w2_int8 must be int8_weights(w2) on "
+    hp, hq = padded_width(h), padded_width(h, 32)
+    if w2_int8 is None:
+        w2q, sw = int8_kernel_weights(kw.w2)
+    else:
+        w2q, sw = w2_int8
+        if tuple(w2q.shape) == (h, h) and (h, h) != (hq, hp):
+            w2q, sw = _pad_to(w2q, (hq, hp)), _pad_to(sw, (hp,))
+    _check(name, dict(sw=sw), dict(sw=(hp,)))
+    if (w2q.dtype != torch.int8 or tuple(w2q.shape) != (hq, hp)
+            or not w2q.is_contiguous() or w2q.device != pi.device
+            or sw.device != pi.device):
+        raise ValueError(f"{name}: w2_int8 must be int8_weights(w2) or "
+                         f"int8_kernel_weights(pad_weights(w2, b2).w2) on "
                          f"{device}")
     splits, cols = _dense_message_splits(r, n)
     part = pi.new_empty((splits, r, h))
-    _launch(name, device, (pi, pj, col_vec, w2q, sw, b2, pi.amax(),
+    # the maxima run over the real columns only, as JAX's do: a zero
+    # padding column would raise a negative maximum to 0
+    _launch(name, device, (pi, pj, col_vec, w2q, sw, kw.b2, pi.amax(),
                            pj.amax(), pad_pi, part, out),
-            (r, n, h, splits, cols), {})
+            (r, n, h, splits, cols), {}, h)
     return out
 
 
@@ -586,21 +731,22 @@ class _DenseMessageRowsumInt8(torch.autograd.Function):
     gradient: in the JAX package the scale is internal to the kernel."""
 
     @staticmethod
-    def forward(ctx, pi, pj, col_vec, w2, b2, pad_pi, w2_int8):
+    def forward(ctx, pi, pj, col_vec, w2, b2, pad_pi, w2_int8, padded):
         ctx.save_for_backward(pi, pj, col_vec, w2, b2)
+        ctx.padded = padded
         return _dense_message_rowsum_int8_fwd(pi, pj, col_vec, w2, b2,
-                                              pad_pi, w2_int8)
+                                              pad_pi, w2_int8, padded)
 
     @staticmethod
     def backward(ctx, g):
         pi, pj, col_vec, w2, b2 = ctx.saved_tensors
         dpi, dpj, dw2, db2 = dense_message_rowsum_bwd(
-            pi, pj, col_vec, w2, b2, g.contiguous())
-        return dpi, dpj, None, dw2, db2, None, None
+            pi, pj, col_vec, w2, b2, g.contiguous(), ctx.padded)
+        return dpi, dpj, None, dw2, db2, None, None, None
 
 
 def dense_message_rowsum_int8(pi, pj, col_vec, w2, b2, pad_pi=None,
-                              w2_int8=None):
+                              w2_int8=None, padded=None):
     """The far field in the JAX package's int8 serving tier (see
     ``csrc/dense_message_rowsum_int8.cu`` and
     :func:`dense_message_rowsum_int8_plain`): relu(pi_i + pj_j) quantized
@@ -608,11 +754,12 @@ def dense_message_rowsum_int8(pi, pj, col_vec, w2, b2, pad_pi=None,
     the pi of the padding rows JAX's operands would carry, or None), W2 per
     output column, int32 products, dequantized, + b2.  Arguments otherwise
     as :func:`dense_message_rowsum`.  ``w2_int8`` — ``int8_weights(w2)``
-    where the caller keeps it; else it is made here.  On the card a call
-    adds two reductions (the maxima) to the kernel, which forms the scales
-    itself.  Differentiable straight through."""
+    or, at the kernel's padded widths, :func:`int8_kernel_weights`, where
+    the caller keeps it; else it is made here.  On the card a call adds
+    two reductions (the maxima, over the real columns) to the kernel,
+    which forms the scales itself.  Differentiable straight through."""
     return _DenseMessageRowsumInt8.apply(pi, pj, col_vec, w2, b2, pad_pi,
-                                         w2_int8)
+                                         w2_int8, padded)
 
 
 class _PlainRecompute(torch.autograd.Function):
@@ -624,22 +771,23 @@ class _PlainRecompute(torch.autograd.Function):
     kernel."""
 
     @staticmethod
-    def forward(ctx, fwd, plain, *args):
+    def forward(ctx, fwd, plain, padded, *args):
         ctx.plain = plain
         ctx.save_for_backward(*args)
-        return fwd(*args)
+        return fwd(*args, padded)
 
     @staticmethod
     def backward(ctx, g):
         args = ctx.saved_tensors
-        want = ctx.needs_input_grad[2:]
+        want = ctx.needs_input_grad[3:]
         with torch.enable_grad():
             leaves = [a.detach().requires_grad_(w) for a, w in zip(args, want)]
             out = ctx.plain(*leaves)
             wrt = [a for a, w in zip(leaves, want) if w]
             grads = iter(torch.autograd.grad(out, wrt, g.contiguous(),
                                              allow_unused=True))
-        return (None, None, *[next(grads) if w else None for w in want])
+        return (None, None, None,
+                *[next(grads) if w else None for w in want])
 
 
 # ---------------------------------------------------------------------------
@@ -672,7 +820,7 @@ def near_message_corr_3xtf32_plain(pi, pjn, rbf, mask, w1e, w2, b2):
     return _near_msg_rows(pi, pjn, rbf, mask, w1e, ((w2, b2),), _mm_3xtf32)
 
 
-def _near_message_corr_fwd(pi, pjn, rbf, mask, w1e, w2, b2):
+def _near_message_corr_fwd(pi, pjn, rbf, mask, w1e, w2, b2, padded=None):
     name = "near_message_corr"
     n, h = pi.shape
     k = mask.shape[1] if mask.dim() == 2 else 0
@@ -683,29 +831,34 @@ def _near_message_corr_fwd(pi, pjn, rbf, mask, w1e, w2, b2):
                          mask=(n, k), w1e=(e, h), w2=(h, h), b2=(h,)))
     if device.type == "cpu":
         return near_message_corr_plain(pi, pjn, rbf, mask, w1e, w2, b2)
-    _require_widths(name, h, e)
+    _check_max_width(name, h, e)
+    kw = _kernel_weights(name, padded, w2, b2, w1e)
     out = pi.new_empty((n, h))
     if n == 0:
         return out
     if k == 0:
         return out.zero_()
-    _launch(name, device, (pi, pjn, rbf, mask, w1e, w2, b2, out),
-            (n, k, h, e), dict(pjn=pjn, rbf=rbf))
+    vec = dict(pjn=pjn) if _vector(h) else {}
+    if _vector(e):
+        vec["rbf"] = rbf
+    _launch(name, device, (pi, pjn, rbf, mask, kw.w1e, kw.w2, kw.b2, out),
+            (n, k, h, e), vec, h, e)
     return out
 
 
-def near_message_corr(pi, pjn, rbf, mask, w1e, w2, b2):
+def near_message_corr(pi, pjn, rbf, mask, w1e, w2, b2, padded=None):
     """Near-field message correction (see ``csrc/near_message_corr.cu``).
 
     pi (N, H) row projections with b1 folded in; pjn (N·K, H) gathered
     column projections ``pj[idx.ravel()]``; rbf (N·K, E) gathered-pair RBF
-    features; mask (N, K) slot validity; W1e (E, H); W2 (H, H); b2 (H,).
-    Differentiable: the backward recomputes through
+    features; mask (N, K) slot validity; W1e (E, H); W2 (H, H); b2 (H,);
+    ``padded``: :func:`pad_weights` of (w2, b2, w1e) where the caller keeps
+    it.  Differentiable: the backward recomputes through
     :func:`near_message_corr_plain` (as the JAX custom VJP does through its
     XLA twin)."""
     return _PlainRecompute.apply(_near_message_corr_fwd,
-                                 near_message_corr_plain, pi, pjn, rbf, mask,
-                                 w1e, w2, b2)
+                                 near_message_corr_plain, padded, pi, pjn,
+                                 rbf, mask, w1e, w2, b2)
 
 
 # ---------------------------------------------------------------------------
@@ -742,7 +895,7 @@ def near_pass_rowsum_3xtf32_plain(rs, ppn, rbf, gh, w1e, w2, b2):
     return _near_pass_rows(rs, ppn, rbf, gh, w1e, ((w2, b2),), _mm_3xtf32)
 
 
-def _near_pass_rowsum_fwd(rs, ppn, rbf, gh, w1e, w2, b2):
+def _near_pass_rowsum_fwd(rs, ppn, rbf, gh, w1e, w2, b2, padded=None):
     name = "near_pass_rowsum"
     n, h2 = rs.shape
     h = h2 // 2
@@ -754,40 +907,46 @@ def _near_pass_rowsum_fwd(rs, ppn, rbf, gh, w1e, w2, b2):
                          gh=(n, k), w1e=(e, h), w2=(h, h), b2=(h,)))
     if device.type == "cpu":
         return near_pass_rowsum_plain(rs, ppn, rbf, gh, w1e, w2, b2)
-    _require_widths(name, h, e)
+    _check_max_width(name, h, e)
+    kw = _kernel_weights(name, padded, w2, b2, w1e)
     out = rs.new_empty((n, h))
     if n == 0:
         return out
     if k == 0:
         return out.zero_()
-    _launch(name, device, (rs, ppn, rbf, gh, w1e, w2, b2, out), (n, k, h, e),
-            dict(ppn=ppn, rbf=rbf))
+    vec = dict(ppn=ppn) if _vector(h) else {}
+    if _vector(e):
+        vec["rbf"] = rbf
+    _launch(name, device, (rs, ppn, rbf, gh, kw.w1e, kw.w2, kw.b2, out),
+            (n, k, h, e), vec, h, e)
     return out
 
 
-def near_pass_rowsum(rs, ppn, rbf, gh, w1e, w2, b2):
+def near_pass_rowsum(rs, ppn, rbf, gh, w1e, w2, b2, padded=None):
     """Electron-passing near-pair row sums (see
     ``csrc/near_pass_rowsum.cu``).
 
     rs (N, 2H) = [pi | pj] with b1 in pi; ppn (N·K, 2H) = rs[idx.ravel()];
     rbf (N·K, E); gh (N, K) = 0.5 · gate with the slot mask folded in;
-    W1e (E, H); W2 (H, H); b2 (H,).  Each pair's two terms are exact
-    negations, so Σ_i out_i @ W_out conserves charge to f32 summation.
+    W1e (E, H); W2 (H, H); b2 (H,); ``padded`` as in
+    :func:`near_message_corr`.  Each pair's two terms are exact negations,
+    so Σ_i out_i @ W_out conserves charge to f32 summation.
     Differentiable: the backward recomputes through
     :func:`near_pass_rowsum_plain` (as the JAX custom VJP does through its
     XLA twin)."""
     return _PlainRecompute.apply(_near_pass_rowsum_fwd, near_pass_rowsum_plain,
-                                 rs, ppn, rbf, gh, w1e, w2, b2)
+                                 padded, rs, ppn, rbf, gh, w1e, w2, b2)
 
 
 #: the near kernels' tile: live slots a tensor-core product (its M rows)
 NEAR_TILE = 16
 
 
-def near_warps(name: str, n: int) -> int:
-    """The warps a launch of the near kernel ``name`` runs for ``n`` rows on
-    the current card (its occupancy; csrc ``epnn::near_warps``)."""
-    fn = getattr(_lib(name), f"epnn_{name}_warps")
+def near_warps(name: str, n: int, h: int = KERNEL_H, e: int = KERNEL_E) -> int:
+    """The warps a launch of the near kernel ``name`` at widths (h, e)
+    runs for ``n`` rows on the current card (its occupancy; csrc
+    ``epnn::near_warps``)."""
+    fn = getattr(_lib(name, h, e), f"epnn_{name}_warps")
     fn.argtypes = [_I]
     fn.restype = ctypes.c_int
     w = fn(n)
@@ -849,42 +1008,108 @@ class _InferenceOnly(torch.autograd.Function):
             "neighbor_k")
 
 
-#: blocks the fused dense kernels aim for: 132 SMs, two resident blocks
-#: each (84 KB and 66 KB of shared memory a block), a few waves
-_FUSED_TARGET_BLOCKS = 8 * 132
-#: their block geometry (csrc: kRowsPerBlock, kCols): 16 rows, 16-column
-#: chunks
-_FUSED_SPLIT = dict(target=_FUSED_TARGET_BLOCKS, rows=16, tile=16)
+def _cut2(cutoff: float) -> float:
+    """The fused kernels' scan threshold: the float32 cutoff squared,
+    rounded up by 1e-6 relative, so that every pair whose envelope is not
+    0 (d = sqrt(d²) < cutoff) has d² below it; pairs above it have an
+    envelope of exactly 0."""
+    c = float(np.float32(cutoff))
+    return c * c * (1.0 + 1e-6)
+
+
+@functools.lru_cache(maxsize=16)
+def _kernel_mu(e: int, cutoff: float, device: torch.device) -> torch.Tensor:
+    """:func:`kernel_mu` for the fused kernels, made once per (E, cutoff,
+    device) and only read: four small launches a call otherwise."""
+    return kernel_mu(e, cutoff, device)
+
+
+def _fused_checks(name: str, n: int, h: int, e: int) -> None:
+    _check_max_width(name, h, e)
+    if n * n > 0x7FFFFFFF:
+        raise ValueError(f"{name}: N = {n} is too large for the kernel's "
+                         "int pair index (N² < 2^31)")
 
 
 # ---------------------------------------------------------------------------
 # 4. fused_message_rowsum — a dense message round, featurization in the tile
 # ---------------------------------------------------------------------------
 
+def _row_range(n: int, rows: Optional[slice]) -> range:
+    return range(n) if rows is None else range(n)[rows]
+
+
 def fused_message_rowsum_plain(pi, pj, xyz, node_mask, col_vec, w1e, w2, b2,
                                cutoff: float = 3.0, eta: float = 2.0,
-                               tol: float = 1e-5, masked: bool = True):
+                               tol: float = 1e-5, masked: bool = True,
+                               rows: Optional[slice] = None):
     """Σ_j w_ij · relu(relu(pi_i + pj_j + rbf_ij @ W1e) @ W2 + b2) as
     (N, H), with w_ij the pair mask (diagonal kept) when ``masked``, else
     ``col_vec_j``; row-blocked so no (N, N, E) tensor exists.  ``tol`` is
-    unused (the message round has no gate), as in the JAX kernel."""
+    unused (the message round has no gate), as in the JAX kernel.
+    ``rows``: only those rows (a slice of step 1), as (len, H)."""
     n, h = pi.shape
     mu = kernel_mu(w1e.shape[0], cutoff, pi.device)
-    rb = _plain_rows(n, n, max(w1e.shape[0], h))
-    out = pi.new_empty((n, h))
-    for s in range(0, n, rb):
-        sl = slice(s, s + rb)
+    rr = _row_range(n, rows)
+    rb = _plain_rows(len(rr), n, max(w1e.shape[0], h))
+    out = pi.new_empty((len(rr), h))
+    for s in range(rr.start, rr.stop, rb):
+        sl = slice(s, min(s + rb, rr.stop))
         rbf, _, pairm = _tile_features(xyz[sl], xyz, node_mask[sl], node_mask,
                                        s, cutoff, eta, mu)
         hid = torch.relu((pi[sl, None, :] + pj[None, :, :]) + rbf @ w1e)
         hid = torch.relu(hid @ w2 + b2)
         w = pairm if masked else col_vec[None, :].expand_as(pairm)
-        out[sl] = torch.einsum("bn,bnh->bh", w, hid)
+        out[s - rr.start:sl.stop - rr.start] = torch.einsum("bn,bnh->bh", w,
+                                                            hid)
     return out
 
 
+def _fused_message_split(pi, pj, xyz, node_mask, col_vec, w1e, w2, b2,
+                         cutoff, eta, masked, mm, rows=None):
+    """:func:`fused_message_rowsum_plain` as the kernel splits it, with the
+    products ``mm``: the far field over every pair (weights cv_j, and rows
+    times m_i when ``masked``), plus w_ij (mlp(base + rbf @ W1e) −
+    mlp(base)), base = pi_i + pj_j, over the pairs whose rbf is not 0
+    (elsewhere the difference is exactly 0)."""
+    n, h = pi.shape
+    rr = _row_range(n, rows)
+    cv = node_mask if masked else col_vec
+    far = _far_rows(pi[rr.start:rr.stop], pj, cv, ((w2, b2),), mm)
+    if masked:
+        far = far * node_mask[rr.start:rr.stop, None]
+    mu = kernel_mu(w1e.shape[0], cutoff, pi.device)
+    rb = _plain_rows(len(rr), n, max(w1e.shape[0], h))
+    corr = pi.new_empty((len(rr), h))
+    for s in range(rr.start, rr.stop, rb):
+        sl = slice(s, min(s + rb, rr.stop))
+        rbf, _, pairm = _tile_features(xyz[sl], xyz, node_mask[sl], node_mask,
+                                       s, cutoff, eta, mu)
+        base = pi[sl, None, :] + pj[None, :, :]
+        diff = (_mid_layers(base + mm(rbf, w1e), ((w2, b2),), mm)
+                - _mid_layers(base, ((w2, b2),), mm))
+        w = pairm if masked else col_vec[None, :].expand_as(pairm)
+        corr[s - rr.start:sl.stop - rr.start] = torch.einsum("bn,bnh->bh", w,
+                                                             diff)
+    return far + corr
+
+
+def fused_message_rowsum_3xtf32_plain(pi, pj, xyz, node_mask, col_vec, w1e,
+                                      w2, b2, cutoff: float = 3.0,
+                                      eta: float = 2.0, tol: float = 1e-5,
+                                      masked: bool = True,
+                                      rows: Optional[slice] = None):
+    """:func:`fused_message_rowsum_plain` with the kernel's split (the far
+    field over every pair, the live pairs' correction) and its arithmetic:
+    every product in 3xTF32 (``_mm_3xtf32``).  Not on any path: the tests
+    and ``chip_smoke.py`` hold the kernel to it (the two may differ only
+    by summation order).  ``rows`` as in the plain version."""
+    return _fused_message_split(pi, pj, xyz, node_mask, col_vec, w1e, w2, b2,
+                                cutoff, eta, masked, _mm_3xtf32, rows)
+
+
 def _fused_message_rowsum_fwd(pi, pj, xyz, node_mask, col_vec, w1e, w2, b2,
-                              cutoff, eta, tol, masked):
+                              cutoff, eta, tol, masked, padded=None):
     name = "fused_message_rowsum"
     n, h = pi.shape
     e = w1e.shape[0]
@@ -896,22 +1121,24 @@ def _fused_message_rowsum_fwd(pi, pj, xyz, node_mask, col_vec, w1e, w2, b2,
         return fused_message_rowsum_plain(pi, pj, xyz, node_mask, col_vec,
                                           w1e, w2, b2, cutoff, eta, tol,
                                           masked)
-    _require_widths(name, h, e)
+    _fused_checks(name, n, h, e)
+    kw = _kernel_weights(name, padded, w2, b2, w1e)
     out = pi.new_empty((n, h))
     if n == 0:
         return out
-    splits, cols = _dense_message_splits(n, n, **_FUSED_SPLIT)
-    part = pi.new_empty((splits, n, h))
-    _launch(name, device, (pi, pj, xyz, node_mask, col_vec, w1e, w2, b2,
-                           kernel_mu(e, cutoff, device), part, out),
+    splits, cols = _dense_message_splits(n, n)
+    part = pi.new_empty((splits + 1, n, h))
+    _launch(name, device, (pi, pj, xyz, node_mask, col_vec, kw.w1e, kw.w2,
+                           kw.b2, _kernel_mu(e, float(cutoff), xyz.device), part, out),
             (n, h, e, splits, cols, int(bool(masked)), float(cutoff),
-             float(eta)), dict(w1e=w1e, w2=w2))
+             float(eta), _cut2(cutoff)), {}, h, e)
     return out
 
 
 def fused_message_rowsum(pi, pj, xyz, node_mask, col_vec, w1e, w2, b2,
                          cutoff: float = 3.0, eta: float = 2.0,
-                         tol: float = 1e-5, masked: bool = True):
+                         tol: float = 1e-5, masked: bool = True,
+                         padded: Optional[KernelWeights] = None):
     """One dense message round's row sums with the featurization in the
     tile (see ``csrc/fused_message_rowsum.cu``):
 
@@ -919,44 +1146,70 @@ def fused_message_rowsum(pi, pj, xyz, node_mask, col_vec, w1e, w2, b2,
 
     pi, pj (N, H), pi carrying b1; xyz (N, 3); node_mask, col_vec (N,);
     W1e (E, H); W2 (H, H); b2 (H,).  ``masked`` weights by the pair mask
-    (diagonal kept), else by ``col_vec``.  The caller applies W_out and the
-    Σ_j b_out term.  Inference-only: a backward raises."""
+    (diagonal kept), else by ``col_vec``; ``padded``: :func:`pad_weights`
+    of (w2, b2, w1e) where the caller keeps it.  The caller applies W_out
+    and the Σ_j b_out term.  On the card: the far field over every pair
+    plus the live pairs' correction, one launch (and the ordered sum of its
+    parts).  Inference-only: a backward raises."""
     return _InferenceOnly.apply(_fused_message_rowsum_fwd,
                                 "fused_message_rowsum", pi, pj, xyz,
                                 node_mask, col_vec, w1e, w2, b2, cutoff, eta,
-                                tol, masked)
+                                tol, masked, padded)
 
 
 # ---------------------------------------------------------------------------
 # 5. fused_epn_rowsum — a dense electron-passing round
 # ---------------------------------------------------------------------------
 
-def fused_epn_rowsum_plain(pi, pj, xyz, node_mask, w1e, w2, b2,
-                           cutoff: float = 3.0, eta: float = 2.0,
-                           tol: float = 1e-5, soft_gate: bool = False):
-    """Σ_j 0.5 · gate_ij · (hid(i, j) − hid(j, i)) as (N, H), both
-    orderings from one epart, gate the hard is-near gate or (``soft_gate``)
-    the masked envelope; row-blocked so no (N, N, E) tensor exists."""
+def _fused_epn_rows(pi, pj, xyz, node_mask, w1e, w2, b2, cutoff, eta, tol,
+                    soft_gate, mm, rows=None):
     n, h = pi.shape
     mu = kernel_mu(w1e.shape[0], cutoff, pi.device)
-    rb = _plain_rows(n, n, max(w1e.shape[0], h))
-    out = pi.new_empty((n, h))
-    for s in range(0, n, rb):
-        sl = slice(s, s + rb)
+    rr = _row_range(n, rows)
+    rb = _plain_rows(len(rr), n, max(w1e.shape[0], h))
+    out = pi.new_empty((len(rr), h))
+    for s in range(rr.start, rr.stop, rb):
+        sl = slice(s, min(s + rb, rr.stop))
         rbf, c, _ = _tile_features(xyz[sl], xyz, node_mask[sl], node_mask,
                                    s, cutoff, eta, mu)
-        epart = rbf @ w1e
-        hid_n = torch.relu((pi[sl, None, :] + pj[None, :, :]) + epart)
-        hid_t = torch.relu((pj[sl, None, :] + pi[None, :, :]) + epart)
-        hid_n = torch.relu(hid_n @ w2 + b2)
-        hid_t = torch.relu(hid_t @ w2 + b2)
+        epart = mm(rbf, w1e)
+        hid_n = _mid_layers((pi[sl, None, :] + pj[None, :, :]) + epart,
+                            ((w2, b2),), mm)
+        hid_t = _mid_layers((pj[sl, None, :] + pi[None, :, :]) + epart,
+                            ((w2, b2),), mm)
         gate = c if soft_gate else hard_gate(rbf, tol)
-        out[sl] = torch.sum((0.5 * gate)[:, :, None] * (hid_n - hid_t), dim=1)
+        out[s - rr.start:sl.stop - rr.start] = torch.sum(
+            (0.5 * gate)[:, :, None] * (hid_n - hid_t), dim=1)
     return out
 
 
+def fused_epn_rowsum_plain(pi, pj, xyz, node_mask, w1e, w2, b2,
+                           cutoff: float = 3.0, eta: float = 2.0,
+                           tol: float = 1e-5, soft_gate: bool = False,
+                           rows: Optional[slice] = None):
+    """Σ_j 0.5 · gate_ij · (hid(i, j) − hid(j, i)) as (N, H), both
+    orderings from one epart, gate the hard is-near gate or (``soft_gate``)
+    the masked envelope; row-blocked so no (N, N, E) tensor exists.
+    ``rows``: only those rows (a slice of step 1), as (len, H)."""
+    return _fused_epn_rows(pi, pj, xyz, node_mask, w1e, w2, b2, cutoff, eta,
+                           tol, soft_gate, _mm_fp32, rows)
+
+
+def fused_epn_rowsum_3xtf32_plain(pi, pj, xyz, node_mask, w1e, w2, b2,
+                                  cutoff: float = 3.0, eta: float = 2.0,
+                                  tol: float = 1e-5, soft_gate: bool = False,
+                                  rows: Optional[slice] = None):
+    """:func:`fused_epn_rowsum_plain` with the kernel's arithmetic: rbf @
+    W1e and both orderings' mid layers in 3xTF32 (``_mm_3xtf32``).  Not on
+    any path: the tests and ``chip_smoke.py`` hold the kernel to it.  A
+    pair's two transfers stay exact negations: both orderings see the same
+    products.  ``rows`` as in the plain version."""
+    return _fused_epn_rows(pi, pj, xyz, node_mask, w1e, w2, b2, cutoff, eta,
+                           tol, soft_gate, _mm_3xtf32, rows)
+
+
 def _fused_epn_rowsum_fwd(pi, pj, xyz, node_mask, w1e, w2, b2, cutoff, eta,
-                          tol, soft_gate):
+                          tol, soft_gate, padded=None):
     name = "fused_epn_rowsum"
     n, h = pi.shape
     e = w1e.shape[0]
@@ -967,22 +1220,22 @@ def _fused_epn_rowsum_fwd(pi, pj, xyz, node_mask, w1e, w2, b2, cutoff, eta,
     if device.type == "cpu":
         return fused_epn_rowsum_plain(pi, pj, xyz, node_mask, w1e, w2, b2,
                                       cutoff, eta, tol, soft_gate)
-    _require_widths(name, h, e)
+    _fused_checks(name, n, h, e)
+    kw = _kernel_weights(name, padded, w2, b2, w1e)
     out = pi.new_empty((n, h))
     if n == 0:
         return out
-    splits, cols = _dense_message_splits(n, n, **_FUSED_SPLIT)
-    part = pi.new_empty((splits, n, h))
-    _launch(name, device, (pi, pj, xyz, node_mask, w1e, w2, b2,
-                           kernel_mu(e, cutoff, device), part, out),
-            (n, h, e, splits, cols, int(bool(soft_gate)), float(cutoff),
-             float(eta), float(tol)), dict(w1e=w1e, w2=w2))
+    _launch(name, device, (pi, pj, xyz, node_mask, kw.w1e, kw.w2, kw.b2,
+                           _kernel_mu(e, float(cutoff), xyz.device), out),
+            (n, h, e, int(bool(soft_gate)), float(cutoff), float(eta),
+             float(tol), _cut2(cutoff)), {}, h, e)
     return out
 
 
 def fused_epn_rowsum(pi, pj, xyz, node_mask, w1e, w2, b2,
                      cutoff: float = 3.0, eta: float = 2.0, tol: float = 1e-5,
-                     soft_gate: bool = False):
+                     soft_gate: bool = False,
+                     padded: Optional[KernelWeights] = None):
     """One dense electron-passing round's antisymmetric row sums (see
     ``csrc/fused_epn_rowsum.cu``):
 
@@ -991,11 +1244,12 @@ def fused_epn_rowsum(pi, pj, xyz, node_mask, w1e, w2, b2,
     with the RBF, the gate and both orderings built in the tile; arguments
     as :func:`fused_message_rowsum` without ``col_vec``.  A pair's two
     transfers are exact negations, so Σ_i out_i @ W_out conserves charge to
-    f32 summation.  The caller applies W_out (b_out cancels).
+    f32 summation.  The caller applies W_out (b_out cancels).  On the card
+    only the pairs within the cutoff pay (a d² scan finds them).
     Inference-only: a backward raises."""
     return _InferenceOnly.apply(_fused_epn_rowsum_fwd, "fused_epn_rowsum", pi,
                                 pj, xyz, node_mask, w1e, w2, b2, cutoff, eta,
-                                tol, soft_gate)
+                                tol, soft_gate, padded)
 
 
 # ---------------------------------------------------------------------------

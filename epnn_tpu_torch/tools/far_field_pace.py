@@ -36,7 +36,8 @@ VARIANTS = {
     "kernel": [],
     "one_mma": [("  mma_tf32(d, al, b.x, b.y);\n  mma_tf32(d, ah, b.z, b.w);\n",
                  ""),
-                ("  mma(d, al, b_hi);\n  mma(d, ah, b_lo);\n", "")],
+                ("  Mma<N>::run(d, al, b_hi);\n  Mma<N>::run(d, ah, b_lo);\n",
+                 "")],
     "no_split": [("  const float h = tf32_round(x);\n"
                   "  hi = __float_as_uint(h);\n"
                   "  lo = __float_as_uint(tf32_round(x - h));",
@@ -61,6 +62,8 @@ def build() -> dict:
         d = kernels.BUILD_DIR / "pace" / name
         d.mkdir(parents=True, exist_ok=True)
         (d / "common.cuh").write_text(text)
+        (d / "far_field.cuh").write_text(
+            (kernels.CSRC / "far_field.cuh").read_text())
         (d / "kernel.cu").write_text(source)
         cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(d / "lib.so"),
                str(d / "kernel.cu")]

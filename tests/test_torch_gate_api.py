@@ -3,9 +3,9 @@ port.  JAX's rule: a round with one mid layer takes the kernels, any other
 depth runs the same split through the plain versions (JAX's XLA
 branches).  Both are held to JAX ``forward_blocked(neighbor_k=…)`` and the
 JAX ``Predictor`` at 1e-5·(max|q| + 1) (tests/test_fused.py's bar between
-two JAX paths).  A one-mid round at widths the kernels are not built for
-(H 16, E 24) runs the wrappers' plain versions on the CPU and raises on the
-card.  Also ``Predictor``'s positional ``block`` and ``bucket_molecules``'s
+two JAX paths).  A one-mid round at another width (H 16, E 24) reaches
+the kernels on the card (compiled for its widths; here their launch is
+emulated), and past the widest width (64) the wrappers raise.  Also ``Predictor``'s positional ``block`` and ``bucket_molecules``'s
 ``max_batch_atoms2`` (both accepted and unused, as the JAX package does
 with the latter)."""
 
@@ -30,13 +30,13 @@ from epnn_tpu_torch.io.checkpoint import from_jax_params
 from epnn_tpu_torch.ops import fused, kernels
 from epnn_tpu_torch.testing import water_box
 from test_torch_fused import _t, build, port_cfg, safe_k
+from test_torch_widths import arm_card
 
 torch.set_num_threads(1)
 
-#: configurations the kernels are not built for: a deeper mid MLP (the
-#: gate sends it to the plain versions on any device), and H = 16 / E = 24
-#: (through the wrappers: their plain versions on the CPU, a refusal on the
-#: card).  T = 2: with the bias-shifted weights of ``build`` deeper stacks
+#: configurations off the shipped one: a deeper mid MLP (the gate sends it
+#: to the plain versions on any device), and H = 16 / E = 24 (through the
+#: kernels at those widths on the card).  T = 2: with the bias-shifted weights of ``build`` deeper stacks
 #: grow the charges to ~10 e by T = 5, where two JAX paths already differ
 #: by more than the bar (tests/test_torch_fused_dense.py).
 GATED_OUT = {
@@ -117,31 +117,41 @@ def test_gated_out_config_through_predictor(case):
 
 
 @pytest.mark.parametrize("case", sorted(GATED_OUT))
-def test_other_widths_raise_on_the_card(rng, monkeypatch, case):
-    """On a CUDA tensor (``kernels._check`` patched to report one, so no
-    card is needed) the forward at H 16 raises where the wrappers are
-    reached, on the neighbor split and the dense fused path alike: no
-    plain version stands in for a kernel.  The deeper MLP reaches no
-    wrapper, so the same patch leaves its charges as they were."""
+def test_other_widths_reach_the_kernels(rng, monkeypatch, case):
+    """On a CUDA tensor (``kernels._check`` patched to report one, and the
+    kernels' launch emulated by ``test_torch_widths.emulate``, so no card
+    is needed) the forward at H 16 reaches the kernels at those widths, on
+    the neighbor split and the dense fused path alike, and gives the plain
+    forwards' charges.  The deeper MLP reaches no wrapper, so the same
+    patch leaves its charges as they were."""
     cfg = EPNNConfig(**GATED_OUT[case])
     params, x, q0, xyz, mask, _ = build(rng, cfg, 1)
     k = safe_k(xyz, mask, cfg.cutoff)
     fp, pcfg = _port_fused(params, cfg)
     args = (fp, _t(x), _t(q0), _t(xyz), _t(mask), pcfg)
+    hh, ee = pcfg.mlp_hidden[0], pcfg.e_dim
     with torch.no_grad():
-        want = fused.forward_blocked(*args, neighbor_k=k)
-    real_check = kernels._check
-    monkeypatch.setattr(kernels, "_check", lambda *a: (
-        real_check(*a), torch.device("cuda"))[1])
-    monkeypatch.setattr(kernels, "_launch", None)  # never reached
+        plain = fused.forward_blocked(*args, neighbor_k=k)
+        plain_dense = fused.forward_blocked(*args)
+    on_card = arm_card(monkeypatch)
     with torch.no_grad():
         if fused.kernels_apply(fp.messages[0]):
-            for kw in (dict(neighbor_k=k), dict(use_pallas=True)):
-                with pytest.raises(NotImplementedError, match="built for"):
-                    fused.forward_blocked(*args, **kw)
+            for kw, want, names in (
+                    (dict(neighbor_k=k), plain,
+                     {"dense_message_rowsum", "near_message_corr",
+                      "near_pass_rowsum"}),
+                    (dict(use_pallas=True), plain_dense,
+                     {"fused_message_rowsum", "fused_epn_rowsum"})):
+                on_card.clear()
+                _close(fused.forward_blocked(*args, **kw).numpy(),
+                       want.numpy())
+                assert {c["name"] for c in on_card} == names
+                assert all(c["h"] == hh and c["e"] in (ee, None)
+                           for c in on_card)
         else:
             assert torch.equal(fused.forward_blocked(*args, neighbor_k=k),
-                               want)
+                               plain)
+            assert on_card == []
 
 
 def test_predictor_fields_follow_jax():
@@ -192,7 +202,7 @@ def test_bucket_molecules_takes_max_batch_atoms2():
                                                              field)))
 
 
-def _width_cases(h=16, e=24, n=8, k=3):
+def _width_cases(h=72, e=24, n=8, k=3):
     z = lambda *s: torch.zeros(*s)  # noqa: E731
     pi, pj, cv, w2, b2 = z(n, h), z(n, h), z(n), z(h, h), z(h)
     return {
@@ -210,10 +220,10 @@ def _width_cases(h=16, e=24, n=8, k=3):
 
 @pytest.mark.parametrize("name", sorted(_width_cases()))
 def test_wrappers_refuse_other_widths_on_cuda(monkeypatch, name):
-    """Called directly on a CUDA tensor at H = 16 (E = 24), each wrapper
-    raises before any launch: ``_check`` is patched to report a CUDA
-    device, so no card is needed.  On the CPU the same call runs its plain
-    version."""
+    """Called directly on a CUDA tensor at H = 72, past the widest width
+    the kernels take (64), each wrapper raises before any launch, naming
+    ROADMAP queue 3: ``_check`` is patched to report a CUDA device, so no
+    card is needed.  On the CPU the same call runs its plain version."""
     args = _width_cases()[name]
     wrapper = getattr(kernels, name)
     wrapper(*args)  # the CPU: the plain version, any width
@@ -221,5 +231,5 @@ def test_wrappers_refuse_other_widths_on_cuda(monkeypatch, name):
     monkeypatch.setattr(kernels, "_check", lambda *a: (
         real_check(*a), torch.device("cuda"))[1])
     monkeypatch.setattr(kernels, "_launch", None)  # never reached
-    with pytest.raises(NotImplementedError, match="built for H=32"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
         wrapper(*args)
