@@ -46,11 +46,14 @@ card: ``python3 chip_smoke.py`` from the repository root.
    random-weight model at each (H, E) of :data:`WIDTH_CASES` on a 600-atom
    water box, every width-carrying kernel against its plain version (and
    emulation), the same bits twice and off the boundary; the forward
-   through the neighbor split and the dense fused forward at (16, 24)
-   against the plain dense forward on the card; the near-pair and dimer
-   probes at every width.  ``neighbor_compact`` at 2,220 and
-   17,760 atoms: the same set as top-k on every row, the same table as its
-   plain version, and its time beside top-k's.
+   through the neighbor split and the dense fused forward at each of
+   :data:`FORWARD_WIDTHS` against the plain dense forward on the card;
+   the near-pair and dimer probes at every width; at :data:`TIMED_WIDTH`
+   every kernel's time beside its bound.  ``neighbor_compact`` at 2,220
+   and 17,760 atoms, each box in lattice order and shuffled: the same set
+   as top-k on every row, the same table as its plain version bit for
+   bit, and its time beside top-k's and beside two bounds (operations,
+   instruction issue).
 4. Slice: ``Predictor.from_checkpoint("trained/mixed_b16")`` serving
    (a) small molecules on the dense path (no kernel may launch),
    (b) the two 2,220-atom boxes (Q = 0, +1) against the committed JAX
@@ -105,6 +108,11 @@ PEAK_INT8_OPS = 1979e12
 #: CUDA-core instructions a second: one a lane a clock, half the fp32 FLOP
 #: peak (which counts an FMA as two)
 PEAK_INSTR = PEAK_FP32_FLOPS / 2
+#: neighbor_compact's work a valid pair: FLOP (3 subtractions, 3 products,
+#: 2 additions, the compare) and CUDA-core instructions (the same, issued
+#: one a lane)
+COMPACT_FLOP = 9
+COMPACT_INSTR = 9
 #: the int8 far field's CUDA-core instructions per pair element: an
 #: activation takes add, relu, scale, clip, + 0.5 and the round down by
 #: 2^23, and 3 byte permutes pack 4; an output takes the unbias, the
@@ -171,7 +179,13 @@ RAGGED = (37, 1001)
 #: and checked at: below them, a multiple of neither 16 (H) nor 8 (E), and
 #: the widest
 SHIPPED_WIDTHS = (32, 48)
-WIDTH_CASES = ((16, 24), (40, 20), (64, 64))
+WIDTH_CASES = ((16, 24), (40, 20), (64, 64), (96, 80), (136, 72), (128, 128),
+               (256, 256))
+#: the width whose kernels the width phase also times against their bounds
+#: (the wide path's), and the widths whose two forwards it checks against
+#: the plain dense forward on the card
+TIMED_WIDTH = (128, 128)
+FORWARD_WIDTHS = ((16, 24), TIMED_WIDTH)
 #: the width phase's water box (molecules: 600 atoms) and model rounds
 WIDTH_BOX_MOLECULES = 200
 WIDTH_T = 2
@@ -379,13 +393,14 @@ def far_backward(torch, kernels, args, ties=False):
     return errs
 
 
-def far_phase(torch, card, args, gbar, label, clocks, iters):
+def far_phase(torch, card, args, gbar, label, clocks, iters, ties=False):
     """[kernel] both far-field kernels on ``args`` (pi, pj, cv, W2, b2) and
     the cotangent ``gbar``: ``far_forward`` and ``far_backward``, kernel
     and plain times (``iters``: forward kernel, forward plain, backward
     kernel, backward plain), the SM clock before and after the timings
     (appended to ``clocks``), and the bounds on this data: every row
-    against the live columns (cv ≠ 0).  Returns {kernel: measurements}."""
+    against the live columns (cv ≠ 0).  ``ties`` as in
+    :func:`far_backward`.  Returns {kernel: measurements}."""
     from epnn_tpu_torch.ops import kernels
 
     f = 4
@@ -394,7 +409,7 @@ def far_phase(torch, card, args, gbar, label, clocks, iters):
     live = int(torch.count_nonzero(args[2]))
     pairs = r * live
     fwd_err, fwd_emu, fwd_tol = far_forward(torch, kernels, args)
-    errs = far_backward(torch, kernels, (*args, gbar))
+    errs = far_backward(torch, kernels, (*args, gbar), ties=ties)
     clocks.append((f"before the far-field timings at {label}", sm_clocks()))
     ms = device_ms(torch, lambda: kernels.dense_message_rowsum(*args),
                    iters[0])
@@ -968,7 +983,8 @@ def fused_check(torch, kernels, name, args, kw, rows=None, off=True):
     return err, err_emu, tol
 
 
-def fused_kernel_phase(torch, card, cfg, boxes, wm, wp, sfu_rate):
+def fused_kernel_phase(torch, card, cfg, boxes, wm, wp, sfu_rate,
+                       widths="32x48"):
     """[kernel] the two fused dense kernels, with a message round's and a
     pass round's own weights, on each of ``boxes`` — (label, a, xyz, mask,
     counts), the 2,220-atom box first: :func:`fused_check` (at the larger
@@ -1065,7 +1081,7 @@ def fused_kernel_phase(torch, card, cfg, boxes, wm, wp, sfu_rate):
                 rows[name] = dict(
                     name=name, route="cuda", source=KERNEL_ROWS[name][1],
                     replaces=KERNEL_ROWS[name][0], launches=0,
-                    library_ms=None, ptxas=ptxas_usage(kernels, name),
+                    library_ms=None, ptxas=ptxas_usage(kernels, name, hh, ee),
                     **{k: v for k, v in main.items() if k != "mode"},
                     mode=main["mode"], other_mode=other, sizes={})
             else:
@@ -1077,7 +1093,7 @@ def fused_kernel_phase(torch, card, cfg, boxes, wm, wp, sfu_rate):
     n = a.shape[0]
     pp = ((a @ wp.w1_i + wp.b1).contiguous(), (a @ wp.w1_j).contiguous())
     rows["fused_epn_rowsum"]["dimer_probe"] = dimer_check(
-        torch, kernels, pp, w[1], n, pair, xyz.device, "32x48")
+        torch, kernels, pp, w[1], n, pair, xyz.device, widths)
     return rows
 
 
@@ -1111,7 +1127,7 @@ def dimer_check(torch, kernels, pp, w, n, pair, dev, label):
                 live_hard=live[False], live_soft=live[True])
 
 
-def width_phase(torch, card):
+def width_phase(torch, card, sfu_rate):
     """[width] the width-carrying kernels at each (H, E) of
     :data:`WIDTH_CASES`, on a seeded random-weight model (the port's
     ``init_params``: h 16, msg 8, mid widths (H, H), E channels,
@@ -1121,21 +1137,26 @@ def width_phase(torch, card):
     ``far_backward``), its int8 tier (``int8_phase``), both near kernels
     with the near-pair probe (``near_phase``), both fused kernels in both
     modes (:func:`fused_check`) and the dimer probe (:func:`dimer_check`).
-    At the first width also ``forward_blocked(neighbor_k=k)`` and the
-    dense fused forward against the plain dense forward on the card, with
-    their launches.  Returns {"HxE": results}."""
+    At :data:`FORWARD_WIDTHS` also ``forward_blocked(neighbor_k=k)`` and
+    the dense fused forward against the plain dense forward on the card,
+    with their launches; at :data:`TIMED_WIDTH` every kernel's time beside
+    its bound on this data (:func:`far_phase`, :func:`int8_phase`,
+    :func:`near_phase`, :func:`fused_kernel_phase`).  Returns {"HxE":
+    results}."""
     from epnn_tpu_torch.data import pad_molecules
     from epnn_tpu_torch.elements import table_for_n_elems
     from epnn_tpu_torch.infer import Predictor
     from epnn_tpu_torch.models import EPNNConfig
     from epnn_tpu_torch.models.epnn import init_params
     from epnn_tpu_torch.ops import kernels
-    from epnn_tpu_torch.ops.fused import forward_blocked
+    from epnn_tpu_torch.ops.fused import (build_neighbors, forward_blocked,
+                                          rbf_and_gate)
     from epnn_tpu_torch.testing import water_box
     from epnn_tpu_torch.tools.near_field_pace import near_inputs
 
     dev = torch.device("cuda")
     results = {}
+    clocks = []
     for seed, (hh, ee) in enumerate(WIDTH_CASES):
         label = f"{hh}x{ee}"
         cfg = EPNNConfig(h_dim=16, e_dim=ee, msg_dim=8, mlp_hidden=(hh, hh),
@@ -1164,14 +1185,18 @@ def width_phase(torch, card):
         entry = dict(H=hh, E=ee, N=n, ptxas={
             name: ptxas_usage(kernels, name, hh, ee)
             for name, kinds in kernels._WIDTHS_OF.items() if kinds})
-        err, err_emu, tol = far_forward(torch, kernels, far_args)
-        entry["dense_message_rowsum"] = dict(max_abs_err=err,
-                                             max_abs_diff_3xtf32=err_emu,
-                                             tol=tol)
-        entry["dense_message_rowsum_bwd"] = far_backward(
-            torch, kernels, (*far_args, gbar), ties=True)
-        entry["dense_message_rowsum_int8"] = int8_phase(torch, card, far_args,
-                                                        label)
+        timed = (hh, ee) == TIMED_WIDTH
+        if timed:
+            entry.update(far_phase(torch, card, far_args, gbar, label, clocks,
+                                   (10, 2, 3, 1), ties=True))
+        else:
+            err, err_emu, tol = far_forward(torch, kernels, far_args)
+            entry["dense_message_rowsum"] = dict(
+                max_abs_err=err, max_abs_diff_3xtf32=err_emu, tol=tol)
+            entry["dense_message_rowsum_bwd"] = far_backward(
+                torch, kernels, (*far_args, gbar), ties=True)
+        entry["dense_message_rowsum_int8"] = int8_phase(
+            torch, card, far_args, label, (10, 2, 10) if timed else None)
         cases, table = near_inputs(pred, batch, np.random.default_rng(seed))
         entry.update(near_phase(torch, card, label, cases, table, (3, 1),
                                 min_pairs=int(mask.sum()) // 4))
@@ -1202,7 +1227,18 @@ def width_phase(torch, card):
         entry["dimer_probe"] = dimer_check(torch, kernels, pp,
                                            (wp.w1_e, *wp.mids[0]), n, pair,
                                            dev, label)
-        if seed == 0:
+        if timed:
+            k = pred._neighbor_k(batch)
+            _, nbr_mask, d2 = build_neighbors(xyz, mask, cfg.cutoff, k,
+                                              with_d2=True)
+            _, gate = rbf_and_gate(d2, nbr_mask, cfg)
+            counts = dict(valid=int(mask.sum()),
+                          near=int(torch.count_nonzero(nbr_mask)),
+                          gated=int(torch.count_nonzero(gate * nbr_mask)))
+            entry["timed_fused"] = fused_kernel_phase(
+                torch, card, cfg, [(label, a, xyz, mask, counts)], wm, wp,
+                sfu_rate, label)
+        if (hh, ee) in FORWARD_WIDTHS:
             tb = [torch.from_numpy(arr).to(dev) for arr in (
                 batch.x, batch.q0, batch.xyz, batch.node_mask)]
             k = pred._neighbor_k(batch)
@@ -1257,7 +1293,11 @@ def width_phase(torch, card):
 def compact_phase(torch, card, cfg, boxes):
     """[kernel] neighbor_compact on each (label, xyz, mask, k): the same set
     as top-k (build_neighbors) on every row and the same table as its plain
-    version; its time beside top-k's.  Returns the kernel's row."""
+    version, bit for bit; its time beside top-k's and two bounds: the
+    operations (:data:`COMPACT_FLOP` a valid pair at the fp32 peak) and
+    the instruction issue (:data:`COMPACT_INSTR` a valid pair at
+    :data:`PEAK_INSTR`).  Returns the kernel's row (the first box's
+    numbers, every box's under ``sizes``)."""
     from epnn_tpu_torch.ops import kernels
     from epnn_tpu_torch.ops.fused import build_neighbors
 
@@ -1284,18 +1324,20 @@ def compact_phase(torch, card, cfg, boxes):
         topk_ms = device_ms(torch, lambda: build_neighbors(
             xyz, mask, cfg.cutoff, k), 5)
         n_valid = int((mask > 0).sum())
-        flop = n_valid * n_valid * 9        # d² and the compare, a pair
+        flop = n_valid * n_valid * COMPACT_FLOP  # d² and the compare
         nbytes = f * 4 * n + 12 * n * k     # xyz, mask; idx int64, mask
         b_ms, b_by = bound(flop, 0, nbytes, 1.0)
-        print(f"[kernel] neighbor_compact at N={n} k={k}: the same set as "
-              f"top-k on all {n} rows, the same table as its plain version "
-              f"({int(m.sum()):,} pairs); kernel {ms:.4f} ms, plain "
+        issue_ms = n_valid * n_valid * COMPACT_INSTR / PEAK_INSTR * 1e3
+        print(f"[kernel] neighbor_compact at N={n} ({label}) k={k}: the same "
+              f"set as top-k on all {n} rows, the same table as its plain "
+              f"version ({int(m.sum()):,} pairs); kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, build_neighbors (top-k) {topk_ms:.4f} ms,"
-              f" bound {b_ms:.5f} ms ({b_by}: {flop:,} FLOP, {nbytes:,} B) "
-              f"on {card}")
+              f" bound {b_ms:.5f} ms ({b_by}: {flop:,} FLOP, {nbytes:,} B), "
+              f"issue bound {issue_ms:.5f} ms ({COMPACT_INSTR} instructions "
+              f"a valid pair) on {card}")
         entry = dict(ms=ms, plain_ms=plain_ms, topk_ms=topk_ms, bound_ms=b_ms,
-                     bound_by=b_by, flop=flop, bytes=nbytes, k=k,
-                     max_abs_err=err)
+                     bound_by=b_by, bound_issue_ms=issue_ms, flop=flop,
+                     bytes=nbytes, k=k, max_abs_err=err)
         if row is None:
             row = dict(name="neighbor_compact", route="cuda",
                        source=KERNEL_ROWS["neighbor_compact"][1],
@@ -1458,12 +1500,22 @@ def main() -> int:
         torch, card, cfg, [("2220", a, xyz, mask, counts),
                            ("17760", a_b, xyz_b, mask_b, counts_b)],
         wm, wp, sfu_rate))
-    rows["neighbor_compact"] = compact_phase(torch, card, cfg, [
-        ("2220", xyz, mask, k),
-        ("17760", torch.from_numpy(big.xyz[0]).to(dev),
-         torch.from_numpy(big.node_mask[0]).to(dev), pred._neighbor_k(big))])
+    # neighbor_compact on each box as it comes (lattice order) and on a
+    # seeded shuffle of it, the cull's best and worst case
+    compact_boxes = []
+    for label, xb, mb, kb in (
+            ("2220", xyz, mask, k),
+            ("17760", torch.from_numpy(big.xyz[0]).to(dev),
+             torch.from_numpy(big.node_mask[0]).to(dev),
+             pred._neighbor_k(big))):
+        perm = torch.from_numpy(
+            np.random.default_rng(7).permutation(xb.shape[0])).to(dev)
+        compact_boxes += [(label, xb, mb, kb),
+                          (label + " shuffled", xb[perm].contiguous(),
+                           mb[perm].contiguous(), kb)]
+    rows["neighbor_compact"] = compact_phase(torch, card, cfg, compact_boxes)
     # the width-carrying kernels at the other widths
-    width_results = width_phase(torch, card)
+    width_results = width_phase(torch, card, sfu_rate)
 
     # ---- 4. the slice through Predictor ----------------------------------
     def timed(fn, reps):

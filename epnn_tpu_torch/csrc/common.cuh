@@ -9,8 +9,9 @@
 // not.
 //
 // Widths.  A library is compiled for one mid width H and one RBF width E,
-// the macros EPNN_H and EPNN_E (1 .. 64; default 32 and 48, the shipped
-// model's); kernels.build() passes them.  The products run at the widths
+// the macros EPNN_H and EPNN_E (any width from 1; default 32 and 48, the
+// shipped model's); kernels.build() passes them.  The products run at the
+// widths
 // padded to the tensor cores' granularity, kHp and kEp (multiples of 8:
 // mma.sync m16n8k8 and wgmma take N and K in 8s).  Padding is exact: the
 // weights come zero-padded (kernels.pad_weights, made once per set of
@@ -18,6 +19,10 @@
 // the tail filled with zeros on chip, so a padded hidden unit is relu(0) = 0
 // all the way through, and only the real H outputs are written.  At H = 32,
 // E = 48 kH == kHp and every tail test folds away at compile time.
+// Where a padded width passes 64 (EPNN_WIDE) a library takes the wide path
+// of wide.cuh instead of the designs below: the preprocessor keeps every
+// kernel body out of the other path's libraries, so the narrow libraries
+// compile to the code they had before the wide path existed.
 #pragma once
 
 #include <cstdint>
@@ -30,14 +35,17 @@
 #ifndef EPNN_E
 #define EPNN_E 48
 #endif
+#if (EPNN_H + 7) / 8 * 8 > 64 || (EPNN_E + 7) / 8 * 8 > 64
+#define EPNN_WIDE 1
+#else
+#define EPNN_WIDE 0
+#endif
 
 namespace epnn {
 
-constexpr int kMaxWidth = 64;
 constexpr int kH = EPNN_H;               // mid width H
 constexpr int kE = EPNN_E;               // RBF width E
-static_assert(kH >= 1 && kH <= kMaxWidth && kE >= 1 && kE <= kMaxWidth,
-              "widths 1 .. 64 (ROADMAP queue 3)");
+static_assert(kH >= 1 && kE >= 1, "widths from 1");
 constexpr int kHp = (kH + 7) / 8 * 8;    // H padded: the n-tiles of 8
 constexpr int kEp = (kE + 7) / 8 * 8;    // E padded: the k-steps of 8
 constexpr int kNT = kHp / 8;             // n-tiles (= k-steps) of an H x H

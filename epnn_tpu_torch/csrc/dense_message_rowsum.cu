@@ -44,17 +44,36 @@
 // deterministic, no atomics.  Columns past N enter as pj = 0, cv = 0 and
 // add exactly zero.
 //
-// Widths (common.cuh): any H from 1 to 64, the products at H padded to 8
+// Widths (common.cuh): up to 64 (padded), the products at H padded to 8
 // (wgmma m64nHpk8; W2 and b2 come padded, pi and pj are read at their real
 // width with zeros past it).  Above H = 32 a product of more than 4
 // k-steps runs as two chains added in fp32, one column is in flight at a
 // time (two would not fit in the registers) and the chunks are 16 columns.
 // The block body is far_field.cuh's, shared with fused_message_rowsum.cu.
+//
+// Widths past 64 (padded): far_field.cuh's wide body, the output columns in
+// chunks of 32 as a third grid dimension, mma.sync m16n8k8 in 3xTF32 with
+// every operand streamed k-step by k-step (wide.cuh).
 #include "far_field.cuh"
 
 namespace {
 
 using epnn::kH;
+
+#if EPNN_WIDE
+
+__global__ void __launch_bounds__(epnn::far::kThreads)
+dmr_partial(const float* __restrict__ pi, const float* __restrict__ pj,
+            const float* __restrict__ cv, const float* __restrict__ w2,
+            const float* __restrict__ b2, float* __restrict__ part, int R,
+            int N, int cols_per_split) {
+  epnn::far::rows<false>(pi, pj, cv, w2, b2, nullptr, part, R, N,
+                         cols_per_split, blockIdx.x, blockIdx.y, blockIdx.z);
+}
+
+constexpr int kOutChunks = epnn::wide::kChunks;
+
+#else
 
 __global__ void __launch_bounds__(epnn::far::kThreads, 3)
 dmr_partial(const float* __restrict__ pi, const float* __restrict__ pj,
@@ -65,6 +84,10 @@ dmr_partial(const float* __restrict__ pi, const float* __restrict__ pj,
   epnn::far::rows<false>(s, pi, pj, cv, w2, b2, nullptr, part, R, N,
                          cols_per_split, blockIdx.x, blockIdx.y);
 }
+
+constexpr int kOutChunks = 1;
+
+#endif  // EPNN_WIDE
 
 }  // namespace
 
@@ -81,7 +104,7 @@ extern "C" int epnn_dense_message_rowsum(const float* pi, const float* pj,
       (long long)(splits - 1) * cols_per_split >= N)
     return cudaErrorInvalidValue;
   const dim3 grid((R + epnn::far::kRowsPerBlock - 1) / epnn::far::kRowsPerBlock,
-                  splits);
+                  splits, kOutChunks);
   dmr_partial<<<grid, epnn::far::kThreads, 0, stream>>>(pi, pj, cv, w2, b2,
                                                         part, R, N,
                                                         cols_per_split);

@@ -52,7 +52,7 @@
 // Rows past R enter as pi = 0, g = 0 and columns past N as pj = 0, cv = 0;
 // both give e2 = 0 and add exactly zero.
 //
-// Widths (common.cuh): any H from 1 to 64, the products at H padded to 8
+// Widths (common.cuh): up to 64 (padded), the products at H padded to 8
 // (W2, b2 padded; pi, pj, g read at their real width, zeros past it; only
 // the real H x H of dW2 is written).  dW2's rows f run in m-tiles of 16
 // (padded to 16 where H is not a multiple of 16).  Up to 8 m x n tiles
@@ -60,7 +60,376 @@
 // each column's chain of 6 products goes straight into the warp's fp32
 // sums in shared memory, one m-tile at a time.  Products of more than 4
 // k-steps run as two chains added in fp32.
+//
+// Widths past 64 (padded): three kernels on wide.cuh's streamed products,
+// nothing growing with H.  Pass R and pass C (dpi, dpj) each take one
+// chunk of 32 features of z1bar a block (blockIdx.z); for each streamed
+// entry a warp rebuilds z2 four n-tiles at a time (one A fragment a k-step
+// for the four), forms each n-tile's e2, which is the A fragment of
+// z1bar's k-step (wide.cuh's relabelled order), and contracts it with
+// W2^T's fragments, read and split where needed.
+// Pass W owns a 32 x 32 tile of dW2 (and, in the tiles of the first
+// feature chunk, 32 entries of db2) for 64 rows a block, walks every
+// column, and contracts relu(z1)^T with e2 over each column's 16 pairs a
+// warp as the narrow pass R does (e2 through shared memory); the four
+// warps' sums are added in order and the row blocks' by sum_parts.
 #include "common.cuh"
+
+#if EPNN_WIDE
+#include "wide.cuh"
+
+namespace {
+
+using epnn::kH;
+using epnn::kHp;
+using epnn::kNT;
+namespace wide = epnn::wide;
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kOwnPerBlock = 16 * kWarps;
+constexpr int kChunks = wide::kChunks;
+constexpr int kES = wide::kNC + 8;  // e2 tile row stride: conflict-free
+
+// z2's n-tiles kk0 .. kk0 + 3 (outputs 8kk0 .. 8kk0 + 31, b2 added; 0 past
+// Hp) of a warp's 16 pairs, rows g (own row oa) and g + 8 (ob) against the
+// streamed row st: z1 = own + streamed, each k-step's A fragment built
+// once for the four; z[q] in the C layout
+__device__ __forceinline__ void z2_tiles(const float* __restrict__ w2,
+                                         const float* __restrict__ b2,
+                                         int kk0, int lane, const float* oa,
+                                         bool va, const float* ob, bool vb,
+                                         const float* st, float (&z)[4][4]) {
+  const int t = lane & 3;
+  float y[1][4][4];
+  wide::mid<1>(w2, b2, 8 * kk0, lane,
+               [&](int ks, float (&a)[1][4]) {
+                 const int f = 8 * ks + 2 * t;
+                 const float s0 = wide::at(st, f, kH, true);
+                 const float s1 = wide::at(st, f + 1, kH, true);
+                 a[0][0] = epnn::relu(wide::at(oa, f, kH, va) + s0);
+                 a[0][1] = epnn::relu(wide::at(ob, f, kH, vb) + s0);
+                 a[0][2] = epnn::relu(wide::at(oa, f + 1, kH, va) + s1);
+                 a[0][3] = epnn::relu(wide::at(ob, f + 1, kH, vb) + s1);
+               },
+               y);
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) z[q][r] = y[0][q][r];
+}
+
+// kRows: pass R (owns rows, streams columns: dpi), else pass C (dpj).
+template <bool kRows>
+__global__ void __launch_bounds__(kThreads)
+dmr_bwd_d(const float* __restrict__ pi, const float* __restrict__ pj,
+          const float* __restrict__ cv, const float* __restrict__ w2,
+          const float* __restrict__ b2, const float* __restrict__ g,
+          float* __restrict__ part_d, int R, int N, int per_split) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, t = lane & 3;
+  const int n_own = kRows ? R : N;
+  const int n_str = kRows ? N : R;
+  const float* own_src = kRows ? pi : pj;
+  const float* str_src = kRows ? pj : pi;
+  const int o0 = blockIdx.x * kOwnPerBlock + warp * 16;
+  if (o0 >= n_own) return;  // no block-wide barrier follows
+  const int s0 = blockIdx.y * per_split;
+  const int s1 = min(n_str, s0 + per_split);
+  const int n0 = wide::kNC * blockIdx.z;
+  const bool va = o0 + gq < n_own, vb = o0 + gq + 8 < n_own;
+  const float* oa = own_src + (size_t)(va ? o0 + gq : 0) * kH;
+  const float* ob = own_src + (size_t)(vb ? o0 + gq + 8 : 0) * kH;
+  // pass R: g of the own rows; pass C: cv of the own columns
+  const float* ga = g + (size_t)(va ? o0 + gq : 0) * kH;
+  const float* gb = g + (size_t)(vb ? o0 + gq + 8 : 0) * kH;
+  const float cvown[2] = {!kRows && va ? cv[o0 + gq] : 0.0f,
+                          !kRows && vb ? cv[o0 + gq + 8] : 0.0f};
+  float acc[4][4];
+#pragma unroll
+  for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[nf][r] = 0.0f;
+
+  for (int s = s0; s < s1; ++s) {
+    const float* st = str_src + (size_t)s * kH;
+    const float* gs = g + (size_t)s * kH;  // pass C: g of the streamed row
+    const float cj = kRows ? cv[s] : 0.0f;
+    // z1bar's chunk = e2 @ W2^T: k-steps kk over the outputs o
+    float zb[4][4], c[4][4];
+#pragma unroll
+    for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) c[nf][r] = 0.0f;
+#pragma unroll 1
+    for (int k0 = 0; k0 < kNT; k0 += 4) {
+      float z4[4][4];
+      z2_tiles(w2, b2, k0, lane, oa, va, ob, vb, st, z4);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int kk = k0 + q;
+        if (kNT % 4 != 0 && kk >= kNT) break;
+        const float(&z)[4] = z4[q];
+        const int o = 8 * kk + 2 * t;
+        float e[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int col = o + (r & 1);
+          float gv;
+          if (kRows)
+            gv = wide::at(r < 2 ? ga : gb, col, kH, r < 2 ? va : vb);
+          else
+            gv = wide::at(gs, col, kH, true);
+          e[r] = z[r] > 0.0f ? gv * (kRows ? cj : cvown[r >> 1]) : 0.0f;
+        }
+        const float a[4] = {e[0], e[2], e[1], e[3]};
+        uint32_t ah[4], al[4];
+        wide::split_a(a, ah, al);
+#pragma unroll
+        for (int nf = 0; nf < 4; ++nf) {
+          const int f = n0 + 8 * nf + gq;
+          const uint4 b =
+              f < kHp ? epnn::split_b(w2[(size_t)f * kHp + o],
+                                      w2[(size_t)f * kHp + o + 1])
+                      : make_uint4(0u, 0u, 0u, 0u);
+          epnn::mma_3xtf32(c[nf], ah, al, b);
+        }
+      }
+#pragma unroll
+      for (int nf = 0; nf < 4; ++nf) wide::fold(zb[nf], c[nf], k0 == 0);
+    }
+    // mask 1[z1 > 0] at features n0 + 8nf + 2t + h, sum over the streamed
+#pragma unroll
+    for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int f = n0 + 8 * nf + 2 * t + h;
+        const float sf = wide::at(st, f, kH, true);
+        acc[nf][h] += wide::at(oa, f, kH, va) + sf > 0.0f ? zb[nf][h] : 0.0f;
+        acc[nf][2 + h] +=
+            wide::at(ob, f, kH, vb) + sf > 0.0f ? zb[nf][2 + h] : 0.0f;
+      }
+  }
+
+  float* dst = part_d + (size_t)blockIdx.y * n_own * kH;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    if (!(half ? vb : va)) continue;
+    float* drow = dst + (size_t)(o0 + gq + 8 * half) * kH;
+#pragma unroll
+    for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int f = n0 + 8 * nf + 2 * t + h;
+        if (f < kH) drow[f] = acc[nf][2 * half + h];
+      }
+  }
+}
+
+// Pass W: block (tile, row block); tile = fc * kChunks + oc, dW2 rows f0 =
+// 32fc .., columns o0 = 32oc ..; db2 entries o0 .. where fc == 0.
+__global__ void __launch_bounds__(kThreads)
+dmr_bwd_w(const float* __restrict__ pi, const float* __restrict__ pj,
+          const float* __restrict__ cv, const float* __restrict__ w2,
+          const float* __restrict__ b2, const float* __restrict__ g,
+          float* __restrict__ part_w, float* __restrict__ part_b, int R,
+          int N) {
+  __shared__ float se[kWarps][2][16][kES];      // e2 hi, lo [pair][o]
+  __shared__ float red_w[kWarps][32][32];       // [entry][lane]
+  __shared__ float red_b[kWarps][8][32];        // [2no + u][lane]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, t = lane & 3;
+  const int fc = blockIdx.x / kChunks, oc = blockIdx.x % kChunks;
+  const int f0 = wide::kNC * fc, o0 = wide::kNC * oc;
+  const int i0 = blockIdx.y * kOwnPerBlock + warp * 16;
+  const bool va = i0 + gq < R, vb = i0 + gq + 8 < R;
+  const float* pa = pi + (size_t)(va ? i0 + gq : 0) * kH;
+  const float* pb = pi + (size_t)(vb ? i0 + gq + 8 : 0) * kH;
+  const float* ga = g + (size_t)(va ? i0 + gq : 0) * kH;
+  const float* gb = g + (size_t)(vb ? i0 + gq + 8 : 0) * kH;
+  // relu(z1)^T's pairs 8kp + t (pp = 2kp) and 8kp + t + 4 (pp = 2kp + 1)
+  const float* pt[4];
+  bool vt[4];
+#pragma unroll
+  for (int pp = 0; pp < 4; ++pp) {
+    const int row = i0 + 8 * (pp >> 1) + t + 4 * (pp & 1);
+    vt[pp] = row < R;
+    pt[pp] = pi + (size_t)(vt[pp] ? row : 0) * kH;
+  }
+  float (*const eh)[kES] = se[warp][0];
+  float (*const el)[kES] = se[warp][1];
+  float sw[2][4][4], sb[4][2];
+#pragma unroll
+  for (int no = 0; no < 4; ++no) {
+    sb[no][0] = sb[no][1] = 0.0f;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) sw[0][no][r] = sw[1][no][r] = 0.0f;
+  }
+
+  if (i0 < R) {
+    for (int j = 0; j < N; ++j) {
+      const float* st = pj + (size_t)j * kH;
+      const float cj = cv[j];
+      float e2[4][4];
+      z2_tiles(w2, b2, 4 * oc, lane, pa, va, pb, vb, st, e2);
+#pragma unroll
+      for (int no = 0; no < 4; ++no) {
+        const int o = 8 * (4 * oc + no) + 2 * t;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float gv =
+              wide::at(r < 2 ? ga : gb, o + (r & 1), kH, r < 2 ? va : vb);
+          e2[no][r] = e2[no][r] > 0.0f ? gv * cj : 0.0f;
+        }
+      }
+      if (fc == 0)
+#pragma unroll
+        for (int no = 0; no < 4; ++no) {
+          sb[no][0] += e2[no][0];
+          sb[no][1] += e2[no][1];
+          sb[no][0] += e2[no][2];
+          sb[no][1] += e2[no][3];
+        }
+      __syncwarp();  // the previous column's e2 tile is consumed
+#pragma unroll
+      for (int no = 0; no < 4; ++no)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          uint32_t hi, lo;
+          epnn::tf32_split(e2[no][r], hi, lo);
+          const int p = gq + 8 * (r >> 1), o = 8 * no + 2 * t + (r & 1);
+          eh[p][o] = __uint_as_float(hi);
+          el[p][o] = __uint_as_float(lo);
+        }
+      __syncwarp();
+      float cw[2][4][4];
+#pragma unroll
+      for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+        for (int no = 0; no < 4; ++no)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) cw[mf][no][r] = 0.0f;
+#pragma unroll
+      for (int kp = 0; kp < 2; ++kp) {
+        uint4 bfr[4];
+#pragma unroll
+        for (int no = 0; no < 4; ++no) {
+          const int p = 8 * kp + t, o = 8 * no + gq;
+          bfr[no] = make_uint4(__float_as_uint(eh[p][o]),
+                               __float_as_uint(eh[p + 4][o]),
+                               __float_as_uint(el[p][o]),
+                               __float_as_uint(el[p + 4][o]));
+        }
+#pragma unroll
+        for (int mf = 0; mf < 2; ++mf) {
+          const int f = f0 + 16 * mf + gq;
+          const float s0 = wide::at(st, f, kH, true);
+          const float s8 = wide::at(st, f + 8, kH, true);
+          const float a[4] = {
+              epnn::relu(wide::at(pt[2 * kp], f, kH, vt[2 * kp]) + s0),
+              epnn::relu(wide::at(pt[2 * kp], f + 8, kH, vt[2 * kp]) + s8),
+              epnn::relu(wide::at(pt[2 * kp + 1], f, kH, vt[2 * kp + 1]) + s0),
+              epnn::relu(wide::at(pt[2 * kp + 1], f + 8, kH, vt[2 * kp + 1]) +
+                         s8)};
+          uint32_t ah[4], al[4];
+          wide::split_a(a, ah, al);
+#pragma unroll
+          for (int no = 0; no < 4; ++no)
+            epnn::mma_3xtf32(cw[mf][no], ah, al, bfr[no]);
+        }
+      }
+#pragma unroll
+      for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+        for (int no = 0; no < 4; ++no)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) sw[mf][no][r] += cw[mf][no][r];
+    }
+  }
+
+  // the block's four warps in order; db2 then over the eight row groups
+#pragma unroll
+  for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+    for (int no = 0; no < 4; ++no)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        red_w[warp][(mf * 4 + no) * 4 + r][lane] = sw[mf][no][r];
+#pragma unroll
+  for (int no = 0; no < 4; ++no)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) red_b[warp][2 * no + u][lane] = sb[no][u];
+  __syncthreads();
+  for (int e = threadIdx.x; e < wide::kNC * wide::kNC; e += kThreads) {
+    const int fl = e / wide::kNC, ol = e % wide::kNC;
+    const int f = f0 + fl, o = o0 + ol;
+    if (f >= kH || o >= kH) continue;
+    const int mf = fl >> 4, rr = fl & 15, no = ol >> 3, q = ol & 7;
+    const int entry = (mf * 4 + no) * 4 + 2 * (rr >> 3) + (q & 1);
+    const int ln = 4 * (rr & 7) + (q >> 1);
+    float w = red_w[0][entry][ln];
+    for (int q2 = 1; q2 < kWarps; ++q2) w += red_w[q2][entry][ln];
+    part_w[(size_t)blockIdx.y * kH * kH + (size_t)f * kH + o] = w;
+  }
+  if (fc == 0 && threadIdx.x < wide::kNC) {
+    const int ol = threadIdx.x, o = o0 + ol;
+    if (o < kH) {
+      const int ent = 2 * (ol >> 3) + (ol & 1), tt = (ol & 7) >> 1;
+      float b = 0.0f;
+      for (int q2 = 0; q2 < kWarps; ++q2)
+        for (int gg = 0; gg < 8; ++gg) b += red_b[q2][ent][4 * gg + tt];
+      part_b[(size_t)blockIdx.y * kH + o] = b;
+    }
+  }
+}
+
+cudaError_t launch_sum(const float* part, float* out, int count, int parts,
+                       cudaStream_t stream) {
+  epnn::sum_parts<<<(count + 255) / 256, 256, 0, stream>>>(part, out, count,
+                                                           parts);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// as the narrow entry below: the same arguments and scratch (pass W uses
+// ceil(R / 64) of the blocks_r dW2 and db2 parts)
+extern "C" int epnn_dense_message_rowsum_bwd(
+    const float* pi, const float* pj, const float* cv, const float* w2,
+    const float* b2, const float* g, float* work, float* dpi, float* dpj,
+    float* dw2, float* db2, int R, int N, int H, int splits_r,
+    int cols_per_split, int splits_c, int rows_per_split,
+    cudaStream_t stream) {
+  if (H != kH || R <= 0 || N <= 0 || splits_r <= 0 || splits_c <= 0 ||
+      cols_per_split <= 0 || rows_per_split <= 0 ||
+      (long long)(splits_r - 1) * cols_per_split >= N ||
+      (long long)(splits_c - 1) * rows_per_split >= R)
+    return cudaErrorInvalidValue;
+  const int row_blocks = (R + kOwnPerBlock - 1) / kOwnPerBlock;
+  const int col_blocks = (N + kOwnPerBlock - 1) / kOwnPerBlock;
+  const int blocks_r = row_blocks * splits_r;
+  float* part_dpi = work;
+  float* part_dpj = part_dpi + (size_t)splits_r * R * H;
+  float* part_w = part_dpj + (size_t)splits_c * N * H;
+  float* part_b = part_w + (size_t)blocks_r * H * H;
+  cudaError_t err;
+  dmr_bwd_d<true><<<dim3(row_blocks, splits_r, kChunks), kThreads, 0,
+                    stream>>>(pi, pj, cv, w2, b2, g, part_dpi, R, N,
+                              cols_per_split);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  dmr_bwd_d<false><<<dim3(col_blocks, splits_c, kChunks), kThreads, 0,
+                     stream>>>(pi, pj, cv, w2, b2, g, part_dpj, R, N,
+                               rows_per_split);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  dmr_bwd_w<<<dim3(kChunks * kChunks, row_blocks), kThreads, 0, stream>>>(
+      pi, pj, cv, w2, b2, g, part_w, part_b, R, N);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = launch_sum(part_dpi, dpi, R * H, splits_r, stream))) return err;
+  if ((err = launch_sum(part_dpj, dpj, N * H, splits_c, stream))) return err;
+  if ((err = launch_sum(part_w, dw2, H * H, row_blocks, stream))) return err;
+  return launch_sum(part_b, db2, H, row_blocks, stream);
+}
+
+#else
 
 namespace {
 
@@ -549,3 +918,5 @@ extern "C" int epnn_dense_message_rowsum_bwd(
   if ((err = launch_sum(part_w, dw2, H * H, blocks_r, stream))) return err;
   return launch_sum(part_b, db2, H, blocks_r, stream);
 }
+
+#endif  // EPNN_WIDE

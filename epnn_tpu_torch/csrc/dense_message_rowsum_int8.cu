@@ -52,7 +52,7 @@
 // TMA and overlapping the quantization with the products are left for a
 // redesign.
 //
-// Widths (common.cuh): any H from 1 to 64.  The contraction runs at H
+// Widths (common.cuh): up to 64 (padded) here.  The contraction runs at H
 // padded to 32 (kHq: m16n8k32's K), the outputs at H padded to 8 (kHp):
 // W2q comes as (kHq, kHp) int8 and sw, b2 as (kHp,), zero-padded, pi and pj
 // are read at their real width with zeros past it (relu(0) quantizes to 0).
@@ -60,6 +60,13 @@
 // JAX takes them: a zero padding column would raise a negative maximum to
 // 0.  A padded W2 column has sw = 1e-30 / 127 from the clamp, w2q 0 and b2
 // 0, so its z2 is 0 (and it is not written).
+//
+// Widths past 64 (padded): the output columns in chunks of 32, one a block
+// (blockIdx.z); a block reads pi, pj and W2q where it needs them (no staged
+// columns, no fragments kept in registers), so nothing grows with H.  The
+// accumulator starts at 0 and is converted by __int2float_rn: past H = 260
+// a row's sum may leave the 2^22 the bias trick needs; the conversion is
+// exact up to 2^24 and rounds to nearest past it, as JAX's astype does.
 #include "common.cuh"
 
 namespace {
@@ -71,7 +78,6 @@ constexpr int kHq = (kH + 31) / 32 * 32;  // the contraction, padded to 32
 constexpr int kKQ = kHq / 32;             // its k-steps of m16n8k32
 constexpr int kThreads = 128;      // 4 warps
 constexpr int kRowsPerBlock = 64;  // 16 a warp
-constexpr int kChunk = 32;         // columns per staged chunk
 // bits of 2^23 + 2^22 = 12,582,912.0f: any int32 |a| < 2^22 added to them
 // gives the bits of 12,582,912 + a
 constexpr int kBiasBits = 0x4B400000;
@@ -105,6 +111,125 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+
+#if EPNN_WIDE
+
+constexpr int kNC = 32;  // output columns a block
+constexpr int kOutChunks = (kHp + kNC - 1) / kNC;
+
+__global__ void __launch_bounds__(kThreads)
+dmr_int8_partial(const float* __restrict__ pi, const float* __restrict__ pj,
+                 const float* __restrict__ cv,
+                 const int8_t* __restrict__ w2q, const float* __restrict__ sw,
+                 const float* __restrict__ b2,
+                 const float* __restrict__ pi_max,
+                 const float* __restrict__ pj_max,
+                 const float* __restrict__ pad_pi,
+                 float* __restrict__ part, int R, int N,
+                 int cols_per_split) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5) * 16;
+  const int j0 = blockIdx.y * cols_per_split;
+  const int j1 = min(N, j0 + cols_per_split);
+  const int n0 = kNC * blockIdx.z;
+  const bool va = r0 + g < R, vb = r0 + g + 8 < R;
+  const float* pa = pi + (size_t)(va ? r0 + g : 0) * kH;
+  const float* pb = pi + (size_t)(vb ? r0 + g + 8 : 0) * kH;
+
+  float pim = *pi_max, pjm = *pj_max;
+  if (pad_pi != nullptr) {
+    pim = fmaxf(pim, *pad_pi);
+    pjm = fmaxf(pjm, 0.0f);
+  }
+  const float s_in =
+      __fdiv_rn(fmaxf(epnn::relu(__fadd_rn(pim, pjm)), 1e-30f), 127.0f);
+  const float inv = __fdiv_rn(1.0f, s_in);
+  float sc[4][2], bias[4][2];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int o = n0 + 8 * nt + 2 * t + u;
+      sc[nt][u] = o < kHp ? __fmul_rn(s_in, sw[o]) : 0.0f;
+      bias[nt][u] = o < kHp ? b2[o] : 0.0f;
+    }
+  // W2q's B fragment of n-tile nt, k-step kq, half h (as the narrow path's)
+  auto bq = [&](int nt, int kq, int h) {
+    const int n = n0 + 8 * nt + g;
+    uint32_t v = 0;
+    if (n < kHp)
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        v |= (uint32_t)(uint8_t)w2q[(size_t)(32 * kq + 8 * t + 4 * h + m) *
+                                        kHp + n]
+             << (8 * m);
+    return v;
+  };
+
+  float acc[4][4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[nt][r] = 0.0f;
+
+  for (int j = j0; j < j1; ++j) {
+    const float* ps = pj + (size_t)j * kH;
+    int d[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) d[nt][r] = 0;
+#pragma unroll 1
+    for (int kq = 0; kq < kKQ; ++kq) {
+      uint32_t qa[8], qb[8];
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        const int f = 32 * kq + 8 * t + m;
+        const bool in = kH == kHq || f < kH;
+        const float s = in ? ps[f] : 0.0f;
+        qa[m] = quant((in && va ? pa[f] : 0.0f) + s, inv);
+        qb[m] = quant((in && vb ? pb[f] : 0.0f) + s, inv);
+      }
+      const uint32_t a[4] = {pack4(qa[0], qa[1], qa[2], qa[3]),
+                             pack4(qb[0], qb[1], qb[2], qb[3]),
+                             pack4(qa[4], qa[5], qa[6], qa[7]),
+                             pack4(qb[4], qb[5], qb[6], qb[7])};
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        mma_s8(d[nt], a, bq(nt, kq, 0), bq(nt, kq, 1));
+    }
+    const float cj = cv[j];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float z = epnn::relu(__fadd_rn(
+            __fmul_rn(__int2float_rn(d[nt][r]), sc[nt][r & 1]),
+            bias[nt][r & 1]));
+        acc[nt][r] = fmaf(cj, z, acc[nt][r]);
+      }
+  }
+
+  float* dst = part + (size_t)blockIdx.y * R * kH;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r0 + g + 8 * half;
+    if (row >= R) continue;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int o = n0 + 8 * nt + 2 * t + u;
+        if (o < kH) dst[(size_t)row * kH + o] = acc[nt][2 * half + u];
+      }
+  }
+}
+
+#else
+
+constexpr int kOutChunks = 1;
+constexpr int kChunk = 32;         // columns per staged chunk
 
 // The contraction index is permuted so that thread t holds features 32kq +
 // 8t .. 32kq + 8t + 7 of every row in k-step kq (as far_a does): k 4t + m
@@ -279,6 +404,8 @@ dmr_int8_partial(const float* __restrict__ pi, const float* __restrict__ pj,
   }
 }
 
+#endif  // EPNN_WIDE
+
 }  // namespace
 
 // w2q: (Hq, Hp) int8 (Hq = H padded to 32, Hp to 8); sw, b2: (Hp,); pi_max,
@@ -294,7 +421,8 @@ extern "C" int epnn_dense_message_rowsum_int8(
   if (H != kH || R <= 0 || N <= 0 || splits <= 0 || cols_per_split <= 0 ||
       (long long)(splits - 1) * cols_per_split >= N)
     return cudaErrorInvalidValue;
-  const dim3 grid((R + kRowsPerBlock - 1) / kRowsPerBlock, splits);
+  const dim3 grid((R + kRowsPerBlock - 1) / kRowsPerBlock, splits,
+                  kOutChunks);
   dmr_int8_partial<<<grid, kThreads, 0, stream>>>(
       pi, pj, cv, w2q, sw, b2, pi_max, pj_max, pad_pi, part, R, N,
       cols_per_split);

@@ -11,8 +11,14 @@
 
 #include "common.cuh"
 
+#if EPNN_WIDE
+#include "wide.cuh"
+#endif
+
 namespace epnn {
 namespace far {
+
+#if !EPNN_WIDE
 
 constexpr int kThreads = 128;               // one warpgroup
 constexpr int kRowsPerBlock = 64;           // 16 a warp
@@ -213,6 +219,81 @@ __device__ __forceinline__ void rows(Smem& s, const float* __restrict__ pi,
     }
   }
 }
+
+#else  // EPNN_WIDE
+
+// The wide path (wide.cuh): a block is 4 warps, 64 rows (16 a warp), one
+// column range and one output chunk of 32 columns (blockIdx.z in
+// dense_message_rowsum.cu).  For each column j a warp builds z2's chunk
+// with mma.sync m16n8k8 3xTF32, k-step by k-step from pi and pj read where
+// they are needed, and folds cv_j * relu(z2) into its 16 sums in order.
+constexpr int kThreads = 128;
+constexpr int kRowsPerBlock = 64;
+
+template <bool kRowWeight>
+__device__ __forceinline__ void rows(const float* __restrict__ pi,
+                                     const float* __restrict__ pj,
+                                     const float* __restrict__ cv,
+                                     const float* __restrict__ w2,
+                                     const float* __restrict__ b2,
+                                     const float* __restrict__ rw,
+                                     float* __restrict__ part, int R, int N,
+                                     int cols_per_split, int bx, int by,
+                                     int oc) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = bx * kRowsPerBlock + (threadIdx.x >> 5) * 16;
+  const int j0 = by * cols_per_split;
+  const int j1 = min(N, j0 + cols_per_split);
+  const int n0 = wide::kNC * oc;
+  const bool va = r0 + g < R, vb = r0 + g + 8 < R;
+  const float* pa = pi + (size_t)(va ? r0 + g : 0) * kH;
+  const float* pb = pi + (size_t)(vb ? r0 + g + 8 : 0) * kH;
+  float acc[4][4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[nt][r] = 0.0f;
+  for (int j = j0; j < j1; ++j) {
+    const float* ps = pj + (size_t)j * kH;
+    float y[1][4][4];
+    wide::mid<1>(w2, b2, n0, lane,
+                 [&](int ks, float (&z)[1][4]) {
+                   const int f = 8 * ks + 2 * t;
+                   const float s0 = wide::at(ps, f, kH, true);
+                   const float s1 = wide::at(ps, f + 1, kH, true);
+                   z[0][0] = relu(wide::at(pa, f, kH, va) + s0);
+                   z[0][1] = relu(wide::at(pb, f, kH, vb) + s0);
+                   z[0][2] = relu(wide::at(pa, f + 1, kH, va) + s1);
+                   z[0][3] = relu(wide::at(pb, f + 1, kH, vb) + s1);
+                 },
+                 y);
+    const float cj = cv[j];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        acc[nt][r] = fmaf(cj, relu(y[0][nt][r]), acc[nt][r]);
+  }
+  float* dst = part + (size_t)by * R * kH;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r0 + g + 8 * half;
+    if (row >= R) continue;
+    const float w = kRowWeight ? rw[row] : 1.0f;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int o = n0 + 8 * nt + 2 * t + u;
+        float v = acc[nt][2 * half + u];
+        if (kRowWeight) v *= w;
+        if (o < kH) dst[(size_t)row * kH + o] = v;
+      }
+  }
+}
+
+#endif  // EPNN_WIDE
 
 }  // namespace far
 }  // namespace epnn

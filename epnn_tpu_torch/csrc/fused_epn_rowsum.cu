@@ -64,9 +64,102 @@
 // probe of chip_smoke.py checks this on the card at two widths.  Build
 // without --use_fast_math: expf, cosf, sqrt at full precision.
 //
-// Widths: any H and E from 1 to 64 (common.cuh); W1e (Ep, Hp), W2 and b2
+// Widths: up to 64 padded (common.cuh); W1e (Ep, Hp), W2 and b2
 // come zero-padded, mu (E,) is read into shared memory with zeros past E.
+//
+// Widths past 64 (padded H or E): the wide tiles of wide.cuh fed by the
+// same scan (wide::pair_walk); a pair's channels are built one at a time
+// where a k-step of epart takes them (mu from global memory), its gate
+// once a tile.  Every step stays a function of the pair's d^2 and of the
+// two orderings' bases, so the transfers stay exact negations.
 #include "common.cuh"
+
+#if EPNN_WIDE
+#include "wide.cuh"
+
+namespace {
+
+using epnn::kE;
+using epnn::kH;
+namespace wide = epnn::wide;
+
+struct Smem {
+  float d[epnn::kNearWarps][16][wide::kDS];
+  epnn::ScanSmem scan;
+};
+
+__global__ void __launch_bounds__(epnn::kNearThreads, 3)
+fepn_kernel(const float* __restrict__ pi, const float* __restrict__ pj,
+            const float* __restrict__ xyz, const float* __restrict__ mask,
+            const float* __restrict__ w1e, const float* __restrict__ w2,
+            const float* __restrict__ b2, const float* __restrict__ mu,
+            float* __restrict__ out, float* work, int N, int n_warps,
+            int soft_gate,
+            float cutoff, float eta, float tol, float cut2) {
+  extern __shared__ uint4 smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gw = blockIdx.x * epnn::kNearWarps + warp;
+  const int g = lane >> 2, t = lane & 3;
+  const float neg_eta = -eta;
+  int r0 = N, r1 = N;  // a warp past the grid's owns no rows
+  if (gw < n_warps) epnn::near_range(N, gw, n_warps, r0, r1);
+
+  auto tile = [&](int h0, int n) {
+    const int ia = (h0 + g) & (epnn::kPairRing - 1);
+    const int ib = (h0 + g + 8) & (epnn::kPairRing - 1);
+    const bool v[2] = {g < n, g + 8 < n};
+    const int j[2] = {v[0] ? sm.scan.ring[warp][ia] : 0,
+                      v[1] ? sm.scan.ring[warp][ib] : 0};
+    const int i[2] = {v[0] ? sm.scan.rows[warp][ia] : 0,
+                      v[1] ? sm.scan.rows[warp][ib] : 0};
+    float c[2], d[2], gh[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float pm;
+      c[e] = wide::pair_env(xyz, mask, i[e], j[e], cutoff, d[e], pm);
+      // the hard gate: any real channel above tol, over the four threads
+      int near = 0;
+      for (int ch = t; ch < kE; ch += 4)
+        near |= epnn::rbf_channel(c[e], d[e], mu[ch], neg_eta) > tol;
+      near |= __shfl_xor_sync(0xffffffffu, near, 1);
+      near |= __shfl_xor_sync(0xffffffffu, near, 2);
+      gh[e] = __fmul_rn(0.5f, soft_gate ? c[e] : (near ? 1.0f : 0.0f));
+    }
+    const float* pir[2] = {pi + (size_t)i[0] * kH, pi + (size_t)i[1] * kH};
+    const float* pjr[2] = {pj + (size_t)i[0] * kH, pj + (size_t)i[1] * kH};
+    const float* pic[2] = {pi + (size_t)j[0] * kH, pi + (size_t)j[1] * kH};
+    const float* pjc[2] = {pj + (size_t)j[0] * kH, pj + (size_t)j[1] * kH};
+    wide::tile(
+        w1e, w2, b2, lane,
+        [&](int e, int ch) {
+          return wide::rbf_of(c[e], d[e], mu, ch, neg_eta);
+        },
+        [&](int e, int f, float ep, float& zn, float& zt) {
+          const bool in = v[e] && f < kH;
+          const float n_ = __fadd_rn(in ? pir[e][f] : 0.0f,
+                                     in ? pjc[e][f] : 0.0f);
+          const float t_ = __fadd_rn(in ? pic[e][f] : 0.0f,
+                                     in ? pjr[e][f] : 0.0f);
+          zn = epnn::relu(__fadd_rn(n_, ep));
+          zt = epnn::relu(__fadd_rn(t_, ep));
+        },
+        [&](int e, float yn, float yt) {
+          return __fmul_rn(gh[e], __fsub_rn(epnn::relu(yn), epnn::relu(yt)));
+        },
+        work + (size_t)gw * wide::kScratch, sm.d[warp], sm.scan.rows[warp],
+        epnn::kPairRing - 1, h0, n, out);
+  };
+  wide::pair_walk(sm.scan, warp, lane, xyz, mask, cut2, N, n_warps, r0, r1,
+                  out, tile);
+}
+
+int g_resident[epnn::kNearMaxDevices] = {};  // epnn::near_warps's cache
+constexpr int kSmem = (int)sizeof(Smem);
+
+}  // namespace
+
+#else
 
 namespace {
 
@@ -90,7 +183,8 @@ fepn_kernel(const float* __restrict__ pi, const float* __restrict__ pj,
             const float* __restrict__ xyz, const float* __restrict__ mask,
             const float* __restrict__ w1e, const float* __restrict__ w2,
             const float* __restrict__ b2, const float* __restrict__ mu,
-            float* __restrict__ out, int N, int n_warps, int soft_gate,
+            float* __restrict__ out, float* work, int N, int n_warps,
+            int soft_gate,
             float cutoff, float eta, float tol, float cut2) {
   extern __shared__ uint4 smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
@@ -183,14 +277,27 @@ constexpr int kSmem = (int)sizeof(Smem);
 
 }  // namespace
 
+#endif  // EPNN_WIDE
+
+// The warps a launch runs for N rows (the wide path's scratch holds 16 Hp
+// floats for each); negative on a CUDA error.
+extern "C" int epnn_fused_epn_rowsum_warps(int N) {
+  int n_warps = 0;
+  const cudaError_t err =
+      epnn::near_warps(fepn_kernel, g_resident, N, kSmem, n_warps);
+  return err == cudaSuccess ? n_warps : -1;
+}
+
 // xyz (N, 3), mask (N,), mu (E,) the RBF centers; w1e (Ep, Hp), w2 (Hp,
-// Hp), b2 (Hp,) zero-padded; out: (N, H); cut2 the squared cutoff rounded
-// up.  N * N must fit an int.  Returns cudaGetLastError().
+// Hp), b2 (Hp,) zero-padded; out: (N, H); work: the wide path's scratch
+// (16 Hp floats a warp; unused below 64 padded, may be null there); cut2
+// the squared cutoff rounded up.  N * N must fit an int.  Returns
+// cudaGetLastError().
 extern "C" int epnn_fused_epn_rowsum(
     const float* pi, const float* pj, const float* xyz, const float* mask,
     const float* w1e, const float* w2, const float* b2, const float* mu,
-    float* out, int N, int H, int E, int soft_gate, float cutoff, float eta,
-    float tol, float cut2, cudaStream_t stream) {
+    float* out, float* work, int N, int H, int E, int soft_gate,
+    float cutoff, float eta, float tol, float cut2, cudaStream_t stream) {
   if (H != kH || E != kE || N <= 0 || (long long)N * N > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   int n_warps = 0;
@@ -199,7 +306,7 @@ extern "C" int epnn_fused_epn_rowsum(
   if (err != cudaSuccess) return err;
   const int blocks = (n_warps + epnn::kNearWarps - 1) / epnn::kNearWarps;
   fepn_kernel<<<blocks, epnn::kNearThreads, kSmem, stream>>>(
-      pi, pj, xyz, mask, w1e, w2, b2, mu, out, N, n_warps, soft_gate, cutoff,
-      eta, tol, cut2);
+      pi, pj, xyz, mask, w1e, w2, b2, mu, out, work, N, n_warps, soft_gate,
+      cutoff, eta, tol, cut2);
   return cudaGetLastError();
 }

@@ -44,9 +44,107 @@
 // no atomics.  The order of summation differs from the plain version's, so
 // the check against it is the fp32 bar, not its bits.
 //
-// Widths: any H and E from 1 to 64 (common.cuh); W1e (Ep, Hp), W2 and b2
+// Widths: up to 64 padded (common.cuh); W1e (Ep, Hp), W2 and b2
 // come zero-padded, mu (E,) is read into shared memory with zeros past E.
+//
+// Widths past 64 (padded H or E): the far blocks run far_field.cuh's wide
+// body (one output chunk of 32 a block), the near blocks wide.cuh's tiles
+// fed by the same scan.
 #include "far_field.cuh"
+
+#if EPNN_WIDE
+
+namespace {
+
+using epnn::kE;
+using epnn::kH;
+namespace wide = epnn::wide;
+
+struct NearPart {
+  float d[epnn::kNearWarps][16][wide::kDS];
+  epnn::ScanSmem scan;
+};
+constexpr int kSmem = (int)sizeof(NearPart);
+constexpr int kOutChunks = wide::kChunks;
+static_assert(epnn::far::kThreads == epnn::kNearThreads, "one block size");
+
+__global__ void __launch_bounds__(epnn::kNearThreads, 3)
+fmr_kernel(const float* __restrict__ pi, const float* __restrict__ pj,
+           const float* __restrict__ xyz, const float* __restrict__ mask,
+           const float* __restrict__ cv, const float* __restrict__ w1e,
+           const float* __restrict__ w2, const float* __restrict__ b2,
+           const float* __restrict__ mu, float* __restrict__ part,
+           float* work, int N,
+           int splits, int cols_per_split, int far_blocks, int n_warps,
+           int masked, float cutoff, float eta, float cut2) {
+  extern __shared__ __align__(128) uint4 smem_raw[];
+  if ((int)blockIdx.x < far_blocks) {
+    const int row_blocks = (N + epnn::far::kRowsPerBlock - 1) /
+                           epnn::far::kRowsPerBlock;
+    const int bx = blockIdx.x % row_blocks, rest = blockIdx.x / row_blocks;
+    const int by = rest % splits, oc = rest / splits;
+    if (masked)
+      epnn::far::rows<true>(pi, pj, mask, w2, b2, mask, part, N, N,
+                            cols_per_split, bx, by, oc);
+    else
+      epnn::far::rows<false>(pi, pj, cv, w2, b2, nullptr, part, N, N,
+                             cols_per_split, bx, by, oc);
+    return;
+  }
+
+  NearPart& sm = *reinterpret_cast<NearPart*>(smem_raw);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gw = (blockIdx.x - far_blocks) * epnn::kNearWarps + warp;
+  const int g = lane >> 2;
+  const float neg_eta = -eta;
+  int r0 = N, r1 = N;  // a warp past the grid's owns no rows
+  if (gw < n_warps) epnn::near_range(N, gw, n_warps, r0, r1);
+
+  auto tile = [&](int h0, int n) {
+    const int ia = (h0 + g) & (epnn::kPairRing - 1);
+    const int ib = (h0 + g + 8) & (epnn::kPairRing - 1);
+    const bool v[2] = {g < n, g + 8 < n};
+    const int j[2] = {v[0] ? sm.scan.ring[warp][ia] : 0,
+                      v[1] ? sm.scan.ring[warp][ib] : 0};
+    const int i[2] = {v[0] ? sm.scan.rows[warp][ia] : 0,
+                      v[1] ? sm.scan.rows[warp][ib] : 0};
+    float c[2], d[2], w[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float pm;
+      c[e] = wide::pair_env(xyz, mask, i[e], j[e], cutoff, d[e], pm);
+      w[e] = i[e] == j[e] ? 0.0f : masked ? pm : cv[j[e]];
+    }
+    const float* pir[2] = {pi + (size_t)i[0] * kH, pi + (size_t)i[1] * kH};
+    const float* pjc[2] = {pj + (size_t)j[0] * kH, pj + (size_t)j[1] * kH};
+    wide::tile(
+        w1e, w2, b2, lane,
+        [&](int e, int ch) {
+          return wide::rbf_of(c[e], d[e], mu, ch, neg_eta);
+        },
+        [&](int e, int f, float ep, float& zf, float& zn) {
+          const bool in = v[e] && f < kH;
+          const float base = __fadd_rn(in ? pir[e][f] : 0.0f,
+                                       in ? pjc[e][f] : 0.0f);
+          zf = epnn::relu(__fadd_rn(base, ep));
+          zn = epnn::relu(base);
+        },
+        [&](int e, float yf, float yn) {
+          return __fmul_rn(__fsub_rn(epnn::relu(yf), epnn::relu(yn)), w[e]);
+        },
+        work + (size_t)gw * wide::kScratch, sm.d[warp], sm.scan.rows[warp],
+        epnn::kPairRing - 1, h0, n,
+        part + (size_t)splits * N * kH);
+  };
+  wide::pair_walk(sm.scan, warp, lane, xyz, mask, cut2, N, n_warps, r0, r1,
+                  part + (size_t)splits * N * kH, tile);
+}
+
+int g_resident[epnn::kNearMaxDevices] = {};  // epnn::near_warps's cache
+
+}  // namespace
+
+#else
 
 namespace {
 
@@ -73,7 +171,8 @@ fmr_kernel(const float* __restrict__ pi, const float* __restrict__ pj,
            const float* __restrict__ xyz, const float* __restrict__ mask,
            const float* __restrict__ cv, const float* __restrict__ w1e,
            const float* __restrict__ w2, const float* __restrict__ b2,
-           const float* __restrict__ mu, float* __restrict__ part, int N,
+           const float* __restrict__ mu, float* __restrict__ part,
+           float* work, int N,
            int splits, int cols_per_split, int far_blocks, int n_warps,
            int masked, float cutoff, float eta, float cut2) {
   extern __shared__ __align__(128) uint4 smem_raw[];
@@ -162,18 +261,32 @@ fmr_kernel(const float* __restrict__ pi, const float* __restrict__ pj,
 }
 
 int g_resident[epnn::kNearMaxDevices] = {};  // epnn::near_warps's cache
+constexpr int kOutChunks = 1;
 
 }  // namespace
 
+#endif  // EPNN_WIDE
+
+// The warps of a launch's near blocks for N rows (the wide path's scratch
+// holds 16 Hp floats for each); negative on a CUDA error.
+extern "C" int epnn_fused_message_rowsum_warps(int N) {
+  int n_warps = 0;
+  const cudaError_t err =
+      epnn::near_warps(fmr_kernel, g_resident, N, kSmem, n_warps);
+  return err == cudaSuccess ? n_warps : -1;
+}
+
 // xyz (N, 3), mask and cv (N,), mu (E,) the RBF centers; w1e (Ep, Hp), w2
 // (Hp, Hp), b2 (Hp,) zero-padded; part: (splits + 1, N, H) scratch; out:
-// (N, H); the far field's column range splits into parts of
-// cols_per_split; cut2 the squared cutoff rounded up.  N * N must fit an
-// int.  Returns cudaGetLastError().
+// (N, H); work: the wide path's scratch (16 Hp floats a near warp; unused
+// below 64 padded, may be null there); the far field's column range
+// splits into parts of cols_per_split; cut2 the squared cutoff rounded up.
+// N * N must fit an int.  Returns cudaGetLastError().
 extern "C" int epnn_fused_message_rowsum(
     const float* pi, const float* pj, const float* xyz, const float* mask,
     const float* cv, const float* w1e, const float* w2, const float* b2,
-    const float* mu, float* part, float* out, int N, int H, int E,
+    const float* mu, float* part, float* out, float* work, int N, int H,
+    int E,
     int splits, int cols_per_split, int masked, float cutoff, float eta,
     float cut2, cudaStream_t stream) {
   if (H != kH || E != kE || N <= 0 || splits <= 0 || cols_per_split <= 0 ||
@@ -186,11 +299,12 @@ extern "C" int epnn_fused_message_rowsum(
   if (err != cudaSuccess) return err;
   const int row_blocks =
       (N + epnn::far::kRowsPerBlock - 1) / epnn::far::kRowsPerBlock;
-  const int far_blocks = row_blocks * splits;
+  const int far_blocks = row_blocks * splits * kOutChunks;
   const int near_blocks =
       (n_warps + epnn::kNearWarps - 1) / epnn::kNearWarps;
   fmr_kernel<<<far_blocks + near_blocks, epnn::kNearThreads, kSmem,
-               stream>>>(pi, pj, xyz, mask, cv, w1e, w2, b2, mu, part, N,
+               stream>>>(pi, pj, xyz, mask, cv, w1e, w2, b2, mu, part, work,
+                         N,
                          splits, cols_per_split, far_blocks, n_warps, masked,
                          cutoff, eta, cut2);
   err = cudaGetLastError();

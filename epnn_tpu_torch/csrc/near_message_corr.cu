@@ -31,12 +31,77 @@
 // slots in ascending order: deterministic, no atomics.  No lane or MMA row
 // works on a dead slot, but for the tail of a warp's last tile.
 //
-// Widths (common.cuh): any H and E from 1 to 64; W1e (Ep, Hp), W2 and b2
+// Widths (common.cuh): up to 64 (padded); W1e (Ep, Hp), W2 and b2
 // come zero-padded, the activations are read at their real width (pjn and
 // rbf as float4s where that width is a multiple of 16).  The staged
 // fragments grow with the widths (20 KB at 32/48, 83 KB at 64/64), so
 // shared memory is dynamic.
+//
+// Widths past 64 (padded H or E): the wide tiles of wide.cuh (the same
+// rings and walk; per output chunk of 32 columns each mid-layer k-step
+// rebuilds epart's n-tile from the rbf rows; no staged fragments).
 #include "common.cuh"
+
+#if EPNN_WIDE
+#include "wide.cuh"
+
+namespace {
+
+using epnn::kE;
+using epnn::kH;
+namespace wide = epnn::wide;
+
+__global__ void __launch_bounds__(epnn::kNearThreads, 3)
+nmc_kernel(const float* __restrict__ pi, const float* __restrict__ pjn,
+           const float* __restrict__ rbf, const float* __restrict__ wgt,
+           const float* __restrict__ w1e, const float* __restrict__ w2,
+           const float* __restrict__ b2, float* __restrict__ out,
+           float* work, int N, int K, int n_warps) {
+  extern __shared__ uint4 smem_raw[];
+  wide::NearSmem& s = *reinterpret_cast<wide::NearSmem*>(smem_raw);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gw = blockIdx.x * epnn::kNearWarps + warp;
+  if (gw >= n_warps) return;  // no block-wide barrier follows
+  const int g = lane >> 2;
+  int r0, r1;
+  epnn::near_range(N, gw, n_warps, r0, r1);
+
+  auto tile = [&](int h0, int n) {
+    const int* ring = s.ring[warp];
+    const int* rows = s.rows[warp];
+    const int ia = (h0 + g) & (epnn::kNearRing - 1);
+    const int ib = (h0 + g + 8) & (epnn::kNearRing - 1);
+    const bool v[2] = {g < n, g + 8 < n};
+    const int fa = v[0] ? ring[ia] : 0, fb = v[1] ? ring[ib] : 0;
+    const int rwa = v[0] ? rows[ia] : 0, rwb = v[1] ? rows[ib] : 0;
+    const float* rb[2] = {rbf + (size_t)fa * kE, rbf + (size_t)fb * kE};
+    const float* xs[2] = {pjn + (size_t)fa * kH, pjn + (size_t)fb * kH};
+    const float* ps[2] = {pi + (size_t)rwa * kH, pi + (size_t)rwb * kH};
+    const float w[2] = {v[0] ? wgt[fa] : 0.0f, v[1] ? wgt[fb] : 0.0f};
+    wide::tile(
+        w1e, w2, b2, lane,
+        [&](int e, int c) { return wide::at(rb[e], c, kE, v[e]); },
+        [&](int e, int f, float ep, float& zf, float& zn) {
+          const float base = __fadd_rn(wide::at(ps[e], f, kH, v[e]),
+                                       wide::at(xs[e], f, kH, v[e]));
+          zf = epnn::relu(__fadd_rn(base, ep));
+          zn = epnn::relu(base);
+        },
+        [&](int e, float yf, float yn) {
+          return __fmul_rn(__fsub_rn(epnn::relu(yf), epnn::relu(yn)), w[e]);
+        },
+        work + (size_t)gw * wide::kScratch, s.d[warp], rows,
+        epnn::kNearRing - 1, h0, n, out);
+  };
+  wide::near_walk(s, warp, lane, wgt, K, r0, r1, out, tile);
+}
+
+int g_resident[epnn::kNearMaxDevices] = {};  // epnn::near_warps's cache
+constexpr int kSmem = (int)sizeof(wide::NearSmem);
+
+}  // namespace
+
+#else
 
 namespace {
 
@@ -53,8 +118,8 @@ __global__ void __launch_bounds__(epnn::kNearThreads, kMinBlocks)
 nmc_kernel(const float* __restrict__ pi, const float* __restrict__ pjn,
            const float* __restrict__ rbf, const float* __restrict__ wgt,
            const float* __restrict__ w1e, const float* __restrict__ w2,
-           const float* __restrict__ b2, float* __restrict__ out, int N,
-           int K, int n_warps) {
+           const float* __restrict__ b2, float* __restrict__ out,
+           float* /* work: the wide path's */, int N, int K, int n_warps) {
   extern __shared__ uint4 smem_raw[];
   epnn::NearSmem& s = *reinterpret_cast<epnn::NearSmem*>(smem_raw);
   float bias[kNT][2];
@@ -118,6 +183,8 @@ constexpr int kSmem = (int)sizeof(epnn::NearSmem);
 
 }  // namespace
 
+#endif  // EPNN_WIDE
+
 // The warps a launch runs for N rows (near_tile_positions mirrors the
 // walk with it); negative on a CUDA error.
 extern "C" int epnn_near_message_corr_warps(int N) {
@@ -127,13 +194,15 @@ extern "C" int epnn_near_message_corr_warps(int N) {
   return err == cudaSuccess ? n_warps : -1;
 }
 
-// w1e (Ep, Hp), w2 (Hp, Hp), b2 (Hp,) zero-padded; out (N, H).
+// w1e (Ep, Hp), w2 (Hp, Hp), b2 (Hp,) zero-padded; out (N, H); work: the
+// wide path's scratch, 16 Hp floats a warp of the launch (unused below 64
+// padded; may be null there).
 extern "C" int epnn_near_message_corr(const float* pi, const float* pjn,
                                       const float* rbf, const float* mask,
                                       const float* w1e, const float* w2,
-                                      const float* b2, float* out, int N,
-                                      int K, int H, int E,
-                                      cudaStream_t stream) {
+                                      const float* b2, float* out,
+                                      float* work, int N, int K, int H,
+                                      int E, cudaStream_t stream) {
   if (H != kH || E != kE || N <= 0 || K <= 0 ||
       (long long)N * K + 32 > 0x7fffffffLL)
     return cudaErrorInvalidValue;
@@ -143,6 +212,6 @@ extern "C" int epnn_near_message_corr(const float* pi, const float* pjn,
   if (err != cudaSuccess) return err;
   const int blocks = (n_warps + epnn::kNearWarps - 1) / epnn::kNearWarps;
   nmc_kernel<<<blocks, epnn::kNearThreads, kSmem, stream>>>(
-      pi, pjn, rbf, mask, w1e, w2, b2, out, N, K, n_warps);
+      pi, pjn, rbf, mask, w1e, w2, b2, out, work, N, K, n_warps);
   return cudaGetLastError();
 }

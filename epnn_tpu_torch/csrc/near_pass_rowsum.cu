@@ -41,9 +41,80 @@
 // how many pairs sat at different M positions, at the shipped widths and at
 // one other.
 //
-// Widths: as near_message_corr.cu (any H and E from 1 to 64, padded
-// weights, dynamic shared memory).
+// Widths: as near_message_corr.cu (up to 64 padded here, padded weights,
+// dynamic shared memory).
+//
+// Widths past 64 (padded H or E): the wide tiles of wide.cuh, as
+// near_message_corr.cu's; both orderings still see the same epart and the
+// same products in every chunk, so the pair's terms stay exact negations.
 #include "common.cuh"
+
+#if EPNN_WIDE
+#include "wide.cuh"
+
+namespace {
+
+using epnn::kE;
+using epnn::kH;
+namespace wide = epnn::wide;
+
+__global__ void __launch_bounds__(epnn::kNearThreads, 3)
+npr_kernel(const float* __restrict__ rs, const float* __restrict__ ppn,
+           const float* __restrict__ rbf, const float* __restrict__ wgt,
+           const float* __restrict__ w1e, const float* __restrict__ w2,
+           const float* __restrict__ b2, float* __restrict__ out,
+           float* work, int N, int K, int n_warps) {
+  extern __shared__ uint4 smem_raw[];
+  wide::NearSmem& s = *reinterpret_cast<wide::NearSmem*>(smem_raw);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gw = blockIdx.x * epnn::kNearWarps + warp;
+  if (gw >= n_warps) return;  // no block-wide barrier follows
+  const int g = lane >> 2;
+  int r0, r1;
+  epnn::near_range(N, gw, n_warps, r0, r1);
+
+  auto tile = [&](int h0, int n) {
+    const int* ring = s.ring[warp];
+    const int* rows = s.rows[warp];
+    const int ia = (h0 + g) & (epnn::kNearRing - 1);
+    const int ib = (h0 + g + 8) & (epnn::kNearRing - 1);
+    const bool v[2] = {g < n, g + 8 < n};
+    const int fa = v[0] ? ring[ia] : 0, fb = v[1] ? ring[ib] : 0;
+    const int rwa = v[0] ? rows[ia] : 0, rwb = v[1] ? rows[ib] : 0;
+    const float* rb[2] = {rbf + (size_t)fa * kE, rbf + (size_t)fb * kE};
+    // the slot's gathered row j: pi_j, then pj_j; its own row i: pi_i, pj_i
+    const float* jr[2] = {ppn + (size_t)fa * 2 * kH,
+                          ppn + (size_t)fb * 2 * kH};
+    const float* ir[2] = {rs + (size_t)rwa * 2 * kH,
+                          rs + (size_t)rwb * 2 * kH};
+    const float w[2] = {v[0] ? wgt[fa] : 0.0f, v[1] ? wgt[fb] : 0.0f};
+    wide::tile(
+        w1e, w2, b2, lane,
+        [&](int e, int c) { return wide::at(rb[e], c, kE, v[e]); },
+        [&](int e, int f, float ep, float& zn, float& zt) {
+          const bool in = v[e] && f < kH;
+          const float pii = in ? ir[e][f] : 0.0f;
+          const float pji = in ? ir[e][kH + f] : 0.0f;
+          const float pij = in ? jr[e][f] : 0.0f;
+          const float pjj = in ? jr[e][kH + f] : 0.0f;
+          zn = epnn::relu(__fadd_rn(__fadd_rn(pii, pjj), ep));
+          zt = epnn::relu(__fadd_rn(__fadd_rn(pij, pji), ep));
+        },
+        [&](int e, float yn, float yt) {
+          return __fmul_rn(w[e], __fsub_rn(epnn::relu(yn), epnn::relu(yt)));
+        },
+        work + (size_t)gw * wide::kScratch, s.d[warp], rows,
+        epnn::kNearRing - 1, h0, n, out);
+  };
+  wide::near_walk(s, warp, lane, wgt, K, r0, r1, out, tile);
+}
+
+int g_resident[epnn::kNearMaxDevices] = {};  // epnn::near_warps's cache
+constexpr int kSmem = (int)sizeof(wide::NearSmem);
+
+}  // namespace
+
+#else
 
 namespace {
 
@@ -60,8 +131,8 @@ __global__ void __launch_bounds__(epnn::kNearThreads, kMinBlocks)
 npr_kernel(const float* __restrict__ rs, const float* __restrict__ ppn,
            const float* __restrict__ rbf, const float* __restrict__ wgt,
            const float* __restrict__ w1e, const float* __restrict__ w2,
-           const float* __restrict__ b2, float* __restrict__ out, int N,
-           int K, int n_warps) {
+           const float* __restrict__ b2, float* __restrict__ out,
+           float* /* work: the wide path's */, int N, int K, int n_warps) {
   extern __shared__ uint4 smem_raw[];
   epnn::NearSmem& s = *reinterpret_cast<epnn::NearSmem*>(smem_raw);
   float bias[kNT][2];
@@ -136,6 +207,8 @@ constexpr int kSmem = (int)sizeof(epnn::NearSmem);
 
 }  // namespace
 
+#endif  // EPNN_WIDE
+
 // The warps a launch runs for N rows (near_tile_positions mirrors the
 // walk with it); negative on a CUDA error.
 extern "C" int epnn_near_pass_rowsum_warps(int N) {
@@ -145,12 +218,14 @@ extern "C" int epnn_near_pass_rowsum_warps(int N) {
   return err == cudaSuccess ? n_warps : -1;
 }
 
-// w1e (Ep, Hp), w2 (Hp, Hp), b2 (Hp,) zero-padded; out (N, H).
+// w1e (Ep, Hp), w2 (Hp, Hp), b2 (Hp,) zero-padded; out (N, H); work: as
+// near_message_corr's.
 extern "C" int epnn_near_pass_rowsum(const float* rs, const float* ppn,
                                      const float* rbf, const float* gh,
                                      const float* w1e, const float* w2,
-                                     const float* b2, float* out, int N, int K,
-                                     int H, int E, cudaStream_t stream) {
+                                     const float* b2, float* out, float* work,
+                                     int N, int K, int H, int E,
+                                     cudaStream_t stream) {
   if (H != kH || E != kE || N <= 0 || K <= 0 ||
       (long long)N * K + 32 > 0x7fffffffLL)
     return cudaErrorInvalidValue;
@@ -160,6 +235,6 @@ extern "C" int epnn_near_pass_rowsum(const float* rs, const float* ppn,
   if (err != cudaSuccess) return err;
   const int blocks = (n_warps + epnn::kNearWarps - 1) / epnn::kNearWarps;
   npr_kernel<<<blocks, epnn::kNearThreads, kSmem, stream>>>(
-      rs, ppn, rbf, gh, w1e, w2, b2, out, N, K, n_warps);
+      rs, ppn, rbf, gh, w1e, w2, b2, out, work, N, K, n_warps);
   return cudaGetLastError();
 }

@@ -33,12 +33,13 @@ backward raises.
 Each wrapper takes tensors on one device.  On the CPU it runs the plain
 version (``*_plain``); on a CUDA tensor it launches the kernel on the
 current stream or raises — there is no fallback.  The kernels take one
-mid layer at any mid width H and RBF width E from 1 to
-:data:`MAX_WIDTH` (wider raises, ROADMAP queue 3); the three plain
-versions of the neighbor split also take any number of mid layers, any
-width, which is how ``ops.fused`` runs rounds of another depth (JAX's XLA
-branches).  Every launch adds one to :data:`LAUNCHES`, so a run can show
-which kernels it went through.
+mid layer at any mid width H and RBF width E; where a padded width passes
+:data:`NARROW_WIDTH` a library takes the wide path (``csrc/wide.cuh``:
+output columns in chunks, every contraction streamed).  The three plain
+versions of the neighbor split also take any number of mid layers, which
+is how ``ops.fused`` runs rounds of another depth (JAX's XLA branches).
+Every launch adds one to :data:`LAUNCHES`, so a run can show which kernels
+it went through.
 
 The kernels are CUDA C++ for ``sm_90a`` with a plain C interface, built by
 ``nvcc`` into shared libraries under ``build/epnn_tpu_torch/`` of the
@@ -103,10 +104,9 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 #: :func:`build` makes by default
 KERNEL_H = 32
 KERNEL_E = 48
-#: the widest H and E the kernels take: at H = E = 128 the near kernels'
-#: staged weight fragments alone would need ~256 KB of shared memory
-#: (ROADMAP queue 3)
-MAX_WIDTH = 64
+#: the widest padded H and E of the narrow designs; past it a library is
+#: compiled for the wide path (``csrc/common.cuh``'s ``EPNN_WIDE``)
+NARROW_WIDTH = 64
 #: which widths each kernel's library is compiled for: H and E, H only,
 #: or none
 _WIDTHS_OF = {
@@ -123,12 +123,12 @@ _F = ctypes.c_float
 _ARGTYPES = {
     "dense_message_rowsum": [_P] * 7 + [_I] * 5 + [_P],
     "dense_message_rowsum_int8": [_P] * 11 + [_I] * 5 + [_P],
-    "near_message_corr": [_P] * 8 + [_I] * 4 + [_P],
-    "near_pass_rowsum": [_P] * 8 + [_I] * 4 + [_P],
+    "near_message_corr": [_P] * 9 + [_I] * 4 + [_P],
+    "near_pass_rowsum": [_P] * 9 + [_I] * 4 + [_P],
     "dense_message_rowsum_bwd": [_P] * 11 + [_I] * 7 + [_P],
-    "fused_message_rowsum": [_P] * 11 + [_I] * 6 + [_F] * 3 + [_P],
-    "fused_epn_rowsum": [_P] * 9 + [_I] * 4 + [_F] * 4 + [_P],
-    "neighbor_compact": [_P] * 4 + [_I] * 2 + [_F] + [_P],
+    "fused_message_rowsum": [_P] * 12 + [_I] * 6 + [_F] * 3 + [_P],
+    "fused_epn_rowsum": [_P] * 10 + [_I] * 4 + [_F] * 4 + [_P],
+    "neighbor_compact": [_P] * 5 + [_I] * 4 + [_F] + [_P],
 }
 
 
@@ -156,7 +156,7 @@ def lib_widths(name: str, h: Optional[int] = KERNEL_H,
 def _lib_path(name: str, widths: tuple) -> Path:
     flags = _flags(name, widths)
     h = hashlib.sha256(" ".join(flags).encode())
-    for src in (SOURCES[name], "common.cuh", "far_field.cuh"):
+    for src in (SOURCES[name], "common.cuh", "far_field.cuh", "wide.cuh"):
         h.update((CSRC / src).read_bytes())
     tag = "".join(f"-{k}{w}" for k, w in zip(_WIDTHS_OF[name], widths))
     return BUILD_DIR / f"lib{name}{tag}-{h.hexdigest()[:12]}.so"
@@ -282,19 +282,28 @@ def padded_width(n: int, step: int = 8) -> int:
     return -(-n // step) * step
 
 
-def _check_max_width(name: str, h: int, e: Optional[int] = None) -> None:
-    """The kernels take H and E from 1 to :data:`MAX_WIDTH`."""
-    if not 1 <= h <= MAX_WIDTH or (e is not None and not 1 <= e <= MAX_WIDTH):
-        raise NotImplementedError(
-            f"{name}: the CUDA kernels take widths from 1 to {MAX_WIDTH}; "
-            f"got H={h}" + (f", E={e}" if e is not None else "")
-            + " (ROADMAP queue 3)")
+def wide(h: int, e: int = KERNEL_E) -> bool:
+    """Whether the library of widths (h, e) takes the wide path: a padded
+    width past :data:`NARROW_WIDTH` (the far-field kernels' libraries are
+    compiled at the default E)."""
+    return max(padded_width(h), padded_width(e)) > NARROW_WIDTH
 
 
-def _vector(width: int) -> bool:
-    """Whether a kernel reads rows of ``width`` floats as float4 (each
-    thread's share of a row is then whole float4s)."""
-    return width % 16 == 0
+def _wide_scratch(name: str, like, n: int, h: int, e: int):
+    """The wide path's scratch of the near kernels and the fused kernels'
+    near blocks (``csrc/wide.cuh``: a tile's epart, 16 × Hp floats for
+    each warp of the launch), or None below it."""
+    if not wide(h, e):
+        return None
+    return like.new_empty(near_warps(name, n, h, e) * NEAR_TILE
+                          * padded_width(h))
+
+
+def _vector(width: int, h: int, e: int) -> bool:
+    """Whether a near kernel at widths (h, e) reads rows of ``width``
+    floats as float4 (each thread's share of a row is then whole float4s;
+    the wide path reads one float at a time)."""
+    return width % 16 == 0 and not wide(h, e)
 
 
 class KernelWeights(NamedTuple):
@@ -472,7 +481,6 @@ def _dense_message_rowsum_fwd(pi, pj, col_vec, w2, b2, padded=None):
                          b2=(h,)))
     if device.type == "cpu":
         return dense_message_rowsum_plain(pi, pj, col_vec, w2, b2)
-    _check_max_width(name, h)
     kw = _kernel_weights(name, padded, w2, b2)
     out = pi.new_empty((r, h))
     if r == 0:
@@ -545,7 +553,6 @@ def dense_message_rowsum_bwd(pi, pj, col_vec, w2, b2, g, padded=None):
                          b2=(h,), g=(r, h)))
     if device.type == "cpu":
         return dense_message_rowsum_bwd_plain(pi, pj, col_vec, w2, b2, g)
-    _check_max_width(name, h)
     kw = _kernel_weights(name, padded, w2, b2)
     dpi, dpj = pi.new_empty((r, h)), pj.new_empty((n, h))
     dw2, db2 = w2.new_empty((h, h)), b2.new_empty((h,))
@@ -693,7 +700,6 @@ def _dense_message_rowsum_int8_fwd(pi, pj, col_vec, w2, b2, pad_pi,
     if device.type == "cpu":
         return dense_message_rowsum_int8_plain(pi, pj, col_vec, w2, b2,
                                                pad_pi)
-    _check_max_width(name, h)
     kw = _kernel_weights(name, padded, w2, b2)
     out = pi.new_empty((r, h))
     if r == 0:
@@ -831,17 +837,17 @@ def _near_message_corr_fwd(pi, pjn, rbf, mask, w1e, w2, b2, padded=None):
                          mask=(n, k), w1e=(e, h), w2=(h, h), b2=(h,)))
     if device.type == "cpu":
         return near_message_corr_plain(pi, pjn, rbf, mask, w1e, w2, b2)
-    _check_max_width(name, h, e)
     kw = _kernel_weights(name, padded, w2, b2, w1e)
     out = pi.new_empty((n, h))
     if n == 0:
         return out
     if k == 0:
         return out.zero_()
-    vec = dict(pjn=pjn) if _vector(h) else {}
-    if _vector(e):
+    vec = dict(pjn=pjn) if _vector(h, h, e) else {}
+    if _vector(e, h, e):
         vec["rbf"] = rbf
-    _launch(name, device, (pi, pjn, rbf, mask, kw.w1e, kw.w2, kw.b2, out),
+    _launch(name, device, (pi, pjn, rbf, mask, kw.w1e, kw.w2, kw.b2, out,
+                           _wide_scratch(name, pi, n, h, e)),
             (n, k, h, e), vec, h, e)
     return out
 
@@ -907,17 +913,17 @@ def _near_pass_rowsum_fwd(rs, ppn, rbf, gh, w1e, w2, b2, padded=None):
                          gh=(n, k), w1e=(e, h), w2=(h, h), b2=(h,)))
     if device.type == "cpu":
         return near_pass_rowsum_plain(rs, ppn, rbf, gh, w1e, w2, b2)
-    _check_max_width(name, h, e)
     kw = _kernel_weights(name, padded, w2, b2, w1e)
     out = rs.new_empty((n, h))
     if n == 0:
         return out
     if k == 0:
         return out.zero_()
-    vec = dict(ppn=ppn) if _vector(h) else {}
-    if _vector(e):
+    vec = dict(ppn=ppn) if _vector(h, h, e) else {}
+    if _vector(e, h, e):
         vec["rbf"] = rbf
-    _launch(name, device, (rs, ppn, rbf, gh, kw.w1e, kw.w2, kw.b2, out),
+    _launch(name, device, (rs, ppn, rbf, gh, kw.w1e, kw.w2, kw.b2, out,
+                           _wide_scratch(name, rs, n, h, e)),
             (n, k, h, e), vec, h, e)
     return out
 
@@ -943,9 +949,9 @@ NEAR_TILE = 16
 
 
 def near_warps(name: str, n: int, h: int = KERNEL_H, e: int = KERNEL_E) -> int:
-    """The warps a launch of the near kernel ``name`` at widths (h, e)
-    runs for ``n`` rows on the current card (its occupancy; csrc
-    ``epnn::near_warps``)."""
+    """The warps a launch of the near kernel ``name`` (or the near blocks
+    of a fused kernel) at widths (h, e) runs for ``n`` rows on the current
+    card (its occupancy; csrc ``epnn::near_warps``)."""
     fn = getattr(_lib(name, h, e), f"epnn_{name}_warps")
     fn.argtypes = [_I]
     fn.restype = ctypes.c_int
@@ -1024,8 +1030,7 @@ def _kernel_mu(e: int, cutoff: float, device: torch.device) -> torch.Tensor:
     return kernel_mu(e, cutoff, device)
 
 
-def _fused_checks(name: str, n: int, h: int, e: int) -> None:
-    _check_max_width(name, h, e)
+def _fused_checks(name: str, n: int) -> None:
     if n * n > 0x7FFFFFFF:
         raise ValueError(f"{name}: N = {n} is too large for the kernel's "
                          "int pair index (N² < 2^31)")
@@ -1121,7 +1126,7 @@ def _fused_message_rowsum_fwd(pi, pj, xyz, node_mask, col_vec, w1e, w2, b2,
         return fused_message_rowsum_plain(pi, pj, xyz, node_mask, col_vec,
                                           w1e, w2, b2, cutoff, eta, tol,
                                           masked)
-    _fused_checks(name, n, h, e)
+    _fused_checks(name, n)
     kw = _kernel_weights(name, padded, w2, b2, w1e)
     out = pi.new_empty((n, h))
     if n == 0:
@@ -1129,7 +1134,8 @@ def _fused_message_rowsum_fwd(pi, pj, xyz, node_mask, col_vec, w1e, w2, b2,
     splits, cols = _dense_message_splits(n, n)
     part = pi.new_empty((splits + 1, n, h))
     _launch(name, device, (pi, pj, xyz, node_mask, col_vec, kw.w1e, kw.w2,
-                           kw.b2, _kernel_mu(e, float(cutoff), xyz.device), part, out),
+                           kw.b2, _kernel_mu(e, float(cutoff), xyz.device),
+                           part, out, _wide_scratch(name, pi, n, h, e)),
             (n, h, e, splits, cols, int(bool(masked)), float(cutoff),
              float(eta), _cut2(cutoff)), {}, h, e)
     return out
@@ -1220,13 +1226,14 @@ def _fused_epn_rowsum_fwd(pi, pj, xyz, node_mask, w1e, w2, b2, cutoff, eta,
     if device.type == "cpu":
         return fused_epn_rowsum_plain(pi, pj, xyz, node_mask, w1e, w2, b2,
                                       cutoff, eta, tol, soft_gate)
-    _fused_checks(name, n, h, e)
+    _fused_checks(name, n)
     kw = _kernel_weights(name, padded, w2, b2, w1e)
     out = pi.new_empty((n, h))
     if n == 0:
         return out
     _launch(name, device, (pi, pj, xyz, node_mask, kw.w1e, kw.w2, kw.b2,
-                           _kernel_mu(e, float(cutoff), xyz.device), out),
+                           _kernel_mu(e, float(cutoff), xyz.device), out,
+                           _wide_scratch(name, pi, n, h, e)),
             (n, h, e, int(bool(soft_gate)), float(cutoff), float(eta),
              float(tol), _cut2(cutoff)), {}, h, e)
     return out
@@ -1277,6 +1284,22 @@ def neighbor_compact_plain(xyz, node_mask, cutoff: float, k: int):
     return idx, mask
 
 
+#: ``neighbor_compact``'s geometry (csrc: kRows, kStage): a scan block owns
+#: 128 rows, one a thread, and stages its columns 128 at a time; the column
+#: range splits so that about ``_NC_TARGET_BLOCKS`` blocks run
+_NC_ROWS = 128
+_NC_STAGE = 128
+_NC_TARGET_BLOCKS = 16 * 132
+
+
+def neighbor_compact_splits(n: int) -> tuple:
+    """(splits, cols_per_split): ``neighbor_compact``'s fixed column split
+    for ``n`` atoms — about ``_NC_TARGET_BLOCKS`` scan blocks of 128 rows,
+    whole stages of 128 columns a split."""
+    return _dense_message_splits(n, n, _NC_TARGET_BLOCKS, _NC_ROWS,
+                                 _NC_STAGE)
+
+
 def neighbor_compact(xyz, node_mask, cutoff: float, k: int):
     """Kernel-built neighbor list (see ``csrc/neighbor_compact.cu``):
     ``(idx, nbr_mask)``, each (N, k), the pairs within the cutoff in
@@ -1284,17 +1307,22 @@ def neighbor_compact(xyz, node_mask, cutoff: float, k: int):
     :func:`epnn_tpu_torch.ops.fused.build_neighbors`: k must be at least
     the true max neighbor count, or pairs are dropped; the set is the one
     top-k selects, only the order differs.  idx is int64 (its values equal
-    the JAX kernel's int32)."""
+    the JAX kernel's int32).  On the card: a scan over the columns split
+    into :func:`neighbor_compact_splits` ranges, each range's hits per row
+    in int32 scratch, then a merge of the ranges in order."""
     name = "neighbor_compact"
     n = xyz.shape[0]
     device = _check(name, dict(xyz=xyz, node_mask=node_mask),
                     dict(xyz=(n, 3), node_mask=(n,)))
     if device.type == "cpu":
         return neighbor_compact_plain(xyz, node_mask, cutoff, k)
-    idx = torch.empty((n, k), dtype=torch.int64, device=device)
+    idx = torch.empty((n, k), dtype=torch.int64, device=xyz.device)
     mask = xyz.new_empty((n, k))
     if n == 0 or k == 0:
         return idx, mask
-    _launch(name, device, (xyz, node_mask, idx, mask),
-            (n, k, float(cutoff * cutoff)), {})
+    splits, cols = neighbor_compact_splits(n)
+    work = torch.empty(splits * n * (k + 1), dtype=torch.int32,
+                       device=xyz.device)
+    _launch(name, device, (xyz, node_mask, work, idx, mask),
+            (n, k, splits, cols, float(cutoff * cutoff)), {})
     return idx, mask

@@ -1,9 +1,12 @@
 """What sets the pace of the two fused dense kernels on the card.
 
-``python3 -m epnn_tpu_torch.tools.fused_pace`` (from the repository root,
-with a CUDA card and ``nvcc``) builds ``csrc/fused_message_rowsum.cu`` and
-``csrc/fused_epn_rowsum.cu`` as they are and as timing-only variants, each
-a text substitution in the kernel's source or in ``common.cuh``:
+``python3 -m epnn_tpu_torch.tools.fused_pace [--csrc LABEL=DIR ...]``
+(from the repository root, with a CUDA card and ``nvcc``) builds
+``fused_message_rowsum.cu`` and ``fused_epn_rowsum.cu`` from each source
+directory (default: this package's ``csrc``; another checkout's, such as
+a parent commit's, is timed beside it in the same call, the two in turns)
+as they are and as timing-only variants, each a text substitution in the
+kernel's source or in ``common.cuh``:
 
 * ``scan_only`` — the d² scan runs and the live pairs are found, but no
   tile runs (the ring is emptied as it fills): the scan's time;
@@ -25,10 +28,12 @@ card.
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -63,15 +68,18 @@ VARIANTS = {
 ITERS = {2224: 20, 17760: 5}
 
 
-def build() -> dict:
-    """Compile every variant of both kernels in parallel into
-    ``build/.../fused_pace/<variant>/``; returns {(kernel, variant): the C
-    entry, or None where the variant's text is in neither file}."""
-    files = {f: (kernels.CSRC / f).read_text()
-             for f in ("common.cuh", "far_field.cuh")}
+def build(csrc: Path, label: str) -> dict:
+    """Compile every variant of both kernels from ``csrc`` in parallel
+    into ``build/.../fused_pace/<label>/<variant>/``; returns {(kernel,
+    variant): the C entry, or None where the variant's text is in neither
+    file}."""
+    files = {f: (csrc / f).read_text() for f in ("common.cuh",
+                                                 "far_field.cuh",
+                                                 "wide.cuh")
+             if (csrc / f).exists()}
     jobs, fns = {}, {}
     for name in NAMES:
-        source = (kernels.CSRC / kernels.SOURCES[name]).read_text()
+        source = (csrc / kernels.SOURCES[name]).read_text()
         for variant, subs in VARIANTS.items():
             texts = dict(files, kernel=source)
             held = 0
@@ -83,7 +91,7 @@ def build() -> dict:
             if subs and not held:
                 fns[(name, variant)] = None
                 continue
-            d = kernels.BUILD_DIR / "fused_pace" / variant
+            d = kernels.BUILD_DIR / "fused_pace" / label / variant
             d.mkdir(parents=True, exist_ok=True)
             for f in files:
                 (d / f).write_text(texts[f])
@@ -100,7 +108,7 @@ def build() -> dict:
         if key[1] in ("kernel", "blocks_4"):
             for ln in log.splitlines():
                 if "registers" in ln or "spill" in ln:
-                    print(f"[pace] {key[0]} {key[1]}: {ln.strip()}")
+                    print(f"[pace] {label} {key[0]} {key[1]}: {ln.strip()}")
         fn = getattr(ctypes.CDLL(str(lib)), f"epnn_{key[0]}")
         fn.argtypes = kernels._ARGTYPES[key[0]]
         fn.restype = ctypes.c_int
@@ -124,7 +132,12 @@ def device_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--csrc", action="append", default=[],
+                    metavar="LABEL=DIR",
+                    help="another source directory to time (repeatable)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("fused_pace: no CUDA card", file=sys.stderr)
         return 2
@@ -134,7 +147,21 @@ def main() -> int:
                                         water_box)
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    fns = build()
+    dirs = {"change": kernels.CSRC}
+    for item in args.csrc:
+        label, _, path = item.partition("=")
+        dirs[label] = Path(path)
+    libs = {label: build(d, label) for label, d in dirs.items()}
+    # in turns: each other tree, this one, this one again, the other again
+    order = ["change"]
+    for label in dirs:
+        if label != "change":
+            order = [label, "change", "change", label]
+    fns = {}
+    for turn, label in enumerate(order):
+        for (name, variant), fn in libs[label].items():
+            fns[(name, f"{label}#{turn} {variant}" if len(order) > 1
+                 else variant)] = fn
     h, e, cutoff, eta, tol = kernels.KERNEL_H, kernels.KERNEL_E, 3.0, 2.0, 1e-5
     g = np.random.default_rng(0)
     dev = torch.device("cuda")
@@ -162,14 +189,16 @@ def main() -> int:
                 times.setdefault(key, {})[n] = None
                 continue
             if name == "fused_message_rowsum":
-                ptrs = (pi, pj, xyz, mask, ones, w1e, w2, b2, mu, part, out)
+                ptrs = (pi, pj, xyz, mask, ones, w1e, w2, b2, mu, part, out,
+                        None)
                 scal = (n, h, e, splits, cols, 1, cutoff, eta, cut2)
             else:
-                ptrs = (pi, pj, xyz, mask, w1e, w2, b2, mu, out)
+                ptrs = (pi, pj, xyz, mask, w1e, w2, b2, mu, out, None)
                 scal = (n, h, e, 0, cutoff, eta, tol, cut2)
 
             def call(fn=fn, ptrs=ptrs, scal=scal, key=key):
-                err = fn(*[t.data_ptr() for t in ptrs], *scal, stream)
+                err = fn(*[None if t is None else t.data_ptr() for t in ptrs],
+                         *scal, stream)
                 if err:
                     raise RuntimeError(f"{key}: launch failed ({err})")
             times.setdefault(key, {})[n] = device_ms(call, ITERS.get(n, 5))

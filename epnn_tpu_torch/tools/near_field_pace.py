@@ -237,7 +237,8 @@ def main(argv=None) -> int:
 
                     def call(fn=fn, key=key):
                         err = fn(*[t.data_ptr() for t in targs],
-                                 out.data_ptr(), n, k, kernels.KERNEL_H,
+                                 out.data_ptr(), None, n, k,
+                                 kernels.KERNEL_H,
                                  kernels.KERNEL_E, stream)
                         if err:
                             raise RuntimeError(f"{key}: launch failed ({err})")

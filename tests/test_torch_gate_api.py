@@ -3,9 +3,10 @@ port.  JAX's rule: a round with one mid layer takes the kernels, any other
 depth runs the same split through the plain versions (JAX's XLA
 branches).  Both are held to JAX ``forward_blocked(neighbor_k=…)`` and the
 JAX ``Predictor`` at 1e-5·(max|q| + 1) (tests/test_fused.py's bar between
-two JAX paths).  A one-mid round at another width (H 16, E 24) reaches
-the kernels on the card (compiled for its widths; here their launch is
-emulated), and past the widest width (64) the wrappers raise.  Also ``Predictor``'s positional ``block`` and ``bucket_molecules``'s
+two JAX paths).  A one-mid round at another width (H 16, E 24, and H = E
+= 128 on the kernels' wide path) reaches the kernels on the card
+(compiled for its widths; here their launch is emulated).  Also
+``Predictor``'s positional ``block`` and ``bucket_molecules``'s
 ``max_batch_atoms2`` (both accepted and unused, as the JAX package does
 with the latter)."""
 
@@ -35,13 +36,16 @@ from test_torch_widths import arm_card
 torch.set_num_threads(1)
 
 #: configurations off the shipped one: a deeper mid MLP (the gate sends it
-#: to the plain versions on any device), and H = 16 / E = 24 (through the
-#: kernels at those widths on the card).  T = 2: with the bias-shifted weights of ``build`` deeper stacks
-#: grow the charges to ~10 e by T = 5, where two JAX paths already differ
-#: by more than the bar (tests/test_torch_fused_dense.py).
+#: to the plain versions on any device), and H = 16 / E = 24 and H = E =
+#: 128 (through the kernels at those widths on the card, the latter on
+#: their wide path).  T = 2: with the bias-shifted weights of ``build``
+#: deeper stacks grow the charges to ~10 e by T = 5, where two JAX paths
+#: already differ by more than the bar (tests/test_torch_fused_dense.py).
 GATED_OUT = {
     "mlp_32_32_32": dict(mlp_hidden=(32, 32, 32), T=2),
     "h16_e24": dict(h_dim=16, e_dim=24, msg_dim=8, mlp_hidden=(16, 16), T=2),
+    "h128_e128": dict(h_dim=16, e_dim=128, msg_dim=8, mlp_hidden=(128, 128),
+                      T=2),
 }
 
 
@@ -57,7 +61,8 @@ def _port_fused(params, cfg):
 def test_kernel_gate_is_a_configuration_rule():
     """JAX's one-mid-layer rule, whatever the widths."""
     rng = np.random.default_rng(0)
-    want = {"default": True, "mlp_32_32_32": False, "h16_e24": True}
+    want = {"default": True, "mlp_32_32_32": False, "h16_e24": True,
+            "h128_e128": True}
     for name, kw in {"default": {}, **GATED_OUT}.items():
         params, *_ = build(rng, EPNNConfig(**kw), 1)
         fp, _ = _port_fused(params, EPNNConfig(**kw))
@@ -120,10 +125,10 @@ def test_gated_out_config_through_predictor(case):
 def test_other_widths_reach_the_kernels(rng, monkeypatch, case):
     """On a CUDA tensor (``kernels._check`` patched to report one, and the
     kernels' launch emulated by ``test_torch_widths.emulate``, so no card
-    is needed) the forward at H 16 reaches the kernels at those widths, on
-    the neighbor split and the dense fused path alike, and gives the plain
-    forwards' charges.  The deeper MLP reaches no wrapper, so the same
-    patch leaves its charges as they were."""
+    is needed) the forward at H 16 (and 128) reaches the kernels at those
+    widths, on the neighbor split and the dense fused path alike, and
+    gives the plain forwards' charges.  The deeper MLP reaches no wrapper,
+    so the same patch leaves its charges as they were."""
     cfg = EPNNConfig(**GATED_OUT[case])
     params, x, q0, xyz, mask, _ = build(rng, cfg, 1)
     k = safe_k(xyz, mask, cfg.cutoff)
@@ -200,36 +205,3 @@ def test_bucket_molecules_takes_max_batch_atoms2():
             np.testing.assert_array_equal(getattr(batch, field),
                                           np.asarray(getattr(ref[width],
                                                              field)))
-
-
-def _width_cases(h=72, e=24, n=8, k=3):
-    z = lambda *s: torch.zeros(*s)  # noqa: E731
-    pi, pj, cv, w2, b2 = z(n, h), z(n, h), z(n), z(h, h), z(h)
-    return {
-        "dense_message_rowsum": (pi, pj, cv, w2, b2),
-        "dense_message_rowsum_int8": (pi, pj, cv, w2, b2),
-        "dense_message_rowsum_bwd": (pi, pj, cv, w2, b2, z(n, h)),
-        "near_message_corr": (pi, z(n * k, h), z(n * k, e), z(n, k), z(e, h),
-                              w2, b2),
-        "near_pass_rowsum": (z(n, 2 * h), z(n * k, 2 * h), z(n * k, e),
-                             z(n, k), z(e, h), w2, b2),
-        "fused_message_rowsum": (pi, pj, z(n, 3), cv, cv, z(e, h), w2, b2),
-        "fused_epn_rowsum": (pi, pj, z(n, 3), cv, z(e, h), w2, b2),
-    }
-
-
-@pytest.mark.parametrize("name", sorted(_width_cases()))
-def test_wrappers_refuse_other_widths_on_cuda(monkeypatch, name):
-    """Called directly on a CUDA tensor at H = 72, past the widest width
-    the kernels take (64), each wrapper raises before any launch, naming
-    ROADMAP queue 3: ``_check`` is patched to report a CUDA device, so no
-    card is needed.  On the CPU the same call runs its plain version."""
-    args = _width_cases()[name]
-    wrapper = getattr(kernels, name)
-    wrapper(*args)  # the CPU: the plain version, any width
-    real_check = kernels._check
-    monkeypatch.setattr(kernels, "_check", lambda *a: (
-        real_check(*a), torch.device("cuda"))[1])
-    monkeypatch.setattr(kernels, "_launch", None)  # never reached
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
-        wrapper(*args)

@@ -1,9 +1,10 @@
-"""The kernels at every width up to 64, on the CPU.
+"""The kernels at every width, on the CPU.
 
 The CUDA kernels are compiled for one mid width H and RBF width E each
-(1 … 64), run their products at the widths padded to 8 (32 for the int8
-product's K) on zero-padded weights, and read the activations at their real
-width with zeros past it.  Here, without a card:
+(any width; past 64 padded, the wide path of ``csrc/wide.cuh``), run their
+products at the widths padded to 8 (32 for the int8 product's K) on
+zero-padded weights, and read the activations at their real width with
+zeros past it.  Here, without a card:
 
 * each of the seven width-carrying wrappers, on tensors that ``_check``
   reports as CUDA, reaches ``_launch`` with the real widths (the library's)
@@ -15,8 +16,7 @@ width with zeros past it.  Here, without a card:
   version's result (:func:`pad_weights` is exact);
 * the int8 tier's scale comes from the maxima over the real columns, as
   JAX's interpret-mode kernel takes them (a zero padding column would
-  raise a negative maximum to 0);
-* widths past 64 raise, naming ROADMAP queue 3.
+  raise a negative maximum to 0).
 
 Tolerance 1e-6·(max|ref| + 1): the padded and the real computation differ
 only by exact zeros, so only float32 summation order may move a result.
@@ -34,8 +34,11 @@ from test_torch_fused import _t
 torch.set_num_threads(1)
 
 #: (H, E): below the shipped widths, neither a multiple of 8 (E) nor of 16
-#: (H), and the widest
-WIDTHS = [(16, 24), (40, 20), (64, 64)]
+#: (H), the widest narrow one, and the wide path's: multiples of 16, an H
+#: no multiple of 16, 128 and 256 (four and eight output chunks, W2 past
+#: any shared memory)
+WIDTHS = [(16, 24), (40, 20), (64, 64), (96, 80), (136, 72), (128, 128),
+          (256, 256)]
 NAMES = ["dense_message_rowsum", "dense_message_rowsum_int8",
          "dense_message_rowsum_bwd", "near_message_corr", "near_pass_rowsum",
          "fused_message_rowsum", "fused_epn_rowsum"]
@@ -77,6 +80,22 @@ def _int8_padded(pi, pj, cv, w2q, sw, b2, pi_max, pj_max, pad_pi):
     return torch.einsum("n,bnh->bh", cv, z2)
 
 
+def _warps(name, n, h, e):
+    """A stand-in for ``kernels.near_warps`` (a card's occupancy): a warp
+    every two rows."""
+    return max(1, n // 2)
+
+
+def _check_scratch(name, work, n, h, e):
+    """The wide path's epart scratch: 16 × Hp floats a warp of the launch,
+    none below it."""
+    if kernels.wide(h, e):
+        want = _warps(name, n, h, e) * 16 * kernels.padded_width(h)
+        assert work is not None and work.numel() == want, name
+    else:
+        assert work is None, name
+
+
 def emulate(name, tensors, scalars, h, e):
     """What kernel ``name`` computes from its launch arguments, written
     into the launch's output tensors."""
@@ -95,17 +114,20 @@ def emulate(name, tensors, scalars, h, e):
         for o, gr in zip(outs, grads):
             o.copy_(gr[tuple(slice(0, n) for n in o.shape)])
     elif name == "near_message_corr":
-        pi, pjn, rbf, mask, w1e, w2, b2, out = tensors
+        pi, pjn, rbf, mask, w1e, w2, b2, out, work = tensors
+        _check_scratch(name, work, pi.shape[0], h, e)
         out.copy_(kernels.near_message_corr_plain(
             _tail(pi, hp), _tail(pjn, hp), _tail(rbf, w1e.shape[0]), mask,
             w1e, w2, b2)[:, :h])
     elif name == "near_pass_rowsum":
-        rs, ppn, rbf, gh, w1e, w2, b2, out = tensors
+        rs, ppn, rbf, gh, w1e, w2, b2, out, work = tensors
+        _check_scratch(name, work, rs.shape[0], h, e)
         out.copy_(kernels.near_pass_rowsum_plain(
             _halves(rs, h, hp), _halves(ppn, h, hp), _tail(rbf, w1e.shape[0]),
             gh, w1e, w2, b2)[:, :h])
     elif name == "fused_message_rowsum":
-        pi, pj, xyz, mask, cv, w1e, w2, b2, mu, _, out = tensors
+        pi, pj, xyz, mask, cv, w1e, w2, b2, mu, _, out, work = tensors
+        _check_scratch(name, work, pi.shape[0], h, e)
         masked, cutoff, eta = scalars[5:8]
         # channels past E are 0 in the kernel: they meet W1e's zero rows
         assert not w1e[e:].any() and mu.shape == (e,)
@@ -113,7 +135,8 @@ def emulate(name, tensors, scalars, h, e):
             _tail(pi, hp), _tail(pj, hp), xyz, mask, cv, w1e[:e], w2, b2,
             cutoff, eta, masked=bool(masked))[:, :h])
     elif name == "fused_epn_rowsum":
-        pi, pj, xyz, mask, w1e, w2, b2, mu, out = tensors
+        pi, pj, xyz, mask, w1e, w2, b2, mu, out, work = tensors
+        _check_scratch(name, work, pi.shape[0], h, e)
         soft, cutoff, eta, tol = scalars[3:7]
         assert not w1e[e:].any() and mu.shape == (e,)
         out.copy_(kernels.fused_epn_rowsum_plain(
@@ -139,6 +162,11 @@ def arm_card(monkeypatch):
     monkeypatch.setattr(kernels, "_check", lambda *a: (
         real_check(*a), torch.device("cuda"))[1])
     monkeypatch.setattr(kernels, "_launch", launch)
+    monkeypatch.setattr(kernels, "near_warps", _warps)
+    # the emulated launches count in a dict of their own: the module's
+    # counts, which other tests of the process read, stay as they were
+    monkeypatch.setattr(kernels, "LAUNCHES", dict.fromkeys(kernels.LAUNCHES,
+                                                           0))
     return calls
 
 
@@ -193,8 +221,8 @@ def _call(name, args):
 def test_wrappers_reach_the_kernel_at_padded_widths(on_card, name, h, e):
     """One launch, of the library at the real widths, with the weights
     padded to H and E rounded up to 8 (the int8 product's rows to 32), the
-    float4 reads only at widths that are multiples of 16; the result is the
-    plain version's."""
+    float4 reads only at widths that are multiples of 16 on the narrow
+    path; the result is the plain version's."""
     args = width_args(name, h, e)
     out = _call(name, args)
     ref = _plain(name, args)
@@ -215,7 +243,8 @@ def test_wrappers_reach_the_kernel_at_padded_widths(on_card, name, h, e):
     want_vec = {"near_message_corr": ["pjn", "rbf"],
                 "near_pass_rowsum": ["ppn", "rbf"]}.get(name, [])
     want_vec = [v for v in want_vec
-                if (e if v == "rbf" else h) % 16 == 0]
+                if (e if v == "rbf" else h) % 16 == 0
+                and not kernels.wide(h, e)]
     assert call["vector_read"] == sorted(want_vec)
     if name == "dense_message_rowsum_bwd":
         for o, r in zip(out, ref):
@@ -299,17 +328,6 @@ def test_int8_scale_takes_the_real_columns(on_card):
                          _tail(args[0], hq).amax(), _tail(args[1], hq).amax(),
                          None)[:, :h]
     assert np.abs(wrong.numpy() - ref).max() > 100 * bar
-
-
-@pytest.mark.parametrize("name", ["near_message_corr", "near_pass_rowsum",
-                                  "fused_message_rowsum", "fused_epn_rowsum"])
-def test_rbf_width_above_64_raises(on_card, name):
-    """E = 72 (H = 32) raises before any launch, naming ROADMAP queue 3;
-    on the CPU the plain version takes it."""
-    args = width_args(name, 32, 72, n=12, k=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 3"):
-        _call(name, args)
-    assert on_card == []
 
 
 def test_pad_kernel_weights_once_per_set(rng):
