@@ -53,13 +53,23 @@ card: ``python3 chip_smoke.py`` from the repository root.
    and 17,760 atoms, each box in lattice order and shuffled: the same set
    as top-k on every row, the same table as its plain version bit for
    bit, and its time beside top-k's and beside two bounds (operations,
-   instruction issue).
+   instruction issue); on the same boxes the neighbor selection line:
+   the cell-list builder (``count_only`` k equal to top-k's largest row,
+   then its tables) gives the same set as top-k and ``neighbor_compact``,
+   and the device times of the three.
 4. Slice: ``Predictor.from_checkpoint("trained/mixed_b16")`` serving
    (a) small molecules on the dense path (no kernel may launch),
    (b) the two 2,220-atom boxes (Q = 0, +1) against the committed JAX
    golden charges, and padded to a width that is no multiple of 4,
-   (c) the 17,760-atom box; launch counts per graph
-   forward, conservation, and the median ``predict_batch`` latency;
+   (c) the 17,760-atom box, spatially sorted, against a Predictor with
+   top-k and no sort; launch counts per graph forward, the neighbor
+   selection by the cell builder once a graph a call and never by top-k
+   (counted by wrapping both, :func:`count_selection`), conservation, and
+   the median ``predict_batch`` latency; in (b) and (c) 'auto' against
+   top-k in turns, warm (one batch) and cold (``predict_molecules``, a
+   new batch a call; at 17,760 atoms also 'auto' unsorted), with the cold
+   set-up piece by piece (:func:`cold_parts`), and in (c) the sort's raw
+   Σq on random-weight models that read the far field (:func:`sort_phase`);
    (d) ``forward_blocked(use_pallas=True)`` without ``neighbor_k`` (the
    fully fused dense forward) on the two 2,220-atom boxes: 5 + 5 fused
    launches per graph, charges against the golden and (b), its median
@@ -70,7 +80,12 @@ card: ``python3 chip_smoke.py`` from the repository root.
    and (c): 4 int8 far-field launches a graph and none of the fp32 one,
    each launch of the run again against its plain version, the far sums
    of the run against the fp32 kernel's (above 0, below 2%), the charges' gap
-   to (b) and (c), conservation, and both tiers' medians in turns.
+   to (b) and (c), conservation, and both tiers' medians in turns;
+   (g) MD serving (:func:`md_phase`): ``predict_trajectory`` with
+   ``reuse_neighbors`` and a Verlet skin on the 2,220- and the
+   17,760-atom box, a seeded drift then one jump: the rebuild counts, each
+   frame against a cold Predictor, conservation, launches, and the skin
+   step's median time beside the cold call's.
 5. Training: (a) the gradients of one fused train step on two 900-atom
    boxes, card against the port on the CPU, leaf by leaf; (b) ``train()``
    fine-tuning the checkpoint for a few epochs on the 2,220-atom boxes and
@@ -78,7 +93,8 @@ card: ``python3 chip_smoke.py`` from the repository root.
    fused bucket's loss falls, launches per fused step, none in dense
    steps, the median fused step, and ``best/`` served with conservation.
 6. Profile: ``torch.profiler`` over ``predict_batch`` (2 x 2,220 and
-   1 x 17,760 atoms, both tiers) and one fused train step (2 x 2,220):
+   1 x 17,760 atoms, both tiers), a Verlet-skin step at 17,760 atoms and
+   one fused train step (2 x 2,220):
    device-busy time against wall time, and the largest kernels.
 7. The kernels' JSON line, the card line, and last the result line.
 
@@ -193,12 +209,53 @@ WIDTH_T = 2
 #: coordinate loads and the mask's, 3 subtracts, 3 multiplies, 2 adds, the
 #: compare
 SCAN_INSTR = 13
+#: [slice g]: the Verlet skin (Å), frames of the 2,220- and the 17,760-atom
+#: trajectory (14 steady frames each), the seeded drift a frame (Å an
+#: axis, at most; cumulative: the 14 steps after the first frame move an
+#: atom at most 14·√3·0.02 = 0.485 Å, under skin/2) and the last frame's
+#: jump from the first (Å an atom, past skin/2)
+MD_SKIN = 1.0
+MD_FRAMES = {"2220": 16, "17760": 16}
+MD_DRIFT = 0.02
+MD_JUMP = 0.6
+#: calls of the port's neighbor selection since the last
+#: :func:`reset_selection`: cell-list tables, the cell builder's count_only
+#: k, and top-k tables (:func:`count_selection`)
+SELECTION = {"cell": 0, "cell_count": 0, "topk": 0}
 
 
 def require(ok, detail) -> None:
     """A check that stays under ``python -O`` (unlike ``assert``)."""
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {detail}")
+
+
+def count_selection() -> None:
+    """Wrap the port's cell-list builder (in each module that calls it)
+    and its top-k ``build_neighbors`` with the counters of
+    :data:`SELECTION`."""
+    from epnn_tpu_torch import infer
+    from epnn_tpu_torch.ops import fused
+    from epnn_tpu_torch.train import loop
+
+    cell, topk = fused.build_neighbors_cell, fused.build_neighbors
+
+    def cell_counted(*a, **kw):
+        SELECTION["cell_count" if kw.get("count_only") else "cell"] += 1
+        return cell(*a, **kw)
+
+    def topk_counted(*a, **kw):
+        SELECTION["topk"] += 1
+        return topk(*a, **kw)
+
+    for mod in (fused, infer, loop):
+        mod.build_neighbors_cell = cell_counted
+    fused.build_neighbors = topk_counted
+
+
+def reset_selection() -> None:
+    for kind in SELECTION:
+        SELECTION[kind] = 0
 
 
 def smi(fields: str, fmt: str = "csv,noheader") -> str:
@@ -736,6 +793,181 @@ def train_phase(torch, pred, card, small, small_q, batch2, golden):
     return train_launches, step_ms, step_list
 
 
+def turns(timed, preds, call, reps):
+    """Medians of ``reps`` calls ``call(p)`` of each Predictor of
+    ``preds`` ({name: p}) in turns (the names in order, then reversed,
+    e.g. topk, auto, auto, topk), after a warm-up call of each: {name:
+    [ms, ms]}.  ``call`` = ``p.predict_batch(batch)`` times warm calls
+    (k, grid, tables and sorted twin cached on the batch object);
+    ``p.predict_molecules(mols)`` times cold ones, a new padded batch a
+    call, as every caller of ``predict_molecules`` pays."""
+    for p in preds.values():
+        call(p)
+    out = {name: [] for name in preds}
+    for name in list(preds) + list(preds)[::-1]:
+        out[name].append(round(timed(lambda: call(preds[name]), reps), 3))
+    return out
+
+
+def cold_parts(torch, pred, mols, reps=5):
+    """Host-clock medians (ms) of ``reps`` cold calls' set-up, piece by
+    piece, each on a new padded batch of ``mols``: the padding, the
+    spatial sort (``_spatial_view``: CRC, cell key, argsort, five
+    permuted arrays), the cell grid's bounds (host binning) and k (the
+    cell builder's ``count_only`` and its sync, or the host count under
+    top-k), on the batch the forward would get."""
+    from epnn_tpu_torch.data import pad_molecules
+    from epnn_tpu_torch.elements import table_for_n_elems
+
+    table = table_for_n_elems(pred.cfg.n_elems)
+    parts = {"pad": [], "sort": [], "grid": [], "k": []}
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        batch = pad_molecules(mols, table)
+        t1 = time.perf_counter()
+        view = pred._spatial_view(batch)
+        t2 = time.perf_counter()
+        inner = batch if view is None else view[0]
+        pred._neighbor_grid(inner)
+        t3 = time.perf_counter()
+        pred._neighbor_k(inner)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for key, a, b in (("pad", t0, t1), ("sort", t1, t2),
+                          ("grid", t2, t3), ("k", t3, t4)):
+            parts[key].append((b - a) * 1e3)
+    return {key: round(float(np.median(v)), 3) for key, v in parts.items()}
+
+
+def sort_phase(torch, card, mol, seeds=range(5)):
+    """[slice c] the spatial sort's effect on raw Σq on models that read
+    the far field: ``[width]``'s seeded random-weight model (``init_params``:
+    h 16, msg 8, T :data:`WIDTH_T`) at the shipped widths, one a seed,
+    served on ``mol`` by ``Predictor(spatial_sort='auto')`` (sorted at
+    this size) and ``'off'``.  The two must agree within
+    1e-5·(max|q|+1); raw |Σq − Q| of each is recorded, not bounded (the
+    sort changes only the float32 summation order).  Returns a row a
+    seed."""
+    from epnn_tpu_torch.data import pad_molecules
+    from epnn_tpu_torch.elements import table_for_n_elems
+    from epnn_tpu_torch.infer import CELL_SORT_MIN_ATOMS, Predictor
+    from epnn_tpu_torch.models import EPNNConfig
+    from epnn_tpu_torch.models.epnn import init_params
+
+    hh, ee = SHIPPED_WIDTHS
+    cfg = EPNNConfig(h_dim=16, e_dim=ee, msg_dim=8, mlp_hidden=(hh, hh),
+                     T=WIDTH_T)
+    batch = pad_molecules([mol], table_for_n_elems(cfg.n_elems))
+    require(batch.padded_atoms >= CELL_SORT_MIN_ATOMS, "sort_phase size")
+    out = []
+    for seed in seeds:
+        params = init_params(cfg, torch.Generator().manual_seed(seed))
+        q_on = Predictor(params, cfg).predict_batch(batch)[0]
+        q_off = Predictor(params, cfg, spatial_sort="off").predict_batch(
+            batch)[0]
+        dq = float(np.abs(q_on - q_off).max())
+        tol = 1e-5 * (float(np.abs(q_off).max()) + 1.0)
+        raw = [abs(float(q.astype(np.float64).sum()) - mol.total_charge)
+               for q in (q_on, q_off)]
+        require(np.all(np.isfinite(q_on)) and dq < tol, ("sort", seed, dq))
+        out.append(dict(seed=seed, max_abs_q=float(np.abs(q_off).max()),
+                        sum_abs_q=float(np.abs(q_off).sum()), max_dq=dq,
+                        tol=tol, raw_sum_q_sorted=raw[0],
+                        raw_sum_q_unsorted=raw[1]))
+        print(f"[slice c] spatial sort, random-weight model seed {seed} "
+              f"(H {hh}, E {ee}, T {WIDTH_T}), 1 x {mol.natoms:,} atoms: "
+              f"max|q| {out[-1]['max_abs_q']:.4e}, sorted vs unsorted "
+              f"max|dq| {dq:.3e} (tol {tol:.3e}); raw |sum q - Q| sorted "
+              f"{raw[0]:.4e}, unsorted {raw[1]:.4e} on {card}")
+    return out
+
+
+def md_phase(torch, card, pred, boxes):
+    """[slice g] MD serving: ``predict_trajectory`` with
+    ``reuse_neighbors=True, neighbor_skin=MD_SKIN`` on each (label,
+    molecule) of ``boxes`` over ``MD_FRAMES[label]`` frames: a seeded
+    cumulative drift of at most :data:`MD_DRIFT` Å an axis a frame (under
+    skin/2 in all), then a last frame :data:`MD_JUMP` Å from the
+    first for every atom.  ``skin_rebuilds`` must read 1 on every frame
+    but the last and 2 on it; each frame's charges against a cold
+    ``Predictor``'s (default settings, a new batch a frame) within
+    1e-5·(max|q|+1), |Σq − Q| ≤ 1e-4; the kernels' launches T times a
+    graph's; the selection by the cell builder only, once a rebuild.
+    Times on the host clock: each skin step and each cold call.  Returns
+    the numbers by box."""
+    from epnn_tpu_torch.data import pad_molecules
+    from epnn_tpu_torch.data.xyz import Molecule
+    from epnn_tpu_torch.elements import table_for_n_elems
+    from epnn_tpu_torch.infer import Predictor
+    from epnn_tpu_torch.ops import kernels
+
+    table = table_for_n_elems(pred.cfg.n_elems)
+    cold = Predictor(pred.params, pred.cfg)
+    out = {}
+    for label, mol in boxes:
+        t = MD_FRAMES[label]
+        g = np.random.default_rng(11)
+        drift = mol.xyz[None] + np.cumsum(
+            g.uniform(-MD_DRIFT, MD_DRIFT, size=(t - 1, mol.natoms, 3)),
+            axis=0)
+        u = g.normal(size=(mol.natoms, 3))
+        u /= np.linalg.norm(u, axis=1, keepdims=True)
+        frames = np.concatenate([drift, drift[:1] + MD_JUMP * u[None]]
+                                ).astype(np.float32)
+        skin = Predictor(pred.params, pred.cfg, reuse_neighbors=True,
+                         neighbor_skin=MD_SKIN)
+        step_ms, rebuilds, call = [], [], skin.predict_batch
+
+        def timed_step(batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            q = call(batch)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            rebuilds.append(skin.skin_rebuilds)
+            return q
+
+        skin.predict_batch = timed_step
+        kernels.reset_launch_counts()
+        reset_selection()
+        q = skin.predict_trajectory(mol, frames)
+        launches, sel = dict(kernels.LAUNCHES), dict(SELECTION)
+        require(rebuilds == [1] * (t - 1) + [2], ("skin_rebuilds", rebuilds))
+        require(launches == {kn: t * PER_GRAPH.get(kn, 0)
+                             for kn in kernels.SOURCES}, launches)
+        require(sel["cell"] == 2 and sel["topk"] == 0, ("[slice g]", sel))
+        cold_ms, dqs, tols, cons = [], [], [], []
+        for i in range(t):
+            b_t = pad_molecules([Molecule(
+                name=mol.name, symbols=mol.symbols, xyz=frames[i],
+                total_charge=mol.total_charge)], table)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            qc = cold.predict_batch(b_t)[0, :mol.natoms]
+            cold_ms.append((time.perf_counter() - t0) * 1e3)
+            dqs.append(float(np.abs(q[i] - qc).max()))
+            tols.append(1e-5 * (float(np.abs(qc).max()) + 1.0))
+            cons.append(abs(float(q[i].astype(np.float64).sum())
+                            - mol.total_charge))
+        require(all(d < tl for d, tl in zip(dqs, tols)), (label, dqs, tols))
+        require(max(cons) <= 1e-4, (label, cons))
+        steady = float(np.median(step_ms[1:-1]))
+        out[label] = dict(frames=t, skin=MD_SKIN, rebuilds=rebuilds,
+                          selection_calls=sel, step_ms=step_ms,
+                          steady_step_median_ms=steady, cold_ms=cold_ms,
+                          cold_median_ms=float(np.median(cold_ms)),
+                          max_dq=dqs, tol=tols, conservation=cons)
+        print(f"[slice g] MD serving, 1 x {mol.natoms:,} atoms, {t} frames "
+              f"(drift <= {MD_DRIFT} A an axis a frame, then {MD_JUMP} A), "
+              f"reuse_neighbors, neighbor_skin={MD_SKIN}: skin_rebuilds "
+              f"{rebuilds}; selection calls {sel}; launches {launches}; "
+              f"max|dq| vs a cold Predictor per frame {max(dqs):.3e} (tol "
+              f">= {min(tols):.3e}); |sum q - Q| <= {max(cons):.3e}; skin "
+              f"step median {steady:.3f} ms (first {step_ms[0]:.3f}, "
+              f"rebuild {step_ms[-1]:.3f}), cold call median "
+              f"{float(np.median(cold_ms)):.3f} ms on {card}")
+    return out
+
+
 def device_split(torch, fn, reps=3):
     """(wall ms, device-busy ms, {kernel: ms}) a call of ``fn``, from
     ``torch.profiler`` over ``reps`` calls after one warm-up.  Device-busy
@@ -773,7 +1005,7 @@ PROFILE_GROUPS = (
                    "sum_parts")),
     ("near kernels", ("nmc_kernel", "npr_kernel")),
     ("fused dense kernels", ("fmr_kernel", "fepn_kernel")),
-    ("neighbor top-k", ("topk", "Topk", "sort", "Sort", "radix")),
+    ("neighbor selection", ("topk", "Topk", "sort", "Sort", "radix")),
     ("matmul", ("gemm", "xmma", "cutlass")),
     ("copies", ("Memcpy", "Memset")),
 )
@@ -794,12 +1026,15 @@ def profile_groups(kern):
 
 def profile_phase(torch, card, pred, batch2, big, pred8):
     """[profile] where a call's time goes: ``predict_batch`` at 2 x 2,220
-    and 1 x 17,760 atoms, the dense fused forward of ``[slice d]`` and one
+    and 1 x 17,760 atoms, a Verlet-skin step (``[slice g]``'s settings, the
+    table built in the warm-up) at 17,760, the dense fused forward of
+    ``[slice d]`` and one
     fused train step at 2 x 2,220 atoms (the bucket tables built once, as
     ``train()`` does), each as device-busy against wall time and its
     largest kernels.  Returns the numbers; an empty dict if the profiler
     recorded no device time."""
     from epnn_tpu_torch.data import uniform_q0_contract
+    from epnn_tpu_torch.infer import Predictor
     from epnn_tpu_torch.ops.fused import build_neighbors_batch, forward_blocked
     from epnn_tpu_torch.train import TrainConfig, loop
 
@@ -821,9 +1056,12 @@ def profile_phase(torch, card, pred, batch2, big, pred8):
             return forward_blocked(pred._fused, *args[:4], cfg,
                                    use_pallas=True)
 
+    skin = Predictor(pred.params, cfg, reuse_neighbors=True,
+                     neighbor_skin=MD_SKIN)
     cases = {
         "predict_batch 2x2220": lambda: pred.predict_batch(batch2),
         "predict_batch 1x17760": lambda: pred.predict_batch(big),
+        "MD skin step 1x17760": lambda: skin.predict_batch(big),
         "predict_batch int8 2x2220": lambda: pred8.predict_batch(batch2),
         "predict_batch int8 1x17760": lambda: pred8.predict_batch(big),
         "dense fused forward 2x2220": dense_fused,
@@ -1296,17 +1534,30 @@ def compact_phase(torch, card, cfg, boxes):
     version, bit for bit; its time beside top-k's and two bounds: the
     operations (:data:`COMPACT_FLOP` a valid pair at the fp32 peak) and
     the instruction issue (:data:`COMPACT_INSTR` a valid pair at
-    :data:`PEAK_INSTR`).  Returns the kernel's row (the first box's
-    numbers, every box's under ``sizes``)."""
+    :data:`PEAK_INSTR`).  The neighbor selection line beside it: the
+    cell-list builder (its ``count_only`` k, which must equal top-k's
+    largest row, then its tables, on ``Predictor``'s grid), the same set
+    on every row, its device time beside top-k's and the kernel's.
+    Returns the kernel's row (the first box's numbers, every box's under
+    ``sizes``) and the selection times by box."""
     from epnn_tpu_torch.ops import kernels
-    from epnn_tpu_torch.ops.fused import build_neighbors
+    from epnn_tpu_torch.ops.fused import (
+        batch_cell_grid,
+        build_neighbors,
+        build_neighbors_cell,
+    )
 
-    row, f = None, 4
+    row, f, selection = None, 4, {}
     for label, xyz, mask, k in boxes:
         n = xyz.shape[0]
         idx, m = kernels.neighbor_compact(xyz, mask, cfg.cutoff, k)
         ip, mp = kernels.neighbor_compact_plain(xyz, mask, cfg.cutoff, k)
         it, mt = build_neighbors(xyz, mask, cfg.cutoff, k)
+        grid = batch_cell_grid(xyz[None].cpu().numpy(),
+                               mask[None].cpu().numpy(), cfg.cutoff)
+        count = int(build_neighbors_cell(xyz, mask, cfg.cutoff, 1, *grid,
+                                         count_only=True))
+        ic, mc = build_neighbors_cell(xyz, mask, cfg.cutoff, k, *grid)
         torch.cuda.synchronize()
         err = max(float((idx - ip).abs().max()), float((m - mp).abs().max()))
         require(torch.equal(idx, ip) and torch.equal(m, mp),
@@ -1317,12 +1568,30 @@ def compact_phase(torch, card, cfg, boxes):
         want = torch.sort(torch.where(mt > 0, it, fill), dim=1).values
         require(torch.equal(got, want), ("neighbor_compact vs top-k", label))
         require(int(m.sum(1).max()) < k, ("k too small", label))
+        cell = torch.sort(torch.where(mc > 0, ic, fill), dim=1).values
+        require(torch.equal(cell, want), ("cell builder vs top-k", label))
+        require(count == int(mt.sum(1).max()), ("count_only", label, count))
         ms = device_ms(torch, lambda: kernels.neighbor_compact(
             xyz, mask, cfg.cutoff, k), 20)
         plain_ms = device_ms(torch, lambda: kernels.neighbor_compact_plain(
             xyz, mask, cfg.cutoff, k), 3)
         topk_ms = device_ms(torch, lambda: build_neighbors(
             xyz, mask, cfg.cutoff, k), 5)
+        count_ms = device_ms(torch, lambda: build_neighbors_cell(
+            xyz, mask, cfg.cutoff, 1, *grid, count_only=True), 20)
+        build_ms = device_ms(torch, lambda: build_neighbors_cell(
+            xyz, mask, cfg.cutoff, k, *grid), 20)
+        selection[label] = dict(
+            grid=list(grid), count_only_k=count, k=k,
+            cell_ms=count_ms + build_ms, cell_count_ms=count_ms,
+            cell_build_ms=build_ms, topk_ms=topk_ms, compact_ms=ms)
+        print(f"[kernel] neighbor selection at N={n} ({label}) k={k}: the "
+              f"cell builder (grid ncells {grid[0]}, cap {grid[1]}; "
+              f"count_only {count} = top-k's largest row), top-k and "
+              f"neighbor_compact give the same set on all {n} rows; cell "
+              f"builder {count_ms + build_ms:.4f} ms (count_only "
+              f"{count_ms:.4f} + build {build_ms:.4f}), top-k "
+              f"{topk_ms:.4f} ms, neighbor_compact {ms:.4f} ms on {card}")
         n_valid = int((mask > 0).sum())
         flop = n_valid * n_valid * COMPACT_FLOP  # d² and the compare
         nbytes = f * 4 * n + 12 * n * k     # xyz, mask; idx int64, mask
@@ -1350,7 +1619,7 @@ def compact_phase(torch, card, cfg, boxes):
                        "table over all sizes", sizes={})
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row["sizes"][label] = entry
-    return row
+    return row, selection
 
 
 def main() -> int:
@@ -1374,6 +1643,8 @@ def main() -> int:
         water_box,
     )
     from epnn_tpu_torch.tools.near_field_pace import near_inputs
+
+    count_selection()
 
     # ---- 1. device --------------------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1513,7 +1784,8 @@ def main() -> int:
         compact_boxes += [(label, xb, mb, kb),
                           (label + " shuffled", xb[perm].contiguous(),
                            mb[perm].contiguous(), kb)]
-    rows["neighbor_compact"] = compact_phase(torch, card, cfg, compact_boxes)
+    rows["neighbor_compact"], selection = compact_phase(torch, card, cfg,
+                                                        compact_boxes)
     # the width-carrying kernels at the other widths
     width_results = width_phase(torch, card, sfu_rate)
 
@@ -1546,12 +1818,16 @@ def main() -> int:
           f"{[m.natoms for m in small]} atoms: launches {launched}; "
           "card vs CPU within 1e-5*(max|q|+1), |sum q - Q| <= 1e-4")
 
-    # (b) the 2,220-atom boxes, B = 2, against the JAX golden
+    # (b) the 2,220-atom boxes, B = 2, against the JAX golden; selection by
+    # the cell builder, one build a graph (k cached), never top-k
     kernels.reset_launch_counts()
+    reset_selection()
     q2 = pred.predict_batch(batch2)
     main_launches = dict(kernels.LAUNCHES)
+    sel_b = dict(SELECTION)
     want = {kn: 2 * PER_GRAPH.get(kn, 0) for kn in kernels.SOURCES}
     require(main_launches == want, (main_launches, want))
+    require(sel_b["cell"] == 2 and sel_b["topk"] == 0, ("[slice b]", sel_b))
     with np.load(GOLDEN) as gf:
         golden, total_q = gf["charges"], gf["total_q"]
     q2v = q2[:, :golden.shape[1]]
@@ -1567,27 +1843,79 @@ def main() -> int:
                  for qo, qb in zip(q_odd, q2))
     require(dq_odd < tol_q, ("pad_to", n + 1, dq_odd))
     ms2 = timed(lambda: pred.predict_batch(batch2), 7)
+    # the selection's end-to-end effect: 'auto' (cell builder) and 'topk'
+    # in turns (topk, auto, auto, topk), each a median of 7 calls, warm (one
+    # batch object) and cold (predict_molecules: a new batch a call)
+    pred_topk = Predictor(pred.params, cfg, neighbor_method="topk",
+                          spatial_sort="off")
+    preds_b = {"topk": pred_topk, "auto": pred}
+    golden_mols = golden_boxes()
+    turns_b = turns(timed, preds_b, lambda p: p.predict_batch(batch2), 7)
+    cold_b = turns(timed, preds_b,
+                   lambda p: p.predict_molecules(golden_mols), 7)
+    parts_b = {name: cold_parts(torch, p, golden_mols)
+               for name, p in preds_b.items()}
     print(f"[slice b] 2 x 2,220 atoms (Q=0,+1), k={k}: launches "
-          f"{main_launches} (per graph {PER_GRAPH}); max|dq| vs JAX golden "
+          f"{main_launches} (per graph {PER_GRAPH}); neighbor selection "
+          f"calls {sel_b}, grid {pred._neighbor_grid(batch2)}; "
+          f"max|dq| vs JAX golden "
           f"{dq:.3e} (tol {tol_q:.3e}); |sum q - Q| = {cons2.tolist()}; "
           f"padded to {n + 1}: max|dq| {dq_odd:.3e}; "
-          f"predict_batch median {ms2:.3f} ms on {card}")
+          f"predict_batch median {ms2:.3f} ms; in turns warm auto "
+          f"{turns_b['auto']} ms, topk {turns_b['topk']} ms; cold "
+          f"(predict_molecules) auto {cold_b['auto']} ms, topk "
+          f"{cold_b['topk']} ms; cold set-up (ms) {parts_b} on {card}")
 
-    # (c) the 17,760-atom box, B = 1
+    # (c) the 17,760-atom box, B = 1: cell-sorted (spatial_sort 'auto'),
+    # selection by the cell builder, held to an unsorted top-k Predictor
     kernels.reset_launch_counts()
+    reset_selection()
     q3 = pred.predict_batch(big)
     big_launches = dict(kernels.LAUNCHES)
+    sel_c = dict(SELECTION)
     require(big_launches == {kn: PER_GRAPH.get(kn, 0)
                              for kn in kernels.SOURCES}, big_launches)
+    require(sel_c["cell"] == 1 and sel_c["topk"] == 0, ("[slice c]", sel_c))
+    sort_state = pred._sort_cache.get(big)
+    require(sort_state is not None and not np.array_equal(
+        sort_state[1][0], np.arange(big.padded_atoms)), "[slice c] sorted")
+    twin = sort_state[3]
+    moved = int((sort_state[1][0] != np.arange(big.padded_atoms)).sum())
+    grid_c, k_c = pred._neighbor_grid(twin), pred._neighbor_k(twin)
     cons3 = abs(float(q3.astype(np.float64).sum()))
     require(np.all(np.isfinite(q3)) and cons3 <= 1e-4, cons3)
     nat = big.natoms[0]
     o_mean, h_mean = float(q3[0, 0:nat:3].mean()), float(q3[0, 1:nat:3].mean())
     require(o_mean < -0.5 < 0.2 < h_mean, (o_mean, h_mean))
+    q3_topk = pred_topk.predict_batch(big)
+    dq3 = float(np.abs(q3 - q3_topk).max())
+    tol3 = 1e-5 * (float(np.abs(q3_topk).max()) + 1.0)
+    cons3_topk = abs(float(q3_topk.astype(np.float64).sum()))
+    require(dq3 < tol3 and cons3_topk <= 1e-4, (dq3, tol3, cons3_topk))
     ms3 = timed(lambda: pred.predict_batch(big), 3)
+    turns_c = turns(timed, preds_b, lambda p: p.predict_batch(big), 3)
+    # cold: also 'auto' unsorted, which isolates the sort's share
+    big_mol = [water_box(SCALING_SIZE_MOLECULES, seed=2)]
+    preds_c = {"topk": pred_topk,
+               "auto unsorted": Predictor(pred.params, cfg,
+                                          spatial_sort="off"),
+               "auto": pred}
+    cold_c = turns(timed, preds_c, lambda p: p.predict_molecules(big_mol),
+                   5)
+    parts_c = {name: cold_parts(torch, p, big_mol)
+               for name, p in preds_c.items()}
+    sort_rows = sort_phase(torch, card, big_mol[0])
     print(f"[slice c] 1 x {nat:,} atoms, k={pred._neighbor_k(big)}: launches "
-          f"{big_launches}; |sum q - Q| = {cons3:.3e}; mean q O {o_mean:.4f} "
-          f"H {h_mean:.4f}; predict_batch median {ms3:.3f} ms on {card}")
+          f"{big_launches}; spatially sorted ({moved:,} atoms moved); "
+          f"neighbor selection calls "
+          f"{sel_c}, grid (ncells, cap) {grid_c}, count_only k {k_c}; "
+          f"max|dq| vs a topk/unsorted Predictor {dq3:.3e} (tol "
+          f"{tol3:.3e}); raw |sum q - Q| = {cons3:.3e} (topk/unsorted "
+          f"{cons3_topk:.3e}); mean q O {o_mean:.4f} H {h_mean:.4f}; "
+          f"predict_batch median {ms3:.3f} ms; in turns warm auto (cell, "
+          f"sorted) {turns_c['auto']} ms, topk/unsorted {turns_c['topk']} "
+          f"ms; cold (predict_molecules) {cold_c} ms; cold set-up (ms) "
+          f"{parts_c} on {card}")
     # the far-field kernel at this size, the O(N²) term of every round
     nb = big.padded_atoms
     mb = torch.from_numpy(big.node_mask[0]).to(dev)
@@ -1759,6 +2087,11 @@ def main() -> int:
               f"{r['int8'][0]:.3f}/{r['int8'][1]:.3f} ms"
               for lb, r in medians.items()) + f" on {card}")
 
+    # (g) MD serving: Verlet-skin trajectories at both sizes
+    md = md_phase(torch, card, pred, [
+        ("2220", golden_boxes()[1]),
+        ("17760", water_box(SCALING_SIZE_MOLECULES, seed=2))])
+
     # ---- 5. training ------------------------------------------------------
     small_labels = [q.copy() for q in qs]
     train_launches, step_ms, step_list = train_phase(
@@ -1780,11 +2113,26 @@ def main() -> int:
     require(sorted(rows) == sorted(kernels.SOURCES), sorted(rows))
     print(json.dumps({"kernels": list(rows.values()),
                       "predict_batch_ms": {"2x2220": ms2, "1x17760": ms3},
+                      "selection_turns_ms": {"2x2220": turns_b,
+                                             "1x17760": turns_c},
+                      "cold_turns_ms": {"2x2220": cold_b,
+                                        "1x17760": cold_c},
+                      "cold_setup_ms": {"2x2220": parts_b,
+                                        "1x17760": parts_c},
+                      "sort_random_weights": sort_rows,
                       "fused_train_step_ms": {"2x2220": step_ms,
                                               "2x2220_steps": step_list},
                       "dense_fused_ms": {"2x2220": ms_d},
                       "dense_plain_ms": {"2x2220": ms_p},
                       "compact_nbrs_ms": {"2x2220": ms_e},
+                      "neighbor_selection": selection,
+                      "md_serving": md,
+                      "slice_c": {"selection_calls": sel_c,
+                                  "sort_moved_atoms": moved,
+                                  "grid": list(grid_c), "count_only_k": k_c,
+                                  "max_dq_vs_topk_unsorted": dq3,
+                                  "tol": tol3, "raw_sum_q": cons3,
+                                  "raw_sum_q_topk_unsorted": cons3_topk},
                       "int8_tier": {
                           "predict_batch_ms_turns": medians,
                           "far_sum_gap_rel": far_gaps,

@@ -38,6 +38,10 @@ from epnn_tpu_torch.featurize import rbf_edges
 from epnn_tpu_torch.io import checkpoint as ckpt_io
 from epnn_tpu_torch.models import EPNN, EPNNConfig
 from epnn_tpu_torch.ops.fused import (
+    batch_cell_grid,
+    build_neighbors_batch,
+    build_neighbors_cell,
+    cell_sort_key,
     forward_blocked,
     fuse_params,
     max_neighbor_count,
@@ -48,6 +52,24 @@ from epnn_tpu_torch.ops.fused import (
 #: Above this padded width the blocked path runs (the dense path's
 #: (B, N, N, 2F+E) pair tensor grows quadratically).
 DENSE_MAX_ATOMS = 256
+
+#: From this padded width up, ``neighbor_method='auto'`` selects neighbors
+#: through the cell-list builder (N·27·cap candidates scored instead of N²
+#: pairs; the same set as top-k), as the JAX package does.
+CELL_GRID_MIN_ATOMS = 1024
+
+#: From this padded width up, ``spatial_sort='auto'`` cell-sorts each
+#: graph's atoms before the forward, as the JAX package does: spatially
+#: near contributions then sit next to each other in the float32 row sums,
+#: which keeps raw Σq closer to the net charge.  Charges come back in the
+#: caller's order.
+CELL_SORT_MIN_ATOMS = 16_384
+
+
+def _safe_k(count: int, batch: MolBatch) -> int:
+    """A static neighbor_k from an exact neighbor count: four slots of
+    room, rounded up to 8, at most N − 1."""
+    return max(min(round_up(count + 4, 8), batch.padded_atoms - 1), 1)
 
 
 @dataclasses.dataclass
@@ -68,18 +90,41 @@ class Predictor:
     card and raises when there is none: the CPU is used only when asked
     for (``device="cpu"``), never as a silent fallback.
 
-    ``collapse_round1`` — ``'auto'`` checks the round-1 collapse contract
-    per batch on the host (uniform q0 on valid atoms, ``[Z, onehot]``
-    features) and collapses message round 1's far field when it holds;
-    ``'off'`` never does.
+    ``reuse_neighbors`` — keep each batch object's (idx, mask, d²) tables
+    on the device and skip the selection on later calls; a coordinate CRC
+    guards them, so editing ``batch.xyz`` in place rebuilds them.  The
+    tables come from top-k, as in the JAX package.
 
     ``renormalize`` — redistribute the residue Σq − Σq0 uniformly over the
     real atoms in float64 after the forward (Σq then matches the net
     charge to ~32 f32 ulp at any size).
 
-    ``neighbor_method`` — ``'auto'`` and ``'topk'`` select neighbors by
-    top-k over −d²; the cell-list builder (``'cell'``, and ``'auto'`` from
-    1,024 atoms in the JAX package, same candidate set) is not ported yet.
+    ``neighbor_method`` — ``'auto'`` selects through the cell-list builder
+    (:func:`~epnn_tpu_torch.ops.fused.build_neighbors_cell`) from
+    :data:`CELL_GRID_MIN_ATOMS` padded atoms and by top-k over −d² below;
+    ``'cell'`` and ``'topk'`` force one.  Both give the same set.  The
+    grid's bounds are cached per batch behind the coordinate CRC.
+
+    ``neighbor_skin`` — Verlet-skin tables for MD serving (requires
+    ``reuse_neighbors``): the selection runs once at cutoff + skin (the
+    cell builder from :data:`CELL_GRID_MIN_ATOMS` atoms unless
+    ``'topk'``) and stands while no atom has moved more than skin/2 from
+    the geometry it was built on; every call takes the slots' d² from the
+    current coordinates.  Shell slots beyond the cutoff carry zero
+    features and a zero gate, so charges are those of a cold call.
+    :attr:`skin_rebuilds` counts the selections.  0 disables.
+
+    ``collapse_round1`` — ``'auto'`` checks the round-1 collapse contract
+    per batch on the host (uniform q0 on valid atoms, ``[Z, onehot]``
+    features) and collapses message round 1's far field when it holds;
+    ``'off'`` never does.
+
+    ``spatial_sort`` — ``'auto'`` runs graphs of
+    :data:`CELL_SORT_MIN_ATOMS` padded atoms and more on a cell-sorted
+    twin of the batch (:func:`~epnn_tpu_torch.ops.fused.cell_sort_key`),
+    ``'on'`` every blocked batch, ``'off'`` none; charges come back in
+    the caller's atom order.  In skin mode the permutation stands while
+    no atom has moved more than skin/2.
     """
 
     params: dict
@@ -87,9 +132,12 @@ class Predictor:
     block: int = 256
     force_mode: Optional[str] = None
     _: dataclasses.KW_ONLY
+    reuse_neighbors: bool = False
     renormalize: bool = False
     neighbor_method: str = "auto"
+    neighbor_skin: float = 0.0
     collapse_round1: str = "auto"
+    spatial_sort: str = "auto"
     device: Optional[str] = None
 
     def __post_init__(self):
@@ -98,13 +146,15 @@ class Predictor:
             raise ValueError("force_mode must be None, 'dense' or 'blocked'")
         if self.collapse_round1 not in ("auto", "off"):
             raise ValueError("collapse_round1 must be 'auto' or 'off'")
-        if self.neighbor_method == "cell":
-            raise NotImplementedError(
-                "neighbor_method='cell' (the cell-list builder) is not ported "
-                "yet (ROADMAP queue 1: cell builder)")
-        if self.neighbor_method not in ("auto", "topk"):
+        if self.neighbor_method not in ("auto", "topk", "cell"):
             raise ValueError("neighbor_method must be 'auto', 'topk' or "
                              "'cell'")
+        if self.neighbor_skin < 0:
+            raise ValueError("neighbor_skin must be >= 0")
+        if self.neighbor_skin > 0 and not self.reuse_neighbors:
+            raise ValueError("neighbor_skin requires reuse_neighbors=True")
+        if self.spatial_sort not in ("auto", "on", "off"):
+            raise ValueError("spatial_sort must be 'auto', 'on', or 'off'")
         self._model = EPNN.from_params(self.cfg, self.params, self.device)
         self._fused = fuse_params(self.params, self.cfg, self.device)
         if self.device.type == "cuda":
@@ -112,8 +162,18 @@ class Predictor:
             self._fused = pad_kernel_weights(self._fused)
         if self._use_pallas() and self.cfg.dense_matmul_precision == "int8":
             self._fused = quantize_far_field(self._fused)
-        # safe neighbor_k per batch object, guarded by a geometry CRC
-        self._k_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+        # per batch object, each guarded by the geometry CRC: the safe
+        # neighbor_k, the cell grid's bounds, the reused tables
+        weak = weakref.WeakKeyDictionary
+        self._k_cache: "weakref.WeakKeyDictionary" = weak()
+        self._grid_cache: "weakref.WeakKeyDictionary" = weak()
+        self._nbr_cache: "weakref.WeakKeyDictionary" = weak()
+        # Verlet-skin state: batch -> (xyz0 copy, idx, nbr_mask) selected
+        # at cutoff + skin; spatial sort: batch -> [crc, perm, inv, sorted
+        # twin, xyz0 copy]
+        self._skin_cache: "weakref.WeakKeyDictionary" = weak()
+        self._sort_cache: "weakref.WeakKeyDictionary" = weak()
+        self.skin_rebuilds = 0
 
     @classmethod
     def from_checkpoint(cls, directory: str, **kw) -> "Predictor":
@@ -135,19 +195,162 @@ class Predictor:
             return False
         return uniform_q0_contract(batch.x, batch.q0, batch.node_mask)
 
+    def _mode(self, batch: MolBatch) -> str:
+        return self.force_mode or (
+            "dense" if batch.padded_atoms <= DENSE_MAX_ATOMS else "blocked")
+
     def _neighbor_k(self, batch: MolBatch) -> int:
-        """Exact safe neighbor_k for a batch (host count + 4, rounded up to
-        8), cached per batch object with a geometry-staleness guard."""
+        """Exact safe neighbor_k for a batch (:func:`_safe_k`), cached per
+        batch object with a geometry-staleness guard.  Where the forward
+        selects through the cell builder, the count is the builder's own
+        ``count_only`` on the device (the same float32 predicate, one host
+        sync); else the host's float64 count."""
         fp = self._geom_fingerprint(batch)
         cached = self._k_cache.get(batch)
         if cached is not None and cached[0] == fp:
             return cached[1]
-        k = max(max_neighbor_count(batch.xyz[b], batch.node_mask[b],
-                                   self.cfg.cutoff)
-                for b in range(batch.batch_size))
-        k = max(min(round_up(k + 4, 8), batch.padded_atoms - 1), 1)
+        grid = self._neighbor_grid(batch)
+        if grid is not None:
+            k = self._cell_count(batch, self.cfg.cutoff, grid)
+        else:
+            k = max(max_neighbor_count(batch.xyz[b], batch.node_mask[b],
+                                       self.cfg.cutoff)
+                    for b in range(batch.batch_size))
+        k = _safe_k(k, batch)
         self._k_cache[batch] = (fp, k)
         return k
+
+    def _cell_count(self, batch: MolBatch, cutoff: float, grid) -> int:
+        """The largest neighbor count of any row of any graph, from the
+        cell builder's ``count_only`` on the device: one host sync."""
+        xyz, mask = self._tensor(batch.xyz), self._tensor(batch.node_mask)
+        return int(torch.stack([
+            build_neighbors_cell(xyz[b], mask[b], float(cutoff), 1, *grid,
+                                 count_only=True)
+            for b in range(batch.batch_size)]).amax())
+
+    def _neighbor_grid(self, batch: MolBatch):
+        """The static ``(ncells_pad, cell_cap)`` of the cell builder, or
+        None where top-k selects (``'topk'``; ``'auto'`` below
+        :data:`CELL_GRID_MIN_ATOMS` padded atoms).  Cached per batch with
+        the geometry fingerprint."""
+        if self.neighbor_method == "topk" or (
+                self.neighbor_method == "auto"
+                and batch.padded_atoms < CELL_GRID_MIN_ATOMS):
+            return None
+        fp = self._geom_fingerprint(batch)
+        cached = self._grid_cache.get(batch)
+        if cached is not None and cached[0] == fp:
+            return cached[1]
+        grid = batch_cell_grid(batch.xyz, batch.node_mask, self.cfg.cutoff)
+        self._grid_cache[batch] = (fp, grid)
+        return grid
+
+    def _neighbors(self, batch: MolBatch, k: int):
+        """The batch's (idx, nbr_mask, d2) tables on the device when
+        ``reuse_neighbors`` is on, built once per geometry (top-k, as in the
+        JAX package) and guarded by the geometry fingerprint; else None."""
+        if not self.reuse_neighbors:
+            return None
+        fp = self._geom_fingerprint(batch)
+        cached = self._nbr_cache.get(batch)
+        if cached is not None and cached[0] == fp:
+            return cached[1]
+        nbrs = build_neighbors_batch(self._tensor(batch.xyz),
+                                     self._tensor(batch.node_mask),
+                                     float(self.cfg.cutoff), int(k))
+        self._nbr_cache[batch] = (fp, nbrs)
+        return nbrs
+
+    def _neighbors_skin(self, batch: MolBatch):
+        """Verlet-skin ``(idx, nbr_mask)`` on the device for the current
+        drift window (see ``neighbor_skin``): the selection at cutoff +
+        skin runs when there is none yet or an atom has moved more than
+        skin/2 from its geometry."""
+        xyz = np.asarray(batch.xyz)
+        cached = self._skin_cache.get(batch)
+        if cached is not None:
+            xyz0, idx, nbr_mask = cached
+            if xyz.shape == xyz0.shape:
+                disp2 = float((((xyz - xyz0) ** 2).sum(-1)
+                               * (np.asarray(batch.node_mask) > 0)).max())
+                if disp2 <= (self.neighbor_skin / 2.0) ** 2:
+                    return idx, nbr_mask
+        cutoff_sel = float(self.cfg.cutoff + self.neighbor_skin)
+        xyz_t = self._tensor(batch.xyz)
+        mask_t = self._tensor(batch.node_mask)
+        if (self.neighbor_method != "topk"
+                and batch.padded_atoms >= CELL_GRID_MIN_ATOMS):
+            grid = batch_cell_grid(batch.xyz, batch.node_mask, cutoff_sel)
+            k = _safe_k(self._cell_count(batch, cutoff_sel, grid), batch)
+            outs = [build_neighbors_cell(xyz_t[b], mask_t[b], cutoff_sel, k,
+                                         *grid)
+                    for b in range(batch.batch_size)]
+            idx, nbr_mask = (torch.stack(parts) for parts in zip(*outs))
+        else:
+            k = _safe_k(max(max_neighbor_count(batch.xyz[b],
+                                               batch.node_mask[b], cutoff_sel)
+                            for b in range(batch.batch_size)), batch)
+            idx, nbr_mask, _ = build_neighbors_batch(xyz_t, mask_t,
+                                                     cutoff_sel, k)
+        self.skin_rebuilds += 1
+        self._skin_cache[batch] = (xyz.copy(), idx, nbr_mask)
+        return idx, nbr_mask
+
+    def _spatial_view(self, batch: MolBatch):
+        """None (no sort) or ``(sorted_batch, inv)``: the cell-sorted twin
+        of ``batch`` and the (B, N) inverse permutation that takes its
+        charges back to the caller's atom order.  Cached per batch object
+        behind the coordinate CRC; in skin mode the permutation stands
+        while no atom has moved more than skin/2 from the geometry it was
+        made on, and the twin's coordinates are refreshed in place (its
+        own CRC-guarded caches see the change)."""
+        if self.spatial_sort == "off" or (
+                self.spatial_sort == "auto"
+                and batch.padded_atoms < CELL_SORT_MIN_ATOMS):
+            return None
+        xyz = np.asarray(batch.xyz)
+        mask = np.asarray(batch.node_mask)
+        fp = self._geom_fingerprint(batch)
+        state = self._sort_cache.get(batch)
+        if state is not None:
+            crc0, perm, inv, batch2, xyz0 = state
+            if crc0 == fp:
+                return batch2, inv
+            if xyz.shape == xyz0.shape and self.neighbor_skin > 0:
+                disp2 = float((((xyz - xyz0) ** 2).sum(-1)
+                               * (mask > 0)).max())
+                if disp2 <= (self.neighbor_skin / 2.0) ** 2:
+                    batch2.xyz[...] = np.take_along_axis(
+                        xyz, perm[..., None], axis=1)
+                    state[0] = fp
+                    return batch2, inv
+        # the permutation: the z-major cell key of the valid atoms, the
+        # padding rows stable at the end
+        b, n = xyz.shape[:2]
+        perm = np.empty((b, n), np.int64)
+        for bi in range(b):
+            valid = mask[bi] > 0
+            if not valid.any():
+                perm[bi] = np.arange(n)
+                continue
+            key, _ = cell_sort_key(xyz[bi][valid], self.cfg.cutoff)
+            full = np.full((n,), np.iinfo(np.int64).max, np.int64)
+            full[valid] = key
+            perm[bi] = np.argsort(full, kind="stable")
+        inv = np.argsort(perm, axis=1, kind="stable")
+
+        def take(a):
+            if a.ndim == 1:
+                return a
+            p = perm.reshape(perm.shape + (1,) * (a.ndim - 2))
+            return np.take_along_axis(np.asarray(a), p, axis=1)
+
+        batch2 = dataclasses.replace(
+            batch, x=take(batch.x), xyz=take(batch.xyz), q0=take(batch.q0),
+            y=take(batch.y), node_mask=take(batch.node_mask))
+        self._sort_cache[batch] = [fp, perm, inv, batch2, xyz.copy()]
+        return batch2, inv
 
     def _use_pallas(self) -> bool:
         """The twin of JAX's ``Predictor._use_pallas``
@@ -199,21 +402,61 @@ class Predictor:
 
     @torch.no_grad()
     def _predict_batch_raw(self, batch: MolBatch) -> np.ndarray:
-        mode = self.force_mode or (
-            "dense" if batch.padded_atoms <= DENSE_MAX_ATOMS else "blocked")
+        """Charges in the caller's atom order: a blocked batch runs on its
+        cell-sorted twin where ``spatial_sort`` says so."""
+        if self._mode(batch) == "blocked":
+            view = self._spatial_view(batch)
+            if view is not None:
+                batch2, inv = view
+                q = self._predict_batch_inner(batch2)
+                return np.take_along_axis(q, inv, axis=1)
+        return self._predict_batch_inner(batch)
+
+    def _predict_batch_inner(self, batch: MolBatch) -> np.ndarray:
         x, q0, xyz, mask = (self._tensor(a) for a in (
             batch.x, batch.q0, batch.xyz, batch.node_mask))
-        if mode == "dense":
+        if self._mode(batch) == "dense":
             e = rbf_edges(xyz, mask, e_dim=self.cfg.e_dim,
                           cutoff=self.cfg.cutoff, eta=self.cfg.eta)
             q = self._model(x, q0, e, mask)
-        else:
+        elif self.neighbor_skin > 0:
+            # the 2-tuple: the forward takes d² from the current coordinates
+            idx, nbr_mask = self._neighbors_skin(batch)
             q = forward_blocked(
                 self._fused, x, q0, xyz, mask, self.cfg,
-                neighbor_k=self._neighbor_k(batch),
+                neighbor_k=int(idx.shape[-1]), use_pallas=self._use_pallas(),
+                neighbors=(idx, nbr_mask),
+                uniform_q0=self._uniform_q0(batch))
+        else:
+            k = self._neighbor_k(batch)
+            q = forward_blocked(
+                self._fused, x, q0, xyz, mask, self.cfg, neighbor_k=k,
                 use_pallas=self._use_pallas(),
+                neighbors=self._neighbors(batch, k),
+                neighbor_grid=self._neighbor_grid(batch),
                 uniform_q0=self._uniform_q0(batch))
         return q.cpu().numpy().astype(np.float32, copy=False)
+
+    def predict_trajectory(self, mol: Molecule, frames: np.ndarray,
+                           pad_to: Optional[int] = None) -> np.ndarray:
+        """(T, natoms) charges for an MD trajectory of one molecule.
+
+        ``frames`` is (T, natoms, 3).  One padded batch is built and its
+        coordinates are replaced in place frame by frame, so with
+        ``reuse_neighbors=True, neighbor_skin=S`` the selection runs again
+        only when the drift passes S/2 (each frame pays the O(N·k) d²
+        gather and the forward).  Charges are exact per frame."""
+        frames = np.asarray(frames, np.float32)
+        if frames.ndim != 3 or frames.shape[1:] != (mol.natoms, 3):
+            raise ValueError(
+                f"frames must be (T, {mol.natoms}, 3), got {frames.shape}")
+        table = table_for_n_elems(self.cfg.n_elems)
+        batch = pad_molecules([mol], table, pad_to=pad_to)
+        out = np.empty((len(frames), mol.natoms), np.float32)
+        for t in range(len(frames)):
+            batch.xyz[0, : mol.natoms] = frames[t]
+            out[t] = self.predict_batch(batch)[0, : mol.natoms]
+        return out
 
     def predict_molecules(
         self, mols: Sequence[Molecule], pad_to: Optional[int] = None

@@ -309,6 +309,181 @@ def _max_neighbor_count_cells(xyz, mask, cutoff: float) -> int:
     return int(near.sum(1).max())
 
 
+def refresh_neighbor_d2(xyz: Tensor, idx: Tensor) -> Tensor:
+    """(B, N, k) squared distances for a fixed (B, N, k) neighbor table
+    from the current (B, N, 3) coordinates: the Verlet-skin step's O(N·k)
+    gather in place of a selection.  The same expression as every
+    selection's d² (:func:`~epnn_tpu_torch.featurize.pair_d2`), so a slot
+    within the cutoff gets the selection's bits.  Invalid slots gather
+    whatever row their idx names; the table's mask zeroes them."""
+    rows = torch.arange(xyz.shape[0], device=xyz.device)[:, None, None]
+    return pair_d2(xyz[:, :, None, :], xyz[rows, idx.to(torch.int64)])
+
+
+def _CELL_INV(cutoff: float) -> float:
+    """The binning reciprocal shared by host and device: cells of side
+    cutoff/(1 − 1e-6), slightly larger than the cutoff, so that even after
+    float32 rounding of the product a pair within the cutoff is within ±1
+    cell on every axis."""
+    return (1.0 - 1e-6) / cutoff
+
+
+def cell_grid_params(xyz, node_mask, cutoff: float,
+                     pad_cells: float = 1.25) -> Tuple[int, int]:
+    """Host-side bounds ``(ncells_pad, cell_cap)`` for
+    :func:`build_neighbors_cell`: ``cell_cap`` is the exact largest
+    occupancy of one cell, ``ncells_pad`` bounds nx·ny·nz with ``pad_cells``
+    of room for coordinate drift.  The binning repeats the builder's on
+    the device bit for bit (a float32 subtract, then a float32 multiply
+    by the reciprocal): a boundary atom binned differently here would make
+    the cap wrong."""
+    xyz = np.asarray(xyz, np.float32)
+    pts = xyz[np.asarray(node_mask) > 0]
+    if len(pts) == 0:
+        return 1, 1
+    cell = np.floor((pts - pts.min(0)) * np.float32(_CELL_INV(cutoff))
+                    ).astype(np.int64)
+    dims = cell.max(0) + 1
+    # occupancy by linear cell id: the counts of a row-wise unique over
+    # (n, 3), from a 1-D unique an order of magnitude faster
+    lid = cell[:, 0] + dims[0] * (cell[:, 1] + dims[1] * cell[:, 2])
+    _, counts = np.unique(lid, return_counts=True)
+    return int(np.ceil(np.prod(dims) * pad_cells)), int(counts.max())
+
+
+def batch_cell_grid(xyz, node_mask, cutoff: float) -> Tuple[int, int]:
+    """:func:`cell_grid_params` over every graph of a (B, N, 3) batch,
+    rounded up (ncells to 512, cap to 4) as the JAX package's callers do,
+    so that similar geometries share bounds."""
+    ncells, cap = 1, 1
+    for b in range(len(xyz)):
+        nc, cc = cell_grid_params(xyz[b], node_mask[b], float(cutoff))
+        ncells, cap = max(ncells, nc), max(cap, cc)
+    return -(-ncells // 512) * 512, -(-cap // 4) * 4
+
+
+def cell_sort_key(xyz: np.ndarray, cutoff: float):
+    """Host-side cutoff-sided cell key of (n, 3) coordinates, x the
+    slowest axis and z the fastest: the ordering of ``Predictor``'s
+    spatial sort (the JAX package's, the same definition).  Returns ``(key, span)``:
+    ``np.argsort(key, kind='stable')`` is the cell-sorted atom order, and
+    the keys of a pair within the cutoff (±1 cell a axis) differ by at
+    most ``span`` = nmax² + nmax + 1."""
+    xyz = np.asarray(xyz)
+    cell = np.floor((xyz - xyz.min(0)) / float(cutoff)).astype(np.int64)
+    nmax = int(cell.max()) + 1 if cell.size else 1
+    key = (cell[:, 0] * nmax + cell[:, 1]) * nmax + cell[:, 2]
+    return key, nmax * nmax + nmax + 1
+
+
+#: the JAX builder's device layouts of the cell table; they give the same
+#: bits, so the port has one layout and accepts each name
+CELL_TABLE_LAYOUTS = ("slices", "flat", "rows")
+
+
+def build_neighbors_cell(xyz: Tensor, node_mask: Tensor, cutoff: float,
+                         k: int, ncells_pad: int, cell_cap: int,
+                         with_d2: bool = False, table_layout: str = "slices",
+                         count_only: bool = False, row_chunk: int = 0):
+    """Cell-list neighbor selection with :func:`build_neighbors`'s
+    ``(idx, nbr_mask[, d2])`` contract, each (N, k), scoring N·27·cap
+    candidates instead of N² pairs.
+
+    Atoms are binned into cells of side ~cutoff (:func:`_CELL_INV`) and
+    tabled as ``(ncells_pad + 1, cell_cap)`` slots (a stable sort by cell
+    id, ranks within a cell in ascending atom order; the last row is the
+    sentinel of empty and off-grid cells).  Each atom's candidates are the
+    slots of its 27 neighboring cells in (dx, dy, dz) order, slots minor;
+    one stable sort by d² carrying the candidate ids picks the nearest k,
+    so equal d² keep candidate order.  A pair within the cutoff is within
+    ±1 cell a axis, so the candidates hold every neighbor as long as
+    ``cell_cap`` is the true largest occupancy (get both bounds from
+    :func:`cell_grid_params`; too small a cap or k drops pairs).
+
+    ``count_only`` returns the largest number of neighbors of any row as
+    a 0-dim tensor, from the same float32 predicate: the exact safe k for
+    a build (``k`` unused).  ``table_layout`` names one of the JAX
+    package's layouts (:data:`CELL_TABLE_LAYOUTS`), which give the same
+    bits.  ``row_chunk`` > 0 scores and sorts rows in blocks of that many
+    (the same bits, peak memory O(row_chunk·27·cap)); ``'slices'`` only,
+    as in JAX.  Runs on the device of ``xyz`` without a host sync."""
+    if table_layout not in CELL_TABLE_LAYOUTS:
+        raise ValueError(f"table_layout must be one of {CELL_TABLE_LAYOUTS}")
+    if row_chunk and table_layout != "slices":
+        raise ValueError("row_chunk is supported for the 'slices' layout "
+                         "only (the default)")
+    dev = xyz.device
+    n = xyz.shape[0]
+    xyz = xyz.to(torch.float32)
+    real = node_mask > 0
+    # float32 scalars on the host: a Python float could be taken at another
+    # precision, and a card tensor would cost a copy and a sync
+    f32 = lambda v: torch.tensor(np.float32(v))  # noqa: E731
+    origin = torch.where(real[:, None], xyz, 3e38).amin(0)
+    c3 = torch.floor((xyz - origin) * f32(_CELL_INV(cutoff)))
+    c3 = c3.clamp(0.0, 2.0 ** 30).to(torch.int64)
+    dims = torch.where(real[:, None], c3, 0).amax(0) + 1
+    lid = c3[:, 0] + dims[0] * (c3[:, 1] + dims[1] * c3[:, 2])
+    lid = torch.where(real, lid.clamp(max=ncells_pad - 1), ncells_pad)
+
+    # slots: a stable sort by cell id, then each atom's rank in its cell
+    pos = torch.arange(n, device=dev)
+    order = torch.argsort(lid, stable=True)
+    s_lid = lid[order]
+    head = torch.ones(n, dtype=torch.bool, device=dev)
+    head[1:] = s_lid[1:] != s_lid[:-1]
+    rank = pos - torch.cummax(torch.where(head, pos, 0), dim=0).values
+    tbl_len = (ncells_pad + 1) * cell_cap
+    slot = torch.where(rank < cell_cap, s_lid * cell_cap + rank, tbl_len)
+    tbl = torch.full((tbl_len + 1,), n, dtype=torch.int64, device=dev)
+    tbl[slot] = order                    # rank >= cap: the spare slot
+    tbl = tbl[:tbl_len].view(ncells_pad + 1, cell_cap)
+
+    # the 27 neighbor cells of each atom (off-grid: the sentinel row)
+    o = torch.arange(27, device=dev)
+    offs = torch.stack([o // 9, o // 3 % 3, o % 3], dim=1) - 1
+    nc = c3[:, None, :] + offs[None]
+    ok = ((nc >= 0) & (nc < dims)).all(-1) & real[:, None]
+    nlid = nc[..., 0] + dims[0] * (nc[..., 1] + dims[1] * nc[..., 2])
+    nlid = torch.where(ok, nlid.clamp(max=ncells_pad - 1), ncells_pad)
+
+    # candidates of an empty slot read the sentinel atom n: no mask
+    xyz_ext = torch.cat([xyz, xyz.new_zeros((1, 3))])
+    mask_ext = torch.cat([node_mask.to(torch.float32),
+                          xyz.new_zeros((1,))])
+    cut2 = f32(cutoff * cutoff)
+
+    def score(sl):
+        """(dkey, cand) of rows ``sl``, each (rows, 27·cap): d² of the
+        candidates within the cutoff, +inf elsewhere."""
+        cand = tbl[nlid[sl]]                               # (m, 27, cap)
+        d2 = pair_d2(xyz[sl, None, None, :], xyz_ext[cand])
+        valid = ((cand < n) & (cand != pos[sl, None, None])
+                 & (mask_ext[cand] > 0) & real[sl, None, None]
+                 & (d2 < cut2))
+        m = cand.shape[0]
+        return (torch.where(valid, d2, math.inf).reshape(m, -1),
+                cand.reshape(m, -1))
+
+    blocks = [slice(s, s + row_chunk) for s in range(0, n, row_chunk)] \
+        if row_chunk else [slice(None)]
+    if count_only:
+        return torch.stack([(score(sl)[0] < math.inf).sum(1).amax()
+                            for sl in blocks]).amax()
+    dks, idxs = [], []
+    for sl in blocks:
+        dkey, cand = score(sl)
+        dsort, perm = torch.sort(dkey, dim=1, stable=True)
+        dks.append(dsort[:, :k])
+        idxs.append(cand.gather(1, perm[:, :k]))
+    dk, idx = torch.cat(dks), torch.cat(idxs).clamp(0, n - 1)
+    valid = dk < math.inf
+    nbr_mask = valid.to(xyz.dtype)
+    if with_d2:
+        return idx, nbr_mask, torch.where(valid, dk, 0.0)
+    return idx, nbr_mask
+
+
 # ---------------------------------------------------------------------------
 # the forward
 # ---------------------------------------------------------------------------
@@ -387,6 +562,7 @@ def _forward_single_nbr(
     uniform_q0: bool = False,
     neighbors: Optional[Tuple[Tensor, ...]] = None,
     int8: bool = False,
+    neighbor_grid: Optional[Tuple[int, int]] = None,
 ) -> Tensor:
     """One graph through the neighbor-split forward (exact far field).
 
@@ -406,21 +582,29 @@ def _forward_single_nbr(
 
     ``neighbors`` — precomputed ``(idx, nbr_mask, d2)``, each (N, k), from
     :func:`build_neighbors`, or ``(idx, nbr_mask)`` (as
-    :func:`epnn_tpu_torch.ops.kernels.neighbor_compact` builds it), whose
-    d² is then recomputed from the gathered coordinates; skips the
-    selection."""
+    :func:`epnn_tpu_torch.ops.kernels.neighbor_compact` builds it, or a
+    Verlet-skin table), whose d² is then taken from the current
+    coordinates (:func:`refresh_neighbor_d2`); skips the selection.
+    Without it, ``neighbor_grid`` — static ``(ncells_pad, cell_cap)``
+    from :func:`cell_grid_params` — selects through the cell-list builder
+    (:func:`build_neighbors_cell`), and otherwise top-k over −d² does
+    (:func:`build_neighbors`); both give the same set."""
     n = x.shape[0]
-    if neighbors is None:
+    if neighbors is None and neighbor_grid is not None:
+        ncells_pad, cell_cap = neighbor_grid
+        neighbors = build_neighbors_cell(xyz, node_mask, cfg.cutoff, k,
+                                         ncells_pad, cell_cap, with_d2=True)
+    elif neighbors is None:
         neighbors = build_neighbors(xyz, node_mask, cfg.cutoff, k,
                                     with_d2=True)
     if len(neighbors) == 3:
         idx, nbr_mask, d2_nbr = neighbors
     else:
-        # d² from the gathered coordinates: symmetric bit for bit, as
+        # d² from the current coordinates: symmetric bit for bit, as
         # near_pass_rowsum's antisymmetry needs
         idx, nbr_mask = neighbors
         idx = idx.to(torch.int64)
-        d2_nbr = pair_d2(xyz[:, None], xyz[idx])
+        d2_nbr = refresh_neighbor_d2(xyz[None], idx[None])[0]
     nbr_mask = nbr_mask.to(x.dtype)
     k_eff = idx.shape[1]
     rbf_nbr, gate_nbr = rbf_and_gate(d2_nbr, nbr_mask, cfg)
@@ -632,6 +816,7 @@ def forward_blocked(
     use_pallas: bool = False,
     remat: bool = False,
     neighbors: Optional[Tuple[Tensor, ...]] = None,
+    neighbor_grid: Optional[Tuple[int, int]] = None,
     uniform_q0: bool = False,
 ) -> Tensor:
     """Batched blocked forward from raw coordinates: (B, N) charges.
@@ -643,7 +828,10 @@ def forward_blocked(
     ``(idx, nbr_mask, d2)`` batch arrays (B, N, neighbor_k) from
     :func:`build_neighbors_batch`, or ``(idx, nbr_mask)`` (e.g. from
     :func:`epnn_tpu_torch.ops.kernels.neighbor_compact`), whose d² is
-    recomputed from the coordinates.  ``uniform_q0`` — see
+    recomputed from the coordinates.  Without ``neighbors``, a static
+    ``neighbor_grid`` (``(ncells_pad, cell_cap)`` covering every graph,
+    :func:`cell_grid_params`) selects each graph's neighbors through the
+    cell-list builder, else top-k does.  ``uniform_q0`` — see
     :func:`_forward_single_nbr`.  The float32 kernels run on every CUDA
     tensor whose round :func:`kernels_apply` admits, whatever
     ``use_pallas`` says; ``use_pallas`` selects the far field's int8 tier
@@ -660,8 +848,7 @@ def forward_blocked(
 
     ``remat`` is not ported.  Equivalent to ``EPNN(cfg)(x, q0,
     rbf_edges(xyz, mask), mask)`` up to float32 association noise.  The
-    cell-list builder, the clustered far field and the huge-N memory mode
-    are ROADMAP items."""
+    clustered far field and the huge-N memory mode are ROADMAP items."""
     _check_precision(cfg)
     if remat:
         raise NotImplementedError(
@@ -677,7 +864,8 @@ def forward_blocked(
             nb = None if neighbors is None else tuple(a[b] for a in neighbors)
             outs.append(_forward_single_nbr(*args, k=neighbor_k,
                                             uniform_q0=uniform_q0,
-                                            neighbors=nb, int8=int8))
+                                            neighbors=nb, int8=int8,
+                                            neighbor_grid=neighbor_grid))
         elif use_pallas and all(kernels_apply(w) for w in
                                 fused.messages + fused.passes):
             outs.append(_forward_single_pallas(*args))

@@ -41,6 +41,7 @@ from epnn_tpu_torch.data.xyz import Molecule
 from epnn_tpu_torch.device import resolve_device
 from epnn_tpu_torch.elements import table_for_n_elems
 from epnn_tpu_torch.featurize import rbf_edges
+from epnn_tpu_torch.infer import CELL_GRID_MIN_ATOMS
 from epnn_tpu_torch.io import checkpoint as ckpt_io
 from epnn_tpu_torch.models import (
     EPNNConfig,
@@ -50,7 +51,9 @@ from epnn_tpu_torch.models import (
     tree_leaves,
 )
 from epnn_tpu_torch.ops.fused import (
+    batch_cell_grid,
     build_neighbors_batch,
+    build_neighbors_cell,
     forward_blocked,
     fuse_params,
     max_neighbor_count,
@@ -74,7 +77,8 @@ class TrainConfig:
     * ``fused_block`` has no effect: the port's kernels choose their own
       tiles;
     * ``precompute_neighbors`` builds each fused bucket's neighbor tables
-      once (top-k over −d², the candidate set of the JAX cell builder);
+      once, as the JAX trainer does: through the cell-list builder from
+      ``CELL_GRID_MIN_ATOMS`` padded atoms, by top-k over −d² below;
     * ``lr_schedule='cosine'``, ``lr_plateau_factor``, ``ema_decay``,
       ``grad_clip_norm``, ``grad_accum > 1``, ``remat``, ``far_cluster``,
       ``near_row_chunk > 0`` (and the auto chunking of buckets of 200,000
@@ -454,14 +458,26 @@ def train(
 
     def bucket_neighbors(bucket: MolBatch, k: int, rows):
         """The minibatch's rows of the bucket's (B, N, k) idx/mask/d²
-        tables, built once on the device (geometries never move)."""
+        tables, built once on the device (geometries never move): through
+        the cell-list builder from ``CELL_GRID_MIN_ATOMS`` padded atoms,
+        else by top-k."""
         if not tc.precompute_neighbors:
             return None
         key = id(bucket)
         if key not in nbr_tables:
-            nbr_tables[key] = build_neighbors_batch(
-                tensor(bucket.xyz), tensor(bucket.node_mask),
-                float(cfg.cutoff), int(k))
+            xyz, mask = tensor(bucket.xyz), tensor(bucket.node_mask)
+            if bucket.padded_atoms >= CELL_GRID_MIN_ATOMS:
+                grid = batch_cell_grid(bucket.xyz, bucket.node_mask,
+                                       cfg.cutoff)
+                outs = [build_neighbors_cell(xyz[b], mask[b],
+                                             float(cfg.cutoff), int(k),
+                                             *grid, with_d2=True)
+                        for b in range(bucket.batch_size)]
+                nbr_tables[key] = tuple(torch.stack(parts)
+                                        for parts in zip(*outs))
+            else:
+                nbr_tables[key] = build_neighbors_batch(
+                    xyz, mask, float(cfg.cutoff), int(k))
         rows = torch.as_tensor(np.asarray(rows), device=device)
         return tuple(t[rows] for t in nbr_tables[key])
 

@@ -95,12 +95,6 @@ def test_renormalize_conserves(predictors):
     assert np.abs(q - raw).max() < 1e-5
 
 
-def test_neighbor_method_cell_not_ported(predictors):
-    port, _ = predictors
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Predictor(port.params, port.cfg, device="cpu", neighbor_method="cell")
-
-
 def test_mixed_repaired_diverges_beyond_training_sizes(predictors):
     """Why the port's checks at scale use mixed_b16: on a 192-atom water
     box mixed_repaired_b16's charges blow up (both packages agree), while
