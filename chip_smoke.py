@@ -85,15 +85,32 @@ card: ``python3 chip_smoke.py`` from the repository root.
    ``reuse_neighbors`` and a Verlet skin on the 2,220- and the
    17,760-atom box, a seeded drift then one jump: the rebuild counts, each
    frame against a cold Predictor, conservation, launches, and the skin
-   step's median time beside the cold call's.
+   step's median time beside the cold call's;
+   (h) the clustered far-field tier (:func:`cluster_phase`):
+   ``Predictor(far_cluster=C)`` at C = 32 and 128 (and 32 under int8) on
+   the boxes of (b) and (c): as many far-field launches as the exact call,
+   each with C centroid columns and again against its plain version, the
+   gap to the exact charges, conservation, the same charges and radius on
+   a second call, int8 within the tier's bar, the tiers' medians in turns,
+   and the far-field kernels at the clustered shapes beside their bounds;
+   then (:func:`cluster_accuracy_phase`) a random-weight model that reads
+   the far field at 2,224 atoms: C ≥ the valid atoms against exact,
+   ``far_field_diagnostics`` at C = 32, ``calibrate_far_cluster``;
+   (i) ``charge_position_vjp`` on a 2,220-atom box (:func:`vjp_phase`):
+   shape, padding rows, launches (the far-field backward kernel), central
+   differences, its time.
 5. Training: (a) the gradients of one fused train step on two 900-atom
    boxes, card against the port on the CPU, leaf by leaf; (b) ``train()``
    fine-tuning the checkpoint for a few epochs on the 2,220-atom boxes and
    the small molecules (noisy labels around the model's own charges): the
    fused bucket's loss falls, launches per fused step, none in dense
-   steps, the median fused step, and ``best/`` served with conservation.
+   steps, the median fused step, and ``best/`` served with conservation;
+   (c) the clustered tier (:func:`train_cluster_phase`): one clustered
+   step's gradients card against CPU (the fits' rows assigned apart
+   printed, ties checked), and ``train(far_cluster=32)`` on (b)'s set.
 6. Profile: ``torch.profiler`` over ``predict_batch`` (2 x 2,220 and
-   1 x 17,760 atoms, both tiers), a Verlet-skin step at 17,760 atoms and
+   1 x 17,760 atoms, both tiers; the clustered call at 17,760 with its
+   k-means as a group), a Verlet-skin step at 17,760 atoms and
    one fused train step (2 x 2,220):
    device-busy time against wall time, and the largest kernels.
 7. The kernels' JSON line, the card line, and last the result line.
@@ -218,6 +235,30 @@ MD_SKIN = 1.0
 MD_FRAMES = {"2220": 16, "17760": 16}
 MD_DRIFT = 0.02
 MD_JUMP = 0.6
+#: [slice h]: the clustered tier's centroid counts served on mixed_b16, the
+#: one also served under int8, and the accuracy phase's charge bar between
+#: C ≥ the valid atoms and exact (JAX's, tests/test_fused.py:1340)
+CLUSTER_CS = (32, 128)
+CLUSTER_INT8_C = 32
+CLUSTER_EXACT_BAR = 2e-5
+#: [slice h] the accuracy phase's bar on C ≥ the valid atoms against exact
+#: where the fit merged rows its float32 scores cannot tell apart, and the
+#: calibration budget, both in units of max|q| + 1 (see
+#: :func:`cluster_accuracy_phase`)
+CLUSTER_MERGED_BAR = 1e-3
+CLUSTER_BUDGET = 1e-3
+#: [train c]: the clustered train run's C
+TRAIN_CLUSTER_C = 32
+#: [slice i]: the central difference's step (Å), probes wanted, the band
+#: around the cutoff a probed atom's pairs must avoid (Å), and the bar
+#: (JAX's, tests/test_fused.py:1258-1264)
+VJP_EPS = 3e-3
+VJP_PROBES = 3
+VJP_CLEAR = 0.05
+VJP_BAR = 5e-2
+#: a probe whose forward and backward differences part by more than this
+#: share of the scale has a relu switching within ε: skipped
+VJP_KINK = 2e-2
 #: calls of the port's neighbor selection since the last
 #: :func:`reset_selection`: cell-list tables, the cell builder's count_only
 #: k, and top-k tables (:func:`count_selection`)
@@ -571,8 +612,13 @@ def int8_phase(torch, card, args, label, iters=None):
     # (lowering pj alone kills most activations, and a float32 sum of
     # ~12,000 near-equal terms drifts past the bar in any order)
     pad_errs = []
-    shift = pj.amax() + 0.25
-    for pad, pi_pad, pj_pad in ((pi.amax() + 1.0, pi, pj),
+    # the step by which the padding rows move a maximum: 1, or 1% of the
+    # inputs' magnitude where they are large (a clustered round's pi, pj
+    # reach 1e5 on mixed_b16), so that s_in moves past float32 rounding
+    bump = 1.0 + 0.01 * float(torch.maximum(pi.abs().amax(),
+                                            pj.abs().amax()))
+    shift = pj.amax() + 0.25 * bump
+    for pad, pi_pad, pj_pad in ((pi.amax() + bump, pi, pj),
                                 (pi.new_zeros(()), pi + shift, pj - shift)):
         pargs = (pi_pad.contiguous(), pj_pad.contiguous(), *args[2:])
         got = kernels.dense_message_rowsum_int8(*pargs, pad)
@@ -790,7 +836,7 @@ def train_phase(torch, pred, card, small, small_q, batch2, golden):
           f"steps; fused train step median {step_ms:.3f} ms (steps "
           f"{', '.join(f'{v:.3f}' for v in step_list)} ms); best/ served: "
           f"|sum q - Q| = {cons.tolist()} on {card}")
-    return train_launches, step_ms, step_list
+    return train_launches, step_ms, step_list, big + small
 
 
 def turns(timed, preds, call, reps):
@@ -968,6 +1014,514 @@ def md_phase(torch, card, pred, boxes):
     return out
 
 
+def spy_calls(module, name, seen):
+    """Replace ``module.<name>`` by a wrapper that appends each call's
+    (cloned tensor arguments, keywords) to ``seen``; returns a function
+    that puts the original back."""
+    import torch
+
+    real = getattr(module, name)
+
+    def spy(*a, **kw):
+        seen.append((tuple(t.detach().clone() if isinstance(t, torch.Tensor)
+                           else t for t in a), kw))
+        return real(*a, **kw)
+
+    setattr(module, name, spy)
+    return lambda: setattr(module, name, real)
+
+
+def cluster_phase(torch, card, pred, boxes, timed, rows, clocks):
+    """[slice h] the clustered far-field tier through ``Predictor(far_cluster
+    =C)`` on mixed_b16, for each (label, batch, reps) of ``boxes``: each C
+    of :data:`CLUSTER_CS` (and C = :data:`CLUSTER_INT8_C` under int8)
+    launches its far field as often as the exact call does (4 a graph), every
+    launch with C centroid columns, and every launch again against its
+    plain version on its own inputs within 1e-5·(max|ref|+1); the charges'
+    gap to the exact call (printed), |Σq − Q| ≤ 1e-4, the same bits for the
+    charges and the radius on a second call, int8 within the tier's bar
+    0.05·(max|q|+1) of the fp32 clustered charges; all tiers' medians in
+    turns (exact, C32, C128, C32 int8, then reversed); and both far-field
+    kernels and the int8 one at the clustered shapes (the first launch's
+    inputs) beside their bounds, into ``rows``' sizes.  Returns the
+    numbers and the 2 x 2,220 C32 call's launches."""
+    from epnn_tpu_torch.infer import Predictor
+    from epnn_tpu_torch.ops import fused, kernels
+
+    cfg = pred.cfg
+    c8 = CLUSTER_INT8_C
+    preds = {"exact": pred}
+    for c in CLUSTER_CS:
+        preds[f"C{c}"] = Predictor(pred.params, cfg, far_cluster=c)
+    preds[f"C{c8} int8"] = Predictor(
+        pred.params, cfg.replace(dense_matmul_precision="int8"),
+        far_cluster=c8)
+    out, main = {}, None
+    g = np.random.default_rng(13)
+    for label, batch, reps in boxes:
+        q_exact = pred.predict_batch(batch)
+        res = {}
+        for name, p in preds.items():
+            if name == "exact":
+                continue
+            c = p.far_cluster
+            int8 = name.endswith("int8")
+            fn = "dense_message_rowsum" + ("_int8" if int8 else "")
+            p.predict_batch(batch)          # k, grid, tables, twin cached
+            seen = []
+            restore = spy_calls(fused, fn, seen)
+            try:
+                kernels.reset_launch_counts()
+                q = p.predict_batch(batch)
+                launches = dict(kernels.LAUNCHES)
+            finally:
+                restore()
+            per_graph = PER_GRAPH_INT8 if int8 else PER_GRAPH
+            want = {kn: batch.batch_size * per_graph.get(kn, 0)
+                    for kn in kernels.SOURCES}
+            require(launches == want, ("[slice h]", label, name, launches))
+            cols = [a[1].shape[0] for a, _ in seen]
+            require(len(seen) == want[fn] and set(cols) == {c},
+                    ("[slice h] columns", label, name, cols))
+            if label == "2x2220" and name == f"C{CLUSTER_CS[0]}":
+                main = launches
+            errs = []
+            for a, kw in seen:
+                got = getattr(kernels, fn)(*a, **kw)
+                ref = (kernels.dense_message_rowsum_int8_plain(
+                    *a, kw["pad_pi"], kw["pad_pj"]) if int8
+                    else kernels.dense_message_rowsum_plain(*a))
+                errs.append(float((got - ref).abs().max())
+                            / (1e-5 * (float(ref.abs().max()) + 1.0)))
+            require(max(errs) <= 1.0, ("[slice h] vs plain", label, name,
+                                       errs))
+            cons = np.abs(q.astype(np.float64).sum(1) - batch.total_q)
+            require(np.all(np.isfinite(q)) and np.all(cons <= 1e-4),
+                    ("[slice h] conservation", label, name, cons))
+            again = p.predict_batch(batch)
+            rad = [p.far_field_diagnostics(batch, compare_exact=False)[
+                "max_radius"] for _ in range(2)]
+            require(np.array_equal(q, again)
+                    and np.array_equal(rad[0], rad[1]),
+                    ("[slice h] not the same bits twice", label, name))
+            dq = float(np.abs(q - q_exact).max())
+            res[name] = dict(C=c, launches=launches, launch_err_over_bar=errs,
+                             max_dq_vs_exact=dq, conservation=cons.tolist(),
+                             max_radius=rad[0].tolist(), columns=cols)
+            if int8:
+                q32 = preds[f"C{c}"].predict_batch(batch)
+                gap = float(np.abs(q - q32).max())
+                bar = 0.05 * (float(np.abs(q32).max()) + 1.0)
+                require(gap < bar, ("[slice h] int8 tier", label, gap, bar))
+                res[name]["max_dq_vs_fp32_clustered"] = gap
+            # the kernels at this clustered shape: the first launch's inputs
+            a = seen[0][0]
+            size = f"{a[0].shape[0]}x{c}"
+            if c == c8 and not int8:
+                gbar = torch.from_numpy(g.normal(size=tuple(a[0].shape))
+                                        .astype(np.float32)).cuda()
+                it = (50, 5, 20, 3) if a[0].shape[0] < 4096 else (20, 2, 10, 2)
+                for kn, entry in far_phase(torch, card, a, gbar, size,
+                                           clocks, it).items():
+                    rows[kn]["sizes"][size] = entry
+            if int8:
+                rows["dense_message_rowsum_int8"]["sizes"][size] = \
+                    int8_phase(torch, card, a[:5], size, (50, 5, 50))
+        medians = turns(timed, preds, lambda pr: pr.predict_batch(batch),
+                        reps)
+        out[label] = dict(tiers=res, turns_ms=medians)
+        print(f"[slice h] clustered far field, {label} atoms: " + "; ".join(
+            f"{n} launches {r['launches']} ({len(r['columns'])} far-field "
+            f"launches, {r['columns'][0]} columns each; each again vs its "
+            f"plain version at most {max(r['launch_err_over_bar']):.3e} of "
+            f"the bar), max|dq| vs exact {r['max_dq_vs_exact']:.3e}"
+            + (f", vs fp32 clustered {r['max_dq_vs_fp32_clustered']:.3e}"
+               if "max_dq_vs_fp32_clustered" in r else "")
+            + f", |sum q - Q| {r['conservation']}, radius {r['max_radius']}"
+            for n, r in res.items())
+            + f"; charges and radius the same bits twice; predict_batch "
+            f"medians in turns (ms) {medians} on {card}")
+    return out, main
+
+
+def cluster_accuracy_phase(torch, card, mol):
+    """[slice h] the clustered tier on a model that reads the far field:
+    ``[width]``'s seeded random-weight model at the shipped widths (as
+    :func:`sort_phase`) on ``mol``.  C ≥ the valid atoms: every valid row
+    may still share a cluster with rows that JAX's score ‖c‖² − 2r·c
+    cannot tell apart in float32 (closer than ~sqrt(eps)·‖r‖; on this
+    model's water boxes most rows have such twins, in JAX's fit as in the
+    port's), so the check is that the fit's radius stays within that
+    resolution, sqrt(32·eps)·max‖pj‖; the charges then equal the exact ones
+    within JAX's bar :data:`CLUSTER_EXACT_BAR`·(max|q|+1) where no row
+    merged, and within :data:`CLUSTER_MERGED_BAR`·(max|q|+1) where rows
+    merged (the merged count is printed).  C = 32: ``far_field_diagnostics``
+    whole, ``max_abs_dq`` finite, |Σq − Q| ≤ 2e-6·(Σ|q|+1).
+    ``calibrate_far_cluster`` with a budget of
+    :data:`CLUSTER_BUDGET`·(max|q|+1) over the default candidates and the
+    padded width selects a C.  Returns the numbers."""
+    from epnn_tpu_torch.data import pad_molecules
+    from epnn_tpu_torch.elements import table_for_n_elems
+    from epnn_tpu_torch.infer import Predictor
+    from epnn_tpu_torch.models import EPNNConfig
+    from epnn_tpu_torch.models.epnn import init_params
+    from epnn_tpu_torch.ops import fused
+
+    hh, ee = SHIPPED_WIDTHS
+    cfg = EPNNConfig(h_dim=16, e_dim=ee, msg_dim=8, mlp_hidden=(hh, hh),
+                     T=WIDTH_T)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    batch = pad_molecules([mol], table_for_n_elems(cfg.n_elems))
+    n_all = batch.padded_atoms
+    exact = Predictor(params, cfg)
+    q_e = exact.predict_batch(batch)
+    scale = float(np.abs(q_e).max()) + 1.0
+    p_all = Predictor(params, cfg, far_cluster=n_all)
+    fits = []
+    restore = spy_calls(fused, "weighted_kmeans", fits)
+    try:
+        rad_all = p_all.far_field_diagnostics(
+            batch, compare_exact=False)["max_radius"]
+    finally:
+        restore()
+    q_all = p_all.predict_batch(batch)
+    merged, resolution = 0, 0.0
+    for (rows, w, c), _ in fits:
+        _, wts, _ = fused.weighted_kmeans(rows, w, c)
+        merged += int((w > 0).sum()) - int((wts > 0).sum())
+        resolution = max(resolution, float(np.sqrt(32 * np.finfo(
+            np.float32).eps)) * float(rows[w > 0].norm(dim=1).max()))
+    dq_all = float(np.abs(q_all - q_e).max())
+    bar_all = (CLUSTER_MERGED_BAR if merged else CLUSTER_EXACT_BAR) * scale
+    require(float(rad_all.max()) <= resolution and dq_all <= bar_all,
+            ("[slice h] C >= valid atoms", dq_all, bar_all, merged,
+             rad_all.tolist(), resolution))
+    p32 = Predictor(params, cfg, far_cluster=32)
+    diag = p32.far_field_diagnostics(batch)
+    q32 = p32.predict_batch(batch)
+    cons = abs(float(q32.astype(np.float64).sum()) - mol.total_charge)
+    cons_bar = 2e-6 * (float(np.abs(q32).sum()) + 1.0)
+    require(np.all(np.isfinite(diag["max_abs_dq"])) and cons <= cons_bar,
+            ("[slice h] C=32", diag, cons, cons_bar))
+    budget = CLUSTER_BUDGET * scale
+    cal = exact.calibrate_far_cluster(
+        batch, budget, candidates=(16, 32, 64, 128, 256, n_all))
+    require(cal["selected"] is not None, ("[slice h] calibrate", cal))
+    diag = {k: (v.tolist() if isinstance(v, np.ndarray) else v)
+            for k, v in diag.items()}
+    print(f"[slice h] random-weight model (H {hh}, E {ee}, T {WIDTH_T}), "
+          f"1 x {mol.natoms:,} atoms, max|q| {scale - 1.0:.4e}: C = {n_all} "
+          f"({merged} valid rows merged with a twin, radius "
+          f"{rad_all.tolist()} within the scores' resolution "
+          f"{resolution:.4e}) vs exact max|dq| {dq_all:.3e} (bar "
+          f"{bar_all:.3e}); C = 32 far_field_diagnostics {diag}, |sum q - Q| "
+          f"{cons:.3e} (bar {cons_bar:.3e}); calibrate_far_cluster(budget "
+          f"{budget:.4e}) selected {cal['selected']}, errors "
+          f"{cal['errors']} on {card}")
+    return dict(max_abs_q=scale - 1.0, c_all=n_all, max_dq_c_all=dq_all,
+                bar_c_all=bar_all, merged_rows_c_all=merged,
+                radius_c_all=rad_all.tolist(), resolution=resolution,
+                diagnostics_c32=diag, conservation_c32=cons,
+                calibrate=dict(selected=cal["selected"], budget=budget,
+                               errors=cal["errors"]))
+
+
+def fit_assignments(torch, fits):
+    """The final assignment of each recorded fit (rows, weights, C,
+    keywords), on the rows' device: the serving-mode fit of the same rows
+    (the same Lloyd centroids as the differentiable one) and the argmin of
+    its scores.  Returns [(weights, centroids, assignment)] on the CPU."""
+    from epnn_tpu_torch.ops.cluster import weighted_kmeans
+
+    out = []
+    for (rows, w, c), kw in fits:
+        kw = {k: v for k, v in kw.items() if k != "differentiable"}
+        cent, _, _ = weighted_kmeans(rows, w, c, **kw)
+        score = (cent * cent).sum(1)[None, :] - 2.0 * (rows @ cent.T)
+        out.append((w.cpu(), cent.cpu(), score.argmin(1).cpu()))
+    return out
+
+
+def rows_apart(torch, card, host):
+    """Valid rows that two fits' partitions put apart, up to relabeling:
+    rows whose cluster on ``host`` is not the one most rows of their
+    ``card`` cluster take (each a (weights, centroids, assignment) of
+    :func:`fit_assignments`)."""
+    w, _, ac = card
+    ah = host[2]
+    valid = w > 0
+    ac, ah = ac[valid], ah[valid]
+    apart = 0
+    for c in torch.unique(ac).tolist():
+        sel = ah[ac == c]
+        apart += int((sel != torch.mode(sel).values).sum())
+    return apart
+
+
+def replay_fits(torch, fits):
+    """A stand-in for ``weighted_kmeans`` that returns, fit by fit, what the
+    given fits (of :func:`fit_assignments`) return on the caller's rows:
+    the card's assignment and Lloyd centroids, and in the differentiable
+    mode the weighted means of the caller's rows under that assignment
+    (the training tier's centroids)."""
+    calls = iter(fits)
+
+    def fit(rows, weights, c, differentiable=False, **kw):
+        _, lloyd, assign = next(calls)
+        lloyd = lloyd.to(rows.device)
+        onehot = assign.to(rows.device)[:, None] == torch.arange(
+            c, device=rows.device)[None, :]
+        wo = onehot.to(torch.float32) * weights.detach()[:, None]
+        wts = wo.sum(0)
+        cent = lloyd
+        if differentiable:
+            cent = torch.where((wts > 0)[:, None], (wo.T @ rows)
+                               / torch.clamp(wts, min=1e-30)[:, None], lloyd)
+        return cent, wts, rows.new_zeros(())
+
+    return fit
+
+
+def train_cluster_phase(torch, pred, card, mols, val_mols, exact_steps):
+    """[train c] the clustered training tier: (a) one clustered fused
+    step's gradients (the differentiable fit) on 2 x 900 atoms, card
+    against the port on the CPU, at C = :data:`TRAIN_CLUSTER_C` and at C =
+    the padded width (≥ the valid atoms).  The k-means is discontinuous in
+    float32 noise: on water boxes the seeds come from an argsort of row
+    norms that tie within rounding, so the card's and the CPU's own fits
+    start from other seeds and partition tight classes differently; the
+    valid rows they put apart (up to relabeling) are printed.  The CPU
+    step then replays the card's partition (:func:`replay_fits`: the same
+    assignment, centroids the weighted means of the CPU's own rows), so
+    both compute the same function, held to ``[train a]``'s bar (1e-3
+    relative Frobenius a leaf) at both C.  (b) ``train()`` with
+    ``TrainConfig(far_cluster=C)`` on ``[train b]``'s molecules, 5 epochs:
+    the fused loss falls, the launches per fused step, each step's time
+    beside ``[train b]``'s exact ones.  Returns the numbers and the run's
+    launches."""
+    from epnn_tpu_torch.data import pad_molecules, uniform_q0_contract
+    from epnn_tpu_torch.elements import table_for_n_elems
+    from epnn_tpu_torch.models import tree_leaves
+    from epnn_tpu_torch.ops import fused, kernels
+    from epnn_tpu_torch.ops.cluster import weighted_kmeans
+    from epnn_tpu_torch.testing import water_box
+    from epnn_tpu_torch.train import TrainConfig, loop, train
+
+    cfg = pred.cfg
+    g = np.random.default_rng(5)
+    per_step = {kn: 2 * PER_GRAPH_TRAIN.get(kn, 0) for kn in kernels.SOURCES}
+    boxes = [water_box(TRAIN_BOX_MOLECULES, seed=30, charge=0.0),
+             water_box(TRAIN_BOX_MOLECULES, seed=31, charge=-1.0)]
+    batch = pad_molecules(boxes, table_for_n_elems(cfg.n_elems))
+    y = (batch.node_mask * g.normal(0.0, 0.3, size=batch.node_mask.shape)
+         ).astype(np.float32)
+    arrays = (batch.x, batch.q0, batch.xyz, batch.node_mask, y,
+              np.ones(2, np.float32))
+    k = pred._neighbor_k(batch)
+    uq0 = uniform_q0_contract(batch.x, batch.q0, batch.node_mask)
+
+    def one_step(device, c, fit):
+        state = loop.create_state(cfg, TrainConfig(), device=device,
+                                  params=pred.params)
+        args = [torch.from_numpy(a).to(device) for a in arrays]
+        seen = []
+        real = fused.weighted_kmeans
+        fused.weighted_kmeans = fit
+        restore = spy_calls(fused, "weighted_kmeans", seen)
+        try:
+            kernels.reset_launch_counts()
+            loop.train_step_fused(state, cfg, "masked_mse", k, *args,
+                                  uniform_q0=uq0, far_cluster=c,
+                                  far_cluster_grad=True)
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+        finally:
+            restore()
+            fused.weighted_kmeans = real
+        return ([p.grad.cpu() for p in tree_leaves(state.params)], seen,
+                launches)
+
+    checks = {}
+    for c in (TRAIN_CLUSTER_C, batch.padded_atoms):
+        g_card, seen, launches = one_step("cuda", c, weighted_kmeans)
+        require(launches == per_step, ("[train c] step launches", c,
+                                       launches))
+        card_fits = fit_assignments(torch, seen)
+        g_host, seen_host, _ = one_step("cpu", c, replay_fits(torch,
+                                                              card_fits))
+        own = fit_assignments(torch, [((r, w, c_), {})
+                                      for (r, w, c_), _ in seen_host])
+        apart = [rows_apart(torch, a, b) for a, b in zip(card_fits, own)]
+        fro = [float(torch.linalg.norm(gc - gr)
+                     / max(float(torch.linalg.norm(gr)), 1e-30))
+               for gc, gr in zip(g_card, g_host)]
+        require(all(np.isfinite(v) and v <= 1e-3 for v in fro),
+                ("[train c] gradients", c, fro))
+        checks[c] = dict(launches=launches, rows_apart=apart,
+                         grad_rel_fro_max=max(fro))
+    print(f"[train c] one clustered fused step (far_cluster_grad), 2 x "
+          f"{batch.natoms[0]:,} atoms: launches {launches}; " + "; ".join(
+              f"C = {c}: valid rows the card's and the CPU's own fits put "
+              f"apart, a fit: {r['rows_apart']}; gradients card vs CPU (the "
+              f"card's partition replayed) worst relative Frobenius "
+              f"{r['grad_rel_fro_max']:.3e} (bar 1e-3)"
+              for c, r in checks.items()))
+
+    steps = []
+    original = loop.train_step_fused
+
+    def spy(*a, **kw):
+        before = dict(kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = original(*a, **kw)
+        torch.cuda.synchronize()
+        steps.append((float(res[1]), {kn: kernels.LAUNCHES[kn] - before[kn]
+                                      for kn in before},
+                      (time.perf_counter() - t0) * 1e3, kw["far_cluster"]))
+        return res
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tc = TrainConfig(epochs=TRAIN_EPOCHS, init_from=CKPT,
+                         checkpoint_dir=os.path.join(tmp, "run"),
+                         far_cluster=TRAIN_CLUSTER_C)
+        loop.train_step_fused = spy
+        try:
+            kernels.reset_launch_counts()
+            res = train(mols, cfg, tc, val_mols=val_mols)
+            run_launches = dict(kernels.LAUNCHES)
+        finally:
+            loop.train_step_fused = original
+    require(len(steps) == TRAIN_EPOCHS and all(
+        s[1] == per_step and s[3] == TRAIN_CLUSTER_C for s in steps),
+        ("[train c] train()", [s[1] for s in steps]))
+    losses = [s[0] for s in steps]
+    require(np.all(np.isfinite(losses)) and losses[-1] < losses[0], losses)
+    require(np.isfinite(res.best_val_masked_mae), res.history)
+    step_list = [s[2] for s in steps]
+    print(f"[train c] train(far_cluster={TRAIN_CLUSTER_C}): {TRAIN_EPOCHS} "
+          f"epochs from {CKPT}, [train b]'s molecules: fused-bucket loss "
+          f"{' -> '.join(f'{v:.6e}' for v in losses)}; launches per fused "
+          f"step {steps[0][1]}; clustered steps "
+          f"{', '.join(f'{v:.3f}' for v in step_list)} ms (median "
+          f"{float(np.median(step_list)):.3f}) beside [train b]'s exact "
+          f"{', '.join(f'{v:.3f}' for v in exact_steps)} ms (median "
+          f"{float(np.median(exact_steps)):.3f}) on {card}")
+    return dict(step_checks=checks, losses=losses,
+                step_ms=step_list, step_median_ms=float(np.median(step_list)),
+                exact_step_ms=exact_steps), run_launches
+
+
+def vjp_phase(torch, card, pred, mol, timed):
+    """[slice i] ``Predictor.charge_position_vjp`` on ``mol`` through
+    mixed_b16: the (B, N, 3) shape, exactly zero on padding rows, the
+    launches (the far-field backward kernel once a far-field launch);
+    central differences (:data:`VJP_EPS`) of Σ cot·q on
+    :data:`VJP_PROBES` (atom, axis) entries, the probed atoms' pairs
+    farther than :data:`VJP_CLEAR` from the cutoff and the one-sided
+    differences within :data:`VJP_KINK`·scale of each other (a relu of the
+    model switching within ε of the probe makes a difference no
+    derivative; such probes are skipped, and counted), the cotangent random on the probed atom and its neighbors
+    within the cutoff, zero elsewhere; |g − fd| < :data:`VJP_BAR`·max(|fd|,
+    max|g|, 1e-3); the call's median time.  Returns the numbers and the
+    call's launches."""
+    from epnn_tpu_torch.data import pad_molecules
+    from epnn_tpu_torch.elements import table_for_n_elems
+    from epnn_tpu_torch.ops import kernels
+
+    table = table_for_n_elems(pred.cfg.n_elems)
+    batch = pad_molecules([mol], table)
+    n = mol.natoms
+    cutoff = float(pred.cfg.cutoff)
+    xyz = mol.xyz.astype(np.float64)
+    d = np.sqrt(((xyz[:, None] - xyz[None]) ** 2).sum(-1))
+    clear = np.nonzero(np.abs(d - cutoff).min(1) > VJP_CLEAR)[0]
+    g = np.random.default_rng(17)
+    probes, skipped, launches = [], [], None
+    for i, ax in zip(clear[::41], [0, 1, 2] * 40):
+        i = int(i)
+        cot = np.zeros_like(batch.q0)
+        near = d[i] < cutoff
+        cot[0, :n][near] = g.normal(size=int(near.sum()))
+        kernels.reset_launch_counts()
+        grad = pred.charge_position_vjp(batch, cot)
+        torch.cuda.synchronize()
+        if launches is None:
+            launches = dict(kernels.LAUNCHES)
+            want = {kn: PER_GRAPH_TRAIN.get(kn, 0) for kn in kernels.SOURCES}
+            require(launches == want, ("[slice i] launches", launches))
+            require(grad.shape == batch.xyz.shape
+                    and np.all(grad[0, n:] == 0.0)
+                    and np.all(np.isfinite(grad)), "[slice i] shape, padding")
+
+        vals = []
+        for shift in (VJP_EPS, 0.0, -VJP_EPS):
+            b2 = pad_molecules([mol], table)
+            b2.xyz[0, i, ax] += shift
+            vals.append(float((pred.predict_batch(b2).astype(np.float64)
+                               * cot).sum()))
+        fwd = (vals[0] - vals[1]) / VJP_EPS
+        bwd = (vals[1] - vals[2]) / VJP_EPS
+        fd1 = 0.5 * (fwd + bwd)
+        scale = max(abs(fd1), float(np.abs(grad).max()), 1e-3)
+        row = dict(atom=i, axis=ax, grad=float(grad[0, i, ax]), fd=fd1,
+                   forward=fwd, backward=bwd, scale=scale)
+        if abs(fwd - bwd) > VJP_KINK * scale:
+            skipped.append(row)
+            continue
+        require(abs(row["grad"] - fd1) < VJP_BAR * scale, ("[slice i]", row))
+        probes.append(row)
+        if len(probes) == VJP_PROBES:
+            break
+    require(len(probes) == VJP_PROBES, ("[slice i] probes", probes, skipped))
+    ms = timed(lambda: pred.charge_position_vjp(batch, cot), 5)
+    print(f"[slice i] charge_position_vjp, 1 x {n:,} atoms: shape "
+          f"{grad.shape}, padding rows exactly 0; launches {launches}; "
+          f"central differences (eps {VJP_EPS} A) at " + "; ".join(
+              f"atom {r['atom']} axis {r['axis']}: g {r['grad']:.5e}, fd "
+              f"{r['fd']:.5e}" for r in probes)
+          + f" (bar {VJP_BAR} of max(|fd|, max|g|, 1e-3); {len(skipped)} "
+          f"probes skipped at a relu switch: one-sided differences apart by "
+          f"more than {VJP_KINK} of it); call median {ms:.3f} ms on "
+          f"{card}")
+    return dict(probes=probes, skipped=skipped, launches=launches,
+                ms=ms), launches
+
+
+def kmeans_alone(torch, rows, weights, c, reps=5):
+    """(device-busy ms, launches, host ms) of one ``weighted_kmeans`` fit of
+    ``rows`` into ``c`` clusters alone: ``torch.profiler`` over ``reps``
+    fits after a warm-up (the card's kernels' self time and count, a fit),
+    and the host clock around the fits, synchronized (the fit is a chain
+    of small launches: the host issues them slower than the card runs
+    them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from epnn_tpu_torch.ops.cluster import weighted_kmeans
+
+    weighted_kmeans(rows, weights, c)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            weighted_kmeans(rows, weights, c)
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3 / reps
+    busy = launches = 0.0
+    for ev in prof.key_averages():
+        if (ev.device_type != DeviceType.CUDA
+                or getattr(ev, "is_user_annotation", False)):
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        busy += us / 1e3 / reps
+        launches += ev.count / reps
+    return busy, launches, host
+
+
 def device_split(torch, fn, reps=3):
     """(wall ms, device-busy ms, {kernel: ms}) a call of ``fn``, from
     ``torch.profiler`` over ``reps`` calls after one warm-up.  Device-busy
@@ -1024,15 +1578,20 @@ def profile_groups(kern):
     return out
 
 
-def profile_phase(torch, card, pred, batch2, big, pred8):
+def profile_phase(torch, card, pred, batch2, big, pred8, pred_c):
     """[profile] where a call's time goes: ``predict_batch`` at 2 x 2,220
     and 1 x 17,760 atoms, a Verlet-skin step (``[slice g]``'s settings, the
     table built in the warm-up) at 17,760, the dense fused forward of
     ``[slice d]`` and one
     fused train step at 2 x 2,220 atoms (the bucket tables built once, as
-    ``train()`` does), each as device-busy against wall time and its
-    largest kernels.  Returns the numbers; an empty dict if the profiler
-    recorded no device time."""
+    ``train()`` does), and ``pred_c``'s clustered call at 17,760 atoms,
+    each as device-busy against wall time and its largest kernels.  For
+    the clustered call the k-means is a group of its own: its fits' rows
+    recorded in the call, each fit profiled alone (:func:`kmeans_alone`:
+    device-busy time and launches) and taken out of the groups its
+    kernels fall in by name ("other", "matmul", "neighbor selection" for
+    its sort) in proportion.  Returns the numbers; an empty
+    dict if the profiler recorded no device time."""
     from epnn_tpu_torch.data import uniform_q0_contract
     from epnn_tpu_torch.infer import Predictor
     from epnn_tpu_torch.ops.fused import build_neighbors_batch, forward_blocked
@@ -1068,7 +1627,17 @@ def profile_phase(torch, card, pred, batch2, big, pred8):
         "train_step_fused 2x2220": lambda: loop.train_step_fused(
             state, cfg, "masked_mse", k, *args, uniform_q0=uq0,
             neighbors=nbrs),
+        f"predict_batch C{pred_c.far_cluster} 1x17760":
+            lambda: pred_c.predict_batch(big),
     }
+    from epnn_tpu_torch.ops import fused
+    fits = []
+    restore = spy_calls(fused, "weighted_kmeans", fits)
+    try:
+        pred_c.predict_batch(big)
+    finally:
+        restore()
+    kmeans = [kmeans_alone(torch, a[0], a[1], a[2]) for a, _ in fits]
     out = {}
     for label, fn in cases.items():
         wall, busy, kern = device_split(torch, fn)
@@ -1078,6 +1647,23 @@ def profile_phase(torch, card, pred, batch2, big, pred8):
             return {}
         top = sorted(kern.items(), key=lambda kv: -kv[1])[:6]
         groups = profile_groups(kern)
+        if label.startswith(f"predict_batch C{pred_c.far_cluster}"):
+            km = sum(k[0] for k in kmeans)
+            shared = ("other PyTorch kernels", "matmul", "neighbor selection")
+            pool = sum(groups[name] for name in shared)
+            for name in shared:
+                groups[name] -= km * groups[name] / max(pool, 1e-30)
+            groups["k-means (profiled alone)"] = km
+            out["k-means fits"] = dict(fits=len(kmeans), rows=[
+                int(a[0].shape[0]) for a, _ in fits],
+                device_busy_ms=[k[0] for k in kmeans],
+                launches=[k[1] for k in kmeans],
+                host_ms=[k[2] for k in kmeans])
+            print(f"[profile] k-means alone, a fit of {fits[0][0][0].shape[0]:,}"
+                  f" rows into {pred_c.far_cluster}: device busy "
+                  f"{kmeans[0][0]:.3f} ms, {kmeans[0][1]:.0f} launches, host "
+                  f"{kmeans[0][2]:.3f} ms (synchronized), {len(kmeans)} fits "
+                  f"a call on {card}")
         out[label] = dict(wall_ms=wall, device_busy_ms=busy,
                           idle_share=1.0 - busy / wall, groups=groups,
                           top={name: ms for name, ms in top})
@@ -2092,11 +2678,25 @@ def main() -> int:
         ("2220", golden_boxes()[1]),
         ("17760", water_box(SCALING_SIZE_MOLECULES, seed=2))])
 
+    # (h) the clustered far-field tier: mixed_b16 at both sizes, then a
+    # random-weight model that reads the far field
+    cluster, cluster_launches = cluster_phase(
+        torch, card, pred, [("2x2220", batch2, 7), ("1x17760", big, 3)],
+        timed, rows, clocks)
+    cluster_acc = cluster_accuracy_phase(torch, card, golden_boxes()[0])
+    # (i) the charges' pullback through the positions
+    vjp, vjp_launches = vjp_phase(torch, card, pred, golden_boxes()[0],
+                                  timed)
+
     # ---- 5. training ------------------------------------------------------
     small_labels = [q.copy() for q in qs]
-    train_launches, step_ms, step_list = train_phase(
+    train_launches, step_ms, step_list, train_mols = train_phase(
         torch, pred, card, small, small_labels, batch2, golden)
-    profile = profile_phase(torch, card, pred, batch2, big, pred8)
+    train_c, _ = train_cluster_phase(torch, pred, card, train_mols, small,
+                                     step_list)
+    profile = profile_phase(
+        torch, card, pred, batch2, big, pred8,
+        Predictor(pred.params, cfg, far_cluster=CLUSTER_CS[0]))
 
     # ---- 6. result lines --------------------------------------------------
     # launches: each kernel's count in the main path of its slice
@@ -2106,7 +2706,9 @@ def main() -> int:
                          "train": train_launches[name],
                          "dense_fused": dense_launches[name],
                          "compact_nbrs": compact_launches[name],
-                         "int8": int8_launches[name]}
+                         "int8": int8_launches[name],
+                         "cluster": cluster_launches[name],
+                         "position_vjp": vjp_launches[name]}
         rows[name]["launches_by_path"] = path_launches
         rows[name]["launches"] = path_launches[MAIN_PATH.get(name, "serve")]
         require(rows[name]["launches"] > 0, (name, path_launches))
@@ -2141,6 +2743,8 @@ def main() -> int:
                           "golden_dq": dq8,
                           "conservation": {"2x2220": cons8.tolist(),
                                            "1x17760": cons8b}},
+                      "cluster": cluster, "cluster_accuracy": cluster_acc,
+                      "position_vjp": vjp, "train_cluster": train_c,
                       "widths": width_results,
                       "profile": profile, "sm_clocks": clocks,
                       "card": card}))

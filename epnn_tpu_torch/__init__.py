@@ -8,6 +8,8 @@ names follow the JAX package so each file has an obvious counterpart:
 * :mod:`epnn_tpu_torch.ops.fused` — the neighbor-split blocked forward;
 * :mod:`epnn_tpu_torch.ops.kernels` — the hand-written CUDA kernels of that
   forward (``csrc/*.cu``) with a plain PyTorch version beside each;
+* :mod:`epnn_tpu_torch.ops.cluster` — the weighted k-means of the clustered
+  far-field tier;
 * :mod:`epnn_tpu_torch.infer` — ``Predictor``, the serving front end.
 
 Importing the package compiles nothing: kernels are built with ``nvcc`` on

@@ -37,8 +37,10 @@ from epnn_tpu_torch.elements import table_for_n_elems
 from epnn_tpu_torch.featurize import rbf_edges
 from epnn_tpu_torch.io import checkpoint as ckpt_io
 from epnn_tpu_torch.models import EPNN, EPNNConfig
+from epnn_tpu_torch.ops.cluster import mids_lipschitz_bound
 from epnn_tpu_torch.ops.fused import (
     batch_cell_grid,
+    build_neighbors,
     build_neighbors_batch,
     build_neighbors_cell,
     cell_sort_key,
@@ -125,6 +127,16 @@ class Predictor:
     ``'on'`` every blocked batch, ``'off'`` none; charges come back in
     the caller's atom order.  In skin mode the permutation stands while
     no atom has moved more than skin/2.
+
+    ``far_cluster`` — the clustered far-field tier, an opt-in
+    approximation (0: exact): the blocked path's message rounds after the
+    first run their O(N²) far field over this many weighted k-means
+    centroids of the j-side projections, O(N·C)
+    (:func:`~epnn_tpu_torch.ops.fused.forward_blocked`).  The near field
+    and every pass round stay exact, so Σq is conserved; measure the error
+    on your system with :meth:`far_field_diagnostics`, or pick C with
+    :meth:`calibrate_far_cluster`.  The dense path (small graphs, no O(N²)
+    bottleneck) stays exact, as in the JAX package.
     """
 
     params: dict
@@ -138,6 +150,7 @@ class Predictor:
     neighbor_skin: float = 0.0
     collapse_round1: str = "auto"
     spatial_sort: str = "auto"
+    far_cluster: int = 0
     device: Optional[str] = None
 
     def __post_init__(self):
@@ -155,6 +168,8 @@ class Predictor:
             raise ValueError("neighbor_skin requires reuse_neighbors=True")
         if self.spatial_sort not in ("auto", "on", "off"):
             raise ValueError("spatial_sort must be 'auto', 'on', or 'off'")
+        if self.far_cluster < 0:
+            raise ValueError("far_cluster must be >= 0 (0 = exact)")
         self._model = EPNN.from_params(self.cfg, self.params, self.device)
         self._fused = fuse_params(self.params, self.cfg, self.device)
         if self.device.type == "cuda":
@@ -412,9 +427,22 @@ class Predictor:
                 return np.take_along_axis(q, inv, axis=1)
         return self._predict_batch_inner(batch)
 
-    def _predict_batch_inner(self, batch: MolBatch) -> np.ndarray:
-        x, q0, xyz, mask = (self._tensor(a) for a in (
+    def _inputs(self, batch: MolBatch):
+        """(x, q0, xyz, node_mask) of ``batch`` on the device."""
+        return tuple(self._tensor(a) for a in (
             batch.x, batch.q0, batch.xyz, batch.node_mask))
+
+    def _blocked_kw(self, batch: MolBatch) -> dict:
+        """The blocked forward's arguments for ``batch`` without the skin:
+        the cached k, reused tables, the cell grid and the collapse."""
+        k = self._neighbor_k(batch)
+        return dict(neighbor_k=k, use_pallas=self._use_pallas(),
+                    neighbors=self._neighbors(batch, k),
+                    neighbor_grid=self._neighbor_grid(batch),
+                    uniform_q0=self._uniform_q0(batch))
+
+    def _predict_batch_inner(self, batch: MolBatch) -> np.ndarray:
+        x, q0, xyz, mask = self._inputs(batch)
         if self._mode(batch) == "dense":
             e = rbf_edges(xyz, mask, e_dim=self.cfg.e_dim,
                           cutoff=self.cfg.cutoff, eta=self.cfg.eta)
@@ -426,16 +454,117 @@ class Predictor:
                 self._fused, x, q0, xyz, mask, self.cfg,
                 neighbor_k=int(idx.shape[-1]), use_pallas=self._use_pallas(),
                 neighbors=(idx, nbr_mask),
-                uniform_q0=self._uniform_q0(batch))
+                uniform_q0=self._uniform_q0(batch),
+                far_cluster=self.far_cluster)
         else:
-            k = self._neighbor_k(batch)
+            q = forward_blocked(self._fused, x, q0, xyz, mask, self.cfg,
+                                far_cluster=self.far_cluster,
+                                **self._blocked_kw(batch))
+        return q.cpu().numpy().astype(np.float32, copy=False)
+
+    @torch.no_grad()
+    def far_field_diagnostics(self, batch: MolBatch,
+                              compare_exact: bool = True) -> dict:
+        """The clustered tier's approximation on one batch, through the
+        blocked path (requires ``far_cluster > 0``), as JAX's
+        (``epnn_tpu/infer.py:591``): ``max_radius`` (B,), the largest
+        intra-cluster radius over the message rounds; ``lipschitz``, the
+        bound L on the message MLP's tail (:func:`~epnn_tpu_torch.ops.
+        cluster.mids_lipschitz_bound`); ``message_bound`` (B,), the a
+        priori bound (Σ_j jvec_j)·L·max_radius on one atom's summed message
+        a round; and with ``compare_exact`` ``max_abs_dq`` (B,), the
+        measured largest per-atom charge error against the exact forward,
+        the number a serving decision should rest on."""
+        if self.far_cluster <= 0:
+            raise ValueError("far_field_diagnostics requires far_cluster>0")
+        args = (self._fused, *self._inputs(batch), self.cfg)
+        kw = self._blocked_kw(batch)
+        q_c, rad = forward_blocked(*args, far_cluster=self.far_cluster,
+                                   far_diag=True, **kw)
+        rad = rad.cpu().numpy()
+        lip = mids_lipschitz_bound(self._fused.messages)
+        mask = np.asarray(batch.node_mask)
+        n_sum = (mask.sum(axis=1) if self.cfg.mask_messages
+                 else np.full(mask.shape[0], float(mask.shape[1])))
+        out = {"max_radius": rad, "lipschitz": lip,
+               "message_bound": n_sum * lip * rad}
+        if compare_exact:
+            q_e = forward_blocked(*args, **kw)
+            out["max_abs_dq"] = (q_c - q_e).abs().amax(1).cpu().numpy()
+        return out
+
+    @torch.no_grad()
+    def calibrate_far_cluster(self, batch: MolBatch, budget: float,
+                              candidates=(16, 32, 64, 128, 256),
+                              apply: bool = False) -> dict:
+        """The smallest clustered tier C whose measured largest per-atom
+        charge error on ``batch`` is within ``budget`` (e), as JAX's
+        (``epnn_tpu/infer.py:643``): one exact forward, then clustered
+        forwards in ascending C, stopping at the first within the budget.
+        Returns ``{"selected": C or None, "errors": {C: max|dq|},
+        "budget": budget}``; ``apply=True`` switches this Predictor to the
+        selected tier (none selected: no change).  The error depends on
+        the weights and the geometry: calibrate on a representative
+        system."""
+        args = (self._fused, *self._inputs(batch), self.cfg)
+        kw = self._blocked_kw(batch)
+        q_e = forward_blocked(*args, **kw)
+        errors: dict = {}
+        selected = None
+        for cand in sorted({int(c) for c in candidates if int(c) > 0}):
+            q_c = forward_blocked(*args, far_cluster=cand, **kw)
+            errors[cand] = float((q_c - q_e).abs().amax())
+            if errors[cand] <= budget:
+                selected = cand
+                break
+        if apply and selected is not None:
+            self.far_cluster = selected
+        return {"selected": selected, "errors": errors, "budget": budget}
+
+    def charge_position_vjp(self, batch: MolBatch,
+                            cotangent: np.ndarray) -> np.ndarray:
+        """(B, N, 3) pullback of the charges through the atom positions,
+        ``Σ_i cotangent[b, i] · ∂q[b, i]/∂xyz[b]``: the charge-response
+        force of an MD energy that depends on the predicted charges (with
+        cotangent = ∂E/∂q), as JAX's (``epnn_tpu/infer.py:1169``).
+
+        Differentiates the exact blocked forward.  The neighbor indices
+        come from the selection (top-k, or the cell builder where the
+        Predictor uses it) without a gradient, as in any cutoff-based MD
+        force; the pairs' d² is taken again from the coordinates under
+        autograd (the forward's ``(idx, mask)`` path).  The cosine envelope
+        is C¹ with value 0 at the cutoff, so the pull is continuous as
+        pairs cross it; the hard pass gate is piecewise constant and adds
+        nothing.  The far field's backward is its CUDA kernel, the near
+        kernels' backward a recompute through their plain versions.
+        Padding rows get exactly zero."""
+        cot = torch.as_tensor(np.asarray(cotangent, np.float32))
+        if tuple(cot.shape) != tuple(np.shape(batch.q0)):
+            raise ValueError(
+                f"cotangent must be (B, N) = {np.shape(batch.q0)}, "
+                f"got {tuple(cot.shape)}")
+        x, q0, xyz, mask = self._inputs(batch)
+        k = self._neighbor_k(batch)
+        grid = self._neighbor_grid(batch)
+        with torch.no_grad():
+            if grid is None:
+                tables = [build_neighbors(xyz[b], mask[b],
+                                          float(self.cfg.cutoff), k)
+                          for b in range(batch.batch_size)]
+            else:
+                tables = [build_neighbors_cell(xyz[b], mask[b],
+                                               float(self.cfg.cutoff), k,
+                                               *grid)
+                          for b in range(batch.batch_size)]
+        nbrs = tuple(torch.stack(parts) for parts in zip(*tables))
+        xyz = xyz.requires_grad_(True)
+        with torch.enable_grad():
             q = forward_blocked(
                 self._fused, x, q0, xyz, mask, self.cfg, neighbor_k=k,
-                use_pallas=self._use_pallas(),
-                neighbors=self._neighbors(batch, k),
-                neighbor_grid=self._neighbor_grid(batch),
+                use_pallas=self._use_pallas(), neighbors=nbrs,
                 uniform_q0=self._uniform_q0(batch))
-        return q.cpu().numpy().astype(np.float32, copy=False)
+            (pull,) = torch.autograd.grad(q, xyz, cot.to(self.device))
+        return pull.cpu().numpy()
 
     def predict_trajectory(self, mol: Molecule, frames: np.ndarray,
                            pad_to: Optional[int] = None) -> np.ndarray:

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -38,6 +39,7 @@ from epnn_tpu_torch.featurize import (
     rbf_centers,
 )
 from epnn_tpu_torch.models.config import EPNNConfig
+from epnn_tpu_torch.ops.cluster import weighted_kmeans
 from epnn_tpu_torch.ops.kernels import (
     dense_message_rowsum,
     dense_message_rowsum_int8,
@@ -551,6 +553,60 @@ def _atom_inputs(x: Tensor, h: Tensor, q: Tensor) -> Tensor:
     return torch.cat([x, h, q[:, None].to(x.dtype)], dim=-1)
 
 
+def far_cluster_fit_kw() -> dict:
+    """The clustered far field's fit settings, read from the environment at
+    every call with the JAX package's names and defaults (JAX reads them
+    when it traces, ``epnn_tpu/ops/fused.py:1141-1152``):
+    ``EPNN_FAR_CLUSTER_ITERS`` (8), ``EPNN_FAR_CLUSTER_FIT_PREC``
+    ('highest'; any other value is JAX's 'default'),
+    ``EPNN_FAR_CLUSTER_FIT_ROWS`` (0) and ``EPNN_FAR_CLUSTER_SEED``
+    ('norm').  They move only where the centroids land."""
+    env = os.environ.get
+    return dict(
+        iters=int(env("EPNN_FAR_CLUSTER_ITERS", "8")),
+        fit_precision=("highest" if env("EPNN_FAR_CLUSTER_FIT_PREC",
+                                        "highest") == "highest"
+                       else "default"),
+        fit_rows=int(env("EPNN_FAR_CLUSTER_FIT_ROWS", "0")),
+        seed=env("EPNN_FAR_CLUSTER_SEED", "norm"))
+
+
+def _cluster_pad_rows(c: int, h: int) -> int:
+    """The centroid row count JAX's far-field kernel call pads C to
+    (``epnn_tpu/ops/fused.py:1216-1222``, its packed-row contract): the
+    int8 tier's max(pj) takes the zero rows it adds."""
+    pack = max(1, 128 // h) if 128 % h == 0 else 1
+    rows = -(-c // pack)
+    if rows > 64:
+        rows = -(-rows // 64) * 64
+    return rows * pack
+
+
+def _clustered_far_field(w: PairMLPWeights, pi: Tensor, pj: Tensor,
+                         jvec: Tensor, c: int, grad: bool, int8: bool,
+                         fit_kw: dict):
+    """One message round's far field over C weighted k-means centroids of
+    the pj rows (JAX ``epnn_tpu/ops/fused.py:1197-1244``): ``(dense_sum,
+    radius)``.  A round that :func:`kernels_apply` admits runs the far-field
+    kernel with the C centroids as its columns and their weights as cv
+    (under ``int8`` its int8 tier, pi's padding as on the exact path and
+    pj's as JAX pads the centroid rows); another depth runs the plain
+    version over the centroids, as JAX's XLA branch does."""
+    cent, wts, rad = weighted_kmeans(pj, jvec, c, differentiable=grad,
+                                     **fit_kw)
+    cent = cent.contiguous()
+    mids = _flat(w.mids)
+    if not kernels_apply(w):
+        return dense_message_rowsum_plain(pi, cent, wts, *mids), rad
+    if int8:
+        return dense_message_rowsum_int8(
+            pi, cent, wts, *mids, pad_pi=_int8_pad_pi(w, pi.shape[0]),
+            pad_pj=_cluster_pad_rows(c, w.b1.shape[0]) > c,
+            w2_int8=None if w.int8 is None else w.int8[:2],
+            **_padded(w)), rad
+    return dense_message_rowsum(pi, cent, wts, *mids, **_padded(w)), rad
+
+
 def _forward_single_nbr(
     fused: FusedParams,
     x: Tensor,          # (N, n_elems)
@@ -563,8 +619,11 @@ def _forward_single_nbr(
     neighbors: Optional[Tuple[Tensor, ...]] = None,
     int8: bool = False,
     neighbor_grid: Optional[Tuple[int, int]] = None,
-) -> Tensor:
-    """One graph through the neighbor-split forward (exact far field).
+    far_cluster: int = 0,
+    far_diag: bool = False,
+    far_cluster_grad: bool = False,
+):
+    """One graph through the neighbor-split forward.
 
     ``uniform_q0`` asserts the caller's contract that every valid atom
     carries the same initial charge (valid atoms first, zeros on padding)
@@ -588,7 +647,21 @@ def _forward_single_nbr(
     Without it, ``neighbor_grid`` — static ``(ncells_pad, cell_cap)``
     from :func:`cell_grid_params` — selects through the cell-list builder
     (:func:`build_neighbors_cell`), and otherwise top-k over −d² does
-    (:func:`build_neighbors`); both give the same set."""
+    (:func:`build_neighbors`); both give the same set.
+
+    ``far_cluster`` = C > 0: the clustered far-field tier, JAX's opt-in
+    approximation.  Every message round that the round-1 collapse does not
+    take fits C weighted k-means centroids to its pj rows
+    (:func:`~epnn_tpu_torch.ops.cluster.weighted_kmeans`, the fit settings
+    of :func:`far_cluster_fit_kw`) and runs its far field over them,
+    O(N·C) in place of O(N²) (:func:`_clustered_far_field`).  The near
+    correction and every pass round stay exact, so conservation is
+    untouched.  ``far_cluster_grad``: the fit's differentiable mode (the
+    training tier's exact VJP of the approximation).  ``far_diag``: return
+    ``(q, radius)``, the largest intra-cluster radius over the rounds, the
+    measured factor of the error bound."""
+    if far_diag and far_cluster <= 0:
+        raise ValueError("far_diag requires far_cluster > 0")
     n = x.shape[0]
     if neighbors is None and neighbor_grid is not None:
         ncells_pad, cell_cap = neighbor_grid
@@ -624,6 +697,8 @@ def _forward_single_nbr(
     h = x.new_zeros((n, cfg.h_dim))
     q = q0
     nm = node_mask[:, None]
+    fit_kw = far_cluster_fit_kw() if far_cluster > 0 else {}
+    rad = x.new_zeros(())
 
     for t, w in enumerate(fused.messages):
         kern = kernels_apply(w)
@@ -649,6 +724,10 @@ def _forward_single_nbr(
             counts = torch.cat([counts, (jvec.sum() - counts.sum())[None]])
             hid_g = _mids(torch.relu(pi[:, None, :] + pj_grid[None, :, :]), w)
             dense_sum = torch.einsum("e,neh->nh", counts, hid_g)
+        elif far_cluster > 0:
+            dense_sum, r_round = _clustered_far_field(
+                w, pi, pj, jvec, far_cluster, far_cluster_grad, int8, fit_kw)
+            rad = torch.maximum(rad, r_round)
         elif not kern:
             dense_sum = dense_message_rowsum_plain(pi, pj, jvec, *mids)
         elif int8:
@@ -676,6 +755,8 @@ def _forward_single_nbr(
         dsum = (near_pass_rowsum(*pass_args, **_padded(w))
                 if kernels_apply(w) else near_pass_rowsum_plain(*pass_args))
         q = q + (dsum @ w.w_out)[:, 0]
+    if far_diag:
+        return q * node_mask, rad
     return q * node_mask
 
 
@@ -818,7 +899,10 @@ def forward_blocked(
     neighbors: Optional[Tuple[Tensor, ...]] = None,
     neighbor_grid: Optional[Tuple[int, int]] = None,
     uniform_q0: bool = False,
-) -> Tensor:
+    far_cluster: int = 0,
+    far_diag: bool = False,
+    far_cluster_grad: bool = False,
+):
     """Batched blocked forward from raw coordinates: (B, N) charges.
     Graphs run one after another (a Python loop, not a batched kernel).
 
@@ -839,6 +923,16 @@ def forward_blocked(
     ``epnn_tpu/ops/fused.py:1091-1101``).  Without it, int8 runs the
     unquantized far field, as JAX's XLA path does.
 
+    ``far_cluster`` = C > 0 (requires ``neighbor_k``): the clustered
+    far-field tier, an opt-in approximation (:func:`_forward_single_nbr`);
+    ``far_diag`` then returns ``(q, radius)`` with the (B,) largest
+    intra-cluster radius, the measured factor of the error bound
+    (:func:`~epnn_tpu_torch.ops.cluster.mids_lipschitz_bound`).  The
+    default fit carries no gradient and gives the same bits on every call
+    (serving); ``far_cluster_grad=True`` makes the final centroids
+    differentiable (training; forward values move by one more half Lloyd
+    step).
+
     Without ``neighbor_k``: the dense blocked forwards.  ``use_pallas``
     with every round admitted by :func:`kernels_apply` selects the fully
     fused kernels (:func:`_forward_single_pallas`, inference-only);
@@ -848,27 +942,36 @@ def forward_blocked(
 
     ``remat`` is not ported.  Equivalent to ``EPNN(cfg)(x, q0,
     rbf_edges(xyz, mask), mask)`` up to float32 association noise.  The
-    clustered far field and the huge-N memory mode are ROADMAP items."""
+    huge-N memory mode is a ROADMAP item."""
     _check_precision(cfg)
     if remat:
         raise NotImplementedError(
             "remat=True is not ported yet (ROADMAP 'Training, deferred "
             "options' item 3)")
+    if far_diag and far_cluster <= 0:
+        raise ValueError("far_diag requires far_cluster > 0")
     if neighbors is not None and neighbor_k is None:
         raise ValueError("neighbors requires neighbor_k")
+    if far_cluster > 0 and neighbor_k is None:
+        raise ValueError("far_cluster requires neighbor_k (the clustered "
+                         "far-field tier lives on the neighbor-split path)")
     int8 = use_pallas and cfg.dense_matmul_precision == "int8"
     outs = []
     for b in range(x.shape[0]):
         args = (fused, x[b], q0[b], xyz[b], node_mask[b], cfg)
         if neighbor_k is not None:
             nb = None if neighbors is None else tuple(a[b] for a in neighbors)
-            outs.append(_forward_single_nbr(*args, k=neighbor_k,
-                                            uniform_q0=uniform_q0,
-                                            neighbors=nb, int8=int8,
-                                            neighbor_grid=neighbor_grid))
+            outs.append(_forward_single_nbr(
+                *args, k=neighbor_k, uniform_q0=uniform_q0, neighbors=nb,
+                int8=int8, neighbor_grid=neighbor_grid,
+                far_cluster=far_cluster, far_diag=far_diag,
+                far_cluster_grad=far_cluster_grad))
         elif use_pallas and all(kernels_apply(w) for w in
                                 fused.messages + fused.passes):
             outs.append(_forward_single_pallas(*args))
         else:
             outs.append(_forward_single(*args, block=block))
+    if far_diag:
+        return (torch.stack([q for q, _ in outs]),
+                torch.stack([r for _, r in outs]))
     return torch.stack(outs)

@@ -625,16 +625,31 @@ def int8_weights(w2):
     return w2q, sw
 
 
-def int8_activation_scale(pi, pj, pad_pi=None):
+def _int8_maxima(pi, pj, pad_pi=None, pad_pj=None):
+    """(max(pi), max(pj)) over the real rows and the padding rows JAX's
+    operands carry: pi rows of ``pad_pi`` (0-dim) where it is given, pj
+    zero rows where ``pad_pj`` says so (default: with pi's, as the exact
+    far field pads both operands to one row count)."""
+    pi_max, pj_max = pi.amax(), pj.amax()
+    if pad_pi is not None:
+        pi_max = torch.maximum(pi_max, pad_pi)
+    if pad_pj is None:
+        pad_pj = pad_pi is not None
+    if pad_pj:
+        pj_max = torch.clamp(pj_max, min=0.0)
+    return pi_max, pj_max
+
+
+def int8_activation_scale(pi, pj, pad_pi=None, pad_pj=None):
     """The int8 tier's per-tensor activation scale, s_in = max(relu(max(pi)
     + max(pj)), 1e-30) / 127 (``pallas_kernels.py:1029-1030``): relu(pi_i +
     pj_j) ≤ 127·s_in for every pair.  With ``pad_pi`` (0-dim) the maxima
     also take the padding rows JAX's operands carry, whose pi is ``pad_pi``
-    and pj 0.  The int8 kernel computes the same from the two maxima."""
-    pi_max, pj_max = pi.amax(), pj.amax()
-    if pad_pi is not None:
-        pi_max = torch.maximum(pi_max, pad_pi)
-        pj_max = torch.clamp(pj_max, min=0.0)
+    and pj 0; ``pad_pj`` (bool) says apart from ``pad_pi`` whether pj has
+    zero padding rows (the clustered far field pads its centroid rows on
+    their own, ``epnn_tpu/ops/fused.py:1216-1222``).  The int8 kernel
+    computes the same from the two maxima."""
+    pi_max, pj_max = _int8_maxima(pi, pj, pad_pi, pad_pj)
     return _div127(torch.clamp(torch.relu(pi_max + pj_max), min=1e-30))
 
 
@@ -656,7 +671,8 @@ def int8_scales(s_in, sw):
     return s_in * sw, torch.ones_like(s_in) / s_in
 
 
-def dense_message_rowsum_int8_plain(pi, pj, col_vec, w2, b2, pad_pi=None):
+def dense_message_rowsum_int8_plain(pi, pj, col_vec, w2, b2, pad_pi=None,
+                                    pad_pj=None):
     """The far field in the int8 tier, as (R, H) float32, row-blocked:
 
         s_in = int8_activation_scale(pi, pj, pad_pi);  (w2q, sw) of W2
@@ -670,8 +686,9 @@ def dense_message_rowsum_int8_plain(pi, pj, col_vec, w2, b2, pad_pi=None):
     matmul of integer-valued tensors, which is exact: every |q|, |w2q| ≤
     127 and a row of H = 32 products sums to at most 516,128 < 2^24 in
     magnitude (H ≤ 64: 1,032,256).  So only the order of the sum over j
-    differs from the kernel's or the JAX package's."""
-    s_in = int8_activation_scale(pi, pj, pad_pi)
+    differs from the kernel's or the JAX package's.  ``pad_pj``: see
+    :func:`int8_activation_scale`."""
+    s_in = int8_activation_scale(pi, pj, pad_pi, pad_pj)
     w2q, sw = int8_weights(w2)
     w2q = w2q.to(pi.dtype)
     dq, inv = int8_scales(s_in, sw)
@@ -688,7 +705,7 @@ def dense_message_rowsum_int8_plain(pi, pj, col_vec, w2, b2, pad_pi=None):
 
 
 def _dense_message_rowsum_int8_fwd(pi, pj, col_vec, w2, b2, pad_pi,
-                                   w2_int8, padded=None):
+                                   w2_int8, padded=None, pad_pj=None):
     name = "dense_message_rowsum_int8"
     r, h = pi.shape
     n = pj.shape[0]
@@ -699,7 +716,7 @@ def _dense_message_rowsum_int8_fwd(pi, pj, col_vec, w2, b2, pad_pi,
     device = _check(name, tensors, shapes)
     if device.type == "cpu":
         return dense_message_rowsum_int8_plain(pi, pj, col_vec, w2, b2,
-                                               pad_pi)
+                                               pad_pi, pad_pj)
     kw = _kernel_weights(name, padded, w2, b2)
     out = pi.new_empty((r, h))
     if r == 0:
@@ -723,9 +740,15 @@ def _dense_message_rowsum_int8_fwd(pi, pj, col_vec, w2, b2, pad_pi,
     splits, cols = _dense_message_splits(r, n)
     part = pi.new_empty((splits, r, h))
     # the maxima run over the real columns only, as JAX's do: a zero
-    # padding column would raise a negative maximum to 0
-    _launch(name, device, (pi, pj, col_vec, w2q, sw, kw.b2, pi.amax(),
-                           pj.amax(), pad_pi, part, out),
+    # padding column would raise a negative maximum to 0.  Operands padded
+    # apart (pad_pj given) take their padding rows here, the kernel none
+    if pad_pj is None:
+        pi_max, pj_max = pi.amax(), pj.amax()
+    else:
+        pi_max, pj_max = _int8_maxima(pi, pj, pad_pi, pad_pj)
+        pad_pi = None
+    _launch(name, device, (pi, pj, col_vec, w2q, sw, kw.b2, pi_max, pj_max,
+                           pad_pi, part, out),
             (r, n, h, splits, cols), {}, h)
     return out
 
@@ -737,35 +760,39 @@ class _DenseMessageRowsumInt8(torch.autograd.Function):
     gradient: in the JAX package the scale is internal to the kernel."""
 
     @staticmethod
-    def forward(ctx, pi, pj, col_vec, w2, b2, pad_pi, w2_int8, padded):
+    def forward(ctx, pi, pj, col_vec, w2, b2, pad_pi, w2_int8, padded,
+                pad_pj):
         ctx.save_for_backward(pi, pj, col_vec, w2, b2)
         ctx.padded = padded
         return _dense_message_rowsum_int8_fwd(pi, pj, col_vec, w2, b2,
-                                              pad_pi, w2_int8, padded)
+                                              pad_pi, w2_int8, padded,
+                                              pad_pj)
 
     @staticmethod
     def backward(ctx, g):
         pi, pj, col_vec, w2, b2 = ctx.saved_tensors
         dpi, dpj, dw2, db2 = dense_message_rowsum_bwd(
             pi, pj, col_vec, w2, b2, g.contiguous(), ctx.padded)
-        return dpi, dpj, None, dw2, db2, None, None, None
+        return dpi, dpj, None, dw2, db2, None, None, None, None
 
 
 def dense_message_rowsum_int8(pi, pj, col_vec, w2, b2, pad_pi=None,
-                              w2_int8=None, padded=None):
+                              w2_int8=None, padded=None, pad_pj=None):
     """The far field in the JAX package's int8 serving tier (see
     ``csrc/dense_message_rowsum_int8.cu`` and
     :func:`dense_message_rowsum_int8_plain`): relu(pi_i + pj_j) quantized
     per tensor with the scale of :func:`int8_activation_scale` (``pad_pi``:
     the pi of the padding rows JAX's operands would carry, or None), W2 per
     output column, int32 products, dequantized, + b2.  Arguments otherwise
-    as :func:`dense_message_rowsum`.  ``w2_int8`` — ``int8_weights(w2)``
+    as :func:`dense_message_rowsum`.  ``pad_pj``: whether pj has zero
+    padding rows apart from ``pad_pi`` (:func:`int8_activation_scale`).
+    ``w2_int8`` — ``int8_weights(w2)``
     or, at the kernel's padded widths, :func:`int8_kernel_weights`, where
     the caller keeps it; else it is made here.  On the card a call adds
     two reductions (the maxima, over the real columns) to the kernel,
     which forms the scales itself.  Differentiable straight through."""
     return _DenseMessageRowsumInt8.apply(pi, pj, col_vec, w2, b2, pad_pi,
-                                         w2_int8, padded)
+                                         w2_int8, padded, pad_pj)
 
 
 class _PlainRecompute(torch.autograd.Function):

@@ -10,7 +10,9 @@ buckets through the neighbor-split blocked forward
 (:func:`epnn_tpu_torch.ops.forward_blocked`), whose far field runs the
 ``dense_message_rowsum`` kernel forward and its backward kernel in the
 backward.  Both paths differentiate the same leaves, and checkpoints stay
-in the JAX layout.
+in the JAX layout.  ``TrainConfig(far_cluster=C)`` trains the fused
+buckets through the clustered far-field tier (eval steps and checkpoint
+selection stay exact, as in the JAX trainer).
 
 ``train`` runs on the first CUDA card unless it is given ``device="cpu"``;
 without a card it raises.  Options of the JAX trainer that are not ported
@@ -80,11 +82,17 @@ class TrainConfig:
       once, as the JAX trainer does: through the cell-list builder from
       ``CELL_GRID_MIN_ATOMS`` padded atoms, by top-k over −d² below;
     * ``lr_schedule='cosine'``, ``lr_plateau_factor``, ``ema_decay``,
-      ``grad_clip_norm``, ``grad_accum > 1``, ``remat``, ``far_cluster``,
+      ``grad_clip_norm``, ``grad_accum > 1``, ``remat``,
       ``near_row_chunk > 0`` (and the auto chunking of buckets of 200,000
       atoms and more), ``near_window``, ``tensorboard_dir`` and
       ``debug_nans`` raise ``NotImplementedError`` (ROADMAP queue 1,
-      "Training, deferred options")."""
+      "Training, deferred options");
+    * ``far_cluster`` = C > 0 runs the train steps of fused buckets with
+      their far field over C weighted k-means centroids a round, as JAX's
+      (``epnn_tpu/train/loop.py:121-129``); ``far_cluster_grad`` (default
+      True) takes the gradient through the differentiable final centroids
+      (∂cent_c/∂pj_j = w_j/W_c) into the far-field backward kernel, False
+      drops that path.  Eval steps stay exact."""
 
     learning_rate: float = 1e-3
     lr_schedule: str = "constant"
@@ -138,7 +146,6 @@ def check_supported(tc: TrainConfig) -> None:
         "grad_clip_norm": tc.grad_clip_norm is not None,
         "grad_accum > 1": tc.grad_accum > 1,
         "remat=True": tc.remat,
-        "far_cluster > 0": tc.far_cluster > 0,
         "near_row_chunk > 0": tc.near_row_chunk > 0,
         "near_window": tc.near_window != 0,
         "tensorboard_dir": tc.tensorboard_dir is not None,
@@ -192,9 +199,12 @@ def _loss_dense(params, cfg, loss_name, x, q0, xyz, node_mask, y, weight):
 
 
 def _loss_fused(params, cfg, loss_name, neighbor_k, x, q0, xyz, node_mask,
-                y, weight, uniform_q0=False, neighbors=None):
+                y, weight, uniform_q0=False, neighbors=None, far_cluster=0,
+                far_cluster_grad=False):
     """Loss through the blocked forward.  ``fuse_params`` only slices and
     copies, so gradients reach the same tree the dense path trains.
+    ``far_cluster``/``far_cluster_grad``: the clustered far-field tier
+    (:func:`~epnn_tpu_torch.ops.fused.forward_blocked`).
     Without ``use_pallas`` the far field stays unquantized under
     ``dense_matmul_precision="int8"``, as in the JAX trainer, which takes
     its far-field kernel only at ``"default"``
@@ -202,7 +212,9 @@ def _loss_fused(params, cfg, loss_name, neighbor_k, x, q0, xyz, node_mask,
     device = node_mask.device
     pred = forward_blocked(fuse_params(params, cfg, device), x, q0, xyz,
                            node_mask, cfg, neighbor_k=neighbor_k,
-                           neighbors=neighbors, uniform_q0=uniform_q0)
+                           neighbors=neighbors, uniform_q0=uniform_q0,
+                           far_cluster=far_cluster,
+                           far_cluster_grad=far_cluster_grad)
     return M.LOSSES[loss_name](pred, y, node_mask, weight), pred
 
 
@@ -240,13 +252,15 @@ def eval_step(params: dict, cfg: EPNNConfig, loss_name: str,
 
 def train_step_fused(state: TrainState, cfg: EPNNConfig, loss_name: str,
                      neighbor_k: int, x, q0, xyz, node_mask, y, weight,
-                     uniform_q0: bool = False, neighbors=None):
+                     uniform_q0: bool = False, neighbors=None,
+                     far_cluster: int = 0, far_cluster_grad: bool = False):
     """One update through the blocked forward in place (``neighbors``: the
-    minibatch's ``(idx, mask, d2)`` rows of the bucket tables).  Returns
-    ``(state, loss, pred, mets)``."""
+    minibatch's ``(idx, mask, d2)`` rows of the bucket tables;
+    ``far_cluster``: the clustered far field).  Returns ``(state, loss,
+    pred, mets)``."""
     loss, pred = _loss_fused(state.params, cfg, loss_name, neighbor_k, x,
                              q0, xyz, node_mask, y, weight, uniform_q0,
-                             neighbors)
+                             neighbors, far_cluster, far_cluster_grad)
     _apply(state, loss)
     pred = pred.detach()
     return state, loss.detach(), pred, M.mae_sums(pred, y, node_mask, weight)
@@ -504,7 +518,9 @@ def train(
                         _, loss, _, mets = train_step_fused(
                             state, cfg, tc.loss, k, *put(mb, n_real),
                             uniform_q0=bucket_uq0(bucket),
-                            neighbors=bucket_neighbors(bucket, k, rows))
+                            neighbors=bucket_neighbors(bucket, k, rows),
+                            far_cluster=tc.far_cluster,
+                            far_cluster_grad=tc.far_cluster_grad)
                     acc.update(loss, mets)
             run_eval = has_val and (tc.eval_every <= 1
                                     or (epoch + 1) % tc.eval_every == 0

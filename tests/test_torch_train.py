@@ -404,7 +404,7 @@ def test_train_without_a_card_raises():
 @pytest.mark.parametrize("kw", [
     dict(lr_schedule="cosine"), dict(lr_plateau_factor=0.5),
     dict(ema_decay=0.999), dict(grad_clip_norm=1.0), dict(grad_accum=2),
-    dict(remat=True), dict(far_cluster=8), dict(near_row_chunk=64),
+    dict(remat=True), dict(near_row_chunk=64),
     dict(near_window=128), dict(tensorboard_dir="tb"),
     dict(debug_nans=True)])
 def test_unported_options_raise(kw):
@@ -412,3 +412,26 @@ def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train(port, SMALL, TrainConfig(epochs=1, **kw), progress=False,
               device="cpu")
+
+
+def test_train_far_cluster_runs_and_loss_falls(monkeypatch):
+    """``TrainConfig(far_cluster=4)``: the fused buckets train through the
+    clustered far field (the differentiable fit) and the loss falls, after
+    JAX's ``tests/test_train.py::test_public_train_far_cluster``; eval
+    steps run exact."""
+    port, _ = toy_mols(seed=8, count=8, lo=20, hi=28, side=5.0)
+    seen = []
+    real = L.forward_blocked
+
+    def spy(*a, **kw):
+        seen.append((kw["far_cluster"], kw["far_cluster_grad"],
+                     torch.is_grad_enabled()))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(L, "forward_blocked", spy)
+    tc = TrainConfig(epochs=5, batch_size=4, seed=1, dense_max_atoms=16,
+                     learning_rate=3e-3, far_cluster=4)
+    res = train(port, SMALL, tc, progress=False, device="cpu")
+    assert set(seen) == {(4, True, True), (0, False, False)}, set(seen)
+    first, last = res.history[0]["train_loss"], res.history[-1]["train_loss"]
+    assert np.isfinite(last) and last < first, (first, last)
