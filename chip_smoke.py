@@ -98,7 +98,16 @@ card: ``python3 chip_smoke.py`` from the repository root.
    ``far_field_diagnostics`` at C = 32, ``calibrate_far_cluster``;
    (i) ``charge_position_vjp`` on a 2,220-atom box (:func:`vjp_phase`):
    shape, padding rows, launches (the far-field backward kernel), central
-   differences, its time.
+   differences, its time;
+   (j) the huge-N memory mode (:func:`huge_serving_phase`): explicit
+   ``near_row_chunk`` at (b)'s and (c)'s boxes, with and without the auto
+   window, the full-width charges bit for bit, launches a chunk, the near
+   kernels in row blocks (the same bits, pairs exact negations); an
+   undersized window; 142,080- and 568,320-atom boxes at far_cluster 32
+   (chunk forced, then the auto policy): chunked and windowed against
+   full width bit for bit, raw |sum q - Q| beside JAX's, peak device
+   memory, warm medians in turns, the cold set-up, the near kernels at
+   the chunk and full-width shapes.
 5. Training: (a) the gradients of one fused train step on two 900-atom
    boxes, card against the port on the CPU, leaf by leaf; (b) ``train()``
    fine-tuning the checkpoint for a few epochs on the 2,220-atom boxes and
@@ -107,7 +116,12 @@ card: ``python3 chip_smoke.py`` from the repository root.
    steps, the median fused step, and ``best/`` served with conservation;
    (c) the clustered tier (:func:`train_cluster_phase`): one clustered
    step's gradients card against CPU (the fits' rows assigned apart
-   printed, ties checked), and ``train(far_cluster=32)`` on (b)'s set.
+   printed, ties checked), and ``train(far_cluster=32)`` on (b)'s set;
+   (d) the huge-N mode in training (:func:`huge_train_phase`): a chunked
+   remat step against full width on (a)'s boxes (the loss bit for bit,
+   gradients within 1e-5 relative Frobenius), exact and clustered, and
+   ``train(far_cluster=32)`` on a 213,120-atom bucket, which the auto
+   policy chunks with remat forced.
 6. Profile: ``torch.profiler`` over ``predict_batch`` (2 x 2,220 and
    1 x 17,760 atoms, both tiers; the clustered call at 17,760 with its
    k-means as a group), a Verlet-skin step at 17,760 atoms and
@@ -259,6 +273,22 @@ VJP_BAR = 5e-2
 #: a probe whose forward and backward differences part by more than this
 #: share of the scale has a relu switching within ε: skipped
 VJP_KINK = 2e-2
+#: [slice j]: explicit near-row chunks at 2 x 2,220 and 17,760 atoms, an
+#: undersized window (rows), and the huge boxes (waters; 142,080 and
+#: 568,320 atoms) served at far_cluster = HUGE_C with the chunk of
+#: ``balanced_row_chunk`` (below the threshold forced, above it the auto
+#: policy's), beside JAX's raw |sum q - Q| there (``BENCH_r05.json``;
+#: accuracy, not hardware figures)
+HUGE_CHUNKS = (1024, 4096)
+HUGE_UNDERSIZED_WINDOW = 256
+HUGE_C = 32
+HUGE_BOXES = {"142080": 47_360, "568320": 189_440}
+JAX_RAW_SUM_Q = {"142080": 1.39e-3, "568320": 3.16e-3}
+#: [train d]: the chunk of the 2 x 900-atom step, and the bucket of one
+#: 213,120-atom box (past ``infer.HUGE_GRAPH_MIN_ATOMS``) trained 2 epochs
+HUGE_STEP_CHUNK = 256
+HUGE_TRAIN_MOLECULES = 71_040
+HUGE_TRAIN_EPOCHS = 2
 #: calls of the port's neighbor selection since the last
 #: :func:`reset_selection`: cell-list tables, the cell builder's count_only
 #: k, and top-k tables (:func:`count_selection`)
@@ -745,8 +775,9 @@ def train_phase(torch, pred, card, small, small_q, batch2, golden):
                                   params=pred.params)
         args = [torch.from_numpy(a).to(device) for a in arrays]
         kernels.reset_launch_counts()
-        _, loss, _, _ = loop.train_step_fused(state, cfg, "masked_mse", k,
-                                              *args, uniform_q0=uq0)
+        _, loss, _, _ = loop.train_step_fused(state, cfg, "masked_mse",
+                                              None, 256, k, *args,
+                                              uniform_q0=uq0, remat=False)
         if side == "card":
             torch.cuda.synchronize()
             step_launches = dict(kernels.LAUNCHES)
@@ -1330,9 +1361,9 @@ def train_cluster_phase(torch, pred, card, mols, val_mols, exact_steps):
         restore = spy_calls(fused, "weighted_kmeans", seen)
         try:
             kernels.reset_launch_counts()
-            loop.train_step_fused(state, cfg, "masked_mse", k, *args,
-                                  uniform_q0=uq0, far_cluster=c,
-                                  far_cluster_grad=True)
+            loop.train_step_fused(state, cfg, "masked_mse", None, 256, k,
+                                  *args, uniform_q0=uq0, far_cluster=c,
+                                  far_cluster_grad=True, remat=False)
             torch.cuda.synchronize()
             launches = dict(kernels.LAUNCHES)
         finally:
@@ -1488,6 +1519,511 @@ def vjp_phase(torch, card, pred, mol, timed):
                 ms=ms), launches
 
 
+def chunk_probe(torch, label, cases, table, chunk):
+    """Both near kernels launched in row blocks of ``chunk`` rows on one
+    box's inputs (``near_inputs``), as the chunked forward launches them:
+    the concatenated blocks equal the full-width launch bit for bit, and
+    the ``near_pass_rowsum`` probe (disjoint near pairs, one slot each)
+    keeps every pair's two rows exact negations across block boundaries.
+    Returns the probe's pair count and how many pairs straddle blocks."""
+    from epnn_tpu_torch.ops import kernels
+    from epnn_tpu_torch.testing import disjoint_pair_gh
+
+    def blocks(name, args):
+        n, k = args[0].shape[0], args[3].shape[1]
+        outs = []
+        for s in range(0, n, chunk):
+            e = min(s + chunk, n)
+            outs.append(getattr(kernels, name)(
+                args[0][s:e], args[1][s * k:e * k], args[2][s * k:e * k],
+                args[3][s:e].contiguous(), *args[4:]))
+        return torch.cat(outs)
+
+    for name, args in cases.items():
+        full = getattr(kernels, name)(*args)
+        require(torch.equal(blocks(name, args), full),
+                (name, label, chunk, "blocks differ from full width"))
+    idx, nbr_mask = table
+    args = list(cases["near_pass_rowsum"])
+    gh, pairs = disjoint_pair_gh(idx.cpu().numpy(), nbr_mask.cpu().numpy())
+    args[3] = torch.from_numpy(gh).to(args[0].device)
+    got = blocks("near_pass_rowsum", args)
+    pt = torch.from_numpy(pairs).to(got.device)
+    require(torch.equal(got[pt[:, 0]], -got[pt[:, 1]])
+            and int(torch.count_nonzero(got[pt[:, 0]])) > 0,
+            ("chunked antisymmetry", label, chunk))
+    return len(pairs), int(np.sum(pairs[:, 0] // chunk != pairs[:, 1] // chunk))
+
+
+def near_shape_entry(torch, card, label, name, args, kw, iters):
+    """One near kernel at the shapes a launch of the forward gave it
+    (``args``, ``kw`` as passed): against its plain version, its time, the
+    plain version's and the bound of this data (:func:`near_bound`)."""
+    from epnn_tpu_torch.ops import kernels
+
+    wrapper = getattr(kernels, name)
+    plain = getattr(kernels, name + "_plain")
+    got = wrapper(*args, **kw)
+    ref = plain(*args)
+    err = float((got - ref).abs().max())
+    tol = 1e-5 * (float(ref.abs().max()) + 1.0)
+    require(np.isfinite(err) and err <= tol, (name, label, err, tol))
+    del got, ref
+    ms = device_ms(torch, lambda: wrapper(*args, **kw), iters[0])
+    plain_ms = device_ms(torch, lambda: plain(*args), iters[1])
+    n_live, tc_flop, elem, nbytes, (b_ms, b_by, b32) = near_bound(name, args)
+    entry = dict(N=args[0].shape[0], K=args[3].shape[1], live_slots=n_live,
+                 max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                 bound_ms=b_ms, bound_by=b_by, bound_fp32_ms=b32,
+                 bytes=nbytes)
+    print(f"[slice j] {name} at {label} (N={entry['N']:,} rows, K="
+          f"{entry['K']}, {n_live:,} live slots): max|d| vs plain {err:.3e} "
+          f"(tol {tol:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {b_ms:.5f} ms ({b_by}), fp32 bound {b32:.5f} ms on {card}")
+    return entry
+
+
+def host_ms(torch, fn):
+    """``(fn(), its host-clock ms)``, the card synchronized on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def peak_bytes(torch, fn):
+    """``(fn(), the device bytes it allocated at its peak above what was
+    allocated before it)`` (``torch.cuda.max_memory_allocated``)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - before
+
+
+def first_near_args(torch, fused, fn):
+    """``fn()``'s result and the arguments of its first launch of each
+    near kernel, ``{name: (args, kw)}`` (spied on the forward's names)."""
+    seen = {}
+    real = {name: getattr(fused, name)
+            for name in ("near_message_corr", "near_pass_rowsum")}
+
+    def spy(name):
+        def call(*a, **kw):
+            seen.setdefault(name, (a, kw))
+            return real[name](*a, **kw)
+        return call
+
+    for name in real:
+        setattr(fused, name, spy(name))
+    try:
+        out = fn()
+    finally:
+        for name, f in real.items():
+            setattr(fused, name, f)
+    return out, seen
+
+
+def huge_serving_phase(torch, card, pred, boxes, timed, rows):
+    """[slice j] the huge-N memory mode through ``Predictor``.
+
+    (1) On ``boxes`` (2 x 2,220 and 1 x 17,760 atoms, exact far field,
+    each Predictor cell-sorting the batch): explicit ``near_row_chunk``
+    of :data:`HUGE_CHUNKS`, unwindowed and with the auto window, against
+    ``near_row_chunk=0`` — the same bits, 5 launches of each near kernel
+    a graph a chunk, the far field's 4, conservation; the near kernels in
+    row blocks on the box's table (:func:`chunk_probe`).  (2) An
+    undersized explicit window: the same charges twice, |sum q - Q| off.
+    (3) The boxes of :data:`HUGE_BOXES` at far_cluster = :data:`HUGE_C`:
+    the chunked, the windowed and the full-width Predictor (the chunk of
+    ``balanced_row_chunk``, forced below ``HUGE_GRAPH_MIN_ATOMS`` and the
+    auto policy's above, with its window and sort), the same bits, the
+    launches, raw |sum q - Q| beside JAX's, each variant's peak device
+    memory on its cold and a warm call, warm medians in turns, the cold
+    set-up's parts, and the near kernels at the chunk and the full-width
+    shapes.  Returns (results, the launches of the largest box's auto
+    call)."""
+    import math
+
+    from epnn_tpu_torch import infer
+    from epnn_tpu_torch.data import pad_molecules
+    from epnn_tpu_torch.elements import table_for_n_elems
+    from epnn_tpu_torch.infer import Predictor
+    from epnn_tpu_torch.ops import fused, kernels
+    from epnn_tpu_torch.ops.fused import balanced_row_chunk
+    from epnn_tpu_torch.testing import water_box
+    from epnn_tpu_torch.tools.near_field_pace import near_inputs
+
+    cfg = pred.cfg
+    table = table_for_n_elems(cfg.n_elems)
+    near = ("near_message_corr", "near_pass_rowsum")
+
+    def mk(**kw):
+        return Predictor(pred.params, cfg, **kw)
+
+    def widths(p):
+        return [w for d in p._winw_cache.values() for w in d.values()]
+
+    out = {}
+    # (1) explicit chunks at the boxes of [slice b] and [slice c]
+    for label, batch in boxes:
+        n, b = batch.padded_atoms, batch.batch_size
+        total_q = batch.total_q.astype(np.float64)
+        variants = {"full": mk(near_row_chunk=0, spatial_sort="on")}
+        for c in HUGE_CHUNKS:
+            variants[f"chunk {c}"] = mk(near_row_chunk=c, near_window=0,
+                                        spatial_sort="on")
+            variants[f"chunk {c} window"] = mk(near_row_chunk=c,
+                                               spatial_sort="on")
+        qs, launched = {}, {}
+        for name, p in variants.items():
+            kernels.reset_launch_counts()
+            qs[name] = p.predict_batch(batch)
+            launched[name] = dict(kernels.LAUNCHES)
+        entry = {"windows": {}, "launches": launched}
+        for name, p in variants.items():
+            require(np.array_equal(qs[name], qs["full"]),
+                    ("[slice j] not the full-width bits", label, name))
+            c = p.near_row_chunk or n
+            want = {kn: b * (5 * math.ceil(n / c) if kn in near
+                             else PER_GRAPH.get(kn, 0))
+                    for kn in kernels.SOURCES}
+            require(launched[name] == want, ("[slice j]", label, name,
+                                             launched[name], want))
+            entry["windows"][name] = widths(p)
+        w1024 = entry["windows"][f"chunk {HUGE_CHUNKS[0]} window"]
+        require(w1024 and all(0 < w < n for w in w1024),
+                ("[slice j] the window is not engaged", label, w1024))
+        cons = np.abs(qs["full"].astype(np.float64).sum(1) - total_q)
+        require(np.all(cons <= 1e-4), ("[slice j]", label, cons))
+        full_p = variants["full"]
+        twin = full_p._sort_cache[batch][3]
+        cases, nbr_table = near_inputs(full_p, twin, np.random.default_rng(0))
+        probe = {c: chunk_probe(torch, label, cases, nbr_table, c)
+                 for c in HUGE_CHUNKS}
+        entry.update(conservation=cons.tolist(), probe=probe)
+        out[label] = entry
+        print(f"[slice j] {label} atoms, exact far field, cell-sorted: "
+              f"near_row_chunk {HUGE_CHUNKS} with and without the auto "
+              f"window (widths {entry['windows']}) give the full-width "
+              f"charges bit for bit; launches "
+              f"{ {k: v for k, v in launched.items() if 'window' not in k} }"
+              f" (5 a graph a chunk); |sum q - Q| = {cons.tolist()}; the "
+              f"near kernels in row blocks equal their full-width launch, "
+              f"probe pairs (pairs, across blocks) {probe} all exact "
+              f"negations on {card}")
+
+    # (2) an undersized window on the 17,760-atom box
+    label, batch = boxes[-1]
+    bad = mk(near_row_chunk=HUGE_CHUNKS[0],
+             near_window=HUGE_UNDERSIZED_WINDOW, spatial_sort="on")
+    q1, q2 = bad.predict_batch(batch), bad.predict_batch(batch)
+    cons_bad = float(np.abs(q1.astype(np.float64).sum(1)
+                            - batch.total_q).max())
+    ref = mk(near_row_chunk=0, spatial_sort="on").predict_batch(batch)
+    gap = float(np.abs(q1 - ref).max())
+    require(np.array_equal(q1, q2) and np.all(np.isfinite(q1)),
+            "[slice j] undersized window: not the same charges twice")
+    require(cons_bad > 1e-3 and gap > 1e-3,
+            ("[slice j] undersized window dropped nothing", cons_bad, gap))
+    out["undersized_window"] = dict(window=HUGE_UNDERSIZED_WINDOW,
+                                    chunk=HUGE_CHUNKS[0], raw_sum_q=cons_bad,
+                                    max_dq_vs_full=gap)
+    print(f"[slice j] {label} atoms, chunk {HUGE_CHUNKS[0]}, window "
+          f"{HUGE_UNDERSIZED_WINDOW} rows (undersized): the same charges on "
+          f"two calls; |sum q - Q| = {cons_bad:.3e}, max|dq| vs full width "
+          f"{gap:.3e}: the pairs outside the window are dropped on {card}")
+
+    # (3) the huge boxes, clustered far field
+    huge_launches = None
+    for label, n_mol in HUGE_BOXES.items():
+        mol = water_box(n_mol, seed=3)
+        batch = pad_molecules([mol], table)
+        n = batch.padded_atoms
+        chunk = balanced_row_chunk(n, infer.HUGE_GRAPH_ROW_CHUNK)
+        auto = n >= infer.HUGE_GRAPH_MIN_ATOMS
+        windowed = (mk(far_cluster=HUGE_C) if auto
+                    else mk(far_cluster=HUGE_C, near_row_chunk=chunk))
+        require(windowed._near_chunk(batch) == chunk, (label, chunk))
+        variants = {"full": mk(far_cluster=HUGE_C, near_row_chunk=0),
+                    "chunked": mk(far_cluster=HUGE_C, near_row_chunk=chunk,
+                                  near_window=0),
+                    "windowed": windowed}
+        qs, peaks, cold_ms, launched, shapes = {}, {}, {}, {}, {}
+        for name in ("windowed", "chunked", "full"):
+            p = variants[name]
+            kernels.reset_launch_counts()
+            try:
+                (qs[name], cold_ms[name]), peaks[name] = peak_bytes(
+                    torch, lambda: host_ms(torch, lambda: p.predict_batch(
+                        batch)))
+            except torch.cuda.OutOfMemoryError as err:
+                require(name == "full" and auto, (label, name, str(err)))
+                qs[name] = None
+                peaks[name] = dict(cold="OOM")
+                print(f"[slice j] {label} atoms, full width: out of device "
+                      f"memory ({err}); compared at 142,080 atoms only")
+                continue
+            launched[name] = dict(kernels.LAUNCHES)
+            peaks[name] = dict(cold=peaks[name], warm=peak_bytes(
+                torch, lambda: p.predict_batch(batch))[1])
+        for name in ("windowed", "full"):
+            if qs[name] is not None:
+                # once the peaks are read: a call that hands its near
+                # launches' inputs over
+                shapes[name] = first_near_args(
+                    torch, fused, lambda: variants[name].predict_batch(
+                        batch))[1]
+        c_eff = {"full": n, "chunked": chunk, "windowed": chunk}
+        for name, got in launched.items():
+            want = {kn: 5 * math.ceil(n / c_eff[name]) if kn in near
+                    else PER_GRAPH.get(kn, 0) for kn in kernels.SOURCES}
+            require(got == want, ("[slice j]", label, name, got, want))
+        if auto:
+            huge_launches = launched["windowed"]
+        win = widths(windowed)
+        require(win and all(0 < w < n for w in win),
+                ("[slice j] no window at", label, win))
+        raw = {name: abs(float(q.astype(np.float64).sum()))
+               for name, q in qs.items() if q is not None}
+        for name, q in qs.items():
+            require(q is not None or name == "full", (label, name))
+            if q is not None:
+                require(np.all(np.isfinite(q)) and raw[name] <= 1e-2,
+                        ("[slice j]", label, name, raw[name]))
+        for name in ("chunked", "windowed"):
+            if qs["full"] is not None:
+                require(np.array_equal(qs[name], qs["full"]),
+                        ("[slice j] not the full-width bits", label, name))
+        timed_variants = {name: variants[name] for name in
+                          ("full", "chunked", "windowed")
+                          if qs[name] is not None}
+        warm = turns(timed, timed_variants,
+                     lambda p: p.predict_batch(batch), 3)
+        parts = {name: cold_parts(torch, p, [mol], reps=2)
+                 for name, p in timed_variants.items()}
+        # where a warm call's device time goes, full width against the
+        # auto policy's chunks and window (the largest box only)
+        prof = {}
+        for name in (("full", "windowed") if auto else ()):
+            if qs[name] is None:
+                continue
+            wall, busy, kern = device_split(
+                torch, lambda: variants[name].predict_batch(batch), reps=1)
+            top = sorted(kern.items(), key=lambda kv: -kv[1])[:6]
+            prof[name] = dict(wall_ms=wall, device_busy_ms=busy,
+                              groups=profile_groups(kern),
+                              top={key[:100]: ms for key, ms in top})
+        kernel_rows = {}
+        for name in near:
+            kernel_rows[name] = {
+                f"{label} {shape}": near_shape_entry(
+                    torch, card, f"{label} atoms, {shape}", name,
+                    *shapes[shape][name], (5, 2))
+                for shape in shapes}
+            rows[name]["sizes"].update(kernel_rows[name])
+        shapes.clear()
+        out[label] = dict(
+            atoms=n, chunk=chunk, auto=auto, windows=win,
+            bitwise_vs_full=qs["full"] is not None, raw_sum_q=raw,
+            jax_raw_sum_q=JAX_RAW_SUM_Q[label], peak_bytes=peaks,
+            cold_ms=cold_ms, warm_turns_ms=warm, cold_parts_ms=parts,
+            launches=launched, profile=prof)
+        print(f"[slice j] {n:,} atoms (water_box({n_mol:,})), far_cluster "
+              f"{HUGE_C}: chunk {chunk} ({'auto policy' if auto else 'forced'}"
+              f"), window {win}, sorted; chunked and windowed vs full width "
+              f"bit for bit: {qs['full'] is not None}; launches {launched}; "
+              f"raw |sum q - Q| {raw} (JAX: {JAX_RAW_SUM_Q[label]:.2e} e); "
+              f"peak device memory above the call's start (bytes) {peaks}; "
+              f"cold call ms {cold_ms}; "
+              f"warm predict_batch medians in turns (full, chunked, windowed, "
+              f"reversed) {warm} ms; cold set-up parts (ms) {parts}; "
+              f"profiled warm call (torch.profiler) {prof} on {card}")
+        del variants, windowed, timed_variants, qs
+        torch.cuda.empty_cache()
+    require(huge_launches is not None and all(
+        huge_launches[kn] > 0 for kn in ("dense_message_rowsum", *near)),
+        ("[slice j] the auto path launched no kernel", huge_launches))
+    return out, huge_launches
+
+
+def huge_train_phase(torch, pred, card):
+    """[train d] (a) on [train a]'s two 900-atom boxes, one fused step
+    with ``near_row_chunk`` = :data:`HUGE_STEP_CHUNK` and ``remat`` against
+    full width without remat, exact and clustered (``far_cluster_grad``):
+    the loss bit for bit, gradients within 1e-5 relative Frobenius a leaf;
+    (b) ``train()`` at far_cluster = :data:`HUGE_C` on one bucket of a
+    213,120-atom box (noisy labels around the model's clustered charges):
+    the auto policy chunks the bucket and forces remat, the loss is
+    finite; step times, peak memory, far-field backward launches.
+    Returns (results, the ``train()`` run's launches)."""
+    from epnn_tpu_torch import infer
+    from epnn_tpu_torch.data import pad_molecules, uniform_q0_contract
+    from epnn_tpu_torch.elements import table_for_n_elems
+    from epnn_tpu_torch.infer import Predictor
+    from epnn_tpu_torch.models import tree_leaves
+    from epnn_tpu_torch.ops import kernels
+    from epnn_tpu_torch.ops.fused import balanced_row_chunk
+    from epnn_tpu_torch.testing import water_box
+    from epnn_tpu_torch.train import TrainConfig, loop, train
+
+    cfg = pred.cfg
+    g = np.random.default_rng(6)
+    boxes = [water_box(TRAIN_BOX_MOLECULES, seed=30, charge=0.0),
+             water_box(TRAIN_BOX_MOLECULES, seed=31, charge=-1.0)]
+    batch = pad_molecules(boxes, table_for_n_elems(cfg.n_elems))
+    y = (batch.node_mask * g.normal(0.0, 0.3, size=batch.node_mask.shape)
+         ).astype(np.float32)
+    args = [torch.from_numpy(a).cuda() for a in (
+        batch.x, batch.q0, batch.xyz, batch.node_mask, y,
+        np.ones(2, np.float32))]
+    k = pred._neighbor_k(batch)
+    uq0 = uniform_q0_contract(batch.x, batch.q0, batch.node_mask)
+    steps = {}
+    for c in (0, HUGE_C):
+        runs = {}
+        for name, kw in (("full", dict(near_row_chunk=0, remat=False)),
+                         ("chunk", dict(near_row_chunk=HUGE_STEP_CHUNK,
+                                        remat=True))):
+            state = loop.create_state(cfg, TrainConfig(), device="cuda",
+                                      params=pred.params)
+            kernels.reset_launch_counts()
+            _, loss, _, _ = loop.train_step_fused(
+                state, cfg, "masked_mse", None, 256, k, *args,
+                uniform_q0=uq0, far_cluster=c, far_cluster_grad=c > 0, **kw)
+            torch.cuda.synchronize()
+            runs[name] = (loss, [p.grad for p in tree_leaves(state.params)],
+                          dict(kernels.LAUNCHES))
+        (l_full, g_full, n_full), (l_ch, g_ch, n_ch) = runs["full"], \
+            runs["chunk"]
+        fro = [float(torch.linalg.norm(a - b)
+                     / max(float(torch.linalg.norm(b)), 1e-30))
+               for a, b in zip(g_ch, g_full)]
+        require(torch.equal(l_ch, l_full), ("[train d] loss", c,
+                                            float(l_ch), float(l_full)))
+        require(all(np.isfinite(v) and v <= 1e-5 for v in fro),
+                ("[train d] gradients", c, fro))
+        steps[c] = dict(loss=float(l_full), grad_rel_fro_max=max(fro),
+                        launches_full=n_full, launches_chunk_remat=n_ch)
+    print(f"[train d] one fused step, 2 x {batch.natoms[0]:,} atoms, "
+          f"near_row_chunk {HUGE_STEP_CHUNK} + remat vs full width: " +
+          "; ".join(f"far_cluster {c}: loss {r['loss']:.9e} bit for bit, "
+                    f"gradients worst relative Frobenius "
+                    f"{r['grad_rel_fro_max']:.3e} (bar 1e-5), launches "
+                    f"{r['launches_full']} vs {r['launches_chunk_remat']}"
+                    for c, r in steps.items()) + f" on {card}")
+
+    # (b) train() on a bucket past the threshold
+    mol = water_box(HUGE_TRAIN_MOLECULES, seed=41)
+    served = Predictor(pred.params, cfg, far_cluster=HUGE_C
+                       ).predict_molecules([mol])[0]
+    mol.labels = noisy_labels(g, served)
+    pad = -(-mol.natoms // 8) * 8
+    require(pad >= infer.HUGE_GRAPH_MIN_ATOMS, pad)
+    want_chunk = balanced_row_chunk(pad, infer.HUGE_GRAPH_ROW_CHUNK)
+    record = []
+    original = loop.train_step_fused
+
+    def spy(*a, **kw):
+        before = dict(kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = original(*a, **kw)
+        torch.cuda.synchronize()
+        record.append(dict(
+            loss=float(res[1]), ms=(time.perf_counter() - t0) * 1e3,
+            near_row_chunk=kw["near_row_chunk"], remat=kw["remat"],
+            launches={kn: kernels.LAUNCHES[kn] - before[kn]
+                      for kn in before}))
+        return res
+
+    tc = TrainConfig(epochs=HUGE_TRAIN_EPOCHS, far_cluster=HUGE_C,
+                     val_fraction=0.0, init_from=CKPT)
+    loop.train_step_fused = spy
+    try:
+        kernels.reset_launch_counts()
+        (res, run_ms), peak = peak_bytes(torch, lambda: host_ms(
+            torch, lambda: train([mol], cfg, tc, progress=False)))
+        run_launches = dict(kernels.LAUNCHES)
+    finally:
+        loop.train_step_fused = original
+    require(len(record) == HUGE_TRAIN_EPOCHS and all(
+        r["near_row_chunk"] == want_chunk and r["remat"] for r in record),
+        ("[train d] the auto policy did not chunk and remat", record))
+    require(all(np.isfinite(r["loss"]) for r in record), record)
+    require(run_launches["dense_message_rowsum_bwd"] > 0
+            and run_launches["dense_message_rowsum"] > 0, run_launches)
+    require(len(res.history) == HUGE_TRAIN_EPOCHS, res.history)
+    print(f"[train d] train(far_cluster={HUGE_C}) on one {pad:,}-atom bucket,"
+          f" {HUGE_TRAIN_EPOCHS} epochs: auto chunk {want_chunk} with remat "
+          f"forced; steps (loss, ms) "
+          f"{[(r['loss'], round(r['ms'], 1)) for r in record]}; launches a "
+          f"step {record[-1]['launches']} (far-field backward "
+          f"{record[-1]['launches']['dense_message_rowsum_bwd']}); peak device"
+          f" memory above the run's start {peak:,} B; the run "
+          f"{run_ms / 1e3:.1f} s on {card}")
+
+    # (c) one step of that bucket: the auto chunk with remat against full
+    # width without it, each step's peak above its start
+    from epnn_tpu_torch.ops.fused import batch_cell_grid, build_neighbors_cell
+
+    hb = pad_molecules([mol], table_for_n_elems(cfg.n_elems))
+    hargs = [torch.from_numpy(a).cuda() for a in (
+        hb.x, hb.q0, hb.xyz, hb.node_mask, hb.y, np.ones(1, np.float32))]
+    hk = Predictor(pred.params, cfg)._neighbor_k(hb)
+    table = build_neighbors_cell(
+        hargs[2][0], hargs[3][0], float(cfg.cutoff), hk,
+        *batch_cell_grid(hb.xyz, hb.node_mask, cfg.cutoff), with_d2=True,
+        row_chunk=want_chunk)
+    nbrs = tuple(t[None] for t in table)
+    huq0 = uniform_q0_contract(hb.x, hb.q0, hb.node_mask)
+    big_steps = {}
+    for name, kw in (("chunk+remat", dict(near_row_chunk=want_chunk,
+                                          remat=True)),
+                     ("full", dict(near_row_chunk=0, remat=False))):
+        state = loop.create_state(cfg, TrainConfig(), device="cuda",
+                                  params=pred.params)
+        try:
+            ((_, loss, _, _), ms), step_peak = peak_bytes(
+                torch, lambda: host_ms(torch, lambda: loop.train_step_fused(
+                    state, cfg, "masked_mse", None, 256, hk, *hargs,
+                    uniform_q0=huq0, far_cluster=HUGE_C,
+                    far_cluster_grad=True, neighbors=nbrs, **kw)))
+        except torch.cuda.OutOfMemoryError as err:
+            require(name == "full", (name, str(err)))
+            big_steps[name] = dict(peak_bytes="OOM", error=str(err)[:200])
+            continue
+        big_steps[name] = dict(loss=loss, ms=ms, peak_bytes=step_peak,
+                               grads=[p.grad for p in
+                                      tree_leaves(state.params)])
+        del state
+    ref = big_steps.get("full", {})
+    if "grads" in ref:
+        ch = big_steps["chunk+remat"]
+        fro = max(float(torch.linalg.norm(a - b)
+                        / max(float(torch.linalg.norm(b)), 1e-30))
+                  for a, b in zip(ch["grads"], ref["grads"]))
+        require(torch.equal(ch["loss"], ref["loss"]) and fro <= 1e-5,
+                ("[train d] the bucket's step", float(ch["loss"]),
+                 float(ref["loss"]), fro))
+        big_steps["grad_rel_fro_max"] = fro
+    for v in big_steps.values():
+        if isinstance(v, dict):
+            v.pop("grads", None)
+            if "loss" in v:
+                v["loss"] = float(v["loss"])
+    out = dict(steps=steps, atoms=pad, chunk=want_chunk,
+               train_steps=record, peak_bytes=peak, run_ms=run_ms,
+               launches=run_launches, bucket_step=big_steps)
+    print(f"[train d] one clustered step on the {pad:,}-atom bucket: "
+          f"{big_steps} (peaks above the step's start, bytes; the loss bit "
+          f"for bit, gradients within 1e-5 relative Frobenius) on {card}")
+    return out, run_launches
+
+
 def kmeans_alone(torch, rows, weights, c, reps=5):
     """(device-busy ms, launches, host ms) of one ``weighted_kmeans`` fit of
     ``rows`` into ``c`` clusters alone: ``torch.profiler`` over ``reps``
@@ -1625,8 +2161,8 @@ def profile_phase(torch, card, pred, batch2, big, pred8, pred_c):
         "predict_batch int8 1x17760": lambda: pred8.predict_batch(big),
         "dense fused forward 2x2220": dense_fused,
         "train_step_fused 2x2220": lambda: loop.train_step_fused(
-            state, cfg, "masked_mse", k, *args, uniform_q0=uq0,
-            neighbors=nbrs),
+            state, cfg, "masked_mse", None, 256, k, *args, uniform_q0=uq0,
+            remat=False, neighbors=nbrs),
         f"predict_batch C{pred_c.far_cluster} 1x17760":
             lambda: pred_c.predict_batch(big),
     }
@@ -1682,6 +2218,27 @@ def profile_phase(torch, card, pred, batch2, big, pred8, pred_c):
 NEAR_SCALAR_READ = (0, 3, 4, 5, 6)
 
 
+def near_bound(name, args):
+    """(live slots, tensor-core FLOP a slot, elementwise FLOP a slot,
+    bytes, :func:`tc_bound`) of one launch of the near kernel ``name`` on
+    ``args``.  A live slot: its gathered row and RBF row in, rbf @ W1e and
+    two H x H products, ~8H (pass: 10H) elementwise; the row inputs of rows
+    with a live slot, the whole (N, K) weights, the weights once and the
+    output."""
+    f = 4
+    n, hh = args[0].shape[0], args[4].shape[1]
+    k, ee = args[3].shape[1], args[4].shape[0]
+    live = args[3] != 0
+    n_live, rows = int(live.sum()), int(live.any(1).sum())
+    row_w, slot_w = args[0].shape[1], args[1].shape[1]
+    elem = (8 if name == "near_message_corr" else 10) * hh
+    tc_flop = 2 * ee * hh + 4 * hh * hh
+    nbytes = (f * (n_live * (slot_w + ee) + rows * row_w + n * k + n * hh)
+              + f * (ee * hh + hh * hh + hh))
+    return n_live, tc_flop, elem, nbytes, tc_bound(n_live, tc_flop, elem,
+                                                   nbytes)
+
+
 def near_phase(torch, card, label, cases, table, iters, min_pairs):
     """[kernel] both near kernels on one size's ``cases`` (``near_inputs``):
     each against its fp32 plain version and its 3xTF32 emulation within
@@ -1696,7 +2253,7 @@ def near_phase(torch, card, label, cases, table, iters, min_pairs):
     from epnn_tpu_torch.ops import kernels
     from epnn_tpu_torch.testing import disjoint_pair_gh
 
-    f, out = 4, {}
+    out = {}
     for name, args in cases.items():
         wrapper = getattr(kernels, name)
         plain = getattr(kernels, name + "_plain")
@@ -1720,18 +2277,8 @@ def near_phase(torch, card, label, cases, table, iters, min_pairs):
                 (name, label, "inputs off the 16-byte boundary"))
         ms = device_ms(torch, lambda: wrapper(*args), iters[0])
         plain_ms = device_ms(torch, lambda: plain(*args), iters[1])
-        # a live slot: its gathered row and RBF row in, rbf @ W1e and two
-        # H x H products, ~8H (pass: 10H) elementwise; the row inputs of
-        # rows with a live slot, the whole (N, K) weights, the weights
-        # once and the output
-        live = args[3] != 0
-        n_live, rows = int(live.sum()), int(live.any(1).sum())
-        row_w, slot_w = args[0].shape[1], args[1].shape[1]
-        elem = (8 if name == "near_message_corr" else 10) * hh
-        tc_flop = 2 * ee * hh + 4 * hh * hh
-        nbytes = (f * (n_live * (slot_w + ee) + rows * row_w + n * k + n * hh)
-                  + f * (ee * hh + hh * hh + hh))
-        b_ms, b_by, b32 = tc_bound(n_live, tc_flop, elem, nbytes)
+        n_live, tc_flop, elem, nbytes, (b_ms, b_by, b32) = near_bound(
+            name, args)
         out[name] = dict(
             N=n, K=k, live_slots=n_live, max_abs_err=err, max_abs_diff=err,
             max_abs_diff_3xtf32=err_emu, tol=tol, ms=ms, plain_ms=plain_ms,
@@ -2687,6 +3234,10 @@ def main() -> int:
     # (i) the charges' pullback through the positions
     vjp, vjp_launches = vjp_phase(torch, card, pred, golden_boxes()[0],
                                   timed)
+    # (j) the huge-N memory mode
+    huge, huge_launches = huge_serving_phase(
+        torch, card, pred, [("2x2220", batch2), ("1x17760", big)], timed,
+        rows)
 
     # ---- 5. training ------------------------------------------------------
     small_labels = [q.copy() for q in qs]
@@ -2694,6 +3245,7 @@ def main() -> int:
         torch, pred, card, small, small_labels, batch2, golden)
     train_c, _ = train_cluster_phase(torch, pred, card, train_mols, small,
                                      step_list)
+    train_d, huge_train_launches = huge_train_phase(torch, pred, card)
     profile = profile_phase(
         torch, card, pred, batch2, big, pred8,
         Predictor(pred.params, cfg, far_cluster=CLUSTER_CS[0]))
@@ -2708,7 +3260,9 @@ def main() -> int:
                          "compact_nbrs": compact_launches[name],
                          "int8": int8_launches[name],
                          "cluster": cluster_launches[name],
-                         "position_vjp": vjp_launches[name]}
+                         "position_vjp": vjp_launches[name],
+                         "huge_serve": huge_launches[name],
+                         "huge_train": huge_train_launches[name]}
         rows[name]["launches_by_path"] = path_launches
         rows[name]["launches"] = path_launches[MAIN_PATH.get(name, "serve")]
         require(rows[name]["launches"] > 0, (name, path_launches))
@@ -2745,6 +3299,7 @@ def main() -> int:
                                            "1x17760": cons8b}},
                       "cluster": cluster, "cluster_accuracy": cluster_acc,
                       "position_vjp": vjp, "train_cluster": train_c,
+                      "huge_serving": huge, "huge_train": train_d,
                       "widths": width_results,
                       "profile": profile, "sm_clocks": clocks,
                       "card": card}))

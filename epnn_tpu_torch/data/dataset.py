@@ -50,6 +50,11 @@ class MolBatch:
     def padded_atoms(self) -> int:
         return self.x.shape[1]
 
+    def pair_mask(self) -> np.ndarray:
+        """(B, N, N) pair validity: 1 where both atoms are real (the
+        diagonal of a real atom included)."""
+        return self.node_mask[:, :, None] * self.node_mask[:, None, :]
+
     def select(self, idx: Sequence[int]) -> "MolBatch":
         idx = np.asarray(idx)
         return MolBatch(

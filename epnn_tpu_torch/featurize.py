@@ -15,6 +15,7 @@ their device side).
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -24,6 +25,20 @@ DEFAULT_CUTOFF = 3.0
 DEFAULT_ETA = 2.0
 DEFAULT_E_DIM = 48
 MU_START = 0.1
+
+
+@dataclasses.dataclass(frozen=True)
+class RBFConfig:
+    """The featurization's constants, as the JAX package's ``RBFConfig``."""
+
+    e_dim: int = DEFAULT_E_DIM
+    cutoff: float = DEFAULT_CUTOFF
+    eta: float = DEFAULT_ETA
+
+    def centers(self) -> np.ndarray:
+        """The float64 centers ``linspace(0.1, cutoff, e_dim)``."""
+        return np.linspace(MU_START, self.cutoff, self.e_dim,
+                           dtype=np.float64)
 
 
 def rbf_centers(e_dim: int, cutoff: float, device=None) -> torch.Tensor:

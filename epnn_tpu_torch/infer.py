@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import warnings
 import weakref
 import zlib
 from typing import List, Optional, Sequence
@@ -39,6 +40,7 @@ from epnn_tpu_torch.io import checkpoint as ckpt_io
 from epnn_tpu_torch.models import EPNN, EPNNConfig
 from epnn_tpu_torch.ops.cluster import mids_lipschitz_bound
 from epnn_tpu_torch.ops.fused import (
+    balanced_row_chunk,
     batch_cell_grid,
     build_neighbors,
     build_neighbors_batch,
@@ -47,6 +49,7 @@ from epnn_tpu_torch.ops.fused import (
     forward_blocked,
     fuse_params,
     max_neighbor_count,
+    neighbor_window_width,
     pad_kernel_weights,
     quantize_far_field,
 )
@@ -66,6 +69,15 @@ CELL_GRID_MIN_ATOMS = 1024
 #: which keeps raw Σq closer to the net charge.  Charges come back in the
 #: caller's order.
 CELL_SORT_MIN_ATOMS = 16_384
+
+#: From this padded width up, ``near_row_chunk=-1`` (auto) turns on the
+#: huge-N memory mode: the forward's near field, and the cell builder's
+#: candidate scoring, run in row blocks of about
+#: :data:`HUGE_GRAPH_ROW_CHUNK` rows (:func:`~epnn_tpu_torch.ops.fused.
+#: balanced_row_chunk`), with the full-width charges.  The JAX package's
+#: values, kept for the card.
+HUGE_GRAPH_MIN_ATOMS = 200_000
+HUGE_GRAPH_ROW_CHUNK = 65_536
 
 
 def _safe_k(count: int, batch: MolBatch) -> int:
@@ -137,6 +149,23 @@ class Predictor:
     on your system with :meth:`far_field_diagnostics`, or pick C with
     :meth:`calibrate_far_cluster`.  The dense path (small graphs, no O(N²)
     bottleneck) stays exact, as in the JAX package.
+
+    ``near_row_chunk`` — the huge-N memory mode of the blocked path
+    (:func:`~epnn_tpu_torch.ops.fused.forward_blocked`): ``-1`` (auto)
+    chunks from :data:`HUGE_GRAPH_MIN_ATOMS` padded atoms at
+    :func:`~epnn_tpu_torch.ops.fused.balanced_row_chunk` of
+    :data:`HUGE_GRAPH_ROW_CHUNK`, and runs full width below; ``0`` never
+    chunks; ``> 0`` is the chunk.  The cell builder then chunks its rows
+    too, and reused tables come from it.  The charges are those of the
+    full-width forward.
+
+    ``near_window`` — windowed gathers on the chunked path: ``-1`` (auto)
+    measures the safe width from the tables in hand (reuse, skin) or, on
+    a cold call of a sorted batch, from the sorted cell keys, and windows
+    when that is narrower than the batch; ``0`` never; ``> 0`` is the
+    width, trusted (pairs outside it are dropped, which shows as a charge
+    that is not conserved).  Compact windows need spatially ordered atoms,
+    which ``spatial_sort='auto'`` gives chunked huge batches.
     """
 
     params: dict
@@ -151,6 +180,8 @@ class Predictor:
     collapse_round1: str = "auto"
     spatial_sort: str = "auto"
     far_cluster: int = 0
+    near_row_chunk: int = -1
+    near_window: int = -1
     device: Optional[str] = None
 
     def __post_init__(self):
@@ -170,6 +201,12 @@ class Predictor:
             raise ValueError("spatial_sort must be 'auto', 'on', or 'off'")
         if self.far_cluster < 0:
             raise ValueError("far_cluster must be >= 0 (0 = exact)")
+        if self.near_row_chunk < -1:
+            raise ValueError("near_row_chunk must be -1 (auto), 0 (off), "
+                             "or a positive chunk size")
+        if self.near_window < -1:
+            raise ValueError("near_window must be -1 (auto), 0 (off), or "
+                             "a positive width in rows")
         self._model = EPNN.from_params(self.cfg, self.params, self.device)
         self._fused = fuse_params(self.params, self.cfg, self.device)
         if self.device.type == "cuda":
@@ -188,6 +225,11 @@ class Predictor:
         # twin, xyz0 copy]
         self._skin_cache: "weakref.WeakKeyDictionary" = weak()
         self._sort_cache: "weakref.WeakKeyDictionary" = weak()
+        # batch -> {window key: width}, keyed by the tables' provenance
+        # (the geometry, or the skin rebuild); sorted twin -> per graph
+        # (sorted cell keys, key span), the cold calls' width source
+        self._winw_cache: "weakref.WeakKeyDictionary" = weak()
+        self._geom_keys: "weakref.WeakKeyDictionary" = weak()
         self.skin_rebuilds = 0
 
     @classmethod
@@ -237,43 +279,59 @@ class Predictor:
 
     def _cell_count(self, batch: MolBatch, cutoff: float, grid) -> int:
         """The largest neighbor count of any row of any graph, from the
-        cell builder's ``count_only`` on the device: one host sync."""
+        cell builder's ``count_only`` on the device (in the grid's row
+        chunks, if it has them): one host sync."""
         xyz, mask = self._tensor(batch.xyz), self._tensor(batch.node_mask)
+        chunk = grid[3] if len(grid) > 3 else 0
         return int(torch.stack([
-            build_neighbors_cell(xyz[b], mask[b], float(cutoff), 1, *grid,
-                                 count_only=True)
+            build_neighbors_cell(xyz[b], mask[b], float(cutoff), 1, grid[0],
+                                 grid[1], count_only=True, row_chunk=chunk)
             for b in range(batch.batch_size)]).amax())
 
     def _neighbor_grid(self, batch: MolBatch):
-        """The static ``(ncells_pad, cell_cap)`` of the cell builder, or
-        None where top-k selects (``'topk'``; ``'auto'`` below
-        :data:`CELL_GRID_MIN_ATOMS` padded atoms).  Cached per batch with
-        the geometry fingerprint."""
+        """The cell builder's ``(ncells_pad, cell_cap)``, with ``('slices',
+        row_chunk)`` appended when the batch runs chunked
+        (:meth:`_near_chunk`), or None where top-k selects (``'topk'``;
+        ``'auto'`` below :data:`CELL_GRID_MIN_ATOMS` padded atoms).  The
+        bounds are cached per batch with the geometry fingerprint."""
         if self.neighbor_method == "topk" or (
                 self.neighbor_method == "auto"
                 and batch.padded_atoms < CELL_GRID_MIN_ATOMS):
             return None
+        chunk = self._near_chunk(batch)
+        ext = ("slices", chunk) if chunk else ()
         fp = self._geom_fingerprint(batch)
         cached = self._grid_cache.get(batch)
         if cached is not None and cached[0] == fp:
-            return cached[1]
+            return cached[1] + ext
         grid = batch_cell_grid(batch.xyz, batch.node_mask, self.cfg.cutoff)
         self._grid_cache[batch] = (fp, grid)
-        return grid
+        return grid + ext
 
     def _neighbors(self, batch: MolBatch, k: int):
         """The batch's (idx, nbr_mask, d2) tables on the device when
-        ``reuse_neighbors`` is on, built once per geometry (top-k, as in the
-        JAX package) and guarded by the geometry fingerprint; else None."""
+        ``reuse_neighbors`` is on, built once per geometry and guarded by
+        the geometry fingerprint; else None.  Top-k builds them, as in the
+        JAX package, but for a chunked batch, where the row-chunked cell
+        builder does (top-k's row blocks score N columns each)."""
         if not self.reuse_neighbors:
             return None
         fp = self._geom_fingerprint(batch)
         cached = self._nbr_cache.get(batch)
         if cached is not None and cached[0] == fp:
             return cached[1]
-        nbrs = build_neighbors_batch(self._tensor(batch.xyz),
-                                     self._tensor(batch.node_mask),
-                                     float(self.cfg.cutoff), int(k))
+        xyz, mask = self._tensor(batch.xyz), self._tensor(batch.node_mask)
+        grid = self._neighbor_grid(batch)
+        if grid is not None and len(grid) > 3 and grid[3]:
+            outs = [build_neighbors_cell(xyz[b], mask[b],
+                                         float(self.cfg.cutoff), int(k),
+                                         grid[0], grid[1], with_d2=True,
+                                         row_chunk=grid[3])
+                    for b in range(batch.batch_size)]
+            nbrs = tuple(torch.stack(parts) for parts in zip(*outs))
+        else:
+            nbrs = build_neighbors_batch(xyz, mask, float(self.cfg.cutoff),
+                                         int(k))
         self._nbr_cache[batch] = (fp, nbrs)
         return nbrs
 
@@ -296,10 +354,12 @@ class Predictor:
         mask_t = self._tensor(batch.node_mask)
         if (self.neighbor_method != "topk"
                 and batch.padded_atoms >= CELL_GRID_MIN_ATOMS):
-            grid = batch_cell_grid(batch.xyz, batch.node_mask, cutoff_sel)
+            chunk = self._near_chunk(batch)
+            grid = (*batch_cell_grid(batch.xyz, batch.node_mask, cutoff_sel),
+                    "slices", chunk)
             k = _safe_k(self._cell_count(batch, cutoff_sel, grid), batch)
             outs = [build_neighbors_cell(xyz_t[b], mask_t[b], cutoff_sel, k,
-                                         *grid)
+                                         grid[0], grid[1], row_chunk=chunk)
                     for b in range(batch.batch_size)]
             idx, nbr_mask = (torch.stack(parts) for parts in zip(*outs))
         else:
@@ -319,10 +379,16 @@ class Predictor:
         behind the coordinate CRC; in skin mode the permutation stands
         while no atom has moved more than skin/2 from the geometry it was
         made on, and the twin's coordinates are refreshed in place (its
-        own CRC-guarded caches see the change)."""
-        if self.spatial_sort == "off" or (
-                self.spatial_sort == "auto"
-                and batch.padded_atoms < CELL_SORT_MIN_ATOMS):
+        own CRC-guarded caches see the change).  ``'auto'`` sorts from
+        :data:`CELL_SORT_MIN_ATOMS` padded atoms, and any batch that runs
+        chunked from :data:`HUGE_GRAPH_MIN_ATOMS` (its windows need the
+        order)."""
+        if self.spatial_sort == "off":
+            return None
+        if self.spatial_sort == "auto" and not (
+                (batch.padded_atoms >= HUGE_GRAPH_MIN_ATOMS
+                 and self._effective_chunk(batch))
+                or batch.padded_atoms >= CELL_SORT_MIN_ATOMS):
             return None
         xyz = np.asarray(batch.xyz)
         mask = np.asarray(batch.node_mask)
@@ -341,18 +407,22 @@ class Predictor:
                     state[0] = fp
                     return batch2, inv
         # the permutation: the z-major cell key of the valid atoms, the
-        # padding rows stable at the end
+        # padding rows stable at the end; per graph, its sorted keys and
+        # their span bound the window of a cold call
         b, n = xyz.shape[:2]
         perm = np.empty((b, n), np.int64)
+        winfo = []
         for bi in range(b):
             valid = mask[bi] > 0
             if not valid.any():
                 perm[bi] = np.arange(n)
+                winfo.append((np.zeros((0,), np.int64), 1))
                 continue
-            key, _ = cell_sort_key(xyz[bi][valid], self.cfg.cutoff)
+            key, span = cell_sort_key(xyz[bi][valid], self.cfg.cutoff)
             full = np.full((n,), np.iinfo(np.int64).max, np.int64)
             full[valid] = key
             perm[bi] = np.argsort(full, kind="stable")
+            winfo.append((np.sort(key), span))
         inv = np.argsort(perm, axis=1, kind="stable")
 
         def take(a):
@@ -365,7 +435,78 @@ class Predictor:
             batch, x=take(batch.x), xyz=take(batch.xyz), q0=take(batch.q0),
             y=take(batch.y), node_mask=take(batch.node_mask))
         self._sort_cache[batch] = [fp, perm, inv, batch2, xyz.copy()]
+        self._geom_keys[batch2] = winfo
         return batch2, inv
+
+    @staticmethod
+    def _keys_window_width(winfo, ranges, chunk: int) -> int:
+        """A cold call's window bound from the sorted cell keys: a pair
+        within the cutoff is ±1 cell an axis apart, so its keys differ by
+        at most the span, and the rows a chunk can reach lie within its
+        keys ± span.  ``winfo``: per graph (sorted valid keys, span);
+        ``ranges``: the row ranges whose chunks restart at their start
+        (one, (0, n), on one device).  Valid rows sort first."""
+        w = 1
+        for keys, span in winfo:
+            nv = keys.shape[0]
+            for r0, r1 in ranges:
+                for s in range(r0, min(r1, nv), chunk):
+                    e = min(s + chunk, r1, nv) - 1
+                    lo = np.searchsorted(keys, keys[s] - span, "left")
+                    hi = np.searchsorted(keys, keys[e] + span, "right")
+                    w = max(w, int(hi - lo))
+        return w
+
+    def _near_window_for(self, batch: MolBatch, nbrs, chunk: int,
+                         key) -> int:
+        """The ``near_window`` of a dispatch (see the field): the explicit
+        width, or the auto width from the tables in hand (``nbrs``, on
+        the device: one reduction and one scalar read) or, on a cold call
+        of a sorted twin, from its cell keys; 0 where it would not be
+        narrower than the batch.  Cached per batch under ``key`` (the
+        tables' provenance) and the chunk."""
+        if self.near_window == 0 or not chunk:
+            return 0
+        if self.near_window > 0:
+            return self.near_window
+        if nbrs is None and self._geom_keys.get(batch) is None:
+            return 0  # a cold call on an unsorted batch: no width source
+        per_batch = self._winw_cache.setdefault(batch, {})
+        full_key = key + (chunk,)
+        w = per_batch.get(full_key)
+        if w is None:
+            # 4,096 rows at production sizes, finer on small graphs so the
+            # rounding cannot widen a compact window past N
+            n = batch.padded_atoms
+            align = max(8, min(4096, n // 8))
+            if nbrs is not None:
+                w = neighbor_window_width(nbrs[0], nbrs[1], chunk,
+                                          align=align)
+            else:
+                w = self._keys_window_width(self._geom_keys[batch],
+                                            [(0, n)], chunk)
+                w = min(-(-w // align) * align, n)
+            if w >= n:
+                w = 0  # no narrower than the batch: the same as off
+            per_batch.clear()  # one live table set a batch
+            per_batch[full_key] = w
+        return w
+
+    def _effective_chunk(self, batch: MolBatch) -> int:
+        """The row chunk a dispatch of ``batch`` uses (one device: the
+        :meth:`_near_chunk` policy)."""
+        return self._near_chunk(batch)
+
+    def _near_chunk(self, batch: MolBatch) -> int:
+        """The huge-N row chunk of ``batch`` (see ``near_row_chunk``): the
+        explicit setting, or from :data:`HUGE_GRAPH_MIN_ATOMS` padded atoms
+        the balanced chunk of :data:`HUGE_GRAPH_ROW_CHUNK` (as many chunks,
+        as little padding)."""
+        if self.near_row_chunk >= 0:
+            return self.near_row_chunk
+        if batch.padded_atoms < HUGE_GRAPH_MIN_ATOMS:
+            return 0
+        return balanced_row_chunk(batch.padded_atoms, HUGE_GRAPH_ROW_CHUNK)
 
     def _use_pallas(self) -> bool:
         """The twin of JAX's ``Predictor._use_pallas``
@@ -432,30 +573,49 @@ class Predictor:
         return tuple(self._tensor(a) for a in (
             batch.x, batch.q0, batch.xyz, batch.node_mask))
 
-    def _blocked_kw(self, batch: MolBatch) -> dict:
+    def _blocked_kw(self, batch: MolBatch, window: bool = True) -> dict:
         """The blocked forward's arguments for ``batch`` without the skin:
-        the cached k, reused tables, the cell grid and the collapse."""
+        the cached k, reused tables, the cell grid, the collapse, the row
+        chunk and (``window``) the near window."""
         k = self._neighbor_k(batch)
-        return dict(neighbor_k=k, use_pallas=self._use_pallas(),
-                    neighbors=self._neighbors(batch, k),
-                    neighbor_grid=self._neighbor_grid(batch),
-                    uniform_q0=self._uniform_q0(batch))
+        nbrs = self._neighbors(batch, k)
+        chunk = self._near_chunk(batch)
+        kw = dict(neighbor_k=k, use_pallas=self._use_pallas(),
+                  neighbors=nbrs, neighbor_grid=self._neighbor_grid(batch),
+                  uniform_q0=self._uniform_q0(batch), near_row_chunk=chunk)
+        if window:
+            kw["near_window"] = self._near_window_for(
+                batch, nbrs, chunk, ("nbr", self._geom_fingerprint(batch)))
+        return kw
 
     def _predict_batch_inner(self, batch: MolBatch) -> np.ndarray:
         x, q0, xyz, mask = self._inputs(batch)
-        if self._mode(batch) == "dense":
+        mode = self._mode(batch)
+        if (mode == "blocked" and self.far_cluster == 0
+                and batch.padded_atoms >= 2 * HUGE_GRAPH_MIN_ATOMS):
+            warnings.warn(
+                f"exact far field at {batch.padded_atoms:,} padded atoms: "
+                "its O(N²) reduction over every pair beyond the cutoff "
+                "takes minutes a call at this scale; set far_cluster (the "
+                "clustered tier, bounded error) for huge graphs",
+                stacklevel=3)
+        if mode == "dense":
             e = rbf_edges(xyz, mask, e_dim=self.cfg.e_dim,
                           cutoff=self.cfg.cutoff, eta=self.cfg.eta)
             q = self._model(x, q0, e, mask)
         elif self.neighbor_skin > 0:
             # the 2-tuple: the forward takes d² from the current coordinates
             idx, nbr_mask = self._neighbors_skin(batch)
+            chunk = self._near_chunk(batch)
             q = forward_blocked(
                 self._fused, x, q0, xyz, mask, self.cfg,
                 neighbor_k=int(idx.shape[-1]), use_pallas=self._use_pallas(),
                 neighbors=(idx, nbr_mask),
                 uniform_q0=self._uniform_q0(batch),
-                far_cluster=self.far_cluster)
+                far_cluster=self.far_cluster, near_row_chunk=chunk,
+                near_window=self._near_window_for(
+                    batch, (idx, nbr_mask), chunk,
+                    ("skin", self.skin_rebuilds)))
         else:
             q = forward_blocked(self._fused, x, q0, xyz, mask, self.cfg,
                                 far_cluster=self.far_cluster,
@@ -478,7 +638,7 @@ class Predictor:
         if self.far_cluster <= 0:
             raise ValueError("far_field_diagnostics requires far_cluster>0")
         args = (self._fused, *self._inputs(batch), self.cfg)
-        kw = self._blocked_kw(batch)
+        kw = self._blocked_kw(batch, window=False)
         q_c, rad = forward_blocked(*args, far_cluster=self.far_cluster,
                                    far_diag=True, **kw)
         rad = rad.cpu().numpy()
@@ -507,7 +667,7 @@ class Predictor:
         the weights and the geometry: calibrate on a representative
         system."""
         args = (self._fused, *self._inputs(batch), self.cfg)
-        kw = self._blocked_kw(batch)
+        kw = self._blocked_kw(batch, window=False)
         q_e = forward_blocked(*args, **kw)
         errors: dict = {}
         selected = None
@@ -536,8 +696,10 @@ class Predictor:
         is C¹ with value 0 at the cutoff, so the pull is continuous as
         pairs cross it; the hard pass gate is piecewise constant and adds
         nothing.  The far field's backward is its CUDA kernel, the near
-        kernels' backward a recompute through their plain versions.
-        Padding rows get exactly zero."""
+        kernels' backward a recompute through their plain versions.  A
+        chunked batch (:meth:`_near_chunk`) runs the forward in its chunks
+        and window under ``remat``, so the backward too holds one chunk's
+        activations at a time.  Padding rows get exactly zero."""
         cot = torch.as_tensor(np.asarray(cotangent, np.float32))
         if tuple(cot.shape) != tuple(np.shape(batch.q0)):
             raise ValueError(
@@ -546,6 +708,7 @@ class Predictor:
         x, q0, xyz, mask = self._inputs(batch)
         k = self._neighbor_k(batch)
         grid = self._neighbor_grid(batch)
+        chunk = self._near_chunk(batch)
         with torch.no_grad():
             if grid is None:
                 tables = [build_neighbors(xyz[b], mask[b],
@@ -554,15 +717,19 @@ class Predictor:
             else:
                 tables = [build_neighbors_cell(xyz[b], mask[b],
                                                float(self.cfg.cutoff), k,
-                                               *grid)
+                                               grid[0], grid[1],
+                                               row_chunk=chunk)
                           for b in range(batch.batch_size)]
         nbrs = tuple(torch.stack(parts) for parts in zip(*tables))
+        win = self._near_window_for(batch, nbrs, chunk,
+                                    ("vjp", self._geom_fingerprint(batch)))
         xyz = xyz.requires_grad_(True)
         with torch.enable_grad():
             q = forward_blocked(
                 self._fused, x, q0, xyz, mask, self.cfg, neighbor_k=k,
-                use_pallas=self._use_pallas(), neighbors=nbrs,
-                uniform_q0=self._uniform_q0(batch))
+                use_pallas=self._use_pallas(), remat=chunk > 0,
+                neighbors=nbrs, uniform_q0=self._uniform_q0(batch),
+                near_row_chunk=chunk, near_window=win)
             (pull,) = torch.autograd.grad(q, xyz, cot.to(self.device))
         return pull.cpu().numpy()
 

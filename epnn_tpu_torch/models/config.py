@@ -66,6 +66,12 @@ class EPNNConfig:
         return dataclasses.replace(self, **kw)
 
 
+def reference_compat(cfg: EPNNConfig) -> EPNNConfig:
+    """``cfg`` with the reference's quirk switches on: unmasked message
+    sums (``mask_messages=False``)."""
+    return cfg.replace(mask_messages=False)
+
+
 #: Presets matching the three reference checkpoints; ``*_clean`` variants
 #: use pairwise-masked messages.
 PRESETS = {

@@ -143,6 +143,12 @@ def tree_leaves(tree: dict) -> list:
         tree_leaves(tree[k]) if isinstance(tree[k], dict) else [tree[k]])]
 
 
+def count_params(params) -> int:
+    """The number of scalars in a parameter tree (a nested dict of
+    tensors or arrays, with or without the ``"params"`` level)."""
+    return sum(math.prod(leaf.shape) for leaf in tree_leaves(params))
+
+
 @functools.lru_cache(maxsize=8)
 def _skeleton(cfg: EPNNConfig) -> EPNN:
     """An EPNN whose own weights are never read: :func:`dense_apply`

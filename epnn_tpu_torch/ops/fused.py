@@ -31,6 +31,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from epnn_tpu_torch.featurize import (
     envelope_rbf,
@@ -364,6 +365,71 @@ def batch_cell_grid(xyz, node_mask, cutoff: float) -> Tuple[int, int]:
     return -(-ncells // 512) * 512, -(-cap // 4) * 4
 
 
+def balanced_row_chunk(n: int, max_chunk: int, align: int = 256) -> int:
+    """A near-row chunk of at most ``max_chunk`` rows for width ``n``
+    with as little padding as ``max_chunk``'s chunk count allows: that
+    count of chunks, each ceil(n / count) rows rounded up to ``align``
+    (the JAX package's rule and integers).  ``n`` ≤ ``max_chunk``, or
+    ``max_chunk`` ≤ 0: ``max_chunk`` unchanged."""
+    if max_chunk <= 0 or n <= max_chunk:
+        return max_chunk
+    nch = -(-n // max_chunk)
+    return min(max_chunk, -(-(-(-n // nch)) // align) * align)
+
+
+def _window_width_device(idx: Tensor, nbr_mask: Tensor, row_chunk: int):
+    """:func:`neighbor_window_width`'s raw width on the device: the largest
+    (max valid index − min valid index + 1) over row chunks, chunks
+    restarting at row 0 of every leading batch entry; a 0-dim tensor."""
+    n, k = idx.shape[-2], idx.shape[-1]
+    nck = -(-n // row_chunk) * row_chunk
+    idx3 = idx.reshape(-1, n, k).to(torch.int64)
+    m3 = nbr_mask.reshape(-1, n, k) > 0
+    pad = (0, 0, 0, nck - n)
+    lo = torch.nn.functional.pad(torch.where(m3, idx3, n - 1), pad,
+                                 value=n - 1)
+    hi = torch.nn.functional.pad(torch.where(m3, idx3, 0), pad)
+    lo = lo.reshape(idx3.shape[0], nck // row_chunk, -1).amin(-1)
+    hi = hi.reshape(idx3.shape[0], nck // row_chunk, -1).amax(-1)
+    return ((hi - lo).amax() + 1).clamp(min=1)
+
+
+def neighbor_window_width(idx, nbr_mask, row_chunk: int, align: int = 4096,
+                          table_rows: Optional[int] = None) -> int:
+    """A safe ``near_window`` for the chunked forward: the largest spread
+    (max valid neighbor index − min valid + 1) of any chunk of
+    ``row_chunk`` rows, rounded up to ``align`` and capped at the table's
+    height (``table_rows``, default ``idx``'s rows).  Compact only when
+    the atoms are spatially ordered (cell-sorted); a random order gives
+    about N, which the forward treats as no window.  Chunks restart at
+    row 0 of every leading batch entry, as the forward runs graph by
+    graph.  NumPy tables are scanned on the host, chunk by chunk; tensors
+    are reduced on their device with one scalar read back.  0 when
+    ``row_chunk`` ≤ 0."""
+    if row_chunk <= 0:
+        return 0
+    n_tbl = int(table_rows) if table_rows is not None else int(
+        idx.shape[-2])
+    if isinstance(idx, torch.Tensor) or isinstance(nbr_mask, torch.Tensor):
+        w = int(_window_width_device(torch.as_tensor(idx),
+                                     torch.as_tensor(nbr_mask), row_chunk))
+        return min(-(-max(w, 1) // align) * align, n_tbl)
+    idx = np.asarray(idx)
+    m = np.asarray(nbr_mask) > 0
+    n = int(idx.shape[-2])
+    idx3 = idx.reshape(-1, n, idx.shape[-1])
+    m3 = m.reshape(-1, n, m.shape[-1])
+    width = 1
+    for b in range(idx3.shape[0]):
+        for s in range(0, n, row_chunk):
+            mc = m3[b, s:s + row_chunk]
+            if not mc.any():
+                continue
+            ic = idx3[b, s:s + row_chunk][mc]
+            width = max(width, int(ic.max()) - int(ic.min()) + 1)
+    return min(-(-width // align) * align, n_tbl)
+
+
 def cell_sort_key(xyz: np.ndarray, cutoff: float):
     """Host-side cutoff-sided cell key of (n, 3) coordinates, x the
     slowest axis and z the fastest: the ordering of ``Predictor``'s
@@ -607,6 +673,60 @@ def _clustered_far_field(w: PairMLPWeights, pi: Tensor, pj: Tensor,
     return dense_message_rowsum(pi, cent, wts, *mids, **_padded(w)), rad
 
 
+def _run(remat: bool):
+    """How a round or a chunk body runs: under
+    ``torch.utils.checkpoint.checkpoint`` (``use_reentrant=False``; no
+    randomness to replay) when ``remat`` is asked for and autograd
+    records, so the backward recomputes the region instead of keeping
+    its activations; else as a plain call."""
+    if remat and torch.is_grad_enabled():
+        return lambda fn, *args: checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return lambda fn, *args: fn(*args)
+
+
+def _neighbor_tables(xyz: Tensor, node_mask: Tensor, cfg: EPNNConfig,
+                     k: int, neighbors, neighbor_grid):
+    """``(idx, nbr_mask, d2)``, each (N, k), of one graph: the given
+    3-tuple; a 2-tuple with d² from the current coordinates
+    (:func:`refresh_neighbor_d2`, once a call); else the cell-list
+    builder on ``neighbor_grid`` = ``(ncells_pad, cell_cap[,
+    table_layout[, row_chunk]])``, or top-k without one."""
+    if neighbors is None and neighbor_grid is not None:
+        ncells_pad, cell_cap, *rest = neighbor_grid
+        neighbors = build_neighbors_cell(
+            xyz, node_mask, cfg.cutoff, k, ncells_pad, cell_cap,
+            with_d2=True, table_layout=rest[0] if rest else "slices",
+            row_chunk=rest[1] if len(rest) > 1 else 0)
+    elif neighbors is None:
+        neighbors = build_neighbors(xyz, node_mask, cfg.cutoff, k,
+                                    with_d2=True)
+    if len(neighbors) == 3:
+        return neighbors
+    # d² from the current coordinates: symmetric bit for bit, as
+    # near_pass_rowsum's antisymmetry needs
+    idx, nbr_mask = neighbors
+    idx = idx.to(torch.int64)
+    return idx, nbr_mask, refresh_neighbor_d2(xyz[None], idx[None])[0]
+
+
+def _window_rows(idx: Tensor, mask: Tensor, n: int, nwin: int):
+    """A row block's gather rows (flat) and slot weights.  With a window
+    of ``nwin`` rows (0 < nwin < n) the block reads only table rows
+    [start, start + nwin), start its smallest valid neighbor index
+    clipped to [0, n − nwin], at window-relative indices; a slot whose
+    neighbor lies outside gets weight 0 (dropped, never read as another
+    row's value)."""
+    if not nwin or idx.numel() == 0:
+        return idx.reshape(-1), mask
+    idx = idx.to(torch.int64)
+    start = torch.where(mask > 0, idx, n - 1).amin().clamp(0, n - nwin)
+    rel = idx - start
+    inside = (rel >= 0) & (rel < nwin)
+    return ((start + rel.clamp(0, nwin - 1)).reshape(-1),
+            mask * inside.to(mask.dtype))
+
+
 def _forward_single_nbr(
     fused: FusedParams,
     x: Tensor,          # (N, n_elems)
@@ -618,10 +738,13 @@ def _forward_single_nbr(
     uniform_q0: bool = False,
     neighbors: Optional[Tuple[Tensor, ...]] = None,
     int8: bool = False,
-    neighbor_grid: Optional[Tuple[int, int]] = None,
+    neighbor_grid: Optional[Tuple] = None,
     far_cluster: int = 0,
     far_diag: bool = False,
     far_cluster_grad: bool = False,
+    remat: bool = False,
+    near_row_chunk: int = 0,
+    near_window: int = 0,
 ):
     """One graph through the neighbor-split forward.
 
@@ -643,11 +766,12 @@ def _forward_single_nbr(
     :func:`build_neighbors`, or ``(idx, nbr_mask)`` (as
     :func:`epnn_tpu_torch.ops.kernels.neighbor_compact` builds it, or a
     Verlet-skin table), whose d² is then taken from the current
-    coordinates (:func:`refresh_neighbor_d2`); skips the selection.
-    Without it, ``neighbor_grid`` — static ``(ncells_pad, cell_cap)``
-    from :func:`cell_grid_params` — selects through the cell-list builder
-    (:func:`build_neighbors_cell`), and otherwise top-k over −d² does
-    (:func:`build_neighbors`); both give the same set.
+    coordinates (:func:`refresh_neighbor_d2`, once a call); skips the
+    selection.  Without it, ``neighbor_grid`` — ``(ncells_pad, cell_cap[,
+    table_layout[, row_chunk]])`` from :func:`cell_grid_params` — selects
+    through the cell-list builder (:func:`build_neighbors_cell`, its
+    ``row_chunk`` bounding the build's memory), and otherwise top-k over
+    −d² does (:func:`build_neighbors`); both give the same set.
 
     ``far_cluster`` = C > 0: the clustered far-field tier, JAX's opt-in
     approximation.  Every message round that the round-1 collapse does not
@@ -659,32 +783,66 @@ def _forward_single_nbr(
     untouched.  ``far_cluster_grad``: the fit's differentiable mode (the
     training tier's exact VJP of the approximation).  ``far_diag``: return
     ``(q, radius)``, the largest intra-cluster radius over the rounds, the
-    measured factor of the error bound."""
+    measured factor of the error bound.
+
+    ``near_row_chunk`` > 0: the huge-N memory mode.  Only the (N, k)
+    tables (idx, mask, d²) stay resident; each round runs its near
+    correction or pass sums in blocks of that many rows, rebuilding the
+    block's RBF and gate from its d² rows, gathering the block's pj (or
+    [pi | pj]) rows and launching the near kernel on the block.  The
+    kernels sum each row over its own slots in a fixed order, so the
+    charges are those of the full-width forward, and each pair of a pass
+    round stays an exact negation.  The far field is O(N) in memory
+    already and runs full width.  ``near_window`` (0 < W < N, with
+    chunks): each block gathers through a window of W table rows
+    (:func:`_window_rows`); it is the full-width result when every
+    block's neighbor spread fits (:func:`neighbor_window_width`), and
+    drops the pairs outside otherwise.  ``remat``: each round, and each
+    block under chunking, runs under ``torch.utils.checkpoint`` (the
+    backward recomputes it; the near kernels' plain backward then holds
+    one block's activations at a time)."""
     if far_diag and far_cluster <= 0:
         raise ValueError("far_diag requires far_cluster > 0")
     n = x.shape[0]
-    if neighbors is None and neighbor_grid is not None:
-        ncells_pad, cell_cap = neighbor_grid
-        neighbors = build_neighbors_cell(xyz, node_mask, cfg.cutoff, k,
-                                         ncells_pad, cell_cap, with_d2=True)
-    elif neighbors is None:
-        neighbors = build_neighbors(xyz, node_mask, cfg.cutoff, k,
-                                    with_d2=True)
-    if len(neighbors) == 3:
-        idx, nbr_mask, d2_nbr = neighbors
-    else:
-        # d² from the current coordinates: symmetric bit for bit, as
-        # near_pass_rowsum's antisymmetry needs
-        idx, nbr_mask = neighbors
-        idx = idx.to(torch.int64)
-        d2_nbr = refresh_neighbor_d2(xyz[None], idx[None])[0]
-    nbr_mask = nbr_mask.to(x.dtype)
-    k_eff = idx.shape[1]
-    rbf_nbr, gate_nbr = rbf_and_gate(d2_nbr, nbr_mask, cfg)
-    idx_flat = idx.reshape(-1)
-    rbf_flat = rbf_nbr.reshape(n * k_eff, -1).contiguous()
-    gh_pass = (0.5 * (gate_nbr * nbr_mask)).contiguous()
-    nbr_mask = nbr_mask.contiguous()
+    idx, nbr_mask, d2_nbr = _neighbor_tables(xyz, node_mask, cfg, k,
+                                             neighbors, neighbor_grid)
+    nbr_mask = nbr_mask.to(x.dtype).contiguous()
+    chunks = ([slice(s, min(s + near_row_chunk, n))
+               for s in range(0, n, near_row_chunk)]
+              if near_row_chunk > 0 else [slice(0, n)])
+    nwin = near_window if near_row_chunk > 0 and 0 < near_window < n else 0
+    gathers = [_window_rows(idx[sl], nbr_mask[sl], n, nwin) for sl in chunks]
+
+    def features(i: int):
+        """(rbf (c·k, E), gh (c, k)) of row block i: RBF from the block's
+        d² rows, gh = 0.5 · gate · slot weight."""
+        sl = chunks[i]
+        rbf, gate = rbf_and_gate(d2_nbr[sl], nbr_mask[sl], cfg)
+        return (rbf.reshape(-1, rbf.shape[-1]).contiguous(),
+                (0.5 * (gate * gathers[i][1])).contiguous())
+
+    # full width: the features once a call; chunked: once a block a round
+    resident = [features(0)] if near_row_chunk <= 0 else None
+    run, run_block = _run(remat), _run(remat and near_row_chunk > 0)
+
+    def near_blocks(body, *args):
+        outs = [run_block(body, i, *args) for i in range(len(chunks))]
+        return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+    def near_message(i, pi, pj, w):
+        rbf, _ = resident[0] if resident else features(i)
+        gidx, wgt = gathers[i]
+        args = (pi[chunks[i]], torch.index_select(pj, 0, gidx), rbf, wgt,
+                w.w1_e, *_flat(w.mids))
+        return (near_message_corr(*args, **_padded(w)) if kernels_apply(w)
+                else near_message_corr_plain(*args))
+
+    def near_pass(i, rs, w):
+        rbf, gh = resident[0] if resident else features(i)
+        args = (rs[chunks[i]], torch.index_select(rs, 0, gathers[i][0]),
+                rbf, gh, w.w1_e, *_flat(w.mids))
+        return (near_pass_rowsum(*args, **_padded(w)) if kernels_apply(w)
+                else near_pass_rowsum_plain(*args))
 
     # Σ_j pair_mask_ij = mask_i · Σ_j mask_j, without the (N, N) plane
     if cfg.mask_messages:
@@ -694,13 +852,11 @@ def _forward_single_nbr(
         msg_count = torch.full((n,), float(n), dtype=x.dtype, device=x.device)
         jvec = torch.ones(n, dtype=x.dtype, device=x.device)
 
-    h = x.new_zeros((n, cfg.h_dim))
-    q = q0
     nm = node_mask[:, None]
     fit_kw = far_cluster_fit_kw() if far_cluster > 0 else {}
-    rad = x.new_zeros(())
 
-    for t, w in enumerate(fused.messages):
+    def message_round(t, h, q, rad):
+        w = fused.messages[t]
         kern = kernels_apply(w)
         mids = _flat(w.mids)
         a = _atom_inputs(x, h, q)
@@ -737,24 +893,26 @@ def _forward_single_nbr(
         else:
             dense_sum = dense_message_rowsum(pi, pj, jvec, *mids,
                                              **_padded(w))
-        near_args = (pi, torch.index_select(pj, 0, idx_flat), rbf_flat,
-                     nbr_mask, w.w1_e, *mids)
-        near_corr = (near_message_corr(*near_args, **_padded(w)) if kern
-                     else near_message_corr_plain(*near_args))
-        hsum = dense_sum + near_corr
+        hsum = dense_sum + near_blocks(near_message, pi, pj, w)
         messages = hsum @ w.w_out + msg_count[:, None] * w.b_out
         upd_in = torch.cat([h, messages], dim=-1) * nm
-        h = _apply_mlp(fused.update, upd_in) * nm
+        return _apply_mlp(fused.update, upd_in) * nm, rad
 
     # electron passing: gathered pairs only (the gate is zero off the near set)
-    for w in fused.passes:
+    def pass_round(t, h, q):
+        w = fused.passes[t]
         a = _atom_inputs(x, h, q)
         rs = torch.cat([a @ w.w1_i + w.b1, a @ w.w1_j], dim=-1)
-        pass_args = (rs, torch.index_select(rs, 0, idx_flat), rbf_flat,
-                     gh_pass, w.w1_e, *_flat(w.mids))
-        dsum = (near_pass_rowsum(*pass_args, **_padded(w))
-                if kernels_apply(w) else near_pass_rowsum_plain(*pass_args))
-        q = q + (dsum @ w.w_out)[:, 0]
+        dsum = near_blocks(near_pass, rs, w)
+        return q + (dsum @ w.w_out)[:, 0]
+
+    h = x.new_zeros((n, cfg.h_dim))
+    q = q0
+    rad = x.new_zeros(())
+    for t in range(len(fused.messages)):
+        h, rad = run(message_round, t, h, q, rad)
+    for t in range(len(fused.passes)):
+        q = run(pass_round, t, h, q)
     if far_diag:
         return q * node_mask, rad
     return q * node_mask
@@ -768,14 +926,16 @@ def _forward_single(
     node_mask: Tensor,  # (N,)
     cfg: EPNNConfig,
     block: int = 128,
+    remat: bool = False,
 ) -> Tensor:
     """One graph through the dense blocked forward in plain PyTorch (the
     JAX package runs this path in XLA): rows in blocks of ``block`` against
     all atoms, so peak memory is O(block·N·E).  Any MLP depth;
     differentiable through autograd.  Messages weight pairs by the pair
     mask with its diagonal kept (``mask_messages``) or count all N
-    columns; the RBF clears self pairs.  On the card it is the plain
-    reference of the fused dense path."""
+    columns; the RBF clears self pairs.  ``remat``: each round runs under
+    ``torch.utils.checkpoint``.  On the card it is the plain reference of
+    the fused dense path."""
     n = x.shape[0]
     cols = torch.arange(n, device=x.device)
     if cfg.mask_messages:
@@ -796,10 +956,9 @@ def _forward_single(
                                      valid, cfg)
             yield sl, pairm, valid, rbf, gate
 
-    h = x.new_zeros((n, cfg.h_dim))
-    q = q0
     nm = node_mask[:, None]
-    for w in fused.messages:
+
+    def message_round(w, h, q):
         a = _atom_inputs(x, h, q)
         pi, pj = a @ w.w1_i, a @ w.w1_j
         sums = []
@@ -812,10 +971,10 @@ def _forward_single(
             sums.append(torch.sum(hid, dim=1))
         messages = torch.cat(sums) @ w.w_out + msg_count[:, None] * w.b_out
         upd_in = torch.cat([h, messages], dim=-1) * nm
-        h = _apply_mlp(fused.update, upd_in) * nm
+        return _apply_mlp(fused.update, upd_in) * nm
 
     # b_out cancels in f_ij − f_ji: the transfer is a W_out contraction
-    for w in fused.passes:
+    def pass_round(w, h, q):
         a = _atom_inputs(x, h, q)
         pi, pj = a @ w.w1_i, a @ w.w1_j
         sums = []
@@ -828,7 +987,15 @@ def _forward_single(
             hid_n, hid_t = _mids(hid_n, w), _mids(hid_t, w)
             weight = (valid * gate)[:, :, None]
             sums.append(torch.sum(0.5 * weight * (hid_n - hid_t), dim=1))
-        q = q + (torch.cat(sums) @ w.w_out)[:, 0]
+        return q + (torch.cat(sums) @ w.w_out)[:, 0]
+
+    run = _run(remat)
+    h = x.new_zeros((n, cfg.h_dim))
+    q = q0
+    for w in fused.messages:
+        h = run(message_round, w, h, q)
+    for w in fused.passes:
+        q = run(pass_round, w, h, q)
     return q * node_mask
 
 
@@ -839,12 +1006,15 @@ def _forward_single_pallas(
     xyz: Tensor,        # (N, 3)
     node_mask: Tensor,  # (N,)
     cfg: EPNNConfig,
+    remat: bool = False,
 ) -> Tensor:
     """One graph through the fully fused dense forward: each round is one
     kernel over the whole pair grid — :func:`fused_message_rowsum` for the
     message rounds, :func:`fused_epn_rowsum` for the pass rounds — with the
     RBF, gate, pair MLP and (for passing) both orderings built in the tile;
-    only (N, ·) tensors leave it.  Inference-only, as in the JAX package.
+    only (N, ·) tensors leave it.  Inference-only, as in the JAX package
+    (``remat`` checkpoints each round, as JAX's does, and changes nothing
+    here: the kernels record no graph).
     No padding: the kernels mask their own edges, and ``col_vec`` is ones
     on the caller's width, so ``mask_messages=False`` counts exactly its
     columns."""
@@ -858,10 +1028,10 @@ def _forward_single_pallas(
         msg_count = torch.full((n,), float(n), dtype=x.dtype, device=x.device)
     pair_kw = dict(cutoff=cfg.cutoff, eta=cfg.eta, tol=cfg.is_near_tol)
 
-    h = x.new_zeros((n, cfg.h_dim))
-    q = q0
     nm = node_mask[:, None]
-    for w in fused.messages:
+    soft = cfg.pass_weighting == "soft_envelope"
+
+    def message_round(w, h, q):
         (w2, b2), = w.mids
         a = _atom_inputs(x, h, q)
         pi = (a @ w.w1_i + w.b1).contiguous()   # b1 folded once per atom
@@ -871,17 +1041,24 @@ def _forward_single_pallas(
                                     **_padded(w), **pair_kw)
         messages = hsum @ w.w_out + msg_count[:, None] * w.b_out
         upd_in = torch.cat([h, messages], dim=-1) * nm
-        h = _apply_mlp(fused.update, upd_in) * nm
+        return _apply_mlp(fused.update, upd_in) * nm
 
-    soft = cfg.pass_weighting == "soft_envelope"
-    for w in fused.passes:
+    def pass_round(w, h, q):
         (w2, b2), = w.mids
         a = _atom_inputs(x, h, q)
         pi = (a @ w.w1_i + w.b1).contiguous()
         pj = (a @ w.w1_j).contiguous()
         dsum = fused_epn_rowsum(pi, pj, xyz, node_mask, w.w1_e, w2, b2,
                                 soft_gate=soft, **_padded(w), **pair_kw)
-        q = q + (dsum @ w.w_out)[:, 0]           # b_out cancels
+        return q + (dsum @ w.w_out)[:, 0]        # b_out cancels
+
+    run = _run(remat)
+    h = x.new_zeros((n, cfg.h_dim))
+    q = q0
+    for w in fused.messages:
+        h = run(message_round, w, h, q)
+    for w in fused.passes:
+        q = run(pass_round, w, h, q)
     return q * node_mask
 
 
@@ -895,16 +1072,20 @@ def forward_blocked(
     block: int = 128,
     neighbor_k: Optional[int] = None,
     use_pallas: bool = False,
+    pack_to: int = 1,
     remat: bool = False,
     neighbors: Optional[Tuple[Tensor, ...]] = None,
-    neighbor_grid: Optional[Tuple[int, int]] = None,
+    neighbor_grid: Optional[Tuple] = None,
     uniform_q0: bool = False,
     far_cluster: int = 0,
     far_diag: bool = False,
     far_cluster_grad: bool = False,
+    near_row_chunk: int = 0,
+    near_window: int = 0,
 ):
     """Batched blocked forward from raw coordinates: (B, N) charges.
     Graphs run one after another (a Python loop, not a batched kernel).
+    The parameters are JAX's, in JAX's order.
 
     With ``neighbor_k`` (≥ the true max neighbor count within the cutoff,
     :func:`max_neighbor_count`): the neighbor-split forward
@@ -912,9 +1093,10 @@ def forward_blocked(
     ``(idx, nbr_mask, d2)`` batch arrays (B, N, neighbor_k) from
     :func:`build_neighbors_batch`, or ``(idx, nbr_mask)`` (e.g. from
     :func:`epnn_tpu_torch.ops.kernels.neighbor_compact`), whose d² is
-    recomputed from the coordinates.  Without ``neighbors``, a static
+    recomputed from the coordinates.  Without ``neighbors``,
     ``neighbor_grid`` (``(ncells_pad, cell_cap)`` covering every graph,
-    :func:`cell_grid_params`) selects each graph's neighbors through the
+    :func:`cell_grid_params`, optionally with ``table_layout`` and the
+    builder's ``row_chunk``) selects each graph's neighbors through the
     cell-list builder, else top-k does.  ``uniform_q0`` — see
     :func:`_forward_single_nbr`.  The float32 kernels run on every CUDA
     tensor whose round :func:`kernels_apply` admits, whatever
@@ -933,6 +1115,17 @@ def forward_blocked(
     differentiable (training; forward values move by one more half Lloyd
     step).
 
+    ``near_row_chunk`` > 0 (requires ``neighbor_k``): the huge-N memory
+    mode, the near field in blocks of that many rows with the charges of
+    the full-width forward; ``near_window`` > 0 (requires
+    ``near_row_chunk``): each block gathers through a window of that many
+    table rows, the full-width result when the window covers every
+    block's neighbor spread (:func:`neighbor_window_width`; ≥ N is no
+    window), pairs outside it dropped otherwise (see
+    :func:`_forward_single_nbr`).  ``remat``: rounds (and chunk bodies)
+    under ``torch.utils.checkpoint`` when autograd records, trading a
+    recompute in the backward for activation memory.
+
     Without ``neighbor_k``: the dense blocked forwards.  ``use_pallas``
     with every round admitted by :func:`kernels_apply` selects the fully
     fused kernels (:func:`_forward_single_pallas`, inference-only);
@@ -940,14 +1133,11 @@ def forward_blocked(
     of ``block`` (any depth, differentiable).  Both ignore ``uniform_q0``
     and the int8 tier, as JAX's dense paths do.
 
-    ``remat`` is not ported.  Equivalent to ``EPNN(cfg)(x, q0,
-    rbf_edges(xyz, mask), mask)`` up to float32 association noise.  The
-    huge-N memory mode is a ROADMAP item."""
+    ``pack_to`` is JAX's lane-packing width of the v5e layout: accepted,
+    no effect on the math (as ``block`` on the neighbor split); the near
+    kernels stay on at any value.  Equivalent to ``EPNN(cfg)(x, q0,
+    rbf_edges(xyz, mask), mask)`` up to float32 association noise."""
     _check_precision(cfg)
-    if remat:
-        raise NotImplementedError(
-            "remat=True is not ported yet (ROADMAP 'Training, deferred "
-            "options' item 3)")
     if far_diag and far_cluster <= 0:
         raise ValueError("far_diag requires far_cluster > 0")
     if neighbors is not None and neighbor_k is None:
@@ -955,6 +1145,12 @@ def forward_blocked(
     if far_cluster > 0 and neighbor_k is None:
         raise ValueError("far_cluster requires neighbor_k (the clustered "
                          "far-field tier lives on the neighbor-split path)")
+    if near_row_chunk and neighbor_k is None:
+        raise ValueError("near_row_chunk requires neighbor_k (the huge-N "
+                         "memory mode lives on the neighbor-split path)")
+    if near_window and not near_row_chunk:
+        raise ValueError("near_window requires near_row_chunk (windowed "
+                         "gathers live on the chunked huge-N path)")
     int8 = use_pallas and cfg.dense_matmul_precision == "int8"
     outs = []
     for b in range(x.shape[0]):
@@ -965,12 +1161,13 @@ def forward_blocked(
                 *args, k=neighbor_k, uniform_q0=uniform_q0, neighbors=nb,
                 int8=int8, neighbor_grid=neighbor_grid,
                 far_cluster=far_cluster, far_diag=far_diag,
-                far_cluster_grad=far_cluster_grad))
+                far_cluster_grad=far_cluster_grad, remat=remat,
+                near_row_chunk=near_row_chunk, near_window=near_window))
         elif use_pallas and all(kernels_apply(w) for w in
                                 fused.messages + fused.passes):
-            outs.append(_forward_single_pallas(*args))
+            outs.append(_forward_single_pallas(*args, remat=remat))
         else:
-            outs.append(_forward_single(*args, block=block))
+            outs.append(_forward_single(*args, block=block, remat=remat))
     if far_diag:
         return (torch.stack([q for q, _ in outs]),
                 torch.stack([r for _, r in outs]))

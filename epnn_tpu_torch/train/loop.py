@@ -12,7 +12,10 @@ buckets through the neighbor-split blocked forward
 backward.  Both paths differentiate the same leaves, and checkpoints stay
 in the JAX layout.  ``TrainConfig(far_cluster=C)`` trains the fused
 buckets through the clustered far-field tier (eval steps and checkpoint
-selection stay exact, as in the JAX trainer).
+selection stay exact, as in the JAX trainer).  Buckets of
+``infer.HUGE_GRAPH_MIN_ATOMS`` padded atoms and more train in the huge-N
+memory mode (the near field in row chunks, every round and chunk
+rematerialized in the backward), as JAX's trainer does.
 
 ``train`` runs on the first CUDA card unless it is given ``device="cpu"``;
 without a card it raises.  Options of the JAX trainer that are not ported
@@ -39,13 +42,14 @@ from epnn_tpu_torch.data.dataset import (
     train_val_split,
     uniform_q0_contract,
 )
+from epnn_tpu_torch import infer as infer_mod
 from epnn_tpu_torch.data.xyz import Molecule
 from epnn_tpu_torch.device import resolve_device
 from epnn_tpu_torch.elements import table_for_n_elems
 from epnn_tpu_torch.featurize import rbf_edges
-from epnn_tpu_torch.infer import CELL_GRID_MIN_ATOMS
 from epnn_tpu_torch.io import checkpoint as ckpt_io
 from epnn_tpu_torch.models import (
+    EPNN,
     EPNNConfig,
     dense_apply,
     init_params,
@@ -53,6 +57,7 @@ from epnn_tpu_torch.models import (
     tree_leaves,
 )
 from epnn_tpu_torch.ops.fused import (
+    balanced_row_chunk,
     batch_cell_grid,
     build_neighbors_batch,
     build_neighbors_cell,
@@ -63,10 +68,6 @@ from epnn_tpu_torch.ops.fused import (
 from epnn_tpu_torch.train import metrics as M
 
 Tensor = torch.Tensor
-
-#: padded width from which the JAX trainer's auto policy chunks the near
-#: field (``TrainConfig.near_row_chunk=-1``); the chunked mode is not ported
-HUGE_GRAPH_MIN_ATOMS = 200_000
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,11 +83,19 @@ class TrainConfig:
       once, as the JAX trainer does: through the cell-list builder from
       ``CELL_GRID_MIN_ATOMS`` padded atoms, by top-k over −d² below;
     * ``lr_schedule='cosine'``, ``lr_plateau_factor``, ``ema_decay``,
-      ``grad_clip_norm``, ``grad_accum > 1``, ``remat``,
-      ``near_row_chunk > 0`` (and the auto chunking of buckets of 200,000
-      atoms and more), ``near_window``, ``tensorboard_dir`` and
+      ``grad_clip_norm``, ``grad_accum > 1``, ``tensorboard_dir`` and
       ``debug_nans`` raise ``NotImplementedError`` (ROADMAP queue 1,
       "Training, deferred options");
+    * ``remat`` checkpoints every round of the fused train step
+      (``torch.utils.checkpoint``); ``near_row_chunk`` is the huge-N
+      memory mode of fused buckets: ``-1`` (auto) chunks buckets of
+      ``infer.HUGE_GRAPH_MIN_ATOMS`` padded atoms and more at the
+      Predictor's balanced chunk and forces remat for them, ``0`` never
+      chunks, ``> 0`` chunks every fused bucket and requires ``remat``
+      (without it the backward keeps every chunk's activations);
+      ``near_window`` > 0 windows the chunked gathers (requires chunking;
+      spatially sorted atoms, width from
+      ``ops.fused.neighbor_window_width``);
     * ``far_cluster`` = C > 0 runs the train steps of fused buckets with
       their far field over C weighted k-means centroids a round, as JAX's
       (``epnn_tpu/train/loop.py:121-129``); ``far_cluster_grad`` (default
@@ -145,9 +154,6 @@ def check_supported(tc: TrainConfig) -> None:
         "ema_decay": tc.ema_decay is not None,
         "grad_clip_norm": tc.grad_clip_norm is not None,
         "grad_accum > 1": tc.grad_accum > 1,
-        "remat=True": tc.remat,
-        "near_row_chunk > 0": tc.near_row_chunk > 0,
-        "near_window": tc.near_window != 0,
         "tensorboard_dir": tc.tensorboard_dir is not None,
         "debug_nans": tc.debug_nans,
     }
@@ -191,6 +197,12 @@ def create_state(cfg: EPNNConfig, tc: TrainConfig, seed: int = 0,
     return TrainState(params=params, opt=make_optimizer(tc, params))
 
 
+def _model_cfg(model) -> EPNNConfig:
+    """The config of JAX's ``model`` argument: an :class:`EPNN` (its
+    ``cfg``) or the config itself."""
+    return model.cfg if isinstance(model, EPNN) else model
+
+
 def _loss_dense(params, cfg, loss_name, x, q0, xyz, node_mask, y, weight):
     e = rbf_edges(xyz, node_mask, e_dim=cfg.e_dim, cutoff=cfg.cutoff,
                   eta=cfg.eta)
@@ -198,80 +210,114 @@ def _loss_dense(params, cfg, loss_name, x, q0, xyz, node_mask, y, weight):
     return M.LOSSES[loss_name](pred, y, node_mask, weight), pred
 
 
-def _loss_fused(params, cfg, loss_name, neighbor_k, x, q0, xyz, node_mask,
-                y, weight, uniform_q0=False, neighbors=None, far_cluster=0,
-                far_cluster_grad=False):
-    """Loss through the blocked forward.  ``fuse_params`` only slices and
-    copies, so gradients reach the same tree the dense path trains.
-    ``far_cluster``/``far_cluster_grad``: the clustered far-field tier
-    (:func:`~epnn_tpu_torch.ops.fused.forward_blocked`).
-    Without ``use_pallas`` the far field stays unquantized under
-    ``dense_matmul_precision="int8"``, as in the JAX trainer, which takes
-    its far-field kernel only at ``"default"``
-    (``epnn_tpu/train/loop.py:646-652``)."""
+def _loss_fused(params, cfg, loss_name, block, neighbor_k, use_pallas, x,
+                q0, xyz, node_mask, y, weight, uniform_q0=False,
+                far_cluster=0, far_cluster_grad=False, remat=False,
+                neighbors=None, nbr_tables=None, nbr_rows=None,
+                near_row_chunk=0, near_window=0):
+    """Loss through the blocked forward, JAX's ``_loss_fn_fused``.
+    ``fuse_params`` only slices and copies, so gradients reach the same
+    tree the dense path trains.  ``nbr_tables``/``nbr_rows``: the bucket's
+    (B, N, k) tables and this minibatch's rows of them, in place of
+    ``neighbors``.  The rest as :func:`~epnn_tpu_torch.ops.fused.
+    forward_blocked` (``far_cluster``: the clustered far field;
+    ``near_row_chunk``/``near_window``/``remat``: the huge-N memory mode).
+    The trainer passes ``use_pallas=False``: under
+    ``dense_matmul_precision="int8"`` its far field stays unquantized, as
+    in the JAX trainer, which takes its far-field kernel only at
+    ``"default"`` (``epnn_tpu/train/loop.py:646-652``)."""
+    if nbr_tables is not None:
+        neighbors = tuple(t[nbr_rows] for t in nbr_tables)
     device = node_mask.device
     pred = forward_blocked(fuse_params(params, cfg, device), x, q0, xyz,
-                           node_mask, cfg, neighbor_k=neighbor_k,
-                           neighbors=neighbors, uniform_q0=uniform_q0,
-                           far_cluster=far_cluster,
-                           far_cluster_grad=far_cluster_grad)
+                           node_mask, cfg, block=block,
+                           neighbor_k=neighbor_k, use_pallas=use_pallas,
+                           remat=remat, neighbors=neighbors,
+                           uniform_q0=uniform_q0, far_cluster=far_cluster,
+                           far_cluster_grad=far_cluster_grad,
+                           near_row_chunk=near_row_chunk,
+                           near_window=near_window)
     return M.LOSSES[loss_name](pred, y, node_mask, weight), pred
 
 
-def _apply(state: TrainState, loss: Tensor) -> None:
-    """One Adam update.  A leaf the loss does not reach (the pass MLPs'
-    output bias cancels in f_ij − f_ji) gets a zero gradient, as under JAX,
-    so its moments decay and every leaf's step count stays the global
-    one."""
-    state.opt.zero_grad(set_to_none=True)
+def _apply(state: TrainState, loss: Tensor, opt=None) -> None:
+    """One optimizer update (``opt``, default the state's own Adam).  A
+    leaf the loss does not reach (the pass MLPs' output bias cancels in
+    f_ij − f_ji) gets a zero gradient, as under JAX, so its moments decay
+    and every leaf's step count stays the global one."""
+    opt = state.opt if opt is None else opt
+    opt.zero_grad(set_to_none=True)
     loss.backward()
     for p in tree_leaves(state.params):
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    state.opt.step()
+    opt.step()
     state.step += 1
 
 
-def train_step(state: TrainState, cfg: EPNNConfig, loss_name: str,
+def train_step(state: TrainState, model, loss_name: str, opt,
                x, q0, xyz, node_mask, y, weight):
-    """One dense update in place.  Returns ``(state, loss, pred, mets)``."""
-    loss, pred = _loss_dense(state.params, cfg, loss_name, x, q0, xyz,
-                             node_mask, y, weight)
-    _apply(state, loss)
+    """One dense update in place, with JAX's parameters in JAX's order.
+    ``model``: an :class:`EPNN` or its :class:`EPNNConfig`; ``opt``: a
+    ``torch.optim`` optimizer over the state's leaves, ``None`` for the
+    state's own Adam.  Returns ``(state, loss, pred, mets)``."""
+    loss, pred = _loss_dense(state.params, _model_cfg(model), loss_name, x,
+                             q0, xyz, node_mask, y, weight)
+    _apply(state, loss, opt)
     pred = pred.detach()
     return state, loss.detach(), pred, M.mae_sums(pred, y, node_mask, weight)
 
 
 @torch.no_grad()
-def eval_step(params: dict, cfg: EPNNConfig, loss_name: str,
+def eval_step(params: dict, model, loss_name: str,
               x, q0, xyz, node_mask, y, weight):
-    loss, pred = _loss_dense(params, cfg, loss_name, x, q0, xyz, node_mask,
-                             y, weight)
+    """Loss, charges and metric sums of the dense forward; ``model`` as in
+    :func:`train_step`."""
+    loss, pred = _loss_dense(params, _model_cfg(model), loss_name, x, q0,
+                             xyz, node_mask, y, weight)
     return loss, pred, M.mae_sums(pred, y, node_mask, weight)
 
 
 def train_step_fused(state: TrainState, cfg: EPNNConfig, loss_name: str,
-                     neighbor_k: int, x, q0, xyz, node_mask, y, weight,
-                     uniform_q0: bool = False, neighbors=None,
-                     far_cluster: int = 0, far_cluster_grad: bool = False):
-    """One update through the blocked forward in place (``neighbors``: the
-    minibatch's ``(idx, mask, d2)`` rows of the bucket tables;
-    ``far_cluster``: the clustered far field).  Returns ``(state, loss,
-    pred, mets)``."""
-    loss, pred = _loss_fused(state.params, cfg, loss_name, neighbor_k, x,
-                             q0, xyz, node_mask, y, weight, uniform_q0,
-                             neighbors, far_cluster, far_cluster_grad)
-    _apply(state, loss)
+                     opt, block: int, neighbor_k: int, x, q0, xyz,
+                     node_mask, y, weight, use_pallas: bool = False,
+                     uniform_q0: bool = False, far_cluster: int = 0,
+                     far_cluster_grad: bool = False, remat: bool = True,
+                     neighbors=None, nbr_tables=None, nbr_rows=None,
+                     near_row_chunk: int = 0, near_window: int = 0):
+    """One update through the blocked forward in place, with JAX's
+    parameters in JAX's order and defaults (:func:`_loss_fused`).
+    ``opt``: as in :func:`train_step`; ``block``: JAX's row block,
+    accepted as ``forward_blocked`` accepts it; ``neighbors``: the
+    minibatch's ``(idx, mask, d2)``, or ``nbr_tables`` and ``nbr_rows``;
+    ``far_cluster``: the clustered far field; ``near_row_chunk`` /
+    ``near_window`` / ``remat``: the huge-N memory mode.  Returns
+    ``(state, loss, pred, mets)``."""
+    loss, pred = _loss_fused(state.params, cfg, loss_name, block,
+                             neighbor_k, use_pallas, x, q0, xyz, node_mask,
+                             y, weight, uniform_q0, far_cluster,
+                             far_cluster_grad, remat, neighbors, nbr_tables,
+                             nbr_rows, near_row_chunk, near_window)
+    _apply(state, loss, opt)
     pred = pred.detach()
     return state, loss.detach(), pred, M.mae_sums(pred, y, node_mask, weight)
 
 
 @torch.no_grad()
 def eval_step_fused(params: dict, cfg: EPNNConfig, loss_name: str,
-                    neighbor_k: int, x, q0, xyz, node_mask, y, weight,
-                    uniform_q0: bool = False, neighbors=None):
-    loss, pred = _loss_fused(params, cfg, loss_name, neighbor_k, x, q0, xyz,
-                             node_mask, y, weight, uniform_q0, neighbors)
+                    block: int, neighbor_k: int, x, q0, xyz, node_mask, y,
+                    weight, use_pallas: bool = False,
+                    uniform_q0: bool = False, neighbors=None,
+                    nbr_tables=None, nbr_rows=None,
+                    near_row_chunk: int = 0, near_window: int = 0):
+    """Loss, charges and metric sums of the exact blocked forward, with
+    JAX's parameters in JAX's order."""
+    loss, pred = _loss_fused(params, cfg, loss_name, block, neighbor_k,
+                             use_pallas, x, q0, xyz, node_mask, y, weight,
+                             uniform_q0, neighbors=neighbors,
+                             nbr_tables=nbr_tables, nbr_rows=nbr_rows,
+                             near_row_chunk=near_row_chunk,
+                             near_window=near_window)
     return loss, pred, M.mae_sums(pred, y, node_mask, weight)
 
 
@@ -390,6 +436,15 @@ def train(
             "train(mesh=...) is not ported yet (ROADMAP queue 1: "
             "multi-device)")
     check_supported(tc)
+    if tc.near_window and tc.near_row_chunk == 0:
+        raise ValueError("TrainConfig.near_window requires near_row_chunk "
+                         "(windowed gathers exist on the chunked path)")
+    if tc.near_row_chunk > 0 and not tc.remat:
+        raise ValueError(
+            "TrainConfig.near_row_chunk requires remat=True: without the "
+            "round and chunk checkpoints the backward keeps every chunk's "
+            "activations at once, so the chunking saves no memory (the -1 "
+            "auto policy forces remat for the huge buckets it chunks)")
     device = resolve_device(device, "training")
 
     if val_mols is None:
@@ -412,11 +467,36 @@ def train(
     table = table_for_n_elems(cfg.n_elems)
     train_buckets = bucket_molecules(train_mols, table, tc.bucket_multiple)
     val_buckets = bucket_molecules(val_mols, table, tc.bucket_multiple)
-    if tc.near_row_chunk < 0 and any(
-            pad >= HUGE_GRAPH_MIN_ATOMS for pad in train_buckets):
-        raise NotImplementedError(
-            f"buckets of {HUGE_GRAPH_MIN_ATOMS} padded atoms and more train "
-            "in the chunked huge-N mode, which " + _DEFERRED)
+    huge = infer_mod.HUGE_GRAPH_MIN_ATOMS
+    if tc.near_row_chunk == 0 and any(pad >= huge for pad in train_buckets):
+        warnings.warn(
+            f"huge-N training bucket (>= {huge} padded atoms) with "
+            "TrainConfig.near_row_chunk=0 (explicitly off): the full-width "
+            "near field keeps every round's (N, k, H) activations for the "
+            "backward.  Use -1 (auto) or an explicit chunk (requires "
+            "remat=True) and, with spatially sorted atoms, near_window "
+            "(safe width from ops.fused.neighbor_window_width)",
+            stacklevel=2)
+
+    def bucket_chunk(pad: int) -> int:
+        """The row chunk of a fused bucket (``TrainConfig.near_row_chunk``;
+        -1: the Predictor's balanced chunk from ``HUGE_GRAPH_MIN_ATOMS``
+        padded atoms, 0 where it would not split the bucket)."""
+        if tc.near_row_chunk >= 0:
+            return tc.near_row_chunk
+        if pad < infer_mod.HUGE_GRAPH_MIN_ATOMS:
+            return 0
+        ch = balanced_row_chunk(pad, infer_mod.HUGE_GRAPH_ROW_CHUNK)
+        return ch if 0 < ch < pad else 0
+
+    if tc.near_window > 0 and not any(bucket_chunk(pad)
+                                      for pad in train_buckets):
+        warnings.warn(
+            "TrainConfig.near_window is set but no training bucket will "
+            f"chunk (auto chunking engages at {huge} padded atoms; widest "
+            f"bucket here: {max(train_buckets, default=0)}): the window "
+            "has no effect; set near_row_chunk to chunk smaller buckets",
+            stacklevel=2)
 
     init = ckpt_io.load_params(tc.init_from, cfg) if tc.init_from else None
     state = create_state(cfg, tc, tc.seed, device, params=init)
@@ -473,20 +553,21 @@ def train(
     def bucket_neighbors(bucket: MolBatch, k: int, rows):
         """The minibatch's rows of the bucket's (B, N, k) idx/mask/d²
         tables, built once on the device (geometries never move): through
-        the cell-list builder from ``CELL_GRID_MIN_ATOMS`` padded atoms,
-        else by top-k."""
+        the cell-list builder from ``CELL_GRID_MIN_ATOMS`` padded atoms (in
+        the bucket's row chunks), else by top-k."""
         if not tc.precompute_neighbors:
             return None
         key = id(bucket)
         if key not in nbr_tables:
             xyz, mask = tensor(bucket.xyz), tensor(bucket.node_mask)
-            if bucket.padded_atoms >= CELL_GRID_MIN_ATOMS:
+            if bucket.padded_atoms >= infer_mod.CELL_GRID_MIN_ATOMS:
                 grid = batch_cell_grid(bucket.xyz, bucket.node_mask,
                                        cfg.cutoff)
-                outs = [build_neighbors_cell(xyz[b], mask[b],
-                                             float(cfg.cutoff), int(k),
-                                             *grid, with_d2=True)
-                        for b in range(bucket.batch_size)]
+                outs = [build_neighbors_cell(
+                    xyz[b], mask[b], float(cfg.cutoff), int(k), *grid,
+                    with_d2=True,
+                    row_chunk=bucket_chunk(bucket.padded_atoms))
+                    for b in range(bucket.batch_size)]
                 nbr_tables[key] = tuple(torch.stack(parts)
                                         for parts in zip(*outs))
             else:
@@ -513,14 +594,19 @@ def train(
                                                     with_indices=True):
                     if k is None:
                         _, loss, _, mets = train_step(
-                            state, cfg, tc.loss, *put(mb, n_real))
+                            state, cfg, tc.loss, None, *put(mb, n_real))
                     else:
+                        nch = bucket_chunk(pad)
                         _, loss, _, mets = train_step_fused(
-                            state, cfg, tc.loss, k, *put(mb, n_real),
+                            state, cfg, tc.loss, None,
+                            min(tc.fused_block, pad), k, *put(mb, n_real),
                             uniform_q0=bucket_uq0(bucket),
-                            neighbors=bucket_neighbors(bucket, k, rows),
                             far_cluster=tc.far_cluster,
-                            far_cluster_grad=tc.far_cluster_grad)
+                            far_cluster_grad=tc.far_cluster_grad,
+                            remat=tc.remat or nch > 0,
+                            neighbors=bucket_neighbors(bucket, k, rows),
+                            near_row_chunk=nch,
+                            near_window=tc.near_window if nch else 0)
                     acc.update(loss, mets)
             run_eval = has_val and (tc.eval_every <= 1
                                     or (epoch + 1) % tc.eval_every == 0
@@ -534,10 +620,14 @@ def train(
                         loss, _, mets = eval_step(
                             state.params, cfg, tc.loss, *put(mb, n_real))
                     else:
+                        nch = bucket_chunk(pad)
                         loss, _, mets = eval_step_fused(
-                            state.params, cfg, tc.loss, k, *put(mb, n_real),
+                            state.params, cfg, tc.loss,
+                            min(tc.fused_block, pad), k, *put(mb, n_real),
                             uniform_q0=bucket_uq0(bucket),
-                            neighbors=bucket_neighbors(bucket, k, rows))
+                            neighbors=bucket_neighbors(bucket, k, rows),
+                            near_row_chunk=nch,
+                            near_window=tc.near_window if nch else 0)
                     vacc.update(loss, mets)
 
             row = {

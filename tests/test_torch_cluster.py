@@ -791,8 +791,8 @@ def _port_state(params, tc=None):
 
 
 def _port_loss(state, batch, diff):
-    return L._loss_fused(state.params, port_cfg(SMALL), "masked_mse", 12,
-                         *map(_t, batch), far_cluster=4,
+    return L._loss_fused(state.params, port_cfg(SMALL), "masked_mse", 8,
+                         12, False, *map(_t, batch), far_cluster=4,
                          far_cluster_grad=diff)[0]
 
 

@@ -330,9 +330,10 @@ def test_int8_trains_unquantized(rng):
     for c in (pcfg, pcfg.replace(dense_matmul_precision="")):
         state = L.create_state(c, TrainConfig(), device="cpu",
                                params=from_jax_params(params, c))
-        _, loss_f, _, _ = L.train_step_fused(state, c, "masked_mse", k,
-                                             *args, uniform_q0=True)
-        _, loss_d, _, _ = L.train_step(state, c, "masked_mse", *args)
+        _, loss_f, _, _ = L.train_step_fused(state, c, "masked_mse", None,
+                                             8, k, *args, uniform_q0=True,
+                                             remat=False)
+        _, loss_d, _, _ = L.train_step(state, c, "masked_mse", None, *args)
         runs.append((loss_f, loss_d, [p.detach() for p in
                                       tree_leaves(state.params)]))
     (lf8, ld8, p8), (lf, ld, p) = runs
@@ -340,7 +341,8 @@ def test_int8_trains_unquantized(rng):
     assert all(torch.equal(a, b) for a, b in zip(p8, p))
     with torch.no_grad():
         served, _ = L._loss_fused(from_jax_params(params, pcfg), pcfg,
-                                  "masked_mse", k, *args, uniform_q0=True)
+                                  "masked_mse", 8, k, False, *args,
+                                  uniform_q0=True)
         tier = fused.forward_blocked(
             fused.fuse_params(from_jax_params(params, pcfg), pcfg), *args[:4],
             pcfg, neighbor_k=k, use_pallas=True, uniform_q0=True)

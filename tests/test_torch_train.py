@@ -116,7 +116,7 @@ def test_first_fused_step_matches_jax(mixed, water_batch, use_pallas,
         uniform_q0=uniform_q0, remat=False)
     state = port_state(mixed)
     kernels.reset_launch_counts()
-    loss, _ = L._loss_fused(state.params, cfg, "masked_mse", k,
+    loss, _ = L._loss_fused(state.params, cfg, "masked_mse", 8, k, False,
                             *(_t(a) for a in args), uniform_q0=uniform_q0)
     loss.backward()
     assert sum(kernels.LAUNCHES.values()) == 0  # CPU: plain versions
@@ -154,11 +154,13 @@ def test_four_adam_steps_match_jax(mixed, water_batch, fused):
                 jstate, jcfg, "masked_mse", opt, 8, k, *args,
                 uniform_q0=True, remat=False)
             _, ploss, _, _ = L.train_step_fused(
-                state, cfg, "masked_mse", k, *targs, uniform_q0=True)
+                state, cfg, "masked_mse", None, 8, k, *targs,
+                uniform_q0=True, remat=False)
         else:
             jstate, loss, _, _ = jax_train_step(
                 jstate, JaxEPNN(jcfg), "masked_mse", opt, *args)
-            _, ploss, _, _ = L.train_step(state, cfg, "masked_mse", *targs)
+            _, ploss, _, _ = L.train_step(state, cfg, "masked_mse", None,
+                                          *targs)
         jl.append(float(loss))
         pl.append(float(ploss))
     assert state.step == 4
@@ -404,14 +406,33 @@ def test_train_without_a_card_raises():
 @pytest.mark.parametrize("kw", [
     dict(lr_schedule="cosine"), dict(lr_plateau_factor=0.5),
     dict(ema_decay=0.999), dict(grad_clip_norm=1.0), dict(grad_accum=2),
-    dict(remat=True), dict(near_row_chunk=64),
-    dict(near_window=128), dict(tensorboard_dir="tb"),
-    dict(debug_nans=True)])
+    dict(tensorboard_dir="tb"), dict(debug_nans=True)])
 def test_unported_options_raise(kw):
     port, _ = toy_mols(count=4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train(port, SMALL, TrainConfig(epochs=1, **kw), progress=False,
               device="cpu")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(remat=True), dict(near_row_chunk=8, remat=True),
+    dict(near_window=32, near_row_chunk=8, remat=True)])
+def test_huge_n_options_run(kw):
+    """``remat``, ``near_row_chunk`` and ``near_window`` (ported; they
+    raised before) train the fused buckets to the losses of the default
+    run: the chunked forward is the full-width one, remat recomputes the
+    same values (float32 summation order of the gradients aside), and a
+    window as wide as the bucket (these buckets pad to ≤ 24 atoms) drops
+    no pair.  Narrower windows: ``tests/test_torch_huge_n.py``."""
+    port, _ = toy_mols(count=6, lo=10, hi=20)
+    base = dict(epochs=2, batch_size=3, dense_max_atoms=8, seed=2)
+    ref = train(port, SMALL, TrainConfig(**base), progress=False,
+                device="cpu")
+    res = train(port, SMALL, TrainConfig(**base, **kw), progress=False,
+                device="cpu")
+    for got, want in zip(res.history, ref.history, strict=True):
+        np.testing.assert_allclose(got["train_loss"], want["train_loss"],
+                                   rtol=1e-5)
 
 
 def test_train_far_cluster_runs_and_loss_falls(monkeypatch):
