@@ -2,13 +2,16 @@
 """Smoke run of the PyTorch/CUDA port (``epnn_tpu_torch``) on one NVIDIA
 card: ``python3 chip_smoke.py`` from the repository root.
 
-1. Device: the card's name and power limit; TF32 is switched off for
-   PyTorch (the port's precision is float32-grade throughout: the far
-   field's and the near kernels use the tensor cores in 3xTF32).
+1. Device: the card's name and power limit; PyTorch's TF32 flags stay
+   off (the port never sets them: plain products are float32 at every
+   precision; the tensor-core kernels run 3xTF32 at "high"/"highest" and
+   one TF32 pass at "default").
 2. Build: the eight CUDA kernels from ``epnn_tpu_torch/csrc`` at the
    shipped widths (H 32, E 48) and at every width of :data:`WIDTH_CASES`,
-   one ``nvcc`` per library, all in parallel; each entry's registers and
-   spills, per instantiation.
+   and the six tensor-core kernels' one-pass tier at the shipped and the
+   timed width, one ``nvcc`` per library, all in parallel; each entry's
+   registers and spills, per instantiation and tier.  Every phase but
+   (k) and [train e] holds the kernels at precision "highest".
 3. Kernels: each kernel against its plain PyTorch version on the card, at
    the shapes of the 2,220-atom water box (the checkpoint's round weights,
    the box's own neighbor table), the same bits on a second launch, and
@@ -107,7 +110,21 @@ card: ``python3 chip_smoke.py`` from the repository root.
    (chunk forced, then the auto policy): chunked and windowed against
    full width bit for bit, raw |sum q - Q| beside JAX's, peak device
    memory, warm medians in turns, the cold set-up, the near kernels at
-   the chunk and full-width shapes.
+   the chunk and full-width shapes;
+   (k) the precision tiers: the six tensor-core kernels at precision
+   "default" (:func:`tier_kernels_phase`) on the inputs of the 3xTF32
+   checks (2,220 and 17,760 atoms) and at :data:`TIMED_WIDTH`, each
+   against its one-pass emulation (entry by entry within 1e-5·(max|ref|
+   + 1) plus the budget of the TF32 operand roundings that another
+   summation order of an epart can flip, :func:`flip_budget`; the
+   backward against the one-pass products in float64 with the tie
+   budget), the same bits twice, the pass kernels' probes, times beside
+   one-pass bounds, ptxas usage; then ``predict_batch`` in every tier of
+   :data:`PRECISION_TIERS` (:func:`tier_serving_phase`) on
+   ``mixed_b16`` at 2 × 2,220 and 17,760 atoms and on a random-weight
+   model at 2,224: the kernels and TF32 tier each launch asks for
+   (:data:`TIER_ROUTES`), charges within JAX's bf16 bar of highest's,
+   parity at the golden bar, conservation, medians in turns.
 5. Training: (a) the gradients of one fused train step on two 900-atom
    boxes, card against the port on the CPU, leaf by leaf; (b) ``train()``
    fine-tuning the checkpoint for a few epochs on the 2,220-atom boxes and
@@ -121,10 +138,13 @@ card: ``python3 chip_smoke.py`` from the repository root.
    remat step against full width on (a)'s boxes (the loss bit for bit,
    gradients within 1e-5 relative Frobenius), exact and clustered, and
    ``train(far_cluster=32)`` on a 213,120-atom bucket, which the auto
-   policy chunks with remat forced.
+   policy chunks with remat forced; (e) ``train()`` under ``fast``
+   (:func:`tier_train_phase`): the loss falls, every launch one-pass, the
+   far-field backward's launches against their one-pass emulation.
 6. Profile: ``torch.profiler`` over ``predict_batch`` (2 x 2,220 and
-   1 x 17,760 atoms, both tiers; the clustered call at 17,760 with its
-   k-means as a group), a Verlet-skin step at 17,760 atoms and
+   1 x 17,760 atoms, fp32 and int8, parity and fast; the clustered call
+   at 17,760 with its k-means as a group), a Verlet-skin step at 17,760
+   atoms and
    one fused train step (2 x 2,220):
    device-busy time against wall time, and the largest kernels.
 7. The kernels' JSON line, the card line, and last the result line.
@@ -133,6 +153,7 @@ Any failure raises and exits non-zero; without a CUDA card it exits 2
 before printing any result.  Imports nothing of JAX.
 """
 
+import functools
 import json
 import os
 import re
@@ -140,6 +161,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -349,6 +371,31 @@ def sm_clocks() -> str:
     return smi("clocks.sm,clocks.max.sm")
 
 
+#: the precision every phase but [slice k] holds the kernels at: their
+#: 3xTF32 tier, to their 3xTF32 emulations (the wrappers' own default is
+#: JAX's "default", the one-pass tier)
+HI = {"precision": "highest"}
+
+
+#: each tier's emulation of the tensor-core kernels (``<kernel><suffix>``)
+#: and its name in the output
+EMULATION = {"highest": "_3xtf32_plain", "default": "_tf32_plain"}
+TIER_TEXT = {"highest": "3xTF32", "default": "one TF32 pass"}
+#: the tiers' keys in the JSON line (max_abs_diff_<key>, flop_<key>)
+TIER_KEY = {"highest": "3xtf32", "default": "tf32"}
+
+
+def at(fn, precision):
+    """Kernel wrapper ``fn`` pinned to ``precision``."""
+    return functools.partial(fn, precision=precision)
+
+
+def plain_time(torch, fn, iters):
+    """:func:`device_ms` of a plain version, or None where ``iters`` is 0
+    (a tier's phase that the other tier's already timed)."""
+    return device_ms(torch, fn, iters) if iters else None
+
+
 def off_boundary(t):
     """t's values in a view 4 bytes past a 16-byte boundary."""
     return t.new_empty(t.numel() + 1)[1:].view(t.shape).copy_(t)
@@ -363,15 +410,15 @@ def bound(flop, sfu, nbytes, sfu_rate):
     return times[by] * 1e3, by
 
 
-def tc_bound(items, tc_flop, elem, nbytes):
+def tc_bound(items, tc_flop, elem, nbytes, passes=3):
     """(bound ms, what bounds it, fp32 bound ms) of a kernel whose
     ``items`` (live pairs or slots) each need ``tc_flop`` FLOP of products,
-    run on the tensor cores in 3xTF32 (three TF32 products each, at the
-    TF32 peak), and ``elem`` elementwise FLOP on the CUDA cores; its bytes
-    at the HBM rate: the bound is the largest of the three times.  The
-    fp32 bound puts every FLOP on the CUDA cores, as a kernel without the
-    tensor cores would."""
-    tc = items * 3 * tc_flop / PEAK_TF32_FLOPS
+    run on the tensor cores at ``passes`` TF32 products each (3: 3xTF32,
+    1: the one-pass tier), at the TF32 peak, and ``elem`` elementwise
+    FLOP on the CUDA cores; its bytes at the HBM rate: the bound is the
+    largest of the three times.  The fp32 bound puts every FLOP on the
+    CUDA cores, as a kernel without the tensor cores would."""
+    tc = items * passes * tc_flop / PEAK_TF32_FLOPS
     ops = max(tc, items * elem / PEAK_FP32_FLOPS)
     by = nbytes / PEAK_BYTES
     fp32 = items * (tc_flop + elem) / PEAK_FP32_FLOPS
@@ -379,14 +426,14 @@ def tc_bound(items, tc_flop, elem, nbytes):
             max(fp32, by) * 1e3)
 
 
-def fused_bound(tc_flop, elem, scan, sfu, nbytes, sfu_rate):
+def fused_bound(tc_flop, elem, scan, sfu, nbytes, sfu_rate, passes=3):
     """(bound ms, what bounds it, fp32 bound ms) of a fused dense kernel:
-    ``tc_flop`` FLOP of products on the tensor cores in 3xTF32 (three TF32
-    products each, at the TF32 peak), ``elem`` FLOP and ``scan``
-    instructions on the CUDA cores, ``sfu`` special-function ops, and its
-    bytes at the HBM rate; the bound is the largest.  The fp32 bound puts
-    the products on the CUDA cores too."""
-    tc = 3 * tc_flop / PEAK_TF32_FLOPS
+    ``tc_flop`` FLOP of products on the tensor cores at ``passes`` TF32
+    products each (3xTF32 or one pass, at the TF32 peak), ``elem`` FLOP
+    and ``scan`` instructions on the CUDA cores, ``sfu`` special-function
+    ops, and its bytes at the HBM rate; the bound is the largest.  The
+    fp32 bound puts the products on the CUDA cores too."""
+    tc = passes * tc_flop / PEAK_TF32_FLOPS
     cuda = elem / PEAK_FP32_FLOPS + scan / PEAK_INSTR
     sf = sfu / sfu_rate
     ops, by = max(tc, cuda, sf), nbytes / PEAK_BYTES
@@ -412,11 +459,13 @@ def entry_name(mangled):
                    if tail else "")
 
 
-def ptxas_usage(kernels, name, h=SHIPPED_WIDTHS[0], e=SHIPPED_WIDTHS[1]):
+def ptxas_usage(kernels, name, h=SHIPPED_WIDTHS[0], e=SHIPPED_WIDTHS[1],
+                precision="highest"):
     """Registers and spill bytes of each entry of a kernel's library at
-    widths (h, e), from its build log (``-Xptxas -v``)."""
+    widths (h, e) and the TF32 tier of ``precision``, from its build log
+    (``-Xptxas -v``)."""
     out, entry, spill = [], "?", (0, 0)
-    for ln in kernels.build_log(name, h, e).splitlines():
+    for ln in kernels.build_log(name, h, e, precision).splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             entry = entry_name(m.group(1))
@@ -431,41 +480,49 @@ def ptxas_usage(kernels, name, h=SHIPPED_WIDTHS[0], e=SHIPPED_WIDTHS[1]):
     return out
 
 
-def far_forward(torch, kernels, args):
-    """``dense_message_rowsum`` on ``args`` against its fp32 plain version
-    and its 3xTF32 emulation, each within 1e-5·(max|ref| + 1) (the forward
-    is continuous in z2, so the two may differ only by summation order);
-    the same bits on a second launch and with every input off the 16-byte
-    boundary.  Returns (max|Δ| vs plain, vs emulation, tol)."""
-    out = kernels.dense_message_rowsum(*args)
+def far_forward(torch, kernels, args, precision="highest"):
+    """``dense_message_rowsum`` at ``precision`` on ``args`` against its
+    fp32 plain version and its tier's emulation (:data:`EMULATION`), each
+    within 1e-5·(max|ref| + 1) (the forward is continuous in z2, so the
+    two may differ only by summation order) — at "default" the emulation
+    only, the fp32 gap being the tier's; the same bits on a second launch
+    and with every input off the 16-byte boundary.  Returns (max|Δ| vs
+    plain, vs emulation, tol)."""
+    wrapper = at(kernels.dense_message_rowsum, precision)
+    out = wrapper(*args)
     ref = kernels.dense_message_rowsum_plain(*args)
-    emu = kernels.dense_message_rowsum_3xtf32_plain(*args)
+    emu = getattr(kernels, "dense_message_rowsum"
+                  + EMULATION[precision])(*args)
     torch.cuda.synchronize()
     err = float((out - ref).abs().max())
     err_emu = float((out - emu).abs().max())
-    tol = 1e-5 * (float(ref.abs().max()) + 1.0)
-    require(np.isfinite(err) and err <= tol and err_emu <= tol,
-            ("dense_message_rowsum", tuple(args[0].shape),
+    tol = 1e-5 * (float((ref if precision == "highest" else emu).abs().max())
+                  + 1.0)
+    require(np.isfinite(err) and err_emu <= tol
+            and (precision != "highest" or err <= tol),
+            ("dense_message_rowsum", precision, tuple(args[0].shape),
              tuple(args[1].shape), err, err_emu, tol))
-    require(torch.equal(kernels.dense_message_rowsum(*args), out),
+    require(torch.equal(wrapper(*args), out),
             ("dense_message_rowsum", "not the same bits on a second launch"))
     off = [off_boundary(t) for t in args]
-    require(torch.equal(kernels.dense_message_rowsum(*off), out),
+    require(torch.equal(wrapper(*off), out),
             ("dense_message_rowsum", "inputs off the 16-byte boundary"))
     return err, err_emu, tol
 
 
-def tie_budget(torch, args):
+def tie_budget(torch, args, precision="highest"):
     """The most each of ``dense_message_rowsum_bwd``'s four outputs can move
     when every z2 within rounding of 0 flips relu's indicator: per entry, in
     float64, the sum of |Δe2| = |g_io · cv_j| over the (i, j, o) with
     |z2| ≤ 2^-16 · (|b2_o| + Σ_f relu(z1_f) |W2_fo|) (far above the 3xTF32
     and fp32 rounding of z2), carried through |W2ᵀ| and 1[z1 > 0] (dpi,
-    dpj) or relu(z1) (dW2).  For small R·N·H only."""
+    dpj) or relu(z1) (dW2).  At "default" z2 is the one-pass tier's (its
+    TF32 products in float64, :func:`mm_tf32_f64`), whose sign is what the
+    kernel and its reference may disagree on.  For small R·N·H only."""
     pi, pj, cv, w2, b2, g = (t.double() for t in args)
     z1 = pi[:, None, :] + pj[None, :, :]
     a1 = torch.relu(z1)
-    z2 = a1 @ w2 + b2
+    z2 = (a1 @ w2 if precision == "highest" else mm_tf32_f64(a1, w2)) + b2
     tie = z2.abs() <= 2.0 ** -16 * (b2.abs() + a1 @ w2.abs())
     de2 = torch.where(tie, (g[:, None, :] * cv[None, :, None]).abs(), 0.0)
     dz1 = (de2 @ w2.abs().T) * (z1 > 0)
@@ -474,19 +531,40 @@ def tie_budget(torch, args):
             de2.sum((0, 1))), int(tie.sum())
 
 
-def far_backward(torch, kernels, args, ties=False):
-    """``dense_message_rowsum_bwd`` on ``args``: each of its four outputs
-    against the float64 plain version (the bar below), and its distance to
-    the fp32 plain version and to the 3xTF32 emulation; the same bits on a
+def mm_tf32_f64(a, b, c=None):
+    """``c + a @ b`` of TF32-rounded operands in float64: the one-pass
+    tier's products without float32 summation (its float64 reference)."""
+    from epnn_tpu_torch.ops import kernels
+
+    out = (kernels.tf32_round(a.float()).double()
+           @ kernels.tf32_round(b.float()).double())
+    return out if c is None else c + out
+
+
+def far_backward(torch, kernels, args, ties=False, precision="highest"):
+    """``dense_message_rowsum_bwd`` at ``precision`` on ``args``: each of
+    its four outputs against the float64 reference of its tier (the bar
+    below): the float64 plain version, or at "default" the one-pass
+    products in float64 (:func:`mm_tf32_f64`); and its distance to the
+    fp32 plain version and to the tier's emulation; the same bits on a
     second launch and with every input off the 16-byte boundary.  With
     ``ties`` the bar also takes, entry by entry, :func:`tie_budget` (the
-    width phase).  Returns {part: (vs fp32, vs f64, fp32 plain vs f64, vs
+    width phase).  Returns {part: (vs fp32, vs f64, fp32 twin vs f64, vs
     emulation, tol)}."""
-    outs = kernels.dense_message_rowsum_bwd(*args)
-    refs = kernels.dense_message_rowsum_bwd_plain(*args)
-    emus = kernels.dense_message_rowsum_bwd_3xtf32_plain(*args)
-    exact = kernels.dense_message_rowsum_bwd_plain(*(t.double() for t in args))
-    budgets, n_ties = (tie_budget(torch, args) if ties
+    wrapper = at(kernels.dense_message_rowsum_bwd, precision)
+    outs = wrapper(*args)
+    emus = getattr(kernels, "dense_message_rowsum_bwd"
+                   + EMULATION[precision])(*args)
+    fp32s = kernels.dense_message_rowsum_bwd_plain(*args)
+    if precision == "highest":
+        refs = fp32s
+        exact = kernels.dense_message_rowsum_bwd_plain(
+            *(t.double() for t in args))
+    else:
+        refs = emus
+        exact = kernels._far_bwd_rows(*(t.double() for t in args),
+                                      mm_tf32_f64)
+    budgets, n_ties = (tie_budget(torch, args, precision) if ties
                        else ((0.0,) * 4, 0))
     torch.cuda.synchronize()
     # The gradient steps where z1 or z2 crosses 0 (relu's indicator): a pair
@@ -495,101 +573,116 @@ def far_backward(torch, kernels, args, ties=False):
     # version: the kernel may be at most twice as far from it as the
     # float32 plain version is, plus 1e-5·(max|ref| + 1).  The emulation
     # rounds z2 differently again, so its distance is reported, not barred.
+    # At one pass the same with the tier's products: the one-pass products
+    # in float64, and the float32 emulation's distance to them.
     # Where the float32 plain version flips no tie and the kernel flips one
     # (the random-weight model of the width phase: one flip moved dpi by
     # 0.30 against a bar of 0.0145), the tie budget bounds what the flips
     # may move, entry by entry.
     errs = {}
-    for part, o, r, em, r64, bud in zip(("dpi", "dpj", "dw2", "db2"), outs,
-                                        refs, emus, exact, budgets):
+    for part, o, r, r32, em, r64, bud in zip(
+            ("dpi", "dpj", "dw2", "db2"), outs, refs, fp32s, emus, exact,
+            budgets):
         plain64 = float((r.double() - r64).abs().max())
         tol = 2.0 * plain64 + 1e-5 * (float(r64.abs().max()) + 1.0)
         err64 = float(((o.double() - r64).abs() - bud).max())
         require(np.isfinite(err64) and err64 <= tol,
-                ("dense_message_rowsum_bwd", tuple(args[0].shape),
+                ("dense_message_rowsum_bwd", precision, tuple(args[0].shape),
                  tuple(args[1].shape), part, err64, tol, n_ties))
-        errs[part] = (float((o - r).abs().max()), err64, plain64,
+        errs[part] = (float((o - r32).abs().max()), err64, plain64,
                       float((o - em).abs().max()), tol)
-    again = kernels.dense_message_rowsum_bwd(*args)
+    again = wrapper(*args)
     require(all(torch.equal(a, b) for a, b in zip(again, outs)),
             ("dense_message_rowsum_bwd", "not the same bits on a second "
              "launch"))
     off = [off_boundary(t) for t in args]
     require(all(torch.equal(a, b) for a, b in
-                zip(kernels.dense_message_rowsum_bwd(*off), outs)),
+                zip(wrapper(*off), outs)),
             ("dense_message_rowsum_bwd", "inputs off the 16-byte boundary"))
     return errs
 
 
-def far_phase(torch, card, args, gbar, label, clocks, iters, ties=False):
-    """[kernel] both far-field kernels on ``args`` (pi, pj, cv, W2, b2) and
-    the cotangent ``gbar``: ``far_forward`` and ``far_backward``, kernel
-    and plain times (``iters``: forward kernel, forward plain, backward
-    kernel, backward plain), the SM clock before and after the timings
-    (appended to ``clocks``), and the bounds on this data: every row
-    against the live columns (cv ≠ 0).  ``ties`` as in
+def far_phase(torch, card, args, gbar, label, clocks, iters, ties=False,
+              precision="highest"):
+    """[kernel] both far-field kernels at ``precision`` on ``args`` (pi,
+    pj, cv, W2, b2) and the cotangent ``gbar``: ``far_forward`` and
+    ``far_backward``, kernel and plain times (``iters``: forward kernel,
+    forward plain, backward kernel, backward plain; a plain iters of 0
+    skips it), the SM clock before and after the timings (appended to
+    ``clocks``), and the bounds on this data at the tier's products:
+    every row against the live columns (cv ≠ 0).  ``ties`` as in
     :func:`far_backward`.  Returns {kernel: measurements}."""
     from epnn_tpu_torch.ops import kernels
 
+    passes = kernels.tf32_passes(precision)
+    key, text = TIER_KEY[precision], TIER_TEXT[precision]
     f = 4
     r, hh = args[0].shape
     nc = args[1].shape[0]
     live = int(torch.count_nonzero(args[2]))
     pairs = r * live
-    fwd_err, fwd_emu, fwd_tol = far_forward(torch, kernels, args)
-    errs = far_backward(torch, kernels, (*args, gbar), ties=ties)
-    clocks.append((f"before the far-field timings at {label}", sm_clocks()))
-    ms = device_ms(torch, lambda: kernels.dense_message_rowsum(*args),
-                   iters[0])
-    plain_ms = device_ms(
+    fwd_err, fwd_emu, fwd_tol = far_forward(torch, kernels, args, precision)
+    errs = far_backward(torch, kernels, (*args, gbar), ties=ties,
+                        precision=precision)
+    fwd = at(kernels.dense_message_rowsum, precision)
+    bwd = at(kernels.dense_message_rowsum_bwd, precision)
+    clocks.append((f"before the far-field timings at {label} ({text})",
+                   sm_clocks()))
+    ms = device_ms(torch, lambda: fwd(*args), iters[0])
+    plain_ms = plain_time(
         torch, lambda: kernels.dense_message_rowsum_plain(*args), iters[1])
-    bwd_ms = device_ms(
-        torch, lambda: kernels.dense_message_rowsum_bwd(*args, gbar),
-        iters[2])
-    bwd_plain_ms = device_ms(
+    bwd_ms = device_ms(torch, lambda: bwd(*args, gbar), iters[2])
+    bwd_plain_ms = plain_time(
         torch, lambda: kernels.dense_message_rowsum_bwd_plain(*args, gbar),
         iters[3])
-    clocks.append((f"after the far-field timings at {label}", sm_clocks()))
+    clocks.append((f"after the far-field timings at {label} ({text})",
+                   sm_clocks()))
     out = {}
+    ptext = lambda t: "not timed" if t is None else f"{t:.4f} ms"  # noqa
     # forward: the mid-layer product + ~4H elementwise a live pair; pi,
     # cv and out whole, pj where cv is live, W2, b2 once
     nbytes = f * (2 * r * hh + nc + live * hh + hh * hh + hh)
-    b_ms, b_by, b32 = tc_bound(pairs, 2 * hh * hh, 4 * hh, nbytes)
+    b_ms, b_by, b32 = tc_bound(pairs, 2 * hh * hh, 4 * hh, nbytes, passes)
     out["dense_message_rowsum"] = dict(
-        R=r, N=nc, live_cols=live, max_abs_err=fwd_err,
-        max_abs_diff=fwd_err, max_abs_diff_3xtf32=fwd_emu, tol=fwd_tol,
+        R=r, N=nc, live_cols=live,
+        max_abs_err=fwd_err if precision == "highest" else fwd_emu,
+        max_abs_diff=fwd_err, tol=fwd_tol,
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
         bound_fp32_ms=b32, flop=pairs * (2 * hh * hh + 4 * hh),
-        flop_3xtf32=pairs * 3 * 2 * hh * hh, bytes=nbytes)
+        bytes=nbytes, **{f"max_abs_diff_{key}": fwd_emu,
+                         f"flop_{key}": pairs * passes * 2 * hh * hh})
     print(f"[kernel] dense_message_rowsum at R={r} N={nc} ({live} live "
-          f"columns): max|d| vs plain f32 {fwd_err:.3e}, vs 3xTF32 "
+          f"columns), {text}: max|d| vs plain f32 {fwd_err:.3e}, vs its "
           f"emulation {fwd_emu:.3e} (tol {fwd_tol:.3e}), same bits on a "
           f"second launch and off the 16-byte boundary; kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}: "
-          f"{pairs * 6 * hh * hh:,} tensor-core FLOP in 3xTF32, "
+          f"plain {ptext(plain_ms)}, bound {b_ms:.5f} ms ({b_by}: "
+          f"{pairs * passes * 2 * hh * hh:,} tensor-core FLOP in {text}, "
           f"{nbytes:,} B), fp32 bound {b32:.5f} ms on {card}")
     # backward: z2, e2 @ W2ᵀ and the dW2 outer product (3 H×H
     # contractions) + ~9H elementwise a live pair; pi, g, dpi, cv, pj and
     # dpj whole, pj where cv is live, W2, b2, dW2, db2 once
     nbytes = f * (3 * r * hh + nc * hh + nc + live * hh
                   + 2 * (hh * hh + hh))
-    b_ms, b_by, b32 = tc_bound(pairs, 3 * 2 * hh * hh, 9 * hh, nbytes)
+    b_ms, b_by, b32 = tc_bound(pairs, 3 * 2 * hh * hh, 9 * hh, nbytes,
+                               passes)
     out["dense_message_rowsum_bwd"] = dict(
         R=r, N=nc, live_cols=live,
-        max_abs_err=max(e[0] for e in errs.values()),
+        max_abs_err=max(e[0 if precision == "highest" else 3]
+                        for e in errs.values()),
         max_abs_diff={p: e[0] for p, e in errs.items()},
         max_abs_diff_f64={p: e[1] for p, e in errs.items()},
         plain_f32_diff_f64={p: e[2] for p, e in errs.items()},
-        max_abs_diff_3xtf32={p: e[3] for p, e in errs.items()},
         tol_f64={p: e[4] for p, e in errs.items()}, ms=bwd_ms,
         plain_ms=bwd_plain_ms, bound_ms=b_ms, bound_by=b_by,
         bound_fp32_ms=b32, flop=pairs * (6 * hh * hh + 9 * hh),
-        flop_3xtf32=pairs * 3 * 3 * 2 * hh * hh, bytes=nbytes)
-    print(f"[kernel] dense_message_rowsum_bwd at R={r} N={nc}: "
+        bytes=nbytes, **{f"max_abs_diff_{key}": {p: e[3] for p, e in
+                                                 errs.items()},
+                         f"flop_{key}": pairs * passes * 3 * 2 * hh * hh})
+    print(f"[kernel] dense_message_rowsum_bwd at R={r} N={nc}, {text}: "
           f"{bwd_errs_text(errs)}; same bits on a second launch and off the "
           f"16-byte boundary; kernel {bwd_ms:.4f} ms, plain "
-          f"{bwd_plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}: "
-          f"{pairs * 18 * hh * hh:,} tensor-core FLOP in 3xTF32, "
+          f"{ptext(bwd_plain_ms)}, bound {b_ms:.5f} ms ({b_by}: "
+          f"{pairs * passes * 6 * hh * hh:,} tensor-core FLOP in {text}, "
           f"{nbytes:,} B), fp32 bound {b32:.5f} ms on {card}")
     for when, clk in clocks[-2:]:
         print(f"[clock] SM clock (clocks.sm, clocks.max.sm) {when}: {clk}")
@@ -630,7 +723,7 @@ def int8_phase(torch, card, args, label, iters=None):
     full = tuple(args)
     out = kernels.dense_message_rowsum_int8(*full)
     ref = kernels.dense_message_rowsum_int8_plain(*full)
-    f32 = kernels.dense_message_rowsum(*args)
+    f32 = kernels.dense_message_rowsum(*args, **HI)
     torch.cuda.synchronize()
     err = float((out - ref).abs().max())
     tol = 1e-5 * (float(ref.abs().max()) + 1.0)
@@ -688,7 +781,7 @@ def int8_phase(torch, card, args, label, iters=None):
         plain_ms = device_ms(torch, lambda: kernels.dense_message_rowsum_int8_plain(
             *full), iters[1])
         f32_ms = device_ms(torch, lambda: kernels.dense_message_rowsum(
-            *args), iters[2])
+            *args, **HI), iters[2])
         ms_again = device_ms(torch, lambda: kernels.dense_message_rowsum_int8(
             *full, w2_int8=w2_int8), iters[0])
         pairs = r * live
@@ -713,8 +806,8 @@ def int8_phase(torch, card, args, label, iters=None):
 
 
 def bwd_errs_text(errs):
-    return ("max|d| vs plain f32 / vs plain f64 (f32 plain vs f64; tol) / "
-            "vs 3xTF32 emulation: " + ", ".join(
+    return ("max|d| vs plain f32 / vs the tier's f64 reference (its f32 "
+            "emulation vs f64; tol) / vs its emulation: " + ", ".join(
                 f"{p} {e:.3e} / {e64:.3e} ({p64:.3e}; {t:.3e}) / {em:.3e}"
                 for p, (e, e64, p64, em, t) in errs.items()))
 
@@ -1536,11 +1629,11 @@ def chunk_probe(torch, label, cases, table, chunk):
             e = min(s + chunk, n)
             outs.append(getattr(kernels, name)(
                 args[0][s:e], args[1][s * k:e * k], args[2][s * k:e * k],
-                args[3][s:e].contiguous(), *args[4:]))
+                args[3][s:e].contiguous(), *args[4:], **HI))
         return torch.cat(outs)
 
     for name, args in cases.items():
-        full = getattr(kernels, name)(*args)
+        full = getattr(kernels, name)(*args, **HI)
         require(torch.equal(blocks(name, args), full),
                 (name, label, chunk, "blocks differ from full width"))
     idx, nbr_mask = table
@@ -2024,6 +2117,338 @@ def huge_train_phase(torch, pred, card):
     return out, run_launches
 
 
+#: [slice k]: the precision tiers through ``Predictor``, with JAX's names
+#: (``epnn_tpu/cli.py:165-185``: ``parity`` is the CLI's default)
+PRECISION_TIERS = {
+    "highest": {},
+    "parity": dict(matmul_precision="highest",
+                   dense_matmul_precision="default"),
+    "fast": dict(matmul_precision="default"),
+    "bf16x3": dict(dense_matmul_precision="bf16x3"),
+    "bfloat16": dict(compute_dtype="bfloat16"),
+}
+#: the kernels a graph forward of each tier launches on the neighbor split
+#: and the TF32 tier each asks for (1 or 3 products a k-step): JAX's routes
+#: — bf16x3 runs the far field's plain version, bfloat16 its bf16 message
+#: rounds plain and its float32 pass rounds at "default".  The far field
+#: launches in rounds 2+ (round 1 collapses), the near kernels every round.
+TIER_ROUTES = {
+    "highest": {"dense_message_rowsum": 3, "near_message_corr": 3,
+                "near_pass_rowsum": 3},
+    "parity": {"dense_message_rowsum": 1, "near_message_corr": 3,
+               "near_pass_rowsum": 3},
+    "fast": {"dense_message_rowsum": 1, "near_message_corr": 1,
+             "near_pass_rowsum": 1},
+    "bf16x3": {"near_message_corr": 3, "near_pass_rowsum": 3},
+    "bfloat16": {"near_pass_rowsum": 1},
+}
+#: JAX's bf16 bar (tests/test_fused.py:292-311), the cap on every tier's
+#: charges against highest's
+TIER_CAP = 3e-2
+TIER_TRAIN_EPOCHS = 3
+
+
+def spy_tiers():
+    """Wrap ``kernels._launch`` to record each launch's (kernel, TF32
+    tier); returns (the list, a function that puts it back)."""
+    from epnn_tpu_torch.ops import kernels
+
+    seen, real = [], kernels._launch
+
+    def launch(name, device, tensors, scalars, vector_read, h=None, e=None,
+               passes=3):
+        seen.append((name, passes))
+        return real(name, device, tensors, scalars, vector_read, h, e,
+                    passes)
+
+    kernels._launch = launch
+    return seen, lambda: setattr(kernels, "_launch", real)
+
+
+def tier_routes(seen):
+    """{kernel: {passes: launches}} of a :func:`spy_tiers` record."""
+    out = {}
+    for name, passes in seen:
+        out.setdefault(name, {}).setdefault(passes, 0)
+        out[name][passes] += 1
+    return out
+
+
+def tier_kernels_phase(torch, card, pred, batch2, big, far_sets,
+                       fused_boxes, sfu_rate, clocks):
+    """[slice k] the six tensor-core kernels at precision "default" (one
+    TF32 product a k-step): at the shapes of ``far_sets`` ((label, args,
+    cotangent, iters)), of the near kernels' tables of ``batch2`` and
+    ``big``, of ``fused_boxes`` (:func:`fused_kernel_phase`'s), and at
+    :data:`TIMED_WIDTH` on ``[width]``'s random-weight model: each against
+    its one-pass emulation (``*_tf32_plain``; :func:`far_phase`,
+    :func:`near_phase`, :func:`fused_kernel_phase` at "default"), the same
+    bits twice, the pass kernels' antisymmetry probes, times beside the
+    one-pass bounds.  The plain versions are not timed again (the 3xTF32
+    phases timed them on the same inputs).  Returns {kernel: {label:
+    measurements}}."""
+    from epnn_tpu_torch.ops import kernels
+    from epnn_tpu_torch.ops.fused import build_neighbors, rbf_and_gate
+    from epnn_tpu_torch.tools.near_field_pace import near_inputs
+
+    out = {name: {} for name in kernels.TIERED}
+    for label, args, gbar, iters in far_sets:
+        for name, entry in far_phase(torch, card, args, gbar, label, clocks,
+                                     iters, precision="default").items():
+            out[name][label] = entry
+    for label, batch in (("2220", batch2), ("17760", big)):
+        cases, table = near_inputs(pred, batch, np.random.default_rng(0))
+        for name, entry in near_phase(
+                torch, card, label, cases, table, (50, 0),
+                min_pairs=int(batch.node_mask[0].sum()) // 4,
+                precision="default").items():
+            out[name][label] = entry
+    wm, wp = pred._fused.messages[1], pred._fused.passes[0]
+    fused_rows = fused_kernel_phase(torch, card, pred.cfg, fused_boxes, wm,
+                                    wp, sfu_rate, precision="default",
+                                    plain_iters=0)
+    for name, row in fused_rows.items():
+        sizes = row.pop("sizes")
+        for key in ("name", "route", "source", "replaces", "launches",
+                    "library_ms", "ptxas"):
+            row.pop(key)
+        out[name][fused_boxes[0][0]] = row
+        out[name].update(sizes)
+    # the timed width on [width]'s random-weight model
+    hh, ee = TIMED_WIDTH
+    label = f"{hh}x{ee}"
+    (cfg_w, pred_w, batch_w, n, xyz, mask, a, wm_w, wp_w, _, _, far_args,
+     gbar) = width_inputs(torch, WIDTH_CASES.index(TIMED_WIDTH), hh, ee)
+    for name, entry in far_phase(torch, card, far_args, gbar, label, clocks,
+                                 (10, 0, 3, 0), ties=True,
+                                 precision="default").items():
+        out[name][label] = entry
+    cases, table = near_inputs(pred_w, batch_w,
+                               np.random.default_rng(WIDTH_CASES.index(
+                                   TIMED_WIDTH)))
+    for name, entry in near_phase(torch, card, label, cases, table, (3, 0),
+                                  min_pairs=int(mask.sum()) // 4,
+                                  precision="default").items():
+        out[name][label] = entry
+    k = pred_w._neighbor_k(batch_w)
+    _, nbr_mask, d2 = build_neighbors(xyz, mask, cfg_w.cutoff, k,
+                                      with_d2=True)
+    _, gate = rbf_and_gate(d2, nbr_mask, cfg_w)
+    counts = dict(valid=int(mask.sum()),
+                  near=int(torch.count_nonzero(nbr_mask)),
+                  gated=int(torch.count_nonzero(gate * nbr_mask)))
+    for name, row in fused_kernel_phase(
+            torch, card, cfg_w, [(label, a, xyz, mask, counts)], wm_w, wp_w,
+            sfu_rate, label, precision="default", plain_iters=0).items():
+        row.pop("sizes")
+        for key in ("name", "route", "source", "replaces", "launches",
+                    "library_ms", "ptxas"):
+            row.pop(key)
+        out[name][label] = row
+    for name in kernels.TIERED:
+        out[name]["ptxas"] = {
+            f"{h}x{e}": ptxas_usage(kernels, name, h, e, "default")
+            for h, e in (SHIPPED_WIDTHS, TIMED_WIDTH)}
+    print(f"[slice k] the six tensor-core kernels at precision 'default' "
+          f"(one TF32 pass): every one within its bar of its one-pass "
+          f"emulation at 2,220 / 17,760 atoms and at {label}, the same bits "
+          f"twice, the pass kernels' pairs exact negations, on {card}")
+    return out
+
+
+def tier_serving_phase(torch, card, pred, batch2, big, golden, total_q,
+                       timed):
+    """[slice k] ``predict_batch`` in every tier of
+    :data:`PRECISION_TIERS`, on ``trained/mixed_b16`` at 2 × 2,220 atoms
+    (``batch2``) and 17,760 (``big``), and on ``[width]``'s random-weight
+    model at the shipped widths (which reads the far field) at 2,224
+    atoms: each tier's launches and the TF32 tier each asks for
+    (:data:`TIER_ROUTES`), its charges against highest's under JAX's bf16
+    bar :data:`TIER_CAP`·(max|q|+1) as a cap (the gap printed), parity
+    against the JAX golden at the golden bar 1e-5·(max|q|+1) (JAX's
+    "parity-neutral"), |Σq − Q| ≤ 1e-4 e (the random model at 2e-6·(Σ|q|
+    + 1), the JAX suite's relative bar: its charges run to thousands of
+    e); medians in turns (the tiers in order, then reversed) at 2 × 2,220
+    atoms for every tier and at 17,760 for highest, parity and fast (the
+    bf16 tiers run the plain O(N²) far field there, as JAX routes them:
+    one call each, timed).  Returns the numbers and the launches of each
+    tier's 2 × 2,220 call."""
+    from epnn_tpu_torch.data import pad_molecules
+    from epnn_tpu_torch.elements import table_for_n_elems
+    from epnn_tpu_torch.infer import Predictor
+    from epnn_tpu_torch.models import EPNNConfig
+    from epnn_tpu_torch.models.epnn import init_params
+    from epnn_tpu_torch.ops import kernels
+    from epnn_tpu_torch.testing import golden_boxes
+
+    hh, ee = SHIPPED_WIDTHS
+    cfg_r = EPNNConfig(h_dim=16, e_dim=ee, msg_dim=8, mlp_hidden=(hh, hh),
+                       T=WIDTH_T)
+    params_r = init_params(cfg_r, torch.Generator().manual_seed(0))
+    mol_r = golden_boxes()[0]
+    batch_r = pad_molecules([mol_r], table_for_n_elems(cfg_r.n_elems))
+    models = {"mixed_b16": (pred.params, pred.cfg),
+              "random": (params_r, cfg_r)}
+    sets = {"mixed_b16": [("2x2220", batch2), ("1x17760", big)],
+            "random": [("1x2224", batch_r)]}
+    preds = {m: {t: Predictor(p, c.replace(**kw))
+                 for t, kw in PRECISION_TIERS.items()}
+             for m, (p, c) in models.items()}
+    out, launches = {}, {}
+    for model, batches in sets.items():
+        for label, batch in batches:
+            qs, res = {}, {}
+            for tier, p in preds[model].items():
+                seen, restore = spy_tiers()
+                kernels.reset_launch_counts()
+                try:
+                    t0 = time.perf_counter()
+                    q = p.predict_batch(batch)
+                    torch.cuda.synchronize()
+                    ms = (time.perf_counter() - t0) * 1e3
+                finally:
+                    restore()
+                routes = tier_routes(seen)
+                t = p.cfg.T
+                want = {kn: {ps: batch.batch_size * (
+                    t - 1 if kn == "dense_message_rowsum" else t)}
+                    for kn, ps in TIER_ROUTES[tier].items()}
+                require(routes == want, ("[slice k]", model, label, tier,
+                                         routes, want))
+                if model == "mixed_b16" and label == "2x2220":
+                    launches[tier] = dict(kernels.LAUNCHES)
+                qs[tier] = q
+                cons = np.abs(q.astype(np.float64).sum(1) - batch.total_q)
+                cons_bar = (np.full(len(cons), 1e-4) if model == "mixed_b16"
+                            else 2e-6 * (np.abs(q).sum(1) + 1.0))
+                require(np.all(np.isfinite(q)) and np.all(cons <= cons_bar),
+                        ("[slice k] conservation", model, label, tier, cons))
+                res[tier] = dict(routes={kn: {str(ps): c for ps, c in
+                                              r.items()}
+                                         for kn, r in routes.items()},
+                                 conservation=cons.tolist(), first_ms=ms)
+            ref = qs["highest"]
+            cap = TIER_CAP * (float(np.abs(ref).max()) + 1.0)
+            for tier, q in qs.items():
+                gap = float(np.abs(q - ref).max())
+                require(gap <= cap, ("[slice k] gap", model, label, tier,
+                                     gap, cap))
+                res[tier]["max_abs_dq_vs_highest"] = gap
+            if model == "mixed_b16" and label == "2x2220":
+                tol_g = 1e-5 * (float(np.abs(golden).max()) + 1.0)
+                for tier, q in qs.items():
+                    dq = float(np.abs(q[:, :golden.shape[1]] - golden).max())
+                    res[tier]["golden_dq"] = dq
+                require(res["parity"]["golden_dq"] < tol_g,
+                        ("[slice k] parity vs golden",
+                         res["parity"]["golden_dq"], tol_g))
+                res["golden_tol"] = tol_g
+            res["cap"] = cap
+            if label == "2x2220" or model == "random":
+                res["turns_ms"] = turns(
+                    timed, preds[model],
+                    lambda p, b=batch: p.predict_batch(b), 7)
+            else:
+                fast3 = {t: preds[model][t] for t in ("highest", "parity",
+                                                      "fast")}
+                res["turns_ms"] = turns(
+                    timed, fast3, lambda p, b=batch: p.predict_batch(b), 3)
+            out[f"{model} {label}"] = res
+            print(f"[slice k] {model} {label}: " + "; ".join(
+                f"{t} routes {r['routes']}, max|dq| vs highest "
+                f"{r['max_abs_dq_vs_highest']:.3e}"
+                + (f", vs golden {r['golden_dq']:.3e}" if "golden_dq" in r
+                   else "")
+                + f", |sum q - Q| {max(r['conservation']):.3e}"
+                for t, r in res.items() if isinstance(r, dict)
+                and "routes" in r)
+                + f" (cap {cap:.3e}"
+                + (f", golden tol {res['golden_tol']:.3e}"
+                   if "golden_tol" in res else "")
+                + f"); predict_batch medians in turns {res['turns_ms']} ms "
+                f"on {card}")
+    return out, launches
+
+
+def tier_train_phase(torch, card, pred, mols, val_mols):
+    """[train e] ``train()`` under ``fast`` (``matmul_precision="default"``)
+    from the checkpoint on ``[train b]``'s set (its labels), for
+    :data:`TIER_TRAIN_EPOCHS` epochs: the fused bucket's loss falls, every
+    tensor-core launch asks for the one-pass tier, and the far-field
+    backward's launches of the first fused step, run again on their own
+    inputs with a seeded cotangent, hold their one-pass emulation
+    (:func:`far_backward` at "default").  The run's own cotangents there
+    are 0: the checkpoint's far field reaches no loss on water boxes, and
+    from seeded initial weights the loss runs away (1e22 in 3 epochs).
+    Returns the numbers and the run's launches."""
+    from epnn_tpu_torch.ops import kernels
+    from epnn_tpu_torch.train import TrainConfig, loop, train
+
+    cfg = pred.cfg.replace(**PRECISION_TIERS["fast"])
+    fused_losses = []
+    real = loop.train_step_fused
+
+    def step(*a, **kw):
+        out = real(*a, **kw)
+        fused_losses.append(float(out[1]))
+        return out
+
+    bwd_seen = []
+    with tempfile.TemporaryDirectory() as tmp:
+        tc = TrainConfig(epochs=TIER_TRAIN_EPOCHS,
+                         checkpoint_dir=os.path.join(tmp, "run"),
+                         log_path=os.path.join(tmp, "log.jsonl"),
+                         init_from=CKPT)
+        seen, restore = spy_tiers()
+        restore_bwd = spy_calls(kernels, "dense_message_rowsum_bwd",
+                                bwd_seen)
+        loop.train_step_fused = step
+        try:
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = train(mols, cfg, tc, val_mols=val_mols)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+        finally:
+            loop.train_step_fused = real
+            restore_bwd()
+            restore()
+    routes = tier_routes(seen)
+    require(set(routes) == {"dense_message_rowsum",
+                            "dense_message_rowsum_bwd", "near_message_corr",
+                            "near_pass_rowsum"}
+            and all(set(r) == {1} for r in routes.values()),
+            ("[train e] routes", routes))
+    require(len(fused_losses) == TIER_TRAIN_EPOCHS
+            and np.all(np.isfinite(fused_losses))
+            and fused_losses[-1] < fused_losses[0], fused_losses)
+    require(np.isfinite(res.best_val_masked_mae), res.history)
+    per_step = 2 * PER_GRAPH_TRAIN["dense_message_rowsum_bwd"]
+    first = bwd_seen[:per_step]
+    require(all(kw.get("precision", a[7] if len(a) > 7 else None)
+                == "default" for a, kw in first), "[train e] bwd precision")
+    g = np.random.default_rng(11)
+    errs = [far_backward(torch, kernels, (*a[:5], torch.from_numpy(
+        g.normal(size=tuple(a[5].shape)).astype(np.float32)).to(a[5].device)),
+        precision="default") for a, _ in first]
+    worst = {p: max(e[p][1] - e[p][4] for e in errs) for p in errs[0]}
+    g_max = max(float(a[5].abs().max()) for a, _ in first)
+    print(f"[train e] train() under fast (matmul_precision='default'), "
+          f"{TIER_TRAIN_EPOCHS} epochs from {CKPT}: fused-bucket loss "
+          f"{' -> '.join(f'{v:.6e}' for v in fused_losses)}; launches "
+          f"{launches}, every one at one TF32 pass ({routes}); the first "
+          f"step's {len(first)} far-field backward launches again, on their "
+          f"inputs with a seeded cotangent (the run's: max|g| {g_max:.3e}), "
+          f"vs their one-pass emulation: worst (err - tol) per output "
+          f"{worst}; {secs:.1f} s on {card}")
+    return dict(fused_losses=fused_losses, routes={
+        kn: {str(p): c for p, c in r.items()} for kn, r in routes.items()},
+        bwd_checked=len(first), bwd_worst_err_minus_tol=worst,
+        bwd_max_cotangent=g_max,
+        seconds=secs, best_val_masked_mae=res.best_val_masked_mae), launches
+
+
 def kmeans_alone(torch, rows, weights, c, reps=5):
     """(device-busy ms, launches, host ms) of one ``weighted_kmeans`` fit of
     ``rows`` into ``c`` clusters alone: ``torch.profiler`` over ``reps``
@@ -2114,7 +2539,7 @@ def profile_groups(kern):
     return out
 
 
-def profile_phase(torch, card, pred, batch2, big, pred8, pred_c):
+def profile_phase(torch, card, pred, batch2, big, pred8, pred_c, tiers):
     """[profile] where a call's time goes: ``predict_batch`` at 2 x 2,220
     and 1 x 17,760 atoms, a Verlet-skin step (``[slice g]``'s settings, the
     table built in the warm-up) at 17,760, the dense fused forward of
@@ -2126,8 +2551,9 @@ def profile_phase(torch, card, pred, batch2, big, pred8, pred_c):
     recorded in the call, each fit profiled alone (:func:`kmeans_alone`:
     device-busy time and launches) and taken out of the groups its
     kernels fall in by name ("other", "matmul", "neighbor selection" for
-    its sort) in proportion.  Returns the numbers; an empty
-    dict if the profiler recorded no device time."""
+    its sort) in proportion; also ``predict_batch`` of each Predictor of
+    ``tiers`` ({tier: p}, [slice k]) at both sizes.  Returns the numbers;
+    an empty dict if the profiler recorded no device time."""
     from epnn_tpu_torch.data import uniform_q0_contract
     from epnn_tpu_torch.infer import Predictor
     from epnn_tpu_torch.ops.fused import build_neighbors_batch, forward_blocked
@@ -2166,6 +2592,11 @@ def profile_phase(torch, card, pred, batch2, big, pred8, pred_c):
         f"predict_batch C{pred_c.far_cluster} 1x17760":
             lambda: pred_c.predict_batch(big),
     }
+    for tier, p in tiers.items():
+        cases[f"predict_batch {tier} 2x2220"] = (
+            lambda p=p: p.predict_batch(batch2))
+        cases[f"predict_batch {tier} 1x17760"] = (
+            lambda p=p: p.predict_batch(big))
     from epnn_tpu_torch.ops import fused
     fits = []
     restore = spy_calls(fused, "weighted_kmeans", fits)
@@ -2218,10 +2649,74 @@ def profile_phase(torch, card, pred, batch2, big, pred8, pred_c):
 NEAR_SCALAR_READ = (0, 3, 4, 5, 6)
 
 
-def near_bound(name, args):
+def flip_flags(torch, z, delta):
+    """The one-pass tier's operand flips: where relu(z) (float32) lies
+    within ``delta`` + 2 float32 ulps of a TF32 rounding midpoint (or of 0),
+    the kernel's own z, whose epart sums the same TF32 products in another
+    order, may round to the other TF32 neighbour.  Returns (flag, the most
+    such an operand can move: one TF32 ulp, or delta + 2 ulps at 0)."""
+    x = torch.relu(z).contiguous()
+    ulp = torch.nextafter(x, torch.full_like(x, float("inf"))) - x
+    low = (x.view(torch.int32) & 0x1FFF).to(torch.float32)
+    dist = (low - 4096.0).abs() * ulp
+    slack = delta + 2.0 * ulp
+    flag = (dist <= slack) | (z.abs() <= slack)
+    return flag, torch.where(z.abs() <= slack, slack, 8192.0 * ulp)
+
+
+def flip_budget(torch, terms, w2):
+    """The most the one-pass tier's operand flips (:func:`flip_flags`) can
+    move each output entry: ``terms`` is [(weight (R, S), z (R, S, H),
+    delta (R, S, H))], each the live slots' weights and the pre-activations
+    relu(z) that meet W2 after an epart; a flipped operand moves its row of
+    the mid layer by at most its move times |W2| (relu is 1-Lipschitz), and
+    the slot's term by its |weight| times that.  (R, H) float32."""
+    out = 0.0
+    aw2 = w2.abs()
+    for weight, z, delta in terms:
+        flag, move = flip_flags(torch, z, delta)
+        dz = torch.where(flag, move, 0.0)
+        out = out + torch.einsum("rs,rsf,fo->ro", weight.abs(), dz, aw2)
+    return out
+
+
+def epart_delta(torch, rbf, w1e):
+    """The bound on how far two float32 sums, in any order, of an epart's
+    E exact TF32 products can lie apart: 2 (E − 1) 2^-23 Σ_e |terms|
+    (truncating adds, as the tensor cores' accumulation)."""
+    from epnn_tpu_torch.ops import kernels
+
+    e = w1e.shape[0]
+    mag = kernels.tf32_round(rbf).abs() @ kernels.tf32_round(w1e).abs()
+    return 2.0 * max(e - 1, 1) * 2.0 ** -23 * mag
+
+
+def near_flip_budget(torch, name, args):
+    """:func:`flip_budget` of near kernel ``name`` on its ``args``: the
+    epart of every live slot meets W2 in relu(base + epart) (message:
+    weight = the mask; pass: both orderings, weight = gh)."""
+    from epnn_tpu_torch.ops import kernels
+
+    n, hh = args[0].shape[0], args[4].shape[1]
+    k = args[3].shape[1]
+    w1e, w2 = args[4], args[5]
+    rbf = args[2]
+    ep = kernels._mm_tf32(rbf, w1e).reshape(n, k, hh)
+    delta = epart_delta(torch, rbf, w1e).reshape(n, k, hh)
+    if name == "near_message_corr":
+        z = (args[0][:, None, :] + args[1].reshape(n, k, hh)) + ep
+        return flip_budget(torch, [(args[3], z, delta)], w2)
+    rs, ppn = args[0], args[1].reshape(n, k, 2 * hh)
+    zn = (rs[:, None, :hh] + ppn[..., hh:]) + ep
+    zt = (ppn[..., :hh] + rs[:, None, hh:]) + ep
+    return flip_budget(torch, [(args[3], zn, delta), (args[3], zt, delta)],
+                       w2)
+
+
+def near_bound(name, args, passes=3):
     """(live slots, tensor-core FLOP a slot, elementwise FLOP a slot,
-    bytes, :func:`tc_bound`) of one launch of the near kernel ``name`` on
-    ``args``.  A live slot: its gathered row and RBF row in, rbf @ W1e and
+    bytes, :func:`tc_bound` at ``passes``) of one launch of the near
+    kernel ``name`` on ``args``.  A live slot: its gathered row and RBF row in, rbf @ W1e and
     two H x H products, ~8H (pass: 10H) elementwise; the row inputs of rows
     with a live slot, the whole (N, K) weights, the weights once and the
     output."""
@@ -2236,28 +2731,34 @@ def near_bound(name, args):
     nbytes = (f * (n_live * (slot_w + ee) + rows * row_w + n * k + n * hh)
               + f * (ee * hh + hh * hh + hh))
     return n_live, tc_flop, elem, nbytes, tc_bound(n_live, tc_flop, elem,
-                                                   nbytes)
+                                                   nbytes, passes)
 
 
-def near_phase(torch, card, label, cases, table, iters, min_pairs):
-    """[kernel] both near kernels on one size's ``cases`` (``near_inputs``):
-    each against its fp32 plain version and its 3xTF32 emulation within
-    1e-5·(max|ref| + 1), the same bits on a second launch and with the
-    scalar-read inputs off the 16-byte boundary; kernel and plain times
-    (``iters``) and bounds on this data (live slots only: TF32 tensor-core
-    rate, fp32 beside it).  Then the ``near_pass_rowsum`` probe on the
-    size's neighbor ``table``: disjoint near pairs, one slot each, each
-    pair's two rows exact negations, with the M rows (of 16) their two
-    slots took (more than ``min_pairs`` pairs).  Returns {kernel:
-    measurements}."""
+def near_phase(torch, card, label, cases, table, iters, min_pairs,
+               precision="highest"):
+    """[kernel] both near kernels at ``precision`` on one size's ``cases``
+    (``near_inputs``): each against its fp32 plain version and its tier's
+    emulation (:data:`EMULATION`) within 1e-5·(max|ref| + 1) — at
+    "default" against the emulation only, entry by entry within the bar
+    plus :func:`near_flip_budget`, the fp32 gap being the tier's — the
+    same bits on a second launch and with the scalar-read inputs off the
+    16-byte boundary; kernel and plain times (``iters``; a plain iters of
+    0 skips it) and bounds on this data (live slots only: TF32
+    tensor-core rate at the tier's products, fp32 beside it).  Then the
+    ``near_pass_rowsum`` probe on the size's neighbor ``table``: disjoint
+    near pairs, one slot each, each pair's two rows exact negations, with
+    the M rows (of 16) their two slots took (more than ``min_pairs``
+    pairs).  Returns {kernel: measurements}."""
     from epnn_tpu_torch.ops import kernels
     from epnn_tpu_torch.testing import disjoint_pair_gh
 
+    passes = kernels.tf32_passes(precision)
+    key = TIER_KEY[precision]
     out = {}
     for name, args in cases.items():
-        wrapper = getattr(kernels, name)
+        wrapper = at(getattr(kernels, name), precision)
         plain = getattr(kernels, name + "_plain")
-        emu = getattr(kernels, name + "_3xtf32_plain")
+        emu = getattr(kernels, name + EMULATION[precision])
         n, hh = args[0].shape[0], args[4].shape[1]
         k, ee = args[3].shape[1], args[4].shape[0]
         got = wrapper(*args)
@@ -2265,10 +2766,20 @@ def near_phase(torch, card, label, cases, table, iters, min_pairs):
         ref_emu = emu(*args)
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
-        err_emu = float((got - ref_emu).abs().max())
-        tol = 1e-5 * (float(ref.abs().max()) + 1.0)
-        require(np.isfinite(err) and err <= tol and err_emu <= tol,
-                (name, label, err, err_emu, tol))
+        if precision == "highest":
+            err_emu = float((got - ref_emu).abs().max())
+            tol = 1e-5 * (float(ref.abs().max()) + 1.0)
+            budget = 0.0
+            ok = err <= tol and err_emu <= tol
+        else:
+            tol = 1e-5 * (float(ref_emu.abs().max()) + 1.0)
+            flips = near_flip_budget(torch, name, args)
+            err_emu = float((got - ref_emu).abs().max())
+            over = float(((got - ref_emu).abs() - flips).max())
+            budget = float(flips.max())
+            ok = over <= tol
+        require(np.isfinite(err) and ok,
+                (name, label, precision, err, err_emu, tol, budget))
         require(torch.equal(wrapper(*args), got),
                 (name, label, "not the same bits on a second launch"))
         off = [off_boundary(t) if i in NEAR_SCALAR_READ else t
@@ -2276,23 +2787,30 @@ def near_phase(torch, card, label, cases, table, iters, min_pairs):
         require(torch.equal(wrapper(*off), got),
                 (name, label, "inputs off the 16-byte boundary"))
         ms = device_ms(torch, lambda: wrapper(*args), iters[0])
-        plain_ms = device_ms(torch, lambda: plain(*args), iters[1])
+        plain_ms = plain_time(torch, lambda: plain(*args), iters[1])
         n_live, tc_flop, elem, nbytes, (b_ms, b_by, b32) = near_bound(
-            name, args)
+            name, args, passes)
         out[name] = dict(
-            N=n, K=k, live_slots=n_live, max_abs_err=err, max_abs_diff=err,
-            max_abs_diff_3xtf32=err_emu, tol=tol, ms=ms, plain_ms=plain_ms,
+            N=n, K=k, live_slots=n_live, max_abs_err=err_emu if
+            precision != "highest" else err, max_abs_diff=err,
+            tol=tol, ms=ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, bound_fp32_ms=b32,
-            flop=n_live * (tc_flop + elem), flop_3xtf32=n_live * 3 * tc_flop,
-            bytes=nbytes)
-        print(f"[kernel] {name} at N={n} K={k} ({n_live:,} live slots): "
-              f"max|d| vs plain f32 {err:.3e}, vs 3xTF32 emulation "
-              f"{err_emu:.3e} (tol {tol:.3e}), same bits on a second launch "
+            flop=n_live * (tc_flop + elem), bytes=nbytes,
+            **{f"max_abs_diff_{key}": err_emu,
+               f"flop_{key}": n_live * passes * tc_flop})
+        if precision != "highest":
+            out[name]["flip_budget_max"] = budget
+        plain_text = "not timed" if plain_ms is None else f"{plain_ms:.4f} ms"
+        print(f"[kernel] {name} at N={n} K={k} ({n_live:,} live slots), "
+              f"{TIER_TEXT[precision]}: max|d| vs plain f32 {err:.3e}, vs "
+              f"its emulation {err_emu:.3e} (tol {tol:.3e}"
+              + (f" + flip budget, at most {budget:.3e}" if budget else "")
+              + f"), same bits on a second launch "
               f"and with the scalar-read inputs off the 16-byte boundary; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{b_ms:.5f} ms ({b_by}: {n_live * 3 * tc_flop:,} tensor-core "
-              f"FLOP in 3xTF32, {nbytes:,} B), fp32 bound {b32:.5f} ms on "
-              f"{card}")
+              f"kernel {ms:.4f} ms, plain {plain_text}, bound "
+              f"{b_ms:.5f} ms ({b_by}: {n_live * passes * tc_flop:,} "
+              f"tensor-core FLOP in {TIER_TEXT[precision]}, {nbytes:,} B), "
+              f"fp32 bound {b32:.5f} ms on {card}")
 
     # antisymmetry probe: disjoint near pairs of the box, one slot each
     idx, nbr_mask = table
@@ -2301,7 +2819,7 @@ def near_phase(torch, card, label, cases, table, iters, min_pairs):
     gh_probe, pairs = disjoint_pair_gh(idx.cpu().numpy(),
                                        nbr_mask.cpu().numpy())
     args[3] = torch.from_numpy(gh_probe).to(args[0].device)
-    got = kernels.near_pass_rowsum(*args)
+    got = kernels.near_pass_rowsum(*args, precision=precision)
     torch.cuda.synchronize()
     pt = torch.from_numpy(pairs).to(got.device)
     require(len(pairs) > min_pairs, (label, len(pairs)))
@@ -2310,7 +2828,7 @@ def near_phase(torch, card, label, cases, table, iters, min_pairs):
     require(int(torch.count_nonzero(got[pt[:, 0]])) > 0,
             ("probe all zero", label))
     pos = kernels.near_tile_positions(args[3], kernels.near_warps(
-        "near_pass_rowsum", n, args[4].shape[1], args[4].shape[0])
+        "near_pass_rowsum", n, args[4].shape[1], args[4].shape[0], passes)
     ).cpu().numpy()
     pos = pos.max(axis=1)  # each probe row has one live slot
     m_i, m_j = pos[pairs[:, 0]], pos[pairs[:, 1]]
@@ -2320,7 +2838,8 @@ def near_phase(torch, card, label, cases, table, iters, min_pairs):
         pairs=len(pairs), at_other_m_rows=apart,
         m_row_gap_histogram=np.bincount(np.abs(m_i - m_j),
                                         minlength=16).tolist())
-    print(f"[kernel] near_pass_rowsum antisymmetry probe at N={n}: "
+    print(f"[kernel] near_pass_rowsum antisymmetry probe at N={n} "
+          f"({TIER_TEXT[precision]}): "
           f"{len(pairs)} disjoint pairs, every pair's rows exact negations; "
           f"{apart} pairs with their two slots at different M rows of their "
           f"16-row tiles (|M_i - M_j| histogram "
@@ -2328,24 +2847,74 @@ def near_phase(torch, card, label, cases, table, iters, min_pairs):
     return out
 
 
-def fused_check(torch, kernels, name, args, kw, rows=None, off=True):
-    """Fused kernel ``name`` on ``args`` against its plain version and its
-    3xTF32 emulation within 1e-5·(max|ref| + 1) (the two may differ only
-    by summation order) — on every row, or on the slice ``rows`` of both
-    — the same bits on a second launch, and (``off``) with every input off
-    the 16-byte boundary (the kernels read every input one float at a
-    time).  Returns (max|Δ| vs plain, vs emulation, tol)."""
-    wrapper = getattr(kernels, name)
+def fused_flip_budget(torch, name, args, kw):
+    """:func:`flip_budget` of fused kernel ``name`` on ``args``: every
+    pair within the cutoff (both atoms valid, i ≠ j) gathered into a
+    table (``build_neighbors`` at the exact largest count), its epart
+    meeting W2 in relu(base + epart) — the message kernel's live
+    correction (weight the pair mask, or col_vec_j), both orderings of
+    the pass kernel (weight 0.5 · gate).  (N, H)."""
+    from epnn_tpu_torch.featurize import envelope_rbf, hard_gate, kernel_mu
+    from epnn_tpu_torch.ops import kernels
+    from epnn_tpu_torch.ops.fused import build_neighbors, max_neighbor_count
+
+    pi, pj, xyz, mask = args[:4]
+    message = name == "fused_message_rowsum"
+    w1e, w2 = args[5:7] if message else args[4:6]
+    n, hh = pi.shape
+    cutoff = kw["cutoff"]
+    k = max(1, max_neighbor_count(xyz.cpu().numpy(), mask.cpu().numpy(),
+                                  cutoff))
+    idx, nbr, d2 = build_neighbors(xyz, mask, cutoff, k, with_d2=True)
+    rbf, c = envelope_rbf(d2, nbr, cutoff, kw["eta"],
+                          kernel_mu(w1e.shape[0], cutoff, xyz.device))
+    rbf = rbf.reshape(n * k, -1)
+    ep = kernels._mm_tf32(rbf, w1e).reshape(n, k, hh)
+    delta = epart_delta(torch, rbf, w1e).reshape(n, k, hh)
+    flat = idx.reshape(-1)
+    pjn, pin = pj[flat].reshape(n, k, hh), pi[flat].reshape(n, k, hh)
+    if message:
+        wt = (mask[:, None] * mask[flat].reshape(n, k) if kw["masked"]
+              else args[4][flat].reshape(n, k)) * nbr
+        return flip_budget(torch, [(wt, (pi[:, None, :] + pjn) + ep,
+                                    delta)], w2)
+    gate = c if kw["soft_gate"] else hard_gate(rbf.reshape(n, k, -1),
+                                               kw["tol"])
+    wt = 0.5 * gate * nbr
+    return flip_budget(torch, [(wt, (pi[:, None, :] + pjn) + ep, delta),
+                               (wt, (pin + pj[:, None, :]) + ep, delta)], w2)
+
+
+def fused_check(torch, kernels, name, args, kw, rows=None, off=True,
+                precision="highest"):
+    """Fused kernel ``name`` at ``precision`` on ``args`` against its
+    plain version and its tier's emulation within 1e-5·(max|ref| + 1)
+    (the two may differ only by summation order) — at "default" against
+    the emulation only, entry by entry within the bar plus
+    :func:`fused_flip_budget`, the fp32 gap being the tier's — on every
+    row, or on the slice ``rows`` of both; the same bits on a second
+    launch, and (``off``) with every input off the 16-byte boundary (the
+    kernels read every input one float at a time).  Returns (max|Δ| vs
+    plain, vs emulation, tol)."""
+    wrapper = at(getattr(kernels, name), precision)
     out = wrapper(*args, **kw)
     ref = getattr(kernels, name + "_plain")(*args, **kw, rows=rows)
-    emu = getattr(kernels, name + "_3xtf32_plain")(*args, **kw, rows=rows)
+    emu = getattr(kernels, name + EMULATION[precision])(*args, **kw,
+                                                        rows=rows)
     torch.cuda.synchronize()
     got = out if rows is None else out[rows]
     err = float((got - ref).abs().max())
     err_emu = float((got - emu).abs().max())
-    tol = 1e-5 * (float(ref.abs().max()) + 1.0)
-    require(np.isfinite(err) and err <= tol and err_emu <= tol,
-            (name, tuple(args[0].shape), kw, err, err_emu, tol))
+    if precision == "highest":
+        tol = 1e-5 * (float(ref.abs().max()) + 1.0)
+        ok = err <= tol and err_emu <= tol
+    else:
+        tol = 1e-5 * (float(emu.abs().max()) + 1.0)
+        flips = fused_flip_budget(torch, name, args, kw)
+        flips = flips if rows is None else flips[rows]
+        ok = float(((got - emu).abs() - flips).max()) <= tol
+    require(np.isfinite(err) and ok,
+            (name, precision, tuple(args[0].shape), kw, err, err_emu, tol))
     require(torch.equal(wrapper(*args, **kw), out),
             (name, kw, "not the same bits on a second launch"))
     if off:
@@ -2355,7 +2924,7 @@ def fused_check(torch, kernels, name, args, kw, rows=None, off=True):
 
 
 def fused_kernel_phase(torch, card, cfg, boxes, wm, wp, sfu_rate,
-                       widths="32x48"):
+                       widths="32x48", precision="highest", plain_iters=3):
     """[kernel] the two fused dense kernels, with a message round's and a
     pass round's own weights, on each of ``boxes`` — (label, a, xyz, mask,
     counts), the 2,220-atom box first: :func:`fused_check` (at the larger
@@ -2365,8 +2934,13 @@ def fused_kernel_phase(torch, card, cfg, boxes, wm, wp, sfu_rate,
     kernel's dimer probe.  Returns their rows of the kernels' JSON line:
     each row's numbers are those of the mode the checkpoint runs (masked
     messages, hard gate) at the first box, the other mode's under
-    ``other_mode``, the larger box's under ``sizes``."""
+    ``other_mode``, the larger box's under ``sizes``.  ``precision``: the
+    tier checked (:func:`fused_check`), timed and bounded;
+    ``plain_iters`` 0 leaves the plain version untimed."""
     from epnn_tpu_torch.ops import kernels
+
+    passes = kernels.tf32_passes(precision)
+    key = TIER_KEY[precision]
 
     hh, ee, f = cfg.mlp_hidden[0], cfg.e_dim, 4
     pair = dict(cutoff=cfg.cutoff, eta=cfg.eta, tol=cfg.is_near_tol)
@@ -2407,43 +2981,48 @@ def fused_kernel_phase(torch, card, cfg, boxes, wm, wp, sfu_rate,
         first = bi == 0
         sl = None if first else slice(n // 2 - 64, n // 2 + 64)
         for name, modes in cases.items():
-            wrapper = getattr(kernels, name)
+            wrapper = at(getattr(kernels, name), precision)
             plain = getattr(kernels, name + "_plain")
             measured = []
             for mode, kw, args, tc_flop, elem in modes:
                 kw = {**pair, **kw}
                 err, err_emu, tol = fused_check(torch, kernels, name, args,
-                                                kw, sl, off=first)
+                                                kw, sl, off=first,
+                                                precision=precision)
                 ms = device_ms(torch, lambda: wrapper(*args, **kw),
                                20 if first else 5)
-                plain_ms = (device_ms(torch, lambda: plain(*args, **kw), 3)
-                            if first else None)
+                plain_ms = (plain_time(torch, lambda: plain(*args, **kw),
+                                       plain_iters) if first else None)
                 # pi, pj, xyz, the mask (and col_vec) in, the row sums out
                 per_atom = 3 * hh + 4 + (name == "fused_message_rowsum")
                 nbytes = f * per_atom * n + w_bytes
                 b_ms, b_by, b32 = fused_bound(tc_flop, elem, scan, near * sfu,
-                                              nbytes, sfu_rate)
+                                              nbytes, sfu_rate, passes)
                 measured.append(dict(
                     mode=mode, N=n, valid_atoms=nv, live_pairs=near,
-                    gated_pairs=gated, max_abs_err=err,
-                    max_abs_diff_3xtf32=err_emu, tol=tol,
+                    gated_pairs=gated, max_abs_err=(
+                        err if precision == "highest" else err_emu),
+                    max_abs_diff=err, tol=tol,
                     rows_checked="all" if sl is None else [sl.start, sl.stop],
                     ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                    bound_fp32_ms=b32, tc_flop=tc_flop,
-                    flop_3xtf32=3 * tc_flop, elem_flop=elem,
+                    bound_fp32_ms=b32, tc_flop=tc_flop, elem_flop=elem,
                     scan_instructions=scan, sfu_ops=near * sfu,
-                    bytes=nbytes))
-                print(f"[kernel] {name} ({mode}) at N={n} ({near:,} live "
+                    bytes=nbytes, **{f"max_abs_diff_{key}": err_emu,
+                                     f"flop_{key}": passes * tc_flop}))
+                print(f"[kernel] {name} ({mode}, {TIER_TEXT[precision]}) at "
+                      f"N={n} ({near:,} live "
                       f"pairs, {gated:,} hard-gated): max|d| vs plain "
-                      f"{err:.3e}, vs 3xTF32 emulation {err_emu:.3e} (tol "
-                      f"{tol:.3e}; rows "
+                      f"{err:.3e}, vs its emulation {err_emu:.3e} (tol "
+                      f"{tol:.3e}" + ("" if precision == "highest" else
+                                      " + flip budget") + "; rows "
                       f"{'all' if sl is None else (sl.start, sl.stop)}), "
                       f"same bits on a second launch"
                       + (" and off the 16-byte boundary" if first else "")
                       + f"; kernel {ms:.4f} ms"
-                      + (f", plain {plain_ms:.4f} ms" if first else "")
-                      + f", bound {b_ms:.5f} ms ({b_by}: {3 * tc_flop:,} "
-                      f"tensor-core FLOP in 3xTF32, {elem:,} elementwise "
+                      + (f", plain {plain_ms:.4f} ms" if plain_ms else "")
+                      + f", bound {b_ms:.5f} ms ({b_by}: "
+                      f"{passes * tc_flop:,} tensor-core FLOP in "
+                      f"{TIER_TEXT[precision]}, {elem:,} elementwise "
                       f"FLOP, {scan:,} scan instructions, {near * sfu:,} "
                       f"special-function ops, {nbytes:,} B), fp32 bound "
                       f"{b32:.5f} ms on {card}")
@@ -2452,7 +3031,8 @@ def fused_kernel_phase(torch, card, cfg, boxes, wm, wp, sfu_rate,
                 rows[name] = dict(
                     name=name, route="cuda", source=KERNEL_ROWS[name][1],
                     replaces=KERNEL_ROWS[name][0], launches=0,
-                    library_ms=None, ptxas=ptxas_usage(kernels, name, hh, ee),
+                    library_ms=None,
+                    ptxas=ptxas_usage(kernels, name, hh, ee, precision),
                     **{k: v for k, v in main.items() if k != "mode"},
                     mode=main["mode"], other_mode=other, sizes={})
             else:
@@ -2464,14 +3044,16 @@ def fused_kernel_phase(torch, card, cfg, boxes, wm, wp, sfu_rate,
     n = a.shape[0]
     pp = ((a @ wp.w1_i + wp.b1).contiguous(), (a @ wp.w1_j).contiguous())
     rows["fused_epn_rowsum"]["dimer_probe"] = dimer_check(
-        torch, kernels, pp, w[1], n, pair, xyz.device, widths)
+        torch, kernels, pp, w[1], n, pair, xyz.device, widths, precision)
     return rows
 
 
-def dimer_check(torch, kernels, pp, w, n, pair, dev, label):
+def dimer_check(torch, kernels, pp, w, n, pair, dev, label,
+                precision="highest"):
     """The dense pass kernel's dimer probe at ``n`` atoms (``n // 2``
-    disjoint pairs, ``testing.dimer_probe``), both gates: every pair's two
-    rows exact negations, some transfers live.  Returns the counts."""
+    disjoint pairs, ``testing.dimer_probe``), both gates, at
+    ``precision``: every pair's two rows exact negations, some transfers
+    live.  Returns the counts."""
     from epnn_tpu_torch.testing import dimer_probe
 
     xyz_d, pairs = dimer_probe(n // 2, seed=0)
@@ -2483,19 +3065,64 @@ def dimer_check(torch, kernels, pp, w, n, pair, dev, label):
     live = {}
     for soft in (False, True):
         out = kernels.fused_epn_rowsum(*pp, xyz_p, mask_p, *w, **pair,
-                                       soft_gate=soft)
+                                       soft_gate=soft, precision=precision)
         torch.cuda.synchronize()
         require(torch.equal(out[pt[:, 0]], -out[pt[:, 1]]),
                 ("dimer antisymmetry", label, soft))
         live[soft] = int(torch.count_nonzero(out[pt[:, 0]].abs().sum(1)))
         require(live[soft] > 0, ("dimer probe all zero", label, soft))
     straddle = float(np.mean(pairs[:, 0] // 16 != pairs[:, 1] // 16))
-    print(f"[kernel] fused_epn_rowsum dimer probe at {label}: {len(pairs)} "
+    print(f"[kernel] fused_epn_rowsum dimer probe at {label} "
+          f"({TIER_TEXT[precision]}): {len(pairs)} "
           f"disjoint pairs ({straddle:.1%} across two 16-row tiles), "
           f"{live[False]} / {live[True]} with a live transfer (hard / soft "
           "gate); every pair's rows exact negations")
     return dict(pairs=len(pairs), across_tiles=straddle,
                 live_hard=live[False], live_soft=live[True])
+
+
+def width_inputs(torch, seed, hh, ee):
+    """The [width] phase's inputs at (hh, ee): a seeded random-weight model
+    (the port's ``init_params``: h 16, msg 8, mid widths (H, H), E
+    channels, :data:`WIDTH_T` rounds) that ``Predictor`` serves on the
+    card (its kernel rounds' weights padded once), a 600-atom water box,
+    seeded h, and round 2's message and round 1's pass projections.
+    Returns (cfg, pred, batch, n, xyz, mask, a, wm, wp, pm, pp, far_args,
+    gbar)."""
+    from epnn_tpu_torch.data import pad_molecules
+    from epnn_tpu_torch.elements import table_for_n_elems
+    from epnn_tpu_torch.infer import Predictor
+    from epnn_tpu_torch.models import EPNNConfig
+    from epnn_tpu_torch.models.epnn import init_params
+    from epnn_tpu_torch.testing import water_box
+
+    dev = torch.device("cuda")
+    label = f"{hh}x{ee}"
+    cfg = EPNNConfig(h_dim=16, e_dim=ee, msg_dim=8, mlp_hidden=(hh, hh),
+                     T=WIDTH_T)
+    pred = Predictor(init_params(cfg, torch.Generator().manual_seed(seed)),
+                     cfg)
+    fused_w = (*pred._fused.messages, *pred._fused.passes)
+    require(all(w.padded is not None and w.padded.w2.shape[0] % 8 == 0
+                for w in fused_w), (label, "weights padded once"))
+    batch = pad_molecules([water_box(WIDTH_BOX_MOLECULES, seed=30 + seed)],
+                          table_for_n_elems(cfg.n_elems))
+    n = batch.padded_atoms
+    g = np.random.default_rng(seed)
+    x, xyz, mask, q0 = (torch.from_numpy(np.ascontiguousarray(arr[0]))
+                        .to(dev) for arr in (batch.x, batch.xyz,
+                                             batch.node_mask, batch.q0))
+    h = torch.from_numpy(g.normal(size=(n, cfg.h_dim)).astype(
+        np.float32)).to(dev) * mask[:, None]
+    a = torch.cat([x, h, q0[:, None]], dim=-1)
+    wm, wp = pred._fused.messages[1], pred._fused.passes[0]
+    pm = ((a @ wm.w1_i + wm.b1).contiguous(), (a @ wm.w1_j).contiguous())
+    pp = ((a @ wp.w1_i + wp.b1).contiguous(), (a @ wp.w1_j).contiguous())
+    far_args = (*pm, mask.contiguous(), *wm.mids[0])
+    gbar = torch.from_numpy(g.normal(size=(n, hh)).astype(np.float32)).to(
+        dev)
+    return (cfg, pred, batch, n, xyz, mask, a, wm, wp, pm, pp, far_args,
+            gbar)
 
 
 def width_phase(torch, card, sfu_rate):
@@ -2514,15 +3141,9 @@ def width_phase(torch, card, sfu_rate):
     its bound on this data (:func:`far_phase`, :func:`int8_phase`,
     :func:`near_phase`, :func:`fused_kernel_phase`).  Returns {"HxE":
     results}."""
-    from epnn_tpu_torch.data import pad_molecules
-    from epnn_tpu_torch.elements import table_for_n_elems
-    from epnn_tpu_torch.infer import Predictor
-    from epnn_tpu_torch.models import EPNNConfig
-    from epnn_tpu_torch.models.epnn import init_params
     from epnn_tpu_torch.ops import kernels
     from epnn_tpu_torch.ops.fused import (build_neighbors, forward_blocked,
                                           rbf_and_gate)
-    from epnn_tpu_torch.testing import water_box
     from epnn_tpu_torch.tools.near_field_pace import near_inputs
 
     dev = torch.device("cuda")
@@ -2530,29 +3151,8 @@ def width_phase(torch, card, sfu_rate):
     clocks = []
     for seed, (hh, ee) in enumerate(WIDTH_CASES):
         label = f"{hh}x{ee}"
-        cfg = EPNNConfig(h_dim=16, e_dim=ee, msg_dim=8, mlp_hidden=(hh, hh),
-                         T=WIDTH_T)
-        pred = Predictor(init_params(cfg, torch.Generator().manual_seed(seed)),
-                         cfg)
-        fused_w = (*pred._fused.messages, *pred._fused.passes)
-        require(all(w.padded is not None and w.padded.w2.shape[0] % 8 == 0
-                    for w in fused_w), (label, "weights padded once"))
-        batch = pad_molecules([water_box(WIDTH_BOX_MOLECULES, seed=30 + seed)],
-                              table_for_n_elems(cfg.n_elems))
-        n = batch.padded_atoms
-        g = np.random.default_rng(seed)
-        x, xyz, mask, q0 = (torch.from_numpy(np.ascontiguousarray(arr[0]))
-                            .to(dev) for arr in (batch.x, batch.xyz,
-                                                 batch.node_mask, batch.q0))
-        h = torch.from_numpy(g.normal(size=(n, cfg.h_dim)).astype(
-            np.float32)).to(dev) * mask[:, None]
-        a = torch.cat([x, h, q0[:, None]], dim=-1)
-        wm, wp = pred._fused.messages[1], pred._fused.passes[0]
-        pm = ((a @ wm.w1_i + wm.b1).contiguous(), (a @ wm.w1_j).contiguous())
-        pp = ((a @ wp.w1_i + wp.b1).contiguous(), (a @ wp.w1_j).contiguous())
-        far_args = (*pm, mask.contiguous(), *wm.mids[0])
-        gbar = torch.from_numpy(g.normal(size=(n, hh)).astype(np.float32)).to(
-            dev)
+        (cfg, pred, batch, n, xyz, mask, a, wm, wp, pm, pp, far_args,
+         gbar) = width_inputs(torch, seed, hh, ee)
         entry = dict(H=hh, E=ee, N=n, ptxas={
             name: ptxas_usage(kernels, name, hh, ee)
             for name, kinds in kernels._WIDTHS_OF.items() if kinds})
@@ -2790,16 +3390,29 @@ def main() -> int:
           f" cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
     # ---- 2. build ---------------------------------------------------------
+    # the 3xTF32 libraries at every width and the one-pass tier's
+    # ([slice k]) at the shipped and the timed width, all nvcc at once
     widths = (SHIPPED_WIDTHS, *WIDTH_CASES)
-    secs = kernels.build(widths=widths)
-    print(f"[build] {len(kernels.SOURCES)} kernels at widths {widths} in "
-          f"{secs:.1f} s ({kernels.BUILD_DIR})")
+    tier_widths = (SHIPPED_WIDTHS, TIMED_WIDTH)
+    with ThreadPoolExecutor(2) as pool:
+        jobs = [pool.submit(kernels.build, widths=widths),
+                pool.submit(kernels.build, kernels.TIERED, tier_widths,
+                            ("default",))]
+        secs = [job.result() for job in jobs]
+    print(f"[build] {len(kernels.SOURCES)} kernels at widths {widths} and "
+          f"the {len(kernels.TIERED)} tensor-core kernels' one-pass tier at "
+          f"{tier_widths} in {max(secs):.1f} s ({kernels.BUILD_DIR})")
     for name, kinds in kernels._WIDTHS_OF.items():
         for hw, ew in widths if kinds else widths[:1]:
             tag = {"he": f"{hw}x{ew}", "h": f"H={hw}"}.get(kinds, "")
-            for ln in kernels.build_log(name, hw, ew).splitlines():
-                if "registers" in ln or "spill" in ln:
-                    print(f"[build] {name} {tag}: {ln.strip()}")
+            for tier in (("highest", "default")
+                         if name in kernels.TIERED
+                         and (hw, ew) in tier_widths else ("highest",)):
+                for ln in kernels.build_log(name, hw, ew,
+                                            tier).splitlines():
+                    if "registers" in ln or "spill" in ln:
+                        print(f"[build] {name} {tag} "
+                              f"{TIER_TEXT[tier]}: {ln.strip()}")
 
     # ---- 3. kernels against their plain versions --------------------------
     dev = torch.device("cuda")
@@ -2900,10 +3513,10 @@ def main() -> int:
     counts_b = dict(valid=int(mask_b.sum()),
                     near=int(torch.count_nonzero(nbr_mask_b)),
                     gated=int(torch.count_nonzero(gate_b * nbr_mask_b)))
-    rows.update(fused_kernel_phase(
-        torch, card, cfg, [("2220", a, xyz, mask, counts),
-                           ("17760", a_b, xyz_b, mask_b, counts_b)],
-        wm, wp, sfu_rate))
+    fused_boxes = [("2220", a, xyz, mask, counts),
+                   ("17760", a_b, xyz_b, mask_b, counts_b)]
+    rows.update(fused_kernel_phase(torch, card, cfg, fused_boxes, wm, wp,
+                                   sfu_rate))
     # neighbor_compact on each box as it comes (lattice order) and on a
     # seeded shuffle of it, the cull's best and worst case
     compact_boxes = []
@@ -3171,7 +3784,7 @@ def main() -> int:
     for a, kw in seen:
         got = kernels.dense_message_rowsum_int8(*a, **kw)
         ref = kernels.dense_message_rowsum_int8_plain(*a, kw["pad_pi"])
-        f32 = kernels.dense_message_rowsum(*a)
+        f32 = kernels.dense_message_rowsum(*a, **HI)
         far_errs.append(float((got - ref).abs().max())
                         / (1e-5 * (float(ref.abs().max()) + 1.0)))
         far_gaps.append(float((got - f32).abs().max())
@@ -3238,6 +3851,15 @@ def main() -> int:
     huge, huge_launches = huge_serving_phase(
         torch, card, pred, [("2x2220", batch2), ("1x17760", big)], timed,
         rows)
+    # (k) the precision tiers: the kernels' one-pass tier on the inputs of
+    # the 3xTF32 checks above, then every tier through Predictor
+    tier_kernels = tier_kernels_phase(
+        torch, card, pred, batch2, big,
+        [("2220", far_args, gbar, (50, 0, 20, 0)),
+         ("17760", big_args, gbig, (5, 0, 2, 0))],
+        fused_boxes, sfu_rate, clocks)
+    tier_serve, tier_launches = tier_serving_phase(
+        torch, card, pred, batch2, big, golden, total_q, timed)
 
     # ---- 5. training ------------------------------------------------------
     small_labels = [q.copy() for q in qs]
@@ -3246,9 +3868,13 @@ def main() -> int:
     train_c, _ = train_cluster_phase(torch, pred, card, train_mols, small,
                                      step_list)
     train_d, huge_train_launches = huge_train_phase(torch, pred, card)
+    train_e, tier_train_launches = tier_train_phase(torch, card, pred,
+                                                    train_mols, small)
     profile = profile_phase(
         torch, card, pred, batch2, big, pred8,
-        Predictor(pred.params, cfg, far_cluster=CLUSTER_CS[0]))
+        Predictor(pred.params, cfg, far_cluster=CLUSTER_CS[0]),
+        {tier: Predictor(pred.params, cfg.replace(**PRECISION_TIERS[tier]))
+         for tier in ("parity", "fast")})
 
     # ---- 6. result lines --------------------------------------------------
     # launches: each kernel's count in the main path of its slice
@@ -3266,6 +3892,14 @@ def main() -> int:
         rows[name]["launches_by_path"] = path_launches
         rows[name]["launches"] = path_launches[MAIN_PATH.get(name, "serve")]
         require(rows[name]["launches"] > 0, (name, path_launches))
+        if name in kernels.TIERED:
+            # the one-pass tier: its checks and times ([slice k]), and its
+            # launches in each tier's 2 x 2,220 call and in [train e]
+            rows[name]["tier"] = {"default": dict(
+                tier_kernels[name], launches_by_tier={
+                    tier: tier_launches[tier][name]
+                    for tier in PRECISION_TIERS},
+                launches_train_fast=tier_train_launches[name])}
     require(sorted(rows) == sorted(kernels.SOURCES), sorted(rows))
     print(json.dumps({"kernels": list(rows.values()),
                       "predict_batch_ms": {"2x2220": ms2, "1x17760": ms3},
@@ -3300,6 +3934,7 @@ def main() -> int:
                       "cluster": cluster, "cluster_accuracy": cluster_acc,
                       "position_vjp": vjp, "train_cluster": train_c,
                       "huge_serving": huge, "huge_train": train_d,
+                      "precision_tiers": tier_serve, "train_fast": train_e,
                       "widths": width_results,
                       "profile": profile, "sm_clocks": clocks,
                       "card": card}))

@@ -1,12 +1,13 @@
 // Shared device helpers of the epnn_tpu_torch kernels.
 //
-// Every kernel here is float32-grade and compiled without --use_fast_math.
-// On the CUDA cores, products are written as explicit fmaf() chains in a
-// fixed k order, so the same inputs give the same bits in every thread.
-// The far-field kernels (dense_message_rowsum and its backward), the two
-// near kernels and the two fused dense kernels run their products on the
-// tensor cores in 3xTF32 (below), which keeps fp32 grade; TF32 alone would
-// not.
+// Every kernel here is compiled without --use_fast_math.  On the CUDA
+// cores, products are written as explicit fmaf() chains in a fixed k order,
+// so the same inputs give the same bits in every thread.  The far-field
+// kernels (dense_message_rowsum and its backward), the two near kernels and
+// the two fused dense kernels run their products on the tensor cores at the
+// library's TF32 tier (EPNN_TF32_PASSES, below): 3xTF32, which keeps fp32
+// grade (precision "high" and "highest"), or one TF32 product (precision
+// "default", ~2^-11 relative a product).
 //
 // Widths.  A library is compiled for one mid width H and one RBF width E,
 // the macros EPNN_H and EPNN_E (any width from 1; default 32 and 48, the
@@ -56,7 +57,8 @@ constexpr int kKE = kEp / 8;             // k-steps of rbf @ W1e
 constexpr int kFH = kHp / 4;
 constexpr int kFE = kEp / 4;
 
-// Tensor-core chains of at most 4 k-steps (12 products in 3xTF32): a
+// Tensor-core chains of at most 4 k-steps (12 products in 3xTF32, 4 at one
+// pass): a
 // product of `ksteps` k-steps runs as chains(ksteps) chains, k-step ks in
 // chain chain_of(ks, ksteps), their sums added in fp32 in order.
 __host__ __device__ constexpr int chains(int ksteps) {
@@ -164,19 +166,32 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(n));
 }
 
-// ---- 3xTF32 on the tensor cores -------------------------------------------
+// ---- TF32 tiers on the tensor cores ---------------------------------------
 //
 // A float x splits into hi = tf32(x) and lo = tf32(x - hi), each rounded to
 // nearest with ties away from zero on the low 13 bits: the rounding of
 // cvt.rna.tf32.f32, written as two integer ops (the same expression as
-// kernels.tf32_round); x - hi is exact.  A product a * b is then
-// lo_a * hi_b + hi_a * lo_b + hi_a * hi_b, the small terms first (the order
-// of CUTLASS's OpMultiplyAddFastF32), accumulated in fp32 by mma.sync.  The
-// dropped lo_a * lo_b is ~2^-22 relative, so the result is fp32-grade; one
-// TF32 pass keeps ~2^-11.
+// kernels.tf32_round); x - hi is exact.  In 3xTF32 (EPNN_TF32_PASSES = 3,
+// the default) a product a * b is then lo_a * hi_b + hi_a * lo_b + hi_a *
+// hi_b, the small terms first (the order of CUTLASS's OpMultiplyAddFastF32),
+// accumulated in fp32 by mma.sync.  The dropped lo_a * lo_b is ~2^-22
+// relative, so the result is fp32-grade.  At one pass (EPNN_TF32_PASSES = 1,
+// the "default" tier) a product is hi_a * hi_b alone, ~2^-11 relative: the
+// operands are still rounded to nearest here, as the plain twins
+// (kernels._mm_tf32) round them, never truncated by the tensor cores.
+// Every kernel body reaches the tier through tf32_split, split_b, mma_tier
+// and wg::mma_tier, so one macro sets it for all of them; lo is 0 at one
+// pass and its products are left out.
 // The tensor cores' fp32 accumulation truncates, so its error grows with
-// the length of a chain: every chain here is at most 12 products (4 k-steps
-// x 3), and longer sums are fp32 adds on the CUDA cores (chains()).
+// the length of a chain: every chain here is at most 4 k-steps (12 products
+// in 3xTF32), and longer sums are fp32 adds on the CUDA cores (chains()).
+
+#ifndef EPNN_TF32_PASSES
+#define EPNN_TF32_PASSES 3
+#endif
+static_assert(EPNN_TF32_PASSES == 3 || EPNN_TF32_PASSES == 1,
+              "EPNN_TF32_PASSES is 3 (3xTF32) or 1 (one TF32 product)");
+constexpr bool kSplit = EPNN_TF32_PASSES == 3;  // lo parts and their products
 
 __device__ __forceinline__ float tf32_round(float x) {
   return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
@@ -186,7 +201,7 @@ __device__ __forceinline__ void tf32_split(float x, uint32_t& hi,
                                            uint32_t& lo) {
   const float h = tf32_round(x);
   hi = __float_as_uint(h);
-  lo = __float_as_uint(tf32_round(x - h));
+  lo = kSplit ? __float_as_uint(tf32_round(x - h)) : 0u;
 }
 
 // (hi(w0), hi(w1), lo(w0), lo(w1)): a B fragment, split
@@ -209,12 +224,14 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// d += a b in 3xTF32; b = split_b(...) of the two B values
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
-                                           const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4], uint4 b) {
-  mma_tf32(d, al, b.x, b.y);
-  mma_tf32(d, ah, b.z, b.w);
+// d += a b at the library's tier; b = split_b(...) of the two B values
+__device__ __forceinline__ void mma_tier(float (&d)[4],
+                                         const uint32_t (&ah)[4],
+                                         const uint32_t (&al)[4], uint4 b) {
+  if constexpr (kSplit) {
+    mma_tf32(d, al, b.x, b.y);
+    mma_tf32(d, ah, b.z, b.w);
+  }
   mma_tf32(d, ah, b.x, b.y);
 }
 
@@ -268,7 +285,7 @@ __device__ __forceinline__ void far_z2(const float (&xa)[kFH],
     far_a(xa, xb, xs, ks, ah, al);
 #pragma unroll
     for (int nt = 0; nt < kNT; ++nt)
-      mma_3xtf32(p[chain_of(ks, kNT)][nt], ah, al, bfrag(ks, nt));
+      mma_tier(p[chain_of(ks, kNT)][nt], ah, al, bfrag(ks, nt));
   }
 #pragma unroll
   for (int nt = 0; nt < kNT; ++nt)
@@ -481,14 +498,17 @@ struct Mma<64> {
   }
 };
 
-// d += a b in 3xTF32: lo_a hi_b + hi_a lo_b + hi_a hi_b, as mma_3xtf32
+// d += a b at the library's tier, as mma_tier: in 3xTF32 lo_a hi_b +
+// hi_a lo_b + hi_a hi_b; at one pass hi_a hi_b (b_lo is then not read)
 template <int N>
-__device__ __forceinline__ void mma_3xtf32(float (&d)[N / 2],
-                                           const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4],
-                                           uint64_t b_hi, uint64_t b_lo) {
-  Mma<N>::run(d, al, b_hi);
-  Mma<N>::run(d, ah, b_lo);
+__device__ __forceinline__ void mma_tier(float (&d)[N / 2],
+                                         const uint32_t (&ah)[4],
+                                         const uint32_t (&al)[4],
+                                         uint64_t b_hi, uint64_t b_lo) {
+  if constexpr (kSplit) {
+    Mma<N>::run(d, al, b_hi);
+    Mma<N>::run(d, ah, b_lo);
+  }
   Mma<N>::run(d, ah, b_hi);
 }
 
@@ -616,7 +636,7 @@ __device__ __forceinline__ void near_stage(NearSmem& s,
   }
 }
 
-// epart = rbf @ W1e for a tile, in 3xTF32: A from the thread's features
+// epart = rbf @ W1e for a tile, at the library's tier: A from the thread's features
 // kFE t .. kFE t + kFE - 1 of entries g (ra) and g + 8 (rb).  Chains of at
 // most 4 k-steps (at E = 48: two of 3), added in fp32.  ep in the C layout
 // with near_w1e_frag's columns: entry g's feature kFH t + m is
@@ -642,7 +662,7 @@ __device__ __forceinline__ void near_epart(const float (&ra)[kFE],
     tf32_split(rb[2 * ks + 1], ah[3], al[3]);
 #pragma unroll
     for (int nt = 0; nt < kNT; ++nt)
-      mma_3xtf32(c[chain_of(ks, kKE)][nt], ah, al, b1[ks * kNT + nt][lane]);
+      mma_tier(c[chain_of(ks, kKE)][nt], ah, al, b1[ks * kNT + nt][lane]);
   }
 #pragma unroll
   for (int nt = 0; nt < kNT; ++nt)
@@ -666,7 +686,7 @@ __device__ __forceinline__ void near_ep_rows(const float (&ep)[kNT][4],
   }
 }
 
-// y = b2 + z @ W2 for a tile, in 3xTF32: A = z (already through relu) at
+// y = b2 + z @ W2 for a tile, at the library's tier: A = z (already through relu) at
 // the thread's features kFH t .. of entries g (za) and g + 8 (zb), in
 // far_a's order; y in the C layout (y[nt]: outputs 8nt + 2t + {0, 1} of
 // entry g, then of g + 8).  Chains of at most 4 k-steps (at H = 32 one of
@@ -696,7 +716,7 @@ __device__ __forceinline__ void near_mid(const float (&za)[kFH],
     tf32_split(zb[2 * ks + 1], ah[3], al[3]);
 #pragma unroll
     for (int nt = 0; nt < kNT; ++nt)
-      mma_3xtf32(c[chain_of(ks, kNT)][nt], ah, al, b2[ks * kNT + nt][lane]);
+      mma_tier(c[chain_of(ks, kNT)][nt], ah, al, b2[ks * kNT + nt][lane]);
   }
 #pragma unroll
   for (int nt = 0; nt < kNT; ++nt)

@@ -11,6 +11,11 @@
 // pallas_call (:1040) runs _msg_kernel (:42).  The v5e lane packing
 // (kron(I_P, W2), pltpu.repeat) is not carried over.
 //
+// Tiers: the JAX kernel's precision argument is the library's TF32 tier
+// (EPNN_TF32_PASSES, common.cuh), both built from this source: 3xTF32
+// for "high" and "highest", one TF32 product a k-step for "default",
+// a third of the products (bound >= 1.31 ms at 17,760 atoms).
+//
 // Bound on the H100: operations.  Each live pair needs the H x H product
 // relu(z1) @ W2 (2H^2 = 2,048 FLOP at H = 32) against O((R + N) H) bytes.
 // On the tensor cores in 3xTF32 that is three products, 6H^2 FLOP at

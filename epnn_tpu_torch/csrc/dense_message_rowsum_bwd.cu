@@ -13,6 +13,11 @@
 // whose pallas_call (:1119) runs _msg_bwd_kernel (:921).  The v5e lane
 // packing (kron(I_P, W2), pltpu.repeat) is not carried over.
 //
+// Tiers: the JAX kernel's precision argument is the library's TF32 tier
+// (EPNN_TF32_PASSES, common.cuh), both built from this source: 3xTF32
+// for "high" and "highest", one TF32 product a k-step for "default",
+// a third of the products (6H^2 FLOP a live pair).
+//
 // Bound on the H100: operations.  Each live pair needs three H x H
 // contractions (z2, e2 @ W2^T, the dW2 outer product), 3 x 2H^2 FLOP,
 // each three tensor-core products in 3xTF32 (18H^2 FLOP at 495 TFLOP/s),
@@ -191,7 +196,7 @@ dmr_bwd_d(const float* __restrict__ pi, const float* __restrict__ pj,
               f < kHp ? epnn::split_b(w2[(size_t)f * kHp + o],
                                       w2[(size_t)f * kHp + o + 1])
                       : make_uint4(0u, 0u, 0u, 0u);
-          epnn::mma_3xtf32(c[nf], ah, al, b);
+          epnn::mma_tier(c[nf], ah, al, b);
         }
       }
 #pragma unroll
@@ -334,7 +339,7 @@ dmr_bwd_w(const float* __restrict__ pi, const float* __restrict__ pj,
           wide::split_a(a, ah, al);
 #pragma unroll
           for (int no = 0; no < 4; ++no)
-            epnn::mma_3xtf32(cw[mf][no], ah, al, bfr[no]);
+            epnn::mma_tier(cw[mf][no], ah, al, bfr[no]);
         }
       }
 #pragma unroll
@@ -680,8 +685,8 @@ dmr_bwd_partial(const float* __restrict__ pi, const float* __restrict__ pj,
           const uint32_t al[4] = {el[kk][0], el[kk][2], el[kk][1], el[kk][3]};
 #pragma unroll
           for (int nf = 0; nf < kNT; ++nf)
-            epnn::mma_3xtf32(zc[epnn::chain_of(kk, kNT)][nf], ah, al,
-                             s.bt[kk * kNT + nf][lane]);
+            epnn::mma_tier(zc[epnn::chain_of(kk, kNT)][nf], ah, al,
+                           s.bt[kk * kNT + nf][lane]);
         }
         // mask 1[z1 > 0] at features kFH t + 2nf + h, sum over the streamed
 #pragma unroll
@@ -767,7 +772,7 @@ dmr_bwd_partial(const float* __restrict__ pi, const float* __restrict__ pj,
                 a_frag(kp, mf, ah, al);
 #pragma unroll
                 for (int no = 0; no < kNT; ++no)
-                  epnn::mma_3xtf32(acc_w[mf][no], ah, al, bfr[no]);
+                  epnn::mma_tier(acc_w[mf][no], ah, al, bfr[no]);
               }
             }
             if (j & 1) {
@@ -794,7 +799,7 @@ dmr_bwd_partial(const float* __restrict__ pi, const float* __restrict__ pj,
                 a_frag(kp, mf, ah, al);
 #pragma unroll
                 for (int no = 0; no < kNT; ++no)
-                  epnn::mma_3xtf32(cw[no], ah, al, b_frag(kp, no));
+                  epnn::mma_tier(cw[no], ah, al, b_frag(kp, no));
               }
 #pragma unroll
               for (int no = 0; no < kNT; ++no)

@@ -1,4 +1,5 @@
-// The far field's block body on wgmma in 3xTF32: a block of one
+// The far field's block body on wgmma at the library's TF32 tier
+// (common.cuh: 3xTF32, or one TF32 product a k-step): a block of one
 // warpgroup (64 rows i, 16 a warp) against one column range of the pair
 // grid,
 //
@@ -36,7 +37,8 @@ constexpr int kInFlight = kHp <= 32 ? 2 : 1;
 static_assert(kChunk % 2 == 0, "columns go two at a time");
 
 struct Smem {
-  __align__(128) float b[2][kNT][kTile];  // W2 hi, lo; k-step
+  // W2 hi (and lo in 3xTF32), k-step by k-step: one pass stages no lo tiles
+  __align__(128) float b[kSplit ? 2 : 1][kNT][kTile];
   __align__(16) float pj[2][kChunk][kHp];
   float cv[2][kChunk];
 };
@@ -77,8 +79,8 @@ __device__ __forceinline__ void rows(Smem& s, const float* __restrict__ pi,
   };
   stage(0);
 
-  // W2's B tiles, split; column k of k-step ks is feature kFH (k % 4) + 2ks
-  // + k / 4, far_a's order
+  // W2's B tiles, split (hi only at one pass); column k of k-step ks is
+  // feature kFH (k % 4) + 2ks + k / 4, far_a's order
   for (int e = threadIdx.x; e < kNT * kTile; e += kThreads) {
     const int ks = e / kTile, o = e % kTile;
     const int n = (o / 64) * 8 + (o / 4) % 8;
@@ -86,14 +88,15 @@ __device__ __forceinline__ void rows(Smem& s, const float* __restrict__ pi,
     uint32_t hi, lo;
     tf32_split(w2[f * kHp + n], hi, lo);
     s.b[0][ks][o] = __uint_as_float(hi);
-    s.b[1][ks][o] = __uint_as_float(lo);
+    if constexpr (kSplit) s.b[kSplit ? 1 : 0][ks][o] = __uint_as_float(lo);
   }
   wg::fence_proxy_async();
   uint64_t b_hi[kNT], b_lo[kNT];
 #pragma unroll
   for (int ks = 0; ks < kNT; ++ks) {
     b_hi[ks] = wg::desc(&s.b[0][ks][0], kLbo, kSbo);
-    b_lo[ks] = wg::desc(&s.b[1][ks][0], kLbo, kSbo);
+    b_lo[ks] = kSplit ? wg::desc(&s.b[kSplit ? 1 : 0][ks][0], kLbo, kSbo)
+                      : b_hi[ks];
   }
   float bias[kNT][2];
 #pragma unroll
@@ -120,7 +123,7 @@ __device__ __forceinline__ void rows(Smem& s, const float* __restrict__ pi,
     const float* sp = &s.pj[c & 1][0][0];
     const float* scv = &s.cv[c & 1][0];
     // column j's A and accumulators (b2, then 0 for further chains), then
-    // its 3 kNT products as a group
+    // its kNT k-steps' products (3 each in 3xTF32, 1 at one pass) as a group
     auto issue = [&](int j, uint32_t (&ah)[kNT][4], uint32_t (&al)[kNT][4],
                      float (&d)[kC][kD]) {
       float xs[kFH];
@@ -154,7 +157,7 @@ __device__ __forceinline__ void rows(Smem& s, const float* __restrict__ pi,
       wg::fence();
 #pragma unroll
       for (int ks = 0; ks < kNT; ++ks)
-        wg::mma_3xtf32<kHp>(d[chain_of(ks, kNT)], ah[ks], al[ks], b_hi[ks],
+        wg::mma_tier<kHp>(d[chain_of(ks, kNT)], ah[ks], al[ks], b_hi[ks],
                             b_lo[ks]);
       wg::commit();
     };
@@ -225,7 +228,7 @@ __device__ __forceinline__ void rows(Smem& s, const float* __restrict__ pi,
 // The wide path (wide.cuh): a block is 4 warps, 64 rows (16 a warp), one
 // column range and one output chunk of 32 columns (blockIdx.z in
 // dense_message_rowsum.cu).  For each column j a warp builds z2's chunk
-// with mma.sync m16n8k8 3xTF32, k-step by k-step from pi and pj read where
+// with mma.sync m16n8k8 at the library's tier, k-step by k-step from pi and pj read where
 // they are needed, and folds cv_j * relu(z2) into its 16 sums in order.
 constexpr int kThreads = 128;
 constexpr int kRowsPerBlock = 64;

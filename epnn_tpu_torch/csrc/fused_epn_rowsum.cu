@@ -15,6 +15,12 @@
 // (_epn_packed_kernel :829, pallas_call :442) is a v5e layout of the same
 // math and is not carried over.
 //
+// Tiers: the JAX kernel's precision argument is the library's TF32 tier
+// (EPNN_TF32_PASSES, common.cuh), both built from this source: 3xTF32
+// for "high" and "highest", one TF32 product a k-step for "default",
+// a third of the products; a pair's two orderings keep one
+// rounding and one k order at either tier, so they stay exact negations.
+//
 // Both gates are exactly 0 beyond the cutoff, on the diagonal and for
 // masked atoms (the envelope is, and so is every channel), so only pairs
 // within the cutoff add anything: ~17 thousand of the 4.9 M pairs of the

@@ -15,6 +15,11 @@
 // variant (_msg_packed_kernel :874, pallas_call :561) is a v5e layout of the
 // same math and is not carried over.
 //
+// Tiers: the JAX kernel's precision argument is the library's TF32 tier
+// (EPNN_TF32_PASSES, common.cuh), both built from this source: 3xTF32
+// for "high" and "highest", one TF32 product a k-step for "default",
+// a third of the products in both block kinds.
+//
 // The split.  Where rbf_ij = 0 — beyond the cutoff, on the diagonal, for
 // masked atoms: all but ~17 thousand of the 4.9 M pairs of the 2,224-atom
 // water box — the pair's term is the far field's, relu(relu(pi_i + pj_j)

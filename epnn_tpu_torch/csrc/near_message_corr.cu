@@ -12,6 +12,11 @@
 // near_message_corr (:1286) -> _near_msg_impl (:1228), whose pallas_call
 // (:1245) runs _near_msg_kernel (:1189).
 //
+// Tiers: the JAX kernel's precision argument is the library's TF32 tier
+// (EPNN_TF32_PASSES, common.cuh), both built from this source: 3xTF32
+// for "high" and "highest", one TF32 product a k-step for "default",
+// a third of the products; the kernel stays bound by bytes.
+//
 // Bound on the H100: bytes.  Only live slots (mask != 0) are read: each
 // reads (H + E) floats (320 B) and needs rbf @ W1e and two H x H products,
 // 2EH + 4H^2 = 7.2 kFLOP, three tensor-core products each in 3xTF32

@@ -13,6 +13,12 @@
 // _near_pass_kernel (:1312).  The v5e lane roll of [pi | pj] is not carried
 // over: the two orderings are two chains of products here.
 //
+// Tiers: the JAX kernel's precision argument is the library's TF32 tier
+// (EPNN_TF32_PASSES, common.cuh), both built from this source: 3xTF32
+// for "high" and "highest", one TF32 product a k-step for "default",
+// a third of the products; a pair's two orderings keep one
+// rounding and one k order at either tier, so they stay exact negations.
+//
 // Bound on the H100: bytes.  Only live slots (gh != 0) are read: each
 // reads (2H + E) floats (448 B) and needs rbf @ W1e and two H x H
 // products, 2EH + 4H^2 = 7.2 kFLOP, three tensor-core products each in

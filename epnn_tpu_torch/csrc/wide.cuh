@@ -112,7 +112,7 @@ __device__ __forceinline__ void mid(const float* __restrict__ w2,
         for (int nt = 0; nt < 4; ++nt) {
           const uint4 b = bfrag(w2, ks, n0 + 8 * nt + g, t);
 #pragma unroll
-          for (int m = 0; m < nz; ++m) mma_3xtf32(c[m][nt], ah[m], al[m], b);
+          for (int m = 0; m < nz; ++m) mma_tier(c[m][nt], ah[m], al[m], b);
         }
       }
     }
@@ -196,8 +196,8 @@ __device__ __forceinline__ void epart_rows(const float* __restrict__ w1e,
           split_a(a, ah, al);
 #pragma unroll
           for (int nt = 0; nt < 4; ++nt)
-            mma_3xtf32(c[nt], ah, al,
-                       bfrag(w1e, ke, kNC * oc + 8 * nt + g, t));
+            mma_tier(c[nt], ah, al,
+                     bfrag(w1e, ke, kNC * oc + 8 * nt + g, t));
         }
       }
 #pragma unroll

@@ -8,10 +8,16 @@ Dispatch: padded widths up to :data:`DENSE_MAX_ATOMS` run the dense
 neighbor-split blocked forward (:func:`~epnn_tpu_torch.ops.forward_blocked`)
 whose hot loops are the CUDA kernels of :mod:`epnn_tpu_torch.ops.kernels`.
 
-Everything runs in float32, but for the far field's int8 serving tier
-(``dense_matmul_precision="int8"`` on the card, :meth:`Predictor._use_pallas`).
-Matmuls stay full fp32 as long as TF32 stays off
-(``torch.backends.cuda.matmul.allow_tf32``, PyTorch's default).
+Every precision tier of the JAX package serves, with its names: the
+config's precision fields pick each kernel's precision
+(:mod:`epnn_tpu_torch.models.config`; on the card ``"default"`` is the
+kernels' one-pass TF32 tier, ``"high"``/``"highest"`` 3xTF32),
+``dense_matmul_precision="bf16x3"`` the split-float far field,
+``"int8"`` the far field's int8 serving tier (on the card,
+:meth:`Predictor._use_pallas`), and ``compute_dtype="bfloat16"`` the bf16
+forward.  Plain products outside the kernels stay full float32 at every
+tier: the port sets no TF32 flag (``torch.backends.cuda.matmul.allow_tf32``
+stays at PyTorch's default, off).  The charges come back float32.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from epnn_tpu_torch.elements import table_for_n_elems
 from epnn_tpu_torch.featurize import rbf_edges
 from epnn_tpu_torch.io import checkpoint as ckpt_io
 from epnn_tpu_torch.models import EPNN, EPNNConfig
+from epnn_tpu_torch.models.config import dense_precision
 from epnn_tpu_torch.ops.cluster import mids_lipschitz_bound
 from epnn_tpu_torch.ops.fused import (
     balanced_row_chunk,
@@ -516,11 +523,8 @@ class Predictor:
         ``dense_matmul_precision='int8'`` and changes nothing else (the
         float32 kernels run on the card either way); so a CPU Predictor
         serves int8 unquantized, as JAX's CPU Predictor does."""
-        cfg = self.cfg
-        dense_prec = cfg.dense_matmul_precision or cfg.matmul_precision or (
-            "highest" if cfg.highest_precision else "default")
-        return self.device.type == "cuda" and dense_prec in ("default",
-                                                             "int8")
+        return (self.device.type == "cuda"
+                and dense_precision(self.cfg) == "default")
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float32)).to(self.device)
@@ -620,7 +624,8 @@ class Predictor:
             q = forward_blocked(self._fused, x, q0, xyz, mask, self.cfg,
                                 far_cluster=self.far_cluster,
                                 **self._blocked_kw(batch))
-        return q.cpu().numpy().astype(np.float32, copy=False)
+        # float() first: a bf16 dense forward returns bf16 charges
+        return q.float().cpu().numpy()
 
     @torch.no_grad()
     def far_field_diagnostics(self, batch: MolBatch,

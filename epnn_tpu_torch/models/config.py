@@ -27,13 +27,25 @@ class EPNNConfig:
         (cosine-cutoff envelope).
       is_near_tol: the gate tolerance.
       compute_dtype / highest_precision / matmul_precision /
-        dense_matmul_precision: precision policy of the JAX package.  This
-        port runs float32 throughout (TF32 off): 'default' and 'highest'
-        both run fp32 here.  dense_matmul_precision='int8' is the far
-        field's int8 serving tier, taken by the neighbor split with
-        ``use_pallas`` (on the card, ``Predictor``'s default), as in the
-        JAX package.  'bfloat16' compute and the 'bf16x3' tier are not
-        ported yet and raise in the forward.
+        dense_matmul_precision: the JAX package's precision policy, with its
+        names, defaults and routes.  Three precisions are resolved from
+        them, each by one function here: :func:`main_precision` (the pair
+        MLPs, the fused dense kernels), :func:`dense_precision` (the far
+        field) and :func:`near_precision` (the two near kernels).  Each is
+        'default', 'high' or 'highest' ('bf16x3' for the far field too).
+        On the card 'default' runs the tensor-core kernels at one TF32
+        product a k-step, 'high' and 'highest' in 3xTF32; on the CPU the
+        kernels' plain versions run in float32 at every precision, as
+        XLA:CPU runs 'default'.  Plain products outside the kernels stay
+        float32 at every precision (the port sets no global TF32 flag).
+        dense_matmul_precision='bf16x3' runs the far field's plain version
+        in JAX's split-float arithmetic (JAX runs no kernel there);
+        'int8' is the far field's int8 serving tier, taken by the neighbor
+        split with ``use_pallas`` (on the card, ``Predictor``'s default),
+        and otherwise the far field at 'default', as in the JAX package.
+        compute_dtype='bfloat16' runs JAX's bf16 recursion: messages,
+        update weights and activations in bfloat16, the pass rounds and
+        the charges in float32, the output float32.
     """
 
     n_elems: int = 10
@@ -64,6 +76,46 @@ class EPNNConfig:
 
     def replace(self, **kw) -> "EPNNConfig":
         return dataclasses.replace(self, **kw)
+
+
+#: the precision names of the JAX package's kernels and dots
+PRECISIONS = ("default", "high", "highest")
+
+
+def _checked(name: str, field: str, allowed=PRECISIONS) -> str:
+    if name not in allowed:
+        raise ValueError(f"{field}={name!r}: one of {allowed}")
+    return name
+
+
+def main_precision(cfg: EPNNConfig) -> str:
+    """The model's precision, JAX's ``_resolve_precision`` by name
+    (``epnn_tpu/ops/fused.py:44-52``): ``matmul_precision`` where set, else
+    'highest' or 'default' from ``highest_precision``."""
+    return _checked(cfg.matmul_precision or (
+        "highest" if cfg.highest_precision else "default"),
+        "matmul_precision")
+
+
+def dense_precision(cfg: EPNNConfig) -> str:
+    """The far field's precision (``epnn_tpu/ops/fused.py:1064-1080``,
+    ``:1098-1102``): ``dense_matmul_precision`` where set — 'bf16x3' as it
+    is, 'int8' as 'default' (the precision of the int8 kernel's call and of
+    the unquantized far field that stands in for it) — else
+    :func:`main_precision`."""
+    name = cfg.dense_matmul_precision
+    if name == "int8":
+        return "default"
+    if name:
+        return _checked(name, "dense_matmul_precision",
+                        PRECISIONS + ("bf16x3",))
+    return main_precision(cfg)
+
+
+def near_precision(cfg: EPNNConfig) -> str:
+    """The near kernels' precision (``epnn_tpu/ops/fused.py:1137-1138``):
+    the model's, :func:`main_precision`."""
+    return main_precision(cfg)
 
 
 def reference_compat(cfg: EPNNConfig) -> EPNNConfig:

@@ -33,6 +33,10 @@ from epnn_tpu_torch.models.config import EPNNConfig
 from epnn_tpu_torch.models.mlp import MLP
 
 
+def _dtype(cfg: EPNNConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+
+
 def pair_gate(e: torch.Tensor, tol: float) -> torch.Tensor:
     """Is-near gate: a pair passes charge iff any RBF channel exceeds
     ``tol`` (within the cutoff, not a padded/diagonal pair)."""
@@ -52,23 +56,29 @@ class EPNN(nn.Module):
                  'soft_envelope'
       h0:        optional (B, N, h_dim) initial hidden state (default zeros)
 
-    Returns per-atom charges (B, N).
+    Returns per-atom charges (B, N), in the compute type: under
+    ``compute_dtype="bfloat16"`` every input, activation and layer runs in
+    bfloat16 (flax's ``dtype=bf16``, the JAX model's ``_dtype``) and the
+    charges come back in bfloat16, as the JAX model's do; the parameters
+    stay float32.  Every product is float32 (or bf16) whatever the
+    precision fields say: the plain products of the port run at full
+    precision.
     """
 
     def __init__(self, cfg: EPNNConfig):
         super().__init__()
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                "compute_dtype='bfloat16' is not ported yet (ROADMAP queue 1,"
-                " precision tiers)")
+        if cfg.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype={cfg.compute_dtype!r}: "
+                             "'float32' or 'bfloat16'")
         self.cfg = cfg
+        dt = _dtype(cfg)
         f = cfg.pair_feat_dim
         self.message_mlps = nn.ModuleList(
-            MLP(f, cfg.mlp_hidden, cfg.msg_dim) for _ in range(cfg.T))
+            MLP(f, cfg.mlp_hidden, cfg.msg_dim, dt) for _ in range(cfg.T))
         self.update_mlp = MLP(cfg.h_dim + cfg.msg_dim, cfg.mlp_hidden,
-                              cfg.h_dim)
+                              cfg.h_dim, dt)
         self.pass_mlps = nn.ModuleList(
-            MLP(f, cfg.mlp_hidden, 1) for _ in range(cfg.T))
+            MLP(f, cfg.mlp_hidden, 1, dt) for _ in range(cfg.T))
 
     @classmethod
     def from_params(cls, cfg: EPNNConfig, params: dict,
@@ -90,9 +100,10 @@ class EPNN(nn.Module):
         h0: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         cfg = self.cfg
+        dt = _dtype(cfg)
+        x, e, node_mask, q = x.to(dt), e.to(dt), node_mask.to(dt), q0.to(dt)
         b, n = x.shape[0], x.shape[1]
-        h = (x.new_zeros((b, n, cfg.h_dim)) if h0 is None else h0)
-        q = q0
+        h = (x.new_zeros((b, n, cfg.h_dim)) if h0 is None else h0.to(dt))
         pair_mask = node_mask[:, :, None] * node_mask[:, None, :]
 
         nm = node_mask[..., None]
@@ -108,7 +119,7 @@ class EPNN(nn.Module):
         if cfg.pass_weighting == "soft_envelope":
             if soft_env is None:
                 raise ValueError("pass_weighting='soft_envelope' needs soft_env")
-            gate = soft_env
+            gate = soft_env.to(dt)
         else:
             gate = pair_gate(e, cfg.is_near_tol)
         weight = gate * pair_mask

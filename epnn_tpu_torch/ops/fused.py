@@ -17,9 +17,22 @@ row blocks of plain PyTorch (differentiable, any MLP depth), and
 :func:`_forward_single_pallas` with each round one fused CUDA kernel over
 the whole pair grid (inference-only).  The kernels are those of
 :mod:`epnn_tpu_torch.ops.kernels`; the gathers, projections and update MLP
-stay plain PyTorch.  Precision is float32 throughout, but for the far
-field's int8 serving tier (``dense_matmul_precision="int8"`` with
-``use_pallas``).
+stay plain PyTorch.
+
+Precision follows the JAX package's policy by name
+(:func:`~epnn_tpu_torch.models.config.main_precision`,
+:func:`~epnn_tpu_torch.models.config.dense_precision`,
+:func:`~epnn_tpu_torch.models.config.near_precision`): each kernel call
+takes its precision as JAX's Pallas call does, which on the card selects
+the kernel's TF32 tier (``"default"``: one TF32 product a k-step) and on
+the CPU changes nothing (float32 plain versions, as XLA:CPU).  Plain
+products stay float32 at every precision.  The far field's
+``dense_matmul_precision="bf16x3"`` runs its plain version in JAX's
+split-float arithmetic (:func:`dense_message_rowsum_bf16x3_plain`), and
+``"int8"`` with ``use_pallas`` its int8 serving tier.
+``compute_dtype="bfloat16"`` runs JAX's bf16 recursion
+(:func:`forward_blocked`): bf16 messages through the plain versions,
+float32 pass rounds through the kernels.
 """
 
 from __future__ import annotations
@@ -39,7 +52,12 @@ from epnn_tpu_torch.featurize import (
     pair_d2,
     rbf_centers,
 )
-from epnn_tpu_torch.models.config import EPNNConfig
+from epnn_tpu_torch.models.config import (
+    EPNNConfig,
+    dense_precision,
+    main_precision,
+    near_precision,
+)
 from epnn_tpu_torch.ops.cluster import weighted_kmeans
 from epnn_tpu_torch.ops.kernels import (
     dense_message_rowsum,
@@ -55,6 +73,7 @@ from epnn_tpu_torch.ops.kernels import (
     near_pass_rowsum_plain,
     pad_weights,
 )
+from epnn_tpu_torch.ops.kernels import _layers, _mid_layers, _plain_rows
 
 Tensor = torch.Tensor
 
@@ -105,6 +124,15 @@ class FusedParams:
             tuple(w.to(device) for w in self.passes),
             tuple((w.to(device).contiguous(), b.to(device).contiguous())
                   for w, b in self.update))
+
+
+def _cast_round(w: PairMLPWeights, dtype) -> PairMLPWeights:
+    """A round's weights as ``dtype`` (differentiable casts, no padded or
+    int8 constants: those are the float32 kernels')."""
+    c = lambda a: a.to(dtype)  # noqa: E731
+    return PairMLPWeights(c(w.w1_i), c(w.w1_j), c(w.w1_e), c(w.b1),
+                          tuple((c(m), c(b)) for m, b in w.mids),
+                          c(w.w_out), c(w.b_out))
 
 
 def quantize_far_field(fused: FusedParams) -> FusedParams:
@@ -180,16 +208,20 @@ def _mids(hid, w: PairMLPWeights):
     return hid
 
 
-def rbf_and_gate(d2: Tensor, cmask: Tensor, cfg: EPNNConfig):
+def rbf_and_gate(d2: Tensor, cmask: Tensor, cfg: EPNNConfig,
+                 dtype=torch.float32):
     """Shared pair featurization: RBF edge features + electron-pass gate,
     from squared distances ``d2`` (any shape).  ``cmask`` multiplies the
     envelope (pair validity).  Returns ``(rbf, gate)`` with shapes
-    ``d2.shape + (e_dim,)`` and ``d2.shape``."""
+    ``d2.shape + (e_dim,)`` and ``d2.shape``, as ``dtype``: the math runs
+    in float32 whatever it is, and only the outputs are cast (JAX's
+    ``rbf_and_gate``, ``epnn_tpu/ops/fused.py:178-199``)."""
+    d2, cmask = d2.float(), cmask.float()
     rbf, c = envelope_rbf(d2, cmask, cfg.cutoff, cfg.eta,
                           rbf_centers(cfg.e_dim, cfg.cutoff, d2.device))
-    if cfg.pass_weighting == "soft_envelope":
-        return rbf, c
-    return rbf, hard_gate(rbf, cfg.is_near_tol)
+    gate = c if cfg.pass_weighting == "soft_envelope" else hard_gate(
+        rbf, cfg.is_near_tol)
+    return rbf.to(dtype), gate.to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -556,17 +588,6 @@ def build_neighbors_cell(xyz: Tensor, node_mask: Tensor, cutoff: float,
 # the forward
 # ---------------------------------------------------------------------------
 
-def _check_precision(cfg: EPNNConfig) -> None:
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            "compute_dtype='bfloat16' is not ported yet (ROADMAP queue 1: "
-            "precision tiers)")
-    if cfg.dense_matmul_precision == "bf16x3":
-        raise NotImplementedError(
-            "dense_matmul_precision='bf16x3' is not ported yet (ROADMAP "
-            "queue 1: precision tiers)")
-
-
 def kernels_apply(w: PairMLPWeights) -> bool:
     """Whether a round's weights take the CUDA kernels: JAX's rule, exactly
     one mid layer (``epnn_tpu/ops/fused.py:1245``, ``:1301``, ``:1356``,
@@ -575,6 +596,60 @@ def kernels_apply(w: PairMLPWeights) -> bool:
     XLA branches do: a rule of the configuration, not a fallback on
     failure."""
     return len(w.mids) == 1
+
+
+def _kernel_round(w: PairMLPWeights) -> bool:
+    """Whether a round takes the kernels: :func:`kernels_apply`, and its
+    weights in float32 (the kernels' type).  Under
+    ``compute_dtype="bfloat16"`` the message rounds run in bf16 through
+    the plain versions, as JAX's bf16 recursion runs no Pallas call; its
+    float32 pass rounds keep the kernels."""
+    return kernels_apply(w) and w.w1_i.dtype == torch.float32
+
+
+def _bf16_halves(x: Tensor) -> Tuple[Tensor, Tensor]:
+    """(hi, lo) of JAX's split-float: hi = bf16(x), lo = bf16(x − hi), both
+    as float32 (exact)."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x.float() - hi).to(torch.bfloat16).float()
+
+
+def _mm_bf16x3(a: Tensor, b: Tensor, c: Optional[Tensor] = None) -> Tensor:
+    """``a @ b (+ c)`` in JAX's bf16x3 (``_split_dot``,
+    ``epnn_tpu/ops/fused.py:55-72``): a_hi·b_hi + (a_hi·b_lo + a_lo·b_hi),
+    float32 out.  The halves are upcast before the products, so each
+    product of two bf16 values is exact in float32, as JAX's
+    ``preferred_element_type=float32`` gives it; only the order of the
+    float32 sums differs."""
+    ah, al = _bf16_halves(a)
+    bh, bl = _bf16_halves(b)
+    out = ah @ bh + (ah @ bl + al @ bh)
+    return out if c is None else out + c
+
+
+def dense_message_rowsum_bf16x3_plain(pi, pj, col_vec, *mids):
+    """The far field in ``dense_matmul_precision="bf16x3"`` (JAX's
+    ``dense_scan``, ``epnn_tpu/ops/fused.py:1256-1272``): every mid layer
+    through :func:`_mm_bf16x3`, then the j-reduction Σ_j col_vec_j · hid
+    split the same way, as (R, H) float32, row-blocked.  JAX runs no
+    kernel in this tier, so neither does the port, on the CPU or the
+    card.  ``mids`` as in
+    :func:`~epnn_tpu_torch.ops.kernels.dense_message_rowsum_plain`."""
+    layers = _layers(mids)
+    r, h = pi.shape
+    n = pj.shape[0]
+    rb = _plain_rows(r, n, max([h] + [w.shape[1] for w, _ in layers]))
+    out = pi.new_empty((r, layers[-1][0].shape[1] if layers else h),
+                       dtype=torch.float32)
+    vh, vl = _bf16_halves(col_vec)
+    for s in range(0, r, rb):
+        hid = _mid_layers(pi[s:s + rb, None, :] + pj[None, :, :], layers,
+                          _mm_bf16x3)
+        hh, hl = _bf16_halves(hid)
+        out[s:s + rb] = (torch.einsum("n,bnh->bh", vh, hh)
+                         + (torch.einsum("n,bnh->bh", vh, hl)
+                            + torch.einsum("n,bnh->bh", vl, hh)))
+    return out
 
 
 def _dense_message_pad(block_i: int, block_jp: int, h: int) -> int:
@@ -650,27 +725,29 @@ def _cluster_pad_rows(c: int, h: int) -> int:
 
 def _clustered_far_field(w: PairMLPWeights, pi: Tensor, pj: Tensor,
                          jvec: Tensor, c: int, grad: bool, int8: bool,
-                         fit_kw: dict):
+                         fit_kw: dict, precision: str):
     """One message round's far field over C weighted k-means centroids of
     the pj rows (JAX ``epnn_tpu/ops/fused.py:1197-1244``): ``(dense_sum,
-    radius)``.  A round that :func:`kernels_apply` admits runs the far-field
-    kernel with the C centroids as its columns and their weights as cv
-    (under ``int8`` its int8 tier, pi's padding as on the exact path and
-    pj's as JAX pads the centroid rows); another depth runs the plain
-    version over the centroids, as JAX's XLA branch does."""
+    radius)``.  A round that :func:`_kernel_round` admits runs the
+    far-field kernel at ``precision`` with the C centroids as its columns
+    and their weights as cv (under ``int8`` its int8 tier, pi's padding as
+    on the exact path and pj's as JAX pads the centroid rows); another
+    depth runs the plain version over the centroids, as JAX's XLA branch
+    does."""
     cent, wts, rad = weighted_kmeans(pj, jvec, c, differentiable=grad,
                                      **fit_kw)
     cent = cent.contiguous()
     mids = _flat(w.mids)
-    if not kernels_apply(w):
+    if not _kernel_round(w):
         return dense_message_rowsum_plain(pi, cent, wts, *mids), rad
     if int8:
         return dense_message_rowsum_int8(
             pi, cent, wts, *mids, pad_pi=_int8_pad_pi(w, pi.shape[0]),
             pad_pj=_cluster_pad_rows(c, w.b1.shape[0]) > c,
             w2_int8=None if w.int8 is None else w.int8[:2],
-            **_padded(w)), rad
-    return dense_message_rowsum(pi, cent, wts, *mids, **_padded(w)), rad
+            precision=precision, **_padded(w)), rad
+    return dense_message_rowsum(pi, cent, wts, *mids, precision=precision,
+                                **_padded(w)), rad
 
 
 def _run(remat: bool):
@@ -804,6 +881,10 @@ def _forward_single_nbr(
     if far_diag and far_cluster <= 0:
         raise ValueError("far_diag requires far_cluster > 0")
     n = x.shape[0]
+    dense, near = dense_precision(cfg), near_precision(cfg)
+    # the clustered far field runs JAX's kernel call at the far field's
+    # precision, and under bf16x3 (no kernel in JAX) the model's
+    far_c = main_precision(cfg) if dense == "bf16x3" else dense
     idx, nbr_mask, d2_nbr = _neighbor_tables(xyz, node_mask, cfg, k,
                                              neighbors, neighbor_grid)
     nbr_mask = nbr_mask.to(x.dtype).contiguous()
@@ -817,7 +898,7 @@ def _forward_single_nbr(
         """(rbf (c·k, E), gh (c, k)) of row block i: RBF from the block's
         d² rows, gh = 0.5 · gate · slot weight."""
         sl = chunks[i]
-        rbf, gate = rbf_and_gate(d2_nbr[sl], nbr_mask[sl], cfg)
+        rbf, gate = rbf_and_gate(d2_nbr[sl], nbr_mask[sl], cfg, x.dtype)
         return (rbf.reshape(-1, rbf.shape[-1]).contiguous(),
                 (0.5 * (gate * gathers[i][1])).contiguous())
 
@@ -834,15 +915,17 @@ def _forward_single_nbr(
         gidx, wgt = gathers[i]
         args = (pi[chunks[i]], torch.index_select(pj, 0, gidx), rbf, wgt,
                 w.w1_e, *_flat(w.mids))
-        return (near_message_corr(*args, **_padded(w)) if kernels_apply(w)
-                else near_message_corr_plain(*args))
+        return (near_message_corr(*args, precision=near, **_padded(w))
+                if _kernel_round(w) else near_message_corr_plain(*args))
 
     def near_pass(i, rs, w):
         rbf, gh = resident[0] if resident else features(i)
+        # the pass rounds run at the pass weights' type (float32 under
+        # bf16 compute; JAX upcasts the bf16 features the same way)
         args = (rs[chunks[i]], torch.index_select(rs, 0, gathers[i][0]),
-                rbf, gh, w.w1_e, *_flat(w.mids))
-        return (near_pass_rowsum(*args, **_padded(w)) if kernels_apply(w)
-                else near_pass_rowsum_plain(*args))
+                rbf.to(rs.dtype), gh.to(rs.dtype), w.w1_e, *_flat(w.mids))
+        return (near_pass_rowsum(*args, precision=near, **_padded(w))
+                if _kernel_round(w) else near_pass_rowsum_plain(*args))
 
     # Σ_j pair_mask_ij = mask_i · Σ_j mask_j, without the (N, N) plane
     if cfg.mask_messages:
@@ -857,7 +940,7 @@ def _forward_single_nbr(
 
     def message_round(t, h, q, rad):
         w = fused.messages[t]
-        kern = kernels_apply(w)
+        kern = _kernel_round(w)
         mids = _flat(w.mids)
         a = _atom_inputs(x, h, q)
         pi = (a @ w.w1_i + w.b1).contiguous()   # b1 folded once per atom
@@ -876,23 +959,32 @@ def _forward_single_nbr(
             ], dim=1)
             grid_in = torch.cat([grid_in, x.new_zeros((1, grid_in.shape[1]))])
             pj_grid = grid_in @ w.w1_j
-            counts = jvec @ oh
-            counts = torch.cat([counts, (jvec.sum() - counts.sum())[None]])
+            # counts and their weighted sum in float32 whatever the compute
+            # type, as JAX's (17,760 is no bf16 integer)
+            jvec32 = jvec.float()
+            counts = jvec32 @ oh.float()
+            counts = torch.cat([counts, (jvec32.sum() - counts.sum())[None]])
             hid_g = _mids(torch.relu(pi[:, None, :] + pj_grid[None, :, :]), w)
-            dense_sum = torch.einsum("e,neh->nh", counts, hid_g)
+            dense_sum = torch.einsum("e,neh->nh", counts,
+                                     hid_g.float()).to(x.dtype)
         elif far_cluster > 0:
             dense_sum, r_round = _clustered_far_field(
-                w, pi, pj, jvec, far_cluster, far_cluster_grad, int8, fit_kw)
+                w, pi, pj, jvec, far_cluster, far_cluster_grad, int8, fit_kw,
+                far_c)
             rad = torch.maximum(rad, r_round)
+        elif dense == "bf16x3":
+            dense_sum = dense_message_rowsum_bf16x3_plain(
+                pi, pj, jvec, *mids).to(pi.dtype)
         elif not kern:
             dense_sum = dense_message_rowsum_plain(pi, pj, jvec, *mids)
         elif int8:
             dense_sum = dense_message_rowsum_int8(
                 pi, pj, jvec, *mids, pad_pi=_int8_pad_pi(w, n),
-                w2_int8=None if w.int8 is None else w.int8[:2], **_padded(w))
+                w2_int8=None if w.int8 is None else w.int8[:2],
+                precision=dense, **_padded(w))
         else:
             dense_sum = dense_message_rowsum(pi, pj, jvec, *mids,
-                                             **_padded(w))
+                                             precision=dense, **_padded(w))
         hsum = dense_sum + near_blocks(near_message, pi, pj, w)
         messages = hsum @ w.w_out + msg_count[:, None] * w.b_out
         upd_in = torch.cat([h, messages], dim=-1) * nm
@@ -901,7 +993,7 @@ def _forward_single_nbr(
     # electron passing: gathered pairs only (the gate is zero off the near set)
     def pass_round(t, h, q):
         w = fused.passes[t]
-        a = _atom_inputs(x, h, q)
+        a = _atom_inputs(x, h, q).to(w.w1_i.dtype)
         rs = torch.cat([a @ w.w1_i + w.b1, a @ w.w1_j], dim=-1)
         dsum = near_blocks(near_pass, rs, w)
         return q + (dsum @ w.w_out)[:, 0]
@@ -944,7 +1036,8 @@ def _forward_single(
         msg_count = torch.full((n,), float(n), dtype=x.dtype, device=x.device)
 
     def row_blocks():
-        """(rows, pair mask, RBF validity, rbf, gate) of each row block;
+        """(rows, pair mask, RBF validity, rbf, gate) of each row block, the
+        features in float32 (a bf16 message round casts them at use);
         rebuilt every round, as the JAX scan does, to keep memory at
         O(block·N·E)."""
         for s in range(0, n, block):
@@ -964,7 +1057,7 @@ def _forward_single(
         sums = []
         for sl, pairm, _, rbf, _ in row_blocks():
             hid = torch.relu((pi[sl, None, :] + pj[None, :, :])
-                             + rbf @ w.w1_e + w.b1)
+                             + rbf.to(w.w1_e.dtype) @ w.w1_e + w.b1)
             hid = _mids(hid, w)
             if cfg.mask_messages:
                 hid = hid * pairm[:, :, None]
@@ -973,9 +1066,10 @@ def _forward_single(
         upd_in = torch.cat([h, messages], dim=-1) * nm
         return _apply_mlp(fused.update, upd_in) * nm
 
-    # b_out cancels in f_ij − f_ji: the transfer is a W_out contraction
+    # b_out cancels in f_ij − f_ji: the transfer is a W_out contraction;
+    # float32 under bf16 compute (the pass weights' type), as JAX's
     def pass_round(w, h, q):
-        a = _atom_inputs(x, h, q)
+        a = _atom_inputs(x, h, q).to(w.w1_i.dtype)
         pi, pj = a @ w.w1_i, a @ w.w1_j
         sums = []
         for sl, _, valid, rbf, gate in row_blocks():
@@ -1009,8 +1103,10 @@ def _forward_single_pallas(
     remat: bool = False,
 ) -> Tensor:
     """One graph through the fully fused dense forward: each round is one
-    kernel over the whole pair grid — :func:`fused_message_rowsum` for the
-    message rounds, :func:`fused_epn_rowsum` for the pass rounds — with the
+    kernel over the whole pair grid at the model's precision
+    (:func:`~epnn_tpu_torch.models.config.main_precision`, as JAX's calls)
+    — :func:`fused_message_rowsum` for the message rounds,
+    :func:`fused_epn_rowsum` for the pass rounds — with the
     RBF, gate, pair MLP and (for passing) both orderings built in the tile;
     only (N, ·) tensors leave it.  Inference-only, as in the JAX package
     (``remat`` checkpoints each round, as JAX's does, and changes nothing
@@ -1030,6 +1126,7 @@ def _forward_single_pallas(
 
     nm = node_mask[:, None]
     soft = cfg.pass_weighting == "soft_envelope"
+    precision = main_precision(cfg)
 
     def message_round(w, h, q):
         (w2, b2), = w.mids
@@ -1038,7 +1135,8 @@ def _forward_single_pallas(
         pj = (a @ w.w1_j).contiguous()
         hsum = fused_message_rowsum(pi, pj, xyz, node_mask, col_vec, w.w1_e,
                                     w2, b2, masked=cfg.mask_messages,
-                                    **_padded(w), **pair_kw)
+                                    precision=precision, **_padded(w),
+                                    **pair_kw)
         messages = hsum @ w.w_out + msg_count[:, None] * w.b_out
         upd_in = torch.cat([h, messages], dim=-1) * nm
         return _apply_mlp(fused.update, upd_in) * nm
@@ -1049,7 +1147,8 @@ def _forward_single_pallas(
         pi = (a @ w.w1_i + w.b1).contiguous()
         pj = (a @ w.w1_j).contiguous()
         dsum = fused_epn_rowsum(pi, pj, xyz, node_mask, w.w1_e, w2, b2,
-                                soft_gate=soft, **_padded(w), **pair_kw)
+                                soft_gate=soft, precision=precision,
+                                **_padded(w), **pair_kw)
         return q + (dsum @ w.w_out)[:, 0]        # b_out cancels
 
     run = _run(remat)
@@ -1136,8 +1235,41 @@ def forward_blocked(
     ``pack_to`` is JAX's lane-packing width of the v5e layout: accepted,
     no effect on the math (as ``block`` on the neighbor split); the near
     kernels stay on at any value.  Equivalent to ``EPNN(cfg)(x, q0,
-    rbf_edges(xyz, mask), mask)`` up to float32 association noise."""
-    _check_precision(cfg)
+    rbf_edges(xyz, mask), mask)`` up to float32 association noise.
+
+    Precision (see the module docstring): every kernel call takes JAX's
+    precision for it.  ``cfg.compute_dtype == "bfloat16"`` is JAX's bf16
+    recursion (``epnn_tpu/ops/fused.py:1737-1772``): x, the node mask, the
+    message and update weights (cast at use, so autograd reaches the
+    float32 leaves) and every message-round activation in bfloat16; the
+    pass weights, q0 and the charge accumulator float32; the recursion at
+    precision ``"default"`` without ``use_pallas`` (so no int8 tier); the
+    output float32 · mask.  The bf16 message rounds run the plain
+    versions, as JAX runs no Pallas call there; the float32 pass rounds
+    keep ``near_pass_rowsum`` (at ``"default"``), as the port keeps its
+    kernels on in every mode.  Conservation stays float32-grade: the pass
+    rounds are float32 and each pair's two terms exact negations."""
+    if cfg.compute_dtype == "bfloat16":
+        bf = torch.bfloat16
+        fused = dataclasses.replace(
+            fused, messages=tuple(_cast_round(w, bf) for w in fused.messages),
+            update=tuple((w.to(bf), b.to(bf)) for w, b in fused.update))
+        out = forward_blocked(
+            fused, x.to(bf), q0, xyz, node_mask.to(bf),
+            cfg.replace(compute_dtype="float32", matmul_precision="default",
+                        highest_precision=False),
+            block=block, neighbor_k=neighbor_k, use_pallas=False,
+            pack_to=pack_to, remat=remat, neighbors=neighbors,
+            neighbor_grid=neighbor_grid, uniform_q0=uniform_q0,
+            far_cluster=far_cluster, far_diag=far_diag,
+            far_cluster_grad=far_cluster_grad,
+            near_row_chunk=near_row_chunk, near_window=near_window)
+        if far_diag:
+            return out[0].float() * node_mask, out[1]
+        return out.float() * node_mask
+    if cfg.compute_dtype != "float32":
+        raise ValueError(f"compute_dtype={cfg.compute_dtype!r}: 'float32' "
+                         "or 'bfloat16'")
     if far_diag and far_cluster <= 0:
         raise ValueError("far_diag requires far_cluster > 0")
     if neighbors is not None and neighbor_k is None:

@@ -52,14 +52,20 @@ zero-padded once per set of weights (:func:`pad_weights`, or per call
 where the caller keeps none); activations are read at their real width.
 :func:`build` compiles all of them in parallel.  Nothing is built when
 this module is imported.
-All but one are float32-grade: the far field, its backward, the two
-near kernels and the two fused dense kernels run their products on the
-tensor cores in 3xTF32 (each operand split into two TF32 parts, three
-products, fp32 accumulation — :func:`tf32_round`, ``*_3xtf32_plain``
-repeat that arithmetic on any device).  None is the TF32 tier: one TF32
-pass keeps ~2^-11.  The exception is the int8 far field, the JAX
-package's fast serving tier: its plain version repeats its quantization
-exactly (the integer products are exact in float32).
+The six tensor-core kernels (the far field, its backward, the two near
+kernels and the two fused dense kernels) take the JAX kernels' ``precision``
+keyword, with JAX's default ``"default"``.  On the card it selects the
+library's TF32 tier (:data:`TIERED`, :func:`tf32_passes`): ``"high"`` and
+``"highest"`` run 3xTF32 (each operand split into two TF32 parts, three
+products, fp32 accumulation: float32-grade; ``*_3xtf32_plain`` repeat
+that arithmetic on any device), ``"default"`` one TF32 product a k-step
+of operands rounded to nearest (~2^-11 relative; ``*_tf32_plain`` repeat
+it), from a library compiled with ``-DEPNN_TF32_PASSES=1`` — each tier
+its own library, built at first use like the others, and no tier falls
+back to the other.  On the CPU every precision runs the float32 plain
+version, as XLA:CPU runs ``"default"``.  The int8 far field, the JAX
+package's fast serving tier, is the exception: its plain version repeats
+its quantization exactly (the integer products are exact in float32).
 """
 
 from __future__ import annotations
@@ -100,6 +106,14 @@ SOURCES = {
 #: kernel launches since the last :func:`reset_launch_counts`
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 
+#: the tensor-core kernels, which take a ``precision``: each has a library
+#: per TF32 tier
+TIERED = ("dense_message_rowsum", "dense_message_rowsum_bwd",
+          "near_message_corr", "near_pass_rowsum", "fused_message_rowsum",
+          "fused_epn_rowsum")
+#: JAX's precision names -> TF32 products a k-step (``EPNN_TF32_PASSES``)
+_PASSES = {"default": 1, "high": 3, "highest": 3}
+
 #: the shipped model's widths (mid width H, RBF width E): the libraries
 #: :func:`build` makes by default
 KERNEL_H = 32
@@ -137,6 +151,18 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
+def tf32_passes(precision: str) -> int:
+    """The TF32 tier of a tensor-core kernel at JAX's ``precision``: 1
+    product a k-step for ``"default"``, 3 (3xTF32) for ``"high"`` and
+    ``"highest"`` (JAX's ``_dmr_bwd`` runs ``"high"`` as HIGHEST,
+    ``pallas_kernels.py:1091-1095``)."""
+    try:
+        return _PASSES[precision]
+    except KeyError:
+        raise ValueError(f"precision {precision!r}: one of "
+                         f"{tuple(_PASSES)}") from None
+
+
 def _nvcc() -> str:
     for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
                  shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
@@ -153,46 +179,57 @@ def lib_widths(name: str, h: Optional[int] = KERNEL_H,
     return tuple(w for w, k in ((h, "h"), (e, "e")) if k in _WIDTHS_OF[name])
 
 
-def _lib_path(name: str, widths: tuple) -> Path:
-    flags = _flags(name, widths)
+def _lib_path(name: str, widths: tuple, passes: int = 3) -> Path:
+    flags = _flags(name, widths, passes)
     h = hashlib.sha256(" ".join(flags).encode())
     for src in (SOURCES[name], "common.cuh", "far_field.cuh", "wide.cuh"):
         h.update((CSRC / src).read_bytes())
     tag = "".join(f"-{k}{w}" for k, w in zip(_WIDTHS_OF[name], widths))
+    if passes != 3:
+        tag += f"-tf32x{passes}"
     return BUILD_DIR / f"lib{name}{tag}-{h.hexdigest()[:12]}.so"
 
 
-def _flags(name: str, widths: tuple) -> list:
-    return NVCC_FLAGS + [f"-DEPNN_{k.upper()}={w}"
-                         for k, w in zip(_WIDTHS_OF[name], widths)]
+def _flags(name: str, widths: tuple, passes: int = 3) -> list:
+    """``nvcc``'s flags for ``name``'s library: the widths, and the TF32
+    tier where it is not 3xTF32 (``common.cuh``'s default)."""
+    if passes != 3 and name not in TIERED:
+        raise ValueError(f"{name} has no TF32 tier")
+    tier = [] if passes == 3 else [f"-DEPNN_TF32_PASSES={passes}"]
+    return NVCC_FLAGS + [f"-DEPNN_{k.upper()}={w}" for k, w in
+                         zip(_WIDTHS_OF[name], widths)] + tier
 
 
 def build(names: Optional[Iterable[str]] = None,
-          widths: Iterable[Tuple[int, int]] = ((KERNEL_H, KERNEL_E),)
-          ) -> float:
+          widths: Iterable[Tuple[int, int]] = ((KERNEL_H, KERNEL_E),),
+          precisions: Iterable[str] = ("highest",)) -> float:
     """Compile the named kernels (default: all) at each (H, E) of
-    ``widths`` (default: the shipped model's), one ``nvcc`` per library,
-    all started together; libraries already built from the same sources
-    and widths are kept.  Returns the wall seconds taken.  Compiler output
-    (with ``-Xptxas -v`` register and spill counts) goes to ``<lib>.log``."""
+    ``widths`` (default: the shipped model's) and at the TF32 tier of each
+    of ``precisions`` (default: 3xTF32; a kernel of no tier builds once),
+    one ``nvcc`` per library, all started together; libraries already
+    built from the same sources, widths and tier are kept.  Returns the
+    wall seconds taken.  Compiler output (with ``-Xptxas -v`` register and
+    spill counts) goes to ``<lib>.log``."""
     t0 = time.perf_counter()
     names = list(SOURCES if names is None else names)
+    tiers = sorted({tf32_passes(p) for p in precisions}, reverse=True)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs, seen = [], set()
     for name in names:
         for h, e in widths:
-            key = lib_widths(name, h, e)
-            lib = _lib_path(name, key)
-            if (name, key) in seen or lib.exists():
-                continue
-            seen.add((name, key))
-            tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
-            log = open(lib.with_suffix(".log"), "w")
-            cmd = [_nvcc(), *_flags(name, key), "-o", str(tmp),
-                   str(CSRC / SOURCES[name])]
-            jobs.append((name, key, lib, tmp, log,
-                         subprocess.Popen(cmd, stdout=log,
-                                          stderr=subprocess.STDOUT)))
+            for passes in tiers if name in TIERED else (3,):
+                key = lib_widths(name, h, e)
+                lib = _lib_path(name, key, passes)
+                if (name, key, passes) in seen or lib.exists():
+                    continue
+                seen.add((name, key, passes))
+                tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
+                log = open(lib.with_suffix(".log"), "w")
+                cmd = [_nvcc(), *_flags(name, key, passes), "-o", str(tmp),
+                       str(CSRC / SOURCES[name])]
+                jobs.append((name, key, lib, tmp, log,
+                             subprocess.Popen(cmd, stdout=log,
+                                              stderr=subprocess.STDOUT)))
     failed = []
     for name, key, lib, tmp, log, proc in jobs:
         rc = proc.wait()
@@ -207,24 +244,27 @@ def build(names: Optional[Iterable[str]] = None,
     return time.perf_counter() - t0
 
 
-def build_log(name: str, h: int = KERNEL_H, e: int = KERNEL_E) -> str:
-    path = _lib_path(name, lib_widths(name, h, e)).with_suffix(".log")
+def build_log(name: str, h: int = KERNEL_H, e: int = KERNEL_E,
+              precision: str = "highest") -> str:
+    path = _lib_path(name, lib_widths(name, h, e),
+                     tf32_passes(precision)).with_suffix(".log")
     return path.read_text() if path.exists() else ""
 
 
 def _lib(name: str, h: Optional[int] = KERNEL_H,
-         e: Optional[int] = KERNEL_E) -> ctypes.CDLL:
+         e: Optional[int] = KERNEL_E, passes: int = 3) -> ctypes.CDLL:
     widths = lib_widths(name, h, e)
-    lib = _LIBS.get((name, widths))
+    lib = _LIBS.get((name, widths, passes))
     if lib is None:
-        path = _lib_path(name, widths)
+        path = _lib_path(name, widths, passes)
         if not path.exists():
-            build([name], [(h, e)])
+            build([name], [(h, e)],
+                  ["default" if passes == 1 else "highest"])
         lib = ctypes.CDLL(str(path))
         fn = getattr(lib, f"epnn_{name}")
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
-        _LIBS[(name, widths)] = lib
+        _LIBS[(name, widths, passes)] = lib
     return lib
 
 
@@ -254,20 +294,20 @@ def _check(name: str, tensors: dict, shapes: dict) -> torch.device:
 
 def _launch(name: str, device: torch.device, tensors, scalars,
             vector_read, h: Optional[int] = None,
-            e: Optional[int] = None) -> None:
+            e: Optional[int] = None, passes: int = 3) -> None:
     """``tensors``: the C entry's pointers, in order (None: a null
     pointer).  ``scalars``: its int and float arguments, in order.
     ``vector_read``: the tensors the kernel reads as float4, which must
     start on a 16-byte boundary; the others are read one float at a time
     and may be any view (a row of a batch, for one).  ``h``, ``e``: the
-    widths of the library to launch."""
+    widths of the library to launch; ``passes``: its TF32 tier."""
     for key, t in vector_read.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {key} is read as float4 and must "
                              "start on a 16-byte boundary")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(_lib(name, h, e), f"epnn_{name}")(
+        err = getattr(_lib(name, h, e, passes), f"epnn_{name}")(
             *[None if t is None else t.data_ptr() for t in tensors],
             *scalars, stream)
     if err != 0:
@@ -289,13 +329,14 @@ def wide(h: int, e: int = KERNEL_E) -> bool:
     return max(padded_width(h), padded_width(e)) > NARROW_WIDTH
 
 
-def _wide_scratch(name: str, like, n: int, h: int, e: int):
+def _wide_scratch(name: str, like, n: int, h: int, e: int,
+                  passes: int = 3):
     """The wide path's scratch of the near kernels and the fused kernels'
     near blocks (``csrc/wide.cuh``: a tile's epart, 16 × Hp floats for
-    each warp of the launch), or None below it."""
+    each warp of the launch of the tier's library), or None below it."""
     if not wide(h, e):
         return None
-    return like.new_empty(near_warps(name, n, h, e) * NEAR_TILE
+    return like.new_empty(near_warps(name, n, h, e, passes) * NEAR_TILE
                           * padded_width(h))
 
 
@@ -428,6 +469,16 @@ def _mm_3xtf32(a, b, c=None):
     return (out + ah @ bl) + ah @ bh
 
 
+def _mm_tf32(a, b, c=None):
+    """``c + a @ b`` in the kernels' one-pass tier (precision
+    ``"default"``): each operand rounded to TF32 (:func:`tf32_round`, as
+    the kernels round it before the tensor cores) and one product, whose
+    terms are exact in float32, so only the summation order differs from
+    the tensor cores'."""
+    out = tf32_round(a) @ tf32_round(b)
+    return out if c is None else c + out
+
+
 def _far_rows(pi, pj, col_vec, layers, mm):
     """Σ_j col_vec_j · mids(relu(pi_i + pj_j)) through the mid ``layers``
     with the product ``mm``, row-blocked so no (rows, N, width) tensor
@@ -459,6 +510,14 @@ def dense_message_rowsum_3xtf32_plain(pi, pj, col_vec, w2, b2):
     return _far_rows(pi, pj, col_vec, ((w2, b2),), _mm_3xtf32)
 
 
+def dense_message_rowsum_tf32_plain(pi, pj, col_vec, w2, b2):
+    """:func:`dense_message_rowsum_plain` with the one-pass kernel's
+    arithmetic (``precision="default"``): the mid-layer product of TF32
+    operands (``_mm_tf32``).  Not on any path: the tests and
+    ``chip_smoke.py`` hold the kernel to it."""
+    return _far_rows(pi, pj, col_vec, ((w2, b2),), _mm_tf32)
+
+
 def _dense_message_splits(r: int, n: int, target: int = _DMR_TARGET_BLOCKS,
                           rows: int = _DMR_ROWS,
                           tile: int = _DMR_TILE) -> tuple:
@@ -472,8 +531,10 @@ def _dense_message_splits(r: int, n: int, target: int = _DMR_TARGET_BLOCKS,
     return -(-n // cols), cols
 
 
-def _dense_message_rowsum_fwd(pi, pj, col_vec, w2, b2, padded=None):
+def _dense_message_rowsum_fwd(pi, pj, col_vec, w2, b2, padded=None,
+                              precision="default"):
     name = "dense_message_rowsum"
+    passes = tf32_passes(precision)
     r, h = pi.shape
     n = pj.shape[0]
     device = _check(name, dict(pi=pi, pj=pj, col_vec=col_vec, w2=w2, b2=b2),
@@ -490,7 +551,7 @@ def _dense_message_rowsum_fwd(pi, pj, col_vec, w2, b2, padded=None):
     splits, cols = _dense_message_splits(r, n)
     part = pi.new_empty((splits, r, h))
     _launch(name, device, (pi, pj, col_vec, kw.w2, kw.b2, part, out),
-            (r, n, h, splits, cols), {}, h)
+            (r, n, h, splits, cols), {}, h, passes=passes)
     return out
 
 
@@ -537,14 +598,25 @@ def dense_message_rowsum_bwd_3xtf32_plain(pi, pj, col_vec, w2, b2, g):
     return _far_bwd_rows(pi, pj, col_vec, w2, b2, g, _mm_3xtf32)
 
 
-def dense_message_rowsum_bwd(pi, pj, col_vec, w2, b2, g, padded=None):
+def dense_message_rowsum_bwd_tf32_plain(pi, pj, col_vec, w2, b2, g):
+    """:func:`dense_message_rowsum_bwd_plain` with the one-pass backward
+    kernel's arithmetic: its three contractions of TF32 operands
+    (``_mm_tf32``).  Not on any path: the tests and ``chip_smoke.py`` hold
+    the kernel to it."""
+    return _far_bwd_rows(pi, pj, col_vec, w2, b2, g, _mm_tf32)
+
+
+def dense_message_rowsum_bwd(pi, pj, col_vec, w2, b2, g, padded=None,
+                             precision="default"):
     """Backward of the far-field reduction (see
     ``csrc/dense_message_rowsum_bwd.cu``): ``(dpi, dpj, dw2, db2)`` for the
     cotangent ``g`` (R, H) of ``out``, with z1 and z2 recomputed in the
     tile.  Deterministic: partial sums are added in a fixed order.
     ``padded``: :func:`pad_weights` of (w2, b2) where the caller keeps it;
-    else it is made here."""
+    else it is made here.  ``precision``: JAX's ``_dmr_bwd``'s, the TF32
+    tier on the card."""
     name = "dense_message_rowsum_bwd"
+    passes = tf32_passes(precision)
     r, h = pi.shape
     n = pj.shape[0]
     device = _check(name, dict(pi=pi, pj=pj, col_vec=col_vec, w2=w2, b2=b2,
@@ -565,29 +637,34 @@ def dense_message_rowsum_bwd(pi, pj, col_vec, w2, b2, g, padded=None):
                         + blocks_r * (h * h + h))
     _launch(name, device, (pi, pj, col_vec, kw.w2, kw.b2, g, work, dpi, dpj,
                            dw2, db2),
-            (r, n, h, splits_r, cols, splits_c, rows), {}, h)
+            (r, n, h, splits_r, cols, splits_c, rows), {}, h, passes=passes)
     return dpi, dpj, dw2, db2
 
 
 class _DenseMessageRowsum(torch.autograd.Function):
-    """Forward: the far-field kernel; backward: its backward kernel.  Saves
-    only the inputs (as ``_dmr_fwd``, ``pallas_kernels.py:1071``)."""
+    """Forward: the far-field kernel; backward: its backward kernel at the
+    same precision, as JAX's custom VJP carries it to ``_dmr_bwd``
+    (``pallas_kernels.py:1079``).  Saves only the inputs (as ``_dmr_fwd``,
+    ``pallas_kernels.py:1071``)."""
 
     @staticmethod
-    def forward(ctx, pi, pj, col_vec, w2, b2, padded):
+    def forward(ctx, pi, pj, col_vec, w2, b2, padded, precision):
         ctx.save_for_backward(pi, pj, col_vec, w2, b2)
-        ctx.padded = padded
-        return _dense_message_rowsum_fwd(pi, pj, col_vec, w2, b2, padded)
+        ctx.padded, ctx.precision = padded, precision
+        return _dense_message_rowsum_fwd(pi, pj, col_vec, w2, b2, padded,
+                                         precision)
 
     @staticmethod
     def backward(ctx, g):
         pi, pj, col_vec, w2, b2 = ctx.saved_tensors
         dpi, dpj, dw2, db2 = dense_message_rowsum_bwd(
-            pi, pj, col_vec, w2, b2, g.contiguous(), ctx.padded)
-        return dpi, dpj, None, dw2, db2, None
+            pi, pj, col_vec, w2, b2, g.contiguous(), ctx.padded,
+            ctx.precision)
+        return dpi, dpj, None, dw2, db2, None, None
 
 
-def dense_message_rowsum(pi, pj, col_vec, w2, b2, padded=None):
+def dense_message_rowsum(pi, pj, col_vec, w2, b2, padded=None,
+                         precision="default"):
     """Far-field message row sums (see ``csrc/dense_message_rowsum.cu``):
 
         out_i = Σ_j col_vec_j · relu(relu(pi_i + pj_j) @ W2 + b2)
@@ -597,9 +674,11 @@ def dense_message_rowsum(pi, pj, col_vec, w2, b2, padded=None):
     b2 (H,).  Rectangular: R need not equal N.  ``padded``:
     :func:`pad_weights` of (w2, b2) where the caller keeps it (made per
     call otherwise; no copy at widths that are multiples of 8).
-    Differentiable in pi, pj, W2 and b2 through
-    :func:`dense_message_rowsum_bwd`."""
-    return _DenseMessageRowsum.apply(pi, pj, col_vec, w2, b2, padded)
+    ``precision``: JAX's name, the TF32 tier on the card (module
+    docstring; float32 on the CPU).  Differentiable in pi, pj, W2 and b2
+    through :func:`dense_message_rowsum_bwd` at the same precision."""
+    return _DenseMessageRowsum.apply(pi, pj, col_vec, w2, b2, padded,
+                                     precision)
 
 
 # ---------------------------------------------------------------------------
@@ -761,9 +840,9 @@ class _DenseMessageRowsumInt8(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, pi, pj, col_vec, w2, b2, pad_pi, w2_int8, padded,
-                pad_pj):
+                pad_pj, precision):
         ctx.save_for_backward(pi, pj, col_vec, w2, b2)
-        ctx.padded = padded
+        ctx.padded, ctx.precision = padded, precision
         return _dense_message_rowsum_int8_fwd(pi, pj, col_vec, w2, b2,
                                               pad_pi, w2_int8, padded,
                                               pad_pj)
@@ -772,12 +851,14 @@ class _DenseMessageRowsumInt8(torch.autograd.Function):
     def backward(ctx, g):
         pi, pj, col_vec, w2, b2 = ctx.saved_tensors
         dpi, dpj, dw2, db2 = dense_message_rowsum_bwd(
-            pi, pj, col_vec, w2, b2, g.contiguous(), ctx.padded)
-        return dpi, dpj, None, dw2, db2, None, None, None, None
+            pi, pj, col_vec, w2, b2, g.contiguous(), ctx.padded,
+            ctx.precision)
+        return dpi, dpj, None, dw2, db2, None, None, None, None, None
 
 
 def dense_message_rowsum_int8(pi, pj, col_vec, w2, b2, pad_pi=None,
-                              w2_int8=None, padded=None, pad_pj=None):
+                              w2_int8=None, padded=None, pad_pj=None,
+                              precision="default"):
     """The far field in the JAX package's int8 serving tier (see
     ``csrc/dense_message_rowsum_int8.cu`` and
     :func:`dense_message_rowsum_int8_plain`): relu(pi_i + pj_j) quantized
@@ -790,9 +871,11 @@ def dense_message_rowsum_int8(pi, pj, col_vec, w2, b2, pad_pi=None,
     or, at the kernel's padded widths, :func:`int8_kernel_weights`, where
     the caller keeps it; else it is made here.  On the card a call adds
     two reductions (the maxima, over the real columns) to the kernel,
-    which forms the scales itself.  Differentiable straight through."""
+    which forms the scales itself.  Differentiable straight through, by
+    the float32 backward kernel at ``precision`` (JAX's call passes
+    ``"default"``, ``epnn_tpu/ops/fused.py:1098-1102``)."""
     return _DenseMessageRowsumInt8.apply(pi, pj, col_vec, w2, b2, pad_pi,
-                                         w2_int8, padded, pad_pj)
+                                         w2_int8, padded, pad_pj, precision)
 
 
 class _PlainRecompute(torch.autograd.Function):
@@ -801,13 +884,15 @@ class _PlainRecompute(torch.autograd.Function):
     ``_near_pass_bwd`` (``pallas_kernels.py:1271``, ``:1395``), which are
     ``jax.vjp`` of XLA code, not Pallas kernels.  This is the backward
     itself, not a fallback: the forward on a CUDA tensor is always the
-    kernel."""
+    kernel.  ``kw``: the forward's ``padded`` and ``precision``; the
+    recompute is float32 at any precision (JAX's recomputes at it: a
+    departure, ROADMAP)."""
 
     @staticmethod
-    def forward(ctx, fwd, plain, padded, *args):
+    def forward(ctx, fwd, plain, kw, *args):
         ctx.plain = plain
         ctx.save_for_backward(*args)
-        return fwd(*args, padded)
+        return fwd(*args, **kw)
 
     @staticmethod
     def backward(ctx, g):
@@ -853,8 +938,18 @@ def near_message_corr_3xtf32_plain(pi, pjn, rbf, mask, w1e, w2, b2):
     return _near_msg_rows(pi, pjn, rbf, mask, w1e, ((w2, b2),), _mm_3xtf32)
 
 
-def _near_message_corr_fwd(pi, pjn, rbf, mask, w1e, w2, b2, padded=None):
+def near_message_corr_tf32_plain(pi, pjn, rbf, mask, w1e, w2, b2):
+    """:func:`near_message_corr_plain` with the one-pass kernel's
+    arithmetic: rbf @ W1e and both mid-layer products of TF32 operands
+    (``_mm_tf32``).  Not on any path: the tests and ``chip_smoke.py`` hold
+    the kernel to it."""
+    return _near_msg_rows(pi, pjn, rbf, mask, w1e, ((w2, b2),), _mm_tf32)
+
+
+def _near_message_corr_fwd(pi, pjn, rbf, mask, w1e, w2, b2, padded=None,
+                           precision="default"):
     name = "near_message_corr"
+    passes = tf32_passes(precision)
     n, h = pi.shape
     k = mask.shape[1] if mask.dim() == 2 else 0
     e = w1e.shape[0]
@@ -874,24 +969,27 @@ def _near_message_corr_fwd(pi, pjn, rbf, mask, w1e, w2, b2, padded=None):
     if _vector(e, h, e):
         vec["rbf"] = rbf
     _launch(name, device, (pi, pjn, rbf, mask, kw.w1e, kw.w2, kw.b2, out,
-                           _wide_scratch(name, pi, n, h, e)),
-            (n, k, h, e), vec, h, e)
+                           _wide_scratch(name, pi, n, h, e, passes)),
+            (n, k, h, e), vec, h, e, passes)
     return out
 
 
-def near_message_corr(pi, pjn, rbf, mask, w1e, w2, b2, padded=None):
+def near_message_corr(pi, pjn, rbf, mask, w1e, w2, b2, padded=None,
+                      precision="default"):
     """Near-field message correction (see ``csrc/near_message_corr.cu``).
 
     pi (N, H) row projections with b1 folded in; pjn (N·K, H) gathered
     column projections ``pj[idx.ravel()]``; rbf (N·K, E) gathered-pair RBF
     features; mask (N, K) slot validity; W1e (E, H); W2 (H, H); b2 (H,);
     ``padded``: :func:`pad_weights` of (w2, b2, w1e) where the caller keeps
-    it.  Differentiable: the backward recomputes through
+    it; ``precision``: JAX's name, the TF32 tier on the card.
+    Differentiable: the backward recomputes through
     :func:`near_message_corr_plain` (as the JAX custom VJP does through its
     XLA twin)."""
-    return _PlainRecompute.apply(_near_message_corr_fwd,
-                                 near_message_corr_plain, padded, pi, pjn,
-                                 rbf, mask, w1e, w2, b2)
+    return _PlainRecompute.apply(
+        _near_message_corr_fwd, near_message_corr_plain,
+        dict(padded=padded, precision=precision), pi, pjn, rbf, mask, w1e,
+        w2, b2)
 
 
 # ---------------------------------------------------------------------------
@@ -928,8 +1026,19 @@ def near_pass_rowsum_3xtf32_plain(rs, ppn, rbf, gh, w1e, w2, b2):
     return _near_pass_rows(rs, ppn, rbf, gh, w1e, ((w2, b2),), _mm_3xtf32)
 
 
-def _near_pass_rowsum_fwd(rs, ppn, rbf, gh, w1e, w2, b2, padded=None):
+def near_pass_rowsum_tf32_plain(rs, ppn, rbf, gh, w1e, w2, b2):
+    """:func:`near_pass_rowsum_plain` with the one-pass kernel's
+    arithmetic: rbf @ W1e and both mid-layer products of TF32 operands
+    (``_mm_tf32``).  Not on any path: the tests and ``chip_smoke.py`` hold
+    the kernel to it.  Its pairs stay exact negations: both orderings see
+    the same products."""
+    return _near_pass_rows(rs, ppn, rbf, gh, w1e, ((w2, b2),), _mm_tf32)
+
+
+def _near_pass_rowsum_fwd(rs, ppn, rbf, gh, w1e, w2, b2, padded=None,
+                          precision="default"):
     name = "near_pass_rowsum"
+    passes = tf32_passes(precision)
     n, h2 = rs.shape
     h = h2 // 2
     k = gh.shape[1] if gh.dim() == 2 else 0
@@ -950,36 +1059,41 @@ def _near_pass_rowsum_fwd(rs, ppn, rbf, gh, w1e, w2, b2, padded=None):
     if _vector(e, h, e):
         vec["rbf"] = rbf
     _launch(name, device, (rs, ppn, rbf, gh, kw.w1e, kw.w2, kw.b2, out,
-                           _wide_scratch(name, rs, n, h, e)),
-            (n, k, h, e), vec, h, e)
+                           _wide_scratch(name, rs, n, h, e, passes)),
+            (n, k, h, e), vec, h, e, passes)
     return out
 
 
-def near_pass_rowsum(rs, ppn, rbf, gh, w1e, w2, b2, padded=None):
+def near_pass_rowsum(rs, ppn, rbf, gh, w1e, w2, b2, padded=None,
+                     precision="default"):
     """Electron-passing near-pair row sums (see
     ``csrc/near_pass_rowsum.cu``).
 
     rs (N, 2H) = [pi | pj] with b1 in pi; ppn (N·K, 2H) = rs[idx.ravel()];
     rbf (N·K, E); gh (N, K) = 0.5 · gate with the slot mask folded in;
-    W1e (E, H); W2 (H, H); b2 (H,); ``padded`` as in
-    :func:`near_message_corr`.  Each pair's two terms are exact negations,
-    so Σ_i out_i @ W_out conserves charge to f32 summation.
-    Differentiable: the backward recomputes through
+    W1e (E, H); W2 (H, H); b2 (H,); ``padded`` and ``precision`` as in
+    :func:`near_message_corr`.  Each pair's two terms are exact negations
+    at either tier, so Σ_i out_i @ W_out conserves charge to f32
+    summation.  Differentiable: the backward recomputes through
     :func:`near_pass_rowsum_plain` (as the JAX custom VJP does through its
     XLA twin)."""
-    return _PlainRecompute.apply(_near_pass_rowsum_fwd, near_pass_rowsum_plain,
-                                 padded, rs, ppn, rbf, gh, w1e, w2, b2)
+    return _PlainRecompute.apply(
+        _near_pass_rowsum_fwd, near_pass_rowsum_plain,
+        dict(padded=padded, precision=precision), rs, ppn, rbf, gh, w1e, w2,
+        b2)
 
 
 #: the near kernels' tile: live slots a tensor-core product (its M rows)
 NEAR_TILE = 16
 
 
-def near_warps(name: str, n: int, h: int = KERNEL_H, e: int = KERNEL_E) -> int:
+def near_warps(name: str, n: int, h: int = KERNEL_H, e: int = KERNEL_E,
+               passes: int = 3) -> int:
     """The warps a launch of the near kernel ``name`` (or the near blocks
-    of a fused kernel) at widths (h, e) runs for ``n`` rows on the current
-    card (its occupancy; csrc ``epnn::near_warps``)."""
-    fn = getattr(_lib(name, h, e), f"epnn_{name}_warps")
+    of a fused kernel) at widths (h, e) and TF32 tier ``passes`` runs for
+    ``n`` rows on the current card (its occupancy; csrc
+    ``epnn::near_warps``)."""
+    fn = getattr(_lib(name, h, e, passes), f"epnn_{name}_warps")
     fn.argtypes = [_I]
     fn.restype = ctypes.c_int
     w = fn(n)
@@ -1140,9 +1254,24 @@ def fused_message_rowsum_3xtf32_plain(pi, pj, xyz, node_mask, col_vec, w1e,
                                 cutoff, eta, masked, _mm_3xtf32, rows)
 
 
+def fused_message_rowsum_tf32_plain(pi, pj, xyz, node_mask, col_vec, w1e,
+                                    w2, b2, cutoff: float = 3.0,
+                                    eta: float = 2.0, tol: float = 1e-5,
+                                    masked: bool = True,
+                                    rows: Optional[slice] = None):
+    """:func:`fused_message_rowsum_3xtf32_plain` with the one-pass
+    kernel's arithmetic: every product of TF32 operands (``_mm_tf32``).
+    Not on any path: the tests and ``chip_smoke.py`` hold the kernel to
+    it."""
+    return _fused_message_split(pi, pj, xyz, node_mask, col_vec, w1e, w2, b2,
+                                cutoff, eta, masked, _mm_tf32, rows)
+
+
 def _fused_message_rowsum_fwd(pi, pj, xyz, node_mask, col_vec, w1e, w2, b2,
-                              cutoff, eta, tol, masked, padded=None):
+                              cutoff, eta, tol, masked, padded=None,
+                              precision="default"):
     name = "fused_message_rowsum"
+    passes = tf32_passes(precision)
     n, h = pi.shape
     e = w1e.shape[0]
     device = _check(name, dict(pi=pi, pj=pj, xyz=xyz, node_mask=node_mask,
@@ -1162,16 +1291,18 @@ def _fused_message_rowsum_fwd(pi, pj, xyz, node_mask, col_vec, w1e, w2, b2,
     part = pi.new_empty((splits + 1, n, h))
     _launch(name, device, (pi, pj, xyz, node_mask, col_vec, kw.w1e, kw.w2,
                            kw.b2, _kernel_mu(e, float(cutoff), xyz.device),
-                           part, out, _wide_scratch(name, pi, n, h, e)),
+                           part, out,
+                           _wide_scratch(name, pi, n, h, e, passes)),
             (n, h, e, splits, cols, int(bool(masked)), float(cutoff),
-             float(eta), _cut2(cutoff)), {}, h, e)
+             float(eta), _cut2(cutoff)), {}, h, e, passes)
     return out
 
 
 def fused_message_rowsum(pi, pj, xyz, node_mask, col_vec, w1e, w2, b2,
                          cutoff: float = 3.0, eta: float = 2.0,
                          tol: float = 1e-5, masked: bool = True,
-                         padded: Optional[KernelWeights] = None):
+                         padded: Optional[KernelWeights] = None,
+                         precision: str = "default"):
     """One dense message round's row sums with the featurization in the
     tile (see ``csrc/fused_message_rowsum.cu``):
 
@@ -1180,14 +1311,15 @@ def fused_message_rowsum(pi, pj, xyz, node_mask, col_vec, w1e, w2, b2,
     pi, pj (N, H), pi carrying b1; xyz (N, 3); node_mask, col_vec (N,);
     W1e (E, H); W2 (H, H); b2 (H,).  ``masked`` weights by the pair mask
     (diagonal kept), else by ``col_vec``; ``padded``: :func:`pad_weights`
-    of (w2, b2, w1e) where the caller keeps it.  The caller applies W_out
-    and the Σ_j b_out term.  On the card: the far field over every pair
-    plus the live pairs' correction, one launch (and the ordered sum of its
-    parts).  Inference-only: a backward raises."""
+    of (w2, b2, w1e) where the caller keeps it; ``precision``: JAX's name,
+    the TF32 tier on the card.  The caller applies W_out and the Σ_j b_out
+    term.  On the card: the far field over every pair plus the live
+    pairs' correction, one launch (and the ordered sum of its parts).
+    Inference-only: a backward raises."""
     return _InferenceOnly.apply(_fused_message_rowsum_fwd,
                                 "fused_message_rowsum", pi, pj, xyz,
                                 node_mask, col_vec, w1e, w2, b2, cutoff, eta,
-                                tol, masked, padded)
+                                tol, masked, padded, precision)
 
 
 # ---------------------------------------------------------------------------
@@ -1241,9 +1373,22 @@ def fused_epn_rowsum_3xtf32_plain(pi, pj, xyz, node_mask, w1e, w2, b2,
                            tol, soft_gate, _mm_3xtf32, rows)
 
 
+def fused_epn_rowsum_tf32_plain(pi, pj, xyz, node_mask, w1e, w2, b2,
+                                cutoff: float = 3.0, eta: float = 2.0,
+                                tol: float = 1e-5, soft_gate: bool = False,
+                                rows: Optional[slice] = None):
+    """:func:`fused_epn_rowsum_plain` with the one-pass kernel's
+    arithmetic: rbf @ W1e and both orderings' mid layers of TF32 operands
+    (``_mm_tf32``).  Not on any path: the tests and ``chip_smoke.py`` hold
+    the kernel to it.  A pair's two transfers stay exact negations."""
+    return _fused_epn_rows(pi, pj, xyz, node_mask, w1e, w2, b2, cutoff, eta,
+                           tol, soft_gate, _mm_tf32, rows)
+
+
 def _fused_epn_rowsum_fwd(pi, pj, xyz, node_mask, w1e, w2, b2, cutoff, eta,
-                          tol, soft_gate, padded=None):
+                          tol, soft_gate, padded=None, precision="default"):
     name = "fused_epn_rowsum"
+    passes = tf32_passes(precision)
     n, h = pi.shape
     e = w1e.shape[0]
     device = _check(name, dict(pi=pi, pj=pj, xyz=xyz, node_mask=node_mask,
@@ -1260,16 +1405,17 @@ def _fused_epn_rowsum_fwd(pi, pj, xyz, node_mask, w1e, w2, b2, cutoff, eta,
         return out
     _launch(name, device, (pi, pj, xyz, node_mask, kw.w1e, kw.w2, kw.b2,
                            _kernel_mu(e, float(cutoff), xyz.device), out,
-                           _wide_scratch(name, pi, n, h, e)),
+                           _wide_scratch(name, pi, n, h, e, passes)),
             (n, h, e, int(bool(soft_gate)), float(cutoff), float(eta),
-             float(tol), _cut2(cutoff)), {}, h, e)
+             float(tol), _cut2(cutoff)), {}, h, e, passes)
     return out
 
 
 def fused_epn_rowsum(pi, pj, xyz, node_mask, w1e, w2, b2,
                      cutoff: float = 3.0, eta: float = 2.0, tol: float = 1e-5,
                      soft_gate: bool = False,
-                     padded: Optional[KernelWeights] = None):
+                     padded: Optional[KernelWeights] = None,
+                     precision: str = "default"):
     """One dense electron-passing round's antisymmetric row sums (see
     ``csrc/fused_epn_rowsum.cu``):
 
@@ -1280,10 +1426,11 @@ def fused_epn_rowsum(pi, pj, xyz, node_mask, w1e, w2, b2,
     transfers are exact negations, so Σ_i out_i @ W_out conserves charge to
     f32 summation.  The caller applies W_out (b_out cancels).  On the card
     only the pairs within the cutoff pay (a d² scan finds them).
-    Inference-only: a backward raises."""
+    ``precision`` as in :func:`fused_message_rowsum`.  Inference-only: a
+    backward raises."""
     return _InferenceOnly.apply(_fused_epn_rowsum_fwd, "fused_epn_rowsum", pi,
                                 pj, xyz, node_mask, w1e, w2, b2, cutoff, eta,
-                                tol, soft_gate, padded)
+                                tol, soft_gate, padded, precision)
 
 
 # ---------------------------------------------------------------------------

@@ -5,14 +5,14 @@ root, with a CUDA card and ``nvcc``) builds ``csrc/dense_message_rowsum.cu``
 as it is and two timing-only variants, each against a text-substituted copy
 of ``csrc/common.cuh``:
 
-* ``one_mma`` — one TF32 product a k-step (hi·hi) instead of 3xTF32's three,
-  in both of ``common.cuh``'s 3xTF32 helpers (``mma.sync`` and ``wgmma``),
-  so the variant holds whichever the kernel uses;
+* ``one_mma`` — one TF32 product a k-step (hi·hi) instead of 3xTF32's three:
+  ``common.cuh``'s default tier set to one pass, which is the kernel's
+  ``precision="default"`` tier;
 * ``no_split`` — the operands go to the tensor cores unsplit and unrounded
   (no split ALU work), still three products.
 
-The variants' results are wrong by construction; only their device times
-are kept, at 2,224 and 17,760 rows and columns (seeded inputs, cv = 1, the
+``no_split``'s results are wrong by construction; only the variants'
+device times are kept, at 2,224 and 17,760 rows and columns (seeded inputs, cv = 1, the
 wrapper's grid).  When ``one_mma`` runs far faster than the kernel and
 ``no_split`` barely faster, the tensor-core products set the pace.  Prints
 a line a size and a JSON line with the times and the card's name and power
@@ -34,13 +34,10 @@ from epnn_tpu_torch.ops import kernels
 #: variant -> [(text of common.cuh, its replacement)]
 VARIANTS = {
     "kernel": [],
-    "one_mma": [("  mma_tf32(d, al, b.x, b.y);\n  mma_tf32(d, ah, b.z, b.w);\n",
-                 ""),
-                ("  Mma<N>::run(d, al, b_hi);\n  Mma<N>::run(d, ah, b_lo);\n",
-                 "")],
+    "one_mma": [("#define EPNN_TF32_PASSES 3\n", "#define EPNN_TF32_PASSES 1\n")],
     "no_split": [("  const float h = tf32_round(x);\n"
                   "  hi = __float_as_uint(h);\n"
-                  "  lo = __float_as_uint(tf32_round(x - h));",
+                  "  lo = kSplit ? __float_as_uint(tf32_round(x - h)) : 0u;",
                   "  hi = __float_as_uint(x);\n  lo = hi;")],
 }
 SIZES = (2224, 17760)

@@ -60,7 +60,8 @@ VARIANTS = {
                 "N, N,\n                             cols_per_split, bx, by);\n",
                 "    (void)fs;\n    (void)bx;\n    (void)by;\n")],
     "no_channels": [("? rbf_channel(c, d, mu[e], neg_eta)", "? 0.0f * mu[e]")],
-    "one_tf32": [("  mma_tf32(d, al, b.x, b.y);\n  mma_tf32(d, ah, b.z, b.w);\n",
+    "one_tf32": [("#define EPNN_TF32_PASSES 3\n", "#define EPNN_TF32_PASSES 1\n"),
+                 ("  mma_tf32(d, al, b.x, b.y);\n  mma_tf32(d, ah, b.z, b.w);\n",
                   ""),
                  ("  Mma<N>::run(d, al, b_hi);\n  Mma<N>::run(d, ah, b_lo);\n",
                   "")],

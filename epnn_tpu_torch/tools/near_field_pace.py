@@ -9,7 +9,8 @@ and as timing-only variants, each a text substitution in the kernel's
 source or in ``common.cuh``:
 
 * ``one_tf32`` — one TF32 product a k-step (hi·hi) instead of 3xTF32's
-  three (tensor-core design);
+  three (tensor-core design): the kernels' ``precision="default"`` tier
+  (``EPNN_TF32_PASSES=1``), or on an older tree the same by substitution;
 * ``no_compaction`` — every slot counts as live, so dead slots take MMA
   rows as well (tensor-core design; the result is unchanged, as a dead
   slot's weight is 0);
@@ -60,7 +61,8 @@ NAMES = ("near_message_corr", "near_pass_rowsum")
 #: in the kernel source)
 VARIANTS = {
     "kernel": [],
-    "one_tf32": [("  mma_tf32(d, al, b.x, b.y);\n  mma_tf32(d, ah, b.z, b.w);\n",
+    "one_tf32": [("#define EPNN_TF32_PASSES 3\n", "#define EPNN_TF32_PASSES 1\n"),
+                 ("  mma_tf32(d, al, b.x, b.y);\n  mma_tf32(d, ah, b.z, b.w);\n",
                   "")],
     "no_compaction": [("const bool live = in && w != 0.0f;",
                        "const bool live = in;")],
@@ -80,7 +82,7 @@ VARIANTS = {
                 "for (int o = 0; o < H; ++o) { yn[o] = zn[o]; yt[o] = zt[o]; }")],
 }
 NEAR_TILE_FNS = ("near_walk", "near_epart")
-NEEDS = {"one_tf32": ("mma_3xtf32",) + NEAR_TILE_FNS,
+NEEDS = {"one_tf32": ("mma_tier", "mma_3xtf32") + NEAR_TILE_FNS,
          "no_compaction": NEAR_TILE_FNS, "no_rowsum": NEAR_TILE_FNS,
          "min_rows_4": NEAR_TILE_FNS}
 ITERS = 50

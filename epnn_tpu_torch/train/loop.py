@@ -17,6 +17,15 @@ selection stay exact, as in the JAX trainer).  Buckets of
 memory mode (the near field in row chunks, every round and chunk
 rematerialized in the backward), as JAX's trainer does.
 
+Every precision tier of the config trains, with JAX's routes (see
+:func:`epnn_tpu_torch.ops.fused.forward_blocked`): under ``"default"``
+(the CLI's ``fast``) the far field's forward and its backward kernel run
+at one TF32 pass on the card, and the near kernels' forward too, while
+their backward recomputes through their float32 plain versions (JAX
+recomputes at the precision: a departure, ROADMAP); ``compute_dtype=
+"bfloat16"`` trains the bf16 recursion, its parameters and checkpoints
+float32.
+
 ``train`` runs on the first CUDA card unless it is given ``device="cpu"``;
 without a card it raises.  Options of the JAX trainer that are not ported
 yet raise ``NotImplementedError`` naming their ROADMAP item.

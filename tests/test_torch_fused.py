@@ -153,17 +153,3 @@ def test_rbf_and_gate_matches_jax(rng):
         rt, gt = fused.rbf_and_gate(_t(d2), _t(cm), port_cfg(cfg))
         assert np.abs(rt.numpy() - np.asarray(rj)).max() <= 1e-6
         assert np.abs(gt.numpy() - np.asarray(gj)).max() <= 1e-6
-
-
-@pytest.mark.parametrize("kw", [
-    dict(compute_dtype="bfloat16"), dict(dense_matmul_precision="bf16x3")])
-def test_unported_options_raise(rng, kw):
-    """Config tiers the port does not run yet raise instead of degrading.
-    (The int8 tier and deeper mid MLPs run: tests/test_torch_int8.py,
-    tests/test_torch_gate_api.py.)"""
-    params, x, q0, xyz, mask, _ = build(rng, EPNNConfig(**kw), 1)
-    cfg = PortConfig(**kw)
-    fp = fused.fuse_params(from_jax_params(params, cfg), cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused.forward_blocked(fp, _t(x), _t(q0), _t(xyz), _t(mask), cfg,
-                              neighbor_k=8)

@@ -177,7 +177,9 @@ def test_unported_dense_options_raise(rng):
     with pytest.raises(ValueError, match="neighbor_k"):
         fused.forward_blocked(*args, neighbors=(torch.zeros(1, 24, 4),
                                                 torch.zeros(1, 24, 4)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused.forward_blocked(fp, *args[1:5],
-                              port_cfg(EPNNConfig(compute_dtype="bfloat16")),
-                              use_pallas=True)
+    # bf16 compute is ported: as JAX's bf16 branch, it drops use_pallas and
+    # runs the plain dense forward (tests/test_torch_precision.py)
+    cfg16 = port_cfg(EPNNConfig(compute_dtype="bfloat16"))
+    assert torch.equal(fused.forward_blocked(fp, *args[1:5], cfg16,
+                                             use_pallas=True),
+                       fused.forward_blocked(fp, *args[1:5], cfg16))

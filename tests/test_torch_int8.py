@@ -365,5 +365,5 @@ def test_shipped_checkpoint_charges_ignore_the_far_field(monkeypatch):
     far = fused.dense_message_rowsum
     for scale in (0.5, 1.01):
         monkeypatch.setattr(fused, "dense_message_rowsum",
-                            lambda *a, s=scale: far(*a) * s)
+                            lambda *a, s=scale, **kw: far(*a, **kw) * s)
         np.testing.assert_array_equal(pred.predict_batch(batch), q)

@@ -61,7 +61,7 @@ def test_dense_message_rowsum(rng, rows, cols, n_real):
     w2 = (rng.normal(size=(h, h)) * 0.3).astype(np.float32)
     b2 = rng.normal(size=(h,)).astype(np.float32)
     out = kernels.dense_message_rowsum(_t(pi), _t(pj), _t(cv), _t(w2),
-                                       _t(b2)).numpy()
+                                       _t(b2), precision="highest").numpy()
     _close(out, dense_message_rowsum_reference(pi, pj, cv, w2, b2))
     ref = jax_dense_message_rowsum(
         jnp.asarray(pi), jnp.asarray(pj), jnp.asarray(cv), jnp.asarray(w2),
@@ -85,7 +85,8 @@ def test_near_message_corr(near_setup):
     n, k, h, pi, pj, idx, mask, rbf, w1e, w2, b2 = near_setup
     pjn = pj[idx.reshape(-1)]
     out = kernels.near_message_corr(_t(pi), _t(pjn), _t(rbf), _t(mask),
-                                    _t(w1e), _t(w2), _t(b2)).numpy()
+                                    _t(w1e), _t(w2), _t(b2),
+                                    precision="highest").numpy()
     args = [jnp.asarray(a) for a in (pi, pjn, rbf, mask, w1e, w2, b2)]
     _close(out, _near_msg_ref(*args, prec=jax.lax.Precision.HIGHEST))
     _close(out, jax_near_message_corr(*args, block_i=32, precision="highest"))
@@ -97,7 +98,7 @@ def test_near_pass_rowsum(near_setup):
     ppn = rs[idx.reshape(-1)]
     gh = 0.5 * mask
     out = kernels.near_pass_rowsum(_t(rs), _t(ppn), _t(rbf), _t(gh), _t(w1e),
-                                   _t(w2), _t(b2)).numpy()
+                                   _t(w2), _t(b2), precision="highest").numpy()
     args = [jnp.asarray(a) for a in (rs, ppn, rbf, gh, w1e, w2, b2)]
     _close(out, _near_pass_ref(*args, prec=jax.lax.Precision.HIGHEST))
     _close(out, jax_near_pass_rowsum(*args, block_i=32, precision="highest"))
@@ -135,7 +136,7 @@ def near_pass_probe(rng, n=24, k=6, h=32, e=48, device="cpu"):
 
 def test_near_pass_antisymmetry_probe(rng):
     args, i, j = near_pass_probe(rng)
-    out = kernels.near_pass_rowsum(*args)
+    out = kernels.near_pass_rowsum(*args, precision="highest")
     assert torch.count_nonzero(out[i]) > 0
     assert torch.equal(out[i], -out[j])
     others = [r for r in range(out.shape[0]) if r not in (i, j)]
@@ -165,7 +166,7 @@ def test_near_pass_probe_on_a_real_neighbor_table(rng):
     out = kernels.near_pass_rowsum(
         rs, rs[idx.reshape(-1)].contiguous(), rbf.reshape(n * 24, e), _t(gh),
         _t(rng.normal(size=(e, h)) * 0.3), _t(rng.normal(size=(h, h)) * 0.3),
-        _t(rng.normal(size=h)))
+        _t(rng.normal(size=h)), precision="highest")
     i, j = torch.from_numpy(pairs[:, 0]), torch.from_numpy(pairs[:, 1])
     assert torch.count_nonzero(out[i]) > 0
     assert torch.equal(out[i], -out[j])

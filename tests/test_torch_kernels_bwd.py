@@ -68,7 +68,8 @@ def test_dense_message_rowsum_bwd_plain_matches_jax(rng, r, n, h, cv_zeros):
     dpi, dpj, dcv, dw2, db2 = jax_dmr_vjp(pi, pj, cv, w2, b2, g)
     assert not np.any(dcv)
     got = kernels.dense_message_rowsum_bwd(*(_t(a) for a in (pi, pj, cv, w2,
-                                                             b2, g)))
+                                                             b2, g)),
+                                           precision="highest")
     for out, ref in zip(got, (dpi, dpj, dw2, db2)):
         _close(out.numpy(), ref)
     assert kernels.LAUNCHES["dense_message_rowsum_bwd"] == 0  # CPU: plain
@@ -82,7 +83,7 @@ def test_dense_message_rowsum_function_grads_match_jax(rng, r, n, h):
     dpi, dpj, _, dw2, db2 = jax_dmr_vjp(pi, pj, cv, w2, b2, g)
     args = [_t(pi, True), _t(pj, True), _t(cv, True), _t(w2, True),
             _t(b2, True)]
-    out = kernels.dense_message_rowsum(*args)
+    out = kernels.dense_message_rowsum(*args, precision="highest")
     # a non-contiguous cotangent reaches the backward as a contiguous copy
     out.backward(_t(g.T.copy()).T)
     for a, ref in zip((args[0], args[1], args[3], args[4]),
@@ -149,7 +150,7 @@ def test_near_backward_skips_inputs_without_grad(near_setup):
     pi, pj, idx, mask, rbf, w1e, w2, b2, g = near_setup
     args = [_t(pi, True), _t(pj[idx.reshape(-1)], True), _t(rbf), _t(mask),
             _t(w1e, True), _t(w2, True), _t(b2, True)]
-    kernels.near_message_corr(*args).backward(_t(g))
+    kernels.near_message_corr(*args, precision="highest").backward(_t(g))
     assert args[2].grad is None and args[3].grad is None
     assert all(a.grad is not None for i, a in enumerate(args) if i not in
                (2, 3))

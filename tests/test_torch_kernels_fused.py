@@ -62,7 +62,7 @@ def test_fused_message_rowsum(rng, n, h, e, masked):
     out = kernels.fused_message_rowsum(
         *(_t(a[k]) for k in ("pi", "pj", "xyz", "mask", "cv", "w1e", "w2",
                              "b2")), cutoff=3.0, eta=2.0, tol=1e-5,
-        masked=masked).numpy()
+        masked=masked, precision="highest").numpy()
     assert sum(kernels.LAUNCHES.values()) == 0  # CPU: the plain version
     ref = jax_fused_message_rowsum(
         a["pi"], a["pj"], a["xyz"], a["mask"], a["cv"], a["w1e"], a["w2"],
@@ -78,7 +78,8 @@ def test_fused_epn_rowsum(rng, n, h, e, soft_gate):
     kernels.reset_launch_counts()
     out = kernels.fused_epn_rowsum(
         *(_t(a[k]) for k in ("pi", "pj", "xyz", "mask", "w1e", "w2", "b2")),
-        cutoff=3.0, eta=2.0, tol=1e-5, soft_gate=soft_gate).numpy()
+        cutoff=3.0, eta=2.0, tol=1e-5, soft_gate=soft_gate,
+        precision="highest").numpy()
     assert sum(kernels.LAUNCHES.values()) == 0
     ref = jax_fused_epn_rowsum(
         a["pi"], a["pj"], a["xyz"], a["mask"], a["w1e"], a["w2"], a["b2"],
@@ -131,7 +132,7 @@ def test_fused_epn_dimer_probe(rng, soft_gate):
     a["xyz"] = xyz
     out = kernels.fused_epn_rowsum(
         *(_t(a[k]) for k in ("pi", "pj", "xyz", "mask", "w1e", "w2", "b2")),
-        soft_gate=soft_gate)
+        soft_gate=soft_gate, precision="highest")
     i, j = torch.from_numpy(pairs[:, 0]), torch.from_numpy(pairs[:, 1])
     assert torch.count_nonzero(out[i]) > 0
     assert torch.equal(out[i], -out[j])
@@ -158,7 +159,8 @@ def test_fused_wrappers_are_inference_only(rng):
     a = pair_inputs(rng, 24, 32, 48)
     pi = _t(a["pi"]).requires_grad_(True)
     out = kernels.fused_epn_rowsum(
-        pi, *(_t(a[k]) for k in ("pj", "xyz", "mask", "w1e", "w2", "b2")))
+        pi, *(_t(a[k]) for k in ("pj", "xyz", "mask", "w1e", "w2", "b2")),
+        precision="highest")
     with pytest.raises(NotImplementedError, match="inference-only"):
         out.sum().backward()
 

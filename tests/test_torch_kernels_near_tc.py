@@ -170,7 +170,9 @@ def test_3xtf32_near_kernels_in_the_forward_match_jax(monkeypatch):
     for name in ("near_message_corr", "near_pass_rowsum"):
         emu = getattr(kernels, name + "_3xtf32_plain")
 
-        def near(*args, emu=emu, name=name):
+        def near(*args, precision, emu=emu, name=name):
+            # the shipped config resolves to 'highest': 3xTF32
+            assert precision == "highest"
             calls.append(name)
             return emu(*args)
         monkeypatch.setattr(fused, name, near)

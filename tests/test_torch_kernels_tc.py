@@ -130,7 +130,9 @@ def test_3xtf32_far_field_in_the_forward_matches_jax(monkeypatch):
 
     calls = []
 
-    def far(*args):
+    def far(*args, precision):
+        # the shipped config resolves to 'highest': the kernel's 3xTF32 tier
+        assert precision == "highest"
         calls.append(args[0].shape)
         return kernels.dense_message_rowsum_3xtf32_plain(*args)
 

@@ -80,9 +80,9 @@ def _int8_padded(pi, pj, cv, w2q, sw, b2, pi_max, pj_max, pad_pi):
     return torch.einsum("n,bnh->bh", cv, z2)
 
 
-def _warps(name, n, h, e):
+def _warps(name, n, h, e, passes=3):
     """A stand-in for ``kernels.near_warps`` (a card's occupancy): a warp
-    every two rows."""
+    every two rows, at either TF32 tier."""
     return max(1, n // 2)
 
 
@@ -147,15 +147,18 @@ def emulate(name, tensors, scalars, h, e):
 
 
 def arm_card(monkeypatch):
-    """``_check`` reports a CUDA device and ``_launch`` records its call and
-    runs :func:`emulate`: the wrappers' card path without a card.  Returns
-    the list the calls go to."""
+    """``_check`` reports a CUDA device and ``_launch`` records its call
+    (with the TF32 tier it asks for, ``passes``) and runs :func:`emulate`:
+    the wrappers' card path without a card.  Returns the list the calls go
+    to."""
     calls = []
     real_check = kernels._check
 
-    def launch(name, device, tensors, scalars, vector_read, h=None, e=None):
+    def launch(name, device, tensors, scalars, vector_read, h=None, e=None,
+               passes=3):
         calls.append(dict(name=name, tensors=tensors, scalars=scalars,
-                          vector_read=sorted(vector_read), h=h, e=e))
+                          vector_read=sorted(vector_read), h=h, e=e,
+                          passes=passes))
         emulate(name, tensors, scalars, h, e)
         kernels.LAUNCHES[name] += 1
 
