@@ -141,6 +141,16 @@ card: ``python3 chip_smoke.py`` from the repository root.
    policy chunks with remat forced; (e) ``train()`` under ``fast``
    (:func:`tier_train_phase`): the loss falls, every launch one-pass, the
    far-field backward's launches against their one-pass emulation.
+   Then [cli] (:func:`cli_phase`): ``python -m epnn_tpu_torch`` on the
+   card, on ``.xyz`` files of the golden boxes and the 17,760-atom box:
+   ``infer`` in process (bit for bit the API's ``parity`` Predictor, the
+   golden bar, the parity and fast routes tier by tier) and once as a
+   subprocess (the same files), ``bench`` chained and per call beside
+   (b)/(c)'s medians, ``import-ckpt`` of a synthetic reference bundle of
+   the checkpoint (params bit for bit; ``infer`` from it and from
+   ``--reference-models``), ``eval-pol`` (bit for bit the API's
+   difference), and ``train --init-from`` for two epochs (the far-field
+   backward kernel launched).
 6. Profile: ``torch.profiler`` over ``predict_batch`` (2 x 2,220 and
    1 x 17,760 atoms, fp32 and int8, parity and fast; the clustered call
    at 17,760 with its k-means as a group), a Verlet-skin step at 17,760
@@ -2449,6 +2459,274 @@ def tier_train_phase(torch, card, pred, mols, val_mols):
         seconds=secs, best_val_masked_mae=res.best_val_masked_mae), launches
 
 
+#: [cli]: the atom the eval-pol dimer (the Q = 0 golden box) splits at,
+#: and the epochs of the CLI's fine-tune
+CLI_SPLIT = 1110
+CLI_TRAIN_EPOCHS = 2
+
+
+def cli_run(argv):
+    """``epnn_tpu_torch.cli.main(argv)`` in this process, its standard
+    output captured: returns the printed lines."""
+    import contextlib
+    import io
+
+    from epnn_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    return buf.getvalue().splitlines()
+
+
+def cli_phase(torch, card, pred, golden, medians, train_mols, val_mols):
+    """[cli] the port's CLI (``python -m epnn_tpu_torch``) on the card, at
+    ``trained/mixed_b16``'s full width, on ``.xyz`` files written so they
+    read back as the same float32 bits: the two golden 2,220-atom boxes
+    and the 17,760-atom box.  (a) ``infer`` in process: each file equals a
+    ``Predictor`` under the CLI's ``parity`` cfg bit for bit, the golden
+    boxes within the golden bar, |Σq − Q| ≤ 1e-4 e, the launches of
+    ``[slice k]``'s ``parity`` route tier by tier; ``--precision fast``
+    within :data:`TIER_CAP` of parity on its own route.  (b) ``python -m
+    epnn_tpu_torch infer`` once as a subprocess: exit 0, the same files bit
+    for bit.  (c) ``bench`` at 2,220 and 17,760 atoms, chained and
+    ``--per-call``: the JSON parses, ``method`` as asked, ``mean_s`` > 0,
+    printed beside ``medians`` ([slice b] / [slice c]'s warm medians).
+    (d) ``import-ckpt`` of a synthetic TF bundle of the checkpoint's
+    weights in the reference's layout (alias paths, a snappy block): the
+    params bit for bit, the reference's inferred cfg; ``infer`` from the
+    imported checkpoint and from ``--reference-models``, each bit for bit
+    a Predictor of those params and cfg.  (e) ``eval-pol`` on the Q = 0
+    box split at :data:`CLI_SPLIT` with monomer charges 0 0: the result
+    and its printed summary equal ``predict_molecules`` on the dimer minus
+    the monomers bit for bit; Σ polarization within 1e-4 e.  (f) ``train
+    --init-from`` the checkpoint for :data:`CLI_TRAIN_EPOCHS` epochs on
+    [train b]'s molecules (``train_mols``, ``val_mols`` as ``--val-data``)
+    written as ``.xyz`` + ``.npy``: ``best/params.msgpack``, finite losses,
+    the far-field backward kernel launched.  Returns (numbers for the
+    JSON line, launches of (a)'s parity run, launches of (f))."""
+    import dataclasses
+
+    from epnn_tpu_torch import analysis
+    from epnn_tpu_torch.data import load_directory, load_molecule
+    from epnn_tpu_torch.infer import Predictor
+    from epnn_tpu_torch.io import load_config, load_params
+    from epnn_tpu_torch.models import EPNNConfig, tree_leaves
+    from epnn_tpu_torch.ops import kernels
+    from epnn_tpu_torch.testing import (
+        SCALING_SIZE_MOLECULES,
+        golden_boxes,
+        reference_variables,
+        water_box,
+        write_tf_bundle,
+        write_xyz,
+    )
+
+    t_start = time.perf_counter()
+    os.environ["EPNN_PLATFORM"] = "cuda"
+    parity = PRECISION_TIERS["parity"]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def path(*parts):
+            return os.path.join(tmp, *parts)
+
+        boxes = golden_boxes()
+        big = water_box(SCALING_SIZE_MOLECULES, seed=2)
+        for m in boxes + [big]:
+            write_xyz(path("data"), m)
+        mols = load_directory(path("data"))
+        for m in mols:
+            ref = next(b for b in boxes + [big] if b.name == m.name)
+            require(np.array_equal(m.xyz, ref.xyz), ("[cli] xyz bits", m.name))
+
+        # (a) infer in process, parity then fast, each on its own route
+        def infer(precision, dest):
+            seen, restore = spy_tiers()
+            kernels.reset_launch_counts()
+            try:
+                lines = cli_run(["infer", "--checkpoint", CKPT,
+                                 path("data"), "--out", dest,
+                                 "--precision", precision])
+            finally:
+                restore()
+            launched = dict(kernels.LAUNCHES)
+            routes = tier_routes(seen)
+            t = pred.cfg.T
+            want = {kn: {ps: len(mols) * (
+                t - 1 if kn == "dense_message_rowsum" else t)}
+                for kn, ps in TIER_ROUTES[precision].items()}
+            require(routes == want, ("[cli] routes", precision, routes, want))
+            return lines, launched, routes, {
+                m.name: np.load(os.path.join(dest, m.name + "_pred.npy"))
+                for m in mols}
+
+        lines_p, cli_launches, routes_p, q_cli = infer("parity",
+                                                       path("parity"))
+        p0 = Predictor.from_checkpoint(CKPT)
+        api = Predictor(p0.params, p0.cfg.replace(**parity))
+        tol_g = 1e-5 * (float(np.abs(golden).max()) + 1.0)
+        golden_dq, cons = [], []
+        for m, q in zip(mols, api.predict_molecules(mols)):
+            qc = q_cli[m.name]
+            require(qc.dtype == q.dtype and np.array_equal(qc, q),
+                    ("[cli] infer vs the API", m.name))
+            cons.append(abs(float(qc.astype(np.float64).sum())
+                            - m.total_charge))
+            require(np.all(np.isfinite(qc)) and cons[-1] <= 1e-4,
+                    ("[cli] conservation", m.name, cons[-1]))
+            for i, b in enumerate(boxes):
+                if b.name == m.name:
+                    golden_dq.append(float(np.abs(qc - golden[i, :m.natoms])
+                                           .max()))
+                    require(golden_dq[-1] < tol_g,
+                            ("[cli] vs golden", m.name, golden_dq[-1]))
+        _, _, routes_f, q_fast = infer("fast", path("fast"))
+        fast_gap = {}
+        for name, qf in q_fast.items():
+            cap = TIER_CAP * (float(np.abs(q_cli[name]).max()) + 1.0)
+            fast_gap[name] = float(np.abs(qf - q_cli[name]).max())
+            require(fast_gap[name] <= cap, ("[cli] fast", name, fast_gap))
+        out["infer"] = dict(lines=lines_p, golden_dq=golden_dq, tol=tol_g,
+                            conservation=cons, routes_parity=routes_p,
+                            routes_fast=routes_f, fast_gap=fast_gap)
+
+        # (b) python -m epnn_tpu_torch, once, as a subprocess
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, EPNN_PLATFORM="cuda")
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (root, env.get("PYTHONPATH")) if p)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "epnn_tpu_torch", "infer", "--checkpoint",
+             CKPT, path("data"), "--out", path("sub")], cwd=root, env=env,
+            capture_output=True, text=True, timeout=600)
+        sub_s = time.perf_counter() - t0
+        require(proc.returncode == 0, ("[cli] python -m", proc.returncode,
+                                       proc.stderr[-3000:]))
+        for m in mols:
+            qs = np.load(path("sub", m.name + "_pred.npy"))
+            require(np.array_equal(qs, q_cli[m.name]),
+                    ("[cli] subprocess vs in process", m.name))
+        out["subprocess_s"] = sub_s
+
+        # (c) bench, chained and per call
+        bench = {}
+        for label, m in (("1x2220", boxes[0]), ("1x17760", big)):
+            for method, extra in (("chained", []),
+                                  ("per_call", ["--per-call"])):
+                lines = cli_run(["bench", "--checkpoint", CKPT,
+                                 path("data", m.name + ".xyz"), *extra])
+                stats = json.loads(lines[-1])
+                require(stats["method"] == method and stats["mean_s"] > 0
+                        and stats["natoms"] == m.natoms,
+                        ("[cli] bench", label, stats))
+                bench[f"{label} {method}"] = stats
+        out["bench"] = bench
+
+        # (d) import-ckpt of a synthetic reference bundle, then infer
+        os.makedirs(path("models"))
+        prefix = path("models", "mixed_b16_weights")
+        write_tf_bundle(prefix, reference_variables(pred.params),
+                        snappy_blocks=(1,))
+        lines_i = cli_run(["import-ckpt", prefix, "--out", path("imported")])
+        cfg_i = load_config(path("imported"))
+        want_cfg = EPNNConfig(
+            n_elems=pred.cfg.n_elems, h_dim=pred.cfg.h_dim,
+            e_dim=pred.cfg.e_dim, msg_dim=pred.cfg.msg_dim,
+            mlp_hidden=pred.cfg.mlp_hidden, T=pred.cfg.T,
+            mask_messages=False)
+        require(cfg_i == want_cfg, ("[cli] imported cfg", cfg_i))
+        params_i = load_params(path("imported"), cfg_i)
+        require(all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(
+            tree_leaves(params_i), tree_leaves(pred.params))),
+            "[cli] imported params")
+        for b in boxes:
+            write_xyz(path("golden"), b)
+        gmols = load_directory(path("golden"))
+        q_imp = Predictor(pred.params, cfg_i.replace(**parity)
+                          ).predict_molecules(gmols)
+        runs = {"imported": ["--checkpoint", path("imported")],
+                "reference": ["--reference-models", path("models"),
+                              "--reference-name", "mixed_b16_weights"]}
+        cons_i = []
+        for label, src in runs.items():
+            cli_run(["infer", *src, path("golden"), "--out", path(label)])
+            for m, q in zip(gmols, q_imp):
+                qc = np.load(path(label, m.name + "_pred.npy"))
+                require(np.array_equal(qc, q), ("[cli]", label, m.name))
+                cons_i.append(abs(float(qc.astype(np.float64).sum())
+                                  - m.total_charge))
+        require(max(cons_i) <= 1e-4, ("[cli] imported conservation", cons_i))
+        out["import"] = dict(line=lines_i[-1], conservation=cons_i)
+
+        # (e) eval-pol on the Q = 0 box split at CLI_SPLIT
+        dimer_path = write_xyz(path("pol"), dataclasses.replace(
+            boxes[0], name="dimer", split=CLI_SPLIT, labels=None))
+        got = []
+        real = analysis.polarization_response
+        analysis.polarization_response = (
+            lambda *a, **kw: got.append(real(*a, **kw)) or got[-1])
+        try:
+            lines_e = cli_run(["eval-pol", "--checkpoint", CKPT, dimer_path,
+                               "--monomer-charges", "0", "0"])
+        finally:
+            analysis.polarization_response = real
+        dimer = load_molecule(dimer_path)
+        q_d = api.predict_molecules([dimer])[0]
+        q_m = np.concatenate(api.predict_molecules(list(
+            analysis.split_dimer(dimer, charges=(0.0, 0.0)))))
+        want = analysis.PolarizationResult(dimer.name, q_d, q_m, q_d - q_m)
+        res = got[0]
+        require(len(got) == 1 and np.array_equal(res.pred_polarization,
+                                                 want.pred_polarization),
+                "[cli] eval-pol vs predict_molecules")
+        require("\n".join(lines_e) == want.summary(),
+                ("[cli] eval-pol output", lines_e[:2]))
+        pol_sum = abs(float(res.pred_polarization.astype(np.float64).sum()))
+        require(pol_sum <= 1e-4, ("[cli] sum of polarization", pol_sum))
+        out["eval_pol"] = dict(
+            sum=pol_sum, max_abs=float(np.abs(res.pred_polarization).max()))
+
+        # (f) train --init-from the checkpoint on [train b]'s molecules
+        for m in train_mols:
+            write_xyz(path("train"), m)
+        for m in val_mols:
+            write_xyz(path("val"), m)
+        kernels.reset_launch_counts()
+        lines_t = cli_run(["train", "--data", path("train"), "--val-data",
+                           path("val"), "--out", path("run"), "--epochs",
+                           str(CLI_TRAIN_EPOCHS), "--init-from", CKPT])
+        train_launches = dict(kernels.LAUNCHES)
+        require(os.path.exists(path("run", "best", "params.msgpack")),
+                "[cli] best/params.msgpack")
+        with open(path("run", "metrics.jsonl")) as f:
+            rows = [json.loads(ln) for ln in f]
+        losses = [r["train_loss"] for r in rows]
+        require(len(rows) == CLI_TRAIN_EPOCHS and np.all(np.isfinite(losses)),
+                ("[cli] train losses", losses))
+        require(train_launches["dense_message_rowsum_bwd"] > 0,
+                ("[cli] train launches", train_launches))
+        out["train"] = dict(losses=losses, last_line=lines_t[-1],
+                            launches=train_launches)
+    os.environ.pop("EPNN_PLATFORM")
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"[cli] python -m epnn_tpu_torch on the card, {CKPT}: (a) infer "
+          f"of {[m.natoms for m in mols]} atoms equal to the API's parity "
+          f"Predictor bit for bit, golden max|dq| {golden_dq} (tol "
+          f"{tol_g:.3e}), |sum q - Q| {max(cons):.3e}, parity routes "
+          f"{routes_p}, fast within {max(fast_gap.values()):.3e} of parity "
+          f"on routes {routes_f}; (b) the subprocess's files the same bits "
+          f"({sub_s:.1f} s); (c) bench " + "; ".join(
+              f"{k} {v['mean_s'] * 1e3:.3f} ms" for k, v in bench.items())
+          + f" beside [slice b]/[slice c] warm medians {medians} ms "
+          f"(highest, B = 2 at 2,220); (d) {lines_i[-1]!r}, imported and "
+          f"--reference-models charges the same bits; (e) eval-pol sum "
+          f"{pol_sum:.3e}, max|dq| {out['eval_pol']['max_abs']:.3e}; (f) "
+          f"train {CLI_TRAIN_EPOCHS} epochs: train losses {losses}, launches "
+          f"{train_launches}; {out['seconds']:.1f} s on {card}")
+    return out, cli_launches, train_launches
+
+
 def kmeans_alone(torch, rows, weights, c, reps=5):
     """(device-busy ms, launches, host ms) of one ``weighted_kmeans`` fit of
     ``rows`` into ``c`` clusters alone: ``torch.profiler`` over ``reps``
@@ -3870,6 +4148,9 @@ def main() -> int:
     train_d, huge_train_launches = huge_train_phase(torch, pred, card)
     train_e, tier_train_launches = tier_train_phase(torch, card, pred,
                                                     train_mols, small)
+    cli_out, cli_launches, cli_train_launches = cli_phase(
+        torch, card, pred, golden, {"2x2220": ms2, "1x17760": ms3},
+        train_mols, small)
     profile = profile_phase(
         torch, card, pred, batch2, big, pred8,
         Predictor(pred.params, cfg, far_cluster=CLUSTER_CS[0]),
@@ -3888,7 +4169,9 @@ def main() -> int:
                          "cluster": cluster_launches[name],
                          "position_vjp": vjp_launches[name],
                          "huge_serve": huge_launches[name],
-                         "huge_train": huge_train_launches[name]}
+                         "huge_train": huge_train_launches[name],
+                         "cli_infer": cli_launches[name],
+                         "cli_train": cli_train_launches[name]}
         rows[name]["launches_by_path"] = path_launches
         rows[name]["launches"] = path_launches[MAIN_PATH.get(name, "serve")]
         require(rows[name]["launches"] > 0, (name, path_launches))
@@ -3935,6 +4218,7 @@ def main() -> int:
                       "position_vjp": vjp, "train_cluster": train_c,
                       "huge_serving": huge, "huge_train": train_d,
                       "precision_tiers": tier_serve, "train_fast": train_e,
+                      "cli": cli_out,
                       "widths": width_results,
                       "profile": profile, "sm_clocks": clocks,
                       "card": card}))

@@ -1,5 +1,6 @@
-"""``.xyz`` geometry parsing (counterpart of ``epnn_tpu/data/xyz.py``,
-pure-Python parser only).
+"""``.xyz`` geometry parsing (counterpart of ``epnn_tpu/data/xyz.py``):
+a pure-Python parser, and :func:`load_directory`, which bulk-parses through
+the native library (:mod:`epnn_tpu_torch.data.native`) when it loads.
 
 File format: line 1 atom count (ignored — the count is inferred from the
 atom lines); line 2 first token = float net charge Q; lines 3+ ``<element>
@@ -79,7 +80,14 @@ def parse_xyz_file(path: str) -> Molecule:
 
 def load_molecule(xyz_path: str, require_labels: bool = False) -> Molecule:
     """Parse a .xyz plus its optional sibling label / splits files."""
-    mol = parse_xyz_file(xyz_path)
+    return attach_sidecars(parse_xyz_file(xyz_path), xyz_path,
+                           require_labels)
+
+
+def attach_sidecars(mol: Molecule, xyz_path: str,
+                    require_labels: bool = False) -> Molecule:
+    """Read ``<stem>.npy`` (per-atom labels, their count checked) and
+    ``<stem>splits.npy`` (a scalar split) into ``mol``, in place."""
     stem = xyz_path[:-4] if xyz_path.endswith(".xyz") else xyz_path
     label_path = stem + ".npy"
     if os.path.exists(label_path):
@@ -96,3 +104,29 @@ def load_molecule(xyz_path: str, require_labels: bool = False) -> Molecule:
         if split.shape == ():
             mol.split = int(split)
     return mol
+
+
+def load_directory(
+    path: str,
+    require_labels: bool = False,
+    sort: bool = True,
+    use_native: bool = True,
+) -> List[Molecule]:
+    """Parse every ``*.xyz`` in a directory (non-recursive), with their
+    sibling label and splits files, as the JAX package's ``load_directory``.
+
+    Entries are sorted by name by default (``os.listdir`` order differs
+    between filesystems); ``sort=False`` keeps directory order.  With
+    ``use_native`` the C++ bulk parser reads the geometries when
+    ``native/libepnn_native.so`` loads, else this module's parser does."""
+    names = [f for f in os.listdir(path) if f.endswith(".xyz")]
+    if sort:
+        names.sort()
+    if use_native:
+        from epnn_tpu_torch.data import native
+
+        if native.available():
+            return native.load_directory(path, names,
+                                         require_labels=require_labels)
+    return [load_molecule(os.path.join(path, fname), require_labels)
+            for fname in names]

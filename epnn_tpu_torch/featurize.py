@@ -7,6 +7,9 @@
   diagonal forced to 0 after those rules.
 * ``e = C * exp(-eta * (D - mu)**2)`` per channel.
 
+:func:`rbf_edges_np` is the float64 NumPy oracle of the same features
+(the reference's output, byte for byte), used by :mod:`epnn_tpu_torch.compat`.
+
 The pair pieces (:func:`pair_d2`, :func:`envelope_rbf`, :func:`hard_gate`,
 :func:`kernel_mu`) are shared by the dense model, the blocked forwards and
 the plain versions of the fused CUDA kernels (``csrc/common.cuh`` holds
@@ -39,6 +42,29 @@ class RBFConfig:
         """The float64 centers ``linspace(0.1, cutoff, e_dim)``."""
         return np.linspace(MU_START, self.cutoff, self.e_dim,
                            dtype=np.float64)
+
+
+def rbf_edges_np(
+    xyz: np.ndarray,
+    e_dim: int = DEFAULT_E_DIM,
+    cutoff: float = DEFAULT_CUTOFF,
+    eta: float = DEFAULT_ETA,
+):
+    """NumPy oracle, as the JAX package's.  xyz: (natom, 3).  Returns
+    ``(e, C)``: e (natom, natom, e_dim) float32 RBF edge features, computed
+    in float64 from the float32 coordinates; C (natom, natom) the float64
+    cosine envelope (constant across channels, so 2-D)."""
+    xyz = np.asarray(xyz, dtype=np.float32)
+    diff = xyz[:, None, :].astype(np.float64) - xyz[None, :, :].astype(
+        np.float64)
+    d = np.sqrt((diff ** 2).sum(-1))
+    c = (np.cos(np.pi * d / cutoff) + 1.0) / 2.0
+    c[d >= cutoff] = 0.0
+    c[d <= 0.0] = 1.0
+    np.fill_diagonal(c, 0.0)
+    mu = np.linspace(MU_START, cutoff, e_dim)
+    e = c[:, :, None] * np.exp(-eta * (d[:, :, None] - mu[None, None, :]) ** 2)
+    return e.astype(np.float32), c
 
 
 def rbf_centers(e_dim: int, cutoff: float, device=None) -> torch.Tensor:

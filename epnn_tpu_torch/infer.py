@@ -248,6 +248,17 @@ class Predictor:
         cfg = ckpt_io.load_config(directory)
         return cls(params=ckpt_io.load_params(directory, cfg), cfg=cfg, **kw)
 
+    @classmethod
+    def from_reference(cls, models_dir: str, name: str = "decay_model",
+                       **kw) -> "Predictor":
+        """A Predictor of a reference TF checkpoint under ``models_dir``
+        (:func:`~epnn_tpu_torch.io.tf_import.import_reference_model`:
+        ``name`` is a preset name or the prefix's basename)."""
+        from epnn_tpu_torch.io.tf_import import import_reference_model
+
+        params, cfg = import_reference_model(models_dir, name)
+        return cls(params=params, cfg=cfg, **kw)
+
     @staticmethod
     def _geom_fingerprint(batch: MolBatch):
         xyz = np.ascontiguousarray(np.asarray(batch.xyz))
@@ -592,6 +603,24 @@ class Predictor:
                 batch, nbrs, chunk, ("nbr", self._geom_fingerprint(batch)))
         return kw
 
+    def _skin_kw(self, batch: MolBatch) -> dict:
+        """The blocked forward's arguments for ``batch`` in skin mode: the
+        Verlet-skin 2-tuple (the forward takes d² from the current
+        coordinates), its k, the collapse, the row chunk and the window."""
+        idx, nbr_mask = self._neighbors_skin(batch)
+        chunk = self._near_chunk(batch)
+        return dict(neighbor_k=int(idx.shape[-1]),
+                    use_pallas=self._use_pallas(), neighbors=(idx, nbr_mask),
+                    uniform_q0=self._uniform_q0(batch), near_row_chunk=chunk,
+                    near_window=self._near_window_for(
+                        batch, (idx, nbr_mask), chunk,
+                        ("skin", self.skin_rebuilds)))
+
+    def _dense_forward(self, x, q0, xyz, mask):
+        e = rbf_edges(xyz, mask, e_dim=self.cfg.e_dim,
+                      cutoff=self.cfg.cutoff, eta=self.cfg.eta)
+        return self._model(x, q0, e, mask)
+
     def _predict_batch_inner(self, batch: MolBatch) -> np.ndarray:
         x, q0, xyz, mask = self._inputs(batch)
         mode = self._mode(batch)
@@ -604,28 +633,67 @@ class Predictor:
                 "clustered tier, bounded error) for huge graphs",
                 stacklevel=3)
         if mode == "dense":
-            e = rbf_edges(xyz, mask, e_dim=self.cfg.e_dim,
-                          cutoff=self.cfg.cutoff, eta=self.cfg.eta)
-            q = self._model(x, q0, e, mask)
-        elif self.neighbor_skin > 0:
-            # the 2-tuple: the forward takes d² from the current coordinates
-            idx, nbr_mask = self._neighbors_skin(batch)
-            chunk = self._near_chunk(batch)
-            q = forward_blocked(
-                self._fused, x, q0, xyz, mask, self.cfg,
-                neighbor_k=int(idx.shape[-1]), use_pallas=self._use_pallas(),
-                neighbors=(idx, nbr_mask),
-                uniform_q0=self._uniform_q0(batch),
-                far_cluster=self.far_cluster, near_row_chunk=chunk,
-                near_window=self._near_window_for(
-                    batch, (idx, nbr_mask), chunk,
-                    ("skin", self.skin_rebuilds)))
+            q = self._dense_forward(x, q0, xyz, mask)
         else:
+            kw = (self._skin_kw(batch) if self.neighbor_skin > 0
+                  else self._blocked_kw(batch))
             q = forward_blocked(self._fused, x, q0, xyz, mask, self.cfg,
-                                far_cluster=self.far_cluster,
-                                **self._blocked_kw(batch))
+                                far_cluster=self.far_cluster, **kw)
         # float() first: a bf16 dense forward returns bf16 charges
         return q.float().cpu().numpy()
+
+    def benchmark_batch(self, batch: MolBatch, iters: int = 20,
+                        warmup_loops: int = 2,
+                        profile_dir: Optional[str] = None,
+                        per_call: bool = False,
+                        cost_analysis: bool = False) -> dict:
+        """Steady-state latency of ``predict_batch(batch)``, as the JAX
+        package's ``benchmark_batch`` measures it.
+
+        By default the serialized chain with one terminal readback
+        (:func:`~epnn_tpu_torch.utils.timing.benchmark_chained`): the
+        forward the Predictor would dispatch (dense up to
+        :data:`DENSE_MAX_ATOMS`, else the blocked forward on the spatially
+        sorted twin where ``predict_batch`` would take it) runs on device
+        tensors, with its neighbor tables (reused or skin), k, cell grid,
+        round-1 collapse, row chunk and window computed once, outside the
+        timed loop; what stays inside is what every call pays (the
+        selection unless the tables are reused; the skin's d² gather).
+        ``per_call=True`` times ``predict_batch`` itself call by call
+        (:func:`~epnn_tpu_torch.utils.timing.benchmark_fn`), host copies
+        included.  Returns ``mean_s``, ``iters``, ``method`` and, chained,
+        ``warmup_loops``."""
+        from epnn_tpu_torch.utils.timing import benchmark_chained, benchmark_fn
+
+        if per_call:
+            stats = benchmark_fn(self.predict_batch, batch,
+                                 warmup=max(warmup_loops, 1), iters=iters,
+                                 profile_dir=profile_dir)
+            stats["method"] = "per_call"
+            return stats
+        mode = self._mode(batch)
+        # the program predict_batch runs: its sorted twin where it sorts
+        # (latency does not depend on the order, so no unpermute)
+        if mode == "blocked":
+            view = self._spatial_view(batch)
+            if view is not None:
+                batch = view[0]
+        x, q0, xyz, mask = self._inputs(batch)
+        if mode == "dense":
+            def fn(q0_in):
+                return self._dense_forward(x, q0_in, xyz, mask)
+        else:
+            kw = (self._skin_kw(batch) if self.neighbor_skin > 0
+                  else self._blocked_kw(batch))
+
+            def fn(q0_in):
+                return forward_blocked(self._fused, x, q0_in, xyz, mask,
+                                       self.cfg, far_cluster=self.far_cluster,
+                                       **kw)
+        return benchmark_chained(fn, q0, iters=iters,
+                                 warmup_loops=warmup_loops,
+                                 profile_dir=profile_dir,
+                                 cost_analysis=cost_analysis)
 
     @torch.no_grad()
     def far_field_diagnostics(self, batch: MolBatch,

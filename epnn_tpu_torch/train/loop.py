@@ -152,23 +152,23 @@ class TrainConfig:
     near_window: int = 0
 
 
-_DEFERRED = "is not ported yet (ROADMAP queue 1: training, deferred options)"
-
-
 def check_supported(tc: TrainConfig) -> None:
-    """Raise ``NotImplementedError`` for an option this port does not run."""
+    """Raise ``NotImplementedError`` for an option this port does not run,
+    naming its ROADMAP item (queue 1, training's deferred options)."""
     unported = {
-        "lr_schedule='cosine'": tc.lr_schedule != "constant",
-        "lr_plateau_factor": tc.lr_plateau_factor is not None,
-        "ema_decay": tc.ema_decay is not None,
-        "grad_clip_norm": tc.grad_clip_norm is not None,
-        "grad_accum > 1": tc.grad_accum > 1,
-        "tensorboard_dir": tc.tensorboard_dir is not None,
-        "debug_nans": tc.debug_nans,
+        "lr_schedule='cosine'": (tc.lr_schedule != "constant", "9.2"),
+        "lr_plateau_factor": (tc.lr_plateau_factor is not None, "9.2"),
+        "ema_decay": (tc.ema_decay is not None, "9.2"),
+        "grad_clip_norm": (tc.grad_clip_norm is not None, "9.2"),
+        "grad_accum > 1": (tc.grad_accum > 1, "9.2"),
+        "tensorboard_dir": (tc.tensorboard_dir is not None, "9.5"),
+        "debug_nans": (tc.debug_nans, "9.5"),
     }
-    for name, asked in unported.items():
+    for name, (asked, item) in unported.items():
         if asked:
-            raise NotImplementedError(f"TrainConfig {name} {_DEFERRED}")
+            raise NotImplementedError(
+                f"TrainConfig {name} is not ported yet (ROADMAP queue 1 "
+                f"item {item}: training, deferred options)")
     if tc.loss not in M.LOSSES:
         raise ValueError(f"unknown loss {tc.loss!r}; one of "
                          f"{sorted(M.LOSSES)}")
