@@ -3633,6 +3633,464 @@ def compact_phase(torch, card, cfg, boxes):
     return row, selection
 
 
+EXPORT_MD_FRAMES = 4
+EXPORT_REPS = {"2x2220": 7, "1x17760": 3}
+#: a loaded artifact, in a fresh process: its charges for every call of
+#: the inputs file, the launches of the first call, and the call's median
+EXPORT_CHILD = r"""
+import json, sys, time
+import numpy as np
+import torch
+from epnn_tpu_torch.io import load_serving
+from epnn_tpu_torch.ops import kernels
+
+art = load_serving(sys.argv[1])
+data = np.load(sys.argv[2])
+calls = sorted({int(key.split("_")[0][1:]) for key in data.files})
+args = [[data[f"c{c}_{i}"] for i in range(len(art.manifest["inputs"]))]
+        for c in calls]
+kernels.reset_launch_counts()
+out = {"q0": art(*args[0])}
+torch.cuda.synchronize()
+launches = dict(kernels.LAUNCHES)
+out.update({f"q{c}": art(*a) for c, a in zip(calls[1:], args[1:])})
+ts = []
+for _ in range(int(sys.argv[4])):
+    t0 = time.perf_counter()
+    art(*args[0])
+    ts.append((time.perf_counter() - t0) * 1e3)
+np.savez(sys.argv[3], **out)
+print(json.dumps({"launches": launches, "device": str(art.device),
+                  "ms": float(np.median(ts))}))
+"""
+
+
+def export_child(art_dir, calls, reps):
+    """Load the artifact at ``art_dir`` in a fresh Python process and call
+    it on each input tuple of ``calls``: ``(charges a call, its report)``
+    (the first call's launches, the device, a median over ``reps``)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "in.npz")
+        np.savez(src, **{f"c{c}_{i}": np.asarray(a) for c, args in
+                         enumerate(calls) for i, a in enumerate(args)})
+        root = os.path.dirname(os.path.abspath(__file__))
+        proc = subprocess.run(
+            [sys.executable, "-c", EXPORT_CHILD, art_dir, src,
+             os.path.join(tmp, "out.npz"), str(reps)],
+            cwd=root, env=dict(os.environ, PYTHONPATH=root),
+            capture_output=True, text=True, timeout=600)
+        require(proc.returncode == 0, ("[export] child", proc.stderr[-3000:]))
+        with np.load(os.path.join(tmp, "out.npz")) as f:
+            qs = [f[f"q{c}"] for c in range(len(calls))]
+    return qs, json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def dispatch_phase(torch, pred, batch2, reps=200):
+    """The registered operators' dispatch cost: each kernel of a [slice b]
+    call timed on the host through its eager wrapper (the operator) and
+    through the operator's body called directly, on the arguments of its
+    first launch in the call, in turns (op, body, body, op), each the
+    median µs a call of ``reps`` enqueued calls (the card kept busy, so
+    the host's cost is what is timed)."""
+    from epnn_tpu_torch.ops import fused, kernels
+
+    seen = {}
+    names = ("dense_message_rowsum", "near_message_corr", "near_pass_rowsum")
+    undo = [spy_calls(fused, name, seen.setdefault(name, []))
+            for name in names]
+    try:
+        pred.predict_batch(batch2)
+    finally:
+        for fn in undo:
+            fn()
+    out = {}
+    with torch.no_grad():
+        for name in names:
+            a, kw = seen[name][0]
+            with_w1e = name != "dense_message_rowsum"
+            body = kernels._BODIES[name]
+            pargs = kernels._padded_args(kw.get("padded"), with_w1e)
+            calls = {"op": lambda: getattr(kernels, name)(*a, **kw),
+                     "body": lambda: body(*a, *pargs, kw["precision"])}
+            for fn in calls.values():
+                fn()
+            runs = {"op": [], "body": []}
+            for which in ("op", "body", "body", "op"):
+                torch.cuda.synchronize()
+                torch.cuda._sleep(50_000_000)
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    calls[which]()
+                runs[which].append((time.perf_counter() - t0) * 1e6 / reps)
+                torch.cuda.synchronize()
+            out[name] = {k: [round(v, 3) for v in vs]
+                         for k, vs in runs.items()}
+            out[name]["cost_us"] = (min(runs["op"]) - min(runs["body"]))
+    per_call = {name: 2 * PER_GRAPH[name] for name in names}
+    out["launches_per_call"] = per_call
+    out["cost_per_call_ms"] = sum(
+        max(out[n]["cost_us"], 0.0) * per_call[n] for n in names) / 1e3
+    return out
+
+
+def export_phase(torch, card, pred, pred8, batch2, big, small, timed):
+    """[export] ``export_predictor`` on the card in each calling convention:
+    dense on the small molecules, blocked at 2 x 2,220 and 1 x 17,760
+    atoms (the kernels as ``epnn_torch::`` operators), md on Verlet-skin
+    frames, the clustered tier (C = 32), the int8 tier, and the
+    multi-platform plain route.  Each artifact is loaded in a fresh
+    process (:func:`export_child`) and held to the live call: bit for bit,
+    or within 1e-5·(max|q| + 1) where the live Predictor cell-sorts the
+    atoms (17,760) or the artifact runs the plain route; the launches of
+    each kernel equal to the live call's (none on the plain route);
+    |Σq − Q| ≤ 1e-4.  Times: the export, and the artifact's call (loaded
+    here) beside the live ``predict_batch``, in turns (live, artifact,
+    artifact, live)."""
+    from epnn_tpu_torch.data import pad_molecules
+    from epnn_tpu_torch.data.xyz import Molecule
+    from epnn_tpu_torch.elements import table_for_n_elems
+    from epnn_tpu_torch.infer import Predictor
+    from epnn_tpu_torch.io import export_predictor, load_serving
+    from epnn_tpu_torch.io.export_serving import ARTIFACT_FILE
+    from epnn_tpu_torch.ops import kernels
+    from epnn_tpu_torch.testing import golden_boxes
+
+    cfg = pred.cfg
+    table = table_for_n_elems(cfg.n_elems)
+    small_batch = pad_molecules(small, table, pad_to=64)
+    # md: a 2,220-atom box drifting within the skin (one selection)
+    mol = golden_boxes()[1]
+    g = np.random.default_rng(12)
+    frames = (mol.xyz[None] + np.cumsum(g.uniform(
+        -MD_DRIFT, MD_DRIFT, size=(EXPORT_MD_FRAMES, mol.natoms, 3)),
+        axis=0)).astype(np.float32)
+    md_batch = pad_molecules([Molecule(name=mol.name, symbols=mol.symbols,
+                                       xyz=frames[0],
+                                       total_charge=mol.total_charge)],
+                             table)
+    skin = Predictor(pred.params, cfg, reuse_neighbors=True,
+                     neighbor_skin=MD_SKIN)
+    pred_c = Predictor(pred.params, cfg, far_cluster=CLUSTER_CS[0])
+    cases = [
+        # label, Predictor, batch, mode, export keywords, the live call's
+        # launches a graph, whether the artifact is held to the bar (the
+        # live call sorts the atoms, or the artifact runs the plain route)
+        ("dense small", pred, small_batch, "dense", {}, {}, False),
+        ("blocked 2x2220", pred, batch2, "blocked", {}, PER_GRAPH, False),
+        ("blocked 1x17760", pred, big, "blocked", {}, PER_GRAPH, True),
+        ("md 1x2220", skin, md_batch, "md", {}, PER_GRAPH, False),
+        (f"far_cluster {CLUSTER_CS[0]} 2x2220", pred_c, batch2, "blocked",
+         {}, PER_GRAPH, False),
+        ("int8 2x2220", pred8, batch2, "blocked", {}, PER_GRAPH_INT8,
+         False),
+        ("plain route 2x2220", pred, batch2, "blocked",
+         {"platforms": ("cuda", "cpu")}, PER_GRAPH, True),
+    ]
+    out, path_launches = {}, None
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (label, p, batch, mode, kw, per_graph, at_bar) in enumerate(
+                cases):
+            plain = "platforms" in kw
+            art_dir = os.path.join(tmp, f"art{i}")
+            _, export_ms = host_ms(torch, lambda: export_predictor(
+                p, batch, art_dir, mode=mode, **kw))
+            manifest = json.load(open(os.path.join(art_dir,
+                                                   "manifest.json")))
+            size = os.path.getsize(os.path.join(art_dir, ARTIFACT_FILE))
+            # the live calls (md: a frame each, the skin tables as inputs)
+            if mode == "md":
+                calls, live_q = [], []
+                kernels.reset_launch_counts()
+                for f in range(EXPORT_MD_FRAMES):
+                    batch.xyz[0, :mol.natoms] = frames[f]
+                    live_q.append(p.predict_batch(batch))
+                    if f == 0:
+                        live_launches = dict(kernels.LAUNCHES)
+                    idx, nbr = p._neighbors_skin(batch)
+                    calls.append((batch.x, batch.q0, batch.xyz.copy(),
+                                  batch.node_mask,
+                                  idx.cpu().numpy().astype(np.int32),
+                                  nbr.cpu().numpy()))
+                require(p.skin_rebuilds == 1, ("[export] md rebuilds",
+                                               p.skin_rebuilds))
+            else:
+                kernels.reset_launch_counts()
+                live_q = [p.predict_batch(batch)]
+                live_launches = dict(kernels.LAUNCHES)
+                calls = [(batch.x, batch.q0, batch.xyz, batch.node_mask)]
+            reps = EXPORT_REPS.get(label.split()[-1], 7)
+            art_q, child = export_child(art_dir, calls, reps)
+            want = {kn: batch.batch_size * per_graph.get(kn, 0)
+                    for kn in kernels.SOURCES}
+            require(live_launches == want, (label, live_launches, want))
+            require(child["launches"] == (dict.fromkeys(want, 0) if plain
+                                          else live_launches),
+                    (label, child["launches"], live_launches))
+            # the bar: the suite's between two paths of the same math, or
+            # JAX's own artifact bar (5e-6 e) where the same operators
+            # should give the same bits (whether they do is reported)
+            dqs, tols, cons = [], [], []
+            for qa, ql in zip(art_q, live_q):
+                require(np.all(np.isfinite(qa)) and qa.shape == ql.shape,
+                        label)
+                dqs.append(float(np.abs(qa - ql).max()))
+                tols.append(1e-5 * (float(np.abs(ql).max()) + 1.0)
+                            if at_bar else 5e-6)
+                cons.append(float(np.abs(
+                    (qa.astype(np.float64) * batch.node_mask).sum(1)
+                    - batch.total_q).max()))
+            require(all(d <= t for d, t in zip(dqs, tols)),
+                    (label, dqs, tols))
+            require(max(cons) <= 1e-4, (label, cons))
+            extra = {}
+            if label == "blocked 1x17760":
+                # the artifact keeps the caller's order: against an
+                # unsorted live call, the same operators
+                q_uns = Predictor(pred.params, cfg, spatial_sort="off"
+                                  ).predict_batch(batch)
+                extra["max_dq_unsorted"] = float(np.abs(art_q[0]
+                                                        - q_uns).max())
+                require(extra["max_dq_unsorted"] <= 5e-6, (label, extra))
+            art = load_serving(art_dir)
+            one = calls[-1]
+            arms = {"live": lambda: p.predict_batch(batch),
+                    "artifact": lambda: art(*one)}
+            for fn in arms.values():
+                fn()
+            turns_ms = {"live": [], "artifact": []}
+            for which in ("live", "artifact", "artifact", "live"):
+                turns_ms[which].append(round(timed(arms[which], reps), 3))
+            out[label] = dict(
+                mode=mode, platforms=manifest["platforms"],
+                neighbor_k=manifest["neighbor_k"], export_ms=export_ms,
+                artifact_bytes=size, launches=child["launches"],
+                live_launches=live_launches, max_dq=dqs, tol=tols,
+                bitwise=max(dqs) == 0.0, conservation=cons,
+                child_ms=child["ms"], child_device=child["device"],
+                turns_ms=turns_ms, **extra)
+            if label == "blocked 2x2220":
+                path_launches = child["launches"]
+            print(f"[export] {label} ({mode}, platforms "
+                  f"{manifest['platforms']}, k {manifest['neighbor_k']}): "
+                  f"export {export_ms:.1f} ms, {size:,} bytes; fresh process "
+                  f"on {child['device']}: launches {child['launches']} (live "
+                  f"{live_launches}); max|dq| vs live {max(dqs):.3e} "
+                  f"(bar {min(tols):.3e}; bit for bit: {max(dqs) == 0.0})"
+                  f"{'; ' + str(extra) if extra else ''}; "
+                  f"|sum q - Q| <= {max(cons):.3e}; call medians in turns "
+                  f"(live, artifact, artifact, live) live "
+                  f"{turns_ms['live']} ms, artifact {turns_ms['artifact']} "
+                  f"ms (fresh process {child['ms']:.3f} ms) on {card}")
+    return out, path_launches
+
+
+#: [train f]: every option of ROADMAP item 9.2 on [train b]'s fused
+#: bucket (the cosine schedule; the plateau in a second run, the two
+#: exclude each other), a minibatch a box so that a window of two is the
+#: bucket.  The checkpoint sits at its loss minimum on [train b]'s labels:
+#: Adam's first steps move every weight by about the rate, and at 1e-3 or
+#: 1e-4 they overshoot (the bucket's loss rose under these options in CPU
+#: runs of this phase's data, with or without the small molecules in the
+#: windows), so the rate is 3e-5
+TRAIN_OPTIONS = dict(learning_rate=3e-5, lr_schedule="cosine",
+                     warmup_steps=1, total_steps=12, grad_clip_norm=1.0,
+                     grad_accum=2, ema_decay=0.9, batch_size=1)
+TRAIN_PLATEAU = dict(learning_rate=3e-5, lr_plateau_factor=0.5,
+                     lr_plateau_patience=1, grad_clip_norm=1.0,
+                     grad_accum=2, ema_decay=0.9, batch_size=1)
+TRAIN_OPTIONS_PLATEAU_EPOCHS = 3
+
+
+def schedule_f64(tc, count):
+    """The warmup-cosine rate of update ``count`` in float64 (the closed
+    form of optax's schedule), to hold the trainer's float32 rates to."""
+    peak, warm = tc.learning_rate, tc.warmup_steps
+    if warm and count < warm:
+        return peak * count / warm
+    end = peak * tc.lr_final_fraction
+    t = min(count - warm, tc.total_steps - warm)
+    return end + (peak - end) * 0.5 * (1.0 + np.cos(
+        np.pi * t / (tc.total_steps - warm)))
+
+
+def train_options_phase(torch, pred, card, train_mols, val_mols):
+    """[train f] the trainer's options of ROADMAP items 9.2 and 9.5 on the
+    card: (a) a window of two fused step calls (2 x 900 atoms) with
+    clipping, the cosine schedule and ``grad_accum=2``, card against CPU:
+    the weights still after the first, and the gradient Adam took (the
+    clipped mean) within 1e-3 relative Frobenius a leaf, as [train a];
+    (b) ``train()`` on [train b]'s fused bucket (its two boxes and labels;
+    its small molecules validate) with :data:`TRAIN_OPTIONS`
+    (``debug_nans`` on, quiet): the bucket's loss, averaged over an
+    epoch's two boxes, falls from the first epoch to the last, the
+    far-field backward launches, every rate Adam took equals the float64
+    schedule within float32 rounding, ``best/`` and ``ema/`` are written;
+    (c) the same with the plateau (:data:`TRAIN_PLATEAU`), finite; (d)
+    ``debug_nans`` raising ``FloatingPointError`` at a NaN coordinate.
+    Returns the numbers and (b)'s launches."""
+    from epnn_tpu_torch.data import pad_molecules, uniform_q0_contract
+    from epnn_tpu_torch.elements import table_for_n_elems
+    from epnn_tpu_torch.models import tree_leaves
+    from epnn_tpu_torch.ops import kernels
+    from epnn_tpu_torch.testing import water_box
+    from epnn_tpu_torch.train import TrainConfig, loop, train
+
+    cfg = pred.cfg
+    g = np.random.default_rng(6)
+    out = {}
+
+    # (a) one accumulation window, card against CPU
+    boxes = [water_box(TRAIN_BOX_MOLECULES, seed=30, charge=0.0),
+             water_box(TRAIN_BOX_MOLECULES, seed=31, charge=-1.0)]
+    batch = pad_molecules(boxes, table_for_n_elems(cfg.n_elems))
+    y = (batch.node_mask * g.normal(0.0, 0.3, size=batch.node_mask.shape)
+         ).astype(np.float32)
+    arrays = (batch.x, batch.q0, batch.xyz, batch.node_mask, y,
+              np.ones(2, np.float32))
+    k = pred._neighbor_k(batch)
+    uq0 = uniform_q0_contract(batch.x, batch.q0, batch.node_mask)
+    tc_a = TrainConfig(lr_schedule="cosine", total_steps=10,
+                       grad_clip_norm=0.5, grad_accum=2)
+    grads, losses, norms = {}, {}, {}
+    for side, device in (("card", "cuda"), ("host", "cpu")):
+        state = loop.create_state(cfg, tc_a, device=device,
+                                  params=pred.params)
+        args = [torch.from_numpy(a).to(device) for a in arrays]
+        p0 = [p.detach().clone() for p in tree_leaves(state.params)]
+        losses[side] = []
+        for call in range(2):
+            _, loss, _, _ = loop.train_step_fused(
+                state, cfg, "masked_mse", None, 256, k, *args,
+                uniform_q0=uq0, remat=False)
+            losses[side].append(float(loss))
+            if call == 0:
+                norms[side] = float(torch.sqrt(sum(
+                    (p.grad.double() ** 2).sum()
+                    for p in tree_leaves(state.params))))
+                require(all(torch.equal(a, b) for a, b in zip(
+                    tree_leaves(state.params), p0)), "[train f] window")
+        require(state.opt.count == 1, state.opt.count)
+        grads[side] = [p.grad.cpu() for p in tree_leaves(state.params)]
+    worst = 0.0
+    for gc, gr in zip(grads["card"], grads["host"]):
+        fro = float(torch.linalg.norm(gc - gr)
+                    / max(float(torch.linalg.norm(gr)), 1e-30))
+        require(np.isfinite(fro) and fro <= 1e-3, ("[train f] grad", fro))
+        worst = max(worst, fro)
+    applied = float(torch.sqrt(sum((gr.double() ** 2).sum()
+                                   for gr in grads["host"])))
+    require(norms["host"] > tc_a.grad_clip_norm
+            and abs(applied - tc_a.grad_clip_norm) <= 1e-5, (norms,
+                                                             applied))
+    for lc, lh in zip(losses["card"], losses["host"]):
+        require(abs(lc - lh) <= 1e-5 * (abs(lh) + 1.0), ("loss", losses))
+    out["window"] = dict(losses=losses, grad_norm_first=norms,
+                         applied_norm=applied, worst_fro=worst)
+    print(f"[train f] (a) grad_accum 2, grad_clip_norm "
+          f"{tc_a.grad_clip_norm}, cosine: a window of two fused step "
+          f"calls, 2 x {batch.natoms[0]:,} atoms: weights still after the "
+          f"first; losses card {losses['card']} CPU {losses['host']}; "
+          f"first gradient norm {norms['card']:.4e} (card), the applied "
+          f"mean clipped to {applied:.6f}; card vs CPU relative Frobenius "
+          f"<= 1e-3 a leaf (worst {worst:.3e}); Adam count 1")
+
+    # (b), (c) train() with every option of 9.2, on [train b]'s boxes
+    boxes = [m for m in train_mols if m.natoms > TrainConfig.dense_max_atoms]
+    per_step = {kn: PER_GRAPH_TRAIN.get(kn, 0) for kn in kernels.SOURCES}
+    for label, opts, epochs in (("cosine", TRAIN_OPTIONS, TRAIN_EPOCHS),
+                                ("plateau", TRAIN_PLATEAU,
+                                 TRAIN_OPTIONS_PLATEAU_EPOCHS)):
+        rates, fused_losses = [], []
+        real_rate, real_fused = loop.Optimizer.rate, loop.train_step_fused
+
+        def rate(self):
+            rates.append((self.count, real_rate(self)))
+            return rates[-1][1]
+
+        def fused_step(*a, **kw):
+            res = real_fused(*a, **kw)
+            fused_losses.append(float(res[1]))
+            return res
+
+        with tempfile.TemporaryDirectory() as tmp:
+            run = os.path.join(tmp, "run")
+            tc = TrainConfig(epochs=epochs, checkpoint_dir=run,
+                             init_from=CKPT, debug_nans=True, **opts)
+            loop.Optimizer.rate, loop.train_step_fused = rate, fused_step
+            try:
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                res = train(boxes, cfg, tc, val_mols=val_mols)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                launches = dict(kernels.LAUNCHES)
+            finally:
+                loop.Optimizer.rate, loop.train_step_fused = (real_rate,
+                                                              real_fused)
+            saved = sorted(d for d in ("best", "ema")
+                           if os.path.isdir(os.path.join(run, d)))
+        require(saved == ["best", "ema"], saved)
+        # the loss falls under every option of 9.2 (the cosine run); the
+        # plateau run's shorter one only has to stay finite
+        steps = len(boxes) * epochs
+        epoch_loss = np.mean(np.reshape(fused_losses, (epochs, -1)), 1)
+        require(len(fused_losses) == steps and np.all(np.isfinite(
+            fused_losses)) and (label == "plateau"
+                                or epoch_loss[-1] < epoch_loss[0]),
+            (label, fused_losses))
+        require(launches == {kn: steps * n for kn, n in per_step.items()},
+                (label, launches))
+        require(res.state.opt.count == len(rates) > 0, (label, len(rates)))
+        if label == "cosine":
+            errs = [abs(r - schedule_f64(tc, c)) / max(schedule_f64(tc, c),
+                                                       1e-30)
+                    for c, r in rates]
+            require(rates[0][1] == 0.0 and max(errs[1:]) <= 1e-6,
+                    ("rates", rates))
+            main_launches = launches
+        else:
+            lrs = [r["lr"] for r in res.history]
+            require(all(r == float(np.float32(lrs[0]))
+                        or r < lrs[0] for _, r in rates), rates)
+            errs = []
+        out[label] = dict(options=opts, epochs=epochs, seconds=secs,
+                          fused_losses=fused_losses,
+                          epoch_losses=epoch_loss.tolist(),
+                          launches=launches,
+                          rates=rates, rate_rel_err_max=max(errs or [0.0]),
+                          lr_rows=[r.get("lr") for r in res.history],
+                          best_val_masked_mae=res.best_val_masked_mae)
+        print(f"[train f] ({'b' if label == 'cosine' else 'c'}) train() "
+              f"{epochs} epochs from {CKPT} on {len(boxes)} x "
+              f"{boxes[0].natoms:,} atoms with {opts}, "
+              f"debug_nans: fused-bucket loss an epoch "
+              f"{' -> '.join(f'{v:.6e}' for v in epoch_loss)} (a step "
+              f"{' '.join(f'{v:.6e}' for v in fused_losses)}); launches "
+              f"{launches}; {len(rates)} Adam updates, rates "
+              f"{[round(r, 9) for _, r in rates]}"
+              + (f" (vs the float64 schedule: max rel {max(errs):.2e})"
+                 if errs else f", rows' lr {out[label]['lr_rows']}")
+              + f"; best/ and ema/ written; {secs:.1f} s on {card}")
+
+    # (d) debug_nans at a NaN coordinate
+    bad = [water_box(5, seed=40 + i) for i in range(4)]
+    for m in bad:
+        m.labels = np.zeros(m.natoms, np.float32)
+    bad[2].xyz[1, 0] = np.nan
+    try:
+        train(bad, cfg, TrainConfig(epochs=1, batch_size=2, debug_nans=True,
+                                    init_from=CKPT), progress=False)
+        raised = None
+    except FloatingPointError as e:
+        raised = str(e)
+    require(raised is not None and "non-finite xyz at step" in raised,
+            ("[train f] debug_nans", raised))
+    out["debug_nans"] = raised
+    print(f"[train f] (d) debug_nans, a NaN coordinate: FloatingPointError "
+          f"{raised!r}")
+    return out, main_launches
+
+
 def main() -> int:
     import torch
 
@@ -4138,6 +4596,24 @@ def main() -> int:
         fused_boxes, sfu_rate, clocks)
     tier_serve, tier_launches = tier_serving_phase(
         torch, card, pred, batch2, big, golden, total_q, timed)
+    # [export] the serving artifacts, and the operators' dispatch cost
+    export_out, export_launches = export_phase(
+        torch, card, pred, pred8, batch2, big, small, timed)
+    runs = [timed(lambda: pred.predict_batch(batch2), 1) for _ in range(9)]
+    dispatch = dispatch_phase(torch, pred, batch2)
+    dispatch["predict_batch_2x2220_ms"] = dict(
+        median=float(np.median(runs)), spread=max(runs) - min(runs),
+        calls=[round(r, 3) for r in runs])
+    print(f"[export] dispatch of the registered operators, host us a call "
+          f"in turns (op, body, body, op): " + "; ".join(
+              f"{n} op {dispatch[n]['op']} body {dispatch[n]['body']}"
+              for n in dispatch["launches_per_call"])
+          + f"; x the launches of a 2 x 2,220 call "
+          f"{dispatch['launches_per_call']}: {dispatch['cost_per_call_ms']:.4f}"
+          f" ms a call, beside the call's warm median "
+          f"{dispatch['predict_batch_2x2220_ms']['median']:.3f} ms and spread "
+          f"(max - min of 9) {dispatch['predict_batch_2x2220_ms']['spread']:.3f}"
+          f" ms on {card}")
 
     # ---- 5. training ------------------------------------------------------
     small_labels = [q.copy() for q in qs]
@@ -4147,6 +4623,8 @@ def main() -> int:
                                      step_list)
     train_d, huge_train_launches = huge_train_phase(torch, pred, card)
     train_e, tier_train_launches = tier_train_phase(torch, card, pred,
+                                                    train_mols, small)
+    train_f, options_launches = train_options_phase(torch, pred, card,
                                                     train_mols, small)
     cli_out, cli_launches, cli_train_launches = cli_phase(
         torch, card, pred, golden, {"2x2220": ms2, "1x17760": ms3},
@@ -4171,7 +4649,9 @@ def main() -> int:
                          "huge_serve": huge_launches[name],
                          "huge_train": huge_train_launches[name],
                          "cli_infer": cli_launches[name],
-                         "cli_train": cli_train_launches[name]}
+                         "cli_train": cli_train_launches[name],
+                         "export": export_launches[name],
+                         "train_options": options_launches[name]}
         rows[name]["launches_by_path"] = path_launches
         rows[name]["launches"] = path_launches[MAIN_PATH.get(name, "serve")]
         require(rows[name]["launches"] > 0, (name, path_launches))
@@ -4218,7 +4698,8 @@ def main() -> int:
                       "position_vjp": vjp, "train_cluster": train_c,
                       "huge_serving": huge, "huge_train": train_d,
                       "precision_tiers": tier_serve, "train_fast": train_e,
-                      "cli": cli_out,
+                      "cli": cli_out, "export": export_out,
+                      "dispatch": dispatch, "train_options": train_f,
                       "widths": width_results,
                       "profile": profile, "sm_clocks": clocks,
                       "card": card}))

@@ -12,6 +12,9 @@ names follow the JAX package so each file has an obvious counterpart:
   far-field tier;
 * :mod:`epnn_tpu_torch.infer` — ``Predictor``, the serving front end;
 * :mod:`epnn_tpu_torch.train` — ``train()`` and its steps;
+* :mod:`epnn_tpu_torch.io.export_serving` — ``export_predictor`` /
+  ``load_serving``: serving artifacts through ``torch.export``, the
+  kernels in them as the registered operators ``epnn_torch::*``;
 * :mod:`epnn_tpu_torch.cli` — ``python -m epnn_tpu_torch <command>``, and
   the tools under it: :mod:`~epnn_tpu_torch.io.tf_import` (reference TF
   checkpoints), :mod:`~epnn_tpu_torch.analysis` (polarization response),

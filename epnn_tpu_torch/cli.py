@@ -8,17 +8,15 @@ flag with the JAX CLI's name, dest, type, choices and default).
   eval-pol      polarization-response analysis on a dimer
   horton2npy    extract MBIS charges from HORTON *-mtp.txt outputs
   convert-qm9   convert raw QM9 .xyz files to loader format
-  export        serving export (ROADMAP item 12: not ported yet)
+  export        export a serving artifact (``torch.export``)
   bench         benchmark inference on a system
 
 The device: the commands run on the first CUDA card and raise when there
 is none; ``EPNN_PLATFORM=cpu`` (the JAX CLI's platform switch) runs them
-on the CPU, and ``cuda`` or ``gpu`` name the card.  Flags of modes the
-port has not ported yet parse as in the JAX CLI and then exit non-zero
-naming their ROADMAP item: ``export`` (item 12), ``train --data-parallel``
-/ ``--multihost`` and ``infer --atom-shard`` / ``--ring-shard`` (item 11);
-the training options of item 9 raise through the trainer's
-``check_supported``.
+on the CPU, and ``cuda`` or ``gpu`` name the card.  The flags of the
+multi-device modes parse as in the JAX CLI and then exit non-zero naming
+their ROADMAP item: ``train --data-parallel`` / ``--multihost`` and
+``infer --atom-shard`` / ``--ring-shard`` (item 11).
 """
 
 from __future__ import annotations
@@ -299,7 +297,26 @@ def cmd_convert_qm9(args):
 
 
 def cmd_export(args):
-    raise _not_ported("export (the serving export)", 12)
+    from epnn_tpu_torch.data import load_molecule, pad_molecules
+    from epnn_tpu_torch.elements import table_for_n_elems
+    from epnn_tpu_torch.io.export_serving import export_predictor
+
+    kw = {}
+    if args.no_collapse_round1:
+        kw["collapse_round1"] = "off"
+    if args.far_cluster:
+        kw["far_cluster"] = args.far_cluster
+    pred = _make_predictor(args, **kw)
+    mol = load_molecule(args.path)
+    table = table_for_n_elems(pred.cfg.n_elems)
+    batch = pad_molecules([mol], table, pad_to=args.pad_to)
+    platforms = (tuple(args.platforms.split(","))
+                 if args.platforms else None)
+    manifest = export_predictor(pred, batch, args.out, mode=args.mode,
+                                platforms=platforms)
+    print(f"exported {manifest['mode']}-mode serving artifact "
+          f"(B={manifest['batch_size']}, N={manifest['padded_atoms']}, "
+          f"platforms={manifest['platforms']}) -> {args.out}")
 
 
 def cmd_bench(args):
@@ -562,8 +579,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.set_defaults(fn=cmd_convert_qm9)
 
     p = sub.add_parser(
-        "export",
-        help="serving export (ROADMAP item 12: not ported yet, exits)")
+        "export", help="export a serving artifact (torch.export)")
     _ckpt_args(p)
     p.add_argument("path", help=".xyz file fixing the serving geometry "
                                "class")
@@ -577,8 +593,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "dispatch for this size; 'md' adds precomputed "
                         "(idx, nbr_mask) neighbor-table inputs)")
     p.add_argument("--platforms",
-                   help="comma-separated lowering platforms of the JAX "
-                        "export")
+                   help="comma-separated platforms of the artifact: 'cpu' "
+                        "or 'cuda' (default: the device it is exported "
+                        "on) trace through the kernels' operators; "
+                        "several take the plain route")
     p.add_argument("--far-cluster", type=int, default=0, metavar="C",
                    help="bake the APPROXIMATE clustered far-field tier "
                         "into the artifact (see `infer --far-cluster`)")

@@ -10,7 +10,9 @@ package's parameters — the one place weights cross from the JAX layout.
 ``load_params`` reads what this package trains.
 
 A training run adds ``train_state.msgpack`` (this package's own layout:
-params, the Adam moments as trees of the same shape, the step) and
+params, the Adam moments as trees of the same shape, the step, and the
+optimizer's extras: Adam's update count, the plateau's rate, the open
+gradient-accumulation window) and
 ``meta.json`` (epoch counters and best-val metrics).  Every file is
 written atomically.
 """
@@ -95,13 +97,17 @@ def save_params(directory: str, params: dict,
 
 def save_train_state(directory: str, params: dict, exp_avg: dict,
                      exp_avg_sq: dict, step: int,
-                     meta: Optional[dict] = None) -> None:
+                     meta: Optional[dict] = None,
+                     extras: Optional[dict] = None) -> None:
     """The full train state — params, Adam's first and second moments in
-    the params' tree layout, the step — and ``meta.json``."""
+    the params' tree layout, the step, the optimizer's ``extras``
+    (``train.loop.Optimizer.extras``) — and ``meta.json``."""
     os.makedirs(directory, exist_ok=True)
     state = {"params": params, "exp_avg": exp_avg, "exp_avg_sq": exp_avg_sq}
     state = _numpy_tree(state)
     state["step"] = int(step)
+    if extras is not None:
+        state["opt"] = extras
     _write_atomic(os.path.join(directory, STATE_FILE), encode_msgpack(state))
     if meta is not None:
         meta = {k: (v.item() if isinstance(v, np.generic) else v)
@@ -118,6 +124,13 @@ def load_train_state(directory: str) -> Tuple[dict, dict, dict, int]:
     return (from_jax_params(state["params"]),
             from_jax_params(state["exp_avg"]),
             from_jax_params(state["exp_avg_sq"]), int(state["step"]))
+
+
+def load_optimizer_extras(directory: str) -> dict:
+    """The optimizer's extras saved by :func:`save_train_state` (``{}``
+    where there are none)."""
+    with open(os.path.join(directory, STATE_FILE), "rb") as f:
+        return decode_msgpack(f.read()).get("opt", {})
 
 
 def load_meta(directory: str) -> dict:

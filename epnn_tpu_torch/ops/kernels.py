@@ -21,14 +21,21 @@ selection, each with its plain PyTorch version (counterpart of
 * ``neighbor_compact`` — ``csrc/neighbor_compact.cu``, the within-cutoff
   neighbor list in one pass, replaces ``pallas_kernels.py:685``.
 
-The four neighbor-split forwards are differentiable: each public function
-goes through a ``torch.autograd.Function`` on the CPU and on CUDA alike.
-The far field's backward, in both tiers (int8 straight through), is the
+The kernels an exported forward can reach — the far field, its int8
+tier, its backward and the two near kernels — are registered operators
+``epnn_torch::<name>`` (``torch.library.custom_op``, :data:`_OPS`), one
+binding for eager calls, training and ``torch.export``: each has a shape
+function, one body for CPU and CUDA tensors (the plain version, or the
+launch), and its VJP registered on the operator.  The far field's
+backward, in both tiers (int8 straight through), is the
 ``dense_message_rowsum_bwd`` kernel; the two near kernels' backwards
 recompute through their plain versions, as the JAX package's custom VJPs
-recompute through their XLA twins.  The two fused
-dense kernels are inference-only, as in the JAX package: their Function's
-backward raises.
+recompute through their XLA twins.  An exported program names the
+operators, so a loaded artifact launches (and counts) the kernels as an
+eager call does.  The two fused dense kernels and ``neighbor_compact``
+stay plain wrappers (no exported forward reaches them); the fused ones
+are inference-only, as in the JAX package: their Function's backward
+raises.
 
 Each wrapper takes tensors on one device.  On the CPU it runs the plain
 version (``*_plain``); on a CUDA tensor it launches the kernel on the
@@ -401,6 +408,19 @@ def _kernel_weights(name: str, padded: Optional[KernelWeights], w2, b2,
     return padded
 
 
+def _given(w1e, w2, b2) -> Optional[KernelWeights]:
+    """The padded weights an operator was given as tensors (None: none)."""
+    return None if w2 is None else KernelWeights(w1e, w2, b2)
+
+
+def _padded_args(padded: Optional[KernelWeights], with_w1e: bool) -> tuple:
+    """``padded`` as an operator's explicit tensor arguments: ``(w1ep,)``
+    where the kernel takes W1e, then ``w2p, b2p`` (Nones for none)."""
+    keys = ("w1e", "w2", "b2") if with_w1e else ("w2", "b2")
+    return tuple(None if padded is None else getattr(padded, k)
+                 for k in keys)
+
+
 def _plain_rows(r: int, n: int, width: int) -> int:
     """Rows a plain version takes at once, so that no (rows, N, width)
     tensor exceeds 2^24 floats."""
@@ -531,8 +551,11 @@ def _dense_message_splits(r: int, n: int, target: int = _DMR_TARGET_BLOCKS,
     return -(-n // cols), cols
 
 
-def _dense_message_rowsum_fwd(pi, pj, col_vec, w2, b2, padded=None,
+def _dense_message_rowsum_fwd(pi, pj, col_vec, w2, b2, w2p=None, b2p=None,
                               precision="default"):
+    """The body of ``epnn_torch::dense_message_rowsum`` (see
+    :func:`dense_message_rowsum`): on the CPU the plain version, on the
+    card the kernel."""
     name = "dense_message_rowsum"
     passes = tf32_passes(precision)
     r, h = pi.shape
@@ -542,7 +565,7 @@ def _dense_message_rowsum_fwd(pi, pj, col_vec, w2, b2, padded=None,
                          b2=(h,)))
     if device.type == "cpu":
         return dense_message_rowsum_plain(pi, pj, col_vec, w2, b2)
-    kw = _kernel_weights(name, padded, w2, b2)
+    kw = _kernel_weights(name, _given(None, w2p, b2p), w2, b2)
     out = pi.new_empty((r, h))
     if r == 0:
         return out
@@ -606,15 +629,10 @@ def dense_message_rowsum_bwd_tf32_plain(pi, pj, col_vec, w2, b2, g):
     return _far_bwd_rows(pi, pj, col_vec, w2, b2, g, _mm_tf32)
 
 
-def dense_message_rowsum_bwd(pi, pj, col_vec, w2, b2, g, padded=None,
-                             precision="default"):
-    """Backward of the far-field reduction (see
-    ``csrc/dense_message_rowsum_bwd.cu``): ``(dpi, dpj, dw2, db2)`` for the
-    cotangent ``g`` (R, H) of ``out``, with z1 and z2 recomputed in the
-    tile.  Deterministic: partial sums are added in a fixed order.
-    ``padded``: :func:`pad_weights` of (w2, b2) where the caller keeps it;
-    else it is made here.  ``precision``: JAX's ``_dmr_bwd``'s, the TF32
-    tier on the card."""
+def _dense_message_rowsum_bwd(pi, pj, col_vec, w2, b2, g, w2p=None,
+                              b2p=None, precision="default"):
+    """The body of ``epnn_torch::dense_message_rowsum_bwd`` (see
+    :func:`dense_message_rowsum_bwd`)."""
     name = "dense_message_rowsum_bwd"
     passes = tf32_passes(precision)
     r, h = pi.shape
@@ -625,7 +643,7 @@ def dense_message_rowsum_bwd(pi, pj, col_vec, w2, b2, g, padded=None,
                          b2=(h,), g=(r, h)))
     if device.type == "cpu":
         return dense_message_rowsum_bwd_plain(pi, pj, col_vec, w2, b2, g)
-    kw = _kernel_weights(name, padded, w2, b2)
+    kw = _kernel_weights(name, _given(None, w2p, b2p), w2, b2)
     dpi, dpj = pi.new_empty((r, h)), pj.new_empty((n, h))
     dw2, db2 = w2.new_empty((h, h)), b2.new_empty((h,))
     if r == 0 or n == 0:
@@ -641,26 +659,19 @@ def dense_message_rowsum_bwd(pi, pj, col_vec, w2, b2, g, padded=None,
     return dpi, dpj, dw2, db2
 
 
-class _DenseMessageRowsum(torch.autograd.Function):
-    """Forward: the far-field kernel; backward: its backward kernel at the
-    same precision, as JAX's custom VJP carries it to ``_dmr_bwd``
-    (``pallas_kernels.py:1079``).  Saves only the inputs (as ``_dmr_fwd``,
-    ``pallas_kernels.py:1071``)."""
-
-    @staticmethod
-    def forward(ctx, pi, pj, col_vec, w2, b2, padded, precision):
-        ctx.save_for_backward(pi, pj, col_vec, w2, b2)
-        ctx.padded, ctx.precision = padded, precision
-        return _dense_message_rowsum_fwd(pi, pj, col_vec, w2, b2, padded,
-                                         precision)
-
-    @staticmethod
-    def backward(ctx, g):
-        pi, pj, col_vec, w2, b2 = ctx.saved_tensors
-        dpi, dpj, dw2, db2 = dense_message_rowsum_bwd(
-            pi, pj, col_vec, w2, b2, g.contiguous(), ctx.padded,
-            ctx.precision)
-        return dpi, dpj, None, dw2, db2, None, None
+def dense_message_rowsum_bwd(pi, pj, col_vec, w2, b2, g, padded=None,
+                             precision="default"):
+    """Backward of the far-field reduction (see
+    ``csrc/dense_message_rowsum_bwd.cu``): ``(dpi, dpj, dw2, db2)`` for the
+    cotangent ``g`` (R, H) of ``out``, with z1 and z2 recomputed in the
+    tile.  Deterministic: partial sums are added in a fixed order.
+    ``padded``: :func:`pad_weights` of (w2, b2) where the caller keeps it;
+    else it is made here.  ``precision``: JAX's ``_dmr_bwd``'s, the TF32
+    tier on the card.  The operator
+    ``epnn_torch::dense_message_rowsum_bwd``."""
+    return tuple(_OPS["dense_message_rowsum_bwd"](
+        pi, pj, col_vec, w2, b2, g, *_padded_args(padded, False),
+        precision))
 
 
 def dense_message_rowsum(pi, pj, col_vec, w2, b2, padded=None,
@@ -676,9 +687,12 @@ def dense_message_rowsum(pi, pj, col_vec, w2, b2, padded=None,
     call otherwise; no copy at widths that are multiples of 8).
     ``precision``: JAX's name, the TF32 tier on the card (module
     docstring; float32 on the CPU).  Differentiable in pi, pj, W2 and b2
-    through :func:`dense_message_rowsum_bwd` at the same precision."""
-    return _DenseMessageRowsum.apply(pi, pj, col_vec, w2, b2, padded,
-                                     precision)
+    through :func:`dense_message_rowsum_bwd` at the same precision, as
+    JAX's custom VJP carries it to ``_dmr_bwd`` (``pallas_kernels.py:
+    1079``), saving only the inputs.  The operator
+    ``epnn_torch::dense_message_rowsum``."""
+    return _OPS["dense_message_rowsum"](
+        pi, pj, col_vec, w2, b2, *_padded_args(padded, False), precision)
 
 
 # ---------------------------------------------------------------------------
@@ -783,8 +797,11 @@ def dense_message_rowsum_int8_plain(pi, pj, col_vec, w2, b2, pad_pi=None,
     return out
 
 
-def _dense_message_rowsum_int8_fwd(pi, pj, col_vec, w2, b2, pad_pi,
-                                   w2_int8, padded=None, pad_pj=None):
+def _dense_message_rowsum_int8_fwd(pi, pj, col_vec, w2, b2, pad_pi=None,
+                                   w2q=None, sw=None, w2p=None, b2p=None,
+                                   pad_pj=None, precision="default"):
+    """The body of ``epnn_torch::dense_message_rowsum_int8`` (see
+    :func:`dense_message_rowsum_int8`; ``precision`` is the backward's)."""
     name = "dense_message_rowsum_int8"
     r, h = pi.shape
     n = pj.shape[0]
@@ -796,19 +813,17 @@ def _dense_message_rowsum_int8_fwd(pi, pj, col_vec, w2, b2, pad_pi,
     if device.type == "cpu":
         return dense_message_rowsum_int8_plain(pi, pj, col_vec, w2, b2,
                                                pad_pi, pad_pj)
-    kw = _kernel_weights(name, padded, w2, b2)
+    kw = _kernel_weights(name, _given(None, w2p, b2p), w2, b2)
     out = pi.new_empty((r, h))
     if r == 0:
         return out
     if n == 0:
         return out.zero_()
     hp, hq = padded_width(h), padded_width(h, 32)
-    if w2_int8 is None:
+    if w2q is None:
         w2q, sw = int8_kernel_weights(kw.w2)
-    else:
-        w2q, sw = w2_int8
-        if tuple(w2q.shape) == (h, h) and (h, h) != (hq, hp):
-            w2q, sw = _pad_to(w2q, (hq, hp)), _pad_to(sw, (hp,))
+    elif tuple(w2q.shape) == (h, h) and (h, h) != (hq, hp):
+        w2q, sw = _pad_to(w2q, (hq, hp)), _pad_to(sw, (hp,))
     _check(name, dict(sw=sw), dict(sw=(hp,)))
     if (w2q.dtype != torch.int8 or tuple(w2q.shape) != (hq, hp)
             or not w2q.is_contiguous() or w2q.device != pi.device
@@ -832,30 +847,6 @@ def _dense_message_rowsum_int8_fwd(pi, pj, col_vec, w2, b2, pad_pi,
     return out
 
 
-class _DenseMessageRowsumInt8(torch.autograd.Function):
-    """Forward: the int8 far-field kernel; backward: straight through, the
-    float32 far-field backward (as the JAX custom VJP, whose ``_dmr_bwd``
-    ``pallas_kernels.py:1079`` ignores ``mid_dtype``).  ``pad_pi`` gets no
-    gradient: in the JAX package the scale is internal to the kernel."""
-
-    @staticmethod
-    def forward(ctx, pi, pj, col_vec, w2, b2, pad_pi, w2_int8, padded,
-                pad_pj, precision):
-        ctx.save_for_backward(pi, pj, col_vec, w2, b2)
-        ctx.padded, ctx.precision = padded, precision
-        return _dense_message_rowsum_int8_fwd(pi, pj, col_vec, w2, b2,
-                                              pad_pi, w2_int8, padded,
-                                              pad_pj)
-
-    @staticmethod
-    def backward(ctx, g):
-        pi, pj, col_vec, w2, b2 = ctx.saved_tensors
-        dpi, dpj, dw2, db2 = dense_message_rowsum_bwd(
-            pi, pj, col_vec, w2, b2, g.contiguous(), ctx.padded,
-            ctx.precision)
-        return dpi, dpj, None, dw2, db2, None, None, None, None, None
-
-
 def dense_message_rowsum_int8(pi, pj, col_vec, w2, b2, pad_pi=None,
                               w2_int8=None, padded=None, pad_pj=None,
                               precision="default"):
@@ -873,39 +864,14 @@ def dense_message_rowsum_int8(pi, pj, col_vec, w2, b2, pad_pi=None,
     two reductions (the maxima, over the real columns) to the kernel,
     which forms the scales itself.  Differentiable straight through, by
     the float32 backward kernel at ``precision`` (JAX's call passes
-    ``"default"``, ``epnn_tpu/ops/fused.py:1098-1102``)."""
-    return _DenseMessageRowsumInt8.apply(pi, pj, col_vec, w2, b2, pad_pi,
-                                         w2_int8, padded, pad_pj, precision)
-
-
-class _PlainRecompute(torch.autograd.Function):
-    """A near kernel's forward with a backward that recomputes through its
-    plain version under autograd — the counterpart of ``_near_msg_bwd`` /
-    ``_near_pass_bwd`` (``pallas_kernels.py:1271``, ``:1395``), which are
-    ``jax.vjp`` of XLA code, not Pallas kernels.  This is the backward
-    itself, not a fallback: the forward on a CUDA tensor is always the
-    kernel.  ``kw``: the forward's ``padded`` and ``precision``; the
-    recompute is float32 at any precision (JAX's recomputes at it: a
-    departure, ROADMAP)."""
-
-    @staticmethod
-    def forward(ctx, fwd, plain, kw, *args):
-        ctx.plain = plain
-        ctx.save_for_backward(*args)
-        return fwd(*args, **kw)
-
-    @staticmethod
-    def backward(ctx, g):
-        args = ctx.saved_tensors
-        want = ctx.needs_input_grad[3:]
-        with torch.enable_grad():
-            leaves = [a.detach().requires_grad_(w) for a, w in zip(args, want)]
-            out = ctx.plain(*leaves)
-            wrt = [a for a, w in zip(leaves, want) if w]
-            grads = iter(torch.autograd.grad(out, wrt, g.contiguous(),
-                                             allow_unused=True))
-        return (None, None, None,
-                *[next(grads) if w else None for w in want])
+    ``"default"``, ``epnn_tpu/ops/fused.py:1098-1102``; its ``_dmr_bwd``,
+    ``pallas_kernels.py:1079``, ignores ``mid_dtype``); ``pad_pi`` gets no
+    gradient, the scale being internal to JAX's kernel.  The operator
+    ``epnn_torch::dense_message_rowsum_int8``."""
+    w2q, sw = (None, None) if w2_int8 is None else w2_int8
+    return _OPS["dense_message_rowsum_int8"](
+        pi, pj, col_vec, w2, b2, pad_pi, w2q, sw,
+        *_padded_args(padded, False), pad_pj, precision)
 
 
 # ---------------------------------------------------------------------------
@@ -946,8 +912,10 @@ def near_message_corr_tf32_plain(pi, pjn, rbf, mask, w1e, w2, b2):
     return _near_msg_rows(pi, pjn, rbf, mask, w1e, ((w2, b2),), _mm_tf32)
 
 
-def _near_message_corr_fwd(pi, pjn, rbf, mask, w1e, w2, b2, padded=None,
-                           precision="default"):
+def _near_message_corr_fwd(pi, pjn, rbf, mask, w1e, w2, b2, w1ep=None,
+                           w2p=None, b2p=None, precision="default"):
+    """The body of ``epnn_torch::near_message_corr`` (see
+    :func:`near_message_corr`)."""
     name = "near_message_corr"
     passes = tf32_passes(precision)
     n, h = pi.shape
@@ -959,7 +927,7 @@ def _near_message_corr_fwd(pi, pjn, rbf, mask, w1e, w2, b2, padded=None,
                          mask=(n, k), w1e=(e, h), w2=(h, h), b2=(h,)))
     if device.type == "cpu":
         return near_message_corr_plain(pi, pjn, rbf, mask, w1e, w2, b2)
-    kw = _kernel_weights(name, padded, w2, b2, w1e)
+    kw = _kernel_weights(name, _given(w1ep, w2p, b2p), w2, b2, w1e)
     out = pi.new_empty((n, h))
     if n == 0:
         return out
@@ -985,11 +953,9 @@ def near_message_corr(pi, pjn, rbf, mask, w1e, w2, b2, padded=None,
     it; ``precision``: JAX's name, the TF32 tier on the card.
     Differentiable: the backward recomputes through
     :func:`near_message_corr_plain` (as the JAX custom VJP does through its
-    XLA twin)."""
-    return _PlainRecompute.apply(
-        _near_message_corr_fwd, near_message_corr_plain,
-        dict(padded=padded, precision=precision), pi, pjn, rbf, mask, w1e,
-        w2, b2)
+    XLA twin).  The operator ``epnn_torch::near_message_corr``."""
+    return _OPS["near_message_corr"](pi, pjn, rbf, mask, w1e, w2, b2,
+                                     *_padded_args(padded, True), precision)
 
 
 # ---------------------------------------------------------------------------
@@ -1035,8 +1001,10 @@ def near_pass_rowsum_tf32_plain(rs, ppn, rbf, gh, w1e, w2, b2):
     return _near_pass_rows(rs, ppn, rbf, gh, w1e, ((w2, b2),), _mm_tf32)
 
 
-def _near_pass_rowsum_fwd(rs, ppn, rbf, gh, w1e, w2, b2, padded=None,
-                          precision="default"):
+def _near_pass_rowsum_fwd(rs, ppn, rbf, gh, w1e, w2, b2, w1ep=None,
+                          w2p=None, b2p=None, precision="default"):
+    """The body of ``epnn_torch::near_pass_rowsum`` (see
+    :func:`near_pass_rowsum`)."""
     name = "near_pass_rowsum"
     passes = tf32_passes(precision)
     n, h2 = rs.shape
@@ -1049,7 +1017,7 @@ def _near_pass_rowsum_fwd(rs, ppn, rbf, gh, w1e, w2, b2, padded=None,
                          gh=(n, k), w1e=(e, h), w2=(h, h), b2=(h,)))
     if device.type == "cpu":
         return near_pass_rowsum_plain(rs, ppn, rbf, gh, w1e, w2, b2)
-    kw = _kernel_weights(name, padded, w2, b2, w1e)
+    kw = _kernel_weights(name, _given(w1ep, w2p, b2p), w2, b2, w1e)
     out = rs.new_empty((n, h))
     if n == 0:
         return out
@@ -1076,11 +1044,132 @@ def near_pass_rowsum(rs, ppn, rbf, gh, w1e, w2, b2, padded=None,
     at either tier, so Σ_i out_i @ W_out conserves charge to f32
     summation.  Differentiable: the backward recomputes through
     :func:`near_pass_rowsum_plain` (as the JAX custom VJP does through its
-    XLA twin)."""
-    return _PlainRecompute.apply(
-        _near_pass_rowsum_fwd, near_pass_rowsum_plain,
-        dict(padded=padded, precision=precision), rs, ppn, rbf, gh, w1e, w2,
-        b2)
+    XLA twin).  The operator ``epnn_torch::near_pass_rowsum``."""
+    return _OPS["near_pass_rowsum"](rs, ppn, rbf, gh, w1e, w2, b2,
+                                    *_padded_args(padded, True), precision)
+
+
+# ---------------------------------------------------------------------------
+# the registered operators
+# ---------------------------------------------------------------------------
+
+#: the operators' namespace: ``torch.ops.epnn_torch.<kernel>``
+NAMESPACE = "epnn_torch"
+
+_SCHEMAS = {
+    "dense_message_rowsum":
+        "(Tensor pi, Tensor pj, Tensor col_vec, Tensor w2, Tensor b2, "
+        "Tensor? w2p, Tensor? b2p, str precision) -> Tensor",
+    "dense_message_rowsum_bwd":
+        "(Tensor pi, Tensor pj, Tensor col_vec, Tensor w2, Tensor b2, "
+        "Tensor g, Tensor? w2p, Tensor? b2p, str precision) "
+        "-> (Tensor, Tensor, Tensor, Tensor)",
+    "dense_message_rowsum_int8":
+        "(Tensor pi, Tensor pj, Tensor col_vec, Tensor w2, Tensor b2, "
+        "Tensor? pad_pi, Tensor? w2q, Tensor? sw, Tensor? w2p, Tensor? b2p, "
+        "bool? pad_pj, str precision) -> Tensor",
+    "near_message_corr":
+        "(Tensor pi, Tensor pjn, Tensor rbf, Tensor mask, Tensor w1e, "
+        "Tensor w2, Tensor b2, Tensor? w1ep, Tensor? w2p, Tensor? b2p, "
+        "str precision) -> Tensor",
+    "near_pass_rowsum":
+        "(Tensor rs, Tensor ppn, Tensor rbf, Tensor gh, Tensor w1e, "
+        "Tensor w2, Tensor b2, Tensor? w1ep, Tensor? w2p, Tensor? b2p, "
+        "str precision) -> Tensor",
+}
+
+_BODIES = {
+    "dense_message_rowsum": _dense_message_rowsum_fwd,
+    "dense_message_rowsum_bwd": _dense_message_rowsum_bwd,
+    "dense_message_rowsum_int8": _dense_message_rowsum_int8_fwd,
+    "near_message_corr": _near_message_corr_fwd,
+    "near_pass_rowsum": _near_pass_rowsum_fwd,
+}
+
+
+def _fake(name):
+    """The shape function of operator ``name``: its outputs' shapes from
+    its inputs'."""
+    if name == "dense_message_rowsum_bwd":
+        def fake(pi, pj, col_vec, w2, b2, *rest):
+            return tuple(t.new_empty(t.shape) for t in (pi, pj, w2, b2))
+    elif name == "near_pass_rowsum":
+        def fake(rs, *rest):
+            return rs.new_empty((rs.shape[0], rs.shape[1] // 2))
+    else:
+        def fake(pi, *rest):
+            return pi.new_empty(pi.shape)
+    return fake
+
+
+def _far_setup(ctx, inputs, output):
+    # (w2p, b2p) follow (pi, pj, col_vec, w2, b2) in the float32 operator
+    # and (..., pad_pi, w2q, sw) in the int8 one
+    at = 5 if len(inputs) == 8 else 8
+    ctx.save_for_backward(*inputs[:5], *inputs[at:at + 2])
+    ctx.precision = inputs[-1]
+    ctx.n_inputs = len(inputs)
+
+
+def _far_backward(ctx, g):
+    """The far field's VJP, in both tiers: the backward kernel at the
+    forward's precision (int8 straight through, as JAX's ``_dmr_bwd``)."""
+    pi, pj, col_vec, w2, b2, w2p, b2p = ctx.saved_tensors
+    dpi, dpj, dw2, db2 = dense_message_rowsum_bwd(
+        pi, pj, col_vec, w2, b2, g.contiguous(), _given(None, w2p, b2p),
+        ctx.precision)
+    return (dpi, dpj, None, dw2, db2) + (None,) * (ctx.n_inputs - 5)
+
+
+def _near_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:7])
+
+
+def _recompute_backward(plain):
+    """A near kernel's VJP: a recompute through its plain version under
+    autograd, the counterpart of ``_near_msg_bwd`` / ``_near_pass_bwd``
+    (``pallas_kernels.py:1271``, ``:1395``), which are ``jax.vjp`` of XLA
+    code, not Pallas kernels.  This is the backward itself, not a
+    fallback: the forward on a CUDA tensor is always the kernel.  The
+    recompute is float32 at any precision (JAX's recomputes at it: a
+    departure, ROADMAP)."""
+    def backward(ctx, g):
+        args = ctx.saved_tensors
+        want = ctx.needs_input_grad[:7]
+        grads = iter(())
+        with torch.enable_grad():
+            leaves = [a.detach().requires_grad_(w)
+                      for a, w in zip(args, want)]
+            wrt = [a for a, w in zip(leaves, want) if w]
+            if wrt:
+                grads = iter(torch.autograd.grad(
+                    plain(*leaves), wrt, g.contiguous(), allow_unused=True))
+        return (*[next(grads) if w else None for w in want],
+                None, None, None, None)
+    return backward
+
+
+def _register(name):
+    """``epnn_torch::<name>``: the body for CPU and CUDA tensors (it runs
+    the plain version or launches the kernel on the device ``_check``
+    reports), the shape function, and the VJP."""
+    op = torch.library.custom_op(f"{NAMESPACE}::{name}", _BODIES[name],
+                                 mutates_args=(),
+                                 device_types=("cpu", "cuda"),
+                                 schema=_SCHEMAS[name])
+    op.register_fake(_fake(name))
+    if name in ("dense_message_rowsum", "dense_message_rowsum_int8"):
+        op.register_autograd(_far_backward, setup_context=_far_setup)
+    elif name != "dense_message_rowsum_bwd":
+        op.register_autograd(_recompute_backward(
+            globals()[name + "_plain"]), setup_context=_near_setup)
+    return op
+
+
+#: the kernels an exported forward reaches, as registered operators: one
+#: binding for eager calls, training and ``torch.export`` alike.
+#: Registering compiles nothing; a library is built at its first launch.
+_OPS = {name: _register(name) for name in _SCHEMAS}
 
 
 #: the near kernels' tile: live slots a tensor-core product (its M rows)

@@ -26,15 +26,26 @@ recomputes at the precision: a departure, ROADMAP); ``compute_dtype=
 "bfloat16"`` trains the bf16 recursion, its parameters and checkpoints
 float32.
 
+The optimizer is JAX's optax chain in PyTorch (:class:`Optimizer`): Adam
+at the float32 rate of the constant or warmup-cosine schedule, or of the
+reduce-on-plateau rate, after global-norm clipping, over gradients
+averaged across ``grad_accum`` minibatches; ``ema_decay`` keeps JAX's
+moving average of the weights, which then validates and is what
+``best/`` holds.  ``tensorboard_dir`` writes each epoch's row as
+scalars; ``debug_nans`` raises ``FloatingPointError`` at the first
+non-finite loss or gradient (JAX's ``jax_debug_nans`` stops at the
+operation that made it: a departure).
+
 ``train`` runs on the first CUDA card unless it is given ``device="cpu"``;
-without a card it raises.  Options of the JAX trainer that are not ported
-yet raise ``NotImplementedError`` naming their ROADMAP item.
+without a card it raises.  ``train(mesh=...)``, the multi-device trainer,
+raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import time
 import warnings
@@ -91,10 +102,17 @@ class TrainConfig:
     * ``precompute_neighbors`` builds each fused bucket's neighbor tables
       once, as the JAX trainer does: through the cell-list builder from
       ``CELL_GRID_MIN_ATOMS`` padded atoms, by top-k over −d² below;
-    * ``lr_schedule='cosine'``, ``lr_plateau_factor``, ``ema_decay``,
-      ``grad_clip_norm``, ``grad_accum > 1``, ``tensorboard_dir`` and
-      ``debug_nans`` raise ``NotImplementedError`` (ROADMAP queue 1,
-      "Training, deferred options");
+    * ``lr_schedule`` (``'constant'`` or ``'cosine'``: optax's
+      ``warmup_cosine_decay_schedule`` from 0 over ``warmup_steps`` when
+      there are any, to ``lr_final_fraction`` of the peak at
+      ``total_steps``, default 100,000, warmup included),
+      ``lr_plateau_factor`` / ``lr_plateau_patience`` (the rate times the
+      factor after that many evaluated epochs without a better val masked
+      MAE; constant schedule only), ``grad_clip_norm``, ``grad_accum`` and
+      ``ema_decay`` are JAX's (:class:`Optimizer`, :func:`train`);
+      ``tensorboard_dir`` writes the scalars of each row;
+      ``debug_nans`` raises ``FloatingPointError`` naming the step of the
+      first non-finite loss or gradient;
     * ``remat`` checkpoints every round of the fused train step
       (``torch.utils.checkpoint``); ``near_row_chunk`` is the huge-N
       memory mode of fused buckets: ``-1`` (auto) chunks buckets of
@@ -153,43 +171,163 @@ class TrainConfig:
 
 
 def check_supported(tc: TrainConfig) -> None:
-    """Raise ``NotImplementedError`` for an option this port does not run,
-    naming its ROADMAP item (queue 1, training's deferred options)."""
-    unported = {
-        "lr_schedule='cosine'": (tc.lr_schedule != "constant", "9.2"),
-        "lr_plateau_factor": (tc.lr_plateau_factor is not None, "9.2"),
-        "ema_decay": (tc.ema_decay is not None, "9.2"),
-        "grad_clip_norm": (tc.grad_clip_norm is not None, "9.2"),
-        "grad_accum > 1": (tc.grad_accum > 1, "9.2"),
-        "tensorboard_dir": (tc.tensorboard_dir is not None, "9.5"),
-        "debug_nans": (tc.debug_nans, "9.5"),
-    }
-    for name, (asked, item) in unported.items():
-        if asked:
-            raise NotImplementedError(
-                f"TrainConfig {name} is not ported yet (ROADMAP queue 1 "
-                f"item {item}: training, deferred options)")
+    """Raise ``ValueError`` for a setting the trainer cannot run: an
+    unknown loss or schedule, or the plateau with a step-indexed schedule
+    (JAX's ``make_optimizer``)."""
     if tc.loss not in M.LOSSES:
         raise ValueError(f"unknown loss {tc.loss!r}; one of "
                          f"{sorted(M.LOSSES)}")
+    if tc.lr_schedule not in ("constant", "cosine"):
+        raise ValueError(f"lr_schedule {tc.lr_schedule!r}: 'constant' or "
+                         "'cosine'")
+    if tc.lr_plateau_factor is not None and tc.lr_schedule != "constant":
+        raise ValueError(
+            "lr_plateau_factor requires lr_schedule='constant' "
+            "(a step-indexed schedule and plateau scaling would fight)")
+    if tc.grad_accum < 1:
+        raise ValueError("grad_accum must be >= 1")
+    if (tc.lr_schedule == "cosine"
+            and (tc.total_steps or 100_000) <= tc.warmup_steps):
+        raise ValueError("lr_schedule='cosine' needs total_steps > "
+                         "warmup_steps")
+
+
+def lr_at(tc: TrainConfig, count: int) -> float:
+    """The schedule's rate for Adam's update ``count`` (0 first), as optax
+    computes it in float32 (``warmup_cosine_decay_schedule`` with JAX's
+    arguments, ``epnn_tpu/train/loop.py:202-210``: ``decay_steps``
+    includes the warmup; ``count`` is the update count, once a window
+    under ``grad_accum``), as the Python float of that float32."""
+    peak = tc.learning_rate
+    if tc.lr_schedule != "cosine":
+        return float(torch.tensor(peak, dtype=torch.float32))
+    warm = tc.warmup_steps
+    total = tc.total_steps or 100_000
+    init = 0.0 if warm else peak
+    end = peak * tc.lr_final_fraction
+    step = torch.tensor(count, dtype=torch.int32)
+    if warm > 0 and count < warm:
+        frac = 1 - torch.clamp(step, 0, warm) / warm
+        return float((init - peak) * frac ** 1 + peak)
+    alpha = 0.0 if peak == 0.0 else end / peak
+    decay = float(total - warm)
+    t = torch.minimum(step - max(warm, 0),
+                      torch.tensor(decay, dtype=torch.float32))
+    cosine = 0.5 * (1 + torch.cos(math.pi * t / decay))
+    return float(peak * ((1 - alpha) * cosine ** 1.0 + alpha))
+
+
+class Optimizer:
+    """The JAX trainer's optimizer (``make_optimizer``,
+    ``epnn_tpu/train/loop.py:189-222``) over the tree's leaves, one update
+    at each :meth:`step` after ``loss.backward()``:
+
+    * ``grad_accum`` = k > 1 is ``optax.MultiSteps``: the gradients'
+      running mean ``acc + (g − acc)/(n + 1)`` (Welford's, n the
+      minibatches so far in the window), and on the k-th the rest of the
+      chain on the mean, Adam's update count advancing once a window;
+      in between the parameters do not move;
+    * ``grad_clip_norm`` is ``optax.clip_by_global_norm``: ``g`` where
+      ‖g‖ < max, else ``(g / ‖g‖) · max`` (not
+      ``torch.nn.utils.clip_grad_norm_``, whose ``+1e-6`` moves the bits);
+    * Adam (PyTorch's, optax's form: eps outside the root) at the float32
+      rate :func:`lr_at` of its update count, or under
+      ``lr_plateau_factor`` at :attr:`lr`, the rate optax injects into its
+      state as float32 (:meth:`scale_lr` multiplies it, as JAX's
+      ``_scale_plateau_lr``).
+
+    ``debug_nans``: :func:`_apply` checks each loss and gradient."""
+
+    def __init__(self, tc: TrainConfig, params: dict):
+        check_supported(tc)
+        self.tc = tc
+        self.leaves = tree_leaves(params)
+        self.adam = torch.optim.Adam(self.leaves, lr=lr_at(tc, 0),
+                                     betas=(tc.beta1, tc.beta2), eps=tc.eps)
+        #: the plateau's injected rate (float32)
+        self.lr = torch.tensor(tc.learning_rate, dtype=torch.float32)
+        #: Adam's updates so far (optax's inner count)
+        self.count = 0
+        #: minibatches in the open window, and their gradients' mean
+        self.mini_step = 0
+        self.acc: Optional[List[Tensor]] = None
+
+    @property
+    def state(self) -> dict:
+        """Adam's per-leaf state (``exp_avg``, ``exp_avg_sq``, ``step``)."""
+        return self.adam.state
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self.adam.zero_grad(set_to_none=set_to_none)
+
+    def rate(self) -> float:
+        """The rate of Adam's next update."""
+        if self.tc.lr_plateau_factor is not None:
+            return float(self.lr)
+        return lr_at(self.tc, self.count)
+
+    def scale_lr(self, factor: float) -> None:
+        self.lr = self.lr * factor
+
+    def step(self) -> None:
+        grads = [p.grad for p in self.leaves]
+        k = self.tc.grad_accum
+        if k > 1:
+            if self.acc is None:
+                self.acc = [torch.zeros_like(g) for g in grads]
+            n = self.mini_step
+            self.acc = [a + (g - a) / (n + 1)
+                        for a, g in zip(self.acc, grads)]
+            if n + 1 < k:
+                self.mini_step += 1
+                return
+            grads, self.acc, self.mini_step = self.acc, None, 0
+        if self.tc.grad_clip_norm is not None:
+            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            mx = self.tc.grad_clip_norm
+            grads = [torch.where(norm < mx, g, (g / norm) * mx)
+                     for g in grads]
+        for p, g in zip(self.leaves, grads):
+            p.grad = g
+        for group in self.adam.param_groups:
+            group["lr"] = self.rate()
+        self.adam.step()
+        self.count += 1
+
+    def extras(self) -> dict:
+        """What a checkpoint keeps beside Adam's moments: the update
+        count, the injected rate and the open window."""
+        out = {"count": self.count, "lr": float(self.lr),
+               "mini_step": self.mini_step}
+        if self.acc is not None:
+            out["acc_grads"] = [a.detach().cpu().numpy() for a in self.acc]
+        return out
+
+    def restore_extras(self, extras: dict, step: int) -> None:
+        self.count = int(extras.get("count", step))
+        self.lr = torch.tensor(extras.get("lr", self.tc.learning_rate),
+                               dtype=torch.float32)
+        self.mini_step = int(extras.get("mini_step", 0))
+        acc = extras.get("acc_grads")
+        self.acc = None if acc is None else [
+            torch.as_tensor(a).to(p.device)
+            for a, p in zip(acc, self.leaves, strict=True)]
 
 
 @dataclasses.dataclass
 class TrainState:
     """``params``: the JAX-layout tree of leaf tensors (``requires_grad``);
-    ``opt``: the Adam over those leaves; ``step``: updates applied."""
+    ``opt``: the :class:`Optimizer` over those leaves; ``step``: step
+    calls made (minibatches, as JAX's ``state.step``)."""
 
     params: dict
-    opt: torch.optim.Adam
+    opt: "Optimizer"
     step: int = 0
 
 
-def make_optimizer(tc: TrainConfig, params: dict) -> torch.optim.Adam:
-    """Adam over the tree's leaves.  PyTorch's update, lr·m̂/(√v̂ + eps),
-    is optax's ``adam`` form (eps outside the root)."""
-    check_supported(tc)
-    return torch.optim.Adam(tree_leaves(params), lr=tc.learning_rate,
-                            betas=(tc.beta1, tc.beta2), eps=tc.eps)
+def make_optimizer(tc: TrainConfig, params: dict) -> Optimizer:
+    """JAX's optimizer over the tree's leaves (:class:`Optimizer`)."""
+    return Optimizer(tc, params)
 
 
 def create_state(cfg: EPNNConfig, tc: TrainConfig, seed: int = 0,
@@ -250,16 +388,27 @@ def _loss_fused(params, cfg, loss_name, block, neighbor_k, use_pallas, x,
 
 
 def _apply(state: TrainState, loss: Tensor, opt=None) -> None:
-    """One optimizer update (``opt``, default the state's own Adam).  A
-    leaf the loss does not reach (the pass MLPs' output bias cancels in
-    f_ij − f_ji) gets a zero gradient, as under JAX, so its moments decay
-    and every leaf's step count stays the global one."""
+    """One optimizer step (``opt``, default the state's own).  A leaf the
+    loss does not reach (the pass MLPs' output bias cancels in f_ij −
+    f_ji) gets a zero gradient, as under JAX, so its moments decay and
+    every leaf's step count stays the global one.  Under the state's
+    ``debug_nans`` a non-finite loss or gradient raises
+    ``FloatingPointError`` before the update (one host sync a step)."""
     opt = state.opt if opt is None else opt
     opt.zero_grad(set_to_none=True)
     loss.backward()
-    for p in tree_leaves(state.params):
+    leaves = tree_leaves(state.params)
+    for p in leaves:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    if state.opt.tc.debug_nans:
+        for what, ok in (("loss", torch.isfinite(loss).all()),
+                         ("gradient", torch.stack([
+                             torch.isfinite(p.grad).all() for p in leaves])
+                          .all())):
+            if not bool(ok):
+                raise FloatingPointError(
+                    f"debug_nans: non-finite {what} at step {state.step}")
     opt.step()
     state.step += 1
 
@@ -267,9 +416,10 @@ def _apply(state: TrainState, loss: Tensor, opt=None) -> None:
 def train_step(state: TrainState, model, loss_name: str, opt,
                x, q0, xyz, node_mask, y, weight):
     """One dense update in place, with JAX's parameters in JAX's order.
-    ``model``: an :class:`EPNN` or its :class:`EPNNConfig`; ``opt``: a
-    ``torch.optim`` optimizer over the state's leaves, ``None`` for the
-    state's own Adam.  Returns ``(state, loss, pred, mets)``."""
+    ``model``: an :class:`EPNN` or its :class:`EPNNConfig`; ``opt``: an
+    optimizer over the state's leaves (``zero_grad`` and ``step``: an
+    :class:`Optimizer` or a ``torch.optim`` one), ``None`` for the state's
+    own.  Returns ``(state, loss, pred, mets)``."""
     loss, pred = _loss_dense(state.params, _model_cfg(model), loss_name, x,
                              q0, xyz, node_mask, y, weight)
     _apply(state, loss, opt)
@@ -413,19 +563,41 @@ def _adam_moments(state: TrainState):
 
 
 def _restore(state: TrainState, params, exp_avg, exp_avg_sq,
-             step: int) -> None:
-    """Load a saved train state into ``state`` in place (same leaves)."""
+             step: int, extras: Optional[dict] = None) -> None:
+    """Load a saved train state into ``state`` in place (same leaves);
+    ``extras``: the optimizer's (:meth:`Optimizer.extras`)."""
+    state.opt.restore_extras(extras or {}, step)
+    count = state.opt.count
     for leaf, p, m, v in zip(*(tree_leaves(t) for t in (
             state.params, params, exp_avg, exp_avg_sq)), strict=True):
         with torch.no_grad():
             leaf.copy_(p)
-        if step > 0:
+        if count > 0:
             state.opt.state[leaf] = {
-                "step": torch.tensor(float(step), dtype=torch.float32),
+                "step": torch.tensor(float(count), dtype=torch.float32),
                 "exp_avg": m.to(leaf.device).clone(),
                 "exp_avg_sq": v.to(leaf.device).clone(),
             }
     state.step = step
+
+
+def _make_tb_writer(directory: str):
+    """A TensorBoard ``SummaryWriter`` from whichever backend is installed
+    (``torch.utils.tensorboard``, then ``tensorboardX``), as JAX's
+    ``_make_tb_writer`` (``epnn_tpu/train/loop.py:447-463``): the option
+    was asked for, so with neither it raises ``RuntimeError``."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except Exception:
+        try:
+            from tensorboardX import SummaryWriter
+        except Exception as e:
+            raise RuntimeError(
+                "tensorboard_dir is set but no SummaryWriter backend is "
+                "available (tried torch.utils.tensorboard, tensorboardX): "
+                f"{e}. Install one or drop --tensorboard; JSONL metrics "
+                "(log_path) are always written.") from e
+    return SummaryWriter(directory)
 
 
 def train(
@@ -512,14 +684,45 @@ def train(
     start_epoch = 0
     best = best_padded = float("inf")
     stale_evals = 0
+    lr_now, lr_stale = tc.learning_rate, 0
     if (tc.resume and tc.checkpoint_dir
             and ckpt_io.has_checkpoint(tc.checkpoint_dir)):
         meta = ckpt_io.load_meta(tc.checkpoint_dir)
-        _restore(state, *ckpt_io.load_train_state(tc.checkpoint_dir))
+        saved_accum = int(meta.get("grad_accum", 1))
+        if saved_accum != tc.grad_accum:
+            raise ValueError(
+                f"resume with grad_accum={tc.grad_accum} but the checkpoint "
+                f"was trained with grad_accum={saved_accum}; resume with "
+                f"the same value (the accumulator is part of the optimizer "
+                f"state)")
+        _restore(state, *ckpt_io.load_train_state(tc.checkpoint_dir),
+                 ckpt_io.load_optimizer_extras(tc.checkpoint_dir))
         start_epoch = int(meta.get("epoch", -1)) + 1
         best = float(meta.get("best_val_masked_mae", best))
         best_padded = float(meta.get("best_val_padded_mae", best_padded))
         stale_evals = int(meta.get("stale_evals", 0))
+        # the scaled rate itself is in the optimizer's extras; these are
+        # the host's mirrors (the rows' "lr" and the plateau counter)
+        lr_now = float(meta.get("lr_now", lr_now))
+        lr_stale = int(meta.get("lr_stale", 0))
+
+    # the weights' moving average, after every step call (JAX's ema_step);
+    # it validates and is what best/ holds.  Resumes from <out>/ema
+    ema = None
+    if tc.ema_decay is not None:
+        ema_dir = (os.path.join(tc.checkpoint_dir, "ema")
+                   if tc.checkpoint_dir else None)
+        src = (ckpt_io.load_params(ema_dir, cfg)
+               if tc.resume and ema_dir and os.path.isdir(ema_dir)
+               else state.params)
+        ema = map_tree(lambda a: a.detach().to(device, torch.float32)
+                       .clone(), src)
+        decay = float(tc.ema_decay)
+
+    def ema_step():
+        with torch.no_grad():
+            for e, p in zip(tree_leaves(ema), tree_leaves(state.params)):
+                e.copy_(decay * e + (1.0 - decay) * p)
 
     def tensor(a):
         return torch.as_tensor(np.asarray(a, np.float32)).to(device)
@@ -527,6 +730,14 @@ def train(
     def put(mb: MolBatch, n_real: int):
         weight = np.zeros(mb.batch_size, np.float32)
         weight[:n_real] = 1.0
+        if tc.debug_nans:
+            # JAX's jax_debug_nans stops at the first operation on a NaN
+            # input; the port checks the inputs before the step reads them
+            for name in ("x", "q0", "xyz", "y"):
+                if not np.isfinite(getattr(mb, name)).all():
+                    raise FloatingPointError(
+                        f"debug_nans: non-finite {name} at step "
+                        f"{state.step}")
         return tuple(tensor(a) for a in (mb.x, mb.q0, mb.xyz, mb.node_mask,
                                          mb.y, weight))
 
@@ -592,6 +803,7 @@ def train(
 
     history: List[Dict[str, float]] = []
     log_f = open(tc.log_path, "a") if tc.log_path else None
+    tb = _make_tb_writer(tc.tensorboard_dir) if tc.tensorboard_dir else None
     try:
         for epoch in range(start_epoch, tc.epochs):
             t0 = time.time()
@@ -617,6 +829,9 @@ def train(
                             near_row_chunk=nch,
                             near_window=tc.near_window if nch else 0)
                     acc.update(loss, mets)
+                    if ema is not None:
+                        ema_step()
+            eval_params = state.params if ema is None else ema
             run_eval = has_val and (tc.eval_every <= 1
                                     or (epoch + 1) % tc.eval_every == 0
                                     or epoch == tc.epochs - 1)
@@ -627,11 +842,11 @@ def train(
                                                     with_indices=True):
                     if k is None:
                         loss, _, mets = eval_step(
-                            state.params, cfg, tc.loss, *put(mb, n_real))
+                            eval_params, cfg, tc.loss, *put(mb, n_real))
                     else:
                         nch = bucket_chunk(pad)
                         loss, _, mets = eval_step_fused(
-                            state.params, cfg, tc.loss,
+                            eval_params, cfg, tc.loss,
                             min(tc.fused_block, pad), k, *put(mb, n_real),
                             uniform_q0=bucket_uq0(bucket),
                             neighbors=bucket_neighbors(bucket, k, rows),
@@ -649,10 +864,16 @@ def train(
                 "val_padded_mae": vacc.padded_mae if run_eval else None,
                 "seconds": time.time() - t0,
             }
+            if tc.lr_plateau_factor is not None:
+                row["lr"] = lr_now
             history.append(row)
             if log_f:
                 log_f.write(json.dumps(row) + "\n")
                 log_f.flush()
+            if tb is not None:
+                for key, val in row.items():
+                    if key != "epoch" and val is not None:
+                        tb.add_scalar(key, val, epoch)
             if progress:
                 vtxt = f"{vacc.masked_mae:.5f}" if run_eval else "—"
                 print(f"epoch {epoch}: loss {acc.loss:.3e} train MAE "
@@ -664,21 +885,34 @@ def train(
                 best, best_padded = vacc.masked_mae, vacc.padded_mae
             if run_eval:
                 stale_evals = 0 if improved else stale_evals + 1
+                if tc.lr_plateau_factor is not None:
+                    lr_stale = 0 if improved else lr_stale + 1
+                    if lr_stale >= tc.lr_plateau_patience:
+                        state.opt.scale_lr(tc.lr_plateau_factor)
+                        lr_now *= tc.lr_plateau_factor
+                        lr_stale = 0
+                        if progress:
+                            print(f"plateau: LR -> {lr_now:.3e}", flush=True)
             if tc.checkpoint_dir:
                 ckpt_io.save_train_state(
                     tc.checkpoint_dir, state.params, *_adam_moments(state),
                     state.step,
                     meta={"epoch": epoch, "best_val_masked_mae": best,
                           "best_val_padded_mae": best_padded,
-                          "stale_evals": stale_evals, "step": state.step,
-                          "grad_accum": tc.grad_accum})
+                          "stale_evals": stale_evals, "lr_now": lr_now,
+                          "lr_stale": lr_stale, "step": state.step,
+                          "grad_accum": tc.grad_accum},
+                    extras=state.opt.extras())
+                if ema is not None:
+                    ckpt_io.save_params(
+                        os.path.join(tc.checkpoint_dir, "ema"), ema, cfg)
                 if improved:
                     ckpt_io.save_params(
                         os.path.join(tc.checkpoint_dir, "best"),
-                        state.params, cfg)
+                        eval_params, cfg)
                     if tc.dump_predictions:
                         _dump_prediction_artifacts(
-                            tc.checkpoint_dir, state.params, cfg, device,
+                            tc.checkpoint_dir, eval_params, cfg, device,
                             train_mols, val_mols)
             if (run_eval and tc.early_stop_patience is not None
                     and stale_evals >= tc.early_stop_patience):
@@ -689,5 +923,7 @@ def train(
     finally:
         if log_f:
             log_f.close()
+        if tb is not None:
+            tb.close()
     return TrainResult(state=state, best_val_masked_mae=best,
                        best_val_padded_mae=best_padded, history=history)

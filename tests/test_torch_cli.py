@@ -9,9 +9,10 @@ the CPU (``EPNN_PLATFORM=cpu``, which the suite's conftest sets):
   between two paths of the same math), ``--far-budget`` included;
 * ``bench``: JAX's keys and ``method``; ``eval-pol``, ``horton2npy`` and
   ``convert-qm9``: JAX's outputs (bytes where JAX writes bytes);
-* the flags of later ROADMAP items exit non-zero naming their item, the
-  trainer's deferred options raise naming theirs, and without
-  ``EPNN_PLATFORM=cpu`` a CPU-only machine raises.
+* the flags of ROADMAP item 11 (the multi-device modes) exit non-zero
+  naming it, and without ``EPNN_PLATFORM=cpu`` a CPU-only machine raises
+  (the export and the trainer's options: ``tests/test_torch_export.py``,
+  ``tests/test_torch_train_options.py``).
 """
 
 import argparse
@@ -236,7 +237,6 @@ def test_horton2npy_and_convert_qm9_match_jax(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["export", "--checkpoint", "c", "m.xyz", "--out", "o"], 12),
     (["train", "--data", "d", "--data-parallel"], 11),
     (["train", "--data", "d", "--multihost"], 11),
     (["infer", "--checkpoint", "c", "m.xyz", "--atom-shard", "2"], 11),
@@ -247,23 +247,6 @@ def test_later_items_exit_naming_their_item(argv, item):
         cli.main(argv)
     assert isinstance(exc.value.code, str)  # a message: exit status 1
     assert f"ROADMAP queue 1 item {item}" in exc.value.code
-
-
-@pytest.mark.parametrize("flags,item", [
-    (["--lr-schedule", "cosine"], "9.2"),
-    (["--lr-plateau-factor", "0.5"], "9.2"),
-    (["--ema-decay", "0.99"], "9.2"),
-    (["--grad-clip-norm", "1.0"], "9.2"),
-    (["--grad-accum", "2"], "9.2"),
-    (["--debug-nans"], "9.5"),
-    (["--tensorboard"], "9.5"),
-])
-def test_deferred_train_options_raise(trained, tmp_path, flags, item):
-    _, data, _ = trained
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item "
-                                                  f"{item}"):
-        cli.main(["train", "--data", str(data), "--out",
-                  str(tmp_path / "run"), "--epochs", "1", *SMALL, *flags])
 
 
 def test_platform_selects_the_device(trained, monkeypatch, tmp_path):
@@ -308,4 +291,10 @@ def test_python_m_entry_point(trained, tmp_path):
         [sys.executable, "-m", "epnn_tpu_torch", "export", "--checkpoint",
          best, str(data / "toy0.xyz"), "--out", str(tmp_path / "x")],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 1 and "item 12" in proc.stderr
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().startswith("exported dense-mode serving")
+    proc = subprocess.run(
+        [sys.executable, "-m", "epnn_tpu_torch", "infer", "--checkpoint",
+         best, str(data), "--atom-shard", "2"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 1 and "item 11" in proc.stderr

@@ -49,7 +49,7 @@ torch.set_num_threads(1)
 
 #: public names of the JAX package that later port items own (item 12:
 #: the serving export)
-LATER_ITEMS = {"ServingArtifact", "export_predictor", "load_serving"}
+LATER_ITEMS: set = set()
 
 
 def _mols(g):

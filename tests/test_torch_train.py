@@ -404,17 +404,6 @@ def test_train_without_a_card_raises():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(lr_schedule="cosine"), dict(lr_plateau_factor=0.5),
-    dict(ema_decay=0.999), dict(grad_clip_norm=1.0), dict(grad_accum=2),
-    dict(tensorboard_dir="tb"), dict(debug_nans=True)])
-def test_unported_options_raise(kw):
-    port, _ = toy_mols(count=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train(port, SMALL, TrainConfig(epochs=1, **kw), progress=False,
-              device="cpu")
-
-
-@pytest.mark.parametrize("kw", [
     dict(remat=True), dict(near_row_chunk=8, remat=True),
     dict(near_window=32, near_row_chunk=8, remat=True)])
 def test_huge_n_options_run(kw):
