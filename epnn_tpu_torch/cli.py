@@ -593,10 +593,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "dispatch for this size; 'md' adds precomputed "
                         "(idx, nbr_mask) neighbor-table inputs)")
     p.add_argument("--platforms",
-                   help="comma-separated platforms of the artifact: 'cpu' "
-                        "or 'cuda' (default: the device it is exported "
-                        "on) trace through the kernels' operators; "
-                        "several take the plain route")
+                   help="comma-separated platforms of the artifact, "
+                        "'cpu' and/or 'cuda' (default: the device it is "
+                        "exported on); the kernels' operators run the "
+                        "kernels on the card, their plain versions on "
+                        "the CPU")
     p.add_argument("--far-cluster", type=int, default=0, metavar="C",
                    help="bake the APPROXIMATE clustered far-field tier "
                         "into the artifact (see `infer --far-cluster`)")

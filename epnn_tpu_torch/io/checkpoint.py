@@ -116,21 +116,16 @@ def save_train_state(directory: str, params: dict, exp_avg: dict,
                       json.dumps(meta, indent=2), "w")
 
 
-def load_train_state(directory: str) -> Tuple[dict, dict, dict, int]:
-    """``(params, exp_avg, exp_avg_sq, step)`` from
-    :func:`save_train_state`, as CPU tensors."""
+def load_train_state(directory: str) -> Tuple[dict, dict, dict, int, dict]:
+    """``(params, exp_avg, exp_avg_sq, step, extras)`` from
+    :func:`save_train_state`, the tensors on the CPU (``extras``: ``{}``
+    where none were saved)."""
     with open(os.path.join(directory, STATE_FILE), "rb") as f:
         state = decode_msgpack(f.read())
     return (from_jax_params(state["params"]),
             from_jax_params(state["exp_avg"]),
-            from_jax_params(state["exp_avg_sq"]), int(state["step"]))
-
-
-def load_optimizer_extras(directory: str) -> dict:
-    """The optimizer's extras saved by :func:`save_train_state` (``{}``
-    where there are none)."""
-    with open(os.path.join(directory, STATE_FILE), "rb") as f:
-        return decode_msgpack(f.read()).get("opt", {})
+            from_jax_params(state["exp_avg_sq"]), int(state["step"]),
+            state.get("opt", {}))
 
 
 def load_meta(directory: str) -> dict:

@@ -26,16 +26,17 @@ are the JAX package's:
 Static shapes are part of the artifact: pad inputs to the exported
 ``(B, N)`` that the manifest carries.
 
-The route.  A single-platform artifact (``cpu`` or ``cuda``) is traced on
-that platform's device and holds the hand-written kernels as the
-registered operators ``epnn_torch::*`` (:mod:`epnn_tpu_torch.ops.kernels`):
-on the card a loaded artifact launches the far-field and near kernels,
-each launch counted in ``kernels.LAUNCHES`` as a live call's; on the CPU
-the operators run their plain versions.  A multi-platform artifact (for
-example ``("cuda", "cpu")``) takes the plain route, as JAX's takes its
-pure-XLA path: the forward traced on the CPU through the plain versions
-(``ops.fused.plain_weights``: no operator, no int8 tier), moved to the
-device it runs on when loaded.
+The route.  An artifact holds the hand-written kernels as the registered
+operators ``epnn_torch::*`` (:mod:`epnn_tpu_torch.ops.kernels`), which
+pick their route by the tensors' device when called: on the card a loaded
+artifact launches the far-field and near kernels, each launch counted in
+``kernels.LAUNCHES`` as a live call's; on the CPU the operators run their
+plain versions.  A single-platform artifact (``cpu`` or ``cuda``) is
+traced on that platform's device; a multi-platform one (for example
+``("cuda", "cpu")``) on the CPU, and moved to the device it runs on when
+loaded.  (JAX's multi-platform export takes its pure-XLA path, as a
+Mosaic custom call lowers for one platform; the operators have no such
+limit.)
 
 Agreement: ``torch.export`` without a compiler records the aten operators
 and kernels the live forward runs, so a loaded artifact gives the live
@@ -157,18 +158,17 @@ def export_predictor(pred, batch, out_dir: str, *,
     atoms, ``blocked`` above; ``md`` must be asked for and bakes the
     neighbor-table width from the batch's safe k, or the skin tables'
     width in skin mode).  ``platforms``: ``("cpu",)`` or ``("cuda",)``
-    (default: the Predictor's device) traces on that device through the
-    kernels' operators; several platforms take the plain route (module
-    docstring).  ``use_pallas`` (default ``pred._use_pallas()``) selects
-    the far field's int8 tier as in the live call; the plain route runs
-    without it, as JAX's multi-platform export runs without Pallas.  The
-    weights, the config and every static serving decision (neighbor_k,
-    the cell grid, the round-1 collapse, the clustered far-field tier,
-    the int8 constants) are baked in as this Predictor would serve them.
+    (default: the Predictor's device) traces on that device, several
+    platforms on the CPU (module docstring).  ``use_pallas`` (default
+    ``pred._use_pallas()``) selects the far field's int8 tier as in the
+    live call.  The weights, the config and every static serving
+    decision (neighbor_k, the cell grid, the round-1 collapse, the
+    clustered far-field tier, the int8 constants) are baked in as this
+    Predictor would serve them.
     """
     from epnn_tpu_torch.infer import DENSE_MAX_ATOMS
     from epnn_tpu_torch.io.checkpoint import _write_atomic
-    from epnn_tpu_torch.ops.fused import forward_blocked, plain_weights
+    from epnn_tpu_torch.ops.fused import forward_blocked
 
     if mode is None:
         mode = ("dense" if batch.padded_atoms <= DENSE_MAX_ATOMS
@@ -179,14 +179,9 @@ def export_predictor(pred, batch, out_dir: str, *,
     if use_pallas is None:
         use_pallas = pred._use_pallas()
     platforms = _platforms(pred, platforms)
-    plain = len(platforms) > 1
-    if plain:
-        use_pallas = False
-    # trace on the platform's device (the plain route on the CPU): a twin
-    # of the Predictor there where it lives elsewhere
-    device = torch.device("cpu" if plain else platforms[0])
-    if device.type != pred.device.type:
-        pred = dataclasses.replace(pred, device=str(device))
+    # the device traced on, the weights moved there where they live
+    # elsewhere
+    device = torch.device(platforms[0] if len(platforms) == 1 else "cpu")
 
     b, n = batch.x.shape[:2]
     uq0 = bool(pred._uniform_q0(batch))
@@ -204,7 +199,7 @@ def export_predictor(pred, batch, out_dir: str, *,
                           cutoff=cfg.cutoff, eta=cfg.eta)
             return model(x, q0, e, node_mask)
     else:
-        weights = plain_weights(pred._fused) if plain else pred._fused
+        weights = pred._fused
         if mode == "blocked":
             k = max(pred._neighbor_k(batch), 1)
             grid = pred._neighbor_grid(batch)
@@ -240,8 +235,8 @@ def export_predictor(pred, batch, out_dir: str, *,
                    torch.zeros((b, n, k), dtype=torch.float32,
                                device=device)]
     with torch.no_grad():
-        program = torch.export.export(_Program(fn, weights), tuple(inputs),
-                                      strict=False)
+        program = torch.export.export(_Program(fn, weights).to(device),
+                                      tuple(inputs), strict=False)
     buf = io.BytesIO()
     torch.export.save(program, buf)
 

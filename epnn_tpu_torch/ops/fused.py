@@ -96,9 +96,6 @@ class PairMLPWeights:
     #: (W1e, W2, b2) zero-padded to the kernels' widths, made once per set
     #: of weights by :func:`pad_kernel_weights`; None: made per call
     padded: Optional[KernelWeights] = None
-    #: True: the round runs the kernels' plain versions whatever its depth
-    #: (:func:`plain_weights`)
-    plain: bool = False
 
     def to(self, device) -> "PairMLPWeights":
         mv = lambda a: a.to(device).contiguous()  # noqa: E731
@@ -108,7 +105,7 @@ class PairMLPWeights:
             mv(self.w_out), mv(self.b_out),
             None if self.int8 is None else tuple(map(mv, self.int8)),
             None if self.padded is None else KernelWeights(
-                *map(mv, self.padded)), self.plain)
+                *map(mv, self.padded)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,19 +149,6 @@ def quantize_far_field(fused: FusedParams) -> FusedParams:
 
     return dataclasses.replace(fused, messages=tuple(
         quantized(w) if kernels_apply(w) else w for w in fused.messages))
-
-
-def plain_weights(fused: FusedParams) -> FusedParams:
-    """``fused`` with every round marked ``plain``: the neighbor split then
-    runs the kernels' plain versions and no ``epnn_torch::`` operator —
-    the pure-PyTorch program a multi-platform serving artifact traces, as
-    JAX's multi-platform export takes its XLA path."""
-    def plain(w):
-        return dataclasses.replace(w, plain=True)
-
-    return dataclasses.replace(fused,
-                               messages=tuple(map(plain, fused.messages)),
-                               passes=tuple(map(plain, fused.passes)))
 
 
 def pad_kernel_weights(fused: FusedParams) -> FusedParams:
@@ -615,14 +599,12 @@ def kernels_apply(w: PairMLPWeights) -> bool:
 
 
 def _kernel_round(w: PairMLPWeights) -> bool:
-    """Whether a round takes the kernels: :func:`kernels_apply`, its
-    weights in float32 (the kernels' type) and not marked ``plain``
-    (:func:`plain_weights`).  Under
+    """Whether a round takes the kernels: :func:`kernels_apply`, and its
+    weights in float32 (the kernels' type).  Under
     ``compute_dtype="bfloat16"`` the message rounds run in bf16 through
     the plain versions, as JAX's bf16 recursion runs no Pallas call; its
     float32 pass rounds keep the kernels."""
-    return (kernels_apply(w) and w.w1_i.dtype == torch.float32
-            and not w.plain)
+    return kernels_apply(w) and w.w1_i.dtype == torch.float32
 
 
 def _bf16_halves(x: Tensor) -> Tuple[Tensor, Tensor]:
@@ -1241,10 +1223,7 @@ def forward_blocked(
     window), pairs outside it dropped otherwise (see
     :func:`_forward_single_nbr`).  ``remat``: rounds (and chunk bodies)
     under ``torch.utils.checkpoint`` when autograd records, trading a
-    recompute in the backward for activation memory.  Rounds marked
-    ``plain`` (:func:`plain_weights`) run the kernels' plain versions, no
-    operator: the route of a multi-platform serving artifact
-    (:mod:`epnn_tpu_torch.io.export_serving`).
+    recompute in the backward for activation memory.
 
     Without ``neighbor_k``: the dense blocked forwards.  ``use_pallas``
     with every round admitted by :func:`kernels_apply` selects the fully

@@ -23,10 +23,12 @@ selection, each with its plain PyTorch version (counterpart of
 
 The kernels an exported forward can reach — the far field, its int8
 tier, its backward and the two near kernels — are registered operators
-``epnn_torch::<name>`` (``torch.library.custom_op``, :data:`_OPS`), one
-binding for eager calls, training and ``torch.export``: each has a shape
-function, one body for CPU and CUDA tensors (the plain version, or the
-launch), and its VJP registered on the operator.  The far field's
+``epnn_torch::<name>`` (``torch.library.custom_op``, :data:`_OPS`): each
+has a shape function, one body for CPU and CUDA tensors (the plain
+version, or the launch), and its VJP registered on the operator.
+``torch.export`` and ``torch.compile`` trace the operators; eager calls,
+serving and training, run the same bodies and VJPs without the
+dispatcher's host cost (:func:`_call`).  The far field's
 backward, in both tiers (int8 straight through), is the
 ``dense_message_rowsum_bwd`` kernel; the two near kernels' backwards
 recompute through their plain versions, as the JAX package's custom VJPs
@@ -669,9 +671,8 @@ def dense_message_rowsum_bwd(pi, pj, col_vec, w2, b2, g, padded=None,
     else it is made here.  ``precision``: JAX's ``_dmr_bwd``'s, the TF32
     tier on the card.  The operator
     ``epnn_torch::dense_message_rowsum_bwd``."""
-    return tuple(_OPS["dense_message_rowsum_bwd"](
-        pi, pj, col_vec, w2, b2, g, *_padded_args(padded, False),
-        precision))
+    return tuple(_call("dense_message_rowsum_bwd", pi, pj, col_vec, w2, b2,
+                       g, *_padded_args(padded, False), precision))
 
 
 def dense_message_rowsum(pi, pj, col_vec, w2, b2, padded=None,
@@ -691,8 +692,8 @@ def dense_message_rowsum(pi, pj, col_vec, w2, b2, padded=None,
     JAX's custom VJP carries it to ``_dmr_bwd`` (``pallas_kernels.py:
     1079``), saving only the inputs.  The operator
     ``epnn_torch::dense_message_rowsum``."""
-    return _OPS["dense_message_rowsum"](
-        pi, pj, col_vec, w2, b2, *_padded_args(padded, False), precision)
+    return _call("dense_message_rowsum", pi, pj, col_vec, w2, b2,
+                 *_padded_args(padded, False), precision)
 
 
 # ---------------------------------------------------------------------------
@@ -869,9 +870,9 @@ def dense_message_rowsum_int8(pi, pj, col_vec, w2, b2, pad_pi=None,
     gradient, the scale being internal to JAX's kernel.  The operator
     ``epnn_torch::dense_message_rowsum_int8``."""
     w2q, sw = (None, None) if w2_int8 is None else w2_int8
-    return _OPS["dense_message_rowsum_int8"](
-        pi, pj, col_vec, w2, b2, pad_pi, w2q, sw,
-        *_padded_args(padded, False), pad_pj, precision)
+    return _call("dense_message_rowsum_int8", pi, pj, col_vec, w2, b2,
+                 pad_pi, w2q, sw, *_padded_args(padded, False), pad_pj,
+                 precision)
 
 
 # ---------------------------------------------------------------------------
@@ -954,8 +955,8 @@ def near_message_corr(pi, pjn, rbf, mask, w1e, w2, b2, padded=None,
     Differentiable: the backward recomputes through
     :func:`near_message_corr_plain` (as the JAX custom VJP does through its
     XLA twin).  The operator ``epnn_torch::near_message_corr``."""
-    return _OPS["near_message_corr"](pi, pjn, rbf, mask, w1e, w2, b2,
-                                     *_padded_args(padded, True), precision)
+    return _call("near_message_corr", pi, pjn, rbf, mask, w1e, w2, b2,
+                 *_padded_args(padded, True), precision)
 
 
 # ---------------------------------------------------------------------------
@@ -1045,8 +1046,8 @@ def near_pass_rowsum(rs, ppn, rbf, gh, w1e, w2, b2, padded=None,
     summation.  Differentiable: the backward recomputes through
     :func:`near_pass_rowsum_plain` (as the JAX custom VJP does through its
     XLA twin).  The operator ``epnn_torch::near_pass_rowsum``."""
-    return _OPS["near_pass_rowsum"](rs, ppn, rbf, gh, w1e, w2, b2,
-                                    *_padded_args(padded, True), precision)
+    return _call("near_pass_rowsum", rs, ppn, rbf, gh, w1e, w2, b2,
+                 *_padded_args(padded, True), precision)
 
 
 # ---------------------------------------------------------------------------
@@ -1149,27 +1150,56 @@ def _recompute_backward(plain):
     return backward
 
 
+def _vjp(name):
+    """``(setup_context, backward)`` of operator ``name`` (None: the
+    backward operator, which is not differentiated)."""
+    if name in ("dense_message_rowsum", "dense_message_rowsum_int8"):
+        return _far_setup, _far_backward
+    if name != "dense_message_rowsum_bwd":
+        return _near_setup, _recompute_backward(globals()[name + "_plain"])
+    return None
+
+
 def _register(name):
     """``epnn_torch::<name>``: the body for CPU and CUDA tensors (it runs
     the plain version or launches the kernel on the device ``_check``
-    reports), the shape function, and the VJP."""
+    reports), the shape function, and the VJP; and the same body and VJP
+    as an ``autograd.Function`` for eager calls (:data:`_EAGER`)."""
     op = torch.library.custom_op(f"{NAMESPACE}::{name}", _BODIES[name],
                                  mutates_args=(),
                                  device_types=("cpu", "cuda"),
                                  schema=_SCHEMAS[name])
     op.register_fake(_fake(name))
-    if name in ("dense_message_rowsum", "dense_message_rowsum_int8"):
-        op.register_autograd(_far_backward, setup_context=_far_setup)
-    elif name != "dense_message_rowsum_bwd":
-        op.register_autograd(_recompute_backward(
-            globals()[name + "_plain"]), setup_context=_near_setup)
+    vjp = _vjp(name)
+    if vjp is not None:
+        op.register_autograd(vjp[1], setup_context=vjp[0])
+        _EAGER[name] = type(f"_{name}", (torch.autograd.Function,), dict(
+            forward=staticmethod(_BODIES[name]),
+            setup_context=staticmethod(vjp[0]),
+            backward=staticmethod(vjp[1])))
     return op
 
 
-#: the kernels an exported forward reaches, as registered operators: one
-#: binding for eager calls, training and ``torch.export`` alike.
+#: the differentiable operators' bodies and VJPs as ``autograd.Function``s
+_EAGER: dict = {}
+
+#: the kernels an exported forward reaches, as registered operators.
 #: Registering compiles nothing; a library is built at its first launch.
 _OPS = {name: _register(name) for name in _SCHEMAS}
+
+
+def _call(name, *args):
+    """Operator ``name`` on ``args``: the registered operator where
+    ``torch.export`` or ``torch.compile`` traces, else its body directly
+    (through its :data:`_EAGER` Function where autograd records).  The
+    dispatcher costs ~40 µs of host time a call, more than a 2 × 2,220
+    serving call's spread (``chip_smoke.py`` ``[export]``; PERF.md)."""
+    if torch.compiler.is_compiling():
+        return _OPS[name](*args)
+    if name in _EAGER and torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad for a in args):
+        return _EAGER[name].apply(*args)
+    return _BODIES[name](*args)
 
 
 #: the near kernels' tile: live slots a tensor-core product (its M rows)

@@ -391,9 +391,10 @@ def _apply(state: TrainState, loss: Tensor, opt=None) -> None:
     """One optimizer step (``opt``, default the state's own).  A leaf the
     loss does not reach (the pass MLPs' output bias cancels in f_ij −
     f_ji) gets a zero gradient, as under JAX, so its moments decay and
-    every leaf's step count stays the global one.  Under the state's
-    ``debug_nans`` a non-finite loss or gradient raises
-    ``FloatingPointError`` before the update (one host sync a step)."""
+    every leaf's step count stays the global one.  Under ``debug_nans``
+    of the stepping optimizer's config (the state's where ``opt`` has
+    none) a non-finite loss or gradient raises ``FloatingPointError``
+    before the update (one host sync a step)."""
     opt = state.opt if opt is None else opt
     opt.zero_grad(set_to_none=True)
     loss.backward()
@@ -401,7 +402,7 @@ def _apply(state: TrainState, loss: Tensor, opt=None) -> None:
     for p in leaves:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    if state.opt.tc.debug_nans:
+    if getattr(opt, "tc", state.opt.tc).debug_nans:
         for what, ok in (("loss", torch.isfinite(loss).all()),
                          ("gradient", torch.stack([
                              torch.isfinite(p.grad).all() for p in leaves])
@@ -695,8 +696,7 @@ def train(
                 f"was trained with grad_accum={saved_accum}; resume with "
                 f"the same value (the accumulator is part of the optimizer "
                 f"state)")
-        _restore(state, *ckpt_io.load_train_state(tc.checkpoint_dir),
-                 ckpt_io.load_optimizer_extras(tc.checkpoint_dir))
+        _restore(state, *ckpt_io.load_train_state(tc.checkpoint_dir))
         start_epoch = int(meta.get("epoch", -1)) + 1
         best = float(meta.get("best_val_masked_mae", best))
         best_padded = float(meta.get("best_val_padded_mae", best_padded))

@@ -6,8 +6,9 @@ artifact against the live port ``Predictor``:
   then atoms moved within the skin): bit for bit — the exported program
   runs the live call's operators in the same order;
 * the shape, table and format errors (a JAX artifact included), the
-  clustered far field baked in, the int8 tier through its operator, the
-  multi-platform plain route, and the CLI;
+  clustered far field baked in, the int8 tier through its operator, a
+  multi-platform artifact (the operators, traced on the CPU), and the
+  CLI;
 * the port's artifact against JAX's on the same random parameters
   (``from_jax_params``) and batch, at 1e-5·(max|q| + 1) (the suite's bar
   between two paths of the same math), Σq at the net charge;
@@ -88,6 +89,12 @@ def _op_nodes(art):
                    if str(n.target).startswith("epnn_torch.")})
 
 
+#: the operators of a blocked float32 artifact
+BLOCKED_OPS = ["epnn_torch.dense_message_rowsum.default",
+               "epnn_torch.near_message_corr.default",
+               "epnn_torch.near_pass_rowsum.default"]
+
+
 def test_export_dense_roundtrip(tmp_path, toy_molecules, params):
     pred = _pred(params)
     batch = _batch(toy_molecules)
@@ -122,10 +129,7 @@ def test_export_blocked_roundtrip(tmp_path, toy_molecules, params, method):
     np.testing.assert_array_equal(q, pred.predict_batch(batch))
     np.testing.assert_allclose((q * batch.node_mask).sum(1), batch.total_q,
                                atol=5e-5)
-    assert _op_nodes(art) == [
-        "epnn_torch.dense_message_rowsum.default",
-        "epnn_torch.near_message_corr.default",
-        "epnn_torch.near_pass_rowsum.default"]
+    assert _op_nodes(art) == BLOCKED_OPS
 
 
 def test_export_md_mode(tmp_path, toy_molecules, params):
@@ -220,16 +224,19 @@ def test_export_int8_tier(tmp_path, toy_molecules, params):
 
 
 def test_export_multi_platform_plain_route(tmp_path, toy_molecules, params):
-    """Several platforms take the plain route (no operator in the graph,
-    no int8 tier), traced on the CPU: the same charges here."""
+    """Several platforms are traced on the CPU through the same operators
+    as one (they pick the plain versions or the kernels by the tensors'
+    device when called), ``use_pallas`` kept: the operators in the graph,
+    the same charges here."""
     pred = _pred(params, force_mode="blocked")
     batch = _batch(toy_molecules)
     manifest = export_predictor(pred, batch, str(tmp_path), mode="blocked",
                                 platforms=("cuda", "cpu"), use_pallas=True)
     assert manifest["platforms"] == ["cuda", "cpu"]
-    assert manifest["use_pallas"] is False
+    assert manifest["use_pallas"] is True
     art = load_serving(str(tmp_path))
-    assert _op_nodes(art) == []
+    assert art.device.type == "cpu"
+    assert _op_nodes(art) == BLOCKED_OPS
     np.testing.assert_array_equal(art(*_args(batch)),
                                   pred.predict_batch(batch))
 
@@ -308,6 +315,49 @@ def test_loaded_artifact_reaches_the_launch_path(tmp_path, toy_molecules,
     assert live["dense_message_rowsum"] == 4 * 1  # round 2 of 4 graphs
     assert live["near_message_corr"] == live["near_pass_rowsum"] == 4 * 2
     np.testing.assert_array_equal(q, q_live)
+
+
+def test_multi_platform_artifact_reaches_the_launch_path(
+        tmp_path, toy_molecules, params, monkeypatch):
+    """A multi-platform artifact's operators take the launch path on the
+    emulated card as a single-platform one's do: the live call's launch
+    counts and charges."""
+    pred = _pred(params, force_mode="blocked")
+    batch = _batch(toy_molecules)
+    export_predictor(pred, batch, str(tmp_path), mode="blocked",
+                     platforms=("cuda", "cpu"))
+    art = load_serving(str(tmp_path))
+    arm_card(monkeypatch)
+    q_live = pred.predict_batch(batch)
+    live = dict(kernels.LAUNCHES)
+    kernels.reset_launch_counts()
+    q = art(*_args(batch))
+    assert kernels.LAUNCHES == live and live["near_pass_rowsum"] == 4 * 2
+    np.testing.assert_array_equal(q, q_live)
+
+
+@pytest.mark.parametrize("name", sorted(kernels._EAGER))
+def test_eager_route_matches_the_operator(name, monkeypatch):
+    """An eager call runs the operator's body and VJP without the
+    dispatcher (the operator is not called), with the operator's output
+    and gradients bit for bit."""
+    def run(call):
+        args = _op_args(name, np.random.default_rng(1))
+        out = call(*args)
+        leaves = [a for a in args if isinstance(a, torch.Tensor)
+                  and a.requires_grad]
+        grads = torch.autograd.grad(out.square().sum(), leaves,
+                                    allow_unused=True)
+        return [out.detach()] + [g for g in grads if g is not None]
+
+    want = run(kernels._OPS[name])
+    seen = []
+    monkeypatch.setitem(kernels._OPS, name,
+                        lambda *a: seen.append(a) or 1 / 0)
+    got = run(lambda *a: kernels._call(name, *a))
+    assert not seen and len(got) == len(want) > 1
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def _op_args(name, g):

@@ -369,8 +369,9 @@ def test_train_state_round_trip(tmp_path):
     m, v = L._adam_moments(state)
     ckpt.save_train_state(str(tmp_path), state.params, m, v, state.step,
                           meta={"epoch": np.int64(3)})
-    params, m2, v2, step = ckpt.load_train_state(str(tmp_path))
-    assert step == 1 and ckpt.load_meta(str(tmp_path)) == {"epoch": 3}
+    params, m2, v2, step, extras = ckpt.load_train_state(str(tmp_path))
+    assert step == 1 and extras == {}
+    assert ckpt.load_meta(str(tmp_path)) == {"epoch": 3}
     for a, b in ((state.params, params), (m, m2), (v, v2)):
         for x1, x2 in zip(tree_leaves(a), tree_leaves(b), strict=True):
             assert torch.equal(x1.detach(), x2)

@@ -324,7 +324,7 @@ def test_grad_accum_resume(tmp_path):
     run = str(tmp_path / "b")
     train(port, SMALL, TrainConfig(epochs=1, checkpoint_dir=run, **base),
           progress=False, device="cpu")
-    assert ckpt.load_optimizer_extras(run)["mini_step"] == 1
+    assert ckpt.load_train_state(run)[4]["mini_step"] == 1
     with pytest.raises(ValueError, match="grad_accum=1.*grad_accum=2"):
         train(port, SMALL, TrainConfig(epochs=3, checkpoint_dir=run,
                                        resume=True, batch_size=4, seed=1),
