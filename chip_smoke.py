@@ -151,6 +151,24 @@ card: ``python3 chip_smoke.py`` from the repository root.
    ``--reference-models``), ``eval-pol`` (bit for bit the API's
    difference), and ``train --init-from`` for two epochs (the far-field
    backward kernel launched).
+   [mesh] multi-device serving on the one card (:func:`mesh_one_rank_phase`,
+   :func:`mesh_shape_rows`, :func:`mesh_two_rank_phase`): (a) a real NCCL
+   process group of world size 1 (``make_mesh(1, 1)``): ``Predictor(
+   mesh=..., shard_mode=...)`` 'atom' and 'ring', exact and at
+   ``far_cluster`` = 32, on the 2 x 2,220 and 17,760-atom boxes, against
+   the one-card call, conservation, launches, medians in turns; the far
+   field at the two-rank split's shapes (R = N/2 rows against N columns,
+   the ring's N/2 x N/2 blocks, R x 32 centroids) against its plain
+   version and emulation, with times and bounds; (b) two gloo ranks
+   sharing ``cuda:0`` (NCCL refuses two ranks on one GPU; this script
+   with ``--mesh-child``): 'atom' and 'ring' exact and ring at C = 32,
+   the charges against the one-card call, launches and their shapes a
+   rank, every launch against its plain version on its own inputs
+   (:func:`launch_error`), the ring's distributed fits counted, the pass
+   pairs across the ranks exact negations both ways, medians (two ranks
+   on one card: no scaling figure); and a gloo probe (``--gloo-probe``)
+   of which collectives gloo takes on CUDA tensors, held to the mesh's
+   rule of what it stages through the host.
 6. Profile: ``torch.profiler`` over ``predict_batch`` (2 x 2,220 and
    1 x 17,760 atoms, fp32 and int8, parity and fast; the clustered call
    at 17,760 with its k-means as a group), a Verlet-skin step at 17,760
@@ -4093,12 +4111,568 @@ def train_options_phase(torch, pred, card, train_mols, val_mols):
     return out, main_launches
 
 
+# ---------------------------------------------------------------------------
+# [mesh] multi-device serving on the one card
+# ---------------------------------------------------------------------------
+
+#: [mesh]: the clustered tier's C, the two-rank part's world size, its
+#: children's timeout (s), and the far-field kernel's reps at the ranks'
+#: shapes (kernel, plain)
+MESH_C = 32
+MESH_RANKS = 2
+MESH_CHILD_TIMEOUT = 480
+MESH_SHAPE_ITERS = (20, 3)
+#: the gloo collectives the probe tries on CUDA tensors, in order (the
+#: point-to-point exchange last: a backend that takes its device pointer
+#: for a host one would fail there, after the others have answered)
+GLOO_PROBE_OPS = ("all_reduce_sum", "all_reduce_max", "broadcast",
+                  "all_gather", "all_gather_into_tensor", "send_recv")
+
+
+def mesh_boxes(table):
+    """[mesh]'s batches: the two 2,220-atom golden boxes (B = 2) and the
+    17,760-atom box (B = 1), with their net charges."""
+    from epnn_tpu_torch.data import pad_molecules
+    from epnn_tpu_torch.testing import (SCALING_SIZE_MOLECULES,
+                                        golden_boxes, water_box)
+
+    return [("2x2220", pad_molecules(golden_boxes(), table),
+             np.array([0.0, 1.0])),
+            ("1x17760", pad_molecules([water_box(SCALING_SIZE_MOLECULES,
+                                                 seed=2)], table),
+             np.array([0.0]))]
+
+
+def mesh_want(mode, c, d, b):
+    """Launches of each kernel a call of B graphs on one of D ranks (T = 5,
+    round 1 collapsed): the far field once a round after the first (ring,
+    exact: once a ring step), each near kernel once a round (ring: once a
+    step)."""
+    steps = d if mode == "ring" else 1
+    far = 4 * (steps if mode == "ring" and c == 0 else 1)
+    return {"dense_message_rowsum": b * far,
+            "near_message_corr": b * 5 * steps,
+            "near_pass_rowsum": b * 5 * steps}
+
+
+def mesh_one_rank_phase(torch, card, pred, boxes, refs, timed):
+    """[mesh a] A real NCCL process group of world size 1 on the card
+    (``make_mesh(1, 1)``): ``Predictor(mesh=..., shard_mode=...)`` in
+    'atom' and 'ring', exact and at ``far_cluster=MESH_C``, on each box of
+    ``boxes``: charges against the one-card Predictor's (``refs``: exact;
+    the clustered one-card Predictor for C > 0) — bit for bit where it
+    holds, else within 1e-5·(max|q| + 1) —, |Σq − Q| ≤ 1e-4, each
+    kernel's launches (:func:`mesh_want`), and the medians in turns
+    against the one-card call.  Returns ({case: report}, launches summed
+    over the calls)."""
+    import torch.distributed as dist
+
+    from epnn_tpu_torch.infer import Predictor
+    from epnn_tpu_torch.ops import kernels
+    from epnn_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    initialize_distributed()
+    require(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+            ("[mesh a] process group", dist.get_backend()))
+    mesh = make_mesh(1, 1)
+    probe = torch.ones(4, device="cuda")
+    dist.all_reduce(probe)
+    require(torch.equal(probe.cpu(), torch.ones(4)), "[mesh a] NCCL all_reduce")
+    singles = {0: pred, MESH_C: Predictor(pred.params, pred.cfg,
+                                          far_cluster=MESH_C)}
+    out, total = {}, dict.fromkeys(kernels.SOURCES, 0)
+    for mode in ("atom", "ring"):
+        for c in (0, MESH_C):
+            mp = Predictor(pred.params, pred.cfg, mesh=mesh, shard_mode=mode,
+                           far_cluster=c)
+            for label, batch, total_q in boxes:
+                ref = refs[label] if c == 0 else singles[c].predict_batch(
+                    batch)
+                kernels.reset_launch_counts()
+                q = mp.predict_batch(batch)
+                got = dict(kernels.LAUNCHES)
+                for kn, v in got.items():
+                    total[kn] += v
+                want = mesh_want(mode, c, 1, batch.batch_size)
+                require({kn: v for kn, v in got.items() if v} == want,
+                        ("[mesh a] launches", mode, c, label, got, want))
+                dq = float(np.abs(q - ref).max())
+                tol = 1e-5 * (float(np.abs(ref).max()) + 1.0)
+                cons = np.abs(q.astype(np.float64).sum(1) - total_q)
+                require(np.all(np.isfinite(q)) and dq <= tol
+                        and np.all(cons <= 1e-4),
+                        ("[mesh a]", mode, c, label, dq, tol, cons))
+                reps = 5 if label == "2x2220" else 2
+                t = turns(timed, {"one card": singles[c], mode: mp},
+                          lambda p: p.predict_batch(batch), reps)
+                out[f"{mode} C={c} {label}"] = dict(
+                    bit_for_bit=bool(np.array_equal(q, ref)), max_dq=dq,
+                    tol=tol, sum_q_err=cons.tolist(), launches=want,
+                    ms_turns=t)
+                print(f"[mesh a] one NCCL rank, shard_mode={mode!r}, "
+                      f"far_cluster={c}, {label}: vs the one-card call "
+                      f"{'bit for bit' if np.array_equal(q, ref) else ''} "
+                      f"max|dq| {dq:.3e} (tol {tol:.3e}); |sum q - Q| "
+                      f"{cons.tolist()}; launches {want}; medians in turns "
+                      f"(one card, mesh, mesh, one card) {t} ms on {card}")
+    dist.destroy_process_group()
+    return out, total
+
+
+def mesh_shape_rows(torch, card, far_args, big_args, rows):
+    """[mesh] the far-field kernel at the ranks' shapes of the two-rank
+    split: atom-sharded R = N/2 rows against all N columns (1,112 × 2,224
+    and 8,880 × 17,760), the ring's N/2 × N/2 blocks (8,880 × 8,880, the
+    second block's columns), and R × C over MESH_C centroids of the pj
+    rows: each against its plain version and 3xTF32 emulation
+    (:func:`far_forward`), kernel and plain times, and the bound on this
+    data, added to ``rows["dense_message_rowsum"]["sizes"]``."""
+    from epnn_tpu_torch.ops import kernels
+    from epnn_tpu_torch.ops.cluster import weighted_kmeans
+
+    def cut(args, rows_sl, cols_sl):
+        pi, pj, cv, w2, b2 = args
+        return (pi[rows_sl].contiguous(), pj[cols_sl].contiguous(),
+                cv[cols_sl].contiguous(), w2, b2)
+
+    def clustered(args, rows_sl):
+        pi, pj, cv, w2, b2 = args
+        cent, wts, _ = weighted_kmeans(pj, cv, MESH_C)
+        return pi[rows_sl].contiguous(), cent.contiguous(), wts, w2, b2
+
+    n2, n3 = far_args[0].shape[0], big_args[0].shape[0]
+    cases = {
+        f"atom {n2 // 2}x{n2}": cut(far_args, slice(0, n2 // 2),
+                                     slice(0, n2)),
+        f"atom {n3 // 2}x{n3}": cut(big_args, slice(0, n3 // 2),
+                                     slice(0, n3)),
+        f"ring {n3 // 2}x{n3 // 2}": cut(big_args, slice(0, n3 // 2),
+                                          slice(n3 // 2, n3)),
+        f"cluster {n2 // 2}x{MESH_C}": clustered(far_args,
+                                                  slice(0, n2 // 2)),
+        f"cluster {n3 // 2}x{MESH_C}": clustered(big_args,
+                                                  slice(0, n3 // 2)),
+    }
+    fwd = at(kernels.dense_message_rowsum, "highest")
+    out = {}
+    for label, args in cases.items():
+        err, err_emu, tol = far_forward(torch, kernels, args)
+        r, hh = args[0].shape
+        nc = args[1].shape[0]
+        live = int(torch.count_nonzero(args[2]))
+        ms = device_ms(torch, lambda: fwd(*args), MESH_SHAPE_ITERS[0])
+        plain_ms = device_ms(
+            torch, lambda: kernels.dense_message_rowsum_plain(*args),
+            MESH_SHAPE_ITERS[1])
+        nbytes = 4 * (2 * r * hh + nc + live * hh + hh * hh + hh)
+        b_ms, b_by, b32 = tc_bound(r * live, 2 * hh * hh, 4 * hh, nbytes)
+        out[label] = dict(R=r, N=nc, live_cols=live, max_abs_err=err,
+                          max_abs_diff_3xtf32=err_emu, tol=tol, ms=ms,
+                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                          bound_fp32_ms=b32, bytes=nbytes)
+        print(f"[mesh] dense_message_rowsum at a rank's shape {label} "
+              f"({live} live columns): max|d| vs plain f32 {err:.3e}, vs "
+              f"3xTF32 emulation {err_emu:.3e} (tol {tol:.3e}); kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
+              f"({b_by}), fp32 bound {b32:.5f} ms on {card}")
+    rows["dense_message_rowsum"]["sizes"]["mesh"] = out
+    return out
+
+
+def mesh_children(args):
+    """``MESH_RANKS`` processes of this script with ``args``, one gloo
+    world on a free local port, every rank on ``cuda:0``, started and not
+    waited for (:func:`wait_children`)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), *args], cwd=root,
+        env=dict(os.environ, PYTHONPATH=root, MASTER_ADDR="localhost",
+                 MASTER_PORT=str(port), WORLD_SIZE=str(MESH_RANKS),
+                 RANK=str(r), LOCAL_RANK="0"),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(MESH_RANKS)]
+    return procs
+
+
+def wait_children(procs, timeout):
+    """(return codes, outputs) of ``procs``, every one killed past
+    ``timeout`` seconds from now."""
+    deadline = time.monotonic() + timeout
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            outs.append(p.communicate()[0] + "\n[killed at the timeout]")
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    return [p.returncode for p in procs], outs
+
+
+def gloo_probe_child():
+    """One rank of the gloo probe: each collective of
+    :data:`GLOO_PROBE_OPS` on CUDA tensors, its result checked, one
+    ``GLOO_PROBE`` JSON line each (rank 0)."""
+    import torch
+    import torch.distributed as dist
+
+    from epnn_tpu_torch.parallel import initialize_distributed
+
+    initialize_distributed(backend="gloo", initialization_timeout=60)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dev = torch.device("cuda", 0)
+    for op in GLOO_PROBE_OPS:
+        t = torch.full((4,), float(rank + 1), device=dev)
+        try:
+            if op == "all_reduce_sum":
+                dist.all_reduce(t)
+                ok = torch.equal(t.cpu(), torch.full((4,), 3.0))
+            elif op == "all_reduce_max":
+                dist.all_reduce(t, op=dist.ReduceOp.MAX)
+                ok = torch.equal(t.cpu(), torch.full((4,), 2.0))
+            elif op == "broadcast":
+                dist.broadcast(t, src=0)
+                ok = torch.equal(t.cpu(), torch.full((4,), 1.0))
+            elif op == "all_gather":
+                outs = [torch.empty_like(t) for _ in range(world)]
+                dist.all_gather(outs, t)
+                ok = [float(o[0]) for o in outs] == [1.0, 2.0]
+            elif op == "all_gather_into_tensor":
+                o = torch.empty(4 * world, device=dev)
+                dist.all_gather_into_tensor(o, t)
+                ok = o.cpu().tolist() == [1.0] * 4 + [2.0] * 4
+            else:
+                r = torch.empty_like(t)
+                ops = [dist.P2POp(dist.isend, t, (rank + 1) % world),
+                       dist.P2POp(dist.irecv, r, (rank - 1) % world)]
+                for w in dist.batch_isend_irecv(ops):
+                    w.wait()
+                ok = float(r[0]) == float((rank - 1) % world + 1)
+            res = dict(op=op, accepted=True, correct=bool(ok))
+        except Exception as e:  # the probe's finding: what gloo refuses
+            res = dict(op=op, accepted=False,
+                       error=f"{type(e).__name__}: {str(e)[:200]}")
+        if rank == 0:
+            print("GLOO_PROBE " + json.dumps(res), flush=True)
+        dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_pass_probe(torch, pred, batch, mesh, mode):
+    """The pass round's pair terms across the two ranks on the card: graph
+    0 of ``batch``, [pi | pj] of seeded h with round 1's pass weights, its
+    top-k table, one slot per disjoint near pair
+    (``testing.disjoint_pair_gh``); each rank launches
+    ``near_pass_rowsum`` on its rows as the atom-sharded forward does, or
+    (``'ring'``) its block against each block passing by, the staged ring
+    exchange carrying [pi | pj].  Every rank's rows gathered: (rows,
+    pairs), each cross-rank pair's two rows to be exact negations."""
+    from epnn_tpu_torch.ops import kernels
+    from epnn_tpu_torch.ops.fused import build_neighbors, rbf_and_gate
+    from epnn_tpu_torch.parallel import _collectives as C
+    from epnn_tpu_torch.testing import disjoint_pair_gh
+
+    cfg, dev = pred.cfg, pred.device
+    g = np.random.default_rng(0)
+    n = batch.padded_atoms
+    x, xyz, mask = (torch.from_numpy(np.ascontiguousarray(a[0])).to(dev)
+                    for a in (batch.x, batch.xyz, batch.node_mask))
+    h = torch.from_numpy(g.normal(size=(n, cfg.h_dim)).astype(np.float32)
+                         ).to(dev) * mask[:, None]
+    k = pred._neighbor_k(batch)
+    idx, nbr_mask, d2 = build_neighbors(xyz, mask, cfg.cutoff, k,
+                                        with_d2=True)
+    gh_np, pairs = disjoint_pair_gh(idx.cpu().numpy(), nbr_mask.cpu().numpy())
+    gh = torch.from_numpy(gh_np).to(dev)
+    w = pred._fused.passes[0]
+    a = torch.cat([x, h, torch.zeros_like(mask)[:, None]], dim=-1)
+    rs = torch.cat([a @ w.w1_i + w.b1, a @ w.w1_j], dim=-1).contiguous()
+    rbf, _ = rbf_and_gate(d2, nbr_mask, cfg)
+    rbf = rbf.reshape(n * k, -1)
+    group = mesh.get_group("atoms")
+    d, me = C.size(group), C.index(group)
+    r = n // d
+    rows = slice(me * r, (me + 1) * r)
+    mids = w.mids[0]
+    if mode == "atom":
+        out = kernels.near_pass_rowsum(
+            rs[rows].contiguous(), rs[idx[rows].reshape(-1)].contiguous(),
+            rbf[me * r * k:(me + 1) * r * k].contiguous(),
+            gh[rows].contiguous(), w.w1_e, *mids, precision="highest")
+    else:
+        out = torch.zeros((r, rs.shape[1] // 2), device=dev)
+        blk = (rs[rows].contiguous(),)
+        for step in range(d):
+            start = (me - step) % d * r
+            local = (idx[rows] >= start) & (idx[rows] < start + r)
+            out = out + kernels.near_pass_rowsum(
+                rs[rows].contiguous(),
+                blk[0][torch.where(local, idx[rows] - start, 0)
+                       .reshape(-1)].contiguous(),
+                rbf[me * r * k:(me + 1) * r * k].contiguous(),
+                torch.where(local, gh[rows], 0.0).contiguous(), w.w1_e,
+                *mids, precision="highest")
+            blk = C.ppermute(blk, group)
+    full = C.all_gather(out.contiguous(), group)
+    cross = pairs[(pairs[:, 0] // r) != (pairs[:, 1] // r)]
+    ct = torch.from_numpy(cross).to(dev)
+    exact = bool(torch.equal(full[ct[:, 0]], -full[ct[:, 1]]))
+    live = int(torch.count_nonzero(full[ct[:, 0]]))
+    return dict(cross_rank_pairs=len(cross), exact_negations=exact,
+                nonzero_entries=live)
+
+
+def launch_error(kn, a, got):
+    """One launch of kernel ``kn`` (output ``got``) against its plain
+    version on its own arguments ``a``: (max|Δ|, bar).  A near kernel
+    against the float32 plain version, within 1e-5·(S + 1), S the largest
+    row's sum of the magnitudes of the two MLP evaluations it subtracts a
+    slot (full and featureless, or the pair's two orderings): on a trained
+    model's late rounds (pi, pj ~1e6 on water boxes) they dwarf their
+    difference.  The far field sums N relu terms ≥ 0 (pi, pj ~1e6 there:
+    sums ~1e14 at 17,760 columns) in float32, whose own error grows with
+    N: so the kernel against the plain version in float64, within twice
+    the float32 plain version's distance to it plus 1e-5·(max|ref| + 1),
+    the bar of the far field's backward in [kernel]."""
+    from epnn_tpu_torch.ops import kernels
+
+    ref = getattr(kernels, kn + "_plain")(*a)
+    if kn == "dense_message_rowsum":
+        ref64 = kernels.dense_message_rowsum_plain(*(t.double() for t in a))
+        plain64 = float((ref.double() - ref64).abs().max())
+        return (float((got.double() - ref64).abs().max()),
+                2.0 * plain64 + 1e-5 * (float(ref64.abs().max()) + 1.0))
+    err = float((got - ref).abs().max())
+    if kn == "near_message_corr":
+        pi, pjn, rbf, wgt, w1e, w2, b2 = a
+    else:
+        rs, ppn, rbf, wgt, w1e, w2, b2 = a
+        h = rs.shape[1] // 2
+    n, k = wgt.shape
+    worst = 0.0
+    for s0 in range(0, n, 1024):
+        rows = slice(s0, min(s0 + 1024, n))
+        nr = rows.stop - rows.start
+        e = (rbf[rows.start * k:rows.stop * k] @ w1e).reshape(nr, k, -1)
+        if kn == "near_message_corr":
+            base = pi[rows, None, :] + pjn[rows.start * k:rows.stop * k
+                                           ].reshape(nr, k, -1)
+            one, two = base + e, base
+        else:
+            pp = ppn[rows.start * k:rows.stop * k].reshape(nr, k, -1)
+            one = (rs[rows, None, :h] + pp[..., h:]) + e
+            two = (pp[..., :h] + rs[rows, None, h:]) + e
+        mags = sum(kernels._mid_layers(z, ((w2, b2),), kernels._mm_fp32).abs()
+                   for z in (one, two))
+        worst = max(worst, float((wgt[rows, :, None].abs() * mags).sum(1)
+                                 .max()))
+    return err, 1e-5 * (worst + 1.0)
+
+
+def mesh_child(work):
+    """One rank of [mesh b]: two gloo ranks on ``cuda:0``, a (1, 2) mesh;
+    ``Predictor(mesh=...)`` 'atom' and 'ring' exact and ring at
+    ``far_cluster=MESH_C`` on :func:`mesh_boxes`, each call's charges
+    against the one-card charges the parent saved (``work/refs.npz``)
+    within 1e-5·(max|q| + 1), |Σq − Q| ≤ 1e-4, each kernel's launches and
+    their shapes, every launch again against its plain version on its own
+    inputs, the ring's distributed fits counted, the pass probe both ways
+    (:func:`mesh_pass_probe`), and the medians (two ranks sharing one
+    card).  Rank 0 writes ``work/result.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from epnn_tpu_torch.elements import table_for_n_elems
+    from epnn_tpu_torch.infer import Predictor
+    from epnn_tpu_torch.ops import kernels
+    from epnn_tpu_torch.parallel import (_collectives, initialize_distributed,
+                                         make_mesh, ring_shard)
+
+    if not torch.cuda.is_available():
+        return 2
+    initialize_distributed(backend="gloo", initialization_timeout=120)
+    mesh = make_mesh(1, MESH_RANKS)
+    rank = dist.get_rank()
+    group = mesh.get_group("atoms")
+    staged = {op: _collectives.host_staged(op, group, torch.device("cuda"))
+              for op in ("all_gather", "ppermute", "all_reduce")}
+    base = Predictor.from_checkpoint(CKPT)
+    boxes = mesh_boxes(table_for_n_elems(base.cfg.n_elems))
+    with np.load(os.path.join(work, "refs.npz")) as f:
+        refs = {k: f[k] for k in f.files}
+    spied = ("dense_message_rowsum", "near_message_corr", "near_pass_rowsum")
+    report = dict(staged=staged, cases={})
+    fits = []
+    real_fit = ring_shard.weighted_kmeans_sharded
+
+    def fit_counted(*a, **kw):
+        fits.append(tuple(a[0].shape))
+        return real_fit(*a, **kw)
+
+    ring_shard.weighted_kmeans_sharded = fit_counted
+
+    def timed(fn, reps):
+        ts = []
+        for _ in range(reps):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ts))
+
+    for mode, c in (("atom", 0), ("ring", 0), ("ring", MESH_C)):
+        mp = Predictor(base.params, base.cfg, mesh=mesh, shard_mode=mode,
+                       far_cluster=c)
+        for label, batch, total_q in boxes:
+            seen = {kn: [] for kn in spied}
+            restores = [spy_calls(kernels, kn, seen[kn]) for kn in spied]
+            fits.clear()
+            try:
+                kernels.reset_launch_counts()
+                q = mp.predict_batch(batch)
+                launched = dict(kernels.LAUNCHES)
+            finally:
+                for undo in restores:
+                    undo()
+            want = mesh_want(mode, c, MESH_RANKS, batch.batch_size)
+            got = {kn: v for kn, v in launched.items() if v}
+            require(got == want, ("[mesh b] launches", mode, c, label, got,
+                                  want))
+            n_fits = len(fits)
+            require(n_fits == (4 * batch.batch_size if c else 0),
+                    ("[mesh b] distributed fits", mode, c, label, fits))
+            ref = refs[label]
+            dq = float(np.abs(q - ref).max())
+            tol = 1e-5 * (float(np.abs(ref).max()) + 1.0)
+            cons = np.abs(q.astype(np.float64).sum(1) - total_q)
+            require(np.all(np.isfinite(q)) and dq <= tol
+                    and np.all(cons <= 1e-4),
+                    ("[mesh b]", mode, c, label, dq, tol, cons))
+            # every launch of the call again, on its own inputs, against
+            # its plain version (3xTF32 is float32-grade: :func:`launch_error`)
+            errs, shapes = {}, {}
+            for kn, calls in seen.items():
+                worst = 0.0
+                for a, kw in calls:
+                    err, bar = launch_error(kn, a,
+                                            getattr(kernels, kn)(*a, **kw))
+                    worst = max(worst, err / bar)
+                    shapes.setdefault(kn, set()).add(
+                        (tuple(a[0].shape[:1]) + tuple(a[1].shape[:1]))
+                        if kn == "dense_message_rowsum"
+                        else (a[0].shape[0], a[3].shape[1]))
+                require(worst <= 1.0, ("[mesh b] launch vs plain", mode, c,
+                                       label, kn, worst))
+                errs[kn] = worst
+            reps = 5 if label == "2x2220" else 2
+            mp.predict_batch(batch)
+            ms = timed(lambda: mp.predict_batch(batch), reps)
+            report["cases"][f"{mode} C={c} {label}"] = dict(
+                max_dq=dq, tol=tol, bit_for_bit=bool(np.array_equal(q, ref)),
+                sum_q_err=cons.tolist(), launches=want,
+                launch_shapes={kn: sorted(s) for kn, s in shapes.items()},
+                launch_err_over_bar=errs, fits=n_fits,
+                ms_two_ranks_one_card=ms)
+            if rank == 0:
+                print(f"[mesh b] rank 0 of two gloo ranks sharing one card, "
+                      f"shard_mode={mode!r}, far_cluster={c}, {label}: vs "
+                      f"the one-card call max|dq| {dq:.3e} (tol {tol:.3e}); "
+                      f"|sum q - Q| {cons.tolist()}; launches a rank {want} "
+                      f"at shapes {report['cases'][f'{mode} C={c} {label}']['launch_shapes']}; "
+                      f"every launch vs its plain version at most "
+                      f"{max(errs.values()):.3e} of the bar; distributed "
+                      f"fits {n_fits}; median {ms:.3f} ms (two ranks "
+                      f"sharing one card: no scaling figure)", flush=True)
+    ring_shard.weighted_kmeans_sharded = real_fit
+    probes = {mode: mesh_pass_probe(torch, base, boxes[0][1], mesh, mode)
+              for mode in ("atom", "ring")}
+    for mode, p in probes.items():
+        require(p["exact_negations"] and p["cross_rank_pairs"] > 10
+                and p["nonzero_entries"] > 0, ("[mesh b] probe", mode, p))
+    report["pass_probe"] = probes
+    if rank == 0:
+        print(f"[mesh b] pass probe across the two ranks: {probes}; "
+              f"staged through the host (gloo on CUDA): {staged}",
+              flush=True)
+        with open(os.path.join(work, "result.json"), "w") as f:
+            json.dump(report, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_two_rank_phase(torch, card, boxes, refs):
+    """[mesh b] Two gloo ranks on the one card (NCCL refuses two ranks on
+    one GPU): the gloo probe's pair (which collectives gloo takes on CUDA
+    tensors) and the [mesh b] pair (:func:`mesh_child`), started
+    together.  Returns (report, each kernel's launches a call summed over
+    the cases on rank 0, gloo probe)."""
+    with tempfile.TemporaryDirectory() as work:
+        np.savez(os.path.join(work, "refs.npz"), **refs)
+        probe = mesh_children(["--gloo-probe"])
+        kids = mesh_children(["--mesh-child", work])
+        rc_p, out_p = wait_children(probe, 120)
+        rc, outs = wait_children(kids, MESH_CHILD_TIMEOUT)
+        for ln in outs[0].splitlines():
+            if ln.startswith("[mesh b]"):
+                print(ln)
+        require(all(r == 0 for r in rc), ("[mesh b] children", rc,
+                                          [o[-4000:] for o in outs]))
+        with open(os.path.join(work, "result.json")) as f:
+            report = json.load(f)
+    gloo = [json.loads(ln[len("GLOO_PROBE "):]) for ln in
+            out_p[0].splitlines() if ln.startswith("GLOO_PROBE ")]
+    answered = {g["op"] for g in gloo}
+    gloo += [dict(op=op, accepted=False, error=f"no answer (probe exit "
+                  f"codes {rc_p})") for op in GLOO_PROBE_OPS
+             if op not in answered]
+    # the mesh's rule (``_collectives.GLOO_CUDA_NATIVE``) must be what
+    # gloo takes in this torch: each native collective accepted, correct
+    from epnn_tpu_torch.parallel._collectives import GLOO_CUDA_NATIVE
+
+    native = {"all_reduce": ("all_reduce_sum", "all_reduce_max"),
+              "broadcast": ("broadcast",), "all_gather": ("all_gather",)}
+    for op in GLOO_CUDA_NATIVE:
+        for probe_op in native[op]:
+            g = next(g for g in gloo if g["op"] == probe_op)
+            require(g["accepted"] and g.get("correct"),
+                    ("[mesh b] gloo on CUDA tensors", g))
+    print(f"[mesh b] gloo on CUDA tensors, in the card's torch "
+          f"{torch.__version__}: " + "; ".join(
+              f"{g['op']} " + ("accepted, correct" if g.get("correct")
+                               else "accepted, wrong result"
+                               if g["accepted"] else f"refused ({g['error']})")
+              for g in gloo))
+    launches = {}
+    for case in report["cases"].values():
+        for kn, v in case["launches"].items():
+            launches[kn] = launches.get(kn, 0) + v
+    return report, launches, gloo
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--gloo-probe"]:
+        return gloo_probe_child()
+    if sys.argv[1:2] == ["--mesh-child"]:
+        return mesh_child(sys.argv[2])
     from epnn_tpu_torch.data import pad_molecules
     from epnn_tpu_torch.elements import table_for_n_elems
     from epnn_tpu_torch.infer import Predictor
@@ -4618,6 +5192,16 @@ def main() -> int:
           f"(max - min of 9) {dispatch['predict_batch_2x2220_ms']['spread']:.3f}"
           f" ms on {card}")
 
+    # [mesh] multi-device serving: one NCCL rank, the kernel at the ranks'
+    # shapes, then two gloo ranks sharing the card
+    mboxes = mesh_boxes(table)
+    mesh_refs = {"2x2220": q2, "1x17760": q3}
+    mesh_a, mesh_a_launches = mesh_one_rank_phase(torch, card, pred, mboxes,
+                                                  mesh_refs, timed)
+    mesh_shapes = mesh_shape_rows(torch, card, far_args, big_args, rows)
+    mesh_b, mesh_b_launches, gloo = mesh_two_rank_phase(torch, card, mboxes,
+                                                        mesh_refs)
+
     # ---- 5. training ------------------------------------------------------
     small_labels = [q.copy() for q in qs]
     train_launches, step_ms, step_list, train_mols = train_phase(
@@ -4654,7 +5238,10 @@ def main() -> int:
                          "cli_infer": cli_launches[name],
                          "cli_train": cli_train_launches[name],
                          "export": export_launches[name],
-                         "train_options": options_launches[name]}
+                         "train_options": options_launches[name],
+                         "mesh_one_rank": mesh_a_launches[name],
+                         "mesh_two_ranks_rank0": mesh_b_launches.get(name,
+                                                                     0)}
         rows[name]["launches_by_path"] = path_launches
         rows[name]["launches"] = path_launches[MAIN_PATH.get(name, "serve")]
         require(rows[name]["launches"] > 0, (name, path_launches))
@@ -4703,6 +5290,9 @@ def main() -> int:
                       "precision_tiers": tier_serve, "train_fast": train_e,
                       "cli": cli_out, "export": export_out,
                       "dispatch": dispatch, "train_options": train_f,
+                      "mesh": {"one_rank": mesh_a, "two_ranks": mesh_b,
+                               "rank_shapes": mesh_shapes,
+                               "gloo_cuda": gloo},
                       "widths": width_results,
                       "profile": profile, "sm_clocks": clocks,
                       "card": card}))

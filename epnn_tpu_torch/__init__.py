@@ -11,6 +11,8 @@ names follow the JAX package so each file has an obvious counterpart:
 * :mod:`epnn_tpu_torch.ops.cluster` — the weighted k-means of the clustered
   far-field tier;
 * :mod:`epnn_tpu_torch.infer` — ``Predictor``, the serving front end;
+* :mod:`epnn_tpu_torch.parallel` — meshes over ``torch.distributed`` and
+  the atom- and ring-sharded serving forwards (``Predictor(mesh=...)``);
 * :mod:`epnn_tpu_torch.train` — ``train()`` and its steps;
 * :mod:`epnn_tpu_torch.io.export_serving` — ``export_predictor`` /
   ``load_serving``: serving artifacts through ``torch.export``, the

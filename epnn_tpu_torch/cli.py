@@ -13,10 +13,18 @@ flag with the JAX CLI's name, dest, type, choices and default).
 
 The device: the commands run on the first CUDA card and raise when there
 is none; ``EPNN_PLATFORM=cpu`` (the JAX CLI's platform switch) runs them
-on the CPU, and ``cuda`` or ``gpu`` name the card.  The flags of the
-multi-device modes parse as in the JAX CLI and then exit non-zero naming
-their ROADMAP item: ``train --data-parallel`` / ``--multihost`` and
-``infer --atom-shard`` / ``--ring-shard`` (item 11).
+on the CPU, and ``cuda`` or ``gpu`` name the card.
+
+``infer --atom-shard N`` / ``--ring-shard N`` serve on N devices, one
+process each, started by torchrun:
+
+    torchrun --nproc-per-node N -m epnn_tpu_torch infer ... --atom-shard N
+
+(``EPNN_PLATFORM=cpu``: N gloo processes on the CPU).  Rank 0 writes the
+outputs and prints; a world of another size than N exits naming it.  The
+training flags of the multi-device modes, ``train --data-parallel`` /
+``--multihost``, parse as in the JAX CLI and then exit non-zero naming
+their ROADMAP item (11b).
 """
 
 from __future__ import annotations
@@ -29,7 +37,7 @@ import sys
 import numpy as np
 
 
-def _not_ported(what: str, item: int) -> SystemExit:
+def _not_ported(what: str, item) -> SystemExit:
     return SystemExit(f"epnn_tpu_torch: {what} is not ported yet (ROADMAP "
                       f"queue 1 item {item})")
 
@@ -87,9 +95,9 @@ def cmd_train(args):
     from epnn_tpu_torch.train import TrainConfig, train
 
     if args.multihost:
-        raise _not_ported("train --multihost", 11)
+        raise _not_ported("train --multihost", "11b")
     if args.data_parallel:
-        raise _not_ported("train --data-parallel", 11)
+        raise _not_ported("train --data-parallel", "11b")
     cfg = _model_config(args)
     mols = [m for m in load_directory(args.data) if m.labels is not None]
     print(f"{len(mols)} labeled systems from {args.data}")
@@ -192,12 +200,46 @@ def _add_window_flags(p):
                         "graphs")
 
 
+def _is_coordinator() -> bool:
+    from epnn_tpu_torch.parallel import is_coordinator
+
+    return is_coordinator()
+
+
+def _shard_kw(args) -> dict:
+    """``mesh`` and ``shard_mode`` of ``--atom-shard N`` / ``--ring-shard
+    N`` (ring where both are given, as the JAX CLI): a (1, N) mesh over
+    the world of N processes torchrun started, on the CLI's device; {}
+    without either flag.  A world of another size exits naming it,
+    before any process group starts."""
+    shard = args.atom_shard or args.ring_shard
+    if not shard:
+        return {}
+    import torch.distributed as dist
+
+    mode = "ring" if args.ring_shard else "atom"
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    if world != shard:
+        raise SystemExit(
+            f"epnn_tpu_torch: --{mode}-shard {shard} runs one process per "
+            f"device and the world size is {world}; start it as torchrun "
+            f"--nproc-per-node {shard} -m epnn_tpu_torch infer ...")
+    from epnn_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(n_data=1, n_atoms=shard,
+                     device_type="cpu" if args.device == "cpu" else None)
+    if _is_coordinator():
+        print(f"sharding the atom axis over {shard} devices ({mode} "
+              "layout)")
+    return dict(mesh=mesh, shard_mode=mode)
+
+
 def cmd_infer(args):
     from epnn_tpu_torch.data import load_directory, load_molecule
 
-    if args.atom_shard or args.ring_shard:
-        raise _not_ported("infer --atom-shard / --ring-shard", 11)
-    kw = {}
+    kw = _shard_kw(args)
+    lead = not kw or _is_coordinator()
     if args.renormalize:
         kw["renormalize"] = True
     if args.no_collapse_round1:
@@ -227,15 +269,17 @@ def cmd_infer(args):
             budget=budget, apply=True)
         errs = ", ".join(f"C={c}: {e:.2e}" for c, e in
                          sorted(cal["errors"].items()))
-        if cal["selected"] is None:
+        if lead and cal["selected"] is None:
             print(f"far-cluster calibration on {big.name}: no candidate "
                   f"meets {budget:g} e ({errs}) — serving exact")
-        else:
+        elif lead:
             print(f"far-cluster calibration on {big.name}: C="
                   f"{cal['selected']} (measured max|dq| "
                   f"{cal['errors'][cal['selected']]:.2e} e <= {budget:g}; "
                   f"{errs})")
     charges = pred.predict_molecules(mols, pad_to=args.pad_to)
+    if not lead:
+        return
     os.makedirs(args.out, exist_ok=True)
     for m, q in zip(mols, charges):
         np.save(os.path.join(args.out, m.name + "_pred.npy"), q)
@@ -393,11 +437,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="buckets padded wider than this train through the "
                         "blockwise fused path (no dense pair tensors)")
     p.add_argument("--data-parallel", action="store_true",
-                   help="data-parallel training (ROADMAP item 11: not "
+                   help="data-parallel training (ROADMAP item 11b: not "
                         "ported yet, exits)")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-host training (ROADMAP item 11: not ported "
-                        "yet, exits)")
+                   help="multi-host training (ROADMAP item 11b: not "
+                        "ported yet, exits)")
     p.add_argument("--no-collapse-round1", action="store_true",
                    help="disable the round-1 far-field collapse on fused "
                         "buckets (auto-verified per bucket; this flag pins "
@@ -517,11 +561,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", default="predictions")
     p.add_argument("--pad-to", type=int)
     p.add_argument("--atom-shard", type=int, default=0, metavar="N",
-                   help="shard each graph's pair grid over N devices "
-                        "(ROADMAP item 11: not ported yet, exits)")
+                   help="shard each graph's pair grid over N devices, one "
+                        "process each (run under torchrun --nproc-per-node "
+                        "N)")
     p.add_argument("--ring-shard", type=int, default=0, metavar="N",
-                   help="shard atoms over N devices in a ring (ROADMAP "
-                        "item 11: not ported yet, exits)")
+                   help="shard atoms over N devices in a ring, one "
+                        "process each (run under torchrun --nproc-per-node "
+                        "N)")
     p.add_argument("--renormalize", action="store_true",
                    help="redistribute the fp conservation residue uniformly "
                         "over real atoms: sum(q) matches the net charge to "

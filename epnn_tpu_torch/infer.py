@@ -61,6 +61,9 @@ from epnn_tpu_torch.ops.fused import (
     quantize_far_field,
 )
 
+#: the mesh's axes (``epnn_tpu_torch.parallel.sharding``'s names)
+DATA, ATOM = "data", "atoms"
+
 #: Above this padded width the blocked path runs (the dense path's
 #: (B, N, N, 2F+E) pair tensor grows quadratically).
 DENSE_MAX_ATOMS = 256
@@ -95,9 +98,9 @@ def _safe_k(count: int, batch: MolBatch) -> int:
 
 @dataclasses.dataclass
 class Predictor:
-    """Inference front end on one device.  The fields follow the JAX
-    package's ``Predictor`` (``params, cfg, block, force_mode``
-    positionally); the rest are keyword-only.
+    """Inference front end on one device or a mesh.  The fields follow
+    the JAX package's ``Predictor`` (``params, cfg, block, force_mode,
+    mesh, shard_mode`` positionally); the rest are keyword-only.
 
     ``block`` — in the JAX package, the row block of the blocked
     forward's scans.  Accepted for its signature and unused: the port's
@@ -106,6 +109,26 @@ class Predictor:
 
     ``force_mode`` — ``None`` (dispatch on size), ``'dense'`` or
     ``'blocked'``.
+
+    ``mesh`` — multi-device serving: a (data, atoms) mesh of
+    :func:`epnn_tpu_torch.parallel.make_mesh`, one process per device
+    (run under ``torchrun``; every rank builds the same Predictor and
+    calls it on the same batch, and every rank gets the whole charges
+    back).  The batch pads to the ``data`` axis and splits over it; each
+    graph pads to the ``atoms`` axis and its pair grid splits over it.
+    Graphs padded wider than :data:`DENSE_MAX_ATOMS` run the
+    neighbor-split sharded forward, smaller ones the dense one.  The
+    device is the mesh's (this rank's card, or the CPU of a
+    ``device_type='cpu'`` mesh).  ``shard_mode`` picks the layout:
+    ``'atom'`` (every rank holds the per-atom state, the pair work is
+    split; :mod:`~epnn_tpu_torch.parallel.atom_shard`) or ``'ring'``
+    (nothing replicated, atom blocks circulate;
+    :mod:`~epnn_tpu_torch.parallel.ring_shard`, every graph through its
+    neighbor split).  ``reuse_neighbors``, ``neighbor_skin``,
+    ``far_cluster`` and the collapse serve on the mesh too; the huge-N
+    chunks and windows, and the spatial sort, on the atom-sharded
+    neighbor split only (each rank chunks its own rows), as in the JAX
+    package.
 
     ``device`` — where the forward runs.  ``None`` means the first CUDA
     card and raises when there is none: the CPU is used only when asked
@@ -179,6 +202,8 @@ class Predictor:
     cfg: EPNNConfig
     block: int = 256
     force_mode: Optional[str] = None
+    mesh: Optional[object] = None
+    shard_mode: str = "atom"
     _: dataclasses.KW_ONLY
     reuse_neighbors: bool = False
     renormalize: bool = False
@@ -192,6 +217,17 @@ class Predictor:
     device: Optional[str] = None
 
     def __post_init__(self):
+        if self.shard_mode not in ("atom", "ring"):
+            raise ValueError("shard_mode must be 'atom' or 'ring'")
+        if self.mesh is not None:
+            from epnn_tpu_torch.parallel.sharding import mesh_device
+
+            want = mesh_device(self.mesh)
+            if self.device is not None and torch.device(
+                    self.device).type != want.type:
+                raise ValueError(f"device={self.device!r} is not the "
+                                 f"mesh's ({want})")
+            self.device = want
         self.device = resolve_device(self.device, "Predictor")
         if self.force_mode not in (None, "dense", "blocked"):
             raise ValueError("force_mode must be None, 'dense' or 'blocked'")
@@ -403,6 +439,12 @@ class Predictor:
         order)."""
         if self.spatial_sort == "off":
             return None
+        if self.mesh is not None and (
+                self.shard_mode == "ring"
+                or batch.padded_atoms <= DENSE_MAX_ATOMS):
+            # only the atom-sharded neighbor split windows its gathers;
+            # the ring and dense mesh paths stay in the caller's order
+            return None
         if self.spatial_sort == "auto" and not (
                 (batch.padded_atoms >= HUGE_GRAPH_MIN_ATOMS
                  and self._effective_chunk(batch))
@@ -476,13 +518,17 @@ class Predictor:
         return w
 
     def _near_window_for(self, batch: MolBatch, nbrs, chunk: int,
-                         key) -> int:
+                         key, rows: int = 0, n_pad: int = 0) -> int:
         """The ``near_window`` of a dispatch (see the field): the explicit
         width, or the auto width from the tables in hand (``nbrs``, on
         the device: one reduction and one scalar read) or, on a cold call
         of a sorted twin, from its cell keys; 0 where it would not be
         narrower than the batch.  Cached per batch under ``key`` (the
-        tables' provenance) and the chunk."""
+        tables' provenance) and the chunk.  On the atom-sharded mesh
+        (``rows``: a rank's R rows of the ``n_pad``-row padded batch) each
+        rank chunks its own rows, so the width is the largest over the
+        ranks' row slices, capped at the global table height (the indices
+        are global: a cap at R would drop real pairs)."""
         if self.near_window == 0 or not chunk:
             return 0
         if self.near_window > 0:
@@ -495,14 +541,17 @@ class Predictor:
         if w is None:
             # 4,096 rows at production sizes, finer on small graphs so the
             # rounding cannot widen a compact window past N
-            n = batch.padded_atoms
+            n = n_pad or batch.padded_atoms
+            r = rows or n
             align = max(8, min(4096, n // 8))
             if nbrs is not None:
-                w = neighbor_window_width(nbrs[0], nbrs[1], chunk,
-                                          align=align)
+                w = max(int(neighbor_window_width(
+                    nbrs[0][:, d0:d0 + r], nbrs[1][:, d0:d0 + r], chunk,
+                    align=align, table_rows=n)) for d0 in range(0, n, r))
             else:
-                w = self._keys_window_width(self._geom_keys[batch],
-                                            [(0, n)], chunk)
+                w = self._keys_window_width(
+                    self._geom_keys[batch],
+                    [(d0, d0 + r) for d0 in range(0, n, r)], chunk)
                 w = min(-(-w // align) * align, n)
             if w >= n:
                 w = 0  # no narrower than the batch: the same as off
@@ -511,9 +560,31 @@ class Predictor:
         return w
 
     def _effective_chunk(self, batch: MolBatch) -> int:
-        """The row chunk a dispatch of ``batch`` uses (one device: the
-        :meth:`_near_chunk` policy)."""
-        return self._near_chunk(batch)
+        """The row chunk a dispatch of ``batch`` uses: the one-device
+        :meth:`_near_chunk` policy, or on an atom-sharded mesh
+        :meth:`_near_chunk_sharded`'s."""
+        if self.mesh is None or self.shard_mode == "ring":
+            return self._near_chunk(batch)
+        n_at = self._axis(ATOM)
+        n_pad = -(-batch.padded_atoms // n_at) * n_at
+        return self._near_chunk_sharded(n_pad // n_at, n_pad)
+
+    def _axis(self, name: str) -> int:
+        from epnn_tpu_torch.parallel.sharding import axis_size
+
+        return axis_size(self.mesh, name)
+
+    def _near_chunk_sharded(self, r_dev: int, n_pad: int) -> int:
+        """The huge-N row chunk on the atom-sharded mesh path: the
+        explicit setting (0 where it is no smaller than a rank's R rows),
+        or the auto policy keyed on the global padded width (the global
+        projection tables set the gathers' cost) and sized to a rank's
+        rows."""
+        if self.near_row_chunk >= 0:
+            return self.near_row_chunk if self.near_row_chunk < r_dev else 0
+        if n_pad < HUGE_GRAPH_MIN_ATOMS:
+            return 0
+        return balanced_row_chunk(r_dev, HUGE_GRAPH_ROW_CHUNK)
 
     def _near_chunk(self, batch: MolBatch) -> int:
         """The huge-N row chunk of ``batch`` (see ``near_row_chunk``): the
@@ -621,7 +692,93 @@ class Predictor:
                       cutoff=self.cfg.cutoff, eta=self.cfg.eta)
         return self._model(x, q0, e, mask)
 
+    def _mesh_warnings(self, batch: MolBatch) -> None:
+        """The JAX package's warnings of options a mesh path ignores
+        (``epnn_tpu/infer.py:497-535``)."""
+        small = batch.padded_atoms <= DENSE_MAX_ATOMS
+        if self.far_cluster > 0 and self.shard_mode != "ring" and small:
+            warnings.warn(
+                "far_cluster applies to the neighbor-split paths only — "
+                "the dense small-graph path has no O(N²) far-field term "
+                "to cluster; this batch runs the exact far field",
+                stacklevel=4)
+        if self.near_row_chunk > 0 and (self.shard_mode == "ring" or small):
+            warnings.warn(
+                "near_row_chunk applies to the single-device blocked "
+                "path and the big-graph atom-sharded path — the ring "
+                "and dense mesh paths run full-width", stacklevel=4)
+        if self.reuse_neighbors and self.shard_mode == "atom" and small:
+            warnings.warn(
+                "reuse_neighbors does not affect the dense sharded "
+                "path (small graphs on a mesh compute the full pair "
+                "grid; ring mode and the big-graph atom-sharded path "
+                "both honor precomputed neighbors)", stacklevel=4)
+
+    def _mesh_tables(self, batch: MolBatch, pad):
+        """The reused (or Verlet-skin) tables of ``batch`` padded to the
+        mesh's widths, or None without ``reuse_neighbors``.  Padded rows
+        are masked atoms (index 0, mask 0)."""
+        if not self.reuse_neighbors:
+            return None
+        if self.neighbor_skin > 0:
+            nbrs = self._neighbors_skin(batch)
+        else:
+            nbrs = self._neighbors(batch, max(self._neighbor_k(batch), 1))
+        return tuple(pad(t) for t in nbrs)
+
+    def _predict_batch_sharded(self, batch: MolBatch) -> np.ndarray:
+        """The mesh path (JAX ``epnn_tpu/infer.py:341-438``): B padded to
+        the ``data`` axis and N to the ``atoms`` axis, then the ring, the
+        atom-sharded neighbor split (graphs wider than
+        :data:`DENSE_MAX_ATOMS`) or the atom-sharded dense forward, and
+        the charges trimmed back."""
+        from epnn_tpu_torch.parallel import atom_shard, ring_shard
+
+        n_at, n_dp = self._axis(ATOM), self._axis(DATA)
+        b, n = batch.x.shape[:2]
+        bp, np_ = -(-b // n_dp) * n_dp, -(-n // n_at) * n_at
+
+        def pad(t):
+            t = torch.as_tensor(t).to(self.device)
+            width = [0, 0] * (t.dim() - 2) + [0, np_ - n, 0, bp - b]
+            return torch.nn.functional.pad(t, width)
+
+        x, q0, xyz, mask = (pad(t) for t in self._inputs(batch))
+        nbrs = self._mesh_tables(batch, pad)
+        if self.shard_mode == "ring":
+            nd = np_ // n_at
+            k_blk = min(int(nbrs[0].shape[-1]) if nbrs is not None
+                        else self._neighbor_k(batch), nd)
+            q = ring_shard.forward_ring_sharded_nbr_batch(
+                self._fused, x, q0, xyz, mask, self.cfg, self.mesh,
+                k_blk=max(k_blk, 1), use_pallas=self._use_pallas(),
+                uniform_q0=self._uniform_q0(batch), neighbors=nbrs,
+                far_cluster=self.far_cluster)
+        elif batch.padded_atoms > DENSE_MAX_ATOMS:
+            k = (int(nbrs[0].shape[-1]) if nbrs is not None
+                 else self._neighbor_k(batch))
+            r_dev = np_ // n_at
+            chunk = self._near_chunk_sharded(r_dev, np_)
+            win = self._near_window_for(
+                batch, nbrs, chunk,
+                ("mesh", r_dev, nbrs is None,
+                 self.skin_rebuilds if self.neighbor_skin > 0
+                 else self._geom_fingerprint(batch)), r_dev, np_)
+            q = atom_shard.forward_atom_sharded_nbr_batch(
+                self._fused, x, q0, xyz, mask, self.cfg, self.mesh,
+                k=max(k, 1), use_pallas=self._use_pallas(),
+                uniform_q0=self._uniform_q0(batch), neighbors=nbrs,
+                far_cluster=self.far_cluster, near_row_chunk=chunk,
+                near_window=win)
+        else:
+            q = atom_shard.forward_atom_sharded_batch(
+                self._fused, x, q0, xyz, mask, self.cfg, self.mesh)
+        return q[:b, :n].float().cpu().numpy()
+
     def _predict_batch_inner(self, batch: MolBatch) -> np.ndarray:
+        if self.mesh is not None:
+            self._mesh_warnings(batch)
+            return self._predict_batch_sharded(batch)
         x, q0, xyz, mask = self._inputs(batch)
         mode = self._mode(batch)
         if (mode == "blocked" and self.far_cluster == 0
@@ -665,7 +822,7 @@ class Predictor:
         ``warmup_loops``."""
         from epnn_tpu_torch.utils.timing import benchmark_chained, benchmark_fn
 
-        if per_call:
+        if per_call or self.mesh is not None:
             stats = benchmark_fn(self.predict_batch, batch,
                                  warmup=max(warmup_loops, 1), iters=iters,
                                  profile_dir=profile_dir)

@@ -18,8 +18,8 @@ only in the electron-passing rounds, which stay exact and antisymmetric.
 This module holds the clustering primitive (:func:`weighted_kmeans`, plain
 PyTorch on the device of its inputs, as it is plain XLA in the JAX
 package: no kernel of its own) and the error-bound helper
-(:func:`mids_lipschitz_bound`).  The JAX package's distributed twin,
-``weighted_kmeans_sharded``, comes with the multi-device port.
+(:func:`mids_lipschitz_bound`), and the fit's distributed twin for
+row-sharded inputs (:func:`weighted_kmeans_sharded`, the ring path's).
 """
 
 from __future__ import annotations
@@ -135,6 +135,83 @@ def weighted_kmeans(rows: torch.Tensor, weights: torch.Tensor,
     d2 = score.gather(1, assign[:, None])[:, 0] + (r32 * r32).sum(1)
     d2 = torch.where(valid, torch.clamp(d2, min=0.0), 0.0)
     return cent, wts, torch.sqrt(d2.amax())
+
+
+def weighted_kmeans_sharded(rows: torch.Tensor, weights: torch.Tensor,
+                            n_clusters: int, axis_name, iters: int = 8, *,
+                            differentiable: bool = False):
+    """Distributed twin of :func:`weighted_kmeans` for row-sharded inputs,
+    JAX's contract (``epnn_tpu/ops/cluster.py:170``): the ring path, where
+    a round's ``pj`` never exists whole on one rank.
+
+    Called on every rank of the axis: ``rows`` (nd, D) and ``weights``
+    (nd,) are this rank's block of the global (N, D) / (N,) arrays, the
+    blocks in axis order.  ``axis_name``: the mesh axis, as the process
+    group of this rank's line along it (``mesh.get_group("atoms")``) or
+    that 1-D sub-mesh (``mesh["atoms"]``).  Returns the same
+    ``(centroids (C, D), cluster_weights (C,), max_radius)`` on every
+    rank.
+
+    The seed keys (squared row norms, +inf on zero-weight rows) are
+    all-gathered, O(N) scalars, so the norm-quantile seed choice is the
+    one :func:`weighted_kmeans` makes on the gathered rows (the same
+    stable argsort); the seed rows are fetched by a masked one-hot
+    product and a ``psum`` (each global index is owned by one rank).  The
+    Lloyd partial sums and the final weights are ``psum``-ed, and the
+    radius ``pmax``-ed, so the centroids follow the single-rank fit up to
+    the order of the sums.  The fit runs in float32 (JAX's HIGHEST), a
+    fixed sequence of launches and collectives: repeated calls give the
+    same bits.  ``differentiable=True`` (the clustered training tier's
+    VJP through the collectives) is training on the mesh, ROADMAP item
+    11b, and raises here."""
+    from epnn_tpu_torch.parallel import _collectives as C
+
+    if differentiable:
+        raise NotImplementedError(
+            "weighted_kmeans_sharded(differentiable=True) is the training "
+            "tier on the mesh (ROADMAP item 11b), not ported yet")
+    group = axis_name.get_group() if hasattr(axis_name, "get_group") \
+        else axis_name
+    nd = rows.shape[0]
+    dev = rows.device
+    r32 = rows.detach().to(torch.float32)
+    w32 = weights.detach().to(torch.float32)
+    valid = w32 > 0
+    clusters = torch.arange(n_clusters, device=dev)
+    my_start = C.index(group) * nd
+
+    # seeds: global norm quantiles (keys gathered, rows psum-fetched)
+    rn2 = (r32 * r32).sum(1)
+    keys = C.all_gather(torch.where(valid, rn2, torch.inf), group)
+    nvalid = torch.clamp(C.psum(valid.sum(), group), min=1)
+    take = torch.arange(n_clusters, device=dev) * nvalid // n_clusters
+    seed_g = torch.argsort(keys, stable=True)[take]
+    onehot_seed = (seed_g[:, None] == (my_start + torch.arange(
+        nd, device=dev))[None, :]).to(torch.float32)
+    cent = C.psum(onehot_seed @ r32, group)
+
+    def assign_of(cent):
+        score = (cent * cent).sum(1)[None, :] - 2.0 * (r32 @ cent.T)
+        return torch.argmin(score, dim=1), score
+
+    for _ in range(iters):
+        assign, _ = assign_of(cent)
+        wo = (assign[:, None] == clusters[None, :]).to(torch.float32) \
+            * w32[:, None]
+        wts = C.psum(wo.sum(0), group)
+        sums = C.psum(wo.T @ r32, group)
+        cent_new = sums / torch.clamp(wts, min=1e-30)[:, None]
+        cent = torch.where((wts > 0)[:, None], cent_new, cent)
+
+    assign, score = assign_of(cent)
+    wo = (assign[:, None] == clusters[None, :]).to(torch.float32) \
+        * w32[:, None]
+    wts = C.psum(wo.sum(0), group)
+    d2 = score.gather(1, assign[:, None])[:, 0] + rn2
+    d2 = torch.where(valid, torch.clamp(d2, min=0.0), 0.0)
+    radius = torch.sqrt(C.pmax(d2.amax() if nd else d2.new_zeros(()),
+                               group))
+    return cent, wts, radius
 
 
 def mids_lipschitz_bound(w: Union["PairMLPWeights", Sequence]) -> float:  # noqa: F821

@@ -750,6 +750,40 @@ def _clustered_far_field(w: PairMLPWeights, pi: Tensor, pj: Tensor,
                                 **_padded(w)), rad
 
 
+def round1_counts(x: Tensor, jvec: Tensor) -> Tuple[Tensor, Tensor]:
+    """The round-1 collapse's per-element table of rows ``x`` (``[Z,
+    onehot]``): ``(zvec (E,), counts (E+1,))``, each element's Z and the
+    jvec-weighted count of its atoms, the padding rows' last.  Counts in
+    float32 whatever the compute type, as JAX's (17,760 is no bf16
+    integer).  Sharded callers reduce both over their blocks (max, sum)."""
+    oh = x[:, 1:]
+    zvec = torch.amax(x[:, :1] * oh, dim=0)
+    jvec32 = jvec.float()
+    counts = jvec32 @ oh.float()
+    return zvec, torch.cat([counts, (jvec32.sum() - counts.sum())[None]])
+
+
+def round1_far_field(pi: Tensor, w: PairMLPWeights, cfg: EPNNConfig,
+                     zvec: Tensor, q0v: Tensor, counts: Tensor) -> Tensor:
+    """Message round 1's far field collapsed to the count-weighted grid:
+    a valid atom's input row is [Z_e, onehot_e | 0_h | q0], fixed by its
+    element, and padding rows are all zero, so Σ_j over the atoms is Σ_e
+    counts_e over the E + 1 grid rows.  ``q0v`` (1,): the valid atoms'
+    shared q0; ``zvec``, ``counts`` from :func:`round1_counts`."""
+    e_cnt = zvec.shape[0]
+    dt, dev = zvec.dtype, zvec.device
+    grid_in = torch.cat([
+        zvec[:, None],
+        torch.eye(e_cnt, dtype=dt, device=dev),
+        zvec.new_zeros((e_cnt, cfg.h_dim)),
+        q0v[:, None].to(dt).expand(e_cnt, 1),
+    ], dim=1)
+    grid_in = torch.cat([grid_in, zvec.new_zeros((1, grid_in.shape[1]))])
+    pj_grid = grid_in @ w.w1_j
+    hid_g = _mids(torch.relu(pi[:, None, :] + pj_grid[None, :, :]), w)
+    return torch.einsum("e,neh->nh", counts, hid_g.float()).to(dt)
+
+
 def _run(remat: bool):
     """How a round or a chunk body runs: under
     ``torch.utils.checkpoint.checkpoint`` (``use_reentrant=False``; no
@@ -946,27 +980,8 @@ def _forward_single_nbr(
         pi = (a @ w.w1_i + w.b1).contiguous()   # b1 folded once per atom
         pj = (a @ w.w1_j).contiguous()
         if t == 0 and uniform_q0:
-            # round-1 collapse: a valid atom's input row is [Z_e, onehot_e |
-            # 0_h | q0], fixed by its element; padding rows are all zero
-            oh = x[:, 1:]
-            e_cnt = oh.shape[1]
-            zvec = torch.amax(x[:, :1] * oh, dim=0)
-            grid_in = torch.cat([
-                zvec[:, None],
-                torch.eye(e_cnt, dtype=x.dtype, device=x.device),
-                x.new_zeros((e_cnt, cfg.h_dim)),
-                q[:1, None].to(x.dtype).expand(e_cnt, 1),
-            ], dim=1)
-            grid_in = torch.cat([grid_in, x.new_zeros((1, grid_in.shape[1]))])
-            pj_grid = grid_in @ w.w1_j
-            # counts and their weighted sum in float32 whatever the compute
-            # type, as JAX's (17,760 is no bf16 integer)
-            jvec32 = jvec.float()
-            counts = jvec32 @ oh.float()
-            counts = torch.cat([counts, (jvec32.sum() - counts.sum())[None]])
-            hid_g = _mids(torch.relu(pi[:, None, :] + pj_grid[None, :, :]), w)
-            dense_sum = torch.einsum("e,neh->nh", counts,
-                                     hid_g.float()).to(x.dtype)
+            zvec, counts = round1_counts(x, jvec)
+            dense_sum = round1_far_field(pi, w, cfg, zvec, q[:1], counts)
         elif far_cluster > 0:
             dense_sum, r_round = _clustered_far_field(
                 w, pi, pj, jvec, far_cluster, far_cluster_grad, int8, fit_kw,

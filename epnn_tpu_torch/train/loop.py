@@ -615,8 +615,8 @@ def train(
     ``device``: ``None`` → the first CUDA card (raises without one)."""
     if mesh is not None:
         raise NotImplementedError(
-            "train(mesh=...) is not ported yet (ROADMAP queue 1: "
-            "multi-device)")
+            "train(mesh=...) is not ported yet (ROADMAP queue 1 item "
+            "11b: training on the mesh; serving on it is Predictor(mesh=...))")
     check_supported(tc)
     if tc.near_window and tc.near_row_chunk == 0:
         raise ValueError("TrainConfig.near_window requires near_row_chunk "

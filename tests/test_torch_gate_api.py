@@ -160,12 +160,13 @@ def test_other_widths_reach_the_kernels(rng, monkeypatch, case):
 
 
 def test_predictor_fields_follow_jax():
-    """``params, cfg, block, force_mode`` positionally, as in JAX; the rest
-    keyword-only."""
+    """``params, cfg, block, force_mode, mesh, shard_mode`` positionally,
+    as in JAX; the rest keyword-only."""
     names = [f.name for f in dataclasses.fields(Predictor)
              if not f.kw_only]
-    jax_names = [f.name for f in dataclasses.fields(JaxPredictor)][:4]
-    assert names == jax_names == ["params", "cfg", "block", "force_mode"]
+    jax_names = [f.name for f in dataclasses.fields(JaxPredictor)][:6]
+    assert names == jax_names == ["params", "cfg", "block", "force_mode",
+                                  "mesh", "shard_mode"]
     assert {f.name: f.default for f in dataclasses.fields(Predictor)}[
         "block"] == 256
     assert all(f.kw_only for f in dataclasses.fields(Predictor)

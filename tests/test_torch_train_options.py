@@ -348,7 +348,7 @@ def test_plateau_with_cosine_raises():
 
 
 def test_only_the_mesh_raises():
-    """Every single-device option runs; ``mesh`` (item 11) still raises."""
+    """Every single-device option runs; ``mesh`` (item 11b) still raises."""
     port, _ = toy_mols(count=4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train(port, SMALL, TrainConfig(epochs=1), mesh=object(),
