@@ -169,6 +169,23 @@ card: ``python3 chip_smoke.py`` from the repository root.
    on one card: no scaling figure); and a gloo probe (``--gloo-probe``)
    of which collectives gloo takes on CUDA tensors, held to the mesh's
    rule of what it stages through the host.
+   [mesh c] training on the mesh: (a) on the NCCL world of one,
+   ``make_sharded_train_step`` atom (exact and C = 32) and ring, one step
+   on [train a]'s boxes against ``train_step_fused`` at [train a]'s bar,
+   launches a step (:func:`mesh_train_one_rank`); the far-field backward
+   at a rank's shapes (1,112 × 2,224, the ring's 1,112 × 1,112 block,
+   1,112 × 32) and the near kernels on a rank's 1,112 and 8,880 rows,
+   each against its plain version, timed beside its bound
+   (:func:`mesh_train_shape_rows`); (b) on [mesh b]'s two gloo ranks
+   (:func:`mesh_train_child`): atom, ring and ring C = 32 steps on the
+   2,220-atom boxes against the one-card step (the ring's partitions
+   replayed at C = 32), every far-field backward launch against its
+   plain version, launches a rank, every rank's parameters the same bits;
+   the data-parallel step on a (2, 1) mesh; ``train(mesh=...)`` two
+   epochs, the sharded step's loss falling.  On a machine with N cards,
+   ``torchrun --nproc-per-node N chip_smoke.py --mesh-train-cards`` runs
+   (b) over NCCL, a card a rank: a (1, N) mesh, and a (2, N/2) mesh's
+   atom and data-parallel steps (:func:`mesh_train_cards`).
 6. Profile: ``torch.profiler`` over ``predict_batch`` (2 x 2,220 and
    1 x 17,760 atoms, fp32 and int8, parity and fast; the clustered call
    at 17,760 with its k-means as a group), a Verlet-skin step at 17,760
@@ -4126,7 +4143,13 @@ MESH_SHAPE_ITERS = (20, 3)
 #: point-to-point exchange last: a backend that takes its device pointer
 #: for a host one would fail there, after the others have answered)
 GLOO_PROBE_OPS = ("all_reduce_sum", "all_reduce_max", "broadcast",
-                  "all_gather", "all_gather_into_tensor", "send_recv")
+                  "all_gather", "all_gather_into_tensor", "reduce_scatter",
+                  "reduce_scatter_tensor", "send_recv")
+#: [mesh c]: ``train(mesh=...)``'s epochs on the two ranks, and the reps of
+#: the far-field backward and the near kernels at the ranks' shapes
+#: (kernel, plain)
+MESH_TRAIN_EPOCHS = 2
+MESH_TRAIN_ITERS = (20, 3)
 
 
 def mesh_boxes(table):
@@ -4143,16 +4166,40 @@ def mesh_boxes(table):
              np.array([0.0]))]
 
 
-def mesh_want(mode, c, d, b):
-    """Launches of each kernel a call of B graphs on one of D ranks (T = 5,
-    round 1 collapsed): the far field once a round after the first (ring,
-    exact: once a ring step), each near kernel once a round (ring: once a
-    step)."""
+def mesh_want(mode, c, d, b, t=5):
+    """Launches of each kernel a call of B graphs on one of D ranks (T
+    rounds, round 1 collapsed): the far field once a round after the
+    first (ring, exact: once a ring step), each near kernel once a round
+    (ring: once a step)."""
     steps = d if mode == "ring" else 1
-    far = 4 * (steps if mode == "ring" and c == 0 else 1)
+    far = (t - 1) * (steps if mode == "ring" and c == 0 else 1)
     return {"dense_message_rowsum": b * far,
-            "near_message_corr": b * 5 * steps,
-            "near_pass_rowsum": b * 5 * steps}
+            "near_message_corr": b * t * steps,
+            "near_pass_rowsum": b * t * steps}
+
+
+def mesh_train_want(mode, c, d, b, t):
+    """:func:`mesh_want` for a train step: one far-field backward launch
+    for each far-field forward (the near kernels recompute through their
+    plain versions)."""
+    want = mesh_want(mode, c, d, b, t)
+    return {**want, "dense_message_rowsum_bwd": want["dense_message_rowsum"]}
+
+
+def mesh_random_model():
+    """``[width]``'s seeded random-weight model at the shipped widths: one
+    that reads the far field (``mixed_b16``'s charges do not on water, so
+    its far-field backward gets a zero cotangent)."""
+    import torch
+
+    from epnn_tpu_torch.infer import Predictor
+    from epnn_tpu_torch.models import EPNNConfig
+    from epnn_tpu_torch.models.epnn import init_params
+
+    hh, ee = SHIPPED_WIDTHS
+    cfg = EPNNConfig(h_dim=16, e_dim=ee, msg_dim=8, mlp_hidden=(hh, hh),
+                     T=WIDTH_T)
+    return Predictor(init_params(cfg, torch.Generator().manual_seed(0)), cfg)
 
 
 def mesh_one_rank_phase(torch, card, pred, boxes, refs, timed):
@@ -4163,8 +4210,9 @@ def mesh_one_rank_phase(torch, card, pred, boxes, refs, timed):
     the clustered one-card Predictor for C > 0) — bit for bit where it
     holds, else within 1e-5·(max|q| + 1) —, |Σq − Q| ≤ 1e-4, each
     kernel's launches (:func:`mesh_want`), and the medians in turns
-    against the one-card call.  Returns ({case: report}, launches summed
-    over the calls)."""
+    against the one-card call; then [mesh c] (a) on the same world
+    (:func:`mesh_train_one_rank`).  Returns ({case: report}, launches
+    summed over the calls, [mesh c] (a)'s report and launches)."""
     import torch.distributed as dist
 
     from epnn_tpu_torch.infer import Predictor
@@ -4215,8 +4263,9 @@ def mesh_one_rank_phase(torch, card, pred, boxes, refs, timed):
                       f"max|dq| {dq:.3e} (tol {tol:.3e}); |sum q - Q| "
                       f"{cons.tolist()}; launches {want}; medians in turns "
                       f"(one card, mesh, mesh, one card) {t} ms on {card}")
+    train_out, train_total = mesh_train_one_rank(torch, card, pred, mesh)
     dist.destroy_process_group()
-    return out, total
+    return out, total, train_out, train_total
 
 
 def mesh_shape_rows(torch, card, far_args, big_args, rows):
@@ -4351,6 +4400,16 @@ def gloo_probe_child():
                 o = torch.empty(4 * world, device=dev)
                 dist.all_gather_into_tensor(o, t)
                 ok = o.cpu().tolist() == [1.0] * 4 + [2.0] * 4
+            elif op == "reduce_scatter":
+                # rank r sends (r + 1)·(i + 1) to rank i: rank 0 gets 3
+                parts = [t * float(i + 1) for i in range(world)]
+                dist.reduce_scatter(t, parts)
+                ok = torch.equal(t.cpu(), torch.full((4,), 3.0 * (rank + 1)))
+            elif op == "reduce_scatter_tensor":
+                o = torch.empty(4, device=dev)
+                dist.reduce_scatter_tensor(
+                    o, torch.cat([t * float(i + 1) for i in range(world)]))
+                ok = torch.equal(o.cpu(), torch.full((4,), 3.0 * (rank + 1)))
             else:
                 r = torch.empty_like(t)
                 ops = [dist.P2POp(dist.isend, t, (rank + 1) % world),
@@ -4506,7 +4565,8 @@ def mesh_child(work):
     rank = dist.get_rank()
     group = mesh.get_group("atoms")
     staged = {op: _collectives.host_staged(op, group, torch.device("cuda"))
-              for op in ("all_gather", "ppermute", "all_reduce")}
+              for op in ("all_gather", "reduce_scatter", "ppermute",
+                         "all_reduce")}
     base = Predictor.from_checkpoint(CKPT)
     boxes = mesh_boxes(table_for_n_elems(base.cfg.n_elems))
     with np.load(os.path.join(work, "refs.npz")) as f:
@@ -4607,6 +4667,9 @@ def mesh_child(work):
         print(f"[mesh b] pass probe across the two ranks: {probes}; "
               f"staged through the host (gloo on CUDA): {staged}",
               flush=True)
+    report["train"], report["train_launches"] = mesh_train_child(
+        torch, base, mesh, boxes, refs)
+    if rank == 0:
         with open(os.path.join(work, "result.json"), "w") as f:
             json.dump(report, f)
     dist.barrier()
@@ -4617,9 +4680,10 @@ def mesh_child(work):
 def mesh_two_rank_phase(torch, card, boxes, refs):
     """[mesh b] Two gloo ranks on the one card (NCCL refuses two ranks on
     one GPU): the gloo probe's pair (which collectives gloo takes on CUDA
-    tensors) and the [mesh b] pair (:func:`mesh_child`), started
-    together.  Returns (report, each kernel's launches a call summed over
-    the cases on rank 0, gloo probe)."""
+    tensors) and the [mesh b] pair (:func:`mesh_child`, then [mesh c] (b)
+    in the same processes), started together.  Returns (report, each
+    kernel's launches a call summed over the serving cases on rank 0,
+    gloo probe)."""
     with tempfile.TemporaryDirectory() as work:
         np.savez(os.path.join(work, "refs.npz"), **refs)
         probe = mesh_children(["--gloo-probe"])
@@ -4627,7 +4691,7 @@ def mesh_two_rank_phase(torch, card, boxes, refs):
         rc_p, out_p = wait_children(probe, 120)
         rc, outs = wait_children(kids, MESH_CHILD_TIMEOUT)
         for ln in outs[0].splitlines():
-            if ln.startswith("[mesh b]"):
+            if ln.startswith(("[mesh b]", "[mesh c]")):
                 print(ln)
         require(all(r == 0 for r in rc), ("[mesh b] children", rc,
                                           [o[-4000:] for o in outs]))
@@ -4644,7 +4708,8 @@ def mesh_two_rank_phase(torch, card, boxes, refs):
     from epnn_tpu_torch.parallel._collectives import GLOO_CUDA_NATIVE
 
     native = {"all_reduce": ("all_reduce_sum", "all_reduce_max"),
-              "broadcast": ("broadcast",), "all_gather": ("all_gather",)}
+              "broadcast": ("broadcast",), "all_gather": ("all_gather",),
+              "reduce_scatter": ("reduce_scatter",)}
     for op in GLOO_CUDA_NATIVE:
         for probe_op in native[op]:
             g = next(g for g in gloo if g["op"] == probe_op)
@@ -4663,6 +4728,479 @@ def mesh_two_rank_phase(torch, card, boxes, refs):
     return report, launches, gloo
 
 
+# ---------------------------------------------------------------------------
+# [mesh c] training on the mesh, on the one card
+# ---------------------------------------------------------------------------
+
+def bwd_launch_error(torch, kernels, a, got):
+    """One launch of ``dense_message_rowsum_bwd`` (its four outputs
+    ``got``) against its plain version on its own arguments ``a``: each
+    output within twice the float32 plain version's distance to the
+    float64 plain version plus 1e-5·(max|ref| + 1) (:func:`far_backward`'s
+    bar).  Returns the worst error over its bar."""
+    ins = a[:6]
+    refs32 = kernels.dense_message_rowsum_bwd_plain(*ins)
+    refs64 = kernels.dense_message_rowsum_bwd_plain(*(t.double()
+                                                      for t in ins))
+    worst = 0.0
+    for o, r32, r64 in zip(got, refs32, refs64):
+        plain64 = float((r32.double() - r64).abs().max())
+        tol = 2.0 * plain64 + 1e-5 * (float(r64.abs().max()) + 1.0)
+        worst = max(worst, float((o.double() - r64).abs().max()) / tol)
+    return worst
+
+
+def grad_gap(torch, loss, grads, ref_loss, ref_grads):
+    """(worst relative Frobenius of a gradient leaf, loss gap, bit for bit)
+    of a step against its reference, held to [train a]'s bar: 1e-3 a
+    leaf, the loss within 1e-5·(|loss| + 1)."""
+    fro = max(float(torch.linalg.norm(g - r)
+                    / max(float(torch.linalg.norm(r)), 1e-30))
+              for g, r in zip(grads, ref_grads))
+    dl = abs(loss - ref_loss)
+    require(np.isfinite(fro) and fro <= 1e-3
+            and dl <= 1e-5 * (abs(ref_loss) + 1.0), (fro, loss, ref_loss))
+    same = loss == ref_loss and all(torch.equal(g, r)
+                                    for g, r in zip(grads, ref_grads))
+    return fro, dl, same
+
+
+def mesh_train_batch(torch, pred, batch, seed):
+    """A batch's train-step arguments on the card (labels seeded around
+    zero on real atoms), its k and its round-1 collapse contract."""
+    from epnn_tpu_torch.data import uniform_q0_contract
+
+    g = np.random.default_rng(seed)
+    y = (batch.node_mask * g.normal(0.0, 0.3, size=batch.node_mask.shape)
+         ).astype(np.float32)
+    arrays = (batch.x, batch.q0, batch.xyz, batch.node_mask, y,
+              np.ones(batch.batch_size, np.float32))
+    return ([torch.from_numpy(np.ascontiguousarray(a)).cuda()
+             for a in arrays], pred._neighbor_k(batch),
+            uniform_q0_contract(batch.x, batch.q0, batch.node_mask))
+
+
+def mesh_step(torch, pred, step_fn):
+    """One step of ``step_fn(state)`` from ``pred``'s weights on the card:
+    (loss, gradients on the host, each kernel's launches, ms)."""
+    from epnn_tpu_torch.models import tree_leaves
+    from epnn_tpu_torch.ops import kernels
+    from epnn_tpu_torch.train import TrainConfig, loop
+
+    state = loop.create_state(pred.cfg, TrainConfig(), device="cuda",
+                              params=pred.params)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, loss, _, _ = step_fn(state)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return (float(loss), [p.grad.detach().cpu() for p in
+                          tree_leaves(state.params)],
+            dict(kernels.LAUNCHES), ms, state)
+
+
+def mesh_train_one_rank(torch, card, pred, mesh):
+    """[mesh c] (a) On the NCCL world of one (``mesh``, (1, 1)):
+    ``make_sharded_train_step`` in atom mode, exact and at C = MESH_C
+    (``far_cluster_grad``), and in ring mode, one step each on [train
+    a]'s two 900-atom boxes, against ``train_step_fused`` on the card at
+    [train a]'s bar (bit for bit printed where it holds), and the
+    launches of a step (a world of one: the one-card step's); for
+    ``mixed_b16`` and for a random-weight model that reads the far field
+    (:func:`mesh_random_model`).  Returns ({case: report}, launches
+    summed over the cases)."""
+    from epnn_tpu_torch.data import pad_molecules
+    from epnn_tpu_torch.elements import table_for_n_elems
+    from epnn_tpu_torch.ops import kernels
+    from epnn_tpu_torch.parallel import make_sharded_train_step
+    from epnn_tpu_torch.testing import water_box
+    from epnn_tpu_torch.train import loop
+
+    batch = pad_molecules([water_box(TRAIN_BOX_MOLECULES, seed=30),
+                           water_box(TRAIN_BOX_MOLECULES, seed=31,
+                                     charge=-1.0)],
+                          table_for_n_elems(pred.cfg.n_elems))
+    out, total = {}, dict.fromkeys(kernels.SOURCES, 0)
+    for model, mp in (("mixed_b16", pred), ("random", mesh_random_model())):
+        cfg = mp.cfg
+        args, k, uq0 = mesh_train_batch(torch, mp, batch, 5)
+        refs = {c: mesh_step(torch, mp, lambda st, c=c: loop.train_step_fused(
+            st, cfg, "masked_mse", None, 256, k, *args, uniform_q0=uq0,
+            far_cluster=c, far_cluster_grad=True, remat=False))
+            for c in (0, MESH_C)}
+        want = mesh_train_want("atom", 0, 1, batch.batch_size, cfg.T)
+        for mode, c in (("atom", 0), ("atom", MESH_C), ("ring", 0)):
+            step = make_sharded_train_step(
+                cfg, None, mesh, neighbor_k=k, shard_mode=mode,
+                uniform_q0=uq0, far_cluster=c, far_cluster_grad=True,
+                remat=False)
+            loss, grads, launched, ms, _ = mesh_step(
+                torch, mp, lambda st: step(st, *args))
+            got = {kn: v for kn, v in launched.items() if v}
+            require(got == want, ("[mesh c] one rank launches", model, mode,
+                                  c, got, want))
+            for kn, v in launched.items():
+                total[kn] += v
+            fro, dl, same = grad_gap(torch, loss, grads, *refs[c][:2])
+            out[f"{model} {mode} C={c}"] = dict(
+                loss=loss, ref_loss=refs[c][0], grad_rel_fro_max=fro,
+                loss_gap=dl, bit_for_bit=same, launches=want, step_ms=ms,
+                one_card_ms=refs[c][3])
+            print(f"[mesh c] one NCCL rank, {model}, make_sharded_train_step "
+                  f"shard_mode={mode!r}, far_cluster={c}, 2 x "
+                  f"{batch.natoms[0]:,} atoms, k={k}: loss {loss:.6e} "
+                  f"against train_step_fused {refs[c][0]:.6e}"
+                  f"{'; loss and gradients bit for bit' if same else ''}; "
+                  f"gradients worst relative Frobenius {fro:.3e} (bar "
+                  f"1e-3); launches {want}; step {ms:.3f} ms (one-card "
+                  f"step {refs[c][3]:.3f} ms, host clock, first call) on "
+                  f"{card}")
+    return out, total
+
+
+def mesh_train_shape_rows(torch, card, far_args, gbar, near_sets, rows):
+    """[mesh c] the kernels training on two ranks launches, at a rank's
+    shapes: ``dense_message_rowsum_bwd`` at R = 1,112 rows against the
+    2,224 columns (atom), the ring's 1,112 × 1,112 block and 1,112 × MESH_C
+    centroids, each held to the float64 plain version
+    (:func:`far_backward`), timed beside its plain version and its bound
+    on this data; the two near kernels on a rank's rows (1,112 and 8,880
+    of the two boxes' tables, ``near_sets``: {label: {kernel: args}}),
+    each launch against its plain version (:func:`launch_error`), timed
+    beside its bound (:func:`near_bound`).  Added to ``rows[...]["sizes"]
+    ["mesh_train"]``."""
+    from epnn_tpu_torch.ops import kernels
+    from epnn_tpu_torch.ops.cluster import weighted_kmeans
+
+    pi, pj, cv, w2, b2 = far_args
+    n = pi.shape[0]
+    r = n // 2
+    cent, wts, _ = weighted_kmeans(pj, cv, MESH_C)
+    g_rows = gbar[:r].contiguous()
+    cases = {
+        f"atom {r}x{n}": (pi[:r].contiguous(), pj, cv, w2, b2, g_rows),
+        f"ring {r}x{r}": (pi[:r].contiguous(), pj[r:].contiguous(),
+                          cv[r:].contiguous(), w2, b2, g_rows),
+        f"cluster {r}x{MESH_C}": (pi[:r].contiguous(), cent.contiguous(),
+                                  wts, w2, b2, g_rows),
+    }
+    bwd = at(kernels.dense_message_rowsum_bwd, "highest")
+    out = {}
+    for label, args in cases.items():
+        errs = far_backward(torch, kernels, args, ties=True)
+        rr, hh = args[0].shape
+        nc = args[1].shape[0]
+        live = int(torch.count_nonzero(args[2]))
+        ms = device_ms(torch, lambda: bwd(*args), MESH_TRAIN_ITERS[0])
+        plain_ms = device_ms(
+            torch, lambda: kernels.dense_message_rowsum_bwd_plain(*args),
+            MESH_TRAIN_ITERS[1])
+        nbytes = 4 * (3 * rr * hh + nc * hh + nc + live * hh
+                      + 2 * (hh * hh + hh))
+        b_ms, b_by, b32 = tc_bound(rr * live, 3 * 2 * hh * hh, 9 * hh,
+                                   nbytes)
+        out[label] = dict(R=rr, N=nc, live_cols=live,
+                          max_abs_err=max(e[0] for e in errs.values()),
+                          max_abs_diff_f64={p: e[1] for p, e in
+                                            errs.items()},
+                          tol_f64={p: e[4] for p, e in errs.items()},
+                          ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=b_by, bound_fp32_ms=b32, bytes=nbytes)
+        print(f"[mesh c] dense_message_rowsum_bwd at a rank's shape {label} "
+              f"({live} live columns): {bwd_errs_text(errs)}; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
+              f"({b_by}), fp32 bound {b32:.5f} ms on {card}")
+    rows["dense_message_rowsum_bwd"]["sizes"]["mesh_train"] = out
+    near = {}
+    for label, sets in near_sets.items():
+        for name, a in sets.items():
+            rr = a[0].shape[0] // 2
+            kk = a[3].shape[1]
+            args = (a[0][:rr].contiguous(), a[1][:rr * kk].contiguous(),
+                    a[2][:rr * kk].contiguous(), a[3][:rr].contiguous(),
+                    *a[4:])
+            fn = at(getattr(kernels, name), "highest")
+            err, bar = launch_error(name, args, fn(*args))
+            require(err <= bar, ("[mesh c] near kernel at a rank's rows",
+                                 name, label, err, bar))
+            ms = device_ms(torch, lambda: fn(*args), MESH_TRAIN_ITERS[0])
+            plain_ms = device_ms(
+                torch, lambda: getattr(kernels, name + "_plain")(*args),
+                MESH_TRAIN_ITERS[1])
+            n_live, _, _, nbytes, (b_ms, b_by, b32) = near_bound(name, args)
+            entry = dict(R=rr, K=kk, live_slots=n_live, max_abs_err=err,
+                         bar=bar, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, bound_fp32_ms=b32, bytes=nbytes)
+            rows[name]["sizes"].setdefault("mesh_train", {})[
+                f"{rr} rows"] = entry
+            near[f"{name} {rr} rows"] = entry
+            print(f"[mesh c] {name} on a rank's {rr:,} rows, K = {kk} "
+                  f"({n_live:,} live slots): max|d| vs plain {err:.3e} (bar "
+                  f"{bar:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"bound {b_ms:.5f} ms ({b_by}), fp32 bound {b32:.5f} ms "
+                  f"on {card}")
+    return dict(far_bwd=out, near=near)
+
+
+def mesh_train_molecules(base, boxes, refs):
+    """[train b]'s molecules for the two ranks: the golden boxes and the
+    small waters, labelled by the checkpoint's own charges (the one-card
+    charges of ``refs`` for the boxes) plus seeded noise that keeps each
+    net charge (another seed than [train b]'s).  Returns (all, small)."""
+    from epnn_tpu_torch.testing import golden_boxes, water_box
+
+    g = np.random.default_rng(16)
+    big = golden_boxes()
+    q2 = refs[boxes[0][0]]
+    for m, q in zip(big, q2):
+        m.labels = noisy_labels(g, q[:m.natoms])
+    small = [water_box(m, seed=20 + m, charge=c)
+             for m, c in ((1, 0.0), (3, -1.0), (8, 1.0), (20, 0.0))]
+    for m, q in zip(small, base.predict_molecules(small)):
+        m.labels = noisy_labels(g, q)
+    return big + small, small
+
+
+def mesh_train_case(torch, mp, model, mesh, group, label, batch, args, k,
+                    uq0, ref, mode, c, real_fit):
+    """One [mesh c] (b) case on the two ranks: a ``make_sharded_train_step``
+    step of model ``mp`` (``mode``, ``c``) against the one-card step
+    ``ref`` (at C > 0 the one-card step on the ring's partitions), its
+    far-field backward launches against their plain version, its
+    launches, every rank's parameters the same bits.  Returns the case's
+    report."""
+    import torch.distributed as dist
+
+    from epnn_tpu_torch.ops import fused, kernels
+    from epnn_tpu_torch.parallel import (_collectives as C,
+                                         make_sharded_train_step, ring_shard,
+                                         shard_state)
+    from epnn_tpu_torch.train import loop
+
+    cfg = mp.cfg
+    step = make_sharded_train_step(
+        cfg, None, mesh, neighbor_k=k, shard_mode=mode, uniform_q0=uq0,
+        far_cluster=c, far_cluster_grad=True, remat=False)
+    fits, seen = [], []
+
+    def fit_spy(rows, w, c_, axis, iters=8, differentiable=False):
+        fits.append((rows.detach().clone(), w.detach().clone(), c_, iters))
+        return real_fit(rows, w, c_, axis, iters=iters,
+                        differentiable=differentiable)
+
+    ring_shard.weighted_kmeans_sharded = fit_spy
+    undo = spy_calls(kernels, "dense_message_rowsum_bwd", seen)
+    n_data, n_atoms = mesh.mesh.shape
+    try:
+        dist.barrier()
+        loss, grads, launched, ms, state = mesh_step(
+            torch, mp, lambda st: step(st, *args))
+    finally:
+        undo()
+        ring_shard.weighted_kmeans_sharded = real_fit
+    shard_state(state.params, mesh)
+    want = mesh_train_want(mode, c, n_atoms, batch.batch_size // n_data,
+                           cfg.T)
+    got = {kn: v for kn, v in launched.items() if v}
+    require(got == want, ("[mesh c] launches", model, mode, c, got, want))
+    errs = [bwd_launch_error(torch, kernels, a,
+                             kernels.dense_message_rowsum_bwd(*a))
+            for a, _ in seen]
+    worst = max(errs)
+    require(worst <= 1.0, ("[mesh c] far-field backward vs plain", model,
+                           mode, c, worst))
+    live = sum(bool(torch.count_nonzero(a[5])) for a, _ in seen)
+    shapes = sorted({(a[0].shape[0], a[1].shape[0]) for a, _ in seen})
+    one = ref
+    if c:
+        # the one-card step on the ring's partitions: each fit's Lloyd
+        # centroids and its rows' assignment, gathered in rank order
+        parts = []
+        for rows_, w_, c_, iters in fits:
+            cent, _, _ = real_fit(rows_, w_, c_, group, iters=iters)
+            score = ((cent * cent).sum(1)[None, :]
+                     - 2.0 * (rows_.float() @ cent.T))
+            parts.append((C.all_gather(w_.float(), group).cpu(), cent.cpu(),
+                          C.all_gather(score.argmin(1), group).cpu()))
+        real = fused.weighted_kmeans
+        fused.weighted_kmeans = replay_fits(torch, parts)
+        try:
+            one = mesh_step(torch, mp, lambda st: loop.train_step_fused(
+                st, cfg, "masked_mse", None, 256, k, *args, uniform_q0=uq0,
+                far_cluster=c, far_cluster_grad=True, remat=False))
+        finally:
+            fused.weighted_kmeans = real
+    fro, dl, same = grad_gap(torch, loss, grads, *one[:2])
+    if dist.get_rank() == 0:
+        print(f"[mesh c] rank 0 of {dist.get_world_size()} "
+              f"{dist.get_backend()} ranks, mesh (data, atoms) = "
+              f"{(n_data, n_atoms)}, {model}, "
+              f"make_sharded_train_step shard_mode={mode!r}, far_cluster={c}"
+              f", {label}: loss {loss:.6e} against the one-card step "
+              f"{one[0]:.6e}; gradients worst relative Frobenius {fro:.3e} "
+              f"(bar 1e-3); launches a rank {want}; far-field backward at "
+              f"{shapes}, {live} of {len(seen)} launches with a nonzero "
+              f"cotangent, every launch vs its plain version at most "
+              f"{worst:.3e} of the bar; distributed fits {len(fits)}; every "
+              f"rank's parameters the same bits; step {ms:.3f} ms (first "
+              f"call)", flush=True)
+    return dict(loss=loss, ref_loss=one[0], grad_rel_fro_max=fro,
+                loss_gap=dl, bit_for_bit=same, launches=want,
+                bwd_shapes=shapes, bwd_live_cotangents=live,
+                bwd_err_over_bar=worst, fits=len(fits), step_ms=ms)
+
+
+def mesh_train_child(torch, base, mesh, boxes, refs, mesh_2d=None):
+    """[mesh c] (b) On the two gloo ranks of :func:`mesh_child` (``mesh``
+    (1, 2)), one step each of ``make_sharded_train_step`` in atom mode,
+    ring mode and ring at C = MESH_C (the distributed fit's gradient) on
+    the two 2,220-atom boxes, for ``mixed_b16`` and for the random-weight
+    model that reads the far field (:func:`mesh_train_case`): against the
+    one-card ``train_step_fused`` (each rank computes it; at C > 0 it
+    replays the ring's partitions, :func:`replay_fits`, as the fits tie
+    within float32 noise) at [train a]'s bar; every far-field backward
+    launch of the step against its plain version
+    (:func:`bwd_launch_error`), its shapes, the launches a rank, every
+    rank's parameters the same bits (``shard_state``); then the
+    data-parallel step on a (D, 1) mesh (or ``mesh_2d``) against the
+    one-card step, loss at rtol 1e-5; then ``train(mesh=...)`` for
+    MESH_TRAIN_EPOCHS epochs on [train b]'s molecules
+    (:func:`mesh_train_molecules`), its big bucket through the sharded
+    step, whose loss falls.  ``mesh_2d``: a (2, D/2) mesh whose atom step
+    also runs (each ``data`` coordinate one box), and the data-parallel
+    step's layout.  Returns (report, rank's launches in the ``train()``
+    run)."""
+    import torch.distributed as dist
+
+    from epnn_tpu_torch.ops import kernels
+    from epnn_tpu_torch.parallel import (atom_shard, make_mesh, ring_shard,
+                                         shard_state)
+    from epnn_tpu_torch.train import TrainConfig, loop, train
+
+    rank = dist.get_rank()
+    group = mesh.get_group("atoms")
+    label, batch, _ = boxes[0]
+    report = dict(cases={})
+    real_fit = ring_shard.weighted_kmeans_sharded
+    for model, mp in (("random", mesh_random_model()), ("mixed_b16", base)):
+        cfg = mp.cfg
+        args, k, uq0 = mesh_train_batch(torch, mp, batch, 6)
+        ref = mesh_step(torch, mp, lambda st: loop.train_step_fused(
+            st, cfg, "masked_mse", None, 256, k, *args, uniform_q0=uq0,
+            remat=False))
+        for mode, c in (("atom", 0), ("ring", 0), ("ring", MESH_C)):
+            report["cases"][f"{model} {mode} C={c}"] = mesh_train_case(
+                torch, mp, model, mesh, group, label, batch, args, k, uq0,
+                ref, mode, c, real_fit)
+        if mesh_2d is not None:
+            report["cases"][f"{model} atom C=0 mesh_2d"] = mesh_train_case(
+                torch, mp, model, mesh_2d, mesh_2d.get_group("atoms"), label,
+                batch, args, k, uq0, ref, "atom", 0, real_fit)
+    # the data-parallel step (mixed_b16, the last model above): one box a
+    # data coordinate
+    mesh_dp = mesh_2d or make_mesh(dist.get_world_size(), 1)
+    loss, grads, launched, ms, state = mesh_step(
+        torch, base, lambda st: loop.data_parallel_train_step(
+            st, cfg, "masked_mse", None, mesh_dp, *args, neighbor_k=k,
+            block=256, uniform_q0=uq0, remat=False))
+    shard_state(state.params, mesh_dp)
+    require(abs(loss - ref[0]) <= 1e-5 * abs(ref[0]), ("[mesh c] data "
+                                                        "parallel", loss,
+                                                        ref[0]))
+    per_graph = {kn: v for kn, v in PER_GRAPH_TRAIN.items() if v}
+    require({kn: v for kn, v in launched.items() if v} == per_graph,
+            ("[mesh c] data-parallel launches", launched))
+    fro, dl, _ = grad_gap(torch, loss, grads, *ref[:2])
+    report["data_parallel"] = dict(loss=loss, ref_loss=ref[0],
+                                   grad_rel_fro_max=fro, launches=per_graph,
+                                   step_ms=ms)
+    if rank == 0:
+        print(f"[mesh c] data-parallel step on a "
+              f"{tuple(mesh_dp.mesh.shape)} mesh, one 2,220-atom box a data "
+              f"coordinate: loss {loss:.6e} against the one-card step "
+              f"{ref[0]:.6e} (rtol 1e-5); gradients worst relative Frobenius "
+              f"{fro:.3e}; launches a rank {per_graph}; every rank's "
+              f"parameters the same bits", flush=True)
+    # train(mesh=...): the big bucket through the sharded step
+    mols, small = mesh_train_molecules(base, boxes, refs)
+    steps = []
+    orig = atom_shard.make_sharded_train_step
+
+    def spy(*a, **kw):
+        inner = orig(*a, **kw)
+
+        def wrapped(*sa, **skw):
+            res = inner(*sa, **skw)
+            steps.append(float(res[1]))
+            return res
+        return wrapped
+
+    atom_shard.make_sharded_train_step = spy
+    try:
+        kernels.reset_launch_counts()
+        res = train(mols, cfg, TrainConfig(epochs=MESH_TRAIN_EPOCHS,
+                                           init_from=CKPT),
+                    val_mols=small, mesh=mesh, progress=False)
+        torch.cuda.synchronize()
+        run_launches = dict(kernels.LAUNCHES)
+    finally:
+        atom_shard.make_sharded_train_step = orig
+    shard_state(res.state.params, mesh)
+    require(len(steps) == MESH_TRAIN_EPOCHS and np.all(np.isfinite(steps))
+            and steps[-1] < steps[0]
+            and np.isfinite(res.best_val_masked_mae), ("[mesh c] train()",
+                                                       steps, res.history))
+    report["train"] = dict(sharded_step_losses=steps,
+                           history=res.history, launches=run_launches)
+    if rank == 0:
+        print(f"[mesh c] train(mesh={tuple(mesh.mesh.shape)}) "
+              f"{MESH_TRAIN_EPOCHS} epochs from "
+              f"{CKPT} on the golden boxes + {len(small)} small molecules: "
+              f"sharded-step loss {' -> '.join(f'{v:.6e}' for v in steps)}; "
+              f"epoch rows {[round(r['train_loss'], 8) for r in res.history]}"
+              f"; launches on rank 0 {run_launches}; every rank's parameters "
+              f"the same bits", flush=True)
+    return report, run_launches
+
+
+def mesh_train_cards():
+    """[mesh c] (b) on the world torchrun started, a card a rank over NCCL
+    (``torchrun --nproc-per-node N chip_smoke.py --mesh-train-cards``, N
+    even): :func:`mesh_train_child` on a (1, N) mesh, with the (2, N/2)
+    mesh's atom step and data-parallel step.  Rank 0 prints the report as
+    a JSON line and the card line.  Not part of the one-card run."""
+    import torch
+    import torch.distributed as dist
+
+    from epnn_tpu_torch.elements import table_for_n_elems
+    from epnn_tpu_torch.infer import Predictor
+    from epnn_tpu_torch.ops import kernels
+    from epnn_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    initialize_distributed()
+    world = dist.get_world_size()
+    require(dist.get_backend() == "nccl" and world >= 2 and world % 2 == 0,
+            ("[mesh c] cards", dist.get_backend(), world))
+    if dist.get_rank() == 0:
+        kernels.build(widths=[SHIPPED_WIDTHS])
+    dist.barrier()
+    mesh = make_mesh(1, world)
+    mesh_2d = make_mesh(2, world // 2) if world >= 4 else None
+    base = Predictor.from_checkpoint(CKPT)
+    boxes = mesh_boxes(table_for_n_elems(base.cfg.n_elems))[:1]
+    refs = {boxes[0][0]: base.predict_batch(boxes[0][1])}
+    report, launches = mesh_train_child(torch, base, mesh, boxes, refs,
+                                        mesh_2d)
+    if dist.get_rank() == 0:
+        print(json.dumps({"mesh_train_cards": report, "world": world,
+                          "train_launches_rank0": launches}))
+        print(card_line())
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -4671,6 +5209,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--gloo-probe"]:
         return gloo_probe_child()
+    if sys.argv[1:2] == ["--mesh-train-cards"]:
+        return mesh_train_cards()
     if sys.argv[1:2] == ["--mesh-child"]:
         return mesh_child(sys.argv[2])
     from epnn_tpu_torch.data import pad_molecules
@@ -5196,11 +5736,16 @@ def main() -> int:
     # shapes, then two gloo ranks sharing the card
     mboxes = mesh_boxes(table)
     mesh_refs = {"2x2220": q2, "1x17760": q3}
-    mesh_a, mesh_a_launches = mesh_one_rank_phase(torch, card, pred, mboxes,
-                                                  mesh_refs, timed)
+    mesh_a, mesh_a_launches, mesh_c_a, mesh_c_a_launches = \
+        mesh_one_rank_phase(torch, card, pred, mboxes, mesh_refs, timed)
     mesh_shapes = mesh_shape_rows(torch, card, far_args, big_args, rows)
+    mesh_c_shapes = mesh_train_shape_rows(
+        torch, card, far_args, gbar,
+        {label: near_inputs(pred, b, np.random.default_rng(0))[0]
+         for label, b in (("2220", batch2), ("17760", big))}, rows)
     mesh_b, mesh_b_launches, gloo = mesh_two_rank_phase(torch, card, mboxes,
                                                         mesh_refs)
+    mesh_c_b_launches = mesh_b.pop("train_launches")
 
     # ---- 5. training ------------------------------------------------------
     small_labels = [q.copy() for q in qs]
@@ -5241,7 +5786,10 @@ def main() -> int:
                          "train_options": options_launches[name],
                          "mesh_one_rank": mesh_a_launches[name],
                          "mesh_two_ranks_rank0": mesh_b_launches.get(name,
-                                                                     0)}
+                                                                     0),
+                         "mesh_train_one_rank": mesh_c_a_launches[name],
+                         "mesh_train_two_ranks_rank0":
+                             mesh_c_b_launches.get(name, 0)}
         rows[name]["launches_by_path"] = path_launches
         rows[name]["launches"] = path_launches[MAIN_PATH.get(name, "serve")]
         require(rows[name]["launches"] > 0, (name, path_launches))
@@ -5292,7 +5840,9 @@ def main() -> int:
                       "dispatch": dispatch, "train_options": train_f,
                       "mesh": {"one_rank": mesh_a, "two_ranks": mesh_b,
                                "rank_shapes": mesh_shapes,
-                               "gloo_cuda": gloo},
+                               "gloo_cuda": gloo,
+                               "train_one_rank": mesh_c_a,
+                               "train_rank_shapes": mesh_c_shapes},
                       "widths": width_results,
                       "profile": profile, "sm_clocks": clocks,
                       "card": card}))

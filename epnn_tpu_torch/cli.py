@@ -21,10 +21,15 @@ process each, started by torchrun:
     torchrun --nproc-per-node N -m epnn_tpu_torch infer ... --atom-shard N
 
 (``EPNN_PLATFORM=cpu``: N gloo processes on the CPU).  Rank 0 writes the
-outputs and prints; a world of another size than N exits naming it.  The
-training flags of the multi-device modes, ``train --data-parallel`` /
-``--multihost``, parse as in the JAX CLI and then exit non-zero naming
-their ROADMAP item (11b).
+outputs and prints; a world of another size than N exits naming it.
+``train --data-parallel`` trains data-parallel over the world torchrun
+started (a world of one without torchrun), and ``train --multihost``
+joins the world of ``EPNN_COORDINATOR`` / ``EPNN_NUM_PROCESSES`` /
+``EPNN_PROCESS_ID`` (or torchrun's variables) and trains over its
+multi-host mesh; only rank 0 writes the checkpoints, the log and the
+TensorBoard scalars:
+
+    torchrun --nproc-per-node N -m epnn_tpu_torch train ... --data-parallel
 """
 
 from __future__ import annotations
@@ -35,11 +40,6 @@ import os
 import sys
 
 import numpy as np
-
-
-def _not_ported(what: str, item) -> SystemExit:
-    return SystemExit(f"epnn_tpu_torch: {what} is not ported yet (ROADMAP "
-                      f"queue 1 item {item})")
 
 
 def platform_device():
@@ -94,10 +94,6 @@ def cmd_train(args):
     from epnn_tpu_torch.data import load_directory
     from epnn_tpu_torch.train import TrainConfig, train
 
-    if args.multihost:
-        raise _not_ported("train --multihost", "11b")
-    if args.data_parallel:
-        raise _not_ported("train --data-parallel", "11b")
     cfg = _model_config(args)
     mols = [m for m in load_directory(args.data) if m.labels is not None]
     print(f"{len(mols)} labeled systems from {args.data}")
@@ -147,9 +143,42 @@ def cmd_train(args):
     )
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-    res = train(mols, cfg, tc, val_mols=val_mols, device=args.device)
+    device_type = "cpu" if args.device == "cpu" else None
+    mesh = None
+    if args.multihost:
+        import dataclasses
+
+        import torch.distributed as dist
+
+        from epnn_tpu_torch.parallel import (
+            initialize_distributed,
+            is_coordinator,
+            make_multihost_mesh,
+        )
+
+        initialize_distributed(device_type=device_type)
+        mesh = make_multihost_mesh(device_type=device_type)
+        print(f"multi-host mesh over {_mesh_shape(mesh)} "
+              f"({dist.get_world_size()} processes, this is process "
+              f"{dist.get_rank()})")
+        if not is_coordinator():
+            # the other ranks run the same steps but write no files
+            tc = dataclasses.replace(tc, checkpoint_dir=None, log_path=None,
+                                     tensorboard_dir=None)
+    elif args.data_parallel:
+        from epnn_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh(device_type=device_type)
+        print(f"data-parallel over {_mesh_shape(mesh)} mesh")
+    res = train(mols, cfg, tc, val_mols=val_mols, mesh=mesh,
+                device=args.device)
     print(f"best val masked MAE: {res.best_val_masked_mae:.5f} e "
           f"(padded-metric equivalent: {res.best_val_padded_mae:.5f} e)")
+
+
+def _mesh_shape(mesh) -> dict:
+    """``{axis: size}`` of a mesh, as JAX prints ``mesh.shape``."""
+    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
 
 
 def _make_predictor(args, **kw):
@@ -437,11 +466,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="buckets padded wider than this train through the "
                         "blockwise fused path (no dense pair tensors)")
     p.add_argument("--data-parallel", action="store_true",
-                   help="data-parallel training (ROADMAP item 11b: not "
-                        "ported yet, exits)")
+                   help="data-parallel training over the world of "
+                        "processes torchrun started (one a device)")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-host training (ROADMAP item 11b: not "
-                        "ported yet, exits)")
+                   help="join the torch.distributed world (coordinator, "
+                        "process count and rank from EPNN_COORDINATOR / "
+                        "EPNN_NUM_PROCESSES / EPNN_PROCESS_ID or "
+                        "torchrun's variables) and train data-parallel "
+                        "over the global mesh; only rank 0 writes the "
+                        "checkpoints and logs")
     p.add_argument("--no-collapse-round1", action="store_true",
                    help="disable the round-1 far-field collapse on fused "
                         "buckets (auto-verified per bucket; this flag pins "

@@ -161,15 +161,14 @@ def weighted_kmeans_sharded(rows: torch.Tensor, weights: torch.Tensor,
     radius ``pmax``-ed, so the centroids follow the single-rank fit up to
     the order of the sums.  The fit runs in float32 (JAX's HIGHEST), a
     fixed sequence of launches and collectives: repeated calls give the
-    same bits.  ``differentiable=True`` (the clustered training tier's
-    VJP through the collectives) is training on the mesh, ROADMAP item
-    11b, and raises here."""
+    same bits.  ``differentiable=True``: as :func:`weighted_kmeans`'s, the
+    returned centroids are the weighted means of the differentiable rows
+    under the final (stop-gradient) assignment, the partial sums
+    ``psum``-ed, whose VJP is a ``psum``: each rank's rows get ``w_j /
+    W_c`` of the whole axis's cotangent of their centroid.  The radius
+    is then ``pmax``-ed from ‖r − c[assign]‖², without gradient."""
     from epnn_tpu_torch.parallel import _collectives as C
 
-    if differentiable:
-        raise NotImplementedError(
-            "weighted_kmeans_sharded(differentiable=True) is the training "
-            "tier on the mesh (ROADMAP item 11b), not ported yet")
     group = axis_name.get_group() if hasattr(axis_name, "get_group") \
         else axis_name
     nd = rows.shape[0]
@@ -207,6 +206,14 @@ def weighted_kmeans_sharded(rows: torch.Tensor, weights: torch.Tensor,
     wo = (assign[:, None] == clusters[None, :]).to(torch.float32) \
         * w32[:, None]
     wts = C.psum(wo.sum(0), group)
+    if differentiable:
+        sums = C.psum(wo.T @ rows.to(torch.float32), group)
+        cent = torch.where((wts > 0)[:, None],
+                           sums / torch.clamp(wts, min=1e-30)[:, None], cent)
+        d2 = ((r32 - cent.detach()[assign]) ** 2).sum(1)
+        d2 = torch.where(valid, d2, 0.0)
+        return cent, wts, torch.sqrt(C.pmax(d2.amax() if nd
+                                            else d2.new_zeros(()), group))
     d2 = score.gather(1, assign[:, None])[:, 0] + rn2
     d2 = torch.where(valid, torch.clamp(d2, min=0.0), 0.0)
     radius = torch.sqrt(C.pmax(d2.amax() if nd else d2.new_zeros(()),

@@ -1,9 +1,13 @@
-"""Multi-device serving over ``torch.distributed`` (counterpart of
-``epnn_tpu/parallel``): meshes, the atom-sharded and ring-sharded
-forwards (:mod:`~epnn_tpu_torch.parallel.atom_shard`,
-:mod:`~epnn_tpu_torch.parallel.ring_shard`).  Importing it starts no
-process group."""
+"""Multi-device serving and training over ``torch.distributed``
+(counterpart of ``epnn_tpu/parallel``): meshes, the atom-sharded and
+ring-sharded forwards (:mod:`~epnn_tpu_torch.parallel.atom_shard`,
+:mod:`~epnn_tpu_torch.parallel.ring_shard`) and the sharded train and
+eval steps.  Importing it starts no process group."""
 
+from epnn_tpu_torch.parallel.atom_shard import (
+    make_sharded_eval_step,
+    make_sharded_train_step,
+)
 from epnn_tpu_torch.parallel.multihost import (
     initialize_distributed,
     is_coordinator,
@@ -27,6 +31,8 @@ __all__ = [
     "is_coordinator",
     "make_mesh",
     "make_multihost_mesh",
+    "make_sharded_eval_step",
+    "make_sharded_train_step",
     "replicated",
     "shard_batch_args",
     "shard_state",

@@ -27,8 +27,13 @@ Two forwards:
   two near kernels on its own rows.  The port keeps its kernels on here
   as everywhere; JAX runs only the far-field kernel on this path.
 
-Forward only: the collectives carry no gradient (training on the mesh is
-ROADMAP item 11b).
+Both forwards are differentiable: the collectives' VJPs
+(:mod:`~epnn_tpu_torch.parallel._collectives`) carry the gradients back
+to the ranks that own the rows, the far field's backward kernel runs on
+each rank's R × N block, and the near kernels back-propagate through
+their plain versions, as on one device.  :func:`make_sharded_train_step`
+and :func:`make_sharded_eval_step` build JAX's sharded train and eval
+steps on them.
 """
 
 from __future__ import annotations
@@ -60,6 +65,7 @@ from epnn_tpu_torch.ops.fused import (
     _kernel_round,
     _mids,
     _padded,
+    _run,
     _window_rows,
     block_neighbor_select,
     dense_message_rowsum_bf16x3_plain,
@@ -185,9 +191,13 @@ def _select_rows(xyz_f, mask_f, r0: int, r: int, cutoff: float, k: int):
 def _rows_forward(fused: FusedParams, x_f, q0_f, xyz_f, mask_f,
                   cfg: EPNNConfig, group, k: int, nbr_rows, uniform_q0: bool,
                   int8: bool, far_cluster: int, far_cluster_grad: bool,
-                  near_row_chunk: int, near_window: int) -> Tensor:
+                  near_row_chunk: int, near_window: int,
+                  remat: bool = False) -> Tensor:
     """One graph on this rank: its R rows against all N atoms, the state
-    all-gathered over ``group`` every round.  Returns the (N,) charges."""
+    all-gathered over ``group`` every round.  Returns the (N,) charges.
+    ``remat``: each round's row computation, and each row chunk's near
+    body, under ``torch.utils.checkpoint`` (the all-gathers stay outside,
+    so a recomputed segment issues no collective)."""
     n = x_f.shape[0]
     d = C.size(group)
     r = n // d
@@ -222,9 +232,10 @@ def _rows_forward(fused: FusedParams, x_f, q0_f, xyz_f, mask_f,
                 (0.5 * (gate * gathers[i][1])).contiguous())
 
     resident = [features(0)] if near_row_chunk <= 0 else None
+    run, run_block = _run(remat), _run(remat and near_row_chunk > 0)
 
     def near_blocks(body, *args):
-        outs = [body(i, *args) for i in range(len(chunks))]
+        outs = [run_block(body, i, *args) for i in range(len(chunks))]
         return outs[0] if len(outs) == 1 else torch.cat(outs)
 
     def near_message(i, pi_rows, pj, w):
@@ -255,9 +266,8 @@ def _rows_forward(fused: FusedParams, x_f, q0_f, xyz_f, mask_f,
     nm = mask_rows[:, None]
     iters = int(os.environ.get("EPNN_FAR_CLUSTER_ITERS", "8"))
 
-    h_f = x_f.new_zeros((n, cfg.h_dim))
-    q_f = q0_f
-    for t, w in enumerate(fused.messages):
+    def message_round(t, h_f, q_f):
+        w = fused.messages[t]
         a = _atom_inputs(x_f, h_f, q_f)
         pi_f = (a @ w.w1_i + w.b1).contiguous()
         pj_f = (a @ w.w1_j).contiguous()
@@ -278,15 +288,21 @@ def _rows_forward(fused: FusedParams, x_f, q0_f, xyz_f, mask_f,
         hsum = dense_sum + near_blocks(near_message, pi_rows, pj_f, w)
         messages = hsum @ w.w_out + msg_count[:, None] * w.b_out
         upd_in = torch.cat([h_f[rows], messages], dim=-1) * nm
-        h_rows = _apply_mlp(fused.update, upd_in) * nm
-        h_f = C.all_gather(h_rows.contiguous(), group)
+        return (_apply_mlp(fused.update, upd_in) * nm).contiguous()
 
-    for w in fused.passes:
+    def pass_round(t, h_f, q_f):
+        w = fused.passes[t]
         a = _atom_inputs(x_f, h_f, q_f).to(w.w1_i.dtype)
         rs = torch.cat([a @ w.w1_i + w.b1, a @ w.w1_j], dim=-1)
         dsum = near_blocks(near_pass, rs, w)
-        q_rows = q_f[rows] + (dsum @ w.w_out)[:, 0]
-        q_f = C.all_gather(q_rows.contiguous(), group)
+        return (q_f[rows] + (dsum @ w.w_out)[:, 0]).contiguous()
+
+    h_f = x_f.new_zeros((n, cfg.h_dim))
+    q_f = q0_f
+    for t in range(len(fused.messages)):
+        h_f = C.all_gather(run(message_round, t, h_f, q_f), group)
+    for t in range(len(fused.passes)):
+        q_f = C.all_gather(run(pass_round, t, h_f, q_f), group)
     return q_f * mask_f
 
 
@@ -336,8 +352,12 @@ def forward_atom_sharded_nbr_batch(
     rank's rows — chunks restart at each rank's row origin, and the
     window slices the global projection tables (a safe width is the
     largest of ``neighbor_window_width`` over the ranks' row slices).
-    ``remat`` is accepted and has no effect: this forward carries no
-    gradient.  ``k`` must bound every row's neighbor count
+    ``remat``: when autograd records, each round (and each row chunk's
+    near body) runs under ``torch.utils.checkpoint``, the backward
+    recomputing it; the all-gathers stay outside the checkpoints.  The
+    gradients reach every rank's own rows through the all-gathers' VJPs
+    (:mod:`~epnn_tpu_torch.parallel._collectives`).  ``k`` must bound
+    every row's neighbor count
     (:func:`~epnn_tpu_torch.ops.fused.max_neighbor_count`)."""
     b, n = x.shape[:2]
     _check_shape(b, n, mesh)
@@ -370,15 +390,14 @@ def forward_atom_sharded_nbr_batch(
     r = n // axis_size(mesh, ATOM_AXIS)
     r0 = C.index(group) * r
     outs = []
-    with torch.no_grad():
-        for g in range(b)[local_batch(mesh, b)]:
-            nb = None if neighbors is None else tuple(
-                a[g, r0:r0 + r] for a in neighbors)
-            outs.append(_rows_forward(
-                fused, x[g], q0[g], xyz[g], node_mask[g], cfg, group, k, nb,
-                uniform_q0, int8, far_cluster, far_cluster_grad,
-                near_row_chunk, near_window))
-        return gather_batch(torch.stack(outs), mesh)
+    for g in range(b)[local_batch(mesh, b)]:
+        nb = None if neighbors is None else tuple(
+            a[g, r0:r0 + r] for a in neighbors)
+        outs.append(_rows_forward(
+            fused, x[g], q0[g], xyz[g], node_mask[g], cfg, group, k, nb,
+            uniform_q0, int8, far_cluster, far_cluster_grad,
+            near_row_chunk, near_window, remat))
+    return gather_batch(torch.stack(outs), mesh)
 
 
 def _dense_rows_forward(fused: FusedParams, x, q0, xyz, node_mask,
@@ -440,18 +459,18 @@ def forward_atom_sharded_batch(
     py:84``): the batch over ``data``, each graph's pair-grid rows over
     ``atoms``.  Plain PyTorch, any MLP depth, the dense model's pair terms
     (JAX runs no Pallas call here).  Called on every rank with the whole
-    batch; returns the whole (B, N) charges on every rank."""
+    batch; returns the whole (B, N) charges on every rank, differentiable
+    in ``fused``."""
     b, n = x.shape[:2]
     _check_shape(b, n, mesh)
     device = mesh_device(mesh)
     x, q0, xyz, node_mask = (_as_device(a, device)
                              for a in (x, q0, xyz, node_mask))
     group = mesh.get_group(ATOM_AXIS)
-    with torch.no_grad():
-        outs = [_dense_rows_forward(fused, x[g], q0[g], xyz[g],
-                                    node_mask[g], cfg, group)
-                for g in range(b)[local_batch(mesh, b)]]
-        return gather_batch(torch.stack(outs), mesh)
+    outs = [_dense_rows_forward(fused, x[g], q0[g], xyz[g], node_mask[g],
+                                cfg, group)
+            for g in range(b)[local_batch(mesh, b)]]
+    return gather_batch(torch.stack(outs), mesh)
 
 
 def forward_atom_sharded(
@@ -469,3 +488,143 @@ def forward_atom_sharded(
         fused, torch.as_tensor(x)[None], torch.as_tensor(q0)[None],
         torch.as_tensor(xyz)[None], torch.as_tensor(node_mask)[None], cfg,
         mesh)[0]
+
+
+def _sharded_forward(fused, x, q0, xyz, node_mask, cfg, mesh, neighbor_k,
+                     use_pallas, shard_mode, neighbors, **kw):
+    """The step builders' forward: the ring (``shard_mode='ring'``), the
+    atom-sharded neighbor split (``neighbor_k`` given), or the dense row
+    blocks."""
+    if shard_mode == "ring":
+        from epnn_tpu_torch.parallel.ring_shard import (
+            forward_ring_sharded_nbr_batch)
+
+        return forward_ring_sharded_nbr_batch(
+            fused, x, q0, xyz, node_mask, cfg, mesh, k_blk=neighbor_k,
+            use_pallas=use_pallas, neighbors=neighbors, **kw)
+    if neighbor_k is not None:
+        return forward_atom_sharded_nbr_batch(
+            fused, x, q0, xyz, node_mask, cfg, mesh, k=neighbor_k,
+            use_pallas=use_pallas, neighbors=neighbors, **kw)
+    if neighbors is not None:
+        raise ValueError("precomputed neighbors require neighbor_k")
+    return forward_atom_sharded_batch(fused, x, q0, xyz, node_mask, cfg,
+                                      mesh)
+
+
+def make_sharded_train_step(cfg: EPNNConfig, opt, mesh,
+                            loss_name: str = "masked_mse",
+                            neighbor_k: Optional[int] = None,
+                            use_pallas: bool = False,
+                            shard_mode: str = "atom",
+                            uniform_q0: bool = False,
+                            far_cluster: int = 0,
+                            far_cluster_grad: bool = False,
+                            remat: bool = True,
+                            near_row_chunk: int = 0,
+                            near_window: int = 0):
+    """A training step whose forward and backward run sharded over
+    ``mesh`` (JAX ``atom_shard.py:764``, its parameters in JAX's order and
+    defaults): trains on graphs whose pair grid does not fit one device.
+    Returns ``step(state, x, q0, xyz, node_mask, y, weight,
+    neighbors=None) -> (state, loss, pred, mae_sums)``, the contract of
+    :func:`epnn_tpu_torch.train.train_step`, called on every rank of the
+    mesh with the whole batch (arrays or tensors) and the replicated
+    :class:`~epnn_tpu_torch.train.TrainState`; it updates the state in
+    place.  ``opt``: an optimizer over the state's leaves, ``None`` for
+    the state's own.
+
+    The forward is :func:`forward_atom_sharded_batch` (``neighbor_k``
+    None: dense row blocks), :func:`forward_atom_sharded_nbr_batch`
+    (``neighbor_k``: the neighbor split with its kernels on each rank's
+    rows) or, with ``shard_mode='ring'`` (requires ``neighbor_k``),
+    :func:`~epnn_tpu_torch.parallel.ring_shard.
+    forward_ring_sharded_nbr_batch`; ``uniform_q0``, ``far_cluster`` /
+    ``far_cluster_grad`` (require ``neighbor_k``), ``remat`` and
+    ``near_row_chunk`` / ``near_window`` (atom mode; chunks require
+    ``remat``) are theirs.  Every rank computes the whole batch's loss
+    from the gathered charges; the gradients come back to each rank's
+    rows through the collectives' VJPs and are summed over the mesh
+    before the update (:func:`epnn_tpu_torch.train.loop._apply`), so the
+    parameters stay replicated bit for bit."""
+    from epnn_tpu_torch.ops.fused import fuse_params
+    from epnn_tpu_torch.train import metrics as M
+    from epnn_tpu_torch.train.loop import _apply
+
+    if shard_mode == "ring" and neighbor_k is None:
+        raise ValueError("shard_mode='ring' requires neighbor_k")
+    if far_cluster and neighbor_k is None:
+        raise ValueError("far_cluster requires neighbor_k")
+    if near_row_chunk and neighbor_k is None:
+        raise ValueError("near_row_chunk requires neighbor_k")
+    if near_row_chunk and shard_mode == "ring":
+        raise ValueError("near_row_chunk applies to the atom-sharded "
+                         "neighbor-split step only (ring circulates "
+                         "blocks already)")
+    if near_row_chunk and not remat:
+        raise ValueError("near_row_chunk training requires remat=True "
+                         "(the chunk body is checkpointed so the backward "
+                         "recomputes chunk by chunk)")
+    if near_window and not near_row_chunk:
+        raise ValueError("near_window requires near_row_chunk")
+    device = mesh_device(mesh)
+    nbr_kw = dict(remat=remat, uniform_q0=uniform_q0,
+                  far_cluster=far_cluster, far_cluster_grad=far_cluster_grad)
+    if shard_mode != "ring":
+        nbr_kw.update(near_row_chunk=near_row_chunk, near_window=near_window)
+
+    def step(state, x, q0, xyz, node_mask, y, weight, neighbors=None):
+        y, node_mask, weight = (_as_device(a, device)
+                                for a in (y, node_mask, weight))
+        pred = _sharded_forward(
+            fuse_params(state.params, cfg, device), x, q0, xyz, node_mask,
+            cfg, mesh, neighbor_k, use_pallas, shard_mode, neighbors,
+            **(nbr_kw if neighbor_k is not None else {}))
+        loss = M.LOSSES[loss_name](pred, y, node_mask, weight)
+        _apply(state, loss, opt, mesh=mesh)
+        pred = pred.detach()
+        return (state, loss.detach(), pred,
+                M.mae_sums(pred, y, node_mask, weight))
+
+    return step
+
+
+def make_sharded_eval_step(cfg: EPNNConfig, mesh,
+                           loss_name: str = "masked_mse",
+                           neighbor_k: Optional[int] = None,
+                           use_pallas: bool = False,
+                           shard_mode: str = "atom",
+                           uniform_q0: bool = False,
+                           near_row_chunk: int = 0,
+                           near_window: int = 0):
+    """The eval twin of :func:`make_sharded_train_step` (JAX
+    ``atom_shard.py:884``): ``step(params, x, q0, xyz, node_mask, y,
+    weight, neighbors=None) -> (loss, pred, mae_sums)`` of the exact
+    sharded forward, without a graph (the chunk and window levers need no
+    remat here)."""
+    from epnn_tpu_torch.ops.fused import fuse_params
+    from epnn_tpu_torch.train import metrics as M
+
+    if shard_mode == "ring" and neighbor_k is None:
+        raise ValueError("shard_mode='ring' requires neighbor_k")
+    if near_row_chunk and neighbor_k is None:
+        raise ValueError("near_row_chunk requires neighbor_k")
+    if near_window and not near_row_chunk:
+        raise ValueError("near_window requires near_row_chunk")
+    device = mesh_device(mesh)
+    nbr_kw = dict(uniform_q0=uniform_q0)
+    if shard_mode != "ring":
+        nbr_kw.update(near_row_chunk=near_row_chunk, near_window=near_window)
+
+    @torch.no_grad()
+    def step(params, x, q0, xyz, node_mask, y, weight, neighbors=None):
+        y, node_mask, weight = (_as_device(a, device)
+                                for a in (y, node_mask, weight))
+        pred = _sharded_forward(
+            fuse_params(params, cfg, device), x, q0, xyz, node_mask, cfg,
+            mesh, neighbor_k, use_pallas, shard_mode, neighbors,
+            **(nbr_kw if neighbor_k is not None else {}))
+        loss = M.LOSSES[loss_name](pred, y, node_mask, weight)
+        return loss, pred, M.mae_sums(pred, y, node_mask, weight)
+
+    return step

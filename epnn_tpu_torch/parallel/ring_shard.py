@@ -16,8 +16,11 @@ exact negations.  The diagonal is told apart by the global offsets of
 the blocks, known from each ring step's place.
 
 Called on every rank of the mesh with the whole batch, each rank slices
-its own block; every rank gets the whole (B, N) charges back.  Forward
-only (training on the mesh is ROADMAP item 11b).
+its own block; every rank gets the whole (B, N) charges back.  Both
+forwards are differentiable: a ring step's cotangents ride the reverse
+ring back to the block's owner (``ppermute``'s VJP,
+:mod:`~epnn_tpu_torch.parallel._collectives`), and each step's far field
+back-propagates through the far-field backward kernel at N/D × N/D.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from epnn_tpu_torch.ops.fused import (
     _kernel_round,
     _mids,
     _padded,
+    _run,
     block_neighbor_select,
     rbf_and_gate,
     round1_counts,
@@ -112,59 +116,60 @@ def forward_ring_sharded(
                 blk = C.ppermute(blk, group)
         return acc
 
-    with torch.no_grad():
-        h_d = x.new_zeros((nd, cfg.h_dim))
-        for w in fused.messages:
-            a = _atom_inputs(x_d, h_d, q_d)
-            pi = a @ w.w1_i + w.b1
-            pj = a @ w.w1_j
+    h_d = x.new_zeros((nd, cfg.h_dim))
+    for w in fused.messages:
+        a = _atom_inputs(x_d, h_d, q_d)
+        pi = a @ w.w1_i + w.b1
+        pj = a @ w.w1_j
 
-            def msg_step(acc, blk):
-                xyz_j, pj_j, mask_j, gidx_j = blk
-                same = gidx_d[:, None] == gidx_j[None, :]
-                valid = mask_d[:, None] * mask_j[None, :]
-                rbf, _ = _pair_terms(xyz_d, xyz_j, same, valid, cfg)
-                hid = _mids(torch.relu((pi[:, None, :] + pj_j[None, :, :])
-                                       + rbf @ w.w1_e), w)
-                jvec = mask_j if cfg.mask_messages else torch.ones_like(mask_j)
-                return acc + torch.einsum("n,bnh->bh", jvec, hid)
+        def msg_step(acc, blk):
+            xyz_j, pj_j, mask_j, gidx_j = blk
+            same = gidx_d[:, None] == gidx_j[None, :]
+            valid = mask_d[:, None] * mask_j[None, :]
+            rbf, _ = _pair_terms(xyz_d, xyz_j, same, valid, cfg)
+            hid = _mids(torch.relu((pi[:, None, :] + pj_j[None, :, :])
+                                   + rbf @ w.w1_e), w)
+            jvec = mask_j if cfg.mask_messages else torch.ones_like(mask_j)
+            return acc + torch.einsum("n,bnh->bh", jvec, hid)
 
-            hsum = ring(x.new_zeros((nd, w.w_out.shape[0])),
-                        (xyz_d, pj, mask_d, gidx_d), msg_step)
-            messages = hsum @ w.w_out + msg_count[:, None] * w.b_out
-            upd_in = torch.cat([h_d, messages], dim=-1) * nm
-            h_d = _apply_mlp(fused.update, upd_in) * nm
-        for w in fused.passes:
-            a = _atom_inputs(x_d, h_d, q_d)
-            pi = a @ w.w1_i + w.b1
-            pj = a @ w.w1_j
+        hsum = ring(x.new_zeros((nd, w.w_out.shape[0])),
+                    (xyz_d, pj, mask_d, gidx_d), msg_step)
+        messages = hsum @ w.w_out + msg_count[:, None] * w.b_out
+        upd_in = torch.cat([h_d, messages], dim=-1) * nm
+        h_d = _apply_mlp(fused.update, upd_in) * nm
+    for w in fused.passes:
+        a = _atom_inputs(x_d, h_d, q_d)
+        pi = a @ w.w1_i + w.b1
+        pj = a @ w.w1_j
 
-            def pass_step(acc, blk):
-                xyz_j, pi_j, pj_j, mask_j, gidx_j = blk
-                same = gidx_d[:, None] == gidx_j[None, :]
-                valid = mask_d[:, None] * mask_j[None, :]
-                rbf, gate = _pair_terms(xyz_d, xyz_j, same, valid, cfg)
-                epart = rbf @ w.w1_e
-                hid_n = _mids(torch.relu((pi[:, None, :] + pj_j[None, :, :])
-                                         + epart), w)
-                hid_t = _mids(torch.relu((pi_j[None, :, :] + pj[:, None, :])
-                                         + epart), w)
-                weight = gate * valid
-                return acc + torch.sum(
-                    0.5 * weight[:, :, None] * (hid_n - hid_t), dim=1)
+        def pass_step(acc, blk):
+            xyz_j, pi_j, pj_j, mask_j, gidx_j = blk
+            same = gidx_d[:, None] == gidx_j[None, :]
+            valid = mask_d[:, None] * mask_j[None, :]
+            rbf, gate = _pair_terms(xyz_d, xyz_j, same, valid, cfg)
+            epart = rbf @ w.w1_e
+            hid_n = _mids(torch.relu((pi[:, None, :] + pj_j[None, :, :])
+                                     + epart), w)
+            hid_t = _mids(torch.relu((pi_j[None, :, :] + pj[:, None, :])
+                                     + epart), w)
+            weight = gate * valid
+            return acc + torch.sum(
+                0.5 * weight[:, :, None] * (hid_n - hid_t), dim=1)
 
-            dsum = ring(x.new_zeros((nd, w.w_out.shape[0])),
-                        (xyz_d, pi, pj, mask_d, gidx_d), pass_step)
-            q_d = q_d + (dsum @ w.w_out)[:, 0]
-        return C.all_gather((q_d * mask_d).contiguous(), group)
+        dsum = ring(x.new_zeros((nd, w.w_out.shape[0])),
+                    (xyz_d, pi, pj, mask_d, gidx_d), pass_step)
+        q_d = q_d + (dsum @ w.w_out)[:, 0]
+    return C.all_gather((q_d * mask_d).contiguous(), group)
 
 
 def _ring_rows_forward(fused: FusedParams, x_d, q0_d, xyz_d, mask_d,
                        cfg: EPNNConfig, group, n: int, k_blk: int, nbr_rows,
                        uniform_q0: bool, int8: bool, far_cluster: int,
-                       far_cluster_grad: bool) -> Tensor:
+                       far_cluster_grad: bool, remat: bool = False) -> Tensor:
     """One graph's block on this rank (nd rows), D ring steps a round.
-    Returns the block's (nd,) charges."""
+    Returns the block's (nd,) charges.  ``remat``: each round under
+    ``torch.utils.checkpoint``; its recomputation re-issues the round's
+    ring exchanges, on every rank at the same point of the backward."""
     d = C.size(group)
     nd = x_d.shape[0]
     my_start = C.index(group) * nd
@@ -233,9 +238,8 @@ def _ring_rows_forward(fused: FusedParams, x_d, q0_d, xyz_d, mask_d,
     nm = mask_d[:, None]
     iters = int(os.environ.get("EPNN_FAR_CLUSTER_ITERS", "8"))
 
-    h_d = x_d.new_zeros((nd, cfg.h_dim))
-    q_d = q0_d
-    for t, w in enumerate(fused.messages):
+    def message_round(t, h_d, q_d):
+        w = fused.messages[t]
         a = _atom_inputs(x_d, h_d, q_d)
         pi = (a @ w.w1_i + w.b1).contiguous()
         pj = (a @ w.w1_j).contiguous()
@@ -271,9 +275,10 @@ def _ring_rows_forward(fused: FusedParams, x_d, q0_d, xyz_d, mask_d,
                 blk = C.ppermute(blk, group)
         messages = acc @ w.w_out + msg_count[:, None] * w.b_out
         upd_in = torch.cat([h_d, messages], dim=-1) * nm
-        h_d = _apply_mlp(fused.update, upd_in) * nm
+        return _apply_mlp(fused.update, upd_in) * nm
 
-    for w in fused.passes:
+    def pass_round(t, h_d, q_d):
+        w = fused.passes[t]
         a = _atom_inputs(x_d, h_d, q_d).to(w.w1_i.dtype)
         rs = torch.cat([a @ w.w1_i + w.b1, a @ w.w1_j], dim=-1).contiguous()
         acc = rs.new_zeros((nd, rs.shape[-1] // 2))
@@ -288,7 +293,15 @@ def _ring_rows_forward(fused: FusedParams, x_d, q0_d, xyz_d, mask_d,
                 else kernels.near_pass_rowsum_plain(*args))
             if i + 1 < d:
                 blk = C.ppermute(blk, group)
-        q_d = q_d + (acc @ w.w_out)[:, 0]
+        return q_d + (acc @ w.w_out)[:, 0]
+
+    run = _run(remat)
+    h_d = x_d.new_zeros((nd, cfg.h_dim))
+    q_d = q0_d
+    for t in range(len(fused.messages)):
+        h_d = run(message_round, t, h_d, q_d)
+    for t in range(len(fused.passes)):
+        q_d = run(pass_round, t, h_d, q_d)
     return q_d * mask_d
 
 
@@ -336,9 +349,10 @@ def forward_ring_sharded_nbr_batch(
     tier through the distributed fit
     (:func:`~epnn_tpu_torch.ops.cluster.weighted_kmeans_sharded`), its
     far field R × C on each rank and only the near field in the ring.
-    ``remat`` is accepted and has no effect (no gradient);
-    ``far_cluster_grad=True`` raises (training on the mesh, ROADMAP item
-    11b)."""
+    ``far_cluster_grad``: the distributed fit's differentiable mode, its
+    final half Lloyd step ``psum``-ed over the differentiable rows (the
+    training tier's exact VJP).  ``remat``: when autograd records, each
+    round runs under ``torch.utils.checkpoint``."""
     b, n = x.shape[:2]
     _check_shape(b, n, mesh)
     nd = n // axis_size(mesh, ATOM_AXIS)
@@ -374,13 +388,12 @@ def forward_ring_sharded_nbr_batch(
     group = mesh.get_group(ATOM_AXIS)
     own = slice(C.index(group) * nd, (C.index(group) + 1) * nd)
     outs = []
-    with torch.no_grad():
-        for g in range(b)[local_batch(mesh, b)]:
-            nb = None if neighbors is None else tuple(
-                a[g, own] for a in neighbors)
-            q_d = _ring_rows_forward(
-                fused, x[g, own], q0[g, own], xyz[g, own].contiguous(),
-                node_mask[g, own], cfg, group, n, k_blk, nb, uniform_q0,
-                int8, far_cluster, far_cluster_grad)
-            outs.append(C.all_gather(q_d.contiguous(), group))
-        return gather_batch(torch.stack(outs), mesh)
+    for g in range(b)[local_batch(mesh, b)]:
+        nb = None if neighbors is None else tuple(
+            a[g, own] for a in neighbors)
+        q_d = _ring_rows_forward(
+            fused, x[g, own], q0[g, own], xyz[g, own].contiguous(),
+            node_mask[g, own], cfg, group, n, k_blk, nb, uniform_q0,
+            int8, far_cluster, far_cluster_grad, remat)
+        outs.append(C.all_gather(q_d.contiguous(), group))
+    return gather_batch(torch.stack(outs), mesh)

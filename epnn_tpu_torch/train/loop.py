@@ -37,8 +37,16 @@ non-finite loss or gradient (JAX's ``jax_debug_nans`` stops at the
 operation that made it: a departure).
 
 ``train`` runs on the first CUDA card unless it is given ``device="cpu"``;
-without a card it raises.  ``train(mesh=...)``, the multi-device trainer,
-raises ``NotImplementedError`` naming its ROADMAP item.
+without a card it raises.  ``train(mesh=...)`` trains on a device mesh
+(:func:`epnn_tpu_torch.parallel.make_mesh`, one process a rank, every
+rank calling it with the same molecules): each ``data`` coordinate trains
+its block of every minibatch (:func:`data_parallel_train_step`), buckets
+wider than ``dense_max_atoms`` go through the atom-sharded step when the
+``atoms`` axis is longer than 1 and divides their width
+(:func:`~epnn_tpu_torch.parallel.atom_shard.make_sharded_train_step`), the
+loss is the global batch's and the gradients are summed over the mesh
+before clipping and Adam, so the parameters stay equal on every rank bit
+for bit.
 """
 
 from __future__ import annotations
@@ -387,21 +395,34 @@ def _loss_fused(params, cfg, loss_name, block, neighbor_k, use_pallas, x,
     return M.LOSSES[loss_name](pred, y, node_mask, weight), pred
 
 
-def _apply(state: TrainState, loss: Tensor, opt=None) -> None:
+def _apply(state: TrainState, loss: Tensor, opt=None, mesh=None) -> None:
     """One optimizer step (``opt``, default the state's own).  A leaf the
     loss does not reach (the pass MLPs' output bias cancels in f_ij −
     f_ji) gets a zero gradient, as under JAX, so its moments decay and
     every leaf's step count stays the global one.  Under ``debug_nans``
     of the stepping optimizer's config (the state's where ``opt`` has
     none) a non-finite loss or gradient raises ``FloatingPointError``
-    before the update (one host sync a step)."""
+    before the update (one host sync a step).
+
+    ``mesh``: ``loss`` is the global batch's, computed alike on every rank
+    of the mesh from charges gathered through the collectives, whose VJPs
+    sum the ranks' cotangents: each rank back-propagates 1/(ranks) of it,
+    and the gradients are then summed over the mesh, so every rank steps
+    with the whole batch's gradient, the same bits everywhere."""
     opt = state.opt if opt is None else opt
     opt.zero_grad(set_to_none=True)
-    loss.backward()
+    if mesh is None:
+        loss.backward()
+    else:
+        loss.backward(torch.full_like(loss, 1.0 / mesh.size()))
     leaves = tree_leaves(state.params)
     for p in leaves:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    if mesh is not None:
+        from epnn_tpu_torch.parallel._collectives import mesh_sum_
+
+        mesh_sum_([p.grad for p in leaves], mesh)
     if getattr(opt, "tc", state.opt.tc).debug_nans:
         for what, ok in (("loss", torch.isfinite(loss).all()),
                          ("gradient", torch.stack([
@@ -478,6 +499,71 @@ def eval_step_fused(params: dict, cfg: EPNNConfig, loss_name: str,
                              nbr_tables=nbr_tables, nbr_rows=nbr_rows,
                              near_row_chunk=near_row_chunk,
                              near_window=near_window)
+    return loss, pred, M.mae_sums(pred, y, node_mask, weight)
+
+
+def _data_parallel_loss(params, cfg: EPNNConfig, loss_name: str, mesh,
+                        x, q0, xyz, node_mask, y, weight, neighbor_k, block,
+                        neighbors, fused_kw):
+    """The global batch's loss and charges on a mesh: this rank's
+    ``data`` block through the dense model (``neighbor_k`` None) or the
+    blocked forward, the blocks' charges all-gathered (differentiable),
+    the loss of the whole batch."""
+    from epnn_tpu_torch.parallel.atom_shard import gather_batch, local_batch
+    from epnn_tpu_torch.parallel.sharding import DATA_AXIS, axis_size
+
+    if x.shape[0] % axis_size(mesh, DATA_AXIS):
+        raise ValueError(f"batch dim {x.shape[0]} not divisible by data "
+                         f"axis {axis_size(mesh, DATA_AXIS)}")
+    mine = local_batch(mesh, x.shape[0])
+    if neighbors is not None:
+        neighbors = tuple(t[mine] for t in neighbors)
+    local = (x[mine], q0[mine], xyz[mine], node_mask[mine])
+    if neighbor_k is None:
+        _, pred = _loss_dense(params, cfg, loss_name, *local, y[mine],
+                              weight[mine])
+    else:
+        _, pred = _loss_fused(params, cfg, loss_name, block, neighbor_k,
+                              False, *local, y[mine], weight[mine],
+                              neighbors=neighbors, **fused_kw)
+    pred = gather_batch(pred.contiguous(), mesh)
+    return M.LOSSES[loss_name](pred, y, node_mask, weight), pred
+
+
+def data_parallel_train_step(state: TrainState, cfg: EPNNConfig,
+                             loss_name: str, opt, mesh, x, q0, xyz,
+                             node_mask, y, weight, neighbor_k=None,
+                             block: int = 256, neighbors=None, **fused_kw):
+    """One data-parallel update in place, the mesh twin of
+    :func:`train_step` (``neighbor_k`` None) and :func:`train_step_fused`
+    (``fused_kw``: its ``uniform_q0``, ``far_cluster``, ``far_cluster_grad``,
+    ``remat``, ``near_row_chunk``, ``near_window``): called on every rank
+    of ``mesh`` with the whole batch (tensors on :func:`~epnn_tpu_torch.
+    parallel.sharding.mesh_device`, B a multiple of the ``data`` axis)
+    and the replicated state.  Each ``data`` coordinate runs its B/n_data
+    molecules (every rank along ``atoms`` alike), the charges are
+    all-gathered, and the loss, the metric sums and the gradients are
+    the whole batch's (:func:`_apply` with ``mesh``).  Returns ``(state,
+    loss, pred, mets)``, the same on every rank."""
+    loss, pred = _data_parallel_loss(state.params, cfg, loss_name, mesh, x,
+                                     q0, xyz, node_mask, y, weight,
+                                     neighbor_k, block, neighbors, fused_kw)
+    _apply(state, loss, opt, mesh=mesh)
+    pred = pred.detach()
+    return state, loss.detach(), pred, M.mae_sums(pred, y, node_mask, weight)
+
+
+@torch.no_grad()
+def data_parallel_eval_step(params: dict, cfg: EPNNConfig, loss_name: str,
+                            mesh, x, q0, xyz, node_mask, y, weight,
+                            neighbor_k=None, block: int = 256,
+                            neighbors=None, **fused_kw):
+    """Loss, charges and metric sums of the whole batch, each ``data``
+    coordinate evaluating its block (:func:`data_parallel_train_step`'s
+    arguments)."""
+    loss, pred = _data_parallel_loss(params, cfg, loss_name, mesh, x, q0,
+                                     xyz, node_mask, y, weight, neighbor_k,
+                                     block, neighbors, fused_kw)
     return loss, pred, M.mae_sums(pred, y, node_mask, weight)
 
 
@@ -612,11 +698,28 @@ def train(
 ) -> TrainResult:
     """Train an EPNN on a molecule list.  Without ``val_mols``, an 80/20
     split with ``tc.split_seed`` is used (the reference's behavior).
-    ``device``: ``None`` → the first CUDA card (raises without one)."""
+    ``device``: ``None`` → the first CUDA card (raises without one).
+
+    ``mesh``: a :class:`~torch.distributed.device_mesh.DeviceMesh` of
+    :func:`epnn_tpu_torch.parallel.make_mesh`, every rank calling
+    ``train`` alike; the run is then on :func:`~epnn_tpu_torch.parallel.
+    sharding.mesh_device` (``device`` is not read).  JAX's mesh trainer:
+    minibatches a multiple of the ``data`` axis, each ``data`` coordinate
+    training its block of them, and fused buckets whose width the
+    ``atoms`` axis (longer than 1) divides trained atom-sharded, with
+    their row chunk from the per-rank rows
+    (``bucket_chunk_sharded``).  The loss and the metrics are the global
+    batch's and the gradients are summed over the mesh, so the
+    parameters (checked alike on every rank at the start, ``shard_state``)
+    and the EMA stay equal on every rank.  Only the world's rank 0 writes
+    the checkpoints, the log and the TensorBoard scalars."""
     if mesh is not None:
-        raise NotImplementedError(
-            "train(mesh=...) is not ported yet (ROADMAP queue 1 item "
-            "11b: training on the mesh; serving on it is Predictor(mesh=...))")
+        from torch.distributed.device_mesh import DeviceMesh
+
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError("train(mesh=...) takes a DeviceMesh (see "
+                            "epnn_tpu_torch.parallel.make_mesh), got "
+                            f"{type(mesh).__name__}")
     check_supported(tc)
     if tc.near_window and tc.near_row_chunk == 0:
         raise ValueError("TrainConfig.near_window requires near_row_chunk "
@@ -627,7 +730,20 @@ def train(
             "round and chunk checkpoints the backward keeps every chunk's "
             "activations at once, so the chunking saves no memory (the -1 "
             "auto policy forces remat for the huge buckets it chunks)")
-    device = resolve_device(device, "training")
+    n_dev = n_atoms_axis = 1
+    writes = True
+    if mesh is None:
+        device = resolve_device(device, "training")
+    else:
+        import torch.distributed as dist
+
+        from epnn_tpu_torch.parallel.sharding import (ATOM_AXIS, DATA_AXIS,
+                                                      axis_size, mesh_device)
+
+        device = mesh_device(mesh)
+        n_dev = axis_size(mesh, DATA_AXIS)
+        n_atoms_axis = axis_size(mesh, ATOM_AXIS)
+        writes = dist.get_rank() == 0
 
     if val_mols is None:
         if tc.val_fraction <= 0.0:
@@ -671,8 +787,24 @@ def train(
         ch = balanced_row_chunk(pad, infer_mod.HUGE_GRAPH_ROW_CHUNK)
         return ch if 0 < ch < pad else 0
 
-    if tc.near_window > 0 and not any(bucket_chunk(pad)
-                                      for pad in train_buckets):
+    def sharded(pad: int) -> bool:
+        """Whether a fused bucket trains atom-sharded."""
+        return n_atoms_axis > 1 and pad % n_atoms_axis == 0
+
+    def bucket_chunk_sharded(pad: int) -> int:
+        """The mesh twin of :func:`bucket_chunk` (JAX's): keyed on the
+        global padded width, sized to the per-rank rows R."""
+        r_dev = max(pad // n_atoms_axis, 1)
+        if tc.near_row_chunk >= 0:
+            return tc.near_row_chunk if tc.near_row_chunk < r_dev else 0
+        if pad < infer_mod.HUGE_GRAPH_MIN_ATOMS:
+            return 0
+        ch = balanced_row_chunk(r_dev, infer_mod.HUGE_GRAPH_ROW_CHUNK)
+        return ch if 0 < ch < r_dev else 0
+
+    if tc.near_window > 0 and not any(
+            bucket_chunk_sharded(pad) if sharded(pad) else bucket_chunk(pad)
+            for pad in train_buckets):
         warnings.warn(
             "TrainConfig.near_window is set but no training bucket will "
             f"chunk (auto chunking engages at {huge} padded atoms; widest "
@@ -705,6 +837,10 @@ def train(
         # the host's mirrors (the rows' "lr" and the plateau counter)
         lr_now = float(meta.get("lr_now", lr_now))
         lr_stale = int(meta.get("lr_stale", 0))
+    if mesh is not None:
+        from epnn_tpu_torch.parallel.sharding import shard_state
+
+        shard_state(state.params, mesh)
 
     # the weights' moving average, after every step call (JAX's ema_step);
     # it validates and is what best/ holds.  Resumes from <out>/ema
@@ -748,8 +884,11 @@ def train(
     nbr_tables: Dict[int, tuple] = {}
 
     def bucket_plan(pad: int, bucket: MolBatch):
-        """(batch_size, neighbor_k or None) for one bucket."""
-        bs = min(tc.batch_size, bucket.batch_size)
+        """(batch_size, neighbor_k or None) for one bucket; on a mesh the
+        batch a multiple of the ``data`` axis, as JAX's."""
+        bs = min(tc.batch_size, round_up(bucket.batch_size, n_dev))
+        if n_dev > 1:
+            bs = max(bs - bs % n_dev, n_dev)
         if pad <= tc.dense_max_atoms:
             return bs, None
         key = id(bucket)
@@ -801,9 +940,46 @@ def train(
         # uninterrupted run would have
         return np.random.default_rng([tc.seed, epoch])
 
+    # the mesh's steps: the atom-sharded pair per (k, uniform_q0, chunk)
+    # for the buckets the atoms axis divides (JAX's ``_sh_cache``), the
+    # data-parallel ones for the rest
+    sh_cache: Dict[tuple, tuple] = {}
+
+    def sharded_steps(k: int, uq0: bool, nch: int):
+        from epnn_tpu_torch.parallel.atom_shard import (
+            make_sharded_eval_step,
+            make_sharded_train_step,
+        )
+
+        if (k, uq0, nch) not in sh_cache:
+            sh_cache[(k, uq0, nch)] = (
+                make_sharded_train_step(
+                    cfg, None, mesh, tc.loss, neighbor_k=k, uniform_q0=uq0,
+                    far_cluster=tc.far_cluster,
+                    far_cluster_grad=tc.far_cluster_grad,
+                    remat=tc.remat or nch > 0, near_row_chunk=nch,
+                    near_window=tc.near_window if nch else 0),
+                make_sharded_eval_step(
+                    cfg, mesh, tc.loss, neighbor_k=k, uniform_q0=uq0,
+                    near_row_chunk=nch,
+                    near_window=tc.near_window if nch else 0))
+        return sh_cache[(k, uq0, nch)]
+
+    def fused_kw(pad: int, bucket: MolBatch, train_kw: bool) -> dict:
+        """The blocked step's keywords for a bucket (its huge-N chunk)."""
+        nch = bucket_chunk(pad)
+        kw = dict(uniform_q0=bucket_uq0(bucket), near_row_chunk=nch,
+                  near_window=tc.near_window if nch else 0)
+        if train_kw:
+            kw.update(far_cluster=tc.far_cluster,
+                      far_cluster_grad=tc.far_cluster_grad,
+                      remat=tc.remat or nch > 0)
+        return kw
+
     history: List[Dict[str, float]] = []
-    log_f = open(tc.log_path, "a") if tc.log_path else None
-    tb = _make_tb_writer(tc.tensorboard_dir) if tc.tensorboard_dir else None
+    log_f = open(tc.log_path, "a") if tc.log_path and writes else None
+    tb = (_make_tb_writer(tc.tensorboard_dir)
+          if tc.tensorboard_dir and writes else None)
     try:
         for epoch in range(start_epoch, tc.epochs):
             t0 = time.time()
@@ -813,21 +989,28 @@ def train(
                 bs, k = bucket_plan(pad, bucket)
                 for mb, n_real, rows in minibatches(bucket, bs, rng=rng,
                                                     with_indices=True):
-                    if k is None:
+                    args = put(mb, n_real)
+                    nbrs = (None if k is None
+                            else bucket_neighbors(bucket, k, rows))
+                    if k is not None and mesh is not None and sharded(pad):
+                        step = sharded_steps(k, bucket_uq0(bucket),
+                                             bucket_chunk_sharded(pad))[0]
+                        _, loss, _, mets = step(state, *args, neighbors=nbrs)
+                    elif mesh is not None:
+                        _, loss, _, mets = data_parallel_train_step(
+                            state, cfg, tc.loss, None, mesh, *args,
+                            neighbor_k=k, block=min(tc.fused_block, pad),
+                            neighbors=nbrs,
+                            **({} if k is None
+                               else fused_kw(pad, bucket, True)))
+                    elif k is None:
                         _, loss, _, mets = train_step(
-                            state, cfg, tc.loss, None, *put(mb, n_real))
+                            state, cfg, tc.loss, None, *args)
                     else:
-                        nch = bucket_chunk(pad)
                         _, loss, _, mets = train_step_fused(
                             state, cfg, tc.loss, None,
-                            min(tc.fused_block, pad), k, *put(mb, n_real),
-                            uniform_q0=bucket_uq0(bucket),
-                            far_cluster=tc.far_cluster,
-                            far_cluster_grad=tc.far_cluster_grad,
-                            remat=tc.remat or nch > 0,
-                            neighbors=bucket_neighbors(bucket, k, rows),
-                            near_row_chunk=nch,
-                            near_window=tc.near_window if nch else 0)
+                            min(tc.fused_block, pad), k, *args,
+                            neighbors=nbrs, **fused_kw(pad, bucket, True))
                     acc.update(loss, mets)
                     if ema is not None:
                         ema_step()
@@ -840,18 +1023,29 @@ def train(
                 bs, k = bucket_plan(pad, bucket)
                 for mb, n_real, rows in minibatches(bucket, bs,
                                                     with_indices=True):
-                    if k is None:
+                    args = put(mb, n_real)
+                    nbrs = (None if k is None
+                            else bucket_neighbors(bucket, k, rows))
+                    if k is not None and mesh is not None and sharded(pad):
+                        step = sharded_steps(k, bucket_uq0(bucket),
+                                             bucket_chunk_sharded(pad))[1]
+                        loss, _, mets = step(eval_params, *args,
+                                             neighbors=nbrs)
+                    elif mesh is not None:
+                        loss, _, mets = data_parallel_eval_step(
+                            eval_params, cfg, tc.loss, mesh, *args,
+                            neighbor_k=k, block=min(tc.fused_block, pad),
+                            neighbors=nbrs,
+                            **({} if k is None
+                               else fused_kw(pad, bucket, False)))
+                    elif k is None:
                         loss, _, mets = eval_step(
-                            eval_params, cfg, tc.loss, *put(mb, n_real))
+                            eval_params, cfg, tc.loss, *args)
                     else:
-                        nch = bucket_chunk(pad)
                         loss, _, mets = eval_step_fused(
                             eval_params, cfg, tc.loss,
-                            min(tc.fused_block, pad), k, *put(mb, n_real),
-                            uniform_q0=bucket_uq0(bucket),
-                            neighbors=bucket_neighbors(bucket, k, rows),
-                            near_row_chunk=nch,
-                            near_window=tc.near_window if nch else 0)
+                            min(tc.fused_block, pad), k, *args,
+                            neighbors=nbrs, **fused_kw(pad, bucket, False))
                     vacc.update(loss, mets)
 
             row = {
@@ -893,7 +1087,7 @@ def train(
                         lr_stale = 0
                         if progress:
                             print(f"plateau: LR -> {lr_now:.3e}", flush=True)
-            if tc.checkpoint_dir:
+            if tc.checkpoint_dir and writes:
                 ckpt_io.save_train_state(
                     tc.checkpoint_dir, state.params, *_adam_moments(state),
                     state.step,

@@ -9,10 +9,11 @@ the CPU (``EPNN_PLATFORM=cpu``, which the suite's conftest sets):
   between two paths of the same math), ``--far-budget`` included;
 * ``bench``: JAX's keys and ``method``; ``eval-pol``, ``horton2npy`` and
   ``convert-qm9``: JAX's outputs (bytes where JAX writes bytes);
-* the training flags of the multi-device modes exit non-zero naming
-  ROADMAP item 11b, the serving ones outside a world of N processes
-  naming the world size, and without ``EPNN_PLATFORM=cpu`` a CPU-only
-  machine raises
+* ``train --data-parallel`` trains in a world of one without torchrun
+  (two ranks: ``tests/test_torch_parallel_train.py``), the serving flags
+  of the multi-device modes outside a world of N processes exit naming
+  the world size, and without ``EPNN_PLATFORM=cpu`` a CPU-only machine
+  raises
   (the export and the trainer's options: ``tests/test_torch_export.py``,
   ``tests/test_torch_train_options.py``).
 """
@@ -239,18 +240,15 @@ def test_horton2npy_and_convert_qm9_match_jax(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["train", "--data", "d", "--data-parallel"], "ROADMAP queue 1 item 11b"),
-    (["train", "--data", "d", "--multihost"], "ROADMAP queue 1 item 11b"),
     (["infer", "--checkpoint", "c", "m.xyz", "--atom-shard", "2"],
      "world size is 1; start it as torchrun --nproc-per-node 2"),
     (["infer", "--checkpoint", "c", "m.xyz", "--ring-shard", "2"],
      "world size is 1; start it as torchrun --nproc-per-node 2"),
 ])
 def test_later_items_exit_naming_their_item(argv, item, monkeypatch):
-    """The training flags of the multi-device modes exit naming their
-    ROADMAP item; the serving flags outside a world of N processes exit
-    naming the world size and how to start N (before any process group
-    starts)."""
+    """The serving flags of the multi-device modes outside a world of N
+    processes exit naming the world size and how to start N (before any
+    process group starts)."""
     import torch.distributed as dist
 
     monkeypatch.delenv("WORLD_SIZE", raising=False)
@@ -283,7 +281,8 @@ def test_platform_selects_the_device(trained, monkeypatch, tmp_path):
 
 def test_python_m_entry_point(trained, tmp_path):
     """``python -m epnn_tpu_torch`` from the repository root: exit 0 with
-    the in-process files, and exit 1 with the message for a later item."""
+    the in-process files, and ``train --data-parallel`` outside torchrun
+    trains on a world of this one process."""
     root, data, _ = trained
     best = str(root / "run" / "best")
     env = dict(os.environ, EPNN_PLATFORM="cpu", PYTHONPATH=ROOT)
@@ -307,6 +306,7 @@ def test_python_m_entry_point(trained, tmp_path):
     assert proc.stdout.strip().startswith("exported dense-mode serving")
     proc = subprocess.run(
         [sys.executable, "-m", "epnn_tpu_torch", "train", "--data",
-         str(data), "--data-parallel"],
+         str(data), "--data-parallel", "--epochs", "1", *SMALL],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 1 and "item 11b" in proc.stderr
+    assert proc.returncode == 0, proc.stderr
+    assert "data-parallel over {'data': 1, 'atoms': 1} mesh" in proc.stdout

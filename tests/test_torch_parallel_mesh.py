@@ -424,6 +424,8 @@ def _params(fn):
     "parallel.atom_shard.forward_atom_sharded_nbr_batch",
     "parallel.atom_shard.forward_atom_sharded_batch",
     "parallel.atom_shard.forward_atom_sharded",
+    "parallel.atom_shard.make_sharded_train_step",
+    "parallel.atom_shard.make_sharded_eval_step",
     "parallel.ring_shard.forward_ring_sharded_nbr_batch",
     "parallel.ring_shard.forward_ring_sharded",
     "ops.cluster.weighted_kmeans_sharded",

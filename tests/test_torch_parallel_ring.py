@@ -108,7 +108,7 @@ def cases():
         "k_blk_too_small": Case("ring_nbr", sys0, dict(
             k_blk=14, neighbors=nbrs16), jax=False),
         "cluster_grad": Case("ring_nbr", sys0, dict(
-            k_blk=16, far_cluster=4, far_cluster_grad=True), jax=False),
+            k_blk=16, far_cluster=4, far_cluster_grad=True)),
         "pass_probe": Case("pass_probe", PROBE[0], dict(mode="ring"),
                            bias=0.0, jax=False),
     }
@@ -132,7 +132,7 @@ def runs(tmp_path_factory):
 FORWARDS = ["dense", "dense_padded_compat", "nbr", "nbr_pallas",
             "nbr_data_axis", "int8", "ring_vs_atom_ring", "collapse_base",
             "collapse", "cluster4", "cluster4_pallas", "cluster_n",
-            "composed", "reuse", "reuse_skin", "cold_seed1"]
+            "cluster_grad", "composed", "reuse", "reuse_skin", "cold_seed1"]
 
 
 @pytest.mark.parametrize("name", FORWARDS)
@@ -183,7 +183,6 @@ def test_reuse_matches_cold_ring(runs):
 
 @pytest.mark.parametrize("name,match", [
     ("k_blk_too_small", "k_blk"),
-    ("cluster_grad", "11b"),
 ])
 def test_errors(runs, name, match):
     out = runs[0][name]

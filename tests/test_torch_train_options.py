@@ -348,9 +348,10 @@ def test_plateau_with_cosine_raises():
 
 
 def test_only_the_mesh_raises():
-    """Every single-device option runs; ``mesh`` (item 11b) still raises."""
+    """Every single-device option runs; a ``mesh`` that is not a device
+    mesh raises (training on one: ``tests/test_torch_parallel_train.py``)."""
     port, _ = toy_mols(count=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         train(port, SMALL, TrainConfig(epochs=1), mesh=object(),
               progress=False, device="cpu")
 

@@ -309,8 +309,169 @@ def _batch_args(case: Case, tree, cfg, mesh):
     return got.numpy(), err
 
 
+def _tree_np(tree):
+    """A parameter tree's leaves as numpy, in its nesting."""
+    return {k: _tree_np(v) if isinstance(v, dict)
+            else v.detach().cpu().numpy().copy() for k, v in tree.items()}
+
+
+def _train(case: Case, tree, cfg, mesh):
+    """``steps`` train steps on the case's batch (``args``: x, q0, xyz,
+    mask, y, weight) from the case's weights, Adam at ``lr`` (the
+    trainer's optimizer): ``mode`` 'atom' / 'ring' / 'dense' through
+    ``make_sharded_train_step`` (``k``: neighbor_k; ``step``: its
+    keywords; ``neighbors``: the batch's tables), 'dp' / 'dp_fused'
+    through ``data_parallel_train_step`` (the trainer's data-parallel
+    step, dense or blocked).  Returns the losses, the first step's
+    gradients and parameters, the last parameters flat, the eval twin's
+    loss and metric sums at the start (``make_sharded_eval_step`` or
+    ``data_parallel_eval_step``), and the one-device step's loss and
+    gradients on the same batch
+    (``train_step`` or ``train_step_fused``, the same keywords; its
+    neighbor_k ``ref_k`` where the ring's block bound ``k`` is smaller)."""
+    import torch
+
+    from epnn_tpu_torch.models import tree_leaves
+    from epnn_tpu_torch.parallel import (make_sharded_eval_step,
+                                         make_sharded_train_step)
+    from epnn_tpu_torch.train import TrainConfig, loop
+
+    kw = case.kw
+    args = tuple(torch.from_numpy(np.asarray(a)) for a in case.args)
+    nbrs = kw.get("neighbors")
+    nbrs = None if nbrs is None else tuple(torch.from_numpy(np.asarray(a))
+                                           for a in nbrs)
+    mode, k, step_kw = kw["mode"], kw.get("k"), dict(kw.get("step", {}))
+    tc = TrainConfig(learning_rate=kw.get("lr", 3e-3))
+    eval_kw = {kk: v for kk, v in step_kw.items()
+               if kk in ("uniform_q0", "near_row_chunk", "near_window")}
+
+    def fresh():
+        return loop.create_state(cfg, tc, device="cpu", params=tree)
+
+    if mode in ("dp", "dp_fused"):
+        def step(st):
+            return loop.data_parallel_train_step(
+                st, cfg, "masked_mse", None, mesh, *args, neighbor_k=k,
+                block=8, neighbors=nbrs, **step_kw)
+
+        def evaluate(params):
+            return loop.data_parallel_eval_step(
+                params, cfg, "masked_mse", mesh, *args, neighbor_k=k,
+                block=8, neighbors=nbrs, **eval_kw)
+    else:
+        shard_mode = "ring" if mode == "ring" else "atom"
+        sharded = make_sharded_train_step(
+            cfg, None, mesh, neighbor_k=k, shard_mode=shard_mode, **step_kw)
+        sharded_eval = make_sharded_eval_step(
+            cfg, mesh, neighbor_k=k, shard_mode=shard_mode, **eval_kw)
+
+        def step(st):
+            return sharded(st, *args, neighbors=nbrs)
+
+        def evaluate(params):
+            return sharded_eval(params, *args, neighbors=nbrs)
+
+    state = fresh()
+    eval_loss, _, eval_mets = evaluate(state.params)
+    losses, grads1, params1 = [], None, None
+    for i in range(kw.get("steps", 5)):
+        _, loss, _, _ = step(state)
+        losses.append(float(loss))
+        if i == 0:
+            grads1 = [p.grad.detach().clone().numpy()
+                      for p in tree_leaves(state.params)]
+            params1 = _tree_np(state.params)
+    final = np.concatenate([p.detach().numpy().reshape(-1)
+                            for p in tree_leaves(state.params)])
+    ref = fresh()
+    one_kw = {kk: v for kk, v in step_kw.items() if kk != "remat"}
+    if k is None:
+        _, ref_loss, _, _ = loop.train_step(ref, cfg, "masked_mse", None,
+                                            *args)
+    else:
+        _, ref_loss, _, _ = loop.train_step_fused(
+            ref, cfg, "masked_mse", None, 8, kw.get("ref_k", k), *args,
+            remat=False,
+            neighbors=nbrs, **one_kw)
+    return dict(losses=losses, grads1=grads1, params1=params1, final=final,
+                eval_loss=float(eval_loss), eval_mets=eval_mets.numpy(),
+                clustered=bool(step_kw.get("far_cluster")),
+                ref_loss=float(ref_loss),
+                ref_grads=[p.grad.detach().clone().numpy()
+                           for p in tree_leaves(ref.params)])
+
+
+def _mesh_molecules(spec):
+    """The case's labelled molecules (the port's Molecule)."""
+    from epnn_tpu_torch.data import xyz as xyz_mod
+
+    mols = _molecules(xyz_mod, spec)
+    for m, s in zip(mols, spec):
+        m.labels = np.asarray(s["labels"], np.float32)
+    return mols
+
+
+def _trainer(case: Case, tree, cfg, mesh):
+    """``train(mesh=...)`` on the case's molecules (``tc``: TrainConfig
+    fields), the atom-sharded step builder spied: its steps' calls, the
+    history and the last parameters (flat)."""
+    from epnn_tpu_torch.models import tree_leaves
+    from epnn_tpu_torch.parallel import atom_shard
+    from epnn_tpu_torch.train import TrainConfig, train
+
+    calls = {"sharded": 0, "built": 0}
+    orig = atom_shard.make_sharded_train_step
+
+    def spy(*a, **kw):
+        calls["built"] += 1
+        step = orig(*a, **kw)
+
+        def wrapped(*sa, **skw):
+            calls["sharded"] += 1
+            return step(*sa, **skw)
+
+        return wrapped
+
+    atom_shard.make_sharded_train_step = spy
+    try:
+        res = train(_mesh_molecules(case.kw["mols"]), cfg,
+                    TrainConfig(**case.kw["tc"]), mesh=mesh, progress=False)
+    finally:
+        atom_shard.make_sharded_train_step = orig
+    return dict(calls=calls, history=res.history,
+                final=np.concatenate([p.detach().numpy().reshape(-1)
+                                      for p in tree_leaves(res.state.params)]))
+
+
+def _cli_train(case: Case, tree, cfg, mesh):
+    """``python -m epnn_tpu_torch train ... <flag>`` in process on every
+    rank of the world (``flag``: --data-parallel or --multihost), every
+    rank reading its own copy of the case's molecules and naming the same
+    output directory.  Returns what the rank printed."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from epnn_tpu_torch import cli
+    from epnn_tpu_torch.testing import write_xyz
+
+    data = os.path.join(case.kw["dir"], f"data{dist.get_rank()}")
+    for m in _mesh_molecules(case.kw["mols"]):
+        write_xyz(data, m)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(["train", "--data", data, "--out", case.kw["out"],
+                  "--epochs", "2", "--batch-size", "4",
+                  *case.kw["argv"]])
+    dist.barrier()
+    return out.getvalue()
+
+
 PORT_PROBES = {"pass_probe": _pass_probe, "kmeans": _kmeans,
-               "batch_args": _batch_args}
+               "batch_args": _batch_args, "train": _train,
+               "trainer": _trainer, "cli_train": _cli_train}
 
 
 def _join_world(rank: int, tmp_dir: str) -> None:
@@ -403,6 +564,8 @@ def _jax_case(case: Case, params, mesh_of):
         return _jax_predictor(case, params, cfg, mesh_of)
     if case.fn == "kmeans":
         return _jax_kmeans(case, mesh_of(case.mesh))
+    if case.fn == "train":
+        return _jax_train(case, params, cfg, mesh_of(case.mesh))
     fused = fuse_params(params, cfg)
     if case.fn == "blocked":
         from epnn_tpu.ops import forward_blocked
@@ -454,6 +617,57 @@ def _jax_kmeans(case: Case, mesh):
         mesh=mesh, in_specs=(P("atoms"), P("atoms")), out_specs=P(),
         check_vma=False))
     return tuple(np.asarray(t) for t in fit(rows, w))
+
+
+def _jax_train(case: Case, params, cfg, mesh):
+    """The JAX package's side of :func:`_train`: its
+    ``make_sharded_train_step`` ('atom' / 'ring' / 'dense'), or its
+    ``train_step`` on ``shard_batch_args`` ('dp'), from the same weights
+    with its trainer's optimizer.  Returns the losses and the first
+    step's parameters."""
+    import jax
+    import jax.numpy as jnp
+
+    from epnn_tpu.parallel import shard_batch_args, shard_state
+    from epnn_tpu.parallel.atom_shard import make_sharded_train_step
+    from epnn_tpu.train import TrainConfig, make_optimizer
+    from epnn_tpu.train.loop import TrainState, train_step
+
+    kw = case.kw
+    tc = TrainConfig(learning_rate=kw.get("lr", 3e-3))
+    opt = make_optimizer(tc)
+    tree = jax.tree_util.tree_map(jnp.asarray, params)
+    state = TrainState(params=tree, opt_state=opt.init(tree),
+                       step=jnp.zeros((), jnp.int32))
+    mode, k = kw["mode"], kw.get("k")
+    if mode == "dp":
+        from epnn_tpu.models import EPNN
+
+        state = shard_state(state, mesh)
+        args = shard_batch_args(case.args, mesh)
+        model = EPNN(cfg)
+
+        def step(st):
+            return train_step(st, model, "masked_mse", opt, *args)
+    else:
+        nbrs = kw.get("neighbors")
+        sharded = make_sharded_train_step(
+            cfg, opt, mesh, neighbor_k=k,
+            shard_mode="ring" if mode == "ring" else "atom",
+            **kw.get("step", {}))
+
+        def step(st):
+            if nbrs is None:
+                return sharded(st, *case.args)
+            return sharded(st, *case.args, neighbors=nbrs)
+
+    losses, params1 = [], None
+    for i in range(kw.get("steps", 5)):
+        state, loss, _, _ = step(state)
+        losses.append(float(loss))
+        if i == 0:
+            params1 = jax.tree_util.tree_map(np.asarray, state.params)
+    return dict(losses=losses, params1=params1["params"])
 
 
 def jax_main(spec: str, tmp_dir: str) -> None:
@@ -517,6 +731,103 @@ def contract_batch(seed=0, n_mols=2, natoms=40, pad_to=48):
     assert uniform_q0_contract(b.x, b.q0, b.node_mask)
     return (np.asarray(b.x), np.asarray(b.q0), np.asarray(b.xyz),
             np.asarray(b.node_mask))
+
+
+def train_batch(seed=0, b=2, n=48):
+    """:func:`system` with seeded labels (zero on padding) and unit
+    sample weights: (x, q0, xyz, mask, y, weight)."""
+    x, q0, xyz, mask = system(seed=seed, b=b, n=n)
+    g = np.random.default_rng(seed + 100)
+    y = (g.normal(0, 0.3, size=(b, n)) * mask).astype(np.float32)
+    return (x, q0, xyz, mask, y, np.ones(b, np.float32))
+
+
+def with_labels(arrays, seed):
+    """(x, q0, xyz, mask) with seeded labels and unit weights added."""
+    x, q0, xyz, mask = arrays
+    g = np.random.default_rng(seed)
+    y = (g.normal(0, 0.3, size=mask.shape) * mask).astype(np.float32)
+    return (x, q0, xyz, mask, y, np.ones(mask.shape[0], np.float32))
+
+
+def neighbor_k(xyz, mask, extra=2, cutoff=5.0):
+    """The largest within-cutoff count of the batch's rows, plus
+    ``extra`` (the JAX tests' ``k``)."""
+    from epnn_tpu.ops.fused import max_neighbor_count
+
+    return int(max(max_neighbor_count(xyz[i], mask[i], cutoff)
+                   for i in range(xyz.shape[0]))) + extra
+
+
+def labelled_molecules(seed, count, lo, hi, span):
+    """Random C/H/O molecules (the specs :func:`_mesh_molecules` reads)
+    with zero-sum labels."""
+    g = np.random.default_rng(seed)
+    out = []
+    for i in range(count):
+        n = int(g.integers(lo, hi))
+        labels = g.normal(0, 0.2, size=n).astype(np.float32)
+        labels -= labels.sum() / n
+        out.append(dict(name=f"s{i}",
+                        symbols=[str(s) for s in g.choice(["C", "H", "O"],
+                                                          size=n)],
+                        xyz=g.uniform(-span, span, (n, 3)).astype(np.float32),
+                        charge=0.0, labels=labels))
+    return out
+
+
+def train_case(mode, args, k=None, mesh=(1, 2), jax=True, **kw):
+    """A :func:`_train` case at Adam rate 3e-3."""
+    return Case("train", args, dict(mode=mode, k=k, lr=3e-3, **kw),
+                mesh=mesh, jax=jax)
+
+
+def rel_fro(a, b) -> float:
+    """‖a − b‖ / ‖b‖ (Frobenius)."""
+    return float(np.linalg.norm(np.asarray(a) - np.asarray(b))
+                 / max(float(np.linalg.norm(b)), 1e-30))
+
+
+def tree_leaves(tree):
+    """A nested dict's leaves in sorted key order."""
+    return [leaf for k in sorted(tree) for leaf in (
+        tree_leaves(tree[k]) if isinstance(tree[k], dict) else [tree[k]])]
+
+
+def assert_trains_like_jax(port, ref, name):
+    """JAX's bars on a :func:`_train` case: the first loss at rtol 1e-4 of
+    JAX's sharded step, every leaf after one Adam step within 1e-3
+    relative Frobenius of JAX's."""
+    out = result(port, name)
+    np.testing.assert_allclose(out["losses"][0], ref[name]["losses"][0],
+                               rtol=1e-4)
+    got, want = tree_leaves(out["params1"]), tree_leaves(ref[name]["params1"])
+    assert len(got) == len(want)
+    worst = max(rel_fro(a, b) for a, b in zip(got, want))
+    assert worst <= 1e-3, (name, worst)
+
+
+def assert_trains_like_one_device(port, extras, name):
+    """A :func:`_train` case against the port's one-device step: the loss
+    within 1e-5·(|loss| + 1) and each gradient leaf within 1e-3 relative
+    Frobenius ([train a]'s bar), the loss falling, every rank ending
+    with the same parameters bit for bit, and the eval twin's loss the
+    first step's where that step is exact."""
+    out = result(port, name)
+    losses, ref_loss = out["losses"], out["ref_loss"]
+    assert abs(losses[0] - ref_loss) <= 1e-5 * (abs(ref_loss) + 1.0)
+    assert np.all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    assert len(out["grads1"]) == len(out["ref_grads"])
+    for g, r in zip(out["grads1"], out["ref_grads"]):
+        assert np.all(np.isfinite(g)) and rel_fro(g, r) <= 1e-3, \
+            (name, rel_fro(g, r))
+    finals = [extras[r][name]["final"] for r in range(WORLD)]
+    assert all(np.array_equal(finals[0], f) for f in finals[1:])
+    # the eval twin: the first step's forward without a graph (exact: a
+    # clustered step's forward is the approximation)
+    assert np.all(np.isfinite(out["eval_mets"]))
+    if not out["clustered"]:
+        np.testing.assert_allclose(out["eval_loss"], losses[0], rtol=1e-6)
 
 
 def line_system(seed=0, b=2, n=64):
