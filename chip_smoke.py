@@ -77,7 +77,10 @@ card: ``python3 chip_smoke.py`` from the repository root.
    fully fused dense forward) on the two 2,220-atom boxes: 5 + 5 fused
    launches per graph, charges against the golden and (b), its median
    latency, and the plain dense forward ``_forward_single`` on the card
-   as its reference; (e) ``neighbor_compact``'s tables through
+   as its reference; then ``_forward_single_pallas(rbf_method=
+   "doubling")`` against the direct call (:func:`dense_doubling_phase`:
+   launches, gate flips, conservation, medians in turns); (e)
+   ``neighbor_compact``'s tables through
    ``forward_blocked(neighbor_k=k, neighbors=(idx, mask))``; (f) the int8
    serving tier (``dense_matmul_precision="int8"``) on the boxes of (b)
    and (c): 4 int8 far-field launches a graph and none of the fp32 one,
@@ -130,10 +133,12 @@ card: ``python3 chip_smoke.py`` from the repository root.
    fine-tuning the checkpoint for a few epochs on the 2,220-atom boxes and
    the small molecules (noisy labels around the model's own charges): the
    fused bucket's loss falls, launches per fused step, none in dense
-   steps, the median fused step, and ``best/`` served with conservation;
-   (c) the clustered tier (:func:`train_cluster_phase`): one clustered
-   step's gradients card against CPU (the fits' rows assigned apart
-   printed, ties checked), and ``train(far_cluster=32)`` on (b)'s set;
+   steps, the median fused step, ``best/`` served with conservation, and
+   the trained state through the sharding-aware format and back bit for
+   bit (:func:`dcp_round_trip`); (c) the clustered tier
+   (:func:`train_cluster_phase`): one clustered step's gradients card
+   against CPU (the fits' rows assigned apart printed, ties checked), and
+   ``train(far_cluster=32)`` on (b)'s set;
    (d) the huge-N mode in training (:func:`huge_train_phase`): a chunked
    remat step against full width on (a)'s boxes (the loss bit for bit,
    gradients within 1e-5 relative Frobenius), exact and clustered, and
@@ -191,17 +196,23 @@ card: ``python3 chip_smoke.py`` from the repository root.
    at 17,760 with its k-means as a group), a Verlet-skin step at 17,760
    atoms and
    one fused train step (2 x 2,220):
-   device-busy time against wall time, and the largest kernels.
+   device-busy time against wall time, and the largest kernels; then
+   ``benchmark_batch(cost_analysis=True)``'s ``flops`` at 2 x 2,220 and 1
+   x 17,760 atoms equal to the same call's count on the CPU (a child
+   process of this script, ``--cpu-flops``, started after the build;
+   :func:`flops_phase`).
 7. The kernels' JSON line, the card line, and last the result line.
 
 Any failure raises and exits non-zero; without a CUDA card it exits 2
 before printing any result.  Imports nothing of JAX.
 """
 
+import atexit
 import functools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -222,18 +233,10 @@ PEAK_INT8_OPS = 1979e12
 #: CUDA-core instructions a second: one a lane a clock, half the fp32 FLOP
 #: peak (which counts an FMA as two)
 PEAK_INSTR = PEAK_FP32_FLOPS / 2
-#: neighbor_compact's work a valid pair: FLOP (3 subtractions, 3 products,
-#: 2 additions, the compare) and CUDA-core instructions (the same, issued
-#: one a lane)
-COMPACT_FLOP = 9
-COMPACT_INSTR = 9
-#: the int8 far field's CUDA-core instructions per pair element: an
-#: activation takes add, relu, scale, clip, + 0.5 and the round down by
-#: 2^23, and 3 byte permutes pack 4; an output takes the unbias, the
-#: dequantizing multiply, + b2, relu and the cv-weighted add
-INT8_INSTR_IN = 6.75
-INT8_INSTR_OUT = 5
 PEAK_BYTES = 3.35e12
+# the work each bound counts is ``kernels.work``'s (its products,
+# elementwise FLOP, instructions, special-function ops and bytes on the
+# data given), the one source of the kernels' work counts
 
 GOLDEN = "epnn_tpu_torch/testdata/water2220_mixed_b16.npz"
 CKPT = "trained/mixed_b16"
@@ -303,10 +306,6 @@ FORWARD_WIDTHS = ((16, 24), TIMED_WIDTH)
 #: the width phase's water box (molecules: 600 atoms) and model rounds
 WIDTH_BOX_MOLECULES = 200
 WIDTH_T = 2
-#: CUDA-core instructions of the fused kernels' d² scan, a valid pair: 3
-#: coordinate loads and the mask's, 3 subtracts, 3 multiplies, 2 adds, the
-#: compare
-SCAN_INSTR = 13
 #: [slice g]: the Verlet skin (Å), frames of the 2,220- and the 17,760-atom
 #: trajectory (14 steady frames each), the seeded drift a frame (Å an
 #: axis, at most; cumulative: the 14 steps after the first frame move an
@@ -455,42 +454,53 @@ def bound(flop, sfu, nbytes, sfu_rate):
     return times[by] * 1e3, by
 
 
-def tc_bound(items, tc_flop, elem, nbytes, passes=3):
-    """(bound ms, what bounds it, fp32 bound ms) of a kernel whose
-    ``items`` (live pairs or slots) each need ``tc_flop`` FLOP of products,
-    run on the tensor cores at ``passes`` TF32 products each (3: 3xTF32,
-    1: the one-pass tier), at the TF32 peak, and ``elem`` elementwise
-    FLOP on the CUDA cores; its bytes at the HBM rate: the bound is the
-    largest of the three times.  The fp32 bound puts every FLOP on the
-    CUDA cores, as a kernel without the tensor cores would."""
-    tc = items * passes * tc_flop / PEAK_TF32_FLOPS
-    ops = max(tc, items * elem / PEAK_FP32_FLOPS)
-    by = nbytes / PEAK_BYTES
-    fp32 = items * (tc_flop + elem) / PEAK_FP32_FLOPS
+def tc_bound(wk, passes=3):
+    """(bound ms, what bounds it, fp32 bound ms) of a kernel's work ``wk``
+    (``kernels.work`` on this data: live pairs or slots): its products on
+    the tensor cores at ``passes`` TF32 products each (3: 3xTF32, 1: the
+    one-pass tier), at the TF32 peak, and its elementwise FLOP on the CUDA
+    cores; its bytes at the HBM rate: the bound is the largest of the
+    three times.  The fp32 bound puts every FLOP on the CUDA cores, as a
+    kernel without the tensor cores would."""
+    tc = passes * wk.products / PEAK_TF32_FLOPS
+    ops = max(tc, wk.elementwise / PEAK_FP32_FLOPS)
+    by = wk.bytes / PEAK_BYTES
+    fp32 = (wk.products + wk.elementwise) / PEAK_FP32_FLOPS
     return (max(ops, by) * 1e3, "operations" if ops >= by else "bytes",
             max(fp32, by) * 1e3)
 
 
-def fused_bound(tc_flop, elem, scan, sfu, nbytes, sfu_rate, passes=3):
-    """(bound ms, what bounds it, fp32 bound ms) of a fused dense kernel:
-    ``tc_flop`` FLOP of products on the tensor cores at ``passes`` TF32
-    products each (3xTF32 or one pass, at the TF32 peak), ``elem`` FLOP
-    and ``scan`` instructions on the CUDA cores, ``sfu`` special-function
-    ops, and its bytes at the HBM rate; the bound is the largest.  The
-    fp32 bound puts the products on the CUDA cores too."""
-    tc = passes * tc_flop / PEAK_TF32_FLOPS
-    cuda = elem / PEAK_FP32_FLOPS + scan / PEAK_INSTR
-    sf = sfu / sfu_rate
-    ops, by = max(tc, cuda, sf), nbytes / PEAK_BYTES
-    fp32 = max((tc_flop + elem) / PEAK_FP32_FLOPS + scan / PEAK_INSTR, sf)
+def fused_bound(wk, sfu_rate, passes=3):
+    """(bound ms, what bounds it, fp32 bound ms) of a fused dense kernel's
+    work ``wk`` (``kernels.work``): its products on the tensor cores at
+    ``passes`` TF32 products each (3xTF32 or one pass, at the TF32 peak),
+    its elementwise FLOP and scan instructions on the CUDA cores, its
+    special-function ops at ``sfu_rate``, and its bytes at the HBM rate;
+    the bound is the largest.  The fp32 bound puts the products on the
+    CUDA cores too."""
+    tc = passes * wk.products / PEAK_TF32_FLOPS
+    cuda = wk.elementwise / PEAK_FP32_FLOPS + wk.instructions / PEAK_INSTR
+    sf = wk.special / sfu_rate
+    ops, by = max(tc, cuda, sf), wk.bytes / PEAK_BYTES
+    fp32 = max((wk.products + wk.elementwise) / PEAK_FP32_FLOPS
+               + wk.instructions / PEAK_INSTR, sf)
     return (max(ops, by) * 1e3, "operations" if ops >= by else "bytes",
             max(fp32, by) * 1e3)
 
 
-def entry_name(mangled):
+#: the labels of a kernel's bool template instantiations (``ILb0E``,
+#: ``ILb1E``): the far field's backward passes, the fused kernels' RBF
+#: methods
+INSTANTIATIONS = {"dense_message_rowsum_bwd": ("<pass C>", "<pass R>"),
+                  "fused_message_rowsum": ("<direct>", "<doubling>"),
+                  "fused_epn_rowsum": ("<direct>", "<doubling>")}
+
+
+def entry_name(mangled, labels=INSTANTIATIONS["dense_message_rowsum_bwd"]):
     """A kernel entry's own name from its mangled one: the last of the
-    length-prefixed names after ``_Z`` / ``_ZN``; a pass of the far field's
-    backward gets ``<pass R>`` or ``<pass C>``."""
+    length-prefixed names after ``_Z`` / ``_ZN``; an instantiation on a
+    bool gets its label (``labels``: false's, true's; by default a pass of
+    the far field's backward, ``<pass C>`` or ``<pass R>``)."""
     pos, name = 3 if mangled.startswith("_ZN") else 2, mangled
     while True:
         m = re.match(r"\d+", mangled[pos:])
@@ -500,8 +510,7 @@ def entry_name(mangled):
         name = mangled[pos:pos + int(m.group())]
         pos += int(m.group())
     tail = re.match(r"ILb([01])E", mangled[pos:])
-    return name + ({"1": "<pass R>", "0": "<pass C>"}[tail.group(1)]
-                   if tail else "")
+    return name + (labels[int(tail.group(1))] if tail else "")
 
 
 def ptxas_usage(kernels, name, h=SHIPPED_WIDTHS[0], e=SHIPPED_WIDTHS[1],
@@ -513,7 +522,8 @@ def ptxas_usage(kernels, name, h=SHIPPED_WIDTHS[0], e=SHIPPED_WIDTHS[1],
     for ln in kernels.build_log(name, h, e, precision).splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            entry = entry_name(m.group(1))
+            entry = entry_name(m.group(1), INSTANTIATIONS.get(
+                name, INSTANTIATIONS["dense_message_rowsum_bwd"]))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       ln)
         if m:
@@ -661,11 +671,9 @@ def far_phase(torch, card, args, gbar, label, clocks, iters, ties=False,
 
     passes = kernels.tf32_passes(precision)
     key, text = TIER_KEY[precision], TIER_TEXT[precision]
-    f = 4
     r, hh = args[0].shape
     nc = args[1].shape[0]
     live = int(torch.count_nonzero(args[2]))
-    pairs = r * live
     fwd_err, fwd_emu, fwd_tol = far_forward(torch, kernels, args, precision)
     errs = far_backward(torch, kernels, (*args, gbar), ties=ties,
                         precision=precision)
@@ -686,30 +694,32 @@ def far_phase(torch, card, args, gbar, label, clocks, iters, ties=False,
     ptext = lambda t: "not timed" if t is None else f"{t:.4f} ms"  # noqa
     # forward: the mid-layer product + ~4H elementwise a live pair; pi,
     # cv and out whole, pj where cv is live, W2, b2 once
-    nbytes = f * (2 * r * hh + nc + live * hh + hh * hh + hh)
-    b_ms, b_by, b32 = tc_bound(pairs, 2 * hh * hh, 4 * hh, nbytes, passes)
+    wk = kernels.work("dense_message_rowsum", rows=r, cols=nc, h=hh,
+                      live=live)
+    nbytes = wk.bytes
+    b_ms, b_by, b32 = tc_bound(wk, passes)
     out["dense_message_rowsum"] = dict(
         R=r, N=nc, live_cols=live,
         max_abs_err=fwd_err if precision == "highest" else fwd_emu,
         max_abs_diff=fwd_err, tol=fwd_tol,
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        bound_fp32_ms=b32, flop=pairs * (2 * hh * hh + 4 * hh),
+        bound_fp32_ms=b32, flop=wk.products + wk.elementwise,
         bytes=nbytes, **{f"max_abs_diff_{key}": fwd_emu,
-                         f"flop_{key}": pairs * passes * 2 * hh * hh})
+                         f"flop_{key}": passes * wk.products})
     print(f"[kernel] dense_message_rowsum at R={r} N={nc} ({live} live "
           f"columns), {text}: max|d| vs plain f32 {fwd_err:.3e}, vs its "
           f"emulation {fwd_emu:.3e} (tol {fwd_tol:.3e}), same bits on a "
           f"second launch and off the 16-byte boundary; kernel {ms:.4f} ms, "
           f"plain {ptext(plain_ms)}, bound {b_ms:.5f} ms ({b_by}: "
-          f"{pairs * passes * 2 * hh * hh:,} tensor-core FLOP in {text}, "
+          f"{passes * wk.products:,} tensor-core FLOP in {text}, "
           f"{nbytes:,} B), fp32 bound {b32:.5f} ms on {card}")
     # backward: z2, e2 @ W2ᵀ and the dW2 outer product (3 H×H
     # contractions) + ~9H elementwise a live pair; pi, g, dpi, cv, pj and
     # dpj whole, pj where cv is live, W2, b2, dW2, db2 once
-    nbytes = f * (3 * r * hh + nc * hh + nc + live * hh
-                  + 2 * (hh * hh + hh))
-    b_ms, b_by, b32 = tc_bound(pairs, 3 * 2 * hh * hh, 9 * hh, nbytes,
-                               passes)
+    wk = kernels.work("dense_message_rowsum_bwd", rows=r, cols=nc, h=hh,
+                      live=live)
+    nbytes = wk.bytes
+    b_ms, b_by, b32 = tc_bound(wk, passes)
     out["dense_message_rowsum_bwd"] = dict(
         R=r, N=nc, live_cols=live,
         max_abs_err=max(e[0 if precision == "highest" else 3]
@@ -719,30 +729,31 @@ def far_phase(torch, card, args, gbar, label, clocks, iters, ties=False,
         plain_f32_diff_f64={p: e[2] for p, e in errs.items()},
         tol_f64={p: e[4] for p, e in errs.items()}, ms=bwd_ms,
         plain_ms=bwd_plain_ms, bound_ms=b_ms, bound_by=b_by,
-        bound_fp32_ms=b32, flop=pairs * (6 * hh * hh + 9 * hh),
+        bound_fp32_ms=b32, flop=wk.products + wk.elementwise,
         bytes=nbytes, **{f"max_abs_diff_{key}": {p: e[3] for p, e in
                                                  errs.items()},
-                         f"flop_{key}": pairs * passes * 3 * 2 * hh * hh})
+                         f"flop_{key}": passes * wk.products})
     print(f"[kernel] dense_message_rowsum_bwd at R={r} N={nc}, {text}: "
           f"{bwd_errs_text(errs)}; same bits on a second launch and off the "
           f"16-byte boundary; kernel {bwd_ms:.4f} ms, plain "
           f"{ptext(bwd_plain_ms)}, bound {b_ms:.5f} ms ({b_by}: "
-          f"{pairs * passes * 6 * hh * hh:,} tensor-core FLOP in {text}, "
+          f"{passes * wk.products:,} tensor-core FLOP in {text}, "
           f"{nbytes:,} B), fp32 bound {b32:.5f} ms on {card}")
     for when, clk in clocks[-2:]:
         print(f"[clock] SM clock (clocks.sm, clocks.max.sm) {when}: {clk}")
     return out
 
 
-def int8_bound(pairs, hh, nbytes):
+def int8_bound(wk):
     """(bound ms, what bounds it, tensor-core ms, CUDA-core ms) of the int8
-    far field on ``pairs`` live pairs: 2H² integer operations a pair at the
-    int8 tensor-core rate, H activations and H outputs a pair at
-    ``INT8_INSTR_IN`` / ``INT8_INSTR_OUT`` CUDA-core instructions each, and
-    its bytes at the HBM rate: the bound is the largest of the three."""
-    tc = pairs * 2 * hh * hh / PEAK_INT8_OPS
-    cuda = pairs * hh * (INT8_INSTR_IN + INT8_INSTR_OUT) / PEAK_INSTR
-    ops, by = max(tc, cuda), nbytes / PEAK_BYTES
+    far field's work ``wk`` (``kernels.work`` on the live pairs): 2H²
+    integer operations a pair at the int8 tensor-core rate, H activations
+    and H outputs a pair at ``kernels.INT8_INSTR_IN`` / ``INT8_INSTR_OUT``
+    CUDA-core instructions each, and its bytes at the HBM rate: the bound
+    is the largest of the three."""
+    tc = wk.products / PEAK_INT8_OPS
+    cuda = wk.instructions / PEAK_INSTR
+    ops, by = max(tc, cuda), wk.bytes / PEAK_BYTES
     return (max(ops, by) * 1e3, "operations" if ops >= by else "bytes",
             tc * 1e3, cuda * 1e3)
 
@@ -761,7 +772,6 @@ def int8_phase(torch, card, args, label, iters=None):
     bound on this data (live columns only).  Returns the measurements."""
     from epnn_tpu_torch.ops import kernels
 
-    f = 4
     pi, pj, cv, w2, b2 = args
     r, hh = pi.shape
     nc = pj.shape[0]
@@ -829,20 +839,19 @@ def int8_phase(torch, card, args, label, iters=None):
             *args, **HI), iters[2])
         ms_again = device_ms(torch, lambda: kernels.dense_message_rowsum_int8(
             *full, w2_int8=w2_int8), iters[0])
-        pairs = r * live
-        nbytes = f * (2 * r * hh + nc + live * hh + hh * hh + hh)
-        b_ms, b_by, tc_ms, cuda_ms = int8_bound(pairs, hh, nbytes)
+        wk = kernels.work("dense_message_rowsum_int8", rows=r, cols=nc,
+                          h=hh, live=live)
+        nbytes = wk.bytes
+        b_ms, b_by, tc_ms, cuda_ms = int8_bound(wk)
         entry.update(ms=ms, ms_second=ms_again, plain_ms=plain_ms,
                      fp32_kernel_ms=f32_ms, bound_ms=b_ms, bound_by=b_by,
                      bound_tensor_core_ms=tc_ms, bound_cuda_core_ms=cuda_ms,
-                     int_ops=pairs * 2 * hh * hh,
-                     instructions=pairs * hh * (INT8_INSTR_IN
-                                                + INT8_INSTR_OUT),
+                     int_ops=wk.products, instructions=wk.instructions,
                      bytes=nbytes)
         text += (f"; kernel and its two maxima {ms:.4f} ms (again after the 3xTF32 kernel's "
                  f"{f32_ms:.4f} ms: {ms_again:.4f}), plain {plain_ms:.4f} ms,"
                  f" bound {b_ms:.5f} ms ({b_by}: int8 tensor cores "
-                 f"{tc_ms:.5f} ms for {pairs * 2 * hh * hh:,} operations, "
+                 f"{tc_ms:.5f} ms for {wk.products:,} operations, "
                  f"CUDA cores {cuda_ms:.5f} ms for "
                  f"{entry['instructions']:,.0f} instructions, {nbytes:,} B) "
                  f"on {card}")
@@ -879,6 +888,41 @@ def noisy_labels(g, q):
     so the labels keep the molecule's net charge."""
     noise = g.normal(0.0, LABEL_NOISE, size=q.shape)
     return (q + noise - noise.mean()).astype(np.float32)
+
+
+def dcp_round_trip(torch, state, cfg, tc, directory):
+    """A ``TrainState`` on the card through ``io.checkpoint.
+    save_train_state_orbax`` into ``directory`` and back with
+    ``load_train_state_orbax`` into a fresh template on the card (seeded
+    weights, no Adam state): every parameter leaf, both moments, the step,
+    the update count and the rate bit for bit.  Returns the counts, the
+    files and their bytes, and the host ms of each call."""
+    from epnn_tpu_torch.io import checkpoint as ckpt_io
+    from epnn_tpu_torch.models import tree_leaves
+    from epnn_tpu_torch.train import loop
+
+    def leaves(st):
+        moments = loop._adam_moments(st)
+        return ([p.detach() for p in tree_leaves(st.params)]
+                + [t for m in moments for t in tree_leaves(m)])
+
+    _, save_ms = host_ms(torch, lambda: ckpt_io.save_train_state_orbax(
+        directory, state))
+    template = loop.create_state(cfg, tc, seed=11, device="cuda")
+    _, load_ms = host_ms(torch, lambda: ckpt_io.load_train_state_orbax(
+        directory, template))
+    want, got = leaves(state), leaves(template)
+    require(len(want) == len(got) and all(
+        a.device == b.device and torch.equal(a, b)
+        for a, b in zip(want, got)), "DCP round trip: a leaf differs")
+    require((template.step, template.opt.count, float(template.opt.lr))
+            == (state.step, state.opt.count, float(state.opt.lr)),
+            ("DCP round trip", template.step, state.step))
+    path = os.path.join(directory, ckpt_io.DCP_DIR)
+    files = sorted(os.listdir(path))
+    return dict(leaves=len(want), files=files, save_ms=save_ms,
+                load_ms=load_ms, step=state.step, bytes=sum(
+                    os.path.getsize(os.path.join(path, f)) for f in files))
 
 
 def train_phase(torch, pred, card, small, small_q, batch2, golden):
@@ -998,6 +1042,14 @@ def train_phase(torch, pred, card, small, small_q, batch2, golden):
         q_best = served.predict_batch(batch2)
         cons = np.abs(q_best.astype(np.float64).sum(1) - batch2.total_q)
         require(np.all(np.isfinite(q_best)) and np.all(cons <= 1e-4), cons)
+        dcp = dcp_round_trip(torch, res.state, cfg, tc,
+                             os.path.join(tmp, "state"))
+    print(f"[train b] the trained state through the sharding-aware format "
+          f"(save_train_state_orbax / load_train_state_orbax, "
+          f"torch.distributed.checkpoint) on the card: {dcp['leaves']} "
+          f"leaves and the step, update count and rate bit for bit in a "
+          f"fresh template; files {dcp['files']}, {dcp['bytes']:,} B, save "
+          f"{dcp['save_ms']:.1f} ms, load {dcp['load_ms']:.1f} ms")
     print(f"[train b] train(): {TRAIN_EPOCHS} epochs from {CKPT} on 2 x "
           f"2,220 atoms + {len(small)} small molecules: fused-bucket loss "
           f"{' -> '.join(f'{v:.6e}' for v in f_loss)}; launches per fused "
@@ -1709,11 +1761,11 @@ def near_shape_entry(torch, card, label, name, args, kw, iters):
     del got, ref
     ms = device_ms(torch, lambda: wrapper(*args, **kw), iters[0])
     plain_ms = device_ms(torch, lambda: plain(*args), iters[1])
-    n_live, tc_flop, elem, nbytes, (b_ms, b_by, b32) = near_bound(name, args)
+    n_live, wk, (b_ms, b_by, b32) = near_bound(name, args)
     entry = dict(N=args[0].shape[0], K=args[3].shape[1], live_slots=n_live,
                  max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
                  bound_ms=b_ms, bound_by=b_by, bound_fp32_ms=b32,
-                 bytes=nbytes)
+                 bytes=wk.bytes)
     print(f"[slice j] {name} at {label} (N={entry['N']:,} rows, K="
           f"{entry['K']}, {n_live:,} live slots): max|d| vs plain {err:.3e} "
           f"(tol {tol:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -3027,24 +3079,19 @@ def near_flip_budget(torch, name, args):
 
 
 def near_bound(name, args, passes=3):
-    """(live slots, tensor-core FLOP a slot, elementwise FLOP a slot,
-    bytes, :func:`tc_bound` at ``passes``) of one launch of the near
-    kernel ``name`` on ``args``.  A live slot: its gathered row and RBF row in, rbf @ W1e and
-    two H x H products, ~8H (pass: 10H) elementwise; the row inputs of rows
-    with a live slot, the whole (N, K) weights, the weights once and the
-    output."""
-    f = 4
-    n, hh = args[0].shape[0], args[4].shape[1]
-    k, ee = args[3].shape[1], args[4].shape[0]
+    """(live slots, ``kernels.work``, :func:`tc_bound` at ``passes``) of
+    one launch of the near kernel ``name`` on ``args``.  A live slot: its
+    gathered row and RBF row in, rbf @ W1e and two H x H products, ~8H
+    (pass: 10H) elementwise; the row inputs of rows with a live slot, the
+    whole (N, K) weights, the weights once and the output."""
+    from epnn_tpu_torch.ops import kernels
+
     live = args[3] != 0
-    n_live, rows = int(live.sum()), int(live.any(1).sum())
-    row_w, slot_w = args[0].shape[1], args[1].shape[1]
-    elem = (8 if name == "near_message_corr" else 10) * hh
-    tc_flop = 2 * ee * hh + 4 * hh * hh
-    nbytes = (f * (n_live * (slot_w + ee) + rows * row_w + n * k + n * hh)
-              + f * (ee * hh + hh * hh + hh))
-    return n_live, tc_flop, elem, nbytes, tc_bound(n_live, tc_flop, elem,
-                                                   nbytes, passes)
+    n_live = int(live.sum())
+    wk = kernels.work(name, n=args[0].shape[0], k=args[3].shape[1],
+                      h=args[4].shape[1], e=args[4].shape[0], live=n_live,
+                      live_rows=int(live.any(1).sum()))
+    return n_live, wk, tc_bound(wk, passes)
 
 
 def near_phase(torch, card, label, cases, table, iters, min_pairs,
@@ -3101,16 +3148,15 @@ def near_phase(torch, card, label, cases, table, iters, min_pairs,
                 (name, label, "inputs off the 16-byte boundary"))
         ms = device_ms(torch, lambda: wrapper(*args), iters[0])
         plain_ms = plain_time(torch, lambda: plain(*args), iters[1])
-        n_live, tc_flop, elem, nbytes, (b_ms, b_by, b32) = near_bound(
-            name, args, passes)
+        n_live, wk, (b_ms, b_by, b32) = near_bound(name, args, passes)
         out[name] = dict(
             N=n, K=k, live_slots=n_live, max_abs_err=err_emu if
             precision != "highest" else err, max_abs_diff=err,
             tol=tol, ms=ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, bound_fp32_ms=b32,
-            flop=n_live * (tc_flop + elem), bytes=nbytes,
+            flop=wk.products + wk.elementwise, bytes=wk.bytes,
             **{f"max_abs_diff_{key}": err_emu,
-               f"flop_{key}": n_live * passes * tc_flop})
+               f"flop_{key}": passes * wk.products})
         if precision != "highest":
             out[name]["flip_budget_max"] = budget
         plain_text = "not timed" if plain_ms is None else f"{plain_ms:.4f} ms"
@@ -3121,8 +3167,8 @@ def near_phase(torch, card, label, cases, table, iters, min_pairs,
               + f"), same bits on a second launch "
               f"and with the scalar-read inputs off the 16-byte boundary; "
               f"kernel {ms:.4f} ms, plain {plain_text}, bound "
-              f"{b_ms:.5f} ms ({b_by}: {n_live * passes * tc_flop:,} "
-              f"tensor-core FLOP in {TIER_TEXT[precision]}, {nbytes:,} B), "
+              f"{b_ms:.5f} ms ({b_by}: {passes * wk.products:,} "
+              f"tensor-core FLOP in {TIER_TEXT[precision]}, {wk.bytes:,} B), "
               f"fp32 bound {b32:.5f} ms on {card}")
 
     # antisymmetry probe: disjoint near pairs of the box, one slot each
@@ -3166,8 +3212,10 @@ def fused_flip_budget(torch, name, args, kw):
     table (``build_neighbors`` at the exact largest count), its epart
     meeting W2 in relu(base + epart) — the message kernel's live
     correction (weight the pair mask, or col_vec_j), both orderings of
-    the pass kernel (weight 0.5 · gate).  (N, H)."""
-    from epnn_tpu_torch.featurize import envelope_rbf, hard_gate, kernel_mu
+    the pass kernel (weight 0.5 · gate); the channels by the call's
+    ``rbf_method``.  (N, H)."""
+    from epnn_tpu_torch.featurize import (envelope_rbf_method, hard_gate,
+                                          rbf_table)
     from epnn_tpu_torch.ops import kernels
     from epnn_tpu_torch.ops.fused import build_neighbors, max_neighbor_count
 
@@ -3179,8 +3227,11 @@ def fused_flip_budget(torch, name, args, kw):
     k = max(1, max_neighbor_count(xyz.cpu().numpy(), mask.cpu().numpy(),
                                   cutoff))
     idx, nbr, d2 = build_neighbors(xyz, mask, cutoff, k, with_d2=True)
-    rbf, c = envelope_rbf(d2, nbr, cutoff, kw["eta"],
-                          kernel_mu(w1e.shape[0], cutoff, xyz.device))
+    method = kw.get("rbf_method", "direct")
+    rbf, c = envelope_rbf_method(
+        d2, nbr, cutoff, kw["eta"],
+        rbf_table(w1e.shape[0], cutoff, kw["eta"], method, xyz.device),
+        method)
     rbf = rbf.reshape(n * k, -1)
     ep = kernels._mm_tf32(rbf, w1e).reshape(n, k, hh)
     delta = epart_delta(torch, rbf, w1e).reshape(n, k, hh)
@@ -3237,7 +3288,8 @@ def fused_check(torch, kernels, name, args, kw, rows=None, off=True,
 
 
 def fused_kernel_phase(torch, card, cfg, boxes, wm, wp, sfu_rate,
-                       widths="32x48", precision="highest", plain_iters=3):
+                       widths="32x48", precision="highest", plain_iters=3,
+                       rbf_method="direct"):
     """[kernel] the two fused dense kernels, with a message round's and a
     pass round's own weights, on each of ``boxes`` — (label, a, xyz, mask,
     counts), the 2,220-atom box first: :func:`fused_check` (at the larger
@@ -3249,24 +3301,24 @@ def fused_kernel_phase(torch, card, cfg, boxes, wm, wp, sfu_rate,
     messages, hard gate) at the first box, the other mode's under
     ``other_mode``, the larger box's under ``sizes``.  ``precision``: the
     tier checked (:func:`fused_check`), timed and bounded;
-    ``plain_iters`` 0 leaves the plain version untimed."""
+    ``plain_iters`` 0 leaves the plain version untimed; ``rbf_method``:
+    the channels' method, checked, timed and bounded."""
     from epnn_tpu_torch.ops import kernels
 
     passes = kernels.tf32_passes(precision)
     key = TIER_KEY[precision]
 
-    hh, ee, f = cfg.mlp_hidden[0], cfg.e_dim, 4
-    pair = dict(cutoff=cfg.cutoff, eta=cfg.eta, tol=cfg.is_near_tol)
+    hh, ee = cfg.mlp_hidden[0], cfg.e_dim
+    pair = dict(cutoff=cfg.cutoff, eta=cfg.eta, tol=cfg.is_near_tol,
+                rbf_method=rbf_method)
     w = (wm.w1_e, *wm.mids[0]), (wp.w1_e, *wp.mids[0])
-    w_bytes = f * (ee * hh + hh * hh + hh)
-    # work (FLOP) a pair: the far field's product and ~5H elementwise, for
-    # every weighted pair of a message round; a live pair's products (rbf
-    # @ W1e and two mid layers), its channels (~6E + 15) and ~12H (message)
-    # or ~14H (pass) elementwise; E exps, a cos and a sqrt (special
-    # functions).  The hard gate's products count only its gated pairs:
-    # the others add exactly 0.
-    far_tc, far_el = 2 * hh * hh, 5 * hh
-    live_tc, chan, sfu = 2 * ee * hh + 4 * hh * hh, 6 * ee + 15, ee + 2
+    # the work (``kernels.work``): the far field's product and ~5H
+    # elementwise for every weighted pair of a message round; a live
+    # pair's products (rbf @ W1e and two mid layers), its channels
+    # (``kernels.rbf_channel_work``: direct, ~6E + 15 FLOP, E exps, a cos
+    # and a sqrt) and ~12H (message) or ~14H (pass) elementwise; the d²
+    # scan of every valid pair.  The hard gate's products count only its
+    # gated pairs: the others add exactly 0.
     rows = {}
     for bi, (label, a, xyz, mask, counts) in enumerate(boxes):
         n, nv = a.shape[0], counts["valid"]
@@ -3274,22 +3326,15 @@ def fused_kernel_phase(torch, card, cfg, boxes, wm, wp, sfu_rate,
         pm = ((a @ wm.w1_i + wm.b1).contiguous(), (a @ wm.w1_j).contiguous())
         pp = ((a @ wp.w1_i + wp.b1).contiguous(), (a @ wp.w1_j).contiguous())
         col_vec = torch.ones(n, device=a.device)
-        scan = nv * nv * SCAN_INSTR
         cases = {
             "fused_message_rowsum": [
                 ("masked", dict(masked=True),
-                 (*pm, xyz, mask, col_vec, *w[0]),
-                 nv * nv * far_tc + near * live_tc,
-                 nv * nv * far_el + near * (chan + 12 * hh)),
+                 (*pm, xyz, mask, col_vec, *w[0])),
                 ("col_vec", dict(masked=False),
-                 (*pm, xyz, mask, col_vec, *w[0]),
-                 n * n * far_tc + near * live_tc,
-                 n * n * far_el + near * (chan + 12 * hh))],
+                 (*pm, xyz, mask, col_vec, *w[0]))],
             "fused_epn_rowsum": [
-                ("hard_gate", dict(soft_gate=False), (*pp, xyz, mask, *w[1]),
-                 gated * live_tc, near * chan + gated * 14 * hh),
-                ("soft_gate", dict(soft_gate=True), (*pp, xyz, mask, *w[1]),
-                 near * live_tc, near * (chan + 14 * hh))],
+                ("hard_gate", dict(soft_gate=False), (*pp, xyz, mask, *w[1])),
+                ("soft_gate", dict(soft_gate=True), (*pp, xyz, mask, *w[1]))],
         }
         first = bi == 0
         sl = None if first else slice(n // 2 - 64, n // 2 + 64)
@@ -3297,7 +3342,9 @@ def fused_kernel_phase(torch, card, cfg, boxes, wm, wp, sfu_rate,
             wrapper = at(getattr(kernels, name), precision)
             plain = getattr(kernels, name + "_plain")
             measured = []
-            for mode, kw, args, tc_flop, elem in modes:
+            for mode, kw, args in modes:
+                wk = kernels.work(name, n=n, h=hh, e=ee, valid=nv, near=near,
+                                  gated=gated, rbf_method=rbf_method, **kw)
                 kw = {**pair, **kw}
                 err, err_emu, tol = fused_check(torch, kernels, name, args,
                                                 kw, sl, off=first,
@@ -3306,11 +3353,7 @@ def fused_kernel_phase(torch, card, cfg, boxes, wm, wp, sfu_rate,
                                20 if first else 5)
                 plain_ms = (plain_time(torch, lambda: plain(*args, **kw),
                                        plain_iters) if first else None)
-                # pi, pj, xyz, the mask (and col_vec) in, the row sums out
-                per_atom = 3 * hh + 4 + (name == "fused_message_rowsum")
-                nbytes = f * per_atom * n + w_bytes
-                b_ms, b_by, b32 = fused_bound(tc_flop, elem, scan, near * sfu,
-                                              nbytes, sfu_rate, passes)
+                b_ms, b_by, b32 = fused_bound(wk, sfu_rate, passes)
                 measured.append(dict(
                     mode=mode, N=n, valid_atoms=nv, live_pairs=near,
                     gated_pairs=gated, max_abs_err=(
@@ -3318,10 +3361,12 @@ def fused_kernel_phase(torch, card, cfg, boxes, wm, wp, sfu_rate,
                     max_abs_diff=err, tol=tol,
                     rows_checked="all" if sl is None else [sl.start, sl.stop],
                     ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                    bound_fp32_ms=b32, tc_flop=tc_flop, elem_flop=elem,
-                    scan_instructions=scan, sfu_ops=near * sfu,
-                    bytes=nbytes, **{f"max_abs_diff_{key}": err_emu,
-                                     f"flop_{key}": passes * tc_flop}))
+                    bound_fp32_ms=b32, tc_flop=wk.products,
+                    elem_flop=wk.elementwise,
+                    scan_instructions=wk.instructions, sfu_ops=wk.special,
+                    bytes=wk.bytes, rbf_method=rbf_method,
+                    **{f"max_abs_diff_{key}": err_emu,
+                       f"flop_{key}": passes * wk.products}))
                 print(f"[kernel] {name} ({mode}, {TIER_TEXT[precision]}) at "
                       f"N={n} ({near:,} live "
                       f"pairs, {gated:,} hard-gated): max|d| vs plain "
@@ -3334,11 +3379,11 @@ def fused_kernel_phase(torch, card, cfg, boxes, wm, wp, sfu_rate,
                       + f"; kernel {ms:.4f} ms"
                       + (f", plain {plain_ms:.4f} ms" if plain_ms else "")
                       + f", bound {b_ms:.5f} ms ({b_by}: "
-                      f"{passes * tc_flop:,} tensor-core FLOP in "
-                      f"{TIER_TEXT[precision]}, {elem:,} elementwise "
-                      f"FLOP, {scan:,} scan instructions, {near * sfu:,} "
-                      f"special-function ops, {nbytes:,} B), fp32 bound "
-                      f"{b32:.5f} ms on {card}")
+                      f"{passes * wk.products:,} tensor-core FLOP in "
+                      f"{TIER_TEXT[precision]}, {wk.elementwise:,} "
+                      f"elementwise FLOP, {wk.instructions:,} scan "
+                      f"instructions, {wk.special:,} special-function ops, "
+                      f"{wk.bytes:,} B), fp32 bound {b32:.5f} ms on {card}")
             main, other = measured
             if first:
                 rows[name] = dict(
@@ -3392,6 +3437,273 @@ def dimer_check(torch, kernels, pp, w, n, pair, dev, label,
           "gate); every pair's rows exact negations")
     return dict(pairs=len(pairs), across_tiles=straddle,
                 live_hard=live[False], live_soft=live[True])
+
+
+def fused_parts(wk, sfu_rate, passes=3):
+    """The times (ms) of a fused kernel's work ``wk`` (``kernels.work``)
+    on each unit :func:`fused_bound` weighs: the tensor cores, the CUDA
+    cores (elementwise FLOP and scan instructions), the special-function
+    unit, and its bytes at the HBM rate."""
+    return dict(
+        tensor_cores=passes * wk.products / PEAK_TF32_FLOPS * 1e3,
+        cuda_cores=(wk.elementwise / PEAK_FP32_FLOPS
+                    + wk.instructions / PEAK_INSTR) * 1e3,
+        special=wk.special / sfu_rate * 1e3,
+        bytes=wk.bytes / PEAK_BYTES * 1e3)
+
+
+def fused_cases(cfg, box, wm, wp):
+    """The main modes' calls of the two fused kernels on one box (label,
+    a, xyz, mask, counts) — masked messages with a message round's
+    weights, the hard gate with a pass round's — as {kernel: (args, kw)}."""
+    import torch
+
+    _, a, xyz, mask, _ = box
+    pm = ((a @ wm.w1_i + wm.b1).contiguous(), (a @ wm.w1_j).contiguous())
+    pp = ((a @ wp.w1_i + wp.b1).contiguous(), (a @ wp.w1_j).contiguous())
+    pair = dict(cutoff=cfg.cutoff, eta=cfg.eta, tol=cfg.is_near_tol)
+    ones = torch.ones(a.shape[0], device=a.device)
+    return {"fused_message_rowsum": ((*pm, xyz, mask, ones, wm.w1_e,
+                                      *wm.mids[0]), dict(pair, masked=True)),
+            "fused_epn_rowsum": ((*pp, xyz, mask, wp.w1_e, *wp.mids[0]),
+                                 dict(pair, soft_gate=False))}
+
+
+def method_turns(torch, card, cfg, boxes, wm, wp, sfu_rate, precision):
+    """[kernel] the fused kernels under ``rbf_method`` "direct" and
+    "doubling" at ``precision``, timed in turns (direct, doubling,
+    doubling, direct; 20 launches a turn at the first box, 5 after), each
+    method's time beside its bound and the bound's parts on each unit
+    (:func:`fused_parts`): which method is faster, and whether the bound
+    moves from the special-function unit to the CUDA cores.  Returns
+    {kernel: {box label: results}}."""
+    from epnn_tpu_torch.ops import kernels
+
+    passes = kernels.tf32_passes(precision)
+    hh, ee = cfg.mlp_hidden[0], cfg.e_dim
+    out = {}
+    for bi, box in enumerate(boxes):
+        label, a, _, _, counts = box
+        iters = 20 if bi == 0 else 5
+        for name, (args, kw) in fused_cases(cfg, box, wm, wp).items():
+            fn = at(getattr(kernels, name), precision)
+            times = {"direct": [], "doubling": []}
+            for method in ("direct", "doubling", "doubling", "direct"):
+                times[method].append(device_ms(
+                    torch, lambda: fn(*args, **kw, rbf_method=method),
+                    iters))
+            entry = {}
+            for method, ts in times.items():
+                wk = kernels.work(name, n=a.shape[0], h=hh, e=ee,
+                                  valid=counts["valid"],
+                                  near=counts["near"], gated=counts["gated"],
+                                  rbf_method=method, **{
+                                      k: v for k, v in kw.items()
+                                      if k in ("masked", "soft_gate")})
+                b_ms, b_by, b32 = fused_bound(wk, sfu_rate, passes)
+                parts = fused_parts(wk, sfu_rate, passes)
+                entry[method] = dict(
+                    ms=ts, ms_mean=float(np.mean(ts)), bound_ms=b_ms,
+                    bound_by=b_by, bound_fp32_ms=b32,
+                    bound_unit=max(parts, key=parts.get),
+                    bound_parts_ms=parts, sfu_ops=wk.special,
+                    elem_flop=wk.elementwise)
+            d, b = entry["direct"], entry["doubling"]
+            entry["doubling_over_direct"] = b["ms_mean"] / d["ms_mean"]
+            out.setdefault(name, {})[label] = entry
+            print(f"[kernel] {name} rbf_method in turns (direct, doubling, "
+                  f"doubling, direct) at {label}, {TIER_TEXT[precision]}: "
+                  f"direct {d['ms'][0]:.4f} / {d['ms'][1]:.4f} ms, doubling "
+                  f"{b['ms'][0]:.4f} / {b['ms'][1]:.4f} ms (doubling / "
+                  f"direct {entry['doubling_over_direct']:.3f}); bounds "
+                  f"direct {d['bound_ms']:.5f} ms (on the "
+                  f"{d['bound_unit']}: " + ", ".join(
+                      f"{u} {v:.5f}" for u, v in d["bound_parts_ms"].items())
+                  + f"), doubling {b['bound_ms']:.5f} ms (on the "
+                  f"{b['bound_unit']}: " + ", ".join(
+                      f"{u} {v:.5f}" for u, v in b["bound_parts_ms"].items())
+                  + f"; {d['sfu_ops']:,} -> {b['sfu_ops']:,} special-"
+                  f"function ops, {d['elem_flop']:,} -> {b['elem_flop']:,} "
+                  f"CUDA-core FLOP) on {card}")
+    return out
+
+
+def doubling_phase(torch, card, cfg, boxes, wm, wp, sfu_rate):
+    """[kernel] the fused kernels' ``rbf_method="doubling"`` (two exps a
+    pair; ``kernels.envelope_rbf_doubling``): on the boxes of
+    :func:`fused_kernel_phase` (2,224 atoms, and 17,760 on a 128-row
+    slice) and at :data:`TIMED_WIDTH` (the wide path, [width]'s model and
+    box), in both TF32 tiers, every mode against its plain version and
+    its tier's emulation under the doubling, the same bits twice and off
+    the boundary, the dimer probe's exact negations, times and bounds
+    (:func:`fused_kernel_phase`); then direct against doubling in turns
+    (:func:`method_turns`).  Returns {kernel: {"doubling": results}}."""
+    from epnn_tpu_torch.ops.fused import build_neighbors, rbf_and_gate
+
+    out = {"fused_message_rowsum": {}, "fused_epn_rowsum": {}}
+    wide = WIDTH_CASES.index(TIMED_WIDTH)
+    (wcfg, wpred, wbatch, _, wxyz, wmask, wa, wwm, wwp, *_) = width_inputs(
+        torch, wide, *TIMED_WIDTH)
+    _, nbr, d2 = build_neighbors(wxyz, wmask, wcfg.cutoff,
+                                 wpred._neighbor_k(wbatch), with_d2=True)
+    _, gate = rbf_and_gate(d2, nbr, wcfg)
+    label = f"{TIMED_WIDTH[0]}x{TIMED_WIDTH[1]}"
+    wbox = [(label, wa, wxyz, wmask, dict(
+        valid=int(wmask.sum()), near=int(torch.count_nonzero(nbr)),
+        gated=int(torch.count_nonzero(gate * nbr))))]
+    for precision, plain_iters in (("highest", 3), ("default", 0)):
+        key = TIER_KEY[precision]
+        rows = fused_kernel_phase(torch, card, cfg, boxes, wm, wp, sfu_rate,
+                                  precision=precision,
+                                  plain_iters=plain_iters,
+                                  rbf_method="doubling")
+        wrows = fused_kernel_phase(torch, card, wcfg, wbox, wwm, wwp,
+                                   sfu_rate, label, precision, 0,
+                                   rbf_method="doubling")
+        turns = method_turns(torch, card, cfg, boxes, wm, wp, sfu_rate,
+                             precision)
+        wturns = method_turns(torch, card, wcfg, wbox, wwm, wwp, sfu_rate,
+                              precision)
+        for name in out:
+            row = {k: v for k, v in rows[name].items()
+                   if k not in ("name", "route", "source", "replaces",
+                                "launches", "library_ms")}
+            row["sizes"][label] = {k: v for k, v in wrows[name].items()
+                                   if k not in ("name", "route", "source",
+                                                "replaces", "launches",
+                                                "library_ms", "sizes")}
+            row["turns"] = {**turns[name], **wturns[name]}
+            out[name][key] = row
+    return {name: {"doubling": entry} for name, entry in out.items()}
+
+
+def dense_doubling_phase(torch, card, pred, batch2, q_direct, total_q,
+                         timed):
+    """[slice d] ``_forward_single_pallas(rbf_method="doubling")``, the
+    dense fused forward with the doubled channels, on the two 2,220-atom
+    boxes: 5 + 5 fused launches a graph, max|Δq| against the direct call
+    (``q_direct``, [slice d]'s), the pairs whose hard gate the doubling
+    flips (each box's pairs within the cutoff, channels by both methods),
+    |Σq − Q| ≤ 1e-4 e, and the two methods' medians in turns.  Returns
+    (results, launches)."""
+    from epnn_tpu_torch.featurize import envelope_rbf_method, hard_gate
+    from epnn_tpu_torch.featurize import rbf_table
+    from epnn_tpu_torch.ops import fused, kernels
+    from epnn_tpu_torch.ops.fused import build_neighbors
+
+    cfg = pred.cfg
+    dev = torch.device("cuda")
+    tb = [torch.from_numpy(arr).to(dev) for arr in (
+        batch2.x, batch2.q0, batch2.xyz, batch2.node_mask)]
+
+    def forward(method):
+        with torch.no_grad():
+            return torch.stack([fused._forward_single_pallas(
+                pred._fused, *(t[b] for t in tb), cfg, rbf_method=method)
+                for b in range(batch2.batch_size)]).cpu().numpy()
+
+    kernels.reset_launch_counts()
+    q = forward("doubling")
+    launches = dict(kernels.LAUNCHES)
+    want = {kn: batch2.batch_size * PER_GRAPH_DENSE.get(kn, 0)
+            for kn in kernels.SOURCES}
+    require(launches == want, ("[slice d] doubling launches", launches))
+    dq = float(np.abs(q - q_direct).max())
+    cons = np.abs(q.astype(np.float64).sum(1) - total_q)
+    require(np.all(np.isfinite(q)) and np.all(cons <= 1e-4),
+            ("[slice d] doubling conservation", cons))
+    flips, live = [], []
+    k = pred._neighbor_k(batch2)
+    for b in range(batch2.batch_size):
+        _, nbr, d2 = build_neighbors(tb[2][b], tb[3][b], cfg.cutoff, k,
+                                     with_d2=True)
+        gates = [hard_gate(envelope_rbf_method(
+            d2, nbr, cfg.cutoff, cfg.eta,
+            rbf_table(cfg.e_dim, cfg.cutoff, cfg.eta, m, dev), m)[0],
+            cfg.is_near_tol) * nbr for m in ("direct", "doubling")]
+        flips.append(int(torch.count_nonzero(gates[0] != gates[1])))
+        live.append(int(torch.count_nonzero(gates[0])))
+    turns = {"direct": [], "doubling": []}
+    for method in ("direct", "doubling", "doubling", "direct"):
+        turns[method].append(timed(lambda: forward(method), 5))
+    out = dict(launches=launches, max_abs_dq_vs_direct=dq,
+               conservation=cons.tolist(), gate_flips=flips,
+               hard_gated_slots=live, median_ms_turns=turns)
+    print(f"[slice d] _forward_single_pallas(rbf_method='doubling'), 2 x "
+          f"2,220 atoms: launches {launches}; max|dq| vs direct {dq:.3e}; "
+          f"hard-gate flips against direct {flips} of {live} gated pair "
+          f"slots; |sum q - Q| = {cons.tolist()} (<= 1e-4 e); medians in "
+          f"turns direct {turns['direct']} ms, doubling "
+          f"{turns['doubling']} ms on {card}")
+    return out, launches
+
+
+#: the host threads of :func:`cpu_flops_child` (the card's phases keep
+#: the other cores), and the seconds [profile] waits for it at most
+CPU_FLOPS_THREADS = 4
+CPU_FLOPS_TIMEOUT = 600
+
+
+def cpu_flops_child(path):
+    """The CPU side of [profile]'s flop count, in a process of its own
+    (``--cpu-flops <path>``, started after the build so that it runs
+    beside the card's phases): ``Predictor.from_checkpoint`` on the CPU,
+    the program ``benchmark_batch`` times at 2 x 2,220 and 1 x 17,760
+    atoms, and its products (``utils.timing.count_flops``: what
+    ``benchmark_batch(cost_analysis=True)`` reports), written to ``path``
+    as JSON."""
+    import torch
+
+    from epnn_tpu_torch.data import pad_molecules
+    from epnn_tpu_torch.elements import table_for_n_elems
+    from epnn_tpu_torch.infer import Predictor
+    from epnn_tpu_torch.testing import (SCALING_SIZE_MOLECULES, golden_boxes,
+                                        water_box)
+    from epnn_tpu_torch.utils.timing import count_flops
+
+    torch.set_num_threads(CPU_FLOPS_THREADS)
+    pred = Predictor.from_checkpoint(CKPT, device="cpu")
+    table = table_for_n_elems(pred.cfg.n_elems)
+    out = {}
+    for label, mols in (("2x2220", golden_boxes()),
+                        ("1x17760", [water_box(SCALING_SIZE_MOLECULES,
+                                               seed=2)])):
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out[label] = count_flops(*pred._bench_program(
+                pad_molecules(mols, table)))
+        out[label + "_s"] = time.perf_counter() - t0
+    with open(path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def flops_phase(torch, card, pred, batches, child, child_out):
+    """[profile] ``benchmark_batch(cost_analysis=True)`` on the card at 2
+    x 2,220 and 1 x 17,760 atoms: ``flops`` (the model's products,
+    ``kernels.work`` for each kernel) equal to the same call's count on
+    the CPU (:func:`cpu_flops_child`, waited for here), and the products'
+    rate at the call's chained latency.  Returns the results."""
+    rc, text = wait_children([child], CPU_FLOPS_TIMEOUT)
+    require(rc == [0], ("cpu flops child", rc, text[0][-3000:]))
+    with open(child_out) as f:
+        cpu = json.load(f)
+    out = {}
+    for label, batch in batches:
+        stats = pred.benchmark_batch(batch, iters=5, warmup_loops=1,
+                                     cost_analysis=True)
+        require(stats.get("flops") == cpu[label],
+                ("flops card vs CPU", label, stats.get("flops"), cpu[label]))
+        rate = stats["flops"] / stats["mean_s"]
+        out[label] = dict(flops=stats["flops"], cpu_flops=cpu[label],
+                          cpu_count_s=cpu[label + "_s"],
+                          mean_s=stats["mean_s"], flops_per_s=rate)
+        print(f"[profile] benchmark_batch(cost_analysis=True) at {label}: "
+              f"flops {stats['flops']:.6e} on the card, the CPU's count of "
+              f"the same call {cpu[label]:.6e} (equal); chained "
+              f"{stats['mean_s'] * 1e3:.3f} ms a call, {rate:.4e} model "
+              f"FLOP/s (products only) on {card}")
+    return out
 
 
 def width_inputs(torch, seed, hh, ee):
@@ -3578,8 +3890,8 @@ def compact_phase(torch, card, cfg, boxes):
     """[kernel] neighbor_compact on each (label, xyz, mask, k): the same set
     as top-k (build_neighbors) on every row and the same table as its plain
     version, bit for bit; its time beside top-k's and two bounds: the
-    operations (:data:`COMPACT_FLOP` a valid pair at the fp32 peak) and
-    the instruction issue (:data:`COMPACT_INSTR` a valid pair at
+    operations (``kernels.COMPACT_FLOP`` a valid pair at the fp32 peak)
+    and the instruction issue (``kernels.COMPACT_INSTR`` a valid pair at
     :data:`PEAK_INSTR`).  The neighbor selection line beside it: the
     cell-list builder (its ``count_only`` k, which must equal top-k's
     largest row, then its tables, on ``Predictor``'s grid), the same set
@@ -3593,7 +3905,7 @@ def compact_phase(torch, card, cfg, boxes):
         build_neighbors_cell,
     )
 
-    row, f, selection = None, 4, {}
+    row, selection = None, {}
     for label, xyz, mask, k in boxes:
         n = xyz.shape[0]
         idx, m = kernels.neighbor_compact(xyz, mask, cfg.cutoff, k)
@@ -3638,17 +3950,18 @@ def compact_phase(torch, card, cfg, boxes):
               f"builder {count_ms + build_ms:.4f} ms (count_only "
               f"{count_ms:.4f} + build {build_ms:.4f}), top-k "
               f"{topk_ms:.4f} ms, neighbor_compact {ms:.4f} ms on {card}")
-        n_valid = int((mask > 0).sum())
-        flop = n_valid * n_valid * COMPACT_FLOP  # d² and the compare
-        nbytes = f * 4 * n + 12 * n * k     # xyz, mask; idx int64, mask
+        wk = kernels.work("neighbor_compact", n=n, k=k,
+                          valid=int((mask > 0).sum()))
+        flop, nbytes = wk.elementwise, wk.bytes
         b_ms, b_by = bound(flop, 0, nbytes, 1.0)
-        issue_ms = n_valid * n_valid * COMPACT_INSTR / PEAK_INSTR * 1e3
+        issue_ms = wk.instructions / PEAK_INSTR * 1e3
         print(f"[kernel] neighbor_compact at N={n} ({label}) k={k}: the same "
               f"set as top-k on all {n} rows, the same table as its plain "
               f"version ({int(m.sum()):,} pairs); kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, build_neighbors (top-k) {topk_ms:.4f} ms,"
               f" bound {b_ms:.5f} ms ({b_by}: {flop:,} FLOP, {nbytes:,} B), "
-              f"issue bound {issue_ms:.5f} ms ({COMPACT_INSTR} instructions "
+              f"issue bound {issue_ms:.5f} ms ({kernels.COMPACT_INSTR} "
+              f"instructions "
               f"a valid pair) on {card}")
         entry = dict(ms=ms, plain_ms=plain_ms, topk_ms=topk_ms, bound_ms=b_ms,
                      bound_by=b_by, bound_issue_ms=issue_ms, flop=flop,
@@ -4313,8 +4626,10 @@ def mesh_shape_rows(torch, card, far_args, big_args, rows):
         plain_ms = device_ms(
             torch, lambda: kernels.dense_message_rowsum_plain(*args),
             MESH_SHAPE_ITERS[1])
-        nbytes = 4 * (2 * r * hh + nc + live * hh + hh * hh + hh)
-        b_ms, b_by, b32 = tc_bound(r * live, 2 * hh * hh, 4 * hh, nbytes)
+        wk = kernels.work("dense_message_rowsum", rows=r, cols=nc, h=hh,
+                          live=live)
+        nbytes = wk.bytes
+        b_ms, b_by, b32 = tc_bound(wk)
         out[label] = dict(R=r, N=nc, live_cols=live, max_abs_err=err,
                           max_abs_diff_3xtf32=err_emu, tol=tol, ms=ms,
                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -4896,10 +5211,10 @@ def mesh_train_shape_rows(torch, card, far_args, gbar, near_sets, rows):
         plain_ms = device_ms(
             torch, lambda: kernels.dense_message_rowsum_bwd_plain(*args),
             MESH_TRAIN_ITERS[1])
-        nbytes = 4 * (3 * rr * hh + nc * hh + nc + live * hh
-                      + 2 * (hh * hh + hh))
-        b_ms, b_by, b32 = tc_bound(rr * live, 3 * 2 * hh * hh, 9 * hh,
-                                   nbytes)
+        wk = kernels.work("dense_message_rowsum_bwd", rows=rr, cols=nc,
+                          h=hh, live=live)
+        nbytes = wk.bytes
+        b_ms, b_by, b32 = tc_bound(wk)
         out[label] = dict(R=rr, N=nc, live_cols=live,
                           max_abs_err=max(e[0] for e in errs.values()),
                           max_abs_diff_f64={p: e[1] for p, e in
@@ -4928,10 +5243,10 @@ def mesh_train_shape_rows(torch, card, far_args, gbar, near_sets, rows):
             plain_ms = device_ms(
                 torch, lambda: getattr(kernels, name + "_plain")(*args),
                 MESH_TRAIN_ITERS[1])
-            n_live, _, _, nbytes, (b_ms, b_by, b32) = near_bound(name, args)
+            n_live, wk, (b_ms, b_by, b32) = near_bound(name, args)
             entry = dict(R=rr, K=kk, live_slots=n_live, max_abs_err=err,
                          bar=bar, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by, bound_fp32_ms=b32, bytes=nbytes)
+                         bound_by=b_by, bound_fp32_ms=b32, bytes=wk.bytes)
             rows[name]["sizes"].setdefault("mesh_train", {})[
                 f"{rr} rows"] = entry
             near[f"{name} {rr} rows"] = entry
@@ -5213,6 +5528,8 @@ def main() -> int:
         return mesh_train_cards()
     if sys.argv[1:2] == ["--mesh-child"]:
         return mesh_child(sys.argv[2])
+    if sys.argv[1:2] == ["--cpu-flops"]:
+        return cpu_flops_child(sys.argv[2])
     from epnn_tpu_torch.data import pad_molecules
     from epnn_tpu_torch.elements import table_for_n_elems
     from epnn_tpu_torch.infer import Predictor
@@ -5265,6 +5582,17 @@ def main() -> int:
                     if "registers" in ln or "spill" in ln:
                         print(f"[build] {name} {tag} "
                               f"{TIER_TEXT[tier]}: {ln.strip()}")
+    # the CPU side of [profile]'s flop count runs beside the card's phases
+    flops_dir = tempfile.mkdtemp(prefix="chip_smoke_flops")
+    flops_out = os.path.join(flops_dir, "cpu_flops.json")
+    root = os.path.dirname(os.path.abspath(__file__))
+    flops_child = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--cpu-flops",
+         flops_out], cwd=root,
+        env=dict(os.environ, PYTHONPATH=root,
+                 OMP_NUM_THREADS=str(CPU_FLOPS_THREADS)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    atexit.register(lambda: flops_child.poll() is None and flops_child.kill())
 
     # ---- 3. kernels against their plain versions --------------------------
     dev = torch.device("cuda")
@@ -5369,6 +5697,9 @@ def main() -> int:
                    ("17760", a_b, xyz_b, mask_b, counts_b)]
     rows.update(fused_kernel_phase(torch, card, cfg, fused_boxes, wm, wp,
                                    sfu_rate))
+    for name, entry in doubling_phase(torch, card, cfg, fused_boxes, wm, wp,
+                                      sfu_rate).items():
+        rows[name].update(entry)
     # neighbor_compact on each box as it comes (lattice order) and on a
     # seeded shuffle of it, the cull's best and worst case
     compact_boxes = []
@@ -5579,6 +5910,8 @@ def main() -> int:
           f"(_forward_single) on the card: no launches, max|dq| vs golden "
           f"{dq_p:.3e}, vs the fused path {dq_pd:.3e}, |sum q - Q| = "
           f"{cons_p.tolist()}, median {ms_p:.3f} ms on {card}")
+    dense_dbl, dense_dbl_launches = dense_doubling_phase(
+        torch, card, pred, batch2, qd, total_q, timed)
 
     # (e) kernel-built neighbor tables through the neighbor-split forward
     uq0 = pred._uniform_q0(batch2)
@@ -5766,6 +6099,10 @@ def main() -> int:
         Predictor(pred.params, cfg, far_cluster=CLUSTER_CS[0]),
         {tier: Predictor(pred.params, cfg.replace(**PRECISION_TIERS[tier]))
          for tier in ("parity", "fast")})
+    flops = flops_phase(torch, card, pred, [("2x2220", batch2),
+                                            ("1x17760", big)], flops_child,
+                        flops_out)
+    shutil.rmtree(flops_dir, ignore_errors=True)
 
     # ---- 6. result lines --------------------------------------------------
     # launches: each kernel's count in the main path of its slice
@@ -5774,6 +6111,7 @@ def main() -> int:
         path_launches = {"serve": main_launches[name],
                          "train": train_launches[name],
                          "dense_fused": dense_launches[name],
+                         "dense_fused_doubling": dense_dbl_launches[name],
                          "compact_nbrs": compact_launches[name],
                          "int8": int8_launches[name],
                          "cluster": cluster_launches[name],
@@ -5814,6 +6152,7 @@ def main() -> int:
                       "fused_train_step_ms": {"2x2220": step_ms,
                                               "2x2220_steps": step_list},
                       "dense_fused_ms": {"2x2220": ms_d},
+                      "dense_fused_doubling": dense_dbl,
                       "dense_plain_ms": {"2x2220": ms_p},
                       "compact_nbrs_ms": {"2x2220": ms_e},
                       "neighbor_selection": selection,
@@ -5844,7 +6183,8 @@ def main() -> int:
                                "train_one_rank": mesh_c_a,
                                "train_rank_shapes": mesh_c_shapes},
                       "widths": width_results,
-                      "profile": profile, "sm_clocks": clocks,
+                      "profile": profile, "flops": flops,
+                      "sm_clocks": clocks,
                       "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {

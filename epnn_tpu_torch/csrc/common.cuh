@@ -107,28 +107,85 @@ __device__ __forceinline__ float rbf_channel(float c, float d, float mu,
   return __fmul_rn(c, expf(__fmul_rn(neg_eta, __fmul_rn(t, t))));
 }
 
+// The doubling (the JAX kernels' rbf_method "doubling", _tile_rbf_flat,
+// pallas_kernels.py:238-250; kernels.envelope_rbf_doubling).  On the
+// uniform centers mu_ch = 0.1 + ch D, D = (cutoff - 0.1) / (E - 1), the
+// channels are a geometric sequence:
+//   dc = min(d, cutoff) - 0.1,  a = c exp((-eta dc) dc),  u = exp(2 eta D dc),
+//   rbf_ch = (a g_ch) u^ch,  g_ch = exp(-eta D^2 ch^2)
+// — two exps a pair (doubling_pair) instead of one a channel; g is a table
+// the kernel reads where "direct" reads mu (kernels.doubling_gains), and
+// u^ch is multiplied in from u, u^2, u^4, ... (by repeated squaring) for
+// the set bits of ch in ascending order (doubling_channel): JAX's masked
+// squarings, in its order, so every rounding is the plain version's.  d
+// is clamped to the cutoff (the envelope is 0 there) so u^ch stays finite
+// for far atoms.  Each step is a function of d, and so of the pair's d^2:
+// a pair's two orderings get the same channels under either method.
+
+// bits of E - 1 (at least 1): the squarings u^ch takes
+__host__ __device__ constexpr int bit_length(int x) {
+  return x > 0 ? 1 + bit_length(x >> 1) : 0;
+}
+constexpr int kBits = bit_length(kE - 1) > 0 ? bit_length(kE - 1) : 1;
+
+__device__ __forceinline__ void doubling_pair(float c, float d, float cutoff,
+                                              float neg_eta, float u_scale,
+                                              float& a, float& u) {
+  const float dc = __fsub_rn(fminf(d, cutoff), 0.1f);
+  a = __fmul_rn(c, expf(__fmul_rn(__fmul_rn(neg_eta, dc), dc)));
+  u = expf(__fmul_rn(u_scale, dc));
+}
+
+__device__ __forceinline__ float doubling_channel(float a, float u, float g,
+                                                  int ch) {
+  float r = __fmul_rn(a, g), p = u;
+#pragma unroll
+  for (int b = 0; b < kBits; ++b) {
+    if ((ch >> b) & 1) r = __fmul_rn(r, p);
+    if (b + 1 < kBits) p = __fmul_rn(p, p);
+  }
+  return r;
+}
+
+// channel e of a pair under the method dbl: direct from (c, d) and mu_e,
+// or the doubling from (a, u) and g_e (tab_e is mu_e or g_e).  The method
+// is a template argument of the fused kernels (each library holds both
+// instantiations, the host picks one a launch), so direct compiles to the
+// code it had without the doubling.
+template <bool dbl>
+__device__ __forceinline__ float channel(float c, float d, float a, float u,
+                                         float tab_e, int e, float neg_eta) {
+  return dbl ? doubling_channel(a, u, tab_e, e)
+             : rbf_channel(c, d, tab_e, neg_eta);
+}
+
 // Pair (i, j) of a fused kernel's tile, as the plain versions featurize
 // it: the masked envelope c (0 for i == j), with pm = m_i * m_j, and the
 // thread's channels n t .. n t + n - 1 (t = lane % 4) of its E channels
-// around mu (shared memory, zeros past E) into r; channels past the real
-// E are 0.  An idle M row comes as (0, 0): a self pair, all zeros.
-template <int n, int e_real>
+// (tab: the centers mu, or the doubling's gains g; shared memory, zeros
+// past E) into r; channels past the real E are 0.  An idle M row comes as
+// (0, 0): a self pair, all zeros.  dbl: the method (channel); u_scale = 2
+// eta D, read by the doubling only.
+template <int n, int e_real, bool dbl>
 __device__ __forceinline__ float pair_channels(const float* __restrict__ xyz,
                                                const float* __restrict__ mask,
-                                               const float* mu, int i, int j,
+                                               const float* tab, int i, int j,
                                                int t, float cutoff,
-                                               float neg_eta, float& pm,
-                                               float (&r)[n]) {
+                                               float neg_eta, float u_scale,
+                                               float& pm, float (&r)[n]) {
   const float d2 = pair_d2(xyz[3 * i], xyz[3 * i + 1], xyz[3 * i + 2],
                            xyz[3 * j], xyz[3 * j + 1], xyz[3 * j + 2]);
   pm = __fmul_rn(mask[i], mask[j]);
   float d;
   const float c = __fmul_rn(envelope(d2, cutoff, d), i != j ? pm : 0.0f);
+  float a = 0.0f, u = 0.0f;
+  if (dbl) doubling_pair(c, d, cutoff, neg_eta, u_scale, a, u);
 #pragma unroll
   for (int m = 0; m < n; ++m) {
     const int e = n * t + m;
-    r[m] = (e_real == 4 * n || e < e_real) ? rbf_channel(c, d, mu[e], neg_eta)
-                                           : 0.0f;
+    r[m] = (e_real == 4 * n || e < e_real)
+               ? channel<dbl>(c, d, a, u, tab[e], e, neg_eta)
+               : 0.0f;
   }
   return c;
 }

@@ -29,10 +29,19 @@
 //
 // Bound on the H100: operations, of two kinds.  Deciding which pairs are
 // live takes every valid pair a d^2 and a compare (~10 instructions on the
-// CUDA cores); a live pair needs its E channels (E exps, a sqrt, a cos)
-// and rbf @ W1e and both orderings' mid layers, 2EH + 4H^2 FLOP of
-// tensor-core products, three TF32 products each in 3xTF32.  At 2,224
-// atoms both are microseconds (chip_smoke.py prints the bound).
+// CUDA cores); a live pair needs its E channels (E exps, a sqrt, a cos;
+// under the doubling two exps, a sqrt, a cos and ~E (1 + popcount)
+// multiplies) and rbf @ W1e and both orderings' mid layers, 2EH + 4H^2
+// FLOP of tensor-core products, three TF32 products each in 3xTF32.  At
+// 2,224 atoms both are microseconds (chip_smoke.py prints the bound).
+//
+// RBF methods: the JAX kernel's rbf_method, the kernel's template
+// argument kDbl; one library holds both instantiations and the entry
+// picks one a launch (its doubling argument), so direct runs the code it
+// had before the doubling existed.  "direct" reads the centers mu from
+// tab and takes an exp a channel, "doubling" reads the gains g and builds
+// the channels from two exps a pair (common.cuh, doubling_channel).  The
+// hard gate reads the channels the method built.
 //
 // Design: the near kernels' tiles (common.cuh, "the near tiles"), fed by a
 // d^2 scan of the pair grid (pair_walk).  A persistent grid: a few blocks
@@ -71,11 +80,11 @@
 // without --use_fast_math: expf, cosf, sqrt at full precision.
 //
 // Widths: up to 64 padded (common.cuh); W1e (Ep, Hp), W2 and b2
-// come zero-padded, mu (E,) is read into shared memory with zeros past E.
+// come zero-padded, tab (E,) is read into shared memory with zeros past E.
 //
 // Widths past 64 (padded H or E): the wide tiles of wide.cuh fed by the
 // same scan (wide::pair_walk); a pair's channels are built one at a time
-// where a k-step of epart takes them (mu from global memory), its gate
+// where a k-step of epart takes them (tab from global memory), its gate
 // once a tile.  Every step stays a function of the pair's d^2 and of the
 // two orderings' bases, so the transfers stay exact negations.
 #include "common.cuh"
@@ -94,14 +103,15 @@ struct Smem {
   epnn::ScanSmem scan;
 };
 
+template <bool kDbl>
 __global__ void __launch_bounds__(epnn::kNearThreads, 3)
 fepn_kernel(const float* __restrict__ pi, const float* __restrict__ pj,
             const float* __restrict__ xyz, const float* __restrict__ mask,
             const float* __restrict__ w1e, const float* __restrict__ w2,
-            const float* __restrict__ b2, const float* __restrict__ mu,
+            const float* __restrict__ b2, const float* __restrict__ tab,
             float* __restrict__ out, float* work, int N, int n_warps,
             int soft_gate,
-            float cutoff, float eta, float tol, float cut2) {
+            float cutoff, float eta, float tol, float cut2, float u_scale) {
   extern __shared__ uint4 smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -119,15 +129,18 @@ fepn_kernel(const float* __restrict__ pi, const float* __restrict__ pj,
                       v[1] ? sm.scan.ring[warp][ib] : 0};
     const int i[2] = {v[0] ? sm.scan.rows[warp][ia] : 0,
                       v[1] ? sm.scan.rows[warp][ib] : 0};
-    float c[2], d[2], gh[2];
+    float c[2], d[2], a[2] = {0.0f, 0.0f}, u[2] = {0.0f, 0.0f}, gh[2];
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       float pm;
       c[e] = wide::pair_env(xyz, mask, i[e], j[e], cutoff, d[e], pm);
+      if (kDbl)
+        epnn::doubling_pair(c[e], d[e], cutoff, neg_eta, u_scale, a[e], u[e]);
       // the hard gate: any real channel above tol, over the four threads
       int near = 0;
       for (int ch = t; ch < kE; ch += 4)
-        near |= epnn::rbf_channel(c[e], d[e], mu[ch], neg_eta) > tol;
+        near |= wide::rbf_of<kDbl>(c[e], d[e], a[e], u[e], tab, ch,
+                                   neg_eta) > tol;
       near |= __shfl_xor_sync(0xffffffffu, near, 1);
       near |= __shfl_xor_sync(0xffffffffu, near, 2);
       gh[e] = __fmul_rn(0.5f, soft_gate ? c[e] : (near ? 1.0f : 0.0f));
@@ -139,7 +152,8 @@ fepn_kernel(const float* __restrict__ pi, const float* __restrict__ pj,
     wide::tile(
         w1e, w2, b2, lane,
         [&](int e, int ch) {
-          return wide::rbf_of(c[e], d[e], mu, ch, neg_eta);
+          return wide::rbf_of<kDbl>(c[e], d[e], a[e], u[e], tab, ch,
+                                    neg_eta);
         },
         [&](int e, int f, float ep, float& zn, float& zt) {
           const bool in = v[e] && f < kH;
@@ -160,7 +174,6 @@ fepn_kernel(const float* __restrict__ pi, const float* __restrict__ pj,
                   out, tile);
 }
 
-int g_resident[epnn::kNearMaxDevices] = {};  // epnn::near_warps's cache
 constexpr int kSmem = (int)sizeof(Smem);
 
 }  // namespace
@@ -181,24 +194,25 @@ constexpr int kMinBlocks = 3;
 struct Smem {
   epnn::NearSmem near;
   epnn::ScanSmem scan;
-  float mu[kEp];
+  float tab[kEp];  // mu, or the doubling's gains
 };
 
+template <bool kDbl>
 __global__ void __launch_bounds__(epnn::kNearThreads, kMinBlocks)
 fepn_kernel(const float* __restrict__ pi, const float* __restrict__ pj,
             const float* __restrict__ xyz, const float* __restrict__ mask,
             const float* __restrict__ w1e, const float* __restrict__ w2,
-            const float* __restrict__ b2, const float* __restrict__ mu,
+            const float* __restrict__ b2, const float* __restrict__ tab,
             float* __restrict__ out, float* work, int N, int n_warps,
             int soft_gate,
-            float cutoff, float eta, float tol, float cut2) {
+            float cutoff, float eta, float tol, float cut2, float u_scale) {
   extern __shared__ uint4 smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   epnn::NearSmem& s = sm.near;
   float bias[kNT][2];
   epnn::near_stage(s, w1e, w2, b2, bias);
   for (int e = threadIdx.x; e < kEp; e += epnn::kNearThreads)
-    sm.mu[e] = e < kE ? mu[e] : 0.0f;
+    sm.tab[e] = e < kE ? tab[e] : 0.0f;
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gw = blockIdx.x * epnn::kNearWarps + warp;
@@ -211,8 +225,8 @@ fepn_kernel(const float* __restrict__ pi, const float* __restrict__ pj,
   // channels (the real E only) combined over the pair's four threads
   auto features = [&](int i, int j, float (&r)[kFE]) {
     float pm;
-    const float c = epnn::pair_channels<kFE, kE>(xyz, mask, sm.mu, i, j, t,
-                                                 cutoff, neg_eta, pm, r);
+    const float c = epnn::pair_channels<kFE, kE, kDbl>(
+        xyz, mask, sm.tab, i, j, t, cutoff, neg_eta, u_scale, pm, r);
     int near = 0;
 #pragma unroll
     for (int m = 0; m < kFE; ++m)
@@ -278,41 +292,57 @@ fepn_kernel(const float* __restrict__ pi, const float* __restrict__ pj,
                   r1, out, tile);
 }
 
-int g_resident[epnn::kNearMaxDevices] = {};  // epnn::near_warps's cache
 constexpr int kSmem = (int)sizeof(Smem);
 
 }  // namespace
 
 #endif  // EPNN_WIDE
 
-// The warps a launch runs for N rows (the wide path's scratch holds 16 Hp
-// floats for each); negative on a CUDA error.
-extern "C" int epnn_fused_epn_rowsum_warps(int N) {
-  int n_warps = 0;
-  const cudaError_t err =
-      epnn::near_warps(fepn_kernel, g_resident, N, kSmem, n_warps);
-  return err == cudaSuccess ? n_warps : -1;
+namespace {
+
+// epnn::near_warps's cache, an instantiation (direct, doubling) each
+int g_resident[2][epnn::kNearMaxDevices] = {};
+
+cudaError_t warps(bool dbl, int N, int& n_warps) {
+  return dbl ? epnn::near_warps(fepn_kernel<true>, g_resident[1], N, kSmem,
+                                n_warps)
+             : epnn::near_warps(fepn_kernel<false>, g_resident[0], N, kSmem,
+                                n_warps);
 }
 
-// xyz (N, 3), mask (N,), mu (E,) the RBF centers; w1e (Ep, Hp), w2 (Hp,
-// Hp), b2 (Hp,) zero-padded; out: (N, H); work: the wide path's scratch
-// (16 Hp floats a warp; unused below 64 padded, may be null there); cut2
-// the squared cutoff rounded up.  N * N must fit an int.  Returns
-// cudaGetLastError().
+}  // namespace
+
+// The warps a launch of either method runs for N rows at most (the wide
+// path's scratch holds 16 Hp floats for each); negative on a CUDA error.
+extern "C" int epnn_fused_epn_rowsum_warps(int N) {
+  int direct = 0, doubled = 0;
+  if (warps(false, N, direct) != cudaSuccess ||
+      warps(true, N, doubled) != cudaSuccess)
+    return -1;
+  return direct > doubled ? direct : doubled;
+}
+
+// xyz (N, 3), mask (N,), tab (E,) the RBF centers mu (doubling = 0) or
+// the doubling's gains g (doubling = 1, u_scale = 2 eta D); w1e (Ep, Hp),
+// w2 (Hp, Hp), b2 (Hp,) zero-padded; out: (N, H); work: the wide path's
+// scratch (16 Hp floats a warp; unused below 64 padded, may be null
+// there); cut2 the squared cutoff rounded up.  N * N must fit an int.
+// Returns cudaGetLastError().
 extern "C" int epnn_fused_epn_rowsum(
     const float* pi, const float* pj, const float* xyz, const float* mask,
-    const float* w1e, const float* w2, const float* b2, const float* mu,
+    const float* w1e, const float* w2, const float* b2, const float* tab,
     float* out, float* work, int N, int H, int E, int soft_gate,
-    float cutoff, float eta, float tol, float cut2, cudaStream_t stream) {
+    int doubling, float cutoff, float eta, float tol, float cut2,
+    float u_scale, cudaStream_t stream) {
   if (H != kH || E != kE || N <= 0 || (long long)N * N > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   int n_warps = 0;
-  cudaError_t err =
-      epnn::near_warps(fepn_kernel, g_resident, N, kSmem, n_warps);
+  cudaError_t err = warps(doubling != 0, N, n_warps);
   if (err != cudaSuccess) return err;
   const int blocks = (n_warps + epnn::kNearWarps - 1) / epnn::kNearWarps;
-  fepn_kernel<<<blocks, epnn::kNearThreads, kSmem, stream>>>(
-      pi, pj, xyz, mask, w1e, w2, b2, mu, out, work, N, n_warps, soft_gate,
-      cutoff, eta, tol, cut2);
+  const auto kernel = doubling ? fepn_kernel<true> : fepn_kernel<false>;
+  kernel<<<blocks, epnn::kNearThreads, kSmem, stream>>>(
+      pi, pj, xyz, mask, w1e, w2, b2, tab, out, work, N, n_warps, soft_gate,
+      cutoff, eta, tol, cut2, u_scale);
   return cudaGetLastError();
 }

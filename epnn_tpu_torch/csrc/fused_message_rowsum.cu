@@ -30,8 +30,15 @@
 //
 // Bound on the H100: operations.  Every pair needs the far field's H x H
 // product (2H^2 FLOP, three TF32 products in 3xTF32) and a d^2 scan; a
-// live pair also its E channels (E exps), rbf @ W1e and two mid layers
-// (2EH + 4H^2).  chip_smoke.py prints the bound on its data.
+// live pair also its E channels (E exps; under the doubling two exps and
+// ~E (1 + popcount) multiplies), rbf @ W1e and two mid layers (2EH +
+// 4H^2).  chip_smoke.py prints the bound on its data.
+//
+// RBF methods: the JAX kernel's rbf_method, the kernel's template
+// argument kDbl, both instantiations in one library, as in
+// fused_epn_rowsum.cu: tab holds the centers mu ("direct") or the
+// doubling's gains g (common.cuh, doubling_channel).  Only live pairs
+// build channels, so the far field is the same under both.
 //
 // Design: one launch, two kinds of blocks of one warpgroup each.
 //   * blocks [0, far_blocks): the far field on wgmma in 3xTF32,
@@ -50,7 +57,7 @@
 // the check against it is the fp32 bar, not its bits.
 //
 // Widths: up to 64 padded (common.cuh); W1e (Ep, Hp), W2 and b2
-// come zero-padded, mu (E,) is read into shared memory with zeros past E.
+// come zero-padded, tab (E,) is read into shared memory with zeros past E.
 //
 // Widths past 64 (padded H or E): the far blocks run far_field.cuh's wide
 // body (one output chunk of 32 a block), the near blocks wide.cuh's tiles
@@ -73,15 +80,16 @@ constexpr int kSmem = (int)sizeof(NearPart);
 constexpr int kOutChunks = wide::kChunks;
 static_assert(epnn::far::kThreads == epnn::kNearThreads, "one block size");
 
+template <bool kDbl>
 __global__ void __launch_bounds__(epnn::kNearThreads, 3)
 fmr_kernel(const float* __restrict__ pi, const float* __restrict__ pj,
            const float* __restrict__ xyz, const float* __restrict__ mask,
            const float* __restrict__ cv, const float* __restrict__ w1e,
            const float* __restrict__ w2, const float* __restrict__ b2,
-           const float* __restrict__ mu, float* __restrict__ part,
+           const float* __restrict__ tab, float* __restrict__ part,
            float* work, int N,
            int splits, int cols_per_split, int far_blocks, int n_warps,
-           int masked, float cutoff, float eta, float cut2) {
+           int masked, float cutoff, float eta, float cut2, float u_scale) {
   extern __shared__ __align__(128) uint4 smem_raw[];
   if ((int)blockIdx.x < far_blocks) {
     const int row_blocks = (N + epnn::far::kRowsPerBlock - 1) /
@@ -113,11 +121,13 @@ fmr_kernel(const float* __restrict__ pi, const float* __restrict__ pj,
                       v[1] ? sm.scan.ring[warp][ib] : 0};
     const int i[2] = {v[0] ? sm.scan.rows[warp][ia] : 0,
                       v[1] ? sm.scan.rows[warp][ib] : 0};
-    float c[2], d[2], w[2];
+    float c[2], d[2], a[2] = {0.0f, 0.0f}, u[2] = {0.0f, 0.0f}, w[2];
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       float pm;
       c[e] = wide::pair_env(xyz, mask, i[e], j[e], cutoff, d[e], pm);
+      if (kDbl)
+        epnn::doubling_pair(c[e], d[e], cutoff, neg_eta, u_scale, a[e], u[e]);
       w[e] = i[e] == j[e] ? 0.0f : masked ? pm : cv[j[e]];
     }
     const float* pir[2] = {pi + (size_t)i[0] * kH, pi + (size_t)i[1] * kH};
@@ -125,7 +135,8 @@ fmr_kernel(const float* __restrict__ pi, const float* __restrict__ pj,
     wide::tile(
         w1e, w2, b2, lane,
         [&](int e, int ch) {
-          return wide::rbf_of(c[e], d[e], mu, ch, neg_eta);
+          return wide::rbf_of<kDbl>(c[e], d[e], a[e], u[e], tab, ch,
+                                    neg_eta);
         },
         [&](int e, int f, float ep, float& zf, float& zn) {
           const bool in = v[e] && f < kH;
@@ -145,8 +156,6 @@ fmr_kernel(const float* __restrict__ pi, const float* __restrict__ pj,
                   part + (size_t)splits * N * kH, tile);
 }
 
-int g_resident[epnn::kNearMaxDevices] = {};  // epnn::near_warps's cache
-
 }  // namespace
 
 #else
@@ -163,7 +172,7 @@ using epnn::kNT;
 struct NearPart {
   epnn::NearSmem near;
   epnn::ScanSmem scan;
-  float mu[kEp];
+  float tab[kEp];  // mu, or the doubling's gains
 };
 // the two kinds of blocks share one dynamic allocation
 constexpr int kSmem = (int)(sizeof(NearPart) > sizeof(epnn::far::Smem)
@@ -171,15 +180,16 @@ constexpr int kSmem = (int)(sizeof(NearPart) > sizeof(epnn::far::Smem)
                                 : sizeof(epnn::far::Smem));
 static_assert(epnn::far::kThreads == epnn::kNearThreads, "one block size");
 
+template <bool kDbl>
 __global__ void __launch_bounds__(epnn::kNearThreads, 3)
 fmr_kernel(const float* __restrict__ pi, const float* __restrict__ pj,
            const float* __restrict__ xyz, const float* __restrict__ mask,
            const float* __restrict__ cv, const float* __restrict__ w1e,
            const float* __restrict__ w2, const float* __restrict__ b2,
-           const float* __restrict__ mu, float* __restrict__ part,
+           const float* __restrict__ tab, float* __restrict__ part,
            float* work, int N,
            int splits, int cols_per_split, int far_blocks, int n_warps,
-           int masked, float cutoff, float eta, float cut2) {
+           int masked, float cutoff, float eta, float cut2, float u_scale) {
   extern __shared__ __align__(128) uint4 smem_raw[];
   if ((int)blockIdx.x < far_blocks) {
     const int row_blocks = (N + epnn::far::kRowsPerBlock - 1) /
@@ -200,7 +210,7 @@ fmr_kernel(const float* __restrict__ pi, const float* __restrict__ pj,
   float bias[kNT][2];
   epnn::near_stage(s, w1e, w2, b2, bias);
   for (int e = threadIdx.x; e < kEp; e += epnn::kNearThreads)
-    sm.mu[e] = e < kE ? mu[e] : 0.0f;
+    sm.tab[e] = e < kE ? tab[e] : 0.0f;
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gw = (blockIdx.x - far_blocks) * epnn::kNearWarps + warp;
@@ -212,8 +222,8 @@ fmr_kernel(const float* __restrict__ pi, const float* __restrict__ pj,
   // a pair's channels (kFE t .. of them) and its weight w_ij
   auto features = [&](int i, int j, float (&r)[kFE]) {
     float pm;
-    epnn::pair_channels<kFE, kE>(xyz, mask, sm.mu, i, j, t, cutoff, neg_eta,
-                                 pm, r);
+    epnn::pair_channels<kFE, kE, kDbl>(xyz, mask, sm.tab, i, j, t, cutoff,
+                                       neg_eta, u_scale, pm, r);
     return i == j ? 0.0f : masked ? pm : cv[j];
   };
 
@@ -265,53 +275,68 @@ fmr_kernel(const float* __restrict__ pi, const float* __restrict__ pj,
                   r1, part + (size_t)splits * N * kH, tile);
 }
 
-int g_resident[epnn::kNearMaxDevices] = {};  // epnn::near_warps's cache
 constexpr int kOutChunks = 1;
 
 }  // namespace
 
 #endif  // EPNN_WIDE
 
-// The warps of a launch's near blocks for N rows (the wide path's scratch
-// holds 16 Hp floats for each); negative on a CUDA error.
-extern "C" int epnn_fused_message_rowsum_warps(int N) {
-  int n_warps = 0;
-  const cudaError_t err =
-      epnn::near_warps(fmr_kernel, g_resident, N, kSmem, n_warps);
-  return err == cudaSuccess ? n_warps : -1;
+namespace {
+
+// epnn::near_warps's cache, an instantiation (direct, doubling) each
+int g_resident[2][epnn::kNearMaxDevices] = {};
+
+cudaError_t warps(bool dbl, int N, int& n_warps) {
+  return dbl ? epnn::near_warps(fmr_kernel<true>, g_resident[1], N, kSmem,
+                                n_warps)
+             : epnn::near_warps(fmr_kernel<false>, g_resident[0], N, kSmem,
+                                n_warps);
 }
 
-// xyz (N, 3), mask and cv (N,), mu (E,) the RBF centers; w1e (Ep, Hp), w2
-// (Hp, Hp), b2 (Hp,) zero-padded; part: (splits + 1, N, H) scratch; out:
-// (N, H); work: the wide path's scratch (16 Hp floats a near warp; unused
-// below 64 padded, may be null there); the far field's column range
-// splits into parts of cols_per_split; cut2 the squared cutoff rounded up.
-// N * N must fit an int.  Returns cudaGetLastError().
+}  // namespace
+
+// The warps of a launch's near blocks for N rows, of either method at
+// most (the wide path's scratch holds 16 Hp floats for each); negative on
+// a CUDA error.
+extern "C" int epnn_fused_message_rowsum_warps(int N) {
+  int direct = 0, doubled = 0;
+  if (warps(false, N, direct) != cudaSuccess ||
+      warps(true, N, doubled) != cudaSuccess)
+    return -1;
+  return direct > doubled ? direct : doubled;
+}
+
+// xyz (N, 3), mask and cv (N,), tab (E,) the RBF centers mu (doubling =
+// 0) or the doubling's gains g (doubling = 1, u_scale = 2 eta D); w1e (Ep,
+// Hp), w2 (Hp, Hp), b2 (Hp,) zero-padded; part: (splits + 1, N, H)
+// scratch; out: (N, H); work: the wide path's scratch (16 Hp floats a near
+// warp; unused below 64 padded, may be null there); the far field's column
+// range splits into parts of cols_per_split; cut2 the squared cutoff
+// rounded up.  N * N must fit an int.  Returns cudaGetLastError().
 extern "C" int epnn_fused_message_rowsum(
     const float* pi, const float* pj, const float* xyz, const float* mask,
     const float* cv, const float* w1e, const float* w2, const float* b2,
-    const float* mu, float* part, float* out, float* work, int N, int H,
+    const float* tab, float* part, float* out, float* work, int N, int H,
     int E,
-    int splits, int cols_per_split, int masked, float cutoff, float eta,
-    float cut2, cudaStream_t stream) {
+    int splits, int cols_per_split, int masked, int doubling, float cutoff,
+    float eta, float cut2, float u_scale, cudaStream_t stream) {
   if (H != kH || E != kE || N <= 0 || splits <= 0 || cols_per_split <= 0 ||
       (long long)(splits - 1) * cols_per_split >= N ||
       (long long)N * N > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   int n_warps = 0;
-  cudaError_t err =
-      epnn::near_warps(fmr_kernel, g_resident, N, kSmem, n_warps);
+  cudaError_t err = warps(doubling != 0, N, n_warps);
   if (err != cudaSuccess) return err;
   const int row_blocks =
       (N + epnn::far::kRowsPerBlock - 1) / epnn::far::kRowsPerBlock;
   const int far_blocks = row_blocks * splits * kOutChunks;
   const int near_blocks =
       (n_warps + epnn::kNearWarps - 1) / epnn::kNearWarps;
-  fmr_kernel<<<far_blocks + near_blocks, epnn::kNearThreads, kSmem,
-               stream>>>(pi, pj, xyz, mask, cv, w1e, w2, b2, mu, part, work,
-                         N,
-                         splits, cols_per_split, far_blocks, n_warps, masked,
-                         cutoff, eta, cut2);
+  const auto kernel = doubling ? fmr_kernel<true> : fmr_kernel<false>;
+  kernel<<<far_blocks + near_blocks, epnn::kNearThreads, kSmem, stream>>>(
+      pi, pj, xyz, mask, cv, w1e, w2, b2, tab, part, work, N, splits,
+      cols_per_split, far_blocks, n_warps, masked, cutoff, eta, cut2,
+      u_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int count = N * kH;

@@ -392,11 +392,13 @@ __device__ __forceinline__ float pair_env(const float* __restrict__ xyz,
   return __fmul_rn(envelope(d2, cutoff, d), i != j ? pm : 0.0f);
 }
 
-// channel e of a pair with envelope c at distance d (0 past E)
-__device__ __forceinline__ float rbf_of(float c, float d,
-                                        const float* __restrict__ mu, int e,
+// channel e of a pair with envelope c at distance d, or the doubling's
+// (a, u) (common.cuh, channel; tab: mu or the gains g); 0 past E
+template <bool dbl>
+__device__ __forceinline__ float rbf_of(float c, float d, float a, float u,
+                                        const float* __restrict__ tab, int e,
                                         float neg_eta) {
-  return e < kE ? rbf_channel(c, d, mu[e], neg_eta) : 0.0f;
+  return e < kE ? channel<dbl>(c, d, a, u, tab[e], e, neg_eta) : 0.0f;
 }
 
 }  // namespace wide

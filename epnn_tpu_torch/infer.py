@@ -819,7 +819,10 @@ class Predictor:
         ``per_call=True`` times ``predict_batch`` itself call by call
         (:func:`~epnn_tpu_torch.utils.timing.benchmark_fn`), host copies
         included.  Returns ``mean_s``, ``iters``, ``method`` and, chained,
-        ``warmup_loops``."""
+        ``warmup_loops``; chained with ``cost_analysis``, also ``flops``,
+        the measured call's products (:func:`~epnn_tpu_torch.utils.timing.
+        count_flops`: the model's count, the same on the CPU and the
+        card).  Per call, as JAX's, no ``flops``."""
         from epnn_tpu_torch.utils.timing import benchmark_chained, benchmark_fn
 
         if per_call or self.mesh is not None:
@@ -828,6 +831,16 @@ class Predictor:
                                  profile_dir=profile_dir)
             stats["method"] = "per_call"
             return stats
+        fn, q0 = self._bench_program(batch)
+        return benchmark_chained(fn, q0, iters=iters,
+                                 warmup_loops=warmup_loops,
+                                 profile_dir=profile_dir,
+                                 cost_analysis=cost_analysis)
+
+    def _bench_program(self, batch: MolBatch):
+        """``(fn, q0)``: the forward :meth:`benchmark_batch` chains,
+        ``fn(q0)`` on device tensors with everything a call need not pay
+        computed once (its docstring)."""
         mode = self._mode(batch)
         # the program predict_batch runs: its sorted twin where it sorts
         # (latency does not depend on the order, so no unpermute)
@@ -847,10 +860,7 @@ class Predictor:
                 return forward_blocked(self._fused, x, q0_in, xyz, mask,
                                        self.cfg, far_cluster=self.far_cluster,
                                        **kw)
-        return benchmark_chained(fn, q0, iters=iters,
-                                 warmup_loops=warmup_loops,
-                                 profile_dir=profile_dir,
-                                 cost_analysis=cost_analysis)
+        return fn, q0
 
     @torch.no_grad()
     def far_field_diagnostics(self, batch: MolBatch,

@@ -14,7 +14,9 @@ params, the Adam moments as trees of the same shape, the step, and the
 optimizer's extras: Adam's update count, the plateau's rate, the open
 gradient-accumulation window) and
 ``meta.json`` (epoch counters and best-val metrics).  Every file is
-written atomically.
+written atomically.  :func:`save_train_state_orbax` writes the same state
+with ``torch.distributed.checkpoint`` into ``dcp/``, the sharding-aware
+format (the JAX package's orbax backend).
 """
 
 from __future__ import annotations
@@ -126,6 +128,84 @@ def load_train_state(directory: str) -> Tuple[dict, dict, dict, int, dict]:
             from_jax_params(state["exp_avg"]),
             from_jax_params(state["exp_avg_sq"]), int(state["step"]),
             state.get("opt", {}))
+
+
+#: the sharding-aware train-state format's subdirectory
+DCP_DIR = "dcp"
+
+
+def _dcp_state(state) -> dict:
+    """A ``TrainState`` as the state dict ``torch.distributed.checkpoint``
+    writes and loads in place: the parameter leaves (detached views of
+    the state's own), Adam's moments (zeros before the first update,
+    fresh tensors otherwise), the step, and the optimizer's extras as
+    tensors (the open gradient-accumulation window as zeros with
+    ``acc_open`` 0 where none is open)."""
+    from epnn_tpu_torch.models import tree_leaves
+    from epnn_tpu_torch.train.loop import _adam_moments
+
+    params = map_tree(torch.Tensor.detach, state.params)
+    exp_avg, exp_avg_sq = _adam_moments(state)
+    opt = state.opt
+    acc = opt.acc if opt.acc is not None else [
+        torch.zeros_like(p).detach() for p in tree_leaves(state.params)]
+    return {
+        "params": params,
+        "exp_avg": map_tree(torch.Tensor.clone, exp_avg),
+        "exp_avg_sq": map_tree(torch.Tensor.clone, exp_avg_sq),
+        "step": torch.tensor(int(state.step), dtype=torch.int64),
+        "opt": {"count": torch.tensor(int(opt.count), dtype=torch.int64),
+                "lr": opt.lr.detach().clone().to(torch.float32),
+                "mini_step": torch.tensor(int(opt.mini_step),
+                                          dtype=torch.int64),
+                "acc_open": torch.tensor(int(opt.acc is not None),
+                                         dtype=torch.int64),
+                "acc": {str(i): a.detach().clone()
+                        for i, a in enumerate(acc)}},
+    }
+
+
+def save_train_state_orbax(directory: str, state: Any) -> None:
+    """The sharding-aware train-state format, the counterpart of the JAX
+    package's orbax backend (``epnn_tpu/io/checkpoint.py:93``, whose name
+    it keeps): ``state`` (a ``train.loop.TrainState``) written with
+    ``torch.distributed.checkpoint`` into ``<directory>/dcp``, beside the
+    single-host ``train_state.msgpack`` (the formats coexist, as JAX's
+    do).  Under a process group every rank calls it and the ranks write
+    one checkpoint together: a training mesh keeps every rank's
+    parameters the same bits, so DCP's deduplication of replicated
+    tensors writes each leaf once.  Without one it writes alone.  Its
+    files are the port's (no orbax, and not readable by the JAX package,
+    as ``train_state.msgpack``)."""
+    import torch.distributed.checkpoint as dcp
+
+    path = os.path.abspath(os.path.join(directory, DCP_DIR))
+    os.makedirs(path, exist_ok=True)
+    dcp.save(_dcp_state(state), checkpoint_id=path)
+
+
+def load_train_state_orbax(directory: str, template: Any) -> Any:
+    """:func:`save_train_state_orbax`'s state loaded into ``template`` (a
+    ``TrainState`` of the same model and train config, from
+    ``train.loop.create_state``), in place and on its device: the
+    parameter leaves, Adam's moments and update count, the injected rate,
+    the open accumulation window and the step.  Returns ``template``."""
+    import torch.distributed.checkpoint as dcp
+
+    from epnn_tpu_torch.train.loop import _restore
+
+    path = os.path.abspath(os.path.join(directory, DCP_DIR))
+    sd = _dcp_state(template)
+    dcp.load(sd, checkpoint_id=path)
+    opt = sd["opt"]
+    extras = {"count": int(opt["count"]), "lr": float(opt["lr"]),
+              "mini_step": int(opt["mini_step"])}
+    if int(opt["acc_open"]):
+        extras["acc_grads"] = [opt["acc"][str(i)]
+                               for i in range(len(opt["acc"]))]
+    _restore(template, sd["params"], sd["exp_avg"], sd["exp_avg_sq"],
+             int(sd["step"]), extras)
+    return template
 
 
 def load_meta(directory: str) -> dict:

@@ -1116,6 +1116,7 @@ def _forward_single_pallas(
     node_mask: Tensor,  # (N,)
     cfg: EPNNConfig,
     remat: bool = False,
+    rbf_method: str = "direct",
 ) -> Tensor:
     """One graph through the fully fused dense forward: each round is one
     kernel over the whole pair grid at the model's precision
@@ -1125,7 +1126,9 @@ def _forward_single_pallas(
     RBF, gate, pair MLP and (for passing) both orderings built in the tile;
     only (N, ·) tensors leave it.  Inference-only, as in the JAX package
     (``remat`` checkpoints each round, as JAX's does, and changes nothing
-    here: the kernels record no graph).
+    here: the kernels record no graph).  ``rbf_method``: the kernels'
+    channels, JAX's "direct" or "doubling" (two exps a pair; ~1e-6
+    relative from direct, which can flip a hard gate at the tolerance).
     No padding: the kernels mask their own edges, and ``col_vec`` is ones
     on the caller's width, so ``mask_messages=False`` counts exactly its
     columns."""
@@ -1137,7 +1140,8 @@ def _forward_single_pallas(
         msg_count = node_mask * torch.sum(node_mask)
     else:
         msg_count = torch.full((n,), float(n), dtype=x.dtype, device=x.device)
-    pair_kw = dict(cutoff=cfg.cutoff, eta=cfg.eta, tol=cfg.is_near_tol)
+    pair_kw = dict(cutoff=cfg.cutoff, eta=cfg.eta, tol=cfg.is_near_tol,
+                   rbf_method=rbf_method)
 
     nm = node_mask[:, None]
     soft = cfg.pass_weighting == "soft_envelope"

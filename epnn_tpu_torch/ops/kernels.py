@@ -21,23 +21,25 @@ selection, each with its plain PyTorch version (counterpart of
 * ``neighbor_compact`` — ``csrc/neighbor_compact.cu``, the within-cutoff
   neighbor list in one pass, replaces ``pallas_kernels.py:685``.
 
-The kernels an exported forward can reach — the far field, its int8
-tier, its backward and the two near kernels — are registered operators
-``epnn_torch::<name>`` (``torch.library.custom_op``, :data:`_OPS`): each
-has a shape function, one body for CPU and CUDA tensors (the plain
-version, or the launch), and its VJP registered on the operator.
-``torch.export`` and ``torch.compile`` trace the operators; eager calls,
-serving and training, run the same bodies and VJPs without the
-dispatcher's host cost (:func:`_call`).  The far field's
-backward, in both tiers (int8 straight through), is the
-``dense_message_rowsum_bwd`` kernel; the two near kernels' backwards
-recompute through their plain versions, as the JAX package's custom VJPs
-recompute through their XLA twins.  An exported program names the
-operators, so a loaded artifact launches (and counts) the kernels as an
-eager call does.  The two fused dense kernels and ``neighbor_compact``
-stay plain wrappers (no exported forward reaches them); the fused ones
-are inference-only, as in the JAX package: their Function's backward
-raises.
+Every kernel but ``neighbor_compact`` (which has no products) is a
+registered operator ``epnn_torch::<name>`` (``torch.library.custom_op``,
+:data:`_OPS`): each has a shape function, one body for CPU and CUDA
+tensors (the plain version, or the launch), its VJP registered on the
+operator, and a flop formula (:func:`work`: the products of its float32
+plain version on the whole grid, what ``FlopCounterMode`` counts of an
+operator).  ``torch.export``, ``torch.compile`` and a dispatch mode such
+as ``FlopCounterMode`` see the operators; eager calls, serving and
+training, run the same bodies and VJPs without the dispatcher's host
+cost (:func:`_call`).  The far field's backward, in both tiers (int8
+straight through), is the ``dense_message_rowsum_bwd`` kernel; the two
+near kernels' backwards recompute through their plain versions, as the
+JAX package's custom VJPs recompute through their XLA twins.  An
+exported program names the operators, so a loaded artifact launches (and
+counts) the kernels as an eager call does.  The two fused dense kernels
+are inference-only, as in the JAX package: their backward raises.  They
+take the JAX kernels' ``rbf_method``: "direct" (an exp a channel) or
+"doubling" (two exps a pair, :func:`envelope_rbf_doubling`), a run-time
+argument of one library.
 
 Each wrapper takes tensors on one device.  On the CPU it runs the plain
 version (``*_plain``); on a CUDA tensor it launches the kernel on the
@@ -91,9 +93,13 @@ from typing import Dict, Iterable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from epnn_tpu_torch.featurize import (envelope_rbf, hard_gate, kernel_mu,
-                                      pair_d2)
+# the featurization the plain versions share with the dense model (both
+# RBF methods' channels importable from here, beside the kernels)
+from epnn_tpu_torch.featurize import (  # noqa: F401
+    check_rbf_method, doubling_u_scale, envelope_rbf, envelope_rbf_doubling,
+    envelope_rbf_method, hard_gate, pair_d2, rbf_table)
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "epnn_tpu_torch"
@@ -149,8 +155,8 @@ _ARGTYPES = {
     "near_message_corr": [_P] * 9 + [_I] * 4 + [_P],
     "near_pass_rowsum": [_P] * 9 + [_I] * 4 + [_P],
     "dense_message_rowsum_bwd": [_P] * 11 + [_I] * 7 + [_P],
-    "fused_message_rowsum": [_P] * 12 + [_I] * 6 + [_F] * 3 + [_P],
-    "fused_epn_rowsum": [_P] * 10 + [_I] * 4 + [_F] * 4 + [_P],
+    "fused_message_rowsum": [_P] * 12 + [_I] * 7 + [_F] * 4 + [_P],
+    "fused_epn_rowsum": [_P] * 10 + [_I] * 5 + [_F] * 5 + [_P],
     "neighbor_compact": [_P] * 5 + [_I] * 4 + [_F] + [_P],
 }
 
@@ -1050,6 +1056,408 @@ def near_pass_rowsum(rs, ppn, rbf, gh, w1e, w2, b2, padded=None,
                  *_padded_args(padded, True), precision)
 
 
+#: the near kernels' tile: live slots a tensor-core product (its M rows)
+NEAR_TILE = 16
+
+
+def near_warps(name: str, n: int, h: int = KERNEL_H, e: int = KERNEL_E,
+               passes: int = 3) -> int:
+    """The warps a launch of the near kernel ``name`` (or the near blocks
+    of a fused kernel) at widths (h, e) and TF32 tier ``passes`` runs for
+    ``n`` rows on the current card (its occupancy; csrc
+    ``epnn::near_warps``)."""
+    fn = getattr(_lib(name, h, e, passes), f"epnn_{name}_warps")
+    fn.argtypes = [_I]
+    fn.restype = ctypes.c_int
+    w = fn(n)
+    if w <= 0:
+        raise RuntimeError(f"{name}: could not size the grid for N={n}")
+    return w
+
+
+def near_tile_positions(wgt, n_warps: int):
+    """Where a near kernel's walk puts each slot: (N, K) int64, the M row
+    (0 … ``NEAR_TILE`` − 1) of its tensor-core tile for a live slot
+    (``wgt != 0``), −1 for a dead one.  Warp w owns rows
+    [N·w // n_warps, N·(w + 1) // n_warps) and takes its live slots in
+    ascending flat order, 16 a tile."""
+    n, k = wgt.shape
+    live = (wgt != 0).reshape(-1)
+    starts = (n * torch.arange(n_warps + 1, device=wgt.device)) // n_warps
+    rows = torch.arange(n * k, device=wgt.device) // k
+    warp = torch.searchsorted(starts, rows, right=True) - 1
+    seen = torch.cumsum(live, 0) - live.to(torch.int64)  # live slots before
+    pos = (seen - seen[starts[warp] * k]) % NEAR_TILE
+    return torch.where(live, pos, -1).reshape(n, k)
+
+
+# ---------------------------------------------------------------------------
+# the fused dense kernels' shared pieces
+# ---------------------------------------------------------------------------
+
+def _tile_features(xyz_rows, xyz, mask_rows, mask, start: int, cutoff: float,
+                   eta: float, table, method: str = "direct"):
+    """Rows [start, start + R) against all atoms: ``(rbf, c, pairm)`` with
+    the envelope cleared on self pairs and masked atoms; ``pairm`` is the
+    pair mask with its diagonal kept.  ``table``: :func:`rbf_table` of
+    ``method``."""
+    rows = start + torch.arange(xyz_rows.shape[0], device=xyz.device)
+    cols = torch.arange(xyz.shape[0], device=xyz.device)
+    pairm = mask_rows[:, None] * mask[None, :]
+    cmask = pairm * (rows[:, None] != cols[None, :])
+    rbf, c = envelope_rbf_method(pair_d2(xyz_rows[:, None], xyz[None]),
+                                 cmask, cutoff, eta, table, method)
+    return rbf, c, pairm
+
+
+class _InferenceOnly(torch.autograd.Function):
+    """A fused dense kernel's forward, whose backward raises: the JAX
+    package's grid-accumulator kernels have no VJP either
+    (``forward_blocked``'s docstring, ``ops/fused.py:1730``), and a
+    gradient must never come back silently as zero."""
+
+    @staticmethod
+    def forward(ctx, fwd, name, *args):
+        ctx.name = name
+        return fwd(*args)
+
+    @staticmethod
+    def backward(ctx, g):
+        raise _inference_only(ctx.name)
+
+
+def _inference_only(name: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{name} is inference-only (as in the JAX package): differentiate "
+        "forward_blocked without use_pallas, or with neighbor_k")
+
+
+def _cut2(cutoff: float) -> float:
+    """The fused kernels' scan threshold: the float32 cutoff squared,
+    rounded up by 1e-6 relative, so that every pair whose envelope is not
+    0 (d = sqrt(d²) < cutoff) has d² below it; pairs above it have an
+    envelope of exactly 0."""
+    c = float(np.float32(cutoff))
+    return c * c * (1.0 + 1e-6)
+
+
+@functools.lru_cache(maxsize=16)
+def _kernel_table(e: int, cutoff: float, eta: float, method: str,
+                  device: torch.device) -> torch.Tensor:
+    """:func:`rbf_table` for the fused kernels, made once per (E, cutoff,
+    eta, method, device) and only read: a few small launches a call
+    otherwise."""
+    return rbf_table(e, cutoff, eta, method, device)
+
+
+def _rbf_args(e: int, cutoff: float, eta: float, method: str,
+              device: torch.device) -> tuple:
+    """A fused kernel's RBF arguments: its channel table (the centers, or
+    the doubling's gains), the method flag and the doubling's scale 2ηΔ
+    (0 for "direct")."""
+    doubling = check_rbf_method(method, e) == "doubling"
+    return (_kernel_table(e, float(cutoff), float(eta), method, device),
+            int(doubling),
+            doubling_u_scale(e, float(cutoff), float(eta)) if doubling
+            else 0.0)
+
+
+def _fused_checks(name: str, n: int) -> None:
+    if n * n > 0x7FFFFFFF:
+        raise ValueError(f"{name}: N = {n} is too large for the kernel's "
+                         "int pair index (N² < 2^31)")
+
+
+# ---------------------------------------------------------------------------
+# 4. fused_message_rowsum — a dense message round, featurization in the tile
+# ---------------------------------------------------------------------------
+
+def _row_range(n: int, rows: Optional[slice]) -> range:
+    return range(n) if rows is None else range(n)[rows]
+
+
+def fused_message_rowsum_plain(pi, pj, xyz, node_mask, col_vec, w1e, w2, b2,
+                               cutoff: float = 3.0, eta: float = 2.0,
+                               tol: float = 1e-5, masked: bool = True,
+                               rows: Optional[slice] = None,
+                               rbf_method: str = "direct"):
+    """Σ_j w_ij · relu(relu(pi_i + pj_j + rbf_ij @ W1e) @ W2 + b2) as
+    (N, H), with w_ij the pair mask (diagonal kept) when ``masked``, else
+    ``col_vec_j``; row-blocked so no (N, N, E) tensor exists.  ``tol`` is
+    unused (the message round has no gate), as in the JAX kernel.
+    ``rows``: only those rows (a slice of step 1), as (len, H).
+    ``rbf_method``: how the channels are built, "direct" (an exp a
+    channel) or "doubling" (:func:`envelope_rbf_doubling`)."""
+    n, h = pi.shape
+    table = rbf_table(w1e.shape[0], cutoff, eta, rbf_method, pi.device)
+    rr = _row_range(n, rows)
+    rb = _plain_rows(len(rr), n, max(w1e.shape[0], h))
+    out = pi.new_empty((len(rr), h))
+    for s in range(rr.start, rr.stop, rb):
+        sl = slice(s, min(s + rb, rr.stop))
+        rbf, _, pairm = _tile_features(xyz[sl], xyz, node_mask[sl], node_mask,
+                                       s, cutoff, eta, table, rbf_method)
+        hid = torch.relu((pi[sl, None, :] + pj[None, :, :]) + rbf @ w1e)
+        hid = torch.relu(hid @ w2 + b2)
+        w = pairm if masked else col_vec[None, :].expand_as(pairm)
+        out[s - rr.start:sl.stop - rr.start] = torch.einsum("bn,bnh->bh", w,
+                                                            hid)
+    return out
+
+
+def _fused_message_split(pi, pj, xyz, node_mask, col_vec, w1e, w2, b2,
+                         cutoff, eta, masked, mm, rows=None,
+                         method="direct"):
+    """:func:`fused_message_rowsum_plain` as the kernel splits it, with the
+    products ``mm``: the far field over every pair (weights cv_j, and rows
+    times m_i when ``masked``), plus w_ij (mlp(base + rbf @ W1e) −
+    mlp(base)), base = pi_i + pj_j, over the pairs whose rbf is not 0
+    (elsewhere the difference is exactly 0)."""
+    n, h = pi.shape
+    rr = _row_range(n, rows)
+    cv = node_mask if masked else col_vec
+    far = _far_rows(pi[rr.start:rr.stop], pj, cv, ((w2, b2),), mm)
+    if masked:
+        far = far * node_mask[rr.start:rr.stop, None]
+    table = rbf_table(w1e.shape[0], cutoff, eta, method, pi.device)
+    rb = _plain_rows(len(rr), n, max(w1e.shape[0], h))
+    corr = pi.new_empty((len(rr), h))
+    for s in range(rr.start, rr.stop, rb):
+        sl = slice(s, min(s + rb, rr.stop))
+        rbf, _, pairm = _tile_features(xyz[sl], xyz, node_mask[sl], node_mask,
+                                       s, cutoff, eta, table, method)
+        base = pi[sl, None, :] + pj[None, :, :]
+        diff = (_mid_layers(base + mm(rbf, w1e), ((w2, b2),), mm)
+                - _mid_layers(base, ((w2, b2),), mm))
+        w = pairm if masked else col_vec[None, :].expand_as(pairm)
+        corr[s - rr.start:sl.stop - rr.start] = torch.einsum("bn,bnh->bh", w,
+                                                             diff)
+    return far + corr
+
+
+def fused_message_rowsum_3xtf32_plain(pi, pj, xyz, node_mask, col_vec, w1e,
+                                      w2, b2, cutoff: float = 3.0,
+                                      eta: float = 2.0, tol: float = 1e-5,
+                                      masked: bool = True,
+                                      rows: Optional[slice] = None,
+                                      rbf_method: str = "direct"):
+    """:func:`fused_message_rowsum_plain` with the kernel's split (the far
+    field over every pair, the live pairs' correction) and its arithmetic:
+    every product in 3xTF32 (``_mm_3xtf32``).  Not on any path: the tests
+    and ``chip_smoke.py`` hold the kernel to it (the two may differ only
+    by summation order).  ``rows`` and ``rbf_method`` as in the plain
+    version."""
+    return _fused_message_split(pi, pj, xyz, node_mask, col_vec, w1e, w2, b2,
+                                cutoff, eta, masked, _mm_3xtf32, rows,
+                                rbf_method)
+
+
+def fused_message_rowsum_tf32_plain(pi, pj, xyz, node_mask, col_vec, w1e,
+                                    w2, b2, cutoff: float = 3.0,
+                                    eta: float = 2.0, tol: float = 1e-5,
+                                    masked: bool = True,
+                                    rows: Optional[slice] = None,
+                                    rbf_method: str = "direct"):
+    """:func:`fused_message_rowsum_3xtf32_plain` with the one-pass
+    kernel's arithmetic: every product of TF32 operands (``_mm_tf32``).
+    Not on any path: the tests and ``chip_smoke.py`` hold the kernel to
+    it."""
+    return _fused_message_split(pi, pj, xyz, node_mask, col_vec, w1e, w2, b2,
+                                cutoff, eta, masked, _mm_tf32, rows,
+                                rbf_method)
+
+
+def _fused_message_rowsum_fwd(pi, pj, xyz, node_mask, col_vec, w1e, w2, b2,
+                              cutoff, eta, tol, masked, w1ep=None, w2p=None,
+                              b2p=None, precision="default",
+                              rbf_method="direct"):
+    """The body of ``epnn_torch::fused_message_rowsum`` (see
+    :func:`fused_message_rowsum`)."""
+    name = "fused_message_rowsum"
+    passes = tf32_passes(precision)
+    n, h = pi.shape
+    e = w1e.shape[0]
+    device = _check(name, dict(pi=pi, pj=pj, xyz=xyz, node_mask=node_mask,
+                               col_vec=col_vec, w1e=w1e, w2=w2, b2=b2),
+                    dict(pi=(n, h), pj=(n, h), xyz=(n, 3), node_mask=(n,),
+                         col_vec=(n,), w1e=(e, h), w2=(h, h), b2=(h,)))
+    rbf_method = check_rbf_method(rbf_method, e)
+    if device.type == "cpu":
+        return fused_message_rowsum_plain(pi, pj, xyz, node_mask, col_vec,
+                                          w1e, w2, b2, cutoff, eta, tol,
+                                          masked, rbf_method=rbf_method)
+    _fused_checks(name, n)
+    kw = _kernel_weights(name, _given(w1ep, w2p, b2p), w2, b2, w1e)
+    out = pi.new_empty((n, h))
+    if n == 0:
+        return out
+    table, doubling, u_scale = _rbf_args(e, cutoff, eta, rbf_method,
+                                         xyz.device)
+    splits, cols = _dense_message_splits(n, n)
+    part = pi.new_empty((splits + 1, n, h))
+    _launch(name, device, (pi, pj, xyz, node_mask, col_vec, kw.w1e, kw.w2,
+                           kw.b2, table, part, out,
+                           _wide_scratch(name, pi, n, h, e, passes)),
+            (n, h, e, splits, cols, int(bool(masked)), doubling,
+             float(cutoff), float(eta), _cut2(cutoff), u_scale), {}, h, e,
+            passes)
+    return out
+
+
+def fused_message_rowsum(pi, pj, xyz, node_mask, col_vec, w1e, w2, b2,
+                         cutoff: float = 3.0, eta: float = 2.0,
+                         tol: float = 1e-5, masked: bool = True,
+                         padded: Optional[KernelWeights] = None,
+                         precision: str = "default",
+                         rbf_method: str = "direct"):
+    """One dense message round's row sums with the featurization in the
+    tile (see ``csrc/fused_message_rowsum.cu``):
+
+        out_i = Σ_j w_ij · relu(relu(pi_i + pj_j + rbf_ij @ W1e) @ W2 + b2)
+
+    pi, pj (N, H), pi carrying b1; xyz (N, 3); node_mask, col_vec (N,);
+    W1e (E, H); W2 (H, H); b2 (H,).  ``masked`` weights by the pair mask
+    (diagonal kept), else by ``col_vec``; ``padded``: :func:`pad_weights`
+    of (w2, b2, w1e) where the caller keeps it; ``precision``: JAX's name,
+    the TF32 tier on the card; ``rbf_method``: JAX's, "direct" (an exp a
+    channel) or "doubling" (two exps a pair, :func:`envelope_rbf_doubling`;
+    any other value raises).  The caller applies W_out and the Σ_j b_out
+    term.  On the card: the far field over every pair plus the live
+    pairs' correction, one launch (and the ordered sum of its parts).
+    Inference-only: a backward raises.  The operator
+    ``epnn_torch::fused_message_rowsum``."""
+    return _fused_call("fused_message_rowsum", pi, pj, xyz, node_mask,
+                       col_vec, w1e, w2, b2, float(cutoff), float(eta),
+                       float(tol), bool(masked), *_padded_args(padded, True),
+                       precision, rbf_method)
+
+
+# ---------------------------------------------------------------------------
+# 5. fused_epn_rowsum — a dense electron-passing round
+# ---------------------------------------------------------------------------
+
+def _fused_epn_rows(pi, pj, xyz, node_mask, w1e, w2, b2, cutoff, eta, tol,
+                    soft_gate, mm, rows=None, method="direct"):
+    n, h = pi.shape
+    table = rbf_table(w1e.shape[0], cutoff, eta, method, pi.device)
+    rr = _row_range(n, rows)
+    rb = _plain_rows(len(rr), n, max(w1e.shape[0], h))
+    out = pi.new_empty((len(rr), h))
+    for s in range(rr.start, rr.stop, rb):
+        sl = slice(s, min(s + rb, rr.stop))
+        rbf, c, _ = _tile_features(xyz[sl], xyz, node_mask[sl], node_mask,
+                                   s, cutoff, eta, table, method)
+        epart = mm(rbf, w1e)
+        hid_n = _mid_layers((pi[sl, None, :] + pj[None, :, :]) + epart,
+                            ((w2, b2),), mm)
+        hid_t = _mid_layers((pj[sl, None, :] + pi[None, :, :]) + epart,
+                            ((w2, b2),), mm)
+        gate = c if soft_gate else hard_gate(rbf, tol)
+        out[s - rr.start:sl.stop - rr.start] = torch.sum(
+            (0.5 * gate)[:, :, None] * (hid_n - hid_t), dim=1)
+    return out
+
+
+def fused_epn_rowsum_plain(pi, pj, xyz, node_mask, w1e, w2, b2,
+                           cutoff: float = 3.0, eta: float = 2.0,
+                           tol: float = 1e-5, soft_gate: bool = False,
+                           rows: Optional[slice] = None,
+                           rbf_method: str = "direct"):
+    """Σ_j 0.5 · gate_ij · (hid(i, j) − hid(j, i)) as (N, H), both
+    orderings from one epart, gate the hard is-near gate or (``soft_gate``)
+    the masked envelope; row-blocked so no (N, N, E) tensor exists.
+    ``rows``: only those rows (a slice of step 1), as (len, H).
+    ``rbf_method`` as in :func:`fused_message_rowsum_plain`; the hard gate
+    reads the same channels."""
+    return _fused_epn_rows(pi, pj, xyz, node_mask, w1e, w2, b2, cutoff, eta,
+                           tol, soft_gate, _mm_fp32, rows, rbf_method)
+
+
+def fused_epn_rowsum_3xtf32_plain(pi, pj, xyz, node_mask, w1e, w2, b2,
+                                  cutoff: float = 3.0, eta: float = 2.0,
+                                  tol: float = 1e-5, soft_gate: bool = False,
+                                  rows: Optional[slice] = None,
+                                  rbf_method: str = "direct"):
+    """:func:`fused_epn_rowsum_plain` with the kernel's arithmetic: rbf @
+    W1e and both orderings' mid layers in 3xTF32 (``_mm_3xtf32``).  Not on
+    any path: the tests and ``chip_smoke.py`` hold the kernel to it.  A
+    pair's two transfers stay exact negations: both orderings see the same
+    products.  ``rows`` and ``rbf_method`` as in the plain version."""
+    return _fused_epn_rows(pi, pj, xyz, node_mask, w1e, w2, b2, cutoff, eta,
+                           tol, soft_gate, _mm_3xtf32, rows, rbf_method)
+
+
+def fused_epn_rowsum_tf32_plain(pi, pj, xyz, node_mask, w1e, w2, b2,
+                                cutoff: float = 3.0, eta: float = 2.0,
+                                tol: float = 1e-5, soft_gate: bool = False,
+                                rows: Optional[slice] = None,
+                                rbf_method: str = "direct"):
+    """:func:`fused_epn_rowsum_plain` with the one-pass kernel's
+    arithmetic: rbf @ W1e and both orderings' mid layers of TF32 operands
+    (``_mm_tf32``).  Not on any path: the tests and ``chip_smoke.py`` hold
+    the kernel to it.  A pair's two transfers stay exact negations."""
+    return _fused_epn_rows(pi, pj, xyz, node_mask, w1e, w2, b2, cutoff, eta,
+                           tol, soft_gate, _mm_tf32, rows, rbf_method)
+
+
+def _fused_epn_rowsum_fwd(pi, pj, xyz, node_mask, w1e, w2, b2, cutoff, eta,
+                          tol, soft_gate, w1ep=None, w2p=None, b2p=None,
+                          precision="default", rbf_method="direct"):
+    """The body of ``epnn_torch::fused_epn_rowsum`` (see
+    :func:`fused_epn_rowsum`)."""
+    name = "fused_epn_rowsum"
+    passes = tf32_passes(precision)
+    n, h = pi.shape
+    e = w1e.shape[0]
+    device = _check(name, dict(pi=pi, pj=pj, xyz=xyz, node_mask=node_mask,
+                               w1e=w1e, w2=w2, b2=b2),
+                    dict(pi=(n, h), pj=(n, h), xyz=(n, 3), node_mask=(n,),
+                         w1e=(e, h), w2=(h, h), b2=(h,)))
+    rbf_method = check_rbf_method(rbf_method, e)
+    if device.type == "cpu":
+        return fused_epn_rowsum_plain(pi, pj, xyz, node_mask, w1e, w2, b2,
+                                      cutoff, eta, tol, soft_gate,
+                                      rbf_method=rbf_method)
+    _fused_checks(name, n)
+    kw = _kernel_weights(name, _given(w1ep, w2p, b2p), w2, b2, w1e)
+    out = pi.new_empty((n, h))
+    if n == 0:
+        return out
+    table, doubling, u_scale = _rbf_args(e, cutoff, eta, rbf_method,
+                                         xyz.device)
+    _launch(name, device, (pi, pj, xyz, node_mask, kw.w1e, kw.w2, kw.b2,
+                           table, out,
+                           _wide_scratch(name, pi, n, h, e, passes)),
+            (n, h, e, int(bool(soft_gate)), doubling, float(cutoff),
+             float(eta), float(tol), _cut2(cutoff), u_scale), {}, h, e,
+            passes)
+    return out
+
+
+def fused_epn_rowsum(pi, pj, xyz, node_mask, w1e, w2, b2,
+                     cutoff: float = 3.0, eta: float = 2.0, tol: float = 1e-5,
+                     soft_gate: bool = False,
+                     padded: Optional[KernelWeights] = None,
+                     precision: str = "default", rbf_method: str = "direct"):
+    """One dense electron-passing round's antisymmetric row sums (see
+    ``csrc/fused_epn_rowsum.cu``):
+
+        out_i = Σ_j 0.5 · gate_ij · (hid(i, j) − hid(j, i))
+
+    with the RBF, the gate and both orderings built in the tile; arguments
+    as :func:`fused_message_rowsum` without ``col_vec``.  A pair's two
+    transfers are exact negations (under either ``rbf_method``: a pair's
+    channels are a function of its d², which has the same bits both ways),
+    so Σ_i out_i @ W_out conserves charge to f32 summation.  The caller
+    applies W_out (b_out cancels).  On the card only the pairs within the
+    cutoff pay (a d² scan finds them).  Inference-only: a backward raises.
+    The operator ``epnn_torch::fused_epn_rowsum``."""
+    return _fused_call("fused_epn_rowsum", pi, pj, xyz, node_mask, w1e, w2,
+                       b2, float(cutoff), float(eta), float(tol),
+                       bool(soft_gate), *_padded_args(padded, True),
+                       precision, rbf_method)
+
+
 # ---------------------------------------------------------------------------
 # the registered operators
 # ---------------------------------------------------------------------------
@@ -1057,6 +1465,8 @@ def near_pass_rowsum(rs, ppn, rbf, gh, w1e, w2, b2, padded=None,
 #: the operators' namespace: ``torch.ops.epnn_torch.<kernel>``
 NAMESPACE = "epnn_torch"
 
+_FUSED_TAIL = ("Tensor? w1ep, Tensor? w2p, Tensor? b2p, str precision, "
+               "str rbf_method) -> Tensor")
 _SCHEMAS = {
     "dense_message_rowsum":
         "(Tensor pi, Tensor pj, Tensor col_vec, Tensor w2, Tensor b2, "
@@ -1077,6 +1487,14 @@ _SCHEMAS = {
         "(Tensor rs, Tensor ppn, Tensor rbf, Tensor gh, Tensor w1e, "
         "Tensor w2, Tensor b2, Tensor? w1ep, Tensor? w2p, Tensor? b2p, "
         "str precision) -> Tensor",
+    "fused_message_rowsum":
+        "(Tensor pi, Tensor pj, Tensor xyz, Tensor node_mask, "
+        "Tensor col_vec, Tensor w1e, Tensor w2, Tensor b2, float cutoff, "
+        "float eta, float tol, bool masked, " + _FUSED_TAIL,
+    "fused_epn_rowsum":
+        "(Tensor pi, Tensor pj, Tensor xyz, Tensor node_mask, Tensor w1e, "
+        "Tensor w2, Tensor b2, float cutoff, float eta, float tol, "
+        "bool soft_gate, " + _FUSED_TAIL,
 }
 
 _BODIES = {
@@ -1085,7 +1503,12 @@ _BODIES = {
     "dense_message_rowsum_int8": _dense_message_rowsum_int8_fwd,
     "near_message_corr": _near_message_corr_fwd,
     "near_pass_rowsum": _near_pass_rowsum_fwd,
+    "fused_message_rowsum": _fused_message_rowsum_fwd,
+    "fused_epn_rowsum": _fused_epn_rowsum_fwd,
 }
+
+#: the fused dense kernels, inference-only (:class:`_InferenceOnly`)
+_FUSED = ("fused_message_rowsum", "fused_epn_rowsum")
 
 
 def _fake(name):
@@ -1150,11 +1573,24 @@ def _recompute_backward(plain):
     return backward
 
 
+def _no_backward(name):
+    """A fused kernel's registered VJP: it raises, as
+    :class:`_InferenceOnly`'s does."""
+    def setup(ctx, inputs, output):
+        pass
+
+    def backward(ctx, g):
+        raise _inference_only(name)
+    return setup, backward
+
+
 def _vjp(name):
     """``(setup_context, backward)`` of operator ``name`` (None: the
     backward operator, which is not differentiated)."""
     if name in ("dense_message_rowsum", "dense_message_rowsum_int8"):
         return _far_setup, _far_backward
+    if name in _FUSED:
+        return _no_backward(name)
     if name != "dense_message_rowsum_bwd":
         return _near_setup, _recompute_backward(globals()[name + "_plain"])
     return None
@@ -1163,7 +1599,8 @@ def _vjp(name):
 def _register(name):
     """``epnn_torch::<name>``: the body for CPU and CUDA tensors (it runs
     the plain version or launches the kernel on the device ``_check``
-    reports), the shape function, and the VJP; and the same body and VJP
+    reports), the shape function, the VJP and the flop formula
+    (:func:`work`); and, where it is differentiable, the same body and VJP
     as an ``autograd.Function`` for eager calls (:data:`_EAGER`)."""
     op = torch.library.custom_op(f"{NAMESPACE}::{name}", _BODIES[name],
                                  mutates_args=(),
@@ -1173,28 +1610,36 @@ def _register(name):
     vjp = _vjp(name)
     if vjp is not None:
         op.register_autograd(vjp[1], setup_context=vjp[0])
-        _EAGER[name] = type(f"_{name}", (torch.autograd.Function,), dict(
-            forward=staticmethod(_BODIES[name]),
-            setup_context=staticmethod(vjp[0]),
-            backward=staticmethod(vjp[1])))
+        if name not in _FUSED:
+            _EAGER[name] = type(f"_{name}", (torch.autograd.Function,), dict(
+                forward=staticmethod(_BODIES[name]),
+                setup_context=staticmethod(vjp[0]),
+                backward=staticmethod(vjp[1])))
+    register_flop_formula(getattr(getattr(torch.ops, NAMESPACE), name))(
+        functools.partial(_flop_formula, name))
     return op
 
 
 #: the differentiable operators' bodies and VJPs as ``autograd.Function``s
 _EAGER: dict = {}
 
-#: the kernels an exported forward reaches, as registered operators.
-#: Registering compiles nothing; a library is built at its first launch.
-_OPS = {name: _register(name) for name in _SCHEMAS}
+
+def _traced() -> bool:
+    """Whether a kernel call goes through its registered operator: where
+    ``torch.export`` or ``torch.compile`` traces, and under a dispatch
+    mode (a ``FlopCounterMode`` counts an operator, and sees nothing of a
+    body's launch).  Eager calls otherwise skip the dispatcher, which
+    costs ~40 µs of host time a call, more than a 2 × 2,220 serving call's
+    spread (``chip_smoke.py`` ``[export]``; PERF.md)."""
+    return (torch._C._len_torch_dispatch_stack() > 0
+            or torch.compiler.is_compiling())
 
 
 def _call(name, *args):
     """Operator ``name`` on ``args``: the registered operator where
-    ``torch.export`` or ``torch.compile`` traces, else its body directly
-    (through its :data:`_EAGER` Function where autograd records).  The
-    dispatcher costs ~40 µs of host time a call, more than a 2 × 2,220
-    serving call's spread (``chip_smoke.py`` ``[export]``; PERF.md)."""
-    if torch.compiler.is_compiling():
+    :func:`_traced`, else its body directly (through its :data:`_EAGER`
+    Function where autograd records)."""
+    if _traced():
         return _OPS[name](*args)
     if name in _EAGER and torch.is_grad_enabled() and any(
             isinstance(a, torch.Tensor) and a.requires_grad for a in args):
@@ -1202,354 +1647,219 @@ def _call(name, *args):
     return _BODIES[name](*args)
 
 
-#: the near kernels' tile: live slots a tensor-core product (its M rows)
-NEAR_TILE = 16
-
-
-def near_warps(name: str, n: int, h: int = KERNEL_H, e: int = KERNEL_E,
-               passes: int = 3) -> int:
-    """The warps a launch of the near kernel ``name`` (or the near blocks
-    of a fused kernel) at widths (h, e) and TF32 tier ``passes`` runs for
-    ``n`` rows on the current card (its occupancy; csrc
-    ``epnn::near_warps``)."""
-    fn = getattr(_lib(name, h, e, passes), f"epnn_{name}_warps")
-    fn.argtypes = [_I]
-    fn.restype = ctypes.c_int
-    w = fn(n)
-    if w <= 0:
-        raise RuntimeError(f"{name}: could not size the grid for N={n}")
-    return w
-
-
-def near_tile_positions(wgt, n_warps: int):
-    """Where a near kernel's walk puts each slot: (N, K) int64, the M row
-    (0 … ``NEAR_TILE`` − 1) of its tensor-core tile for a live slot
-    (``wgt != 0``), −1 for a dead one.  Warp w owns rows
-    [N·w // n_warps, N·(w + 1) // n_warps) and takes its live slots in
-    ascending flat order, 16 a tile."""
-    n, k = wgt.shape
-    live = (wgt != 0).reshape(-1)
-    starts = (n * torch.arange(n_warps + 1, device=wgt.device)) // n_warps
-    rows = torch.arange(n * k, device=wgt.device) // k
-    warp = torch.searchsorted(starts, rows, right=True) - 1
-    seen = torch.cumsum(live, 0) - live.to(torch.int64)  # live slots before
-    pos = (seen - seen[starts[warp] * k]) % NEAR_TILE
-    return torch.where(live, pos, -1).reshape(n, k)
+def _fused_call(name, *args):
+    """Fused kernel ``name`` on ``args``: its operator where
+    :func:`_traced`, else its body through :class:`_InferenceOnly`."""
+    if _traced():
+        return _OPS[name](*args)
+    return _InferenceOnly.apply(_BODIES[name], name, *args)
 
 
 # ---------------------------------------------------------------------------
-# the fused dense kernels' shared pieces
+# the work of each kernel: the model's flop count and the kernels' bounds
 # ---------------------------------------------------------------------------
 
-def _tile_features(xyz_rows, xyz, mask_rows, mask, start: int, cutoff: float,
-                   eta: float, mu):
-    """Rows [start, start + R) against all atoms: ``(rbf, c, pairm)`` with
-    the envelope cleared on self pairs and masked atoms; ``pairm`` is the
-    pair mask with its diagonal kept."""
-    rows = start + torch.arange(xyz_rows.shape[0], device=xyz.device)
-    cols = torch.arange(xyz.shape[0], device=xyz.device)
-    pairm = mask_rows[:, None] * mask[None, :]
-    cmask = pairm * (rows[:, None] != cols[None, :])
-    rbf, c = envelope_rbf(pair_d2(xyz_rows[:, None], xyz[None]), cmask,
-                          cutoff, eta, mu)
-    return rbf, c, pairm
+#: the fused kernels' d² scan: CUDA-core instructions a valid pair (3
+#: coordinate loads and the mask's, 3 subtracts, 3 multiplies, 2 adds, the
+#: compare)
+SCAN_INSTR = 13
+#: the int8 far field's CUDA-core instructions per pair element: an
+#: activation takes add, relu, scale, clip, + 0.5 and the round down by
+#: 2^23, and 3 byte permutes pack 4; an output takes the unbias, the
+#: dequantizing multiply, + b2, relu and the cv-weighted add
+INT8_INSTR_IN = 6.75
+INT8_INSTR_OUT = 5
+#: neighbor_compact's work a valid pair: FLOP (3 subtractions, 3 products,
+#: 2 additions, the compare) and CUDA-core instructions (the same, issued
+#: one a lane)
+COMPACT_FLOP = 9
+COMPACT_INSTR = 9
 
 
-class _InferenceOnly(torch.autograd.Function):
-    """A fused dense kernel's forward, whose backward raises: the JAX
-    package's grid-accumulator kernels have no VJP either
-    (``forward_blocked``'s docstring, ``ops/fused.py:1730``), and a
-    gradient must never come back silently as zero."""
+class Work(NamedTuple):
+    """The work of one call of a kernel's function.
 
-    @staticmethod
-    def forward(ctx, fwd, name, *args):
-        ctx.name = name
-        return fwd(*args)
+    ``flops``: the model's products, 2 FLOP a multiply-add, over the whole
+    grid the function defines — what ``FlopCounterMode`` counts when it
+    runs the float32 plain version (matrix products and the weighted row
+    sums the plain version writes as a contraction; no elementwise work),
+    whatever kernel computes it, and the count an ``epnn_torch::``
+    operator reports (its flop formula).  The rest is the kernel's own
+    work on the data it is given, which its bound reads: ``products``,
+    FLOP of products on the tensor cores (TF32, or int8 operations for
+    the int8 tier; one product, before the 3xTF32 split's three);
+    ``elementwise``, FLOP on the CUDA cores; ``instructions``, CUDA-core
+    instructions counted apart (the d² scan, the int8 tier's packing);
+    ``special``, special-function operations (exp, cos, sqrt); ``bytes``,
+    each input read once and each output written once."""
 
-    @staticmethod
-    def backward(ctx, g):
-        raise NotImplementedError(
-            f"{ctx.name} is inference-only (as in the JAX package): "
-            "differentiate forward_blocked without use_pallas, or with "
-            "neighbor_k")
-
-
-def _cut2(cutoff: float) -> float:
-    """The fused kernels' scan threshold: the float32 cutoff squared,
-    rounded up by 1e-6 relative, so that every pair whose envelope is not
-    0 (d = sqrt(d²) < cutoff) has d² below it; pairs above it have an
-    envelope of exactly 0."""
-    c = float(np.float32(cutoff))
-    return c * c * (1.0 + 1e-6)
+    flops: int
+    products: float = 0
+    elementwise: float = 0
+    instructions: float = 0
+    special: float = 0
+    bytes: int = 0
 
 
-@functools.lru_cache(maxsize=16)
-def _kernel_mu(e: int, cutoff: float, device: torch.device) -> torch.Tensor:
-    """:func:`kernel_mu` for the fused kernels, made once per (E, cutoff,
-    device) and only read: four small launches a call otherwise."""
-    return kernel_mu(e, cutoff, device)
+def _far_work(rows: int, cols: int, h: int, live: Optional[int] = None):
+    """``dense_message_rowsum`` on R × N pairs: per live pair (cv_j ≠ 0;
+    default every column) the H × H product and ~4H elementwise; pi, cv
+    and out whole, pj where cv is live, W2, b2 once."""
+    live = cols if live is None else live
+    pairs = rows * live
+    return Work(2 * rows * cols * h * (h + 1), pairs * 2 * h * h,
+                pairs * 4 * h, 0, 0,
+                4 * (2 * rows * h + cols + live * h + h * h + h))
 
 
-def _fused_checks(name: str, n: int) -> None:
-    if n * n > 0x7FFFFFFF:
-        raise ValueError(f"{name}: N = {n} is too large for the kernel's "
-                         "int pair index (N² < 2^31)")
+def _int8_work(rows: int, cols: int, h: int, live: Optional[int] = None):
+    """``dense_message_rowsum_int8``: the far field's FLOP and bytes; its
+    products are int8 operations, its elementwise work
+    :data:`INT8_INSTR_IN` + :data:`INT8_INSTR_OUT` instructions a pair
+    element."""
+    pairs = rows * (cols if live is None else live)
+    return _far_work(rows, cols, h, live)._replace(
+        elementwise=0, instructions=pairs * h * (INT8_INSTR_IN
+                                                 + INT8_INSTR_OUT))
 
 
-# ---------------------------------------------------------------------------
-# 4. fused_message_rowsum — a dense message round, featurization in the tile
-# ---------------------------------------------------------------------------
-
-def _row_range(n: int, rows: Optional[slice]) -> range:
-    return range(n) if rows is None else range(n)[rows]
-
-
-def fused_message_rowsum_plain(pi, pj, xyz, node_mask, col_vec, w1e, w2, b2,
-                               cutoff: float = 3.0, eta: float = 2.0,
-                               tol: float = 1e-5, masked: bool = True,
-                               rows: Optional[slice] = None):
-    """Σ_j w_ij · relu(relu(pi_i + pj_j + rbf_ij @ W1e) @ W2 + b2) as
-    (N, H), with w_ij the pair mask (diagonal kept) when ``masked``, else
-    ``col_vec_j``; row-blocked so no (N, N, E) tensor exists.  ``tol`` is
-    unused (the message round has no gate), as in the JAX kernel.
-    ``rows``: only those rows (a slice of step 1), as (len, H)."""
-    n, h = pi.shape
-    mu = kernel_mu(w1e.shape[0], cutoff, pi.device)
-    rr = _row_range(n, rows)
-    rb = _plain_rows(len(rr), n, max(w1e.shape[0], h))
-    out = pi.new_empty((len(rr), h))
-    for s in range(rr.start, rr.stop, rb):
-        sl = slice(s, min(s + rb, rr.stop))
-        rbf, _, pairm = _tile_features(xyz[sl], xyz, node_mask[sl], node_mask,
-                                       s, cutoff, eta, mu)
-        hid = torch.relu((pi[sl, None, :] + pj[None, :, :]) + rbf @ w1e)
-        hid = torch.relu(hid @ w2 + b2)
-        w = pairm if masked else col_vec[None, :].expand_as(pairm)
-        out[s - rr.start:sl.stop - rr.start] = torch.einsum("bn,bnh->bh", w,
-                                                            hid)
-    return out
+def _far_bwd_work(rows: int, cols: int, h: int, live: Optional[int] = None):
+    """``dense_message_rowsum_bwd``: z2, e2 @ W2ᵀ and the dW2 outer
+    product (three H × H contractions) and ~9H elementwise a live pair;
+    pi, g, dpi, cv, pj and dpj whole, pj where cv is live, W2, b2, dW2,
+    db2 once."""
+    live = cols if live is None else live
+    pairs = rows * live
+    return Work(6 * rows * cols * h * h, pairs * 6 * h * h, pairs * 9 * h,
+                0, 0, 4 * (3 * rows * h + cols * h + cols + live * h
+                           + 2 * (h * h + h)))
 
 
-def _fused_message_split(pi, pj, xyz, node_mask, col_vec, w1e, w2, b2,
-                         cutoff, eta, masked, mm, rows=None):
-    """:func:`fused_message_rowsum_plain` as the kernel splits it, with the
-    products ``mm``: the far field over every pair (weights cv_j, and rows
-    times m_i when ``masked``), plus w_ij (mlp(base + rbf @ W1e) −
-    mlp(base)), base = pi_i + pj_j, over the pairs whose rbf is not 0
-    (elsewhere the difference is exactly 0)."""
-    n, h = pi.shape
-    rr = _row_range(n, rows)
-    cv = node_mask if masked else col_vec
-    far = _far_rows(pi[rr.start:rr.stop], pj, cv, ((w2, b2),), mm)
-    if masked:
-        far = far * node_mask[rr.start:rr.stop, None]
-    mu = kernel_mu(w1e.shape[0], cutoff, pi.device)
-    rb = _plain_rows(len(rr), n, max(w1e.shape[0], h))
-    corr = pi.new_empty((len(rr), h))
-    for s in range(rr.start, rr.stop, rb):
-        sl = slice(s, min(s + rb, rr.stop))
-        rbf, _, pairm = _tile_features(xyz[sl], xyz, node_mask[sl], node_mask,
-                                       s, cutoff, eta, mu)
-        base = pi[sl, None, :] + pj[None, :, :]
-        diff = (_mid_layers(base + mm(rbf, w1e), ((w2, b2),), mm)
-                - _mid_layers(base, ((w2, b2),), mm))
-        w = pairm if masked else col_vec[None, :].expand_as(pairm)
-        corr[s - rr.start:sl.stop - rr.start] = torch.einsum("bn,bnh->bh", w,
-                                                             diff)
-    return far + corr
+def _near_work(elem_per_h: int, row_factor: int):
+    def near(n: int, k: int, h: int, e: int, live: Optional[int] = None,
+             live_rows: Optional[int] = None):
+        """A near kernel on N rows of K slots: per live slot (default
+        every slot) rbf @ W1e and two H × H products and the elementwise
+        work; a live slot's gathered row and RBF row in, the row inputs of
+        rows with a live slot, the whole (N, K) weights, the weights once
+        and the output."""
+        live = n * k if live is None else live
+        live_rows = n if live_rows is None else live_rows
+        width = row_factor * h
+        return Work(n * k * (2 * e * h + 4 * h * h),
+                    live * (2 * e * h + 4 * h * h), live * elem_per_h * h,
+                    0, 0, 4 * (live * (width + e) + live_rows * width
+                               + n * k + n * h) + 4 * (e * h + h * h + h))
+    return near
 
 
-def fused_message_rowsum_3xtf32_plain(pi, pj, xyz, node_mask, col_vec, w1e,
-                                      w2, b2, cutoff: float = 3.0,
-                                      eta: float = 2.0, tol: float = 1e-5,
-                                      masked: bool = True,
-                                      rows: Optional[slice] = None):
-    """:func:`fused_message_rowsum_plain` with the kernel's split (the far
-    field over every pair, the live pairs' correction) and its arithmetic:
-    every product in 3xTF32 (``_mm_3xtf32``).  Not on any path: the tests
-    and ``chip_smoke.py`` hold the kernel to it (the two may differ only
-    by summation order).  ``rows`` as in the plain version."""
-    return _fused_message_split(pi, pj, xyz, node_mask, col_vec, w1e, w2, b2,
-                                cutoff, eta, masked, _mm_3xtf32, rows)
+def rbf_channel_work(e: int, method: str = "direct") -> tuple:
+    """(CUDA-core FLOP, special-function ops) a live pair's featurization
+    takes in a fused kernel: "direct", E channels of ~6 FLOP and an exp
+    each, ~15 FLOP and a sqrt and a cos a pair; "doubling", a channel
+    a·g_ch, its set bits' multiplies and the gate's compare, the
+    squarings u², u⁴, … and ~23 FLOP a pair (d² … the envelope, dc and
+    the two exps' arguments), and two exps, a sqrt and a cos a pair."""
+    if check_rbf_method(method, e) == "direct":
+        return 6 * e + 15, e + 2
+    nbits = max(1, (e - 1).bit_length())
+    return (sum(2 + bin(ch).count("1") for ch in range(e)) + 22 + nbits,
+            4)
 
 
-def fused_message_rowsum_tf32_plain(pi, pj, xyz, node_mask, col_vec, w1e,
-                                    w2, b2, cutoff: float = 3.0,
-                                    eta: float = 2.0, tol: float = 1e-5,
-                                    masked: bool = True,
-                                    rows: Optional[slice] = None):
-    """:func:`fused_message_rowsum_3xtf32_plain` with the one-pass
-    kernel's arithmetic: every product of TF32 operands (``_mm_tf32``).
-    Not on any path: the tests and ``chip_smoke.py`` hold the kernel to
-    it."""
-    return _fused_message_split(pi, pj, xyz, node_mask, col_vec, w1e, w2, b2,
-                                cutoff, eta, masked, _mm_tf32, rows)
+def _fused_work(pass_round: bool):
+    def fused(n: int, h: int, e: int, valid: Optional[int] = None,
+              near: Optional[int] = None, gated: Optional[int] = None,
+              masked: bool = True, soft_gate: bool = False,
+              rbf_method: str = "direct"):
+        """A fused dense kernel on N atoms (``valid`` of them, default
+        all): every valid pair's d² scan; per live pair (within the
+        cutoff, both valid, i ≠ j; default every valid pair) its channels
+        (:func:`rbf_channel_work`), rbf @ W1e and two mid layers (the pass
+        kernel: only its ``gated`` pairs' products under the hard gate —
+        the others add exactly 0), ~12H (message) or ~14H (pass)
+        elementwise; the message kernel's far field over every weighted
+        pair (the valid pairs when ``masked``, else all), 2H² and ~5H;
+        pi, pj, xyz, the mask (and col_vec) in, the row sums out, the
+        weights once."""
+        valid = n if valid is None else valid
+        near = valid * valid if near is None else near
+        gated = near if gated is None else gated
+        chan, sfu = rbf_channel_work(e, rbf_method)
+        live = 2 * e * h + 4 * h * h
+        w_bytes = 4 * (e * h + h * h + h)
+        if pass_round:
+            paying = near if soft_gate else gated
+            return Work(2 * n * n * h * (e + 2 * h), paying * live,
+                        near * chan + paying * 14 * h,
+                        valid * valid * SCAN_INSTR, near * sfu,
+                        4 * (3 * h + 4) * n + w_bytes)
+        weighted = valid * valid if masked else n * n
+        return Work(2 * n * n * h * (e + h + 1),
+                    weighted * 2 * h * h + near * live,
+                    weighted * 5 * h + near * (chan + 12 * h),
+                    valid * valid * SCAN_INSTR, near * sfu,
+                    4 * (3 * h + 5) * n + w_bytes)
+    return fused
 
 
-def _fused_message_rowsum_fwd(pi, pj, xyz, node_mask, col_vec, w1e, w2, b2,
-                              cutoff, eta, tol, masked, padded=None,
-                              precision="default"):
-    name = "fused_message_rowsum"
-    passes = tf32_passes(precision)
-    n, h = pi.shape
-    e = w1e.shape[0]
-    device = _check(name, dict(pi=pi, pj=pj, xyz=xyz, node_mask=node_mask,
-                               col_vec=col_vec, w1e=w1e, w2=w2, b2=b2),
-                    dict(pi=(n, h), pj=(n, h), xyz=(n, 3), node_mask=(n,),
-                         col_vec=(n,), w1e=(e, h), w2=(h, h), b2=(h,)))
-    if device.type == "cpu":
-        return fused_message_rowsum_plain(pi, pj, xyz, node_mask, col_vec,
-                                          w1e, w2, b2, cutoff, eta, tol,
-                                          masked)
-    _fused_checks(name, n)
-    kw = _kernel_weights(name, padded, w2, b2, w1e)
-    out = pi.new_empty((n, h))
-    if n == 0:
-        return out
-    splits, cols = _dense_message_splits(n, n)
-    part = pi.new_empty((splits + 1, n, h))
-    _launch(name, device, (pi, pj, xyz, node_mask, col_vec, kw.w1e, kw.w2,
-                           kw.b2, _kernel_mu(e, float(cutoff), xyz.device),
-                           part, out,
-                           _wide_scratch(name, pi, n, h, e, passes)),
-            (n, h, e, splits, cols, int(bool(masked)), float(cutoff),
-             float(eta), _cut2(cutoff)), {}, h, e, passes)
-    return out
+def _compact_work(n: int, k: int, valid: Optional[int] = None):
+    """``neighbor_compact``: every valid pair's d² and compare
+    (:data:`COMPACT_FLOP`, :data:`COMPACT_INSTR`); xyz and the mask in,
+    idx (int64) and the mask out.  No products."""
+    valid = n if valid is None else valid
+    return Work(0, 0, valid * valid * COMPACT_FLOP,
+                valid * valid * COMPACT_INSTR, 0, 16 * n + 12 * n * k)
 
 
-def fused_message_rowsum(pi, pj, xyz, node_mask, col_vec, w1e, w2, b2,
-                         cutoff: float = 3.0, eta: float = 2.0,
-                         tol: float = 1e-5, masked: bool = True,
-                         padded: Optional[KernelWeights] = None,
-                         precision: str = "default"):
-    """One dense message round's row sums with the featurization in the
-    tile (see ``csrc/fused_message_rowsum.cu``):
-
-        out_i = Σ_j w_ij · relu(relu(pi_i + pj_j + rbf_ij @ W1e) @ W2 + b2)
-
-    pi, pj (N, H), pi carrying b1; xyz (N, 3); node_mask, col_vec (N,);
-    W1e (E, H); W2 (H, H); b2 (H,).  ``masked`` weights by the pair mask
-    (diagonal kept), else by ``col_vec``; ``padded``: :func:`pad_weights`
-    of (w2, b2, w1e) where the caller keeps it; ``precision``: JAX's name,
-    the TF32 tier on the card.  The caller applies W_out and the Σ_j b_out
-    term.  On the card: the far field over every pair plus the live
-    pairs' correction, one launch (and the ordered sum of its parts).
-    Inference-only: a backward raises."""
-    return _InferenceOnly.apply(_fused_message_rowsum_fwd,
-                                "fused_message_rowsum", pi, pj, xyz,
-                                node_mask, col_vec, w1e, w2, b2, cutoff, eta,
-                                tol, masked, padded, precision)
+_WORK = {
+    "dense_message_rowsum": _far_work,
+    "dense_message_rowsum_int8": _int8_work,
+    "dense_message_rowsum_bwd": _far_bwd_work,
+    "near_message_corr": _near_work(8, 1),
+    "near_pass_rowsum": _near_work(10, 2),
+    "fused_message_rowsum": _fused_work(False),
+    "fused_epn_rowsum": _fused_work(True),
+    "neighbor_compact": _compact_work,
+}
 
 
-# ---------------------------------------------------------------------------
-# 5. fused_epn_rowsum — a dense electron-passing round
-# ---------------------------------------------------------------------------
+def work(name: str, **sizes) -> Work:
+    """The :class:`Work` of one call of kernel ``name`` at ``sizes``:
 
-def _fused_epn_rows(pi, pj, xyz, node_mask, w1e, w2, b2, cutoff, eta, tol,
-                    soft_gate, mm, rows=None):
-    n, h = pi.shape
-    mu = kernel_mu(w1e.shape[0], cutoff, pi.device)
-    rr = _row_range(n, rows)
-    rb = _plain_rows(len(rr), n, max(w1e.shape[0], h))
-    out = pi.new_empty((len(rr), h))
-    for s in range(rr.start, rr.stop, rb):
-        sl = slice(s, min(s + rb, rr.stop))
-        rbf, c, _ = _tile_features(xyz[sl], xyz, node_mask[sl], node_mask,
-                                   s, cutoff, eta, mu)
-        epart = mm(rbf, w1e)
-        hid_n = _mid_layers((pi[sl, None, :] + pj[None, :, :]) + epart,
-                            ((w2, b2),), mm)
-        hid_t = _mid_layers((pj[sl, None, :] + pi[None, :, :]) + epart,
-                            ((w2, b2),), mm)
-        gate = c if soft_gate else hard_gate(rbf, tol)
-        out[s - rr.start:sl.stop - rr.start] = torch.sum(
-            (0.5 * gate)[:, :, None] * (hid_n - hid_t), dim=1)
-    return out
+    * far field, its int8 tier and backward: ``rows``, ``cols``, ``h``,
+      ``live`` (columns with cv ≠ 0);
+    * near kernels: ``n``, ``k``, ``h``, ``e``, ``live`` (slots of weight
+      ≠ 0), ``live_rows`` (rows with one);
+    * fused kernels: ``n``, ``h``, ``e``, ``valid`` atoms, ``near`` (live
+      pairs), ``gated`` (of those, hard-gated), ``masked`` / ``soft_gate``,
+      ``rbf_method``;
+    * ``neighbor_compact``: ``n``, ``k``, ``valid``.
+
+    The data's counts default to the whole grid.  One source of the work
+    counts: the operators' flop formulas read ``flops``, ``chip_smoke.py``'s
+    bounds the rest."""
+    return _WORK[name](**sizes)
 
 
-def fused_epn_rowsum_plain(pi, pj, xyz, node_mask, w1e, w2, b2,
-                           cutoff: float = 3.0, eta: float = 2.0,
-                           tol: float = 1e-5, soft_gate: bool = False,
-                           rows: Optional[slice] = None):
-    """Σ_j 0.5 · gate_ij · (hid(i, j) − hid(j, i)) as (N, H), both
-    orderings from one epart, gate the hard is-near gate or (``soft_gate``)
-    the masked envelope; row-blocked so no (N, N, E) tensor exists.
-    ``rows``: only those rows (a slice of step 1), as (len, H)."""
-    return _fused_epn_rows(pi, pj, xyz, node_mask, w1e, w2, b2, cutoff, eta,
-                           tol, soft_gate, _mm_fp32, rows)
+def _flop_formula(name, *args, out_shape=None, **kwargs):
+    """The flop formula of operator ``name`` (the argument tensors come as
+    shapes): :func:`work`'s ``flops`` at them, which equals what
+    ``FlopCounterMode`` counts of the float32 plain version."""
+    a = args
+    if name in ("dense_message_rowsum", "dense_message_rowsum_int8",
+                "dense_message_rowsum_bwd"):
+        return work(name, rows=a[0][0], cols=a[1][0], h=a[0][1]).flops
+    if name in ("near_message_corr", "near_pass_rowsum"):
+        k = a[3][1] if len(a[3]) == 2 else 0
+        return work(name, n=a[0][0], k=k, h=a[4][1], e=a[4][0]).flops
+    w1e = a[5] if name == "fused_message_rowsum" else a[4]
+    return work(name, n=a[0][0], h=a[0][1], e=w1e[0]).flops
 
 
-def fused_epn_rowsum_3xtf32_plain(pi, pj, xyz, node_mask, w1e, w2, b2,
-                                  cutoff: float = 3.0, eta: float = 2.0,
-                                  tol: float = 1e-5, soft_gate: bool = False,
-                                  rows: Optional[slice] = None):
-    """:func:`fused_epn_rowsum_plain` with the kernel's arithmetic: rbf @
-    W1e and both orderings' mid layers in 3xTF32 (``_mm_3xtf32``).  Not on
-    any path: the tests and ``chip_smoke.py`` hold the kernel to it.  A
-    pair's two transfers stay exact negations: both orderings see the same
-    products.  ``rows`` as in the plain version."""
-    return _fused_epn_rows(pi, pj, xyz, node_mask, w1e, w2, b2, cutoff, eta,
-                           tol, soft_gate, _mm_3xtf32, rows)
-
-
-def fused_epn_rowsum_tf32_plain(pi, pj, xyz, node_mask, w1e, w2, b2,
-                                cutoff: float = 3.0, eta: float = 2.0,
-                                tol: float = 1e-5, soft_gate: bool = False,
-                                rows: Optional[slice] = None):
-    """:func:`fused_epn_rowsum_plain` with the one-pass kernel's
-    arithmetic: rbf @ W1e and both orderings' mid layers of TF32 operands
-    (``_mm_tf32``).  Not on any path: the tests and ``chip_smoke.py`` hold
-    the kernel to it.  A pair's two transfers stay exact negations."""
-    return _fused_epn_rows(pi, pj, xyz, node_mask, w1e, w2, b2, cutoff, eta,
-                           tol, soft_gate, _mm_tf32, rows)
-
-
-def _fused_epn_rowsum_fwd(pi, pj, xyz, node_mask, w1e, w2, b2, cutoff, eta,
-                          tol, soft_gate, padded=None, precision="default"):
-    name = "fused_epn_rowsum"
-    passes = tf32_passes(precision)
-    n, h = pi.shape
-    e = w1e.shape[0]
-    device = _check(name, dict(pi=pi, pj=pj, xyz=xyz, node_mask=node_mask,
-                               w1e=w1e, w2=w2, b2=b2),
-                    dict(pi=(n, h), pj=(n, h), xyz=(n, 3), node_mask=(n,),
-                         w1e=(e, h), w2=(h, h), b2=(h,)))
-    if device.type == "cpu":
-        return fused_epn_rowsum_plain(pi, pj, xyz, node_mask, w1e, w2, b2,
-                                      cutoff, eta, tol, soft_gate)
-    _fused_checks(name, n)
-    kw = _kernel_weights(name, padded, w2, b2, w1e)
-    out = pi.new_empty((n, h))
-    if n == 0:
-        return out
-    _launch(name, device, (pi, pj, xyz, node_mask, kw.w1e, kw.w2, kw.b2,
-                           _kernel_mu(e, float(cutoff), xyz.device), out,
-                           _wide_scratch(name, pi, n, h, e, passes)),
-            (n, h, e, int(bool(soft_gate)), float(cutoff), float(eta),
-             float(tol), _cut2(cutoff)), {}, h, e, passes)
-    return out
-
-
-def fused_epn_rowsum(pi, pj, xyz, node_mask, w1e, w2, b2,
-                     cutoff: float = 3.0, eta: float = 2.0, tol: float = 1e-5,
-                     soft_gate: bool = False,
-                     padded: Optional[KernelWeights] = None,
-                     precision: str = "default"):
-    """One dense electron-passing round's antisymmetric row sums (see
-    ``csrc/fused_epn_rowsum.cu``):
-
-        out_i = Σ_j 0.5 · gate_ij · (hid(i, j) − hid(j, i))
-
-    with the RBF, the gate and both orderings built in the tile; arguments
-    as :func:`fused_message_rowsum` without ``col_vec``.  A pair's two
-    transfers are exact negations, so Σ_i out_i @ W_out conserves charge to
-    f32 summation.  The caller applies W_out (b_out cancels).  On the card
-    only the pairs within the cutoff pay (a d² scan finds them).
-    ``precision`` as in :func:`fused_message_rowsum`.  Inference-only: a
-    backward raises."""
-    return _InferenceOnly.apply(_fused_epn_rowsum_fwd, "fused_epn_rowsum", pi,
-                                pj, xyz, node_mask, w1e, w2, b2, cutoff, eta,
-                                tol, soft_gate, padded, precision)
+#: the kernels, as registered operators.  Registering compiles nothing; a
+#: library is built at its first launch.
+_OPS = {name: _register(name) for name in _SCHEMAS}
 
 
 # ---------------------------------------------------------------------------

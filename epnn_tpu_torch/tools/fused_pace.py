@@ -18,12 +18,15 @@ kernel's source or in ``common.cuh``:
 * ``one_tf32`` — one TF32 product a k-step (hi·hi) instead of 3xTF32's
   three, in every tensor-core helper.
 
-The variants' results are wrong by construction; only their device times
-are kept, at the shipped widths on the 2,220-atom and 17,760-atom water
-boxes of ``chip_smoke.py`` (seeded pi and pj, random weights; the masked
-message mode and the hard gate).  Prints a line a size and a JSON line
-with the times and the card's name and power limit; exits 2 without a
-card.
+The kernels as they are run under ``rbf_method`` "direct" and, where the
+source takes it (an ``int doubling`` argument), "doubling"; a source
+without it (a tree from before the method) runs direct alone, with its
+own entry's arguments.  The variants' results are wrong by construction;
+only their device times are kept, at the shipped widths on the 2,220-atom
+and 17,760-atom water boxes of ``chip_smoke.py`` (seeded pi and pj,
+random weights; the masked message mode and the hard gate).  Prints a
+line a size and a JSON line with the times and the card's name and power
+limit; exits 2 without a card.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from epnn_tpu_torch.featurize import kernel_mu
+from epnn_tpu_torch.featurize import doubling_u_scale, rbf_table
 from epnn_tpu_torch.ops import kernels
 
 NAMES = ("fused_message_rowsum", "fused_epn_rowsum")
@@ -59,7 +62,9 @@ VARIANTS = {
                 "epnn::far::rows<false>(fs, pi, pj, cv, w2, b2, nullptr, part, "
                 "N, N,\n                             cols_per_split, bx, by);\n",
                 "    (void)fs;\n    (void)bx;\n    (void)by;\n")],
-    "no_channels": [("? rbf_channel(c, d, mu[e], neg_eta)", "? 0.0f * mu[e]")],
+    "no_channels": [("? rbf_channel(c, d, mu[e], neg_eta)", "? 0.0f * mu[e]"),
+                    ("? channel<dbl>(c, d, a, u, tab[e], e, neg_eta)",
+                     "? 0.0f * tab[e]")],
     "one_tf32": [("#define EPNN_TF32_PASSES 3\n", "#define EPNN_TF32_PASSES 1\n"),
                  ("  mma_tf32(d, al, b.x, b.y);\n  mma_tf32(d, ah, b.z, b.w);\n",
                   ""),
@@ -67,20 +72,27 @@ VARIANTS = {
                   "")],
 }
 ITERS = {2224: 20, 17760: 5}
+#: the C entries' argument types before the RBF method's two arguments
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+DIRECT_ONLY_ARGTYPES = {
+    "fused_message_rowsum": [_P] * 12 + [_I] * 6 + [_F] * 3 + [_P],
+    "fused_epn_rowsum": [_P] * 10 + [_I] * 4 + [_F] * 4 + [_P],
+}
 
 
 def build(csrc: Path, label: str) -> dict:
     """Compile every variant of both kernels from ``csrc`` in parallel
     into ``build/.../fused_pace/<label>/<variant>/``; returns {(kernel,
-    variant): the C entry, or None where the variant's text is in neither
-    file}."""
+    variant): (the C entry, whether it takes the RBF method), or None
+    where the variant's text is in neither file}."""
     files = {f: (csrc / f).read_text() for f in ("common.cuh",
                                                  "far_field.cuh",
                                                  "wide.cuh")
              if (csrc / f).exists()}
-    jobs, fns = {}, {}
+    jobs, fns, methods = {}, {}, {}
     for name in NAMES:
         source = (csrc / kernels.SOURCES[name]).read_text()
+        methods[name] = "int doubling" in source
         for variant, subs in VARIANTS.items():
             texts = dict(files, kernel=source)
             held = 0
@@ -111,9 +123,10 @@ def build(csrc: Path, label: str) -> dict:
                 if "registers" in ln or "spill" in ln:
                     print(f"[pace] {label} {key[0]} {key[1]}: {ln.strip()}")
         fn = getattr(ctypes.CDLL(str(lib)), f"epnn_{key[0]}")
-        fn.argtypes = kernels._ARGTYPES[key[0]]
+        fn.argtypes = (kernels._ARGTYPES if methods[key[0]]
+                       else DIRECT_ONLY_ARGTYPES)[key[0]]
         fn.restype = ctypes.c_int
-        fns[key] = fn
+        fns[key] = (fn, methods[key[0]])
     return fns
 
 
@@ -169,7 +182,9 @@ def main(argv=None) -> int:
     rand = lambda *s, sc=1.0: torch.from_numpy(  # noqa: E731
         (g.normal(size=s) * sc).astype(np.float32)).to(dev)
     w1e, w2, b2 = rand(e, h, sc=0.3), rand(h, h, sc=0.3), rand(h, sc=0.3)
-    mu = kernel_mu(e, cutoff, dev)
+    tables = {m: rbf_table(e, cutoff, eta, m, dev) for m in
+              ("direct", "doubling")}
+    u_scale = doubling_u_scale(e, cutoff, eta)
     table = table_for_n_elems(10)
     times = {}
     stream = torch.cuda.current_stream().cuda_stream
@@ -184,25 +199,36 @@ def main(argv=None) -> int:
         splits, cols = kernels._dense_message_splits(n, n)
         part = torch.empty((splits + 1, n, h), device=dev)
         cut2 = kernels._cut2(cutoff)
-        for (name, variant), fn in fns.items():
-            key = f"{name} {variant}"
-            if fn is None:
-                times.setdefault(key, {})[n] = None
+        for (name, variant), entry in fns.items():
+            if entry is None:
+                times.setdefault(f"{name} {variant}", {})[n] = None
                 continue
-            if name == "fused_message_rowsum":
-                ptrs = (pi, pj, xyz, mask, ones, w1e, w2, b2, mu, part, out,
-                        None)
-                scal = (n, h, e, splits, cols, 1, cutoff, eta, cut2)
-            else:
-                ptrs = (pi, pj, xyz, mask, w1e, w2, b2, mu, out, None)
-                scal = (n, h, e, 0, cutoff, eta, tol, cut2)
+            fn, takes = entry
+            for method in (("direct", "doubling")
+                           if takes and variant.endswith("kernel")
+                           else ("direct",)):
+                key = f"{name} {variant}" + (f" {method}" if takes else "")
+                dbl = int(method == "doubling")
+                tab = tables[method]
+                if name == "fused_message_rowsum":
+                    ptrs = (pi, pj, xyz, mask, ones, w1e, w2, b2, tab, part,
+                            out, None)
+                    scal = ((n, h, e, splits, cols, 1, dbl, cutoff, eta,
+                             cut2, u_scale * dbl) if takes else
+                            (n, h, e, splits, cols, 1, cutoff, eta, cut2))
+                else:
+                    ptrs = (pi, pj, xyz, mask, w1e, w2, b2, tab, out, None)
+                    scal = ((n, h, e, 0, dbl, cutoff, eta, tol, cut2,
+                             u_scale * dbl) if takes else
+                            (n, h, e, 0, cutoff, eta, tol, cut2))
 
-            def call(fn=fn, ptrs=ptrs, scal=scal, key=key):
-                err = fn(*[None if t is None else t.data_ptr() for t in ptrs],
-                         *scal, stream)
-                if err:
-                    raise RuntimeError(f"{key}: launch failed ({err})")
-            times.setdefault(key, {})[n] = device_ms(call, ITERS.get(n, 5))
+                def call(fn=fn, ptrs=ptrs, scal=scal, key=key):
+                    err = fn(*[None if t is None else t.data_ptr()
+                               for t in ptrs], *scal, stream)
+                    if err:
+                        raise RuntimeError(f"{key}: launch failed ({err})")
+                times.setdefault(key, {})[n] = device_ms(call,
+                                                         ITERS.get(n, 5))
         print(f"[pace] N={n}: " + ", ".join(
             f"{key} " + ("n/a" if t[n] is None else f"{t[n]:.4f} ms")
             for key, t in times.items()))

@@ -6,7 +6,8 @@ measured call ends in a synchronization: :func:`benchmark_fn` synchronizes
 the device after each call, and :func:`benchmark_chained` ends its loop in
 one device→host readback.  Warm-up calls run first (they load the kernel
 libraries and fill the caches).  ``profile_dir`` writes a
-``torch.profiler`` chrome trace of the measured loop.
+``torch.profiler`` chrome trace of the measured loop; ``cost_analysis``
+counts the measured call's products (:func:`count_flops`).
 """
 
 from __future__ import annotations
@@ -55,6 +56,26 @@ def block_until_ready(out):
     return out
 
 
+def count_flops(fn: Callable, *args, **kwargs) -> int:
+    """The products of one call ``fn(*args, **kwargs)``, 2 FLOP a
+    multiply-add, as ``torch.utils.flop_counter.FlopCounterMode`` counts
+    them: matrix products and contractions only, no elementwise work (XLA's
+    ``cost_analysis`` counts that too, so the JAX package's ``flops`` of
+    the same graph reads higher).  The port's CUDA kernels are
+    ``epnn_torch::`` operators whose flop formulas give the model's count
+    (``ops.kernels.work``: what their float32 plain versions' products are
+    on the whole pair grid, not the live pairs a kernel visits, and one
+    product where 3xTF32 runs three), and under the counter a call goes
+    through them (``kernels._traced``): the same count on the CPU and on
+    the card, through a kernel or its plain version."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    counter = FlopCounterMode(display=False)
+    with counter:
+        fn(*args, **kwargs)
+    return counter.get_total_flops()
+
+
 def _trace(profile_dir: Optional[str]):
     """A ``torch.profiler`` context that writes ``profile_dir/trace.json``
     (CUDA activity too where a card is present), or a null context."""
@@ -90,11 +111,11 @@ def benchmark_chained(
 
     ``fn(q0) -> out`` (or ``fn(q0, operands)`` when ``operands`` is given)
     takes the chained tensor as its first argument and returns a tensor.
-    ``warmup_loops`` full loops run first.  ``cost_analysis`` adds no
-    ``flops`` key: PyTorch has no counterpart of XLA's cost model (the JAX
-    package also leaves the key out when its analysis fails).  Returns
-    ``{"mean_s", "iters", "method": "chained", "warmup_loops"}``."""
-    del cost_analysis
+    ``warmup_loops`` full loops run first.  ``cost_analysis`` adds
+    ``flops``, the products of one more call after the timing
+    (:func:`count_flops`; left out where it counts none, as the JAX
+    package leaves it out where its count is 0).  Returns ``{"mean_s",
+    "iters", "method": "chained", "warmup_loops"}`` (and ``"flops"``)."""
 
     def call(prev):
         q0_in = q0 + 0.0 * prev.reshape(-1)[:1]
@@ -112,12 +133,17 @@ def benchmark_chained(
         t0 = time.perf_counter()
         loop()
         dt = time.perf_counter() - t0
-    return {
+    out = {
         "mean_s": dt / iters,
         "iters": iters,
         "method": "chained",
         "warmup_loops": warmup_loops,
     }
+    if cost_analysis:
+        flops = count_flops(call, q0)
+        if flops > 0:
+            out["flops"] = float(flops)
+    return out
 
 
 def benchmark_fn(

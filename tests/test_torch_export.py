@@ -366,6 +366,8 @@ def _op_args(name, g):
     n, h, k, e = 12, 8, 3, 6
     mask = torch.tensor((g.uniform(size=(n, k)) > 0.3).astype(np.float32))
     cv = torch.ones(n + 2)
+    xyz = torch.tensor(g.uniform(0.0, 4.0, size=(n, 3)).astype(np.float32))
+    node_mask = torch.tensor((np.arange(n) < n - 2).astype(np.float32))
     base = {
         "dense_message_rowsum": (f(n, h), f(n + 2, h), cv, f(h, h), f(h),
                                  None, None, "default"),
@@ -380,6 +382,13 @@ def _op_args(name, g):
         "near_pass_rowsum": (f(n, 2 * h), f(n * k, 2 * h),
                              f(n * k, e).abs(), 0.5 * mask, f(e, h),
                              f(h, h), f(h), None, None, None, "highest"),
+        "fused_message_rowsum": (f(n, h), f(n, h), xyz, node_mask, cv[:n],
+                                 f(e, h), f(h, h), f(h), 3.0, 2.0, 1e-5,
+                                 True, None, None, None, "default",
+                                 "direct"),
+        "fused_epn_rowsum": (f(n, h), f(n, h), xyz, node_mask, f(e, h),
+                             f(h, h), f(h), 3.0, 2.0, 1e-5, False, None,
+                             None, None, "highest", "doubling"),
     }
     return base[name]
 

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from epnn_tpu.featurize import rbf_edges as jax_rbf_edges
-from epnn_tpu.featurize import soft_envelope_np
+from epnn_tpu.featurize import soft_envelope_np as jax_soft_envelope_np
 from epnn_tpu.io import checkpoint as jax_ckpt
 from epnn_tpu.models import EPNN as JaxEPNN
 from epnn_tpu.models import EPNNConfig
@@ -23,6 +23,7 @@ from epnn_tpu.ops import forward_blocked as jax_forward_blocked
 from epnn_tpu.ops import fuse_params as jax_fuse_params
 from epnn_tpu_torch.data import pad_molecules
 from epnn_tpu_torch.elements import table_for_n_elems
+from epnn_tpu_torch.featurize import soft_envelope_np
 from epnn_tpu_torch.io import checkpoint as ckpt
 from epnn_tpu_torch.io.checkpoint import from_jax_params
 from epnn_tpu_torch.models import tree_leaves
@@ -60,6 +61,18 @@ def jax_refs(params, cfg, x, q0, xyz, mask):
             np.asarray(JaxEPNN(cfg).apply(params, x, q0,
                                           jax_rbf_edges(xyz, mask), mask,
                                           **kw))]
+
+
+def test_soft_envelope_np_is_jaxs():
+    """The port's copy of the NumPy oracle (which feeds the JAX dense
+    model's soft envelope below) equals the JAX package's bit for bit, on
+    a water box with a coincident pair and at another cutoff."""
+    xyz = water_box(20, seed=3).xyz.copy()
+    xyz[5] = xyz[4]
+    for cutoff in (3.0, 2.5):
+        np.testing.assert_array_equal(soft_envelope_np(xyz, cutoff),
+                                      jax_soft_envelope_np(xyz, cutoff))
+    assert soft_envelope_np(xyz).shape == (60, 60)
 
 
 def check(out, refs, mask, q_total):

@@ -95,6 +95,9 @@ def cases():
             cfg=cfg10, bias=0.3),
         "pass_probe": Case("pass_probe", PROBE[0], dict(mode="atom"),
                            bias=0.0, jax=False),
+        # JAX's test_scaling_work_divides: 256 atoms in a 14 Å box, k 16
+        "flops": Case("flops", system(seed=7, b=1, n=256, pad=0,
+                                      span=14.0), dict(k=16), jax=False),
     }
     return out
 
@@ -175,6 +178,17 @@ def test_reuse_matches_in_forward_selection(runs):
     port = runs[0]
     for name in ("reuse", "reuse_skin"):
         assert_close(result(port, name), result(port, "nbr"))
+
+
+def test_scaling_work_divides(runs):
+    """The counterpart of JAX's ``test_scaling_work_divides``
+    (``tests/test_sharding.py:764``): a rank's products on the atom split
+    (``cost_analysis``'s count) at D = 2 are at most 0.6 of the one-device
+    forward's (ideal 0.5; the slack is the replicated O(N) work), the
+    same on both ranks."""
+    counts = [runs[2][r]["flops"] for r in range(M.WORLD)]
+    assert all(c == counts[0] for c in counts), counts
+    assert 0 < counts[0]["rank"] <= 0.6 * counts[0]["one"], counts[0]
 
 
 def test_pass_pairs_negate_across_ranks(runs):

@@ -64,6 +64,8 @@ def cases(tmp: str):
             argv=["--multihost", *CLI_SMALL],
             dir=os.path.join(tmp, "cli_mh"), out=os.path.join(tmp, "run_mh")),
             mesh=(2, 1), jax=False),
+        "dcp": Case("dcp", batch, dict(k=k, dir=os.path.join(tmp, "state")),
+                    mesh=(1, 2), jax=False),
     }
 
 
@@ -116,6 +118,18 @@ def test_trainer_dispatches_big_buckets_to_the_sharded_step(runs):
     assert np.array_equal(a["final"], b["final"])
     assert [r["train_loss"] for r in a["history"]] == \
         [r["train_loss"] for r in b["history"]]
+
+
+def test_sharding_aware_state_format_on_the_mesh(runs):
+    """Both ranks save one atom-sharded step's state together with
+    ``save_train_state_orbax`` (``torch.distributed.checkpoint``) and load
+    it back bit for bit; both see one checkpoint (the same files, the
+    metadata once) of the same parameters."""
+    _, _, extras, _ = runs
+    a, b = (extras[r]["dcp"] for r in range(M.WORLD))
+    assert a["same"] and b["same"]
+    assert a["files"] == b["files"] and ".metadata" in a["files"]
+    assert np.array_equal(a["final"], b["final"])
 
 
 @pytest.mark.parametrize("name,flag", [("cli_dp", "data-parallel over"),

@@ -292,18 +292,21 @@ def test_timing_helpers():
 
     def fn(q0, ops=None):
         calls.append(float(q0.sum()))
-        return q0 * 2.0 + (0.0 if ops is None else ops)
+        return (q0 * 2.0) @ torch.eye(3) + (0.0 if ops is None else ops)
 
     q0 = torch.ones(2, 3)
     out = timing.benchmark_chained(fn, q0, iters=3, warmup_loops=1,
                                    cost_analysis=True)
-    assert set(out) == {"mean_s", "iters", "method", "warmup_loops"}
+    # cost_analysis: the products of one more call, (2, 3) @ (3, 3)
+    assert set(out) == {"mean_s", "iters", "method", "warmup_loops", "flops"}
+    assert out["flops"] == 2 * 2 * 3 * 3
     assert out["method"] == "chained" and out["iters"] == 3
     assert np.isfinite(out["mean_s"]) and out["mean_s"] > 0.0
     # each call sees q0 plus a zero-weighted dependency on the last output
-    assert calls == [6.0] * 6
+    assert calls == [6.0] * 7
     out = timing.benchmark_chained(fn, q0, iters=2, operands=1.0)
-    assert out["warmup_loops"] == 2 and len(calls) == 6 + 6
+    assert out["warmup_loops"] == 2 and len(calls) == 7 + 6
+    assert "flops" not in out
     stats = timing.benchmark_fn(lambda a: a + 1, torch.ones(3), warmup=1,
                                 iters=4)
     assert set(stats) == {"mean_s", "median_s", "min_s", "std_s", "iters"}

@@ -96,6 +96,17 @@ def _check_scratch(name, work, n, h, e):
         assert work is None, name
 
 
+def _rbf_launch(tab, doubling, u_scale, e, cutoff, eta):
+    """The RBF method a fused launch asks for, its table (the centers, or
+    the doubling's gains) and scale 2ηΔ checked against it."""
+    method = "doubling" if doubling else "direct"
+    want = kernels.rbf_table(e, cutoff, eta, method)
+    assert tab.shape == (e,) and torch.equal(tab, want), method
+    assert u_scale == (kernels.doubling_u_scale(e, cutoff, eta) if doubling
+                       else 0.0)
+    return method
+
+
 def emulate(name, tensors, scalars, h, e):
     """What kernel ``name`` computes from its launch arguments, written
     into the launch's output tensors."""
@@ -126,22 +137,24 @@ def emulate(name, tensors, scalars, h, e):
             _halves(rs, h, hp), _halves(ppn, h, hp), _tail(rbf, w1e.shape[0]),
             gh, w1e, w2, b2)[:, :h])
     elif name == "fused_message_rowsum":
-        pi, pj, xyz, mask, cv, w1e, w2, b2, mu, _, out, work = tensors
+        pi, pj, xyz, mask, cv, w1e, w2, b2, tab, _, out, work = tensors
         _check_scratch(name, work, pi.shape[0], h, e)
-        masked, cutoff, eta = scalars[5:8]
+        masked, doubling, cutoff, eta, _, u_scale = scalars[5:11]
+        method = _rbf_launch(tab, doubling, u_scale, e, cutoff, eta)
         # channels past E are 0 in the kernel: they meet W1e's zero rows
-        assert not w1e[e:].any() and mu.shape == (e,)
+        assert not w1e[e:].any()
         out.copy_(kernels.fused_message_rowsum_plain(
             _tail(pi, hp), _tail(pj, hp), xyz, mask, cv, w1e[:e], w2, b2,
-            cutoff, eta, masked=bool(masked))[:, :h])
+            cutoff, eta, masked=bool(masked), rbf_method=method)[:, :h])
     elif name == "fused_epn_rowsum":
-        pi, pj, xyz, mask, w1e, w2, b2, mu, out, work = tensors
+        pi, pj, xyz, mask, w1e, w2, b2, tab, out, work = tensors
         _check_scratch(name, work, pi.shape[0], h, e)
-        soft, cutoff, eta, tol = scalars[3:7]
-        assert not w1e[e:].any() and mu.shape == (e,)
+        soft, doubling, cutoff, eta, tol, _, u_scale = scalars[3:10]
+        method = _rbf_launch(tab, doubling, u_scale, e, cutoff, eta)
+        assert not w1e[e:].any()
         out.copy_(kernels.fused_epn_rowsum_plain(
             _tail(pi, hp), _tail(pj, hp), xyz, mask, w1e[:e], w2, b2, cutoff,
-            eta, tol, soft_gate=bool(soft))[:, :h])
+            eta, tol, soft_gate=bool(soft), rbf_method=method)[:, :h])
     else:
         raise AssertionError(name)
 

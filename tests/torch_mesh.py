@@ -469,9 +469,68 @@ def _cli_train(case: Case, tree, cfg, mesh):
     return out.getvalue()
 
 
+def _flops(case: Case, tree, cfg, mesh):
+    """The products of one atom-sharded forward on this rank and of the
+    one-device forward of the same batch (``utils.timing.count_flops``;
+    the kernels count through their operators' formulas)."""
+    import torch
+
+    from epnn_tpu_torch.ops import forward_blocked, fuse_params
+    from epnn_tpu_torch.parallel import atom_shard
+    from epnn_tpu_torch.utils.timing import count_flops
+
+    fused = fuse_params(tree, cfg)
+    args = tuple(torch.from_numpy(np.asarray(a)) for a in case.args)
+    k = case.kw["k"]
+    with torch.no_grad():
+        rank = count_flops(atom_shard.forward_atom_sharded_nbr_batch, fused,
+                           *args, cfg, mesh, k=k)
+        one = count_flops(forward_blocked, fused, *args, cfg, neighbor_k=k)
+    return dict(rank=rank, one=one)
+
+
+def _dcp(case: Case, tree, cfg, mesh):
+    """The sharding-aware train-state format on the mesh: one atom-sharded
+    step from the case's weights, then every rank saves the state together
+    (``io.checkpoint.save_train_state_orbax`` into the case's shared
+    ``dir``) and loads it into a fresh template.  Returns whether every
+    leaf came back bit for bit, the checkpoint's files and the rank's
+    parameters flat."""
+    import torch
+    import torch.distributed as dist
+
+    from epnn_tpu_torch.io import checkpoint as ckpt
+    from epnn_tpu_torch.models import tree_leaves as leaves
+    from epnn_tpu_torch.parallel import make_sharded_train_step
+    from epnn_tpu_torch.train import TrainConfig, loop
+
+    args = tuple(torch.from_numpy(np.asarray(a)) for a in case.args)
+    tc = TrainConfig(learning_rate=3e-3)
+    state = loop.create_state(cfg, tc, device="cpu", params=tree)
+    make_sharded_train_step(cfg, None, mesh, neighbor_k=case.kw["k"],
+                            remat=False)(state, *args)
+    ckpt.save_train_state_orbax(case.kw["dir"], state)
+    dist.barrier()
+    template = ckpt.load_train_state_orbax(
+        case.kw["dir"], loop.create_state(cfg, tc, seed=5, device="cpu"))
+
+    def flat(st):
+        m = loop._adam_moments(st)
+        return [t.detach() for t in leaves(st.params) + leaves(m[0])
+                + leaves(m[1])] + [torch.tensor(st.step),
+                                   torch.tensor(st.opt.count)]
+
+    same = all(torch.equal(a, b) for a, b in zip(flat(state),
+                                                 flat(template)))
+    files = sorted(os.listdir(os.path.join(case.kw["dir"], ckpt.DCP_DIR)))
+    return dict(same=same, files=files, final=np.concatenate(
+        [t.detach().numpy().reshape(-1) for t in leaves(state.params)]))
+
+
 PORT_PROBES = {"pass_probe": _pass_probe, "kmeans": _kmeans,
                "batch_args": _batch_args, "train": _train,
-               "trainer": _trainer, "cli_train": _cli_train}
+               "trainer": _trainer, "cli_train": _cli_train,
+               "flops": _flops, "dcp": _dcp}
 
 
 def _join_world(rank: int, tmp_dir: str) -> None:
