@@ -60,6 +60,7 @@ from epnn_tpu_torch.ops.fused import (
     pad_kernel_weights,
     quantize_far_field,
 )
+from epnn_tpu_torch.utils.timing import span, spanned
 
 #: the mesh's axes (``epnn_tpu_torch.parallel.sharding``'s names)
 DATA, ATOM = "data", "atoms"
@@ -196,6 +197,14 @@ class Predictor:
     width, trusted (pairs outside it are dropped, which shows as a charge
     that is not conserved).  Compact windows need spatially ordered atoms,
     which ``spatial_sort='auto'`` gives chunked huge batches.
+
+    Tracing: while a ``torch.profiler`` session records, each call is a
+    span ``epnn.predict_batch`` (its args: the call's number) holding the
+    host's steps as ``epnn.predictor.*`` spans and the selection's and the
+    forward's as ``epnn.select.*`` and ``epnn.forward.*`` spans
+    (:func:`~epnn_tpu_torch.utils.timing.span`; with no session, each is
+    one flag check).  :attr:`counters` counts the calls and the host's
+    waits on the device.
     """
 
     params: dict
@@ -274,6 +283,17 @@ class Predictor:
         self._winw_cache: "weakref.WeakKeyDictionary" = weak()
         self._geom_keys: "weakref.WeakKeyDictionary" = weak()
         self.skin_rebuilds = 0
+        self._counts = {"calls": 0, "host_syncs": 0}
+
+    @property
+    def counters(self) -> dict:
+        """Monotone counts since the Predictor was made: ``calls`` (of
+        :meth:`predict_batch`), ``host_syncs`` (each point where the host
+        waits on the device's stream: a pageable host→device copy of
+        :meth:`_tensor`, ``count_only``'s and the window width's scalar
+        reads, the charges' readback; counted at the site, on any device)
+        and ``skin_rebuilds`` (:attr:`skin_rebuilds`)."""
+        return dict(self._counts, skin_rebuilds=self.skin_rebuilds)
 
     @classmethod
     def from_checkpoint(cls, directory: str, **kw) -> "Predictor":
@@ -296,10 +316,12 @@ class Predictor:
         return cls(params=params, cfg=cfg, **kw)
 
     @staticmethod
+    @spanned("epnn.predictor.fingerprint")
     def _geom_fingerprint(batch: MolBatch):
         xyz = np.ascontiguousarray(np.asarray(batch.xyz))
         return (id(batch.xyz), xyz.shape, zlib.crc32(xyz.tobytes()))
 
+    @spanned("epnn.predictor.collapse_check")
     def _uniform_q0(self, batch: MolBatch) -> bool:
         """Host-side check of the round-1 collapse contract."""
         if self.collapse_round1 != "auto":
@@ -324,19 +346,22 @@ class Predictor:
         if grid is not None:
             k = self._cell_count(batch, self.cfg.cutoff, grid)
         else:
-            k = max(max_neighbor_count(batch.xyz[b], batch.node_mask[b],
-                                       self.cfg.cutoff)
-                    for b in range(batch.batch_size))
+            with span("epnn.select.count"):
+                k = max(max_neighbor_count(batch.xyz[b], batch.node_mask[b],
+                                           self.cfg.cutoff)
+                        for b in range(batch.batch_size))
         k = _safe_k(k, batch)
         self._k_cache[batch] = (fp, k)
         return k
 
+    @spanned("epnn.select.count")
     def _cell_count(self, batch: MolBatch, cutoff: float, grid) -> int:
         """The largest neighbor count of any row of any graph, from the
         cell builder's ``count_only`` on the device (in the grid's row
         chunks, if it has them): one host sync."""
         xyz, mask = self._tensor(batch.xyz), self._tensor(batch.node_mask)
         chunk = grid[3] if len(grid) > 3 else 0
+        self._counts["host_syncs"] += 1
         return int(torch.stack([
             build_neighbors_cell(xyz[b], mask[b], float(cutoff), 1, grid[0],
                                  grid[1], count_only=True, row_chunk=chunk)
@@ -358,7 +383,9 @@ class Predictor:
         cached = self._grid_cache.get(batch)
         if cached is not None and cached[0] == fp:
             return cached[1] + ext
-        grid = batch_cell_grid(batch.xyz, batch.node_mask, self.cfg.cutoff)
+        with span("epnn.predictor.cell_grid"):
+            grid = batch_cell_grid(batch.xyz, batch.node_mask,
+                                   self.cfg.cutoff)
         self._grid_cache[batch] = (fp, grid)
         return grid + ext
 
@@ -376,16 +403,17 @@ class Predictor:
             return cached[1]
         xyz, mask = self._tensor(batch.xyz), self._tensor(batch.node_mask)
         grid = self._neighbor_grid(batch)
-        if grid is not None and len(grid) > 3 and grid[3]:
-            outs = [build_neighbors_cell(xyz[b], mask[b],
-                                         float(self.cfg.cutoff), int(k),
-                                         grid[0], grid[1], with_d2=True,
-                                         row_chunk=grid[3])
-                    for b in range(batch.batch_size)]
-            nbrs = tuple(torch.stack(parts) for parts in zip(*outs))
-        else:
-            nbrs = build_neighbors_batch(xyz, mask, float(self.cfg.cutoff),
-                                         int(k))
+        with span("epnn.select.build"):
+            if grid is not None and len(grid) > 3 and grid[3]:
+                outs = [build_neighbors_cell(xyz[b], mask[b],
+                                             float(self.cfg.cutoff), int(k),
+                                             grid[0], grid[1], with_d2=True,
+                                             row_chunk=grid[3])
+                        for b in range(batch.batch_size)]
+                nbrs = tuple(torch.stack(parts) for parts in zip(*outs))
+            else:
+                nbrs = build_neighbors_batch(xyz, mask,
+                                             float(self.cfg.cutoff), int(k))
         self._nbr_cache[batch] = (fp, nbrs)
         return nbrs
 
@@ -398,34 +426,48 @@ class Predictor:
         cached = self._skin_cache.get(batch)
         if cached is not None:
             xyz0, idx, nbr_mask = cached
-            if xyz.shape == xyz0.shape:
-                disp2 = float((((xyz - xyz0) ** 2).sum(-1)
-                               * (np.asarray(batch.node_mask) > 0)).max())
-                if disp2 <= (self.neighbor_skin / 2.0) ** 2:
-                    return idx, nbr_mask
+            if self._within_skin(xyz, xyz0, batch.node_mask):
+                return idx, nbr_mask
         cutoff_sel = float(self.cfg.cutoff + self.neighbor_skin)
         xyz_t = self._tensor(batch.xyz)
         mask_t = self._tensor(batch.node_mask)
         if (self.neighbor_method != "topk"
                 and batch.padded_atoms >= CELL_GRID_MIN_ATOMS):
             chunk = self._near_chunk(batch)
-            grid = (*batch_cell_grid(batch.xyz, batch.node_mask, cutoff_sel),
-                    "slices", chunk)
+            with span("epnn.predictor.cell_grid"):
+                grid = (*batch_cell_grid(batch.xyz, batch.node_mask,
+                                         cutoff_sel), "slices", chunk)
             k = _safe_k(self._cell_count(batch, cutoff_sel, grid), batch)
-            outs = [build_neighbors_cell(xyz_t[b], mask_t[b], cutoff_sel, k,
-                                         grid[0], grid[1], row_chunk=chunk)
-                    for b in range(batch.batch_size)]
-            idx, nbr_mask = (torch.stack(parts) for parts in zip(*outs))
+            with span("epnn.select.build"):
+                outs = [build_neighbors_cell(xyz_t[b], mask_t[b], cutoff_sel,
+                                             k, grid[0], grid[1],
+                                             row_chunk=chunk)
+                        for b in range(batch.batch_size)]
+                idx, nbr_mask = (torch.stack(parts) for parts in zip(*outs))
         else:
-            k = _safe_k(max(max_neighbor_count(batch.xyz[b],
-                                               batch.node_mask[b], cutoff_sel)
-                            for b in range(batch.batch_size)), batch)
-            idx, nbr_mask, _ = build_neighbors_batch(xyz_t, mask_t,
-                                                     cutoff_sel, k)
+            with span("epnn.select.count"):
+                k = _safe_k(max(max_neighbor_count(batch.xyz[b],
+                                                   batch.node_mask[b],
+                                                   cutoff_sel)
+                                for b in range(batch.batch_size)), batch)
+            with span("epnn.select.build"):
+                idx, nbr_mask, _ = build_neighbors_batch(xyz_t, mask_t,
+                                                         cutoff_sel, k)
         self.skin_rebuilds += 1
         self._skin_cache[batch] = (xyz.copy(), idx, nbr_mask)
         return idx, nbr_mask
 
+    @spanned("epnn.predictor.skin_check")
+    def _within_skin(self, xyz, xyz0, node_mask) -> bool:
+        """Whether no valid atom of ``xyz`` has moved more than skin/2
+        from ``xyz0`` (False where the shapes differ)."""
+        if xyz.shape != xyz0.shape:
+            return False
+        disp2 = float((((xyz - xyz0) ** 2).sum(-1)
+                       * (np.asarray(node_mask) > 0)).max())
+        return disp2 <= (self.neighbor_skin / 2.0) ** 2
+
+    @spanned("epnn.predictor.sort_view")
     def _spatial_view(self, batch: MolBatch):
         """None (no sort) or ``(sorted_batch, inv)``: the cell-sorted twin
         of ``batch`` and the (B, N) inverse permutation that takes its
@@ -458,14 +500,11 @@ class Predictor:
             crc0, perm, inv, batch2, xyz0 = state
             if crc0 == fp:
                 return batch2, inv
-            if xyz.shape == xyz0.shape and self.neighbor_skin > 0:
-                disp2 = float((((xyz - xyz0) ** 2).sum(-1)
-                               * (mask > 0)).max())
-                if disp2 <= (self.neighbor_skin / 2.0) ** 2:
-                    batch2.xyz[...] = np.take_along_axis(
-                        xyz, perm[..., None], axis=1)
-                    state[0] = fp
-                    return batch2, inv
+            if self.neighbor_skin > 0 and self._within_skin(xyz, xyz0, mask):
+                batch2.xyz[...] = np.take_along_axis(
+                    xyz, perm[..., None], axis=1)
+                state[0] = fp
+                return batch2, inv
         # the permutation: the z-major cell key of the valid atoms, the
         # padding rows stable at the end; per graph, its sorted keys and
         # their span bound the window of a cold call
@@ -545,6 +584,7 @@ class Predictor:
             r = rows or n
             align = max(8, min(4096, n // 8))
             if nbrs is not None:
+                self._counts["host_syncs"] += len(range(0, n, r))
                 w = max(int(neighbor_window_width(
                     nbrs[0][:, d0:d0 + r], nbrs[1][:, d0:d0 + r], chunk,
                     align=align, table_rows=n)) for d0 in range(0, n, r))
@@ -608,38 +648,52 @@ class Predictor:
         return (self.device.type == "cuda"
                 and dense_precision(self.cfg) == "default")
 
+    @spanned("epnn.predictor.inputs")
     def _tensor(self, a) -> torch.Tensor:
+        """``a`` as float32 on the device: a pageable copy, one host sync
+        on the card."""
+        self._counts["host_syncs"] += 1
         return torch.as_tensor(np.asarray(a, np.float32)).to(self.device)
 
     def predict_batch(self, batch: MolBatch) -> np.ndarray:
         """(B, N) per-atom float32 charges for a padded batch."""
-        q = self._predict_batch_raw(batch)
-        if self.renormalize:
-            # float64 redistribution: at huge N the per-atom correction sits
-            # below the f32 ulp of q, so an f32 subtraction would drop it
-            mask = np.asarray(batch.node_mask, np.float64)
-            q64 = q.astype(np.float64)
-            n_real = np.maximum(mask.sum(axis=1), 1.0)
-            target = (np.asarray(batch.q0, np.float64) * mask).sum(axis=1)
-            residue = (q64 * mask).sum(axis=1) - target
-            q = (((q64 - (residue / n_real)[:, None]) * mask)
-                 .astype(np.float32))
-            # the f32 output cast re-biases Σq at huge N; iterative
-            # refinement spreads each remaining residue over just enough
-            # atoms that the correction survives the cast
-            eps = float(np.finfo(np.float32).eps)
-            for _ in range(4):
-                q64c = q.astype(np.float64)
-                r = (q64c * mask).sum(axis=1) - target
-                scale = np.maximum(np.abs(q64c).max(axis=1), 1e-30)
-                if (np.abs(r) <= 32 * eps * scale).all():
-                    break
-                for bi in np.nonzero(np.abs(r) > 32 * eps * scale)[0]:
-                    m = int(min(n_real[bi],
-                                max(1.0, abs(r[bi]) / (8 * eps * scale[bi]))))
-                    vi = np.nonzero(mask[bi] > 0)[0][:m]
-                    q64c[bi, vi] -= r[bi] / m
-                q = (q64c * mask).astype(np.float32)
+        with span("epnn.predict_batch", self._counts["calls"]):
+            self._counts["calls"] += 1
+            q = self._predict_batch_raw(batch)
+            if self.renormalize:
+                with span("epnn.predictor.renormalize"):
+                    q = self._renormalized(q, batch)
+            return q
+
+    @staticmethod
+    def _renormalized(q: np.ndarray, batch: MolBatch) -> np.ndarray:
+        """``q`` with the residue Σq − Σq0 redistributed over the real
+        atoms (see ``renormalize``)."""
+        # float64 redistribution: at huge N the per-atom correction sits
+        # below the f32 ulp of q, so an f32 subtraction would drop it
+        mask = np.asarray(batch.node_mask, np.float64)
+        q64 = q.astype(np.float64)
+        n_real = np.maximum(mask.sum(axis=1), 1.0)
+        target = (np.asarray(batch.q0, np.float64) * mask).sum(axis=1)
+        residue = (q64 * mask).sum(axis=1) - target
+        q = (((q64 - (residue / n_real)[:, None]) * mask)
+             .astype(np.float32))
+        # the f32 output cast re-biases Σq at huge N; iterative
+        # refinement spreads each remaining residue over just enough
+        # atoms that the correction survives the cast
+        eps = float(np.finfo(np.float32).eps)
+        for _ in range(4):
+            q64c = q.astype(np.float64)
+            r = (q64c * mask).sum(axis=1) - target
+            scale = np.maximum(np.abs(q64c).max(axis=1), 1e-30)
+            if (np.abs(r) <= 32 * eps * scale).all():
+                break
+            for bi in np.nonzero(np.abs(r) > 32 * eps * scale)[0]:
+                m = int(min(n_real[bi],
+                            max(1.0, abs(r[bi]) / (8 * eps * scale[bi]))))
+                vi = np.nonzero(mask[bi] > 0)[0][:m]
+                q64c[bi, vi] -= r[bi] / m
+            q = (q64c * mask).astype(np.float32)
         return q
 
     @torch.no_grad()
@@ -651,7 +705,8 @@ class Predictor:
             if view is not None:
                 batch2, inv = view
                 q = self._predict_batch_inner(batch2)
-                return np.take_along_axis(q, inv, axis=1)
+                with span("epnn.predictor.readback"):
+                    return np.take_along_axis(q, inv, axis=1)
         return self._predict_batch_inner(batch)
 
     def _inputs(self, batch: MolBatch):
@@ -773,7 +828,7 @@ class Predictor:
         else:
             q = atom_shard.forward_atom_sharded_batch(
                 self._fused, x, q0, xyz, mask, self.cfg, self.mesh)
-        return q[:b, :n].float().cpu().numpy()
+        return self._readback(q[:b, :n])
 
     def _predict_batch_inner(self, batch: MolBatch) -> np.ndarray:
         if self.mesh is not None:
@@ -796,6 +851,13 @@ class Predictor:
                   else self._blocked_kw(batch))
             q = forward_blocked(self._fused, x, q0, xyz, mask, self.cfg,
                                 far_cluster=self.far_cluster, **kw)
+        return self._readback(q)
+
+    @spanned("epnn.predictor.readback")
+    def _readback(self, q: torch.Tensor) -> np.ndarray:
+        """The charges on the host: the wait for the forward, then the
+        copy (one host sync)."""
+        self._counts["host_syncs"] += 1
         # float() first: a bf16 dense forward returns bf16 charges
         return q.float().cpu().numpy()
 

@@ -74,6 +74,7 @@ from epnn_tpu_torch.ops.kernels import (
     pad_weights,
 )
 from epnn_tpu_torch.ops.kernels import _layers, _mid_layers, _plain_rows
+from epnn_tpu_torch.utils.timing import span
 
 Tensor = torch.Tensor
 
@@ -734,8 +735,9 @@ def _clustered_far_field(w: PairMLPWeights, pi: Tensor, pj: Tensor,
     on the exact path and pj's as JAX pads the centroid rows); another
     depth runs the plain version over the centroids, as JAX's XLA branch
     does."""
-    cent, wts, rad = weighted_kmeans(pj, jvec, c, differentiable=grad,
-                                     **fit_kw)
+    with span("epnn.forward.far_cluster_fit"):
+        cent, wts, rad = weighted_kmeans(pj, jvec, c, differentiable=grad,
+                                         **fit_kw)
     cent = cent.contiguous()
     mids = _flat(w.mids)
     if not _kernel_round(w):
@@ -919,8 +921,9 @@ def _forward_single_nbr(
     # the clustered far field runs JAX's kernel call at the far field's
     # precision, and under bf16x3 (no kernel in JAX) the model's
     far_c = main_precision(cfg) if dense == "bf16x3" else dense
-    idx, nbr_mask, d2_nbr = _neighbor_tables(xyz, node_mask, cfg, k,
-                                             neighbors, neighbor_grid)
+    with span("epnn.select.build"):
+        idx, nbr_mask, d2_nbr = _neighbor_tables(xyz, node_mask, cfg, k,
+                                                 neighbors, neighbor_grid)
     nbr_mask = nbr_mask.to(x.dtype).contiguous()
     chunks = ([slice(s, min(s + near_row_chunk, n))
                for s in range(0, n, near_row_chunk)]
@@ -932,9 +935,10 @@ def _forward_single_nbr(
         """(rbf (c·k, E), gh (c, k)) of row block i: RBF from the block's
         d² rows, gh = 0.5 · gate · slot weight."""
         sl = chunks[i]
-        rbf, gate = rbf_and_gate(d2_nbr[sl], nbr_mask[sl], cfg, x.dtype)
-        return (rbf.reshape(-1, rbf.shape[-1]).contiguous(),
-                (0.5 * (gate * gathers[i][1])).contiguous())
+        with span("epnn.forward.features"):
+            rbf, gate = rbf_and_gate(d2_nbr[sl], nbr_mask[sl], cfg, x.dtype)
+            return (rbf.reshape(-1, rbf.shape[-1]).contiguous(),
+                    (0.5 * (gate * gathers[i][1])).contiguous())
 
     # full width: the features once a call; chunked: once a block a round
     resident = [features(0)] if near_row_chunk <= 0 else None
@@ -1017,9 +1021,11 @@ def _forward_single_nbr(
     q = q0
     rad = x.new_zeros(())
     for t in range(len(fused.messages)):
-        h, rad = run(message_round, t, h, q, rad)
+        with span("epnn.forward.message", t):
+            h, rad = run(message_round, t, h, q, rad)
     for t in range(len(fused.passes)):
-        q = run(pass_round, t, h, q)
+        with span("epnn.forward.pass", t):
+            q = run(pass_round, t, h, q)
     if far_diag:
         return q * node_mask, rad
     return q * node_mask

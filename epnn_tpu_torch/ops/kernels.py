@@ -100,6 +100,7 @@ from torch.utils.flop_counter import register_flop_formula
 from epnn_tpu_torch.featurize import (  # noqa: F401
     check_rbf_method, doubling_u_scale, envelope_rbf, envelope_rbf_doubling,
     envelope_rbf_method, hard_gate, pair_d2, rbf_table)
+from epnn_tpu_torch.utils.timing import tracing
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "epnn_tpu_torch"
@@ -1631,8 +1632,7 @@ def _traced() -> bool:
     body's launch).  Eager calls otherwise skip the dispatcher, which
     costs ~40 µs of host time a call, more than a 2 × 2,220 serving call's
     spread (``chip_smoke.py`` ``[export]``; PERF.md)."""
-    return (torch._C._len_torch_dispatch_stack() > 0
-            or torch.compiler.is_compiling())
+    return tracing()
 
 
 def _call(name, *args):

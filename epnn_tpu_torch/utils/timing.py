@@ -8,11 +8,16 @@ one device→host readback.  Warm-up calls run first (they load the kernel
 libraries and fill the caches).  ``profile_dir`` writes a
 ``torch.profiler`` chrome trace of the measured loop; ``cost_analysis``
 counts the measured call's products (:func:`count_flops`).
+
+:func:`span` is the port's one span primitive: a ``record_function`` in
+the profiler's own trace while a ``torch.profiler`` session records, and
+nothing else (one flag check) while none does.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import time
 from typing import Callable, Optional
@@ -21,14 +26,57 @@ import numpy as np
 import torch
 
 
+_NULL_SPAN = contextlib.nullcontext()
+
+
+def tracing() -> bool:
+    """Whether ``torch.export``, ``torch.compile`` or a dispatch mode (a
+    ``FlopCounterMode``, export's proxy mode) traces the calling code: a
+    ``record_function`` there would become an operator of the graph, and
+    a kernel call goes through its registered operator
+    (``ops.kernels._traced``)."""
+    return (torch._C._len_torch_dispatch_stack() > 0
+            or torch.compiler.is_compiling())
+
+
+def span(name: str, args=None):
+    """A span named ``name`` around a ``with`` block: while a
+    ``torch.profiler`` session records, ``torch.profiler.record_function(
+    name, str(args))``, a host annotation in the same trace as the
+    device's kernels and copies, on its clock, nested in the spans open
+    on the calling thread; otherwise, and wherever :func:`tracing`, a
+    shared null context, after one check of the profiler's state."""
+    if not torch._C._autograd._profiler_enabled() or tracing():
+        return _NULL_SPAN
+    return torch.profiler.record_function(
+        name, None if args is None else str(args))
+
+
+def spanned(name: str):
+    """A decorator: every call of the function runs in :func:`span`
+    ``(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
+
+
 class Timer:
+    """Named host-clock spans (``perf_counter`` seconds, every span kept),
+    the JAX package's ``Timer``; each is also a :func:`span` of the same
+    name, so it shows in a profiler trace."""
+
     def __init__(self):
         self.spans = {}
 
     @contextlib.contextmanager
     def span(self, name: str):
         t0 = time.perf_counter()
-        yield
+        with span(name):
+            yield
         self.spans.setdefault(name, []).append(time.perf_counter() - t0)
 
     def total(self, name: str) -> float:
