@@ -235,7 +235,14 @@ __device__ __forceinline__ void cp_async_wait() {
 // relative, so the result is fp32-grade.  At one pass (EPNN_TF32_PASSES = 1,
 // the "default" tier) a product is hi_a * hi_b alone, ~2^-11 relative: the
 // operands are still rounded to nearest here, as the plain twins
-// (kernels._mm_tf32) round them, never truncated by the tensor cores.
+// (kernels._mm_tf32) round them.  The tensor cores read a .tf32 operand's
+// top 19 bits and drop the low 13 unrounded, which CUTLASS's
+// tfloat32_t::round_half_ulp_truncate (cutlass/tfloat32.h) rests on too:
+// it adds half an ulp and leaves the rest to them.  So an operand that
+// meets nothing but the tensor cores may skip the rounding's last step,
+// the mask (tf32_split<true>, one integer op fewer): the far field's
+// forward walk builds A so (far_field.cuh), and on the H100 its outputs
+// are the masked form's, bit for bit, at both tiers.
 // Every kernel body reaches the tier through tf32_split, split_b, mma_tier
 // and wg::mma_tier, so one macro sets it for all of them; lo is 0 at one
 // pass and its products are left out.
@@ -254,11 +261,23 @@ __device__ __forceinline__ float tf32_round(float x) {
   return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
 }
 
+// x = hi + lo at the library's tier (lo = 0 at one pass).  kTc, for an
+// operand that meets nothing but the tensor cores: each rounding's last
+// step, the mask, is left to them (above); hi stays masked in 3xTF32,
+// where lo is taken from it
+template <bool kTc = false>
 __device__ __forceinline__ void tf32_split(float x, uint32_t& hi,
                                            uint32_t& lo) {
-  const float h = tf32_round(x);
-  hi = __float_as_uint(h);
-  lo = kSplit ? __float_as_uint(tf32_round(x - h)) : 0u;
+  if constexpr (kTc && !kSplit) {
+    hi = __float_as_uint(x) + 0x1000u;
+    lo = 0u;
+  } else {
+    const float h = tf32_round(x);
+    hi = __float_as_uint(h);
+    lo = !kSplit ? 0u
+         : kTc   ? __float_as_uint(x - h) + 0x1000u
+                 : __float_as_uint(tf32_round(x - h));
+  }
 }
 
 // (hi(w0), hi(w1), lo(w0), lo(w1)): a B fragment, split
@@ -308,15 +327,17 @@ __device__ __forceinline__ uint4 w2_frag(const float* __restrict__ w2, int ks,
                  w2[(kFH * t + 2 * ks + 1) * kHp + 8 * nt + g]);
 }
 
-// k-step ks of A = relu(x_own + x_s), split, in far_z2's order
+// k-step ks of A = relu(x_own + x_s), split, in far_z2's order; kTc as in
+// tf32_split (the forward's two-column walk, far_field.cuh)
+template <bool kTc = false>
 __device__ __forceinline__ void far_a(const float (&xa)[kFH],
                                       const float (&xb)[kFH],
                                       const float (&xs)[kFH], int ks,
                                       uint32_t (&ah)[4], uint32_t (&al)[4]) {
-  tf32_split(relu(xa[2 * ks] + xs[2 * ks]), ah[0], al[0]);
-  tf32_split(relu(xb[2 * ks] + xs[2 * ks]), ah[1], al[1]);
-  tf32_split(relu(xa[2 * ks + 1] + xs[2 * ks + 1]), ah[2], al[2]);
-  tf32_split(relu(xb[2 * ks + 1] + xs[2 * ks + 1]), ah[3], al[3]);
+  tf32_split<kTc>(relu(xa[2 * ks] + xs[2 * ks]), ah[0], al[0]);
+  tf32_split<kTc>(relu(xb[2 * ks] + xs[2 * ks]), ah[1], al[1]);
+  tf32_split<kTc>(relu(xa[2 * ks + 1] + xs[2 * ks + 1]), ah[2], al[2]);
+  tf32_split<kTc>(relu(xb[2 * ks + 1] + xs[2 * ks + 1]), ah[3], al[3]);
 }
 
 template <class BFrag>

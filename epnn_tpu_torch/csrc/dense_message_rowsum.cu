@@ -26,22 +26,38 @@
 // Design: wgmma m64n32k8 TF32, split 3x (common.cuh) for fp32 grade.  A
 // block is one warpgroup: 4 warps, 64 rows i, 16 a warp; it walks the
 // columns j.  For each j, A = relu(pi_i + pj_j) (64 x 32) is built in
-// registers (far_a: the m16n8k8 fragment each warp already uses for
-// mma.sync) from the 16 pi values a thread keeps for the whole kernel and
-// 8 pj values broadcast from shared memory, split into hi and lo, and
-// multiplied by the constant W2, whose split B tiles sit in shared memory
-// (4 k-steps x hi/lo, 8 KB, written once a block).  The product starts
-// from b2, and each thread folds cv_j * relu(z2) into the 16 sums it owns
-// in the C layout, so the sum over j is a register accumulation: no
-// shuffle, no shared-memory reduction.  Per column that is 12 wgmma (4
+// registers (common.cuh far_a: the m16n8k8 fragment each warp already
+// uses for mma.sync) from the 16 pi values a thread keeps for the whole
+// kernel and 8 pj values broadcast from shared memory, split into hi and
+// lo, and multiplied by the constant W2, whose split B tiles sit in shared
+// memory (4 k-steps x hi/lo, 8 KB, written once a block).  The product
+// starts from b2, and each thread folds cv_j * relu(z2) into the 16 sums
+// it owns in the C layout, so the sum over j is a register accumulation:
+// no shuffle, no shared-memory reduction.  Per column that is 12 wgmma (4
 // k-steps x 3 products): the products the backward's far_z2 makes with
 // mma.sync, in the same order, and on the H100 the same bits.  wgmma and
 // not mma.sync because the tensor-core products set this kernel's pace and
 // mma.sync issues TF32 at a fraction of the tensor cores' rate
-// (tools/far_field_pace.py times what sets the pace).  Two columns are in
-// flight at a time: the second column's A is built while the first one's
-// products run, and the first one's sums are folded while the second
-// one's run.  The pj and cv chunks (32 columns) are staged with cp.async
+// (tools/far_field_pace.py times what sets the pace).
+//
+// Schedule (far_field.cuh rows): column j's products run while the thread
+// folds column j - 1 and builds column j + 1, with two sets of A and
+// accumulators; the walk goes 16 columns a block, unrolled, and a block
+// ends with no group in flight, since ptxas serializes every wgmma of a
+// loop whose in-flight accumulators cross its back edge.  On the H100 the
+// products and the CUDA-core work mostly add up all the same: blocks of
+// products alone and blocks of build and fold alone, run side by side on
+// the SMs, take 92-93% of the sum of their times (with A in shared memory
+// instead of registers, more than the sum).  So the build spends the
+// fewest CUDA-core instructions it can: A's rounding leaves its mask to
+// the tensor cores, which read a TF32 operand's top 19 bits (far_a<true>;
+// the same round to nearest, ties away, one integer op fewer an element;
+// common.cuh says why the bits are the same), and at one pass and H = 32
+// the walk fits four blocks an SM (128 registers, 16 B spilled; 168 and
+// 40 B in 3xTF32, three blocks).  The backward (far_z2) keeps the masked
+// form.
+//
+// The pj and cv chunks (32 columns) are staged with cp.async
 // into a double-buffered ring, so the next chunk loads while this one
 // computes.  Rows give too few blocks for
 // 132 SMs at 2,220 atoms, so the column range also splits into a fixed
@@ -53,7 +69,8 @@
 // (wgmma m64nHpk8; W2 and b2 come padded, pi and pj are read at their real
 // width with zeros past it).  Above H = 32 a product of more than 4
 // k-steps runs as two chains added in fp32, one column is in flight at a
-// time (two would not fit in the registers) and the chunks are 16 columns.
+// time (two would not fit in the registers: a column's products, then its
+// fold) and the chunks are 16 columns.
 // The block body is far_field.cuh's, shared with fused_message_rowsum.cu.
 //
 // Widths past 64 (padded): far_field.cuh's wide body, the output columns in
@@ -80,7 +97,8 @@ constexpr int kOutChunks = epnn::wide::kChunks;
 
 #else
 
-__global__ void __launch_bounds__(epnn::far::kThreads, 3)
+__global__ void __launch_bounds__(epnn::far::kThreads,
+                                  epnn::far::kMinBlocks)
 dmr_partial(const float* __restrict__ pi, const float* __restrict__ pj,
             const float* __restrict__ cv, const float* __restrict__ w2,
             const float* __restrict__ b2, float* __restrict__ part, int R,

@@ -31,10 +31,17 @@ constexpr int kTile = 8 * kHp;              // floats of a k-step's B tile
 constexpr int kLbo = 128, kSbo = 256;
 constexpr int kD = kHp / 2;                 // accumulators a thread, a chain
 constexpr int kC = chains(kNT);             // chains of a column's product
-// columns in flight: two up to H = 32 (one's A is built while the other's
-// products run); one above, where two would not fit in the registers
+// columns in flight: two up to H = 32 (the walk in rows); one above,
+// where two sets of A and accumulators would not fit in the registers
 constexpr int kInFlight = kHp <= 32 ? 2 : 1;
-static_assert(kChunk % 2 == 0, "columns go two at a time");
+// columns a block of the walk with two in flight (rows), unrolled
+constexpr int kUnroll = 16;
+static_assert(kChunk % kUnroll == 0 && kUnroll % 2 == 0,
+              "whole blocks of whole column pairs a chunk");
+// blocks an SM dmr_partial asks for (__launch_bounds__): four with two
+// columns in flight at one pass, where the walk fits in 128 registers;
+// three in 3xTF32 and above H = 32
+constexpr int kMinBlocks = !kSplit && kInFlight == 2 ? 4 : 3;
 
 struct Smem {
   // W2 hi (and lo in 3xTF32), k-step by k-step: one pass stages no lo tiles
@@ -112,26 +119,19 @@ __device__ __forceinline__ void rows(Smem& s, const float* __restrict__ pi,
 #pragma unroll
   for (int i = 0; i < kD; ++i) acc[i] = 0.0f;
 
-  for (int c = 0; c < chunks; ++c) {
-    if (c + 1 < chunks) {
-      stage(c + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // chunk c (and, the first time, the B tiles) landed
-    const float* sp = &s.pj[c & 1][0][0];
-    const float* scv = &s.cv[c & 1][0];
-    // column j's A and accumulators (b2, then 0 for further chains), then
-    // its kNT k-steps' products (3 each in 3xTF32, 1 at one pass) as a group
-    auto issue = [&](int j, uint32_t (&ah)[kNT][4], uint32_t (&al)[kNT][4],
-                     float (&d)[kC][kD]) {
+  if constexpr (kInFlight == 2) {
+    // column jj of the staged chunk c: its A, and its accumulators from b2
+    // (then 0 for further chains); returns cv_j, read now so that the
+    // column's fold needs nothing of the ring
+    auto build = [&](int c, int jj, uint32_t (&ah)[kNT][4],
+                     uint32_t (&al)[kNT][4], float (&d)[kC][kD]) {
+      const float* sp = &s.pj[c & 1][jj][0];
       float xs[kFH];
       if constexpr (kFH % 4 == 0) {
 #pragma unroll
         for (int q = 0; q < kFH / 4; ++q) {
           const float4 p =
-              *reinterpret_cast<const float4*>(sp + j * kHp + kFH * t + 4 * q);
+              *reinterpret_cast<const float4*>(sp + kFH * t + 4 * q);
           xs[4 * q] = p.x;
           xs[4 * q + 1] = p.y;
           xs[4 * q + 2] = p.z;
@@ -139,10 +139,11 @@ __device__ __forceinline__ void rows(Smem& s, const float* __restrict__ pi,
         }
       } else {
 #pragma unroll
-        for (int m = 0; m < kFH; ++m) xs[m] = sp[j * kHp + kFH * t + m];
+        for (int m = 0; m < kFH; ++m) xs[m] = sp[kFH * t + m];
       }
 #pragma unroll
-      for (int ks = 0; ks < kNT; ++ks) far_a(xa, xb, xs, ks, ah[ks], al[ks]);
+      for (int ks = 0; ks < kNT; ++ks)
+        far_a<true>(xa, xb, xs, ks, ah[ks], al[ks]);
 #pragma unroll
       for (int nt = 0; nt < kNT; ++nt) {
         d[0][4 * nt] = d[0][4 * nt + 2] = bias[nt][0];
@@ -152,6 +153,12 @@ __device__ __forceinline__ void rows(Smem& s, const float* __restrict__ pi,
       for (int h = 1; h < kC; ++h)
 #pragma unroll
         for (int i = 0; i < kD; ++i) d[h][i] = 0.0f;
+      return s.cv[c & 1][jj];
+    };
+    // a built column's kNT k-steps' products (3 each in 3xTF32, 1 at one
+    // pass), committed as a group
+    auto launch = [&](const uint32_t (&ah)[kNT][4],
+                      const uint32_t (&al)[kNT][4], float (&d)[kC][kD]) {
 #pragma unroll
       for (int h = 0; h < kC; ++h) wg::fence_regs(d[h]);
       wg::fence();
@@ -161,10 +168,10 @@ __device__ __forceinline__ void rows(Smem& s, const float* __restrict__ pi,
                             b_lo[ks]);
       wg::commit();
     };
-    auto fold = [&](int j, float (&d)[kC][kD]) {
+    // cv_j * relu(z2) of a column whose group has retired into the sums
+    auto fold = [&](float cj, float (&d)[kC][kD]) {
 #pragma unroll
       for (int h = 0; h < kC; ++h) wg::fence_regs(d[h]);
-      const float cj = scv[j];
 #pragma unroll
       for (int i = 0; i < kD; ++i) {
         float z = d[0][i];
@@ -173,18 +180,125 @@ __device__ __forceinline__ void rows(Smem& s, const float* __restrict__ pi,
         acc[i] = fmaf(cj, relu(z), acc[i]);
       }
     };
-    if constexpr (kInFlight == 2) {
-      uint32_t ah0[kNT][4], al0[kNT][4], ah1[kNT][4], al1[kNT][4];
-      for (int j = 0; j < kChunk; j += 2) {
-        float d0[kC][kD], d1[kC][kD];
-        issue(j, ah0, al0, d0);
-        issue(j + 1, ah1, al1, d1);
-        wg::wait<1>();
-        fold(j, d0);
-        wg::wait<0>();
-        fold(j + 1, d1);
-      }
+
+    if (chunks > 1) {
+      stage(1);
+      cp_async_wait<1>();
     } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // chunk 0 and the B tiles landed
+
+    // The products of column j run while the thread folds column j - 1 and
+    // builds column j + 1: column j's group is launched before column
+    // j - 1 is folded and waited for after column j + 1's build and
+    // column j + 1's launch.  Two register sets (A and accumulators) take
+    // the columns in turn, even ones set 0; the folds stay in column order.
+    // The walk goes kUnroll columns a block, unrolled, and a block ends
+    // with no group in flight (ptxas serializes every wgmma of a loop whose
+    // in-flight accumulators pass its back edge): what crosses the back
+    // edge is the next column built and the last one retired but not
+    // folded.  The walk starts from a retired empty column in set 1 (sums
+    // 0, cv 0), whose fold adds exactly zero, and at the range's end
+    // builds the last chunk's first column again, which it never launches.
+    uint32_t ah[2][kNT][4], al[2][kNT][4];
+    float d[2][kC][kD], cj[2];
+#pragma unroll
+    for (int h = 0; h < kC; ++h)
+#pragma unroll
+      for (int i = 0; i < kD; ++i) d[1][h][i] = 0.0f;
+    cj[1] = 0.0f;
+    cj[0] = build(0, 0, ah[0], al[0], d[0]);
+    for (int c = 0; c < chunks; ++c) {
+      for (int jb = 0; jb < kChunk; jb += kUnroll) {
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int x = u & 1, y = x ^ 1;  // column jb + u's set, the other
+          launch(ah[x], al[x], d[x]);
+          if (u > 0) wg::wait<1>();  // column jb + u - 1 retired
+          fold(cj[y], d[y]);
+          // the next column: jb + u + 1, or the next chunk's first
+          const bool next = u == kUnroll - 1 && jb + kUnroll == kChunk;
+          const bool staged = next && c + 1 < chunks;
+          if (staged) {
+            cp_async_wait<0>();
+            // chunk c + 1 landed, and no thread reads slot c % 2 again
+            __syncthreads();
+            if (c + 2 < chunks) stage(c + 2);
+          }
+          cj[y] = build(staged ? c + 1 : c, next ? 0 : jb + u + 1, ah[y],
+                        al[y], d[y]);
+        }
+        wg::wait<0>();
+      }
+    }
+    fold(cj[1], d[1]);
+  } else {
+    // One column in flight, chunk by chunk: a column's products, then its
+    // fold.
+    for (int c = 0; c < chunks; ++c) {
+      if (c + 1 < chunks) {
+        stage(c + 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();  // chunk c (and, the first time, the B tiles) landed
+      const float* sp = &s.pj[c & 1][0][0];
+      const float* scv = &s.cv[c & 1][0];
+      // column j's A and accumulators (b2, then 0 for further chains), then
+      // its kNT k-steps' products (3 each in 3xTF32, 1 at one pass) as a
+      // group
+      auto issue = [&](int j, uint32_t (&ah)[kNT][4], uint32_t (&al)[kNT][4],
+                       float (&d)[kC][kD]) {
+        float xs[kFH];
+        if constexpr (kFH % 4 == 0) {
+#pragma unroll
+          for (int q = 0; q < kFH / 4; ++q) {
+            const float4 p = *reinterpret_cast<const float4*>(
+                sp + j * kHp + kFH * t + 4 * q);
+            xs[4 * q] = p.x;
+            xs[4 * q + 1] = p.y;
+            xs[4 * q + 2] = p.z;
+            xs[4 * q + 3] = p.w;
+          }
+        } else {
+#pragma unroll
+          for (int m = 0; m < kFH; ++m) xs[m] = sp[j * kHp + kFH * t + m];
+        }
+#pragma unroll
+        for (int ks = 0; ks < kNT; ++ks)
+          far_a(xa, xb, xs, ks, ah[ks], al[ks]);
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          d[0][4 * nt] = d[0][4 * nt + 2] = bias[nt][0];
+          d[0][4 * nt + 1] = d[0][4 * nt + 3] = bias[nt][1];
+        }
+#pragma unroll
+        for (int h = 1; h < kC; ++h)
+#pragma unroll
+          for (int i = 0; i < kD; ++i) d[h][i] = 0.0f;
+#pragma unroll
+        for (int h = 0; h < kC; ++h) wg::fence_regs(d[h]);
+        wg::fence();
+#pragma unroll
+        for (int ks = 0; ks < kNT; ++ks)
+          wg::mma_tier<kHp>(d[chain_of(ks, kNT)], ah[ks], al[ks], b_hi[ks],
+                              b_lo[ks]);
+        wg::commit();
+      };
+      auto fold = [&](int j, float (&d)[kC][kD]) {
+#pragma unroll
+        for (int h = 0; h < kC; ++h) wg::fence_regs(d[h]);
+        const float cj = scv[j];
+#pragma unroll
+        for (int i = 0; i < kD; ++i) {
+          float z = d[0][i];
+#pragma unroll
+          for (int h = 1; h < kC; ++h) z += d[h][i];
+          acc[i] = fmaf(cj, relu(z), acc[i]);
+        }
+      };
       uint32_t ah[kNT][4], al[kNT][4];
       for (int j = 0; j < kChunk; ++j) {
         float d[kC][kD];
@@ -192,8 +306,8 @@ __device__ __forceinline__ void rows(Smem& s, const float* __restrict__ pi,
         wg::wait<0>();
         fold(j, d);
       }
+      __syncthreads();  // slot c % 2 is free for chunk c + 2
     }
-    __syncthreads();  // slot c % 2 is free for chunk c + 2
   }
 
   float* dst = part + (size_t)by * R * kH;

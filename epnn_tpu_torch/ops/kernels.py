@@ -462,9 +462,10 @@ def _mid_layers(z, layers, mm):
 _DMR_ROWS = 64
 _DMR_TILE = 32
 #: blocks to aim for: 132 SMs, a few resident blocks each, several waves —
-#: the forward (three 4-warp blocks an SM) in many short waves, so the last,
-#: partly filled one idles little; the backward's passes (two blocks an SM)
-#: in fewer, longer blocks, as each block also writes a dW2 partial
+#: the forward (three 4-warp blocks an SM; four at one pass to H = 32) in
+#: many short waves, so the last, partly filled one idles little; the
+#: backward's passes (two blocks an SM) in fewer, longer blocks, as each
+#: block also writes a dW2 partial
 _DMR_TARGET_BLOCKS = 16 * 132
 _DMR_BWD_TARGET_BLOCKS = 4 * 132
 

@@ -47,6 +47,9 @@ import pytest  # noqa: E402
 
 def pytest_configure(config):
     config.addinivalue_line(
+        "markers", "card: needs a CUDA device (skips without one; the test's "
+        "``card`` fixture decides when it runs)")
+    config.addinivalue_line(
         "markers",
         "heavy: long-running test whose coverage is substantially duplicated "
         "by cheaper tests or the driver dryrun; skipped by default, run with "

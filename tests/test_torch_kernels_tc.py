@@ -62,12 +62,25 @@ def forward_inputs(rng, rows, cols, n_real):
 
 
 def jax_forward(pi, pj, cv, w2, b2):
+    """The Pallas kernel at "highest"; rows padded to its blocks of 8
+    (zero rows, dropped after) and columns to 32 (8 lane-packed rows of 4
+    at H = 32; with cv = 0, which adds exactly zero)."""
+    r, n = pi.shape[0], pj.shape[0]
+    pi = np.pad(pi, ((0, -r % 8), (0, 0)))
+    pj = np.pad(pj, ((0, -n % 32), (0, 0)))
+    cv = np.pad(cv, (0, -n % 32))
     return np.asarray(jax_dense_message_rowsum(
         *(jnp.asarray(a) for a in (pi, pj, cv, w2, b2)), block_i=8,
-        block_jp=8, precision="highest"))
+        block_jp=8, precision="highest"))[:r]
 
 
-SHAPES = [(64, 64, 64), (40, 128, 100), (24, 96, 61)]
+#: square, rectangular R≠N, padded columns with junk pj; then the card
+#: kernel's column-walk edges (tests/test_torch_far_field_card.py): an odd
+#: column count with R not a whole 64-row block, one 32-column chunk (the
+#: clustered R × 32), a range that is not a whole chunk, one shorter than
+#: a chunk
+SHAPES = [(64, 64, 64), (40, 128, 100), (24, 96, 61), (100, 97, 97),
+          (130, 32, 32), (64, 45, 40), (16, 20, 20)]
 
 
 @pytest.mark.parametrize("rows,cols,n_real", SHAPES)
