@@ -39,6 +39,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from portbench.reference import cluster64
 from portbench.reference.epnn64 import Graph, to_bfloat16
 
 #: the relative margin to the gate's threshold within which a pair is a
@@ -114,16 +115,27 @@ def judge_graph(graph: Graph, q_prog: np.ndarray, n_real: int,
             "ties_set": float(n_set)}
 
 
+def reference(g: dict, params: dict, model: dict, device,
+              far_cluster: int = 0, mid_round=None) -> Graph:
+    """The float64 reference of graph ``g`` (``judge``'s inputs): the
+    exact one, or with ``far_cluster`` = C > 0 the clustered tier's."""
+    args = (params, model, g["x"], g["q0"], g["xyz"], g["mask"], device)
+    if far_cluster > 0:
+        return cluster64.Graph(*args, mid_round=mid_round,
+                               far_cluster=far_cluster)
+    return Graph(*args, mid_round=mid_round)
+
+
 def control_charges(control: str, g: dict, params: dict, model: dict,
-                    device) -> np.ndarray:
+                    device, far_cluster: int = 0) -> np.ndarray:
     """(N_pad,) float32 charges of graph ``g`` (``judge``'s inputs) from
     the reference at a lower precision: ``"bf16_far"``, the far field's
     products in bfloat16 (:func:`~portbench.reference.epnn64.to_bfloat16`
-    on both operands of every message round's middle product)."""
+    on both operands of every message round's middle product; at the
+    clustered tier, of the far sums' middle products)."""
     if control != "bf16_far":
         raise ValueError(f"control {control!r}")
-    low = Graph(params, model, g["x"], g["q0"], g["xyz"], g["mask"], device,
-                mid_round=to_bfloat16)
+    low = reference(g, params, model, device, far_cluster, to_bfloat16)
     q = np.zeros(len(g["mask"]), np.float32)
     q[:g["n"]] = low.charges()[:g["n"]].cpu().numpy()
     return q
@@ -134,15 +146,14 @@ WIDEST = ("q_gap", "q_gap_raw", "q_rms", "q_max")
 
 
 def judge(graphs: List[dict], params: dict, model: dict, limit: float,
-          device) -> Dict[str, float]:
+          device, far_cluster: int = 0) -> Dict[str, float]:
     """The numbers of a run over its sampled graphs, each a dict of the
     reference's inputs (``x``, ``q0``, ``xyz``, ``mask``, ``n``, the net
     charge ``total``) and the program's charges ``q``; ``limit`` is
-    ``q_gap``'s."""
+    ``q_gap``'s; ``far_cluster``, the tier the cell serves."""
     out = dict.fromkeys(WIDEST + ("gate_ties", "ties_set", "sum_gap"), 0.0)
     for g in graphs:
-        ref = Graph(params, model, g["x"], g["q0"], g["xyz"], g["mask"],
-                    device)
+        ref = reference(g, params, model, device, far_cluster)
         r = judge_graph(ref, g["q"], g["n"], limit)
         for k in WIDEST:
             out[k] = max(out[k], r[k])

@@ -6,7 +6,8 @@ is the program's own one-pass tier (``--precision default``: every
 tensor-core kernel at one TF32 product a k-step).  Where it states the far
 field at one TF32 pass (``parity``), the program has no bfloat16 far
 field, so the control is the reference with its far-field products in
-bfloat16, judged in the program's place (``--control bf16_far``).
+bfloat16, judged in the program's place (``--control bf16_far``; at the
+clustered tier, the clustered reference's far sums in bfloat16).
 
     python3 portbench/control.py --workload <cell> --seeds 1,2,3 \\
         --seconds 3 [--precision default | --control bf16_far] \\

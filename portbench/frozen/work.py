@@ -9,7 +9,11 @@ pair, a near kernel over every slot of its (N, k) table.  That is what
 (``portbench/tests`` holds the two equal); ``mfu`` reads this copy, so no
 change to the port moves its numerator.  The rooflines count instead what
 the inputs need: the live pairs and slots, each input byte read once and
-each output byte written once."""
+each output byte written once.
+
+At the clustered tier (``far_cluster`` = C > 0) a far round runs over C
+centroid columns, R × C pairs; its k-means fit is no product of the
+model and is not counted."""
 
 from __future__ import annotations
 
@@ -70,15 +74,16 @@ def _mlp(widths: Sequence[int]) -> int:
     return sum(2 * a * b for a, b in zip(widths[:-1], widths[1:]))
 
 
-def graph_flops(model: dict, n_pad: int, k: int,
-                collapse: bool = True) -> Dict[str, int]:
+def graph_flops(model: dict, n_pad: int, k: int, collapse: bool = True,
+                far_cluster: int = 0) -> Dict[str, int]:
     """The products of one graph through the port's neighbor split at
     padded width ``n_pad`` and ``k`` neighbor slots, as ``{"far": the far
     field's, "rest": every other product}``: per message round the two
     atom projections, the far field (round 1 collapsed to the element
-    grid where ``collapse``), the near correction, the message head and
-    the update MLP; per pass round the two projections, the near pass
-    kernel and its head."""
+    grid where ``collapse``; the others over every column, or over
+    ``far_cluster`` = C centroid columns), the near correction, the
+    message head and the update MLP; per pass round the two projections,
+    the near pass kernel and its head."""
     n, e, hd = n_pad, model["e_dim"], model["h_dim"]
     hid = list(model["mlp_hidden"])
     h, msg, elems = hid[0], model["msg_dim"], model["n_elems"]
@@ -96,7 +101,7 @@ def graph_flops(model: dict, n_pad: int, k: int,
                      + 2 * n * grid * h * hid[1]   # the mid layer
                      + 2 * n * grid * h)      # the count-weighted sum
         else:
-            far += far_field(n, n, h).flops
+            far += far_field(n, far_cluster or n, h).flops
         rest += near(n, k, h, e, h).flops
         rest += 2 * n * h * msg               # the message head
         rest += n * _mlp([hd + msg, *hid, hd])    # the update MLP
@@ -106,11 +111,13 @@ def graph_flops(model: dict, n_pad: int, k: int,
 
 
 def call_flops(model: dict, n_pads: Sequence[int], ks: Sequence[int],
-               collapse: bool = True) -> Dict[str, int]:
+               collapse: bool = True,
+               far_cluster: int = 0) -> Dict[str, int]:
     """The products of one ``predict_batch`` call, split as
     :func:`graph_flops`: its graphs at their padded widths and slots."""
     out = {"far": 0, "rest": 0}
     for n, k in zip(n_pads, ks):
-        for key, v in graph_flops(model, n, k, collapse).items():
+        for key, v in graph_flops(model, n, k, collapse,
+                                  far_cluster).items():
             out[key] += v
     return out

@@ -13,7 +13,10 @@ simulation code waits for its charges before its next step), each a
 window, the per-layer metrics are read from it and from the untraced rest
 of the window.  Once the window has closed and the program's state is
 freed, the float64 reference judges a sample of the calls
-(``portbench.compare``).  The last line of standard output is the
+(``portbench.compare``), at the far-field tier the traffic file states
+(``predictor.far_cluster``: 0 or absent the exact far field, C > 0 the
+clustered one, which the judge, its control, the shape records and the
+counts then follow).  The last line of standard output is the
 result's JSON object; the numbers compared, each beside its limit, are
 the last lines of standard error."""
 
@@ -150,11 +153,13 @@ class Shapes:
     ``pairs`` and ``rows`` within the model's cutoff.  ``k`` is counted
     once a ``frames`` pool box, unshifted, and once a walk, at its first
     window call: the walk moves atoms far less than the eight slots
-    ``safe_k`` rounds to."""
+    ``safe_k`` rounds to.  ``cols``, the far field's live columns, are
+    the ``far_cluster`` centroids at the clustered tier."""
 
-    def __init__(self, traffic, model, skin, device):
+    def __init__(self, traffic, model, skin, device, far_cluster=0):
         self.traffic, self.model, self.device = traffic, model, device
         self.skin, self._k = skin, {}
+        self.far_cluster = far_cluster
 
     def _count(self, xyz, cutoff) -> tuple:
         from portbench import shapes
@@ -180,7 +185,8 @@ class Shapes:
         from portbench.frozen import work
 
         t, out = self.traffic, []
-        cols = t.n if self.model["mask_messages"] else t.n_pad
+        cols = (self.far_cluster or
+                (t.n if self.model["mask_messages"] else t.n_pad))
         for c, xyz in t.coordinates(list(calls)).items():
             for g in range(t.b):
                 top, pairs, rows = self._count(xyz[g], self.model["cutoff"])
@@ -238,6 +244,7 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool,
     dev = torch.device(device)
     cfg_spec, traffic_spec = spec["config"], spec["traffic"]
     model = dict(cfg_spec["model"])
+    far_c = int(traffic_spec.get("predictor", {}).get("far_cluster", 0))
     tier = precision or cfg_spec["precision"]
     cfg = model_config(cfg_spec, tier)
     tree = weights.load(cfg_spec, dev)
@@ -339,7 +346,7 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool,
         table.update(window_s=trace_window, calls=len(traced))
         skin = float(traffic_spec.get("predictor", {}).get("neighbor_skin",
                                                             0.0))
-        count = Shapes(traffic, model, skin, dev)
+        count = Shapes(traffic, model, skin, dev, far_c)
         ctx = Context(model=model, main_peak=peaks.tier_flops(main),
                       far_peak=peaks.tier_flops(far), trace=table,
                       graphs=count.exact(traced) if traced else [],
@@ -347,7 +354,8 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool,
         least = 0.0
         for cc in tail_calls:
             f = work.call_flops(model, [traffic.n_pad] * traffic.b,
-                                [count.k_of(cc, g) for g in range(traffic.b)])
+                                [count.k_of(cc, g) for g in range(traffic.b)],
+                                far_cluster=far_c)
             least += f["far"] / ctx.far_peak + f["rest"] / ctx.main_peak
         ctx.tail = dict(seconds=t1 - t_tail, calls=len(tail_calls),
                         lat=lat[len(traced):], least_s=least)
@@ -371,8 +379,10 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool,
     ref_tree = weights.load(cfg_spec, dev)
     for g in graphs:
         g["q"] = (good[g["call"]][g["graph"]] if control is None else
-                  compare.control_charges(control, g, ref_tree, model, dev))
-    numbers = compare.judge(graphs, ref_tree, model, limits["q_gap"], dev)
+                  compare.control_charges(control, g, ref_tree, model, dev,
+                                          far_c))
+    numbers = compare.judge(graphs, ref_tree, model, limits["q_gap"], dev,
+                            far_c)
     checks = {k: {"value": numbers[k], "limit": v} for k, v in limits.items()}
     correct = (failed == 0 and len(graphs) >= traffic.b and all(
         v["value"] <= v["limit"] for v in checks.values()))
